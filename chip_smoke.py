@@ -8,28 +8,43 @@ own failure:
   1. device  — the card's name and power limit (nvidia-smi) and
                torch.cuda.get_device_name().
   2. build   — nvcc builds every kernel source (spark_rapids_tpu_torch/
-               csrc/) for sm_90a; prints the build seconds.
-  3. kernels — each kernel against its plain PyTorch version on the
-               card at TPC-H q1's shapes (capacity 4,194,304, the q1
-               key domain, q1's integer lanes plus one f64 lane), over
+               csrc/) for sm_90a, one process per source, all started
+               together; prints the build seconds.
+  3. data    — TPC-H customer, orders and lineitem at scale factor 10
+               from the port's gen_tables, and the independent numpy
+               results of every query of phase 5.
+  4. kernels — each kernel against its plain PyTorch version on the
+               card, at the shapes the main path gives it.  seg_sums /
+               seg_reduce at TPC-H q1's (capacity 4,194,304, the q1 key
+               domain, q1's integer lanes plus one f64 lane) over
                int32/int64/float64/int8 reduce lanes, plus edge cases
                (int64 wraparound, all-dead rows, ±0.0/±inf in one
-               bucket).  Integers must match exactly, f64 sums to rtol
-               1e-12 (atomics add in run-dependent order).  Times each
-               kernel, its plain version and the one-call PyTorch
-               yardstick (index_add_ / scatter_reduce_), which the port
+               bucket); integers exactly, f64 sums to rtol 1e-12
+               (atomics add in run-dependent order).  compaction_order,
+               build_table and probe_first at q3's second join: the
+               first join's ~1.4M unique order keys tabled at capacity
+               4,194,304, probed by the first lineitem batch (4,194,304
+               rows, the shipdate filter as its nulls), whose match mask
+               is the compaction's keep; plus 0 %, 100 % and a
+               non-power-of-two capacity for compaction and
+               duplicate-heavy, all-dead and ±2^63 keys for the table.
+               Those three must equal their plain versions exactly.
+               Times each kernel, its plain version and the one-call
+               PyTorch yardstick where one exists (index_add_ /
+               scatter_reduce_ / a stable argsort), which the port
                itself never calls.
-  4. path    — TPC-H lineitem at scale factor 10 from the port's
-               gen_tables, then q1, q6 and a MIN/MAX/FIRST/LAST group-by
-               through TpuSession() on cuda, each checked against an
-               independent numpy computation (exact int64 decimal sums
-               via a stable argsort and np.add.reduceat, HALF_UP
-               averages in Python ints).  Launch counts are zeroed just
-               before each query and read just after it; each query must
-               have launched the kernels of its path (PATH_KERNELS).
-               Then wall ms per query: one cold run, median of 3 warm,
-               and a torch.profiler breakdown of one warm q1 run.
-  5. result  — a `kernels` JSON line, the nvidia-smi line, and last
+  5. path    — q1, q6, a MIN/MAX/FIRST/LAST group-by and q3 through
+               TpuSession() on cuda, each checked against its numpy
+               result (exact int64 decimal sums via a stable argsort
+               and np.add.reduceat, HALF_UP averages in Python ints; q3
+               joins with np.isin and searchsorted, and on a revenue
+               tie at its 10th row compares the tied set).  Launch
+               counts are zeroed just before each query and read just
+               after it; each query must have launched the kernels of
+               its path (PATH_KERNELS).  Then wall ms per query: one
+               cold run, median of 3 warm; q3's peak device memory; and
+               a torch.profiler breakdown of one warm q1 and one warm q3.
+  6. result  — a `kernels` JSON line, the nvidia-smi line, and last
                {"ok": true, "device": {...}}.
 
 Flags: --scale (default 10), --seed (default 20240706).
@@ -53,14 +68,25 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
 # rate charged for the kernels' scalar adds and compares
 SCALAR_OPS_PER_S = 67e12
 Q1_CAPACITY = 1 << 22              # sql.batchSizeRows: q1's batch bucket
-TPU_KERNELS = {"seg_sums": "spark_rapids_tpu/ops/pallas/segagg.py:57",
-               "seg_reduce": "spark_rapids_tpu/ops/pallas/segagg.py:123"}
-SOURCE = "spark_rapids_tpu_torch/csrc/segagg.cu"
+TPU_KERNELS = {
+    "seg_sums": "spark_rapids_tpu/ops/pallas/segagg.py:57",
+    "seg_reduce": "spark_rapids_tpu/ops/pallas/segagg.py:123",
+    "compaction_order": "spark_rapids_tpu/ops/pallas/compact.py:53",
+    "build_table": "spark_rapids_tpu/ops/pallas/hashjoin.py:111",
+    "probe_first": "spark_rapids_tpu/ops/pallas/hashjoin.py:182"}
+SOURCES = {"seg_sums": "spark_rapids_tpu_torch/csrc/segagg.cu",
+           "seg_reduce": "spark_rapids_tpu_torch/csrc/segagg.cu",
+           "compaction_order": "spark_rapids_tpu_torch/csrc/compact.cu",
+           "build_table": "spark_rapids_tpu_torch/csrc/hashjoin.cu",
+           "probe_first": "spark_rapids_tpu_torch/csrc/hashjoin.cu"}
 # the kernels each query of the main path must launch: q1 groups by a
 # packed dictionary domain (seg_sums), q6 is a global reduction that
-# reaches no kernel, the MIN/MAX/FIRST/LAST group-by needs both
+# reaches no kernel, the MIN/MAX/FIRST/LAST group-by needs both segagg
+# kernels, and q3's two joins table, probe and compact
 PATH_KERNELS = {"q1": ("seg_sums",), "q6": (),
-                "minmax": ("seg_sums", "seg_reduce")}
+                "minmax": ("seg_sums", "seg_reduce"),
+                "q3": ("build_table", "probe_first", "compaction_order")}
+Q3_DATE = (pydt.date(1995, 3, 15) - pydt.date(1970, 1, 1)).days
 
 
 def log(msg: str) -> None:
@@ -107,7 +133,7 @@ def cuda_ms(fn, reps: int = 15, warmup: int = 3) -> float:
 
 
 # ---------------------------------------------------------------------------
-# Phase 3: kernels against their plain versions
+# Phase 4: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
 def q1_kernel_shape():
@@ -283,8 +309,162 @@ def kernels_phase(dev):
     }
 
 
+def _exact(got, want, what: str) -> int:
+    """Fail unless equal; returns the largest absolute difference."""
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), f"{what} differs from its plain version")
+    if not got.numel():
+        return 0
+    return int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+
+
+def q3_join_inputs(tables, dev):
+    """The shapes q3's second join gives the kernels: the first join's
+    output keys (orders of BUILDING customers before the cut-off date,
+    concatenated tightly into their bucket capacity) as the build lane,
+    and the first lineitem batch as the probe lane with the shipdate
+    filter as its validity."""
+    from spark_rapids_tpu_torch.columnar.device import bucket_capacity
+    cust, orders, li = (tables[n] for n in ("customer", "orders",
+                                            "lineitem"))
+    seg = _col(cust, "c_mktsegment")
+    building = _col(cust, "c_custkey").data[
+        seg.data == list(seg.dictionary).index("BUILDING")]
+    omask = (_col(orders, "o_orderdate").data < Q3_DATE) & \
+        np.isin(_col(orders, "o_custkey").data, building)
+    keys = _col(orders, "o_orderkey").data[omask]
+    bcap = bucket_capacity(len(keys))
+    lane = torch.zeros(bcap, dtype=torch.int64, device=dev)
+    lane[:len(keys)] = torch.from_numpy(keys).to(dev)
+    valid = torch.arange(bcap, device=dev) < len(keys)
+    pcap = Q1_CAPACITY
+    probe = torch.from_numpy(np.ascontiguousarray(
+        _col(li, "l_orderkey").data[:pcap])).to(dev)
+    pvalid = torch.from_numpy(
+        _col(li, "l_shipdate").data[:pcap] > Q3_DATE).to(dev)
+    return lane, valid, probe, pvalid
+
+
+def join_kernels_phase(dev, tables):
+    from spark_rapids_tpu_torch.ops.hopper import compact as C
+    from spark_rapids_tpu_torch.ops.hopper import hashjoin as HJ
+    lane, valid, probe, pvalid = q3_join_inputs(tables, dev)
+    bcap, pcap = lane.numel(), probe.numel()
+    nbits, span = HJ.table_geometry(bcap)
+
+    # ---- build_table: the layout kernel against its plain version
+    err = {"build_table": 0, "probe_first": 0, "compaction_order": 0}
+
+    def note(kernel, e):
+        err[kernel] = max(err[kernel], e)
+
+    def check_build(lane_, valid_, what):
+        table = HJ.build_table(lane_, valid_)
+        ideal, lane_s, rid = HJ.hash_order(lane_, valid_, table.nbits)
+        keys, rows = HJ.build_layout_plain(ideal, lane_s, rid, table.span)
+        note("build_table", _exact(table.rows, rows,
+                                   f"build_table rows ({what})"))
+        live = rows >= 0
+        note("build_table", _exact(table.keys[live], keys[live],
+                                   f"build_table keys ({what})"))
+        return table
+
+    table = check_build(lane, valid, "q3 first-join keys")
+    g = torch.Generator(device=dev).manual_seed(11)
+    dup = torch.randint(0, 1000, (bcap,), generator=g, device=dev)
+    check_build(dup, valid, "duplicate-heavy")
+    check_build(lane, torch.zeros_like(valid), "all dead")
+    edge = torch.randint(-2 ** 63, 2 ** 63 - 1, (1 << 16,), generator=g,
+                         device=dev, dtype=torch.int64)
+    edge[:4] = torch.tensor([-2 ** 63, 2 ** 63 - 1, -1, 0])
+    edge_table = check_build(edge, torch.ones_like(edge, dtype=torch.bool),
+                             "±2^63 keys")
+
+    # ---- probe_first: the first lineitem batch against that table
+    def check_probe(table_, lane_, valid_, what):
+        row, ok = HJ.probe_first(table_, lane_, valid_)
+        prow, pok = HJ.probe_first_plain(table_, lane_, valid_)
+        note("probe_first", _exact(row, prow, f"probe_first rows ({what})"))
+        note("probe_first", _exact(ok, pok,
+                                   f"probe_first found flags ({what})"))
+        return ok
+
+    ok = check_probe(table, probe, pvalid, "q3 lineitem batch")
+    check_probe(edge_table, edge.flip(0), torch.rand(
+        edge.numel(), generator=g, device=dev) > 0.1, "±2^63 keys")
+    matched = int(ok.sum())
+
+    # ---- compaction_order: keep = q3's second-join match mask
+    def check_compact(keep, what):
+        order, count = C.compaction_order(keep)
+        porder, pcount = C.compaction_order_plain(keep)
+        note("compaction_order", _exact(order, porder,
+                                        f"compaction_order ({what})"))
+        note("compaction_order", _exact(count, pcount,
+                                        f"compaction count ({what})"))
+
+    keep = ok & pvalid
+    check_compact(keep, "q3 second join")
+    check_compact(torch.zeros_like(keep), "0 %")
+    check_compact(torch.ones_like(keep), "100 %")
+    odd = torch.rand(3_000_017, generator=g, device=dev) < 0.3
+    check_compact(odd, "capacity 3,000,017")
+    check_compact(odd[:300], "capacity 300")
+    log(f"[kernels] build_table, probe_first and compaction_order equal "
+        f"their plain versions (build capacity {bcap}, span {span}, "
+        f"{int(valid.sum())} keys; probe {pcap} rows, {matched} matched; "
+        "duplicate-heavy, all-dead, ±2^63, 0 %, 100 %, capacities "
+        "3,000,017 and 300)")
+
+    # ---- timings
+    ideal, lane_s, rid = HJ.hash_order(lane, valid, nbits)
+    build_ms = cuda_ms(lambda: HJ.build_layout(ideal, lane_s, rid, span))
+    build_plain = cuda_ms(lambda: HJ.build_layout_plain(ideal, lane_s, rid,
+                                                        span), reps=5)
+    sort_ms = cuda_ms(lambda: HJ.hash_order(lane, valid, nbits), reps=5)
+    # reads ideal, key and row id once; writes the whole table once
+    build_bound = bound(bcap * (4 + 8 + 4) + span * (8 + 4), bcap)
+    probe_ms = cuda_ms(lambda: HJ.probe_first(table, probe, pvalid))
+    probe_plain = cuda_ms(lambda: HJ.probe_first_plain(table, probe,
+                                                       pvalid), reps=5)
+    # reads key and flag, writes row and flag; each valid row reads at
+    # least its home slot (12 bytes), the least its walk can touch
+    nvalid = int(pvalid.sum())
+    probe_bound = bound(pcap * (8 + 1 + 4 + 1) + nvalid * 12, nvalid)
+    compact_ms = cuda_ms(lambda: C.compaction_order(keep))
+    compact_plain = cuda_ms(lambda: C.compaction_order_plain(keep))
+    inv = (~keep).to(torch.int8)
+    compact_lib = cuda_ms(lambda: torch.argsort(inv, stable=True))
+    compact_bound = bound(pcap * (1 + 4) + 4, pcap)
+    log(f"[kernels] build_table layout: kernel {build_ms:.4f} ms, plain "
+        f"{build_plain:.4f} ms, bound {build_bound[0]:.4f} ms; its "
+        f"PyTorch hash-order sort {sort_ms:.4f} ms")
+    log(f"[kernels] probe_first: kernel {probe_ms:.4f} ms, plain "
+        f"{probe_plain:.4f} ms, bound {probe_bound[0]:.4f} ms")
+    log(f"[kernels] compaction_order: kernel {compact_ms:.4f} ms, plain "
+        f"{compact_plain:.4f} ms, stable argsort {compact_lib:.4f} ms, "
+        f"bound {compact_bound[0]:.4f} ms")
+    return {
+        "compaction_order": dict(
+            max_abs_err=err["compaction_order"], ms=compact_ms, plain_ms=compact_plain,
+            bound_ms=compact_bound[0], bound_by=compact_bound[1],
+            library_ms=compact_lib,
+            shape=f"cap={pcap} kept={int(keep.sum())}"),
+        "build_table": dict(
+            max_abs_err=err["build_table"], ms=build_ms, plain_ms=build_plain,
+            bound_ms=build_bound[0], bound_by=build_bound[1],
+            library_ms=None, hash_sort_ms=sort_ms,
+            shape=f"cap={bcap} keys={int(valid.sum())} span={span}"),
+        "probe_first": dict(
+            max_abs_err=err["probe_first"], ms=probe_ms, plain_ms=probe_plain,
+            bound_ms=probe_bound[0], bound_by=probe_bound[1],
+            library_ms=None,
+            shape=f"probe={pcap} valid={nvalid} span={span}"),
+    }
+
+
 # ---------------------------------------------------------------------------
-# Phase 4: the main path against independent numpy computations
+# Phase 5: the main path against independent numpy computations
 # ---------------------------------------------------------------------------
 
 def _days(d: pydt.date) -> int:
@@ -401,6 +581,61 @@ def expected_minmax(li):
     return out
 
 
+def expected_q3(tables):
+    """q3 in numpy: np.isin for the customer join, searchsorted over the
+    filtered order keys for the lineitem join, a stable argsort group-by
+    with exact int64 sums, then revenue desc, orderdate asc and (the
+    group order the engine gives ties) orderkey asc, top 10.  Also
+    returns every row tied with the 10th on (revenue, orderdate)."""
+    cust, orders, li = (tables[n] for n in ("customer", "orders",
+                                            "lineitem"))
+    seg = _col(cust, "c_mktsegment")
+    building = _col(cust, "c_custkey").data[
+        seg.data == list(seg.dictionary).index("BUILDING")]
+    omask = (_col(orders, "o_orderdate").data < Q3_DATE) & \
+        np.isin(_col(orders, "o_custkey").data, building)
+    okey = _col(orders, "o_orderkey").data[omask]
+    odate = _col(orders, "o_orderdate").data[omask]
+    oprio = _col(orders, "o_shippriority").data[omask]
+    by_key = np.argsort(okey, kind="stable")
+    okey, odate, oprio = okey[by_key], odate[by_key], oprio[by_key]
+    lkey = _col(li, "l_orderkey").data
+    pos = np.clip(np.searchsorted(okey, lkey), 0, max(len(okey) - 1, 0))
+    lmask = (_col(li, "l_shipdate").data > Q3_DATE) & \
+        (okey[pos] == lkey) if len(okey) else np.zeros(len(lkey), bool)
+    rev = _col(li, "l_extendedprice").data[lmask] * \
+        (100 - _col(li, "l_discount").data[lmask])          # scale 4
+    order, gpos, starts = _groups(pos[lmask])
+    sums = np.add.reduceat(rev[order], starts)
+    g_key, g_date, g_prio = okey[gpos], odate[gpos], oprio[gpos]
+    rank = np.lexsort((g_key, g_date, -sums))
+    cols = {"o_orderkey": g_key, "o_orderdate": g_date,
+            "o_shippriority": g_prio, "revenue": sums}
+    top = {n: v[rank[:10]].tolist() for n, v in cols.items()}
+    tied = []
+    if len(rank) >= 10:
+        tenth = rank[9]
+        tie = (sums == sums[tenth]) & (g_date == g_date[tenth])
+        tied = sorted(zip(*(v[tie].tolist() for v in cols.values())))
+    return top, tied
+
+
+def check_q3(lanes, want) -> None:
+    """Rows equal; a revenue tie at the 10th row may order its tied rows
+    otherwise, so those rows need only come from the tied set."""
+    top, tied = want
+    if lanes == top:
+        return
+    got = list(zip(*(lanes[n] for n in top)))
+    exp = list(zip(*top.values()))
+    check(len(got) == len(exp) and tied, f"q3 differs from the numpy "
+          f"reference:\n{lanes}\n{top}")
+    head = [r for r in exp if r not in tied]
+    check(got[:len(head)] == head and set(got[len(head):]) <= set(tied),
+          f"q3 differs from the numpy reference beyond the tie at its "
+          f"10th row:\n{lanes}\n{top}\ntied: {tied}")
+
+
 def lanes_of(hb):
     """Column -> python list of its storage values (strings decoded,
     decimals as unscaled ints), failing on nulls."""
@@ -414,34 +649,50 @@ def lanes_of(hb):
     return out
 
 
-def path_phase(scale: float, seed: int):
+def data_phase(scale: float, seed: int):
+    """SF `scale` customer, orders and lineitem, and the numpy results."""
+    from spark_rapids_tpu_torch import tpch
+    t0 = time.perf_counter()
+    tables = tpch.gen_tables(scale, seed,
+                             tables=("customer", "orders", "lineitem"))
+    log(f"[data] gen_tables(scale={scale}): " + ", ".join(
+        f"{n} {hb.num_rows} rows" for n, hb in tables.items()) +
+        f" in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    li = tables["lineitem"]
+    want = {"q1": expected_q1(li), "q6": expected_q6(li),
+            "minmax": expected_minmax(li), "q3": expected_q3(tables)}
+    log(f"[data] numpy reference in {time.perf_counter() - t0:.1f} s")
+    return tables, want
+
+
+def path_phase(tables, want):
     from spark_rapids_tpu_torch import tpch
     from spark_rapids_tpu_torch.ops.hopper import LAUNCHES, \
         reset_launch_counts
     from spark_rapids_tpu_torch.session import TpuSession
-    t0 = time.perf_counter()
-    tables = tpch.gen_tables(scale, seed, tables=("lineitem",))
     li = tables["lineitem"]
-    log(f"[path] gen_tables(scale={scale}) lineitem: {li.num_rows} rows in "
-        f"{time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    want = {"q1": expected_q1(li), "q6": expected_q6(li),
-            "minmax": expected_minmax(li)}
-    log(f"[path] numpy reference in {time.perf_counter() - t0:.1f} s")
     s = TpuSession()
     check(s.device.type == "cuda", "TpuSession() is not on cuda")
-    queries = {"q1": tpch.q1, "q6": tpch.q6, "minmax": minmax_query}
+    queries = {"q1": tpch.q1, "q6": tpch.q6, "minmax": minmax_query,
+               "q3": tpch.q3}
     cold, launches = {}, {}
     for name, build in queries.items():
         reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         got = build(s, tables).collect()
         torch.cuda.synchronize()
         cold[name] = (time.perf_counter() - t0) * 1e3
         launches[name] = dict(LAUNCHES)
         lanes = lanes_of(got)
-        check(lanes == want[name], f"{name} differs from the numpy "
-              f"reference:\n{lanes}\n{want[name]}")
+        if name == "q3":
+            check_q3(lanes, want[name])
+            log(f"[path] q3 peak device memory "
+                f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        else:
+            check(lanes == want[name], f"{name} differs from the numpy "
+                  f"reference:\n{lanes}\n{want[name]}")
         log(f"[path] {name}: {got.num_rows} rows equal the numpy reference; "
             f"kernel launches {launches[name]}")
         for k in PATH_KERNELS[name]:
@@ -456,58 +707,71 @@ def path_phase(scale: float, seed: int):
             torch.cuda.synchronize()
             warm.append((time.perf_counter() - t0) * 1e3)
         log(f"[path] {name} wall: cold {cold[name]:.1f} ms, warm median "
-            f"{statistics.median(warm):.1f} ms (rows {li.num_rows})")
-    return launches, tables
+            f"{statistics.median(warm):.1f} ms (lineitem rows "
+            f"{li.num_rows})")
+    return launches
 
 
-def profile_phase(tables):
-    """Where one warm q1 run spends its device time (torch.profiler over
-    CUPTI): host->device upload copies, each kernel, the other PyTorch
-    ops, the result fetch; and the device-busy share of the wall."""
+# device kernel name fragment -> the part it counts toward (first match)
+PROFILE_PARTS = (
+    ("HtoD", "upload (memcpy HtoD)"), ("DtoH", "fetch (memcpy DtoH)"),
+    ("seg_sums_kernel", "seg_sums"), ("seg_reduce_kernel", "seg_reduce"),
+    ("f64_from_order", "seg_reduce"), ("fill_kernel", "seg_reduce"),
+    ("scatter_kernel", "compaction_order"),
+    ("tile_count_kernel", "compaction_order"),
+    ("carry_kernel<tile_scan::Add", "compaction_order"),
+    ("layout_kernel", "build_table"), ("tile_max_kernel", "build_table"),
+    ("carry_kernel<tile_scan::Max", "build_table"),
+    ("probe_first_kernel", "probe_first"))
+
+
+def profile_query(name, build, tables):
+    """Where one warm run spends its device time (torch.profiler over
+    CUPTI): host->device upload copies, each kernel (its helper passes
+    included), the other PyTorch ops, the result fetch; and the
+    device-busy share of the wall."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from spark_rapids_tpu_torch import tpch
     from spark_rapids_tpu_torch.session import TpuSession
     s = TpuSession()
-    tpch.q1(s, tables).collect()
+    build(s, tables).collect()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        tpch.q1(s, tables).collect()
+        build(s, tables).collect()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    parts = {"upload (memcpy HtoD)": 0.0, "seg_sums": 0.0,
-             "seg_reduce": 0.0, "fetch (memcpy DtoH)": 0.0,
-             "other PyTorch kernels": 0.0}
+    parts = {part: 0.0 for _frag, part in PROFILE_PARTS}
+    parts["other PyTorch kernels"] = 0.0
     names = []
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
         us = getattr(e, "self_device_time_total", 0.0)
         names.append((us, e.key, e.count))
-        if "HtoD" in e.key:
-            parts["upload (memcpy HtoD)"] += us
-        elif "DtoH" in e.key:
-            parts["fetch (memcpy DtoH)"] += us
-        elif "seg_sums_kernel" in e.key:
-            parts["seg_sums"] += us
-        elif "seg_reduce_kernel" in e.key or "f64_from_order" in e.key \
-                or "fill_kernel" in e.key:
-            parts["seg_reduce"] += us
-        else:
-            parts["other PyTorch kernels"] += us
+        part = next((p for frag, p in PROFILE_PARTS if frag in e.key),
+                    "other PyTorch kernels")
+        parts[part] += us
     busy = sum(parts.values()) / 1e3
     if busy == 0:
-        log("[profile] q1: device time not measured (the profiler saw no "
-            "CUDA activity)")
+        log(f"[profile] {name}: device time not measured (the profiler saw "
+            "no CUDA activity)")
         return
-    log(f"[profile] q1 warm wall {wall:.1f} ms; device busy {busy:.1f} ms "
-        f"({100 * busy / wall:.1f}% of wall, idle {100 - 100 * busy / wall:.1f}%)")
+    log(f"[profile] {name} warm wall {wall:.1f} ms; device busy {busy:.1f} "
+        f"ms ({100 * busy / wall:.1f}% of wall, idle "
+        f"{100 - 100 * busy / wall:.1f}%)")
     for k, us in parts.items():
-        log(f"[profile]   {k}: {us / 1e3:.2f} ms")
+        if us:
+            log(f"[profile]   {k}: {us / 1e3:.2f} ms")
     for us, key, count in sorted(names, reverse=True)[:8]:
         log(f"[profile]   top: {us / 1e3:.2f} ms x{count} {key[:90]}")
+
+
+def profile_phase(tables):
+    from spark_rapids_tpu_torch import tpch
+    profile_query("q1", tpch.q1, tables)
+    profile_query("q3", tpch.q3, tables)
 
 
 def main() -> int:
@@ -529,14 +793,17 @@ def main() -> int:
     t0 = time.perf_counter()
     build_libraries()
     log(f"[build] nvcc sm_90a: {time.perf_counter() - t0:.1f} s")
+    tables, want = data_phase(args.scale, args.seed)
     stats = kernels_phase(dev)
-    launches, tables = path_phase(args.scale, args.seed)
+    stats.update(join_kernels_phase(dev, tables))
+    launches = path_phase(tables, want)
     profile_phase(tables)
     rows = []
-    for name in ("seg_sums", "seg_reduce"):
+    for name in TPU_KERNELS:
         st = stats[name]
         by_query = {q: n[name] for q, n in launches.items()}
-        rows.append({"name": name, "route": "cuda", "source": SOURCE,
+        rows.append({"name": name, "route": "cuda",
+                     "source": SOURCES[name],
                      "replaces": TPU_KERNELS[name],
                      "launches": sum(by_query.values()),
                      "launches_by_query": by_query,

@@ -120,6 +120,16 @@ class DeviceBatch:
     def column_by_name(self, name: str) -> DeviceColumn:
         return self.columns[self.names.index(name)]
 
+    def select(self, indices) -> "DeviceBatch":
+        """The batch with its columns reordered/subset by position."""
+        return DeviceBatch([self.columns[i] for i in indices], self.num_rows,
+                           [self.names[i] for i in indices])
+
+    def nbytes(self) -> int:
+        """Device bytes of the padded lanes (capacity-based: no sync)."""
+        return sum(c.data.numel() * c.data.element_size() +
+                   c.validity.numel() for c in self.columns)
+
     def row_mask(self) -> torch.Tensor:
         """Bool mask of the live prefix (row < num_rows)."""
         from ..ops.kernels import live_mask

@@ -91,6 +91,39 @@ def _min_max(col: HostColumn):
     return int(data.min()), int(data.max())
 
 
+def _keys_unique(cols: Sequence[HostColumn]) -> bool:
+    """No two rows share equal values in `cols`, rows with a null in any
+    of them excluded (null join keys never match).  An integer column
+    settles by pigeonhole (more rows than its value span: not unique) or
+    a bincount over the span; anything else by np.unique."""
+    live = np.ones(len(cols[0]), bool)
+    for c in cols:
+        if c.validity is not None:
+            live &= c.validity
+    n = int(live.sum())
+    if n <= 1:
+        return True
+    if len(cols) == 1 and cols[0].data.dtype.kind in "iub":
+        data = cols[0].data[live].astype(np.int64)
+        lo, hi = int(data.min()), int(data.max())
+        if hi - lo + 1 < n:
+            return False
+        if hi - lo < 8 * n:
+            return int(np.bincount(data - lo).max()) <= 1
+    rows = np.stack([_equality_lane(c.data[live]) for c in cols], axis=1)
+    return len(np.unique(rows, axis=0)) == n
+
+
+def _equality_lane(data: np.ndarray) -> np.ndarray:
+    """int64 lane whose equality is Spark's key equality (floats: -0.0
+    equals 0.0, every NaN equals every NaN)."""
+    if data.dtype.kind in "iub":
+        return data.astype(np.int64)
+    x = data.astype(np.float64) + 0.0
+    x[np.isnan(x)] = np.nan
+    return x.view(np.int64)
+
+
 class HostBatch:
     """A set of equal-length host columns with names."""
 
@@ -102,7 +135,9 @@ class HostBatch:
         lens = {len(c) for c in self.columns}
         if len(lens) > 1:
             raise ValueError(f"columns of unequal length {sorted(lens)}")
-        self._ranges: Dict[str, object] = {}
+        # plan statistics, keyed by column name(s); `select` shares them,
+        # since a selected column is the same column
+        self._stats: Dict[object, object] = {}
 
     @property
     def num_rows(self) -> int:
@@ -117,7 +152,9 @@ class HostBatch:
         return self.columns[self.names.index(name)]
 
     def select(self, names: Sequence[str]) -> "HostBatch":
-        return HostBatch([self.column_by_name(n) for n in names], names)
+        out = HostBatch([self.column_by_name(n) for n in names], names)
+        out._stats = self._stats
+        return out
 
     def slice(self, offset: int, length: int) -> "HostBatch":
         return HostBatch([c.slice(offset, length) for c in self.columns],
@@ -125,9 +162,19 @@ class HostBatch:
 
     def column_range(self, name: str):
         """Exact (min, max) of an integer-lane column, cached."""
-        if name not in self._ranges:
-            self._ranges[name] = _min_max(self.column_by_name(name))
-        return self._ranges[name]
+        key = ("range", name)
+        if key not in self._stats:
+            self._stats[key] = _min_max(self.column_by_name(name))
+        return self._stats[key]
+
+    def keys_unique(self, names: Sequence[str]) -> bool:
+        """Exact distinctness of the named column tuple over its
+        fully non-null rows (the reference's scan statistic), cached."""
+        key = ("unique", tuple(names))
+        if key not in self._stats:
+            self._stats[key] = _keys_unique(
+                [self.column_by_name(n) for n in names])
+        return self._stats[key]
 
     def to_pydict(self) -> Dict[str, list]:
         return {n: c.to_pylist() for n, c in zip(self.names, self.columns)}

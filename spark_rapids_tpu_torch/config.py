@@ -1,12 +1,17 @@
 """Typed configuration system (PyTorch/CUDA port).
 
 A copy of spark_rapids_tpu/config.py with the same keys and defaults, so
-one conf dict drives both packages.  Two keys resolve differently here:
-`sql.kernels.pallas.enabled` defaults to true (the hand-written Hopper
-kernel tier is on), and `sql.kernels.pallas.segagg` AUTO elects the
-segmented-aggregation kernels whenever the domain gate passes, on either
-device (ops/hopper/__init__.py).  Keys whose subsystem is not ported yet
-are registered all the same and have no effect until it is.
+one conf dict drives both packages.  `sql.kernels.pallas.enabled`
+defaults to true here (the hand-written Hopper kernel tier is on), and
+`sql.kernels.pallas.segagg` AUTO elects the segmented-aggregation
+kernels whenever the domain gate passes, on either device
+(ops/hopper/__init__.py).
+
+The port reads only the keys in `HONOURED_KEYS`.  Every other key stays
+registered, so a reference conf dict is accepted, but `TpuConf` warns
+once per key a caller sets outside that set: `RESOLVED` names the keys
+the port resolves to one fixed behaviour for now (and the slice that
+restores them); the rest belong to subsystems not ported yet.
 
 Plays the role of the reference's RapidsConf (sql-plugin/.../RapidsConf.scala:
 3156 LoC, 225 `spark.rapids.*` entries): a registry of typed, documented
@@ -1182,6 +1187,49 @@ JOIN_LATE_MATERIALIZATION = conf(
     "early, and only those (plan/overrides.py legality pass).")
 
 
+#: keys the port reads; setting any other registered key warns
+HONOURED_KEYS = frozenset(e.key for e in (
+    SQL_ENABLED, BATCH_SIZE_ROWS, SHAPE_BUCKETS, BUCKET_MIN_ROWS,
+    BUCKET_GROWTH, ADAPTIVE_ENABLED, IMPROVED_FLOAT_OPS,
+    DENSE_AGG_DOMAIN_MAX, DENSE_AGG_VIA_SORT, PALLAS_ENABLED, PALLAS_JOIN,
+    PALLAS_SEGAGG, PALLAS_COMPACT, PALLAS_SEGAGG_MAX_DOMAIN,
+    PALLAS_JOIN_MAX_BUILD))
+
+#: keys the port resolves to one behaviour for now -> what it does
+RESOLVED = {
+    PALLAS_JOIN_DENSE_REPLACE.key:
+        "resolves to ON: the dense direct-address join tier is not ported, "
+        "so the hash table always takes the join",
+    PALLAS_INTERPRET.key:
+        "has no effect: CPU tensors run each kernel's plain PyTorch "
+        "version, CUDA tensors the CUDA kernel",
+    JOIN_LAZY_SELECTION.key:
+        "resolves to off until late materialization ports (ROADMAP "
+        "Queue 1 item 4): joins always compact their output",
+    JOIN_LATE_MATERIALIZATION.key:
+        "resolves to off until late materialization ports (ROADMAP "
+        "Queue 1 item 4)",
+    RUNTIME_FILTER_ENABLED.key:
+        "resolves to off until ops/bloom.py ports (ROADMAP Queue 1)",
+    HASH_SUBPARTITION_FALLBACK.key:
+        "resolves to off: a build side over 2 x sql.batchSizeRows raises "
+        "until the out-of-core slice ports (ROADMAP Queue 1 item 6)",
+}
+
+_WARNED: set = set()
+
+
+def _warn_unhonoured(key: str) -> None:
+    if key in _WARNED:
+        return
+    _WARNED.add(key)
+    import warnings
+    why = RESOLVED.get(key, "its subsystem is not ported yet, so the "
+                            "setting has no effect")
+    warnings.warn(f"{key} is not honoured by the PyTorch/CUDA port: {why}",
+                  stacklevel=3)
+
+
 class TpuConf:
     """An immutable-ish view over a dict of raw settings with typed access.
 
@@ -1193,8 +1241,11 @@ class TpuConf:
         self._raw = dict(settings or {})
         self._cache: Dict[str, Any] = {}
         for k in self._raw:
-            if (k.startswith("spark.rapids.tpu.") and k not in _REGISTRY
-                    and not self._is_dynamic_key(k)):
+            if k in _REGISTRY:
+                if k not in HONOURED_KEYS:
+                    _warn_unhonoured(k)
+            elif k.startswith("spark.rapids.tpu.") and \
+                    not self._is_dynamic_key(k):
                 raise ValueError(f"unknown config key: {k}")
 
     _DYNAMIC_RE = re.compile(

@@ -1,0 +1,202 @@
+// Hash-table join kernels for Hopper (sm_90a): the table layout and the
+// unique-build probe.
+//
+// Replaces the TPU kernels of spark_rapids_tpu/ops/pallas/hashjoin.py:
+//   build_layout <- _build_trace       (hashjoin.py:111, pallas_call :147)
+//   probe_first  <- _probe_first_trace (hashjoin.py:182, pallas_call :214)
+//
+// The table is open addressing in hash order over one canonical int64
+// key lane: keys int64[span] and rows int32[span] (row -1 = empty),
+// span = S + cap with S = 2^nbits home slots and a cap-slot overflow
+// tail, so runs never wrap.  The home slot of a key is the top nbits of
+// the murmur3 fmix64 finalizer (a bijection on 64 bits: equal hashes
+// mean equal keys, so a probe never verifies twice).
+//
+// build_layout: the caller sorts the build rows by (dead, hash) stably
+// outside the kernel (PyTorch, as the reference does outside its
+// kernel), giving per sorted row i its ideal slot (S for dead rows), its
+// key and its build row id (-1 for dead rows).  Linear probing in hash
+// order puts row i at final = i + max(-2^31 + 1, max_{k <= i}(ideal_k -
+// k)): strictly increasing, equal to ideal when nothing pushed it, and
+// contiguous behind a pushed run, so equal keys sit in consecutive slots
+// in ascending build-row order.  The running max is a grid-wide scan:
+// per-tile maxima, one block turning them into per-tile carries, then a
+// pass that rescans its tile, adds the carry and stores (key, row) at
+// clip(final, 0, span - 1).  A block-local max alone would be wrong as
+// soon as a run crosses a tile.
+//
+// probe_first: one thread per probe row walks from the home slot until
+// it finds its key (writes the build row) or an empty slot (writes -1),
+// for at most span steps.
+//
+// What bounds them on this card: both are bandwidth-bound.  build_layout
+// reads 16 bytes a build row (ideal, key, row id; ideal twice) and
+// scatters 12; probe_first reads 9 bytes a probe row and writes 5, plus
+// at least one 12-byte table slot per valid row, a random access that
+// usually misses the 50 MB L2 for tables of millions of rows.  The
+// design keeps the walk short (load factor at most 0.5) and makes the
+// layout writes land in increasing slots.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "tile_scan.cuh"
+
+namespace {
+
+using tile_scan::kItems;
+using tile_scan::kThreads;
+using tile_scan::kTileRows;
+
+constexpr int kSeed = -2147483647;  // -2^31 + 1, the reference's carry seed
+
+__device__ __forceinline__ unsigned long long mix64(unsigned long long x) {
+  x ^= x >> 33;
+  x *= 0xFF51AFD7ED558CCDULL;
+  x ^= x >> 33;
+  x *= 0xC4CEB9FE1A85EC53ULL;
+  return x ^ (x >> 33);
+}
+
+__global__ void tile_max_kernel(const int* __restrict__ ideal, long long cap,
+                                int* __restrict__ tiles) {
+  const long long base = static_cast<long long>(blockIdx.x) * kTileRows +
+                         static_cast<long long>(threadIdx.x) * kItems;
+  int m = kSeed;
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    const long long i = base + k;
+    if (i < cap) {
+      const int rel = ideal[i] - static_cast<int>(i);
+      m = rel > m ? rel : m;
+    }
+  }
+  int total;
+  tile_scan::block_exclusive_scan<kThreads>(m, kSeed, tile_scan::Max(),
+                                            &total);
+  if (threadIdx.x == 0) tiles[blockIdx.x] = total;
+}
+
+__global__ void layout_kernel(const int* __restrict__ ideal,
+                              const long long* __restrict__ lane,
+                              const int* __restrict__ rid, long long cap,
+                              const int* __restrict__ carries, long long span,
+                              long long* __restrict__ keys,
+                              int* __restrict__ rows) {
+  const long long base = static_cast<long long>(blockIdx.x) * kTileRows +
+                         static_cast<long long>(threadIdx.x) * kItems;
+  int rel[kItems];
+  int m = kSeed;
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    const long long i = base + k;
+    rel[k] = i < cap ? ideal[i] - static_cast<int>(i) : kSeed;
+    m = rel[k] > m ? rel[k] : m;
+  }
+  int total;
+  int prefix = tile_scan::block_exclusive_scan<kThreads>(
+      m, kSeed, tile_scan::Max(), &total);
+  const int carry = carries[blockIdx.x];
+  prefix = prefix > carry ? prefix : carry;
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    const long long i = base + k;
+    if (i >= cap) break;
+    prefix = rel[k] > prefix ? rel[k] : prefix;
+    long long slot = i + prefix;
+    slot = slot < 0 ? 0 : (slot > span - 1 ? span - 1 : slot);
+    keys[slot] = lane[i];
+    rows[slot] = rid[i];
+  }
+}
+
+__global__ void probe_first_kernel(const long long* __restrict__ tkeys,
+                                   const int* __restrict__ trows,
+                                   long long span, int nbits,
+                                   const long long* __restrict__ lane,
+                                   const bool* __restrict__ valid,
+                                   long long cap, int* __restrict__ row_out,
+                                   bool* __restrict__ ok_out) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       i < cap; i += stride) {
+    int out = -1;
+    if (valid[i]) {
+      const long long key = lane[i];
+      long long slot = static_cast<long long>(
+          mix64(static_cast<unsigned long long>(key)) >> (64 - nbits));
+      for (long long step = 0; step < span; ++step) {
+        const int r = trows[slot];
+        if (r < 0) break;
+        if (tkeys[slot] == key) {
+          out = r;
+          break;
+        }
+        if (slot == span - 1) break;  // the walk never wraps
+        ++slot;
+      }
+    }
+    row_out[i] = out;
+    ok_out[i] = out >= 0;
+  }
+}
+
+int grid_for(long long rows) {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (sms <= 0) sms = 132;
+  }
+  long long want = (rows + kThreads - 1) / kThreads;
+  const long long most = 16LL * sms;
+  if (want < 1) want = 1;
+  return static_cast<int>(want < most ? want : most);
+}
+
+}  // namespace
+
+// Each entry point launches on the caller's stream (PyTorch's current
+// stream), allocates nothing, does not synchronise, and returns
+// cudaGetLastError() after its launches (0 = success).
+
+// ideal/rid int32[cap], lane int64[cap] in (dead, hash) order; `tiles`
+// int32 scratch of ceil(cap / 1024); keys int64[span] pre-filled with 0
+// and rows int32[span] pre-filled with -1 by the caller.
+extern "C" int hashjoin_build_layout(const int* ideal, const long long* lane,
+                                     const int* rid, long long cap, int* tiles,
+                                     long long span, long long* keys,
+                                     int* rows, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (cap <= 0 || cap > 0x7fffffffLL || span < cap)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int ntiles = tile_scan::tiles_for(cap);
+  tile_max_kernel<<<ntiles, kThreads, 0, st>>>(ideal, cap, tiles);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  tile_scan::carry_kernel<<<1, 1024, 0, st>>>(tiles, ntiles, kSeed, kSeed,
+                                              tile_scan::Max(), nullptr);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  layout_kernel<<<ntiles, kThreads, 0, st>>>(ideal, lane, rid, cap, tiles,
+                                             span, keys, rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// keys int64[span] / rows int32[span] from hashjoin_build_layout; lane
+// int64[cap] and valid bool[cap] the probe rows; row_out int32[cap]
+// (-1 = no match) and ok_out bool[cap].
+extern "C" int hashjoin_probe_first(const long long* keys, const int* rows,
+                                    long long span, int nbits,
+                                    const long long* lane, const bool* valid,
+                                    long long cap, int* row_out, bool* ok_out,
+                                    void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (cap <= 0 || span <= 0 || nbits < 1 || nbits > 62)
+    return static_cast<int>(cudaErrorInvalidValue);
+  probe_first_kernel<<<grid_for(cap), kThreads, 0, st>>>(
+      keys, rows, span, nbits, lane, valid, cap, row_out, ok_out);
+  return static_cast<int>(cudaGetLastError());
+}

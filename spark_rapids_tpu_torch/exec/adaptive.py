@@ -1,0 +1,132 @@
+"""Adaptive (runtime-statistics) join: the engine's AQE analogue.
+
+Counterpart of spark_rapids_tpu/exec/adaptive.py
+(GpuShuffledSymmetricHashJoinExec's build-side choice from measured
+sizes).  `AdaptiveShuffledJoinExec` materializes BOTH join inputs as
+completed stages, measures their device bytes, and builds on the
+smaller side — except that a side with unique join keys is worth more
+than raw size (it unlocks the sync-free probe-aligned path) unless it is
+more than 8x bigger.  A swap mirrors the join type and restores the
+left-then-right column order on output, so the swap is invisible.
+
+Filters right below either input ride into the join as masks
+(exec/plan.py peel_filters), so the stages hold the raw child batches
+and the sizes compared are pre-filter sizes; correctness never depends
+on the choice.  The stages are plain device batches: the spillable
+stages port with the memory runtime (ROADMAP Queue 1 item 3), and the
+bloom runtime filter with ops/bloom.py (`sql.join.runtimeFilter.enabled`
+resolves to off until then; the reference installs none on q3's joins
+either, whose build keys fit a dense span).
+"""
+from __future__ import annotations
+
+from typing import Iterator, List, Sequence
+
+from .. import types as t
+from ..columnar.device import DeviceBatch
+from ..plan import expressions as E
+from .join import (HashJoinExec, join_column_range, join_keys_unique,
+                   side_unique)
+from .plan import ExecContext, PlanNode, peel_filters
+
+_MIRROR = {"inner": "inner", "left_outer": "right_outer",
+           "right_outer": "left_outer", "full_outer": "full_outer"}
+
+
+class _ReplayStage(PlanNode):
+    """A completed stage (its device batches) the re-planned join
+    replays; statistics delegate to the node that produced it."""
+
+    def __init__(self, batches: List[DeviceBatch], source: PlanNode):
+        super().__init__()
+        self.batches = batches
+        self._source = source
+
+    @property
+    def output_schema(self) -> t.StructType:
+        return self._source.output_schema
+
+    def keys_unique(self, names):
+        return self._source.keys_unique(names)   # the same rows
+
+    def column_range(self, name):
+        return self._source.column_range(name)
+
+    def execute(self, ctx: ExecContext) -> Iterator[DeviceBatch]:
+        yield from self.batches
+
+
+class AdaptiveShuffledJoinExec(PlanNode):
+    """Equi-join whose build side is chosen from measured input sizes.
+    Output schema and semantics are HashJoinExec(join_type, ...)'s."""
+
+    def __init__(self, join_type: str, left_keys: Sequence[E.Expression],
+                 right_keys: Sequence[E.Expression],
+                 left: PlanNode, right: PlanNode):
+        super().__init__(left, right)
+        self.join_type = join_type
+        self.left_keys = list(left_keys)
+        self.right_keys = list(right_keys)
+
+    @property
+    def left(self) -> PlanNode:
+        return self.children[0]
+
+    @property
+    def right(self) -> PlanNode:
+        return self.children[1]
+
+    @property
+    def output_schema(self) -> t.StructType:
+        lf = list(self.left.output_schema.fields)
+        if self.join_type in ("left_semi", "left_anti"):
+            return t.StructType(lf)
+        return t.StructType(lf + list(self.right.output_schema.fields))
+
+    def keys_unique(self, names):
+        return join_keys_unique(self.join_type, self.left, self.right,
+                                self.left_keys, self.right_keys, names)
+
+    def column_range(self, name):
+        return join_column_range(self.join_type, self.left, self.right,
+                                 name)
+
+    @staticmethod
+    def _materialize(node: PlanNode, ctx: ExecContext) -> List[DeviceBatch]:
+        # no per-batch count sync: empty batches are padding only, and
+        # the sizes below are capacity bytes (host-known)
+        return [db for db in node.execute(ctx)
+                if not (isinstance(db.num_rows, int) and db.num_rows == 0)]
+
+    def execute(self, ctx: ExecContext) -> Iterator[DeviceBatch]:
+        left_src, left_conds = peel_filters(self.left)
+        right_src, right_conds = peel_filters(self.right)
+        left_stage = self._materialize(left_src, ctx)
+        right_stage = self._materialize(right_src, ctx)
+        lbytes = sum(db.nbytes() for db in left_stage)
+        rbytes = sum(db.nbytes() for db in right_stage)
+        swap = self.join_type in _MIRROR and lbytes < rbytes
+        if self.join_type in _MIRROR:
+            run_u = side_unique(self.right_keys, self.right)
+            lun_u = side_unique(self.left_keys, self.left)
+            if run_u != lun_u:
+                if lun_u and lbytes <= 8 * max(rbytes, 1):
+                    swap = True
+                elif run_u and rbytes <= 8 * max(lbytes, 1):
+                    swap = False
+        left = _ReplayStage(left_stage, self.left)
+        right = _ReplayStage(right_stage, self.right)
+        if not swap:
+            yield from HashJoinExec(
+                self.join_type, self.left_keys, self.right_keys, left, right,
+                probe_conds=left_conds, build_conds=right_conds).execute(ctx)
+            return
+        join = HashJoinExec(_MIRROR[self.join_type], self.right_keys,
+                            self.left_keys, right, left,
+                            probe_conds=right_conds, build_conds=left_conds)
+        # the mirrored output is right-cols ++ left-cols; restore the order
+        n_r = len(self.right.output_schema.fields)
+        n_l = len(self.left.output_schema.fields)
+        perm = list(range(n_r, n_r + n_l)) + list(range(n_r))
+        for db in join.execute(ctx):
+            yield db.select(perm)

@@ -9,10 +9,13 @@ buffers.
 Group-bys run through the segmented-aggregation kernels
 (ops/hopper/segagg.py) whenever every key is bounded — dictionary codes,
 booleans, or integers with exact scan ranges — and the packed domain
-passes the election gate (ops/hopper elect_segagg).  The reference's
-other tiers (sorted and dense group-bys, the out-of-core aggregator)
-port with later slices; until then a group-by the gate refuses raises
-NotImplementedError.
+passes the election gate (ops/hopper elect_segagg).  Otherwise they run
+the sorted group-by (ops/groupby.groupby_trace), with the bounded keys
+packed into one sort lane.  The reference's scatter-based dense tier
+(`dense_groupby_trace`, for dictionary/boolean keys that segagg
+refuses) ports with the dense-tiers slice and raises until then, unless
+`sql.agg.denseDomainViaSort` routes those keys through the sorted
+group-by as the reference does.
 """
 from __future__ import annotations
 
@@ -23,12 +26,12 @@ import torch
 from .. import types as t
 from ..columnar.device import (DeviceBatch, DeviceColumn, bucket_capacity,
                                storage_dtype)
-from ..config import DENSE_AGG_DOMAIN_MAX, TpuConf
+from ..config import DENSE_AGG_DOMAIN_MAX, DENSE_AGG_VIA_SORT, TpuConf
 from ..ops import groupby as G
 from ..ops.batch_ops import concat_batches, ensure_unique_dict, shrink_to_rows
 from ..plan import expressions as E
 from ..plan.aggregates import AggregateFunction, _deep_resolved
-from .evaluator import compute_predicate, evaluate_projection
+from .evaluator import conds_mask, evaluate_projection
 
 _PACK_BUDGET = 1 << 62
 
@@ -55,9 +58,12 @@ def _dense_domains(key_cols, conf: TpuConf) -> "Optional[List[int]]":
 def _key_pack_spec(key_cols, key_ranges) -> "Optional[tuple]":
     """Per-key (lo, span) for keys with exact static bounds — plan range
     statistics or dictionary domains (pow2-quantized span) — greedily
-    until the span product budget."""
+    until the span product budget; None unless every key packs or at
+    least two do (one packed lane must replace lanes to pay for
+    itself)."""
     spec = []
     total = 1
+    packed = 0
     for i, c in enumerate(key_cols):
         rng = key_ranges[i] if key_ranges is not None else None
         entry = None
@@ -74,10 +80,13 @@ def _key_pack_spec(key_cols, key_ranges) -> "Optional[tuple]":
             entry = (0, 3)
         if entry is not None and total * entry[1] <= _PACK_BUDGET:
             total *= entry[1]
+            packed += 1
             spec.append(entry)
         else:
             spec.append(None)
-    return tuple(spec)
+    if packed == len(key_cols) or packed >= 2:
+        return tuple(spec)
+    return None
 
 
 def _domains_as_pack(domains):
@@ -86,38 +95,36 @@ def _domains_as_pack(domains):
     return tuple((0, size + 1) for size in domains)
 
 
-def _full_pack(key_cols, key_ranges, conf) -> "Optional[tuple]":
-    """The packed-key spec covering every key, or None."""
-    domains = _dense_domains(key_cols, conf)
-    if domains is not None:
-        return _domains_as_pack(domains)
-    pack = _key_pack_spec(key_cols, key_ranges)
-    return pack if all(s is not None for s in pack) else None
-
-
 def _run_groupby(key_cols: List[DeviceColumn], agg_cols: List[DeviceColumn],
                  specs: List[G.AggSpec], live, capacity: int,
                  key_ranges=None, conf: TpuConf = None):
     from ..ops.hopper import elect_segagg
     from ..ops.hopper.segagg import segagg_groupby_trace
     key_cols = [ensure_unique_dict(c) for c in key_cols]
-    pack = _full_pack(key_cols, key_ranges, conf)
+    domains = _dense_domains(key_cols, conf)
+    pack = _domains_as_pack(domains) if domains is not None \
+        else _key_pack_spec(key_cols, key_ranges)
     tier = None
-    if pack is not None:
+    if pack is not None and all(s is not None for s in pack):
         total = 1
         for _lo, span in pack:
             total *= int(span)
         has_float_sum = any(s.kind == G.SUM and t.is_floating(s.dtype)
                             for s in specs)
         tier = elect_segagg(conf, total, has_float_sum)
-    if tier is None:
-        raise NotImplementedError(
-            "this group-by is outside the segmented-aggregation kernels' "
-            "gate (unbounded keys, a domain above "
-            "sql.kernels.pallas.segagg.maxDomain, or the tier turned off); "
-            "the sorted and dense group-by tiers port with the q3 slice")
     info = [(c.dtype, True, c.data.dtype) for c in key_cols]
-    fn = segagg_groupby_trace(pack, info, list(specs), capacity, capacity)
+    if tier is not None:
+        fn = segagg_groupby_trace(pack, info, list(specs), capacity,
+                                  capacity)
+    elif domains is not None and not conf.get(DENSE_AGG_VIA_SORT):
+        raise NotImplementedError(
+            "a dictionary/boolean-keyed group-by outside the segmented-"
+            "aggregation kernels' gate runs the dense group-by tier in the "
+            "reference, which ports with the dense-tiers slice (ROADMAP "
+            "Queue 1); sql.agg.denseDomainViaSort=true sorts it instead")
+    else:
+        fn = G.groupby_trace(info, list(specs), capacity, capacity,
+                             pack_spec=pack)
     out_keys, outs, num_groups = fn(
         [c.data for c in key_cols], [c.validity for c in key_cols],
         [c.data for c in agg_cols], [c.validity for c in agg_cols], live)
@@ -193,9 +200,7 @@ class HashAggregate:
         """Filter + key/input projection + update group-by for one batch:
         the fused filters become the group-by's live mask.  `raw` (global
         aggregates) returns the buffer scalars instead of a batch."""
-        live = db.row_mask()
-        for c in conds:
-            live = live & compute_predicate(c, db, self.conf)
+        live = conds_mask(conds, db, db.row_mask(), self.conf)
         if raw and not self.key_exprs:
             agg_cols = evaluate_projection(
                 self.input_exprs,

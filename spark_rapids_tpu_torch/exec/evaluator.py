@@ -62,3 +62,12 @@ def compute_predicate(cond: Expression, db: DeviceBatch,
     dv = cond.eval_dev(eval_ctx(db, pctx, conf))
     keep = dv.data if dv.validity is None else dv.data & dv.validity
     return keep & live_mask(db.capacity, db.num_rows, db.device)
+
+
+def conds_mask(conds: Sequence[Expression], db: DeviceBatch,
+               base: torch.Tensor, conf: TpuConf) -> torch.Tensor:
+    """AND fused filter predicates into a row mask over `db` (the live
+    mask of an aggregate, the key-valid mask of a join side)."""
+    for c in conds:
+        base = base & compute_predicate(c, db, conf)
+    return base

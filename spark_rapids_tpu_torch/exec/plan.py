@@ -5,9 +5,14 @@ iterator of batches from its child and pushes transformed batches
 downstream (the reference's `GpuExec.internalDoExecuteColumnar` shape).
 Expressions arrive already bound to the child's schema.
 
-This slice ports the nodes TPC-H q1 and q6 run: the host scan, project,
-filter (only as fused into an aggregate: compaction ports with the q3
-slice), hash aggregate and sort.
+The nodes TPC-H q1, q3 and q6 run: the host scan, project, filter
+(fused into an aggregate's or a join's masks when one sits above it,
+else compacting), hash aggregate, sort, limit and top-N.  The joins are
+in exec/join.py and exec/adaptive.py.
+
+Plan statistics ride the nodes as in the reference: `column_range`
+(exact integer bounds, which let group keys pack) and `keys_unique`
+(distinct key tuples, which let a join take the probe-aligned path).
 """
 from __future__ import annotations
 
@@ -18,15 +23,16 @@ import numpy as np
 import torch
 
 from .. import types as t
-from ..columnar.device import (DeviceBatch, empty_device_batch,
-                               fetch_result_batch, resolve_device, to_device)
+from ..columnar.device import (DeviceBatch, DeviceColumn,
+                               empty_device_batch, fetch_result_batch,
+                               resolve_device, to_device)
 from ..columnar.host import HostBatch, HostColumn, concat_host
 from ..config import DEFAULT_CONF, TpuConf
-from ..ops.batch_ops import concat_batches
+from ..ops.batch_ops import concat_batches, shrink_to_capacity
 from ..plan import expressions as E
 from ..plan.aggregates import AggregateFunction
 from .aggregate import HashAggregate
-from .evaluator import evaluate_projection
+from .evaluator import compute_predicate, evaluate_projection
 
 
 @dataclasses.dataclass
@@ -43,6 +49,25 @@ class ExecContext:
 def _key_ref_name(e: E.Expression) -> Optional[str]:
     inner = e.children[0] if isinstance(e, E.Alias) else e
     return inner.name if isinstance(inner, E.ColumnRef) else None
+
+
+def key_ref_names(exprs) -> Optional[List[str]]:
+    """Column names when every expression is a plain (possibly aliased)
+    column reference, else None."""
+    names = [_key_ref_name(e) for e in exprs]
+    return None if None in names else names
+
+
+def peel_filters(node: "PlanNode"):
+    """(batch source, conditions outermost-last) of the FilterExec chain
+    under an aggregate or a join, which fuse the predicates into their
+    masks instead of compacting."""
+    conds: List[E.Expression] = []
+    while isinstance(node, FilterExec):
+        conds.append(node.condition)
+        node = node.child
+    conds.reverse()
+    return node, conds
 
 
 class PlanNode:
@@ -66,6 +91,12 @@ class PlanNode:
         """Exact (min, max) of a column's integer lane when known from
         scan statistics, else None (lets bounded integer keys pack)."""
         return None
+
+    def keys_unique(self, names: Sequence[str]) -> bool:
+        """True if no two live rows can carry equal NON-NULL values in the
+        named column tuple (a unique build side makes a join's output
+        probe-aligned).  Conservative default: unknown -> False."""
+        return False
 
     def collect(self, ctx: Optional[ExecContext] = None) -> HostBatch:
         """Run the plan and bring the results' live rows to the host."""
@@ -104,6 +135,11 @@ class HostScanExec(PlanNode):
         return self.table.column_range(name) \
             if name in self.table.names else None
 
+    def keys_unique(self, names):
+        if not names or any(n not in self.table.names for n in names):
+            return False
+        return self.table.keys_unique(names)
+
     def execute(self, ctx: ExecContext) -> Iterator[DeviceBatch]:
         n = self.table.num_rows
         for off in range(0, max(n, 1), self.batch_rows):
@@ -129,15 +165,23 @@ class ProjectExec(PlanNode):
         ref = _key_ref_name(self.exprs[self.names.index(name)])
         return None if ref is None else self.child.column_range(ref)
 
+    def keys_unique(self, names):
+        # renames and pass-throughs map to the child's columns
+        if any(n not in self.names for n in names):
+            return False
+        mapped = key_ref_names([self.exprs[self.names.index(n)]
+                                for n in names])
+        return mapped is not None and self.child.keys_unique(mapped)
+
     def execute(self, ctx: ExecContext) -> Iterator[DeviceBatch]:
         for db in self.child.execute(ctx):
             yield evaluate_projection(self.exprs, self.names, db, ctx.conf)
 
 
 class FilterExec(PlanNode):
-    """A filter; this slice runs it only fused into an aggregate above it
-    (HashAggregateExec peels it into the group-by's live mask).  On its
-    own it would compact rows, which ports with the q3 slice."""
+    """GpuFilterExec: the predicate as a keep mask, then a stable mask
+    compaction (ops/filter.compact_batch).  An aggregate or a join right
+    above peels it into its own masks instead, and nothing compacts."""
 
     def __init__(self, condition: E.Expression, child: PlanNode):
         super().__init__(child)
@@ -150,10 +194,15 @@ class FilterExec(PlanNode):
     def column_range(self, name):
         return self.child.column_range(name)   # subset of values
 
+    def keys_unique(self, names):
+        return self.child.keys_unique(names)   # subset of rows
+
     def execute(self, ctx: ExecContext) -> Iterator[DeviceBatch]:
-        raise NotImplementedError(
-            "FilterExec outside an aggregate needs row compaction, which "
-            "ports with the q3 slice")
+        from ..ops.filter import compact_batch
+        for db in self.child.execute(ctx):
+            keep = compute_predicate(self.condition, db, ctx.conf)
+            # lazy row count: downstream device ops run sync-free
+            yield compact_batch(db, keep, ctx.conf)
 
 
 class HashAggregateExec(PlanNode):
@@ -183,16 +232,10 @@ class HashAggregateExec(PlanNode):
             return None if ref is None else self.child.column_range(ref)
         return None
 
-    def _strip_filters(self) -> Tuple[PlanNode, List[E.Expression]]:
-        """Peel the chain of FilterExec children; returns (batch source
-        node, conditions outermost-last)."""
-        source: PlanNode = self.child
-        conds: List[E.Expression] = []
-        while isinstance(source, FilterExec):
-            conds.append(source.condition)
-            source = source.child
-        conds.reverse()
-        return source, conds
+    def keys_unique(self, names):
+        # the group-key tuple is unique by construction, and so is any
+        # superset of it; a global aggregate has exactly one row
+        return not self.key_exprs or set(self.key_names) <= set(names)
 
     def _key_ranges(self):
         out = []
@@ -209,7 +252,7 @@ class HashAggregateExec(PlanNode):
         agg = self._aggregate(ctx)
         # upstream filters become the group-by's live mask: filter,
         # projections and update aggregation run with no compaction
-        source, conds = self._strip_filters()
+        source, conds = peel_filters(self.child)
         partials: List[DeviceBatch] = []
         for db in source.execute(ctx):
             if isinstance(db.num_rows, int) and db.num_rows == 0:
@@ -237,7 +280,7 @@ class HashAggregateExec(PlanNode):
             return super().collect(ctx)
         ctx = ctx or ExecContext()
         agg = self._aggregate(ctx)
-        source, conds = self._strip_filters()
+        source, conds = peel_filters(self.child)
         raw = [agg.partial_fused(db, conds, raw=True)
                for db in source.execute(ctx)
                if not (isinstance(db.num_rows, int) and db.num_rows == 0)]
@@ -267,6 +310,9 @@ class SortExec(PlanNode):
     def column_range(self, name):
         return self.child.column_range(name)
 
+    def keys_unique(self, names):
+        return self.child.keys_unique(names)   # permutation of rows
+
     def execute(self, ctx: ExecContext) -> Iterator[DeviceBatch]:
         from ..ops.sort import sort_batch
         batches = list(self.child.execute(ctx))
@@ -274,3 +320,94 @@ class SortExec(PlanNode):
             return
         yield sort_batch(concat_batches(batches, ctx.conf), self.keys,
                          ctx.conf)
+
+
+def _truncate(db: DeviceBatch, rows) -> DeviceBatch:
+    """The first `rows` rows (a host int or a 0-d device tensor) live,
+    the rest padding."""
+    from ..ops.kernels import live_mask
+    live = live_mask(db.capacity, rows, db.device)
+    cols = [DeviceColumn(c.data, c.validity & live, c.dtype, c.dictionary)
+            for c in db.columns]
+    return DeviceBatch(cols, rows, list(db.names))
+
+
+class LimitExec(PlanNode):
+    """GpuLocalLimitExec and GpuGlobalLimitExec in one: the port runs one
+    partition, so the global cut is the local one.  Never pulls a batch
+    it does not need; a lazy count costs one scalar sync, and the cut
+    batch shrinks to the limit's bucket so a tiny LIMIT never fetches a
+    full capacity."""
+
+    def __init__(self, limit: int, child: PlanNode):
+        super().__init__(child)
+        self.limit = limit
+
+    @property
+    def output_schema(self) -> t.StructType:
+        return self.child.output_schema
+
+    def column_range(self, name):
+        return self.child.column_range(name)
+
+    def keys_unique(self, names):
+        return self.child.keys_unique(names)   # prefix of rows
+
+    def execute(self, ctx: ExecContext) -> Iterator[DeviceBatch]:
+        remaining = self.limit
+        for db in self.child.execute(ctx):
+            if remaining <= 0:
+                return
+            n = int(db.num_rows)
+            if n == 0:
+                continue
+            if n < remaining:
+                remaining -= n
+                yield db
+            else:
+                yield shrink_to_capacity(_truncate(db, remaining),
+                                         remaining, ctx.conf)
+                return
+
+
+class TopNExec(PlanNode):
+    """GpuTopN: sort + limit without materializing the full sorted
+    output — each batch keeps its top-N prefix, pending rows re-sort
+    with the next batch and are cut again.  The sorts are stable, so
+    ties keep their input order (an aggregate's ascending group order)."""
+
+    def __init__(self, limit: int, keys, child: PlanNode):
+        from ..ops.sort import SortKey
+        super().__init__(child)
+        self.limit = limit
+        self.keys = [k if isinstance(k, SortKey) else SortKey(*k)
+                     for k in keys]
+
+    @property
+    def output_schema(self) -> t.StructType:
+        return self.child.output_schema
+
+    def column_range(self, name):
+        return self.child.column_range(name)
+
+    def keys_unique(self, names):
+        return self.child.keys_unique(names)   # prefix of a permutation
+
+    def execute(self, ctx: ExecContext) -> Iterator[DeviceBatch]:
+        from ..ops.sort import sort_batch
+        pending: Optional[DeviceBatch] = None
+        for db in self.child.execute(ctx):
+            if isinstance(db.num_rows, int) and db.num_rows == 0:
+                continue
+            batch = db if pending is None \
+                else concat_batches([pending, db], ctx.conf)
+            s = sort_batch(batch, self.keys, ctx.conf)
+            # lazy cut + static capacity shrink: live rows <= limit by
+            # construction, so the bucket slice needs no count sync
+            n = s.num_rows
+            n = torch.clamp(n, max=self.limit) \
+                if isinstance(n, torch.Tensor) else min(n, self.limit)
+            pending = shrink_to_capacity(_truncate(s, n), self.limit,
+                                         ctx.conf)
+        if pending is not None:
+            yield pending

@@ -1,13 +1,15 @@
 """Device batch utilities: concat and re-bucketing.
 
 Counterpart of spark_rapids_tpu/ops/batch_ops.py for what the
-aggregation merge needs.  String columns carry per-batch dictionaries,
-so concat first unifies them on the host (numpy; dictionaries are small)
-and remaps the codes on the device with one gather per column.
+aggregation merge, the join build side and the limits need.  String
+columns carry per-batch dictionaries, so concat first unifies them on
+the host (numpy; dictionaries are small) and remaps the codes on the
+device with one gather per column.
 
-The reference also concatenates batches whose row counts are still
-device scalars, by compacting live rows on the device; compaction ports
-with the q3 slice, so here such a count is read with one sync first.
+`concat_batches` reads every row count that is still a device scalar
+(one sync each) and concatenates the live prefixes tightly, where the
+reference's lazy concat keeps whole capacities: a join's build side is
+then the size of its rows, not the sum of its inputs' capacities.
 """
 from __future__ import annotations
 
@@ -78,6 +80,19 @@ def concat_batches(batches: List[DeviceBatch],
         out_cols.append(DeviceColumn(torch.cat(data), torch.cat(valid), dt,
                                      unified))
     return DeviceBatch(out_cols, total, list(batches[0].names))
+
+
+def shrink_to_capacity(db: DeviceBatch, row_bound: int,
+                       conf: TpuConf = DEFAULT_CONF) -> DeviceBatch:
+    """Slice the lanes down to the bucket fitting `row_bound` WITHOUT
+    reading a lazy `num_rows`: sound when the caller bounds the live
+    rows statically (LIMIT n), since live rows are a prefix."""
+    cap = bucket_capacity(max(row_bound, 1), conf)
+    if cap >= db.capacity:
+        return db
+    cols = [DeviceColumn(c.data[:cap], c.validity[:cap], c.dtype,
+                         c.dictionary) for c in db.columns]
+    return DeviceBatch(cols, db.num_rows, db.names)
 
 
 def shrink_to_rows(db: DeviceBatch, num_rows: int,

@@ -1,18 +1,26 @@
 """Group-by building blocks and the no-key reduction.
 
-Counterpart of spark_rapids_tpu/ops/groupby.py.  This slice ports the
-parts the segmented-aggregation kernels and global aggregates need:
+Counterpart of spark_rapids_tpu/ops/groupby.py:
 
   * `AggSpec` and the aggregate kinds (shared with plan/aggregates.py);
   * `_packed_key_lane`: bounded keys folded into one int64 bucket lane;
   * `_bits_total_order` / `_bits_from_order`: the monotone int64 image
     of f64 bit patterns (Java Double.compare order), which the float
     MIN/MAX paths reduce in;
+  * `groupby_trace`: the sort-based group-by (ops/segments
+    `sorted_segments` lexsorts the key lanes and finds the runs, then
+    every aggregate is a segmented scan read at the run ends —
+    `sorted_agg_outputs`); a `pack_spec` folds bounded keys into one
+    sort lane.  Groups come out in ascending key order, nulls first, as
+    in the reference;
   * `reduce_trace`: the no-key aggregation (TPC-H q6).
 
-The sort-based `groupby_trace` and the scatter `dense_groupby_trace`
-port with the q3 slice; until then a group-by the segagg gate refuses
-raises NotImplementedError (exec/aggregate.py).
+The reference's scatter-based variants (`dense_groupby_trace`, the
+`segments.scatterFree.enabled=false` reductions) are not ported: the
+sorted-run reductions give the same results (exec/aggregate.py refuses
+the dense tier by name).  With a full pack the reference dispatches to
+`packed_groupby_trace`, whose groups, order and sums equal the generic
+path's over the one packed lane, which is what runs here.
 
 Float MIN/MAX order -0.0 below +0.0 and NaN above +inf, as the
 reference's XLA reductions and its CPU oracle do; torch's own min/max
@@ -27,6 +35,8 @@ import torch
 
 from .. import types as t
 from .kernels import compute_view
+from .segments import (blocked_seg_scan, seg_reduce_sorted, seg_sums_sorted,
+                       sorted_segments)
 
 SUM = "sum"
 COUNT = "count"          # counts valid rows
@@ -92,6 +102,196 @@ def _packed_key_lane(keys, keys_valid, pack_spec) -> torch.Tensor:
             slot = torch.where(kv, slot, torch.zeros_like(slot))
         packed = slot if packed is None else packed * span + slot
     return packed
+
+
+def _null_first_key_lanes(data, valid, dt):
+    """Lanes making (valid, data) lexsort-comparable, nulls grouped
+    together first: [null lane or None, value lane(s)].  DOUBLE adds a
+    NaN lane (NaN compares as one group) and folds -0.0 into 0.0."""
+    if valid is None:
+        valid_lane = None
+    else:
+        valid_lane = (~valid).to(torch.int8)
+        # null rows' payload canonicalised so they compare equal
+        data = torch.where(valid, data, torch.zeros_like(data))
+    if isinstance(dt, t.DoubleType) and data.dtype == torch.float64:
+        isnan = torch.isnan(data)
+        canon = torch.where(isnan, torch.full_like(data, float("inf")), data)
+        canon = torch.where(canon == 0.0, torch.zeros_like(canon), canon)
+        return [valid_lane, isnan.to(torch.int8), canon]
+    return [valid_lane, data]
+
+
+def _eq_prev(lane: torch.Tensor) -> torch.Tensor:
+    """Boundary lane: True where a row differs from the previous one."""
+    head = torch.ones(1, dtype=torch.bool, device=lane.device)
+    return torch.cat([head, lane[1:] != lane[:-1]])
+
+
+def _queue_sum_lanes(agg_specs, spec_vls, live_all):
+    """Every sum-like lane (SUM buffers, COUNT/COUNT_ALL, per-input valid
+    counts) in two dtype-class lists.  Returns (int_lanes, int_slots,
+    f64_lanes, f64_slots)."""
+    int_lanes, int_slots = [], {}
+    f64_lanes, f64_slots = [], {}
+
+    def queue(key, lane, is_float):
+        lanes_, slots = (f64_lanes, f64_slots) if is_float \
+            else (int_lanes, int_slots)
+        if key not in slots:
+            slots[key] = len(lanes_)
+            lanes_.append(lane)
+
+    for si, spec in enumerate(agg_specs):
+        d, vl = spec_vls[si]
+        dt = spec.dtype
+        if spec.kind == COUNT_ALL:
+            queue(("cnt", si), live_all.to(torch.int64), False)
+        elif spec.kind == COUNT:
+            queue(("cnt", si), vl.to(torch.int64), False)
+        elif spec.kind == SUM:
+            cd = compute_view(d, dt)
+            if t.is_floating(dt):
+                x = cd.to(torch.float64)
+                queue(("sum", si), torch.where(vl, x, torch.zeros_like(x)),
+                      True)
+            else:
+                x = cd.to(torch.int64)
+                queue(("sum", si), torch.where(vl, x, torch.zeros_like(x)),
+                      False)
+        if spec.kind not in (COUNT, COUNT_ALL):
+            queue(("vc", spec.input_idx), vl.to(torch.int64), False)
+    return int_lanes, int_slots, f64_lanes, f64_slots
+
+
+def _segment_minmax_float_sorted(vals, valid_live, boundary, ends_c,
+                                 is_min: bool):
+    """Java-ordering float MIN/MAX over sorted runs, through the int64
+    total-order image: NaN above +inf (so MIN is NaN only when every
+    valid value is, MAX whenever one is) and -0.0 below 0.0, the order
+    the reference's MIN/MAX give its DOUBLE columns."""
+    o = float_order(vals.to(torch.float64))
+    o = torch.where(valid_live, o,
+                    torch.full_like(o, _ORDER_MAX if is_min else _ORDER_MIN))
+    red = seg_reduce_sorted(o, boundary, ends_c,
+                            torch.minimum if is_min else torch.maximum)
+    return float_from_order(red).to(vals.dtype)
+
+
+def sorted_agg_outputs(agg_specs, spec_vls, s_live, boundary, starts_c,
+                       ends_c, group_live, capacity: int):
+    """Aggregate outputs over SORTED runs: spec_vls holds per spec the
+    (data, valid & live) lanes in sorted order; boundary marks run
+    starts; starts_c/ends_c give each segment slot's first/last row.
+    Integer sums are a cumsum difference (exact mod 2^64), float64 sums
+    a segmented scan (each group accumulates on its own), MIN/MAX/
+    ignore-null FIRST/LAST/ANY/EVERY segmented scans read at run ends,
+    FIRST/LAST pure boundary gathers."""
+    dev = s_live.device
+    iota = torch.arange(capacity, dtype=torch.int32, device=dev)
+    starts_l, ends_l = starts_c.long(), ends_c.long()
+
+    def reduce_lane(lane, is_min):
+        return seg_reduce_sorted(lane, boundary, ends_c,
+                                 torch.minimum if is_min else torch.maximum)
+
+    int_lanes, int_slots, f64_lanes, f64_slots = _queue_sum_lanes(
+        agg_specs, spec_vls, s_live)
+    int_out = seg_sums_sorted(int_lanes, starts_c, ends_c) \
+        if int_lanes else None
+    f64_out = blocked_seg_scan(torch.stack(f64_lanes, dim=1), boundary,
+                               torch.add)[ends_l] if f64_lanes else None
+
+    def sum_of(key, is_float):
+        return (f64_out[:, f64_slots[key]] if is_float
+                else int_out[:, int_slots[key]])
+
+    outs = []
+    for si, spec in enumerate(agg_specs):
+        d, vl = spec_vls[si]
+        dt = spec.dtype
+        if spec.kind in (COUNT, COUNT_ALL):
+            outs.append((sum_of(("cnt", si), False), group_live))
+            continue
+        valid_count = sum_of(("vc", spec.input_idx), False)
+        out_valid = (valid_count > 0) & group_live
+        cd = compute_view(d, dt)
+        if spec.kind == SUM:
+            data = sum_of(("sum", si), t.is_floating(dt))
+        elif spec.kind == FIRST:
+            # runs hold only live rows (liveness is the primary sort lane)
+            data = cd[starts_l]
+            out_valid = vl[starts_l] & group_live
+        elif spec.kind == LAST:
+            data = cd[ends_l]
+            out_valid = vl[ends_l] & group_live
+        elif spec.kind in (MIN, MAX):
+            is_min = spec.kind == MIN
+            if t.is_floating(dt):
+                data = _segment_minmax_float_sorted(cd, vl, boundary, ends_c,
+                                                    is_min)
+            elif isinstance(dt, t.BooleanType):
+                data = reduce_lane(torch.where(vl, cd, torch.full_like(
+                    cd, is_min)).to(torch.int8), is_min) > 0
+            else:
+                ident = _int_ident(cd.dtype, is_min)
+                data = reduce_lane(torch.where(vl, cd, torch.full_like(
+                    cd, ident)), is_min)
+        elif spec.kind in (FIRST_NN, LAST_NN):
+            is_first = spec.kind == FIRST_NN
+            masked = torch.where(vl, iota, torch.full_like(
+                iota, capacity if is_first else -1))
+            pick = torch.clamp(reduce_lane(masked, is_first), 0,
+                               capacity - 1).long()
+            data = cd[pick]
+            out_valid = vl[pick] & group_live
+        elif spec.kind == ANY:
+            data = reduce_lane((cd & vl).to(torch.int8), False) > 0
+        elif spec.kind == EVERY:
+            data = reduce_lane((cd | ~vl).to(torch.int8), True) > 0
+        else:
+            raise ValueError(f"unknown agg kind {spec.kind}")
+        outs.append((data, out_valid))
+    return outs
+
+
+def groupby_trace(key_lanes_info, agg_specs, num_segments: int,
+                  capacity: int, pack_spec=None):
+    """The sort-based group-by: fn(keys_data, keys_valid, agg_data,
+    agg_valid, live) -> (per key (data, valid), per spec (data, valid),
+    num_groups 0-d tensor), outputs (num_segments,)-sized with the groups
+    first in ascending key order (nulls first).
+
+    key_lanes_info: per key (logical dtype, has_validity, torch dtype of
+    its lane).  pack_spec: optional per-key (lo, span) or None — keys
+    with exact static bounds fold into one packed sort lane
+    (_packed_key_lane).  `live` is an arbitrary row mask (fused filters),
+    not a prefix count."""
+    from .filter import grouped_take
+
+    def run(keys, keys_valid, agg_data, agg_valid, live):
+        dev = live.device
+        runs = sorted_segments(key_lanes_info, keys, keys_valid, live,
+                               capacity, num_segments, pack_spec)
+        # aggregates over the sorted runs
+        need = sorted({s.input_idx for s in agg_specs if s.input_idx >= 0})
+        in_lanes = []
+        for i in need:
+            v = agg_valid[i]
+            in_lanes.append(agg_data[i])
+            in_lanes.append(torch.ones(capacity, dtype=torch.bool,
+                                       device=dev) if v is None else v)
+        moved = grouped_take(in_lanes, runs.perm)
+        s_in = {i: (moved[2 * j], moved[2 * j + 1] & runs.s_live)
+                for j, i in enumerate(need)}
+        spec_vls = [s_in[s.input_idx] if s.input_idx >= 0
+                    else (None, runs.s_live) for s in agg_specs]
+        outs = sorted_agg_outputs(agg_specs, spec_vls, runs.s_live,
+                                  runs.boundary, runs.start_idx, runs.end_idx,
+                                  runs.group_live, capacity)
+        return runs.out_keys, outs, runs.num_groups
+
+    return run
 
 
 def _int_ident(dtype: torch.dtype, is_min: bool):

@@ -3,21 +3,28 @@
 Counterpart of spark_rapids_tpu/ops/pallas/__init__.py: the kernels the
 JAX package wrote in Pallas for the TPU are written here by hand in CUDA
 C++ for `sm_90a` (sources under csrc/), built with nvcc at first use and
-bound through ctypes.  This module holds what every kernel family
-shares:
+bound through ctypes.  Three families: `segagg` (segmented aggregation),
+`compact` (selection compaction) and `hashjoin` (hash-table build and
+unique-build probe).  This module holds what they share:
 
-  * `KernelTier` / `kernel_tier` / `elect_segagg` — the election.  The
-    conf keys are the reference's (`sql.kernels.pallas.*`); the tier is
-    on by default, and segagg AUTO elects whenever the domain gate
-    passes.  Which code runs is decided by where the tensors lie, never
-    by `torch.cuda.is_available()`: a CUDA tensor launches the kernel
-    (or raises), a CPU tensor takes the kernel's plain PyTorch version.
-  * `LAUNCHES` — a plain launch counter per kernel, raised by each
-    wrapper where it launches its kernel and nowhere else, by the number
-    of launches of that kernel the C entry point reports (helper
-    launches — filling the output, converting it back — not counted).
+  * `KernelTier` / `kernel_tier` / `elect_segagg` / `elect_join` /
+    `elect_compact` — the election.  The conf keys are the reference's
+    (`sql.kernels.pallas.*`); the tier is on by default, segagg AUTO
+    elects whenever the domain gate passes, and the join family always
+    replaces the dense direct-address table (`join.denseReplace`
+    resolves to ON: the dense join tier is not ported).  Which code runs
+    is decided by where the tensors lie, never by
+    `torch.cuda.is_available()`: a CUDA tensor launches the kernel (or
+    raises), a CPU tensor takes the kernel's plain PyTorch version.
+  * `LAUNCHES` — a plain device-launch counter per kernel, raised by
+    each wrapper where it launches its kernel and nowhere else, by the
+    number of device launches of the kernel's own passes: every tile
+    of `seg_sums`, all three passes of the grid scans in
+    `compaction_order` and `build_table`.  Helper launches (filling the
+    output, converting it back) are not counted.
   * `build_libraries` / `library` — nvcc into `_build/` (one process per
-    source, started together), then `ctypes.CDLL`.
+    source, started together; the library name hashes the source, the
+    shared csrc/*.cuh headers and the flags), then `ctypes.CDLL`.
 
 The reference's dispatch metrics and its `kernel` chaos site port with
 the observability and runtime slices.
@@ -34,7 +41,8 @@ from typing import Dict, Optional
 
 import torch
 
-from ...config import (IMPROVED_FLOAT_OPS, PALLAS_ENABLED, PALLAS_SEGAGG,
+from ...config import (IMPROVED_FLOAT_OPS, PALLAS_COMPACT, PALLAS_ENABLED,
+                       PALLAS_JOIN, PALLAS_JOIN_MAX_BUILD, PALLAS_SEGAGG,
                        PALLAS_SEGAGG_MAX_DOMAIN, TpuConf)
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -45,11 +53,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 #: kernel name -> CUDA source file under csrc/
-SOURCES = {"segagg": "segagg.cu"}
+SOURCES = {"segagg": "segagg.cu", "compact": "compact.cu",
+           "hashjoin": "hashjoin.cu"}
 
 #: device launches per kernel (raised by the wrappers where they launch,
 #: and only there)
-LAUNCHES: Dict[str, int] = {"seg_sums": 0, "seg_reduce": 0}
+LAUNCHES: Dict[str, int] = {"seg_sums": 0, "seg_reduce": 0,
+                            "compaction_order": 0, "build_table": 0,
+                            "probe_first": 0}
 
 
 def reset_launch_counts() -> None:
@@ -66,9 +77,17 @@ class KernelTier:
     """Resolved per-conf kernel-tier decisions (static for a query)."""
     segagg: bool
     segagg_max_domain: int
+    join: bool = False
+    compact: bool = False
+    join_max_build: int = 0
 
 
 NO_TIER = KernelTier(False, 0)
+
+
+def _mode(conf: TpuConf, entry) -> bool:
+    """AUTO and ON elect a family on either device; OFF disables it."""
+    return str(conf.get(entry)).upper() in ("AUTO", "ON")
 
 
 def kernel_tier(conf: TpuConf) -> KernelTier:
@@ -78,10 +97,12 @@ def kernel_tier(conf: TpuConf) -> KernelTier:
         if not conf.get(PALLAS_ENABLED):
             tier = NO_TIER
         else:
-            mode = str(conf.get(PALLAS_SEGAGG)).upper()
             tier = KernelTier(
-                segagg=mode in ("AUTO", "ON"),
-                segagg_max_domain=int(conf.get(PALLAS_SEGAGG_MAX_DOMAIN)))
+                segagg=_mode(conf, PALLAS_SEGAGG),
+                segagg_max_domain=int(conf.get(PALLAS_SEGAGG_MAX_DOMAIN)),
+                join=_mode(conf, PALLAS_JOIN),
+                compact=_mode(conf, PALLAS_COMPACT),
+                join_max_build=int(conf.get(PALLAS_JOIN_MAX_BUILD)))
         conf._cache["__hopper_tier"] = tier
     return tier
 
@@ -99,6 +120,27 @@ def elect_segagg(conf: TpuConf, total_domain: int,
     return tier
 
 
+def elect_join(conf: TpuConf, build_capacity: int) -> Optional[KernelTier]:
+    """Hash-table join election: tier on, join family on, and the build
+    side small enough to table (`join.maxBuildRows`).  The reference
+    also weighs a dense direct-address table here (`denseReplace`); the
+    port has no dense join tier, so the hash table always takes the
+    join."""
+    tier = kernel_tier(conf)
+    if not tier.join or build_capacity > tier.join_max_build:
+        return None
+    return tier
+
+
+def elect_compact(conf: TpuConf) -> Optional[KernelTier]:
+    """Compaction election: tier on and compact family on, at every
+    capacity.  The reference keeps its portable argsort below 1024 rows
+    and with the family off; the port has no portable compaction tier,
+    so the caller refuses instead."""
+    tier = kernel_tier(conf)
+    return tier if tier.compact else None
+
+
 # ---------------------------------------------------------------------------
 # Building and loading the CUDA sources
 # ---------------------------------------------------------------------------
@@ -114,9 +156,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> str:
-    src = os.path.join(CSRC, SOURCES[name])
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fname in [SOURCES[name]] + headers:
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 

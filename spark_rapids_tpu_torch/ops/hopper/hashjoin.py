@@ -1,0 +1,220 @@
+"""Hash-table equi-join on Hopper: murmur3 open addressing, the kernel
+wrappers and their plain PyTorch versions.
+
+Counterpart of spark_rapids_tpu/ops/pallas/hashjoin.py (its module
+docstring gives the layout).  In short: a build lane's rows sort by
+(dead, fmix64 hash) — fmix64 is a bijection, so equal hashes mean
+equal keys — and row i of that order lands in slot
+i + prefix_max(ideal - i) of a table of S = 2^nbits home slots plus a
+cap-slot overflow tail; equal keys sit in consecutive slots in
+ascending build-row order.
+
+  * `build_table` replaces `_build_trace` (hashjoin.py:111).  The
+    hash-order sort stays in PyTorch, as the reference computes it
+    outside its kernel; the kernel is the layout (`build_layout`).
+  * `probe_first` replaces `_probe_first_trace` (hashjoin.py:182): per
+    probe row the first build row with an equal key, -1 and False when
+    there is none.  `probe_matched` is its `ok` lane.
+  * `probe_counts` / `expand_pairs` (non-unique builds) port with the
+    next join slice.
+
+Unsigned 64-bit arithmetic runs on int64 tensors (torch has no usable
+uint64 on CUDA): constants as their signed images, logical right shifts
+as `(x >> s) & (2^(64-s) - 1)`, unsigned order as `h ^ INT64_MIN`.
+
+The kernels are hand-written CUDA (csrc/hashjoin.cu; the design and
+what bounds them are noted there).  A wrapper given CUDA tensors checks
+them, allocates outputs and scratch, launches on PyTorch's current
+stream and raises if the launch fails; given CPU tensors it runs the
+plain version.  Nothing falls back from the card to the plain version.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import torch
+
+from ..segments import lexsort_capped
+from . import LAUNCHES, check_launch, library, stream_ptr
+from .compact import TILE_ROWS
+
+_VP = ctypes.c_void_p
+_LL = ctypes.c_longlong
+_I = ctypes.c_int
+_SIGNATURES = {
+    "hashjoin_build_layout": [_VP, _VP, _VP, _LL, _VP, _LL, _VP, _VP, _VP],
+    "hashjoin_probe_first": [_VP, _VP, _LL, _I, _VP, _VP, _LL, _VP, _VP,
+                             _VP],
+}
+
+INT64_MIN = -(1 << 63)
+_FMIX1 = 0xFF51AFD7ED558CCD - (1 << 64)     # signed images of the
+_FMIX2 = 0xC4CEB9FE1A85EC53 - (1 << 64)     # fmix64 constants
+_CARRY_SEED = -(1 << 31) + 1
+
+
+def _fn(name: str):
+    f = getattr(library("hashjoin"), name)
+    if f.argtypes is None:
+        f.argtypes = _SIGNATURES[name]
+        f.restype = _I
+    return f
+
+
+def _shr(x: torch.Tensor, s: int) -> torch.Tensor:
+    """Logical right shift of int64 lanes holding uint64 bits."""
+    return (x >> s) & ((1 << (64 - s)) - 1)
+
+
+def mix64(x: torch.Tensor) -> torch.Tensor:
+    """murmur3 fmix64 over int64 lanes, as the uint64 result's bits."""
+    x = x.to(torch.int64)
+    x = (x ^ _shr(x, 33)) * _FMIX1
+    x = (x ^ _shr(x, 33)) * _FMIX2
+    return x ^ _shr(x, 33)
+
+
+class HashTable(NamedTuple):
+    """keys[s]: the key at slot s (meaningful only where rows[s] >= 0);
+    rows[s]: the build row id, -1 = empty; nbits: home-slot width
+    (S = 1 << nbits); span: physical slots (S + build capacity)."""
+    keys: torch.Tensor        # int64[span]
+    rows: torch.Tensor        # int32[span]
+    nbits: int
+    span: int
+
+
+def table_geometry(capacity: int):
+    """(nbits, span) of the table over a build lane of `capacity` rows:
+    load factor at most 0.5, a capacity-slot overflow tail."""
+    nbits = max(4, (2 * max(capacity, 1) - 1).bit_length())
+    return nbits, (1 << nbits) + capacity
+
+
+def hash_order(lane: torch.Tensor, valid: torch.Tensor, nbits: int):
+    """The layout's inputs in hash order: (ideal int32, key int64, build
+    row int32) per sorted row.  Rows sort stably by unsigned hash, then
+    stably by deadness; dead rows get ideal S and row -1."""
+    h = mix64(lane)
+    dead = ~valid
+    perm = lexsort_capped([h ^ INT64_MIN, dead])
+    hs, dead_s = h[perm], dead[perm]
+    home = _shr(hs, 64 - nbits)
+    ideal = torch.where(dead_s, torch.full_like(home, 1 << nbits), home)
+    rid = torch.where(dead_s, torch.full_like(perm, -1), perm)
+    return (ideal.to(torch.int32), lane.to(torch.int64)[perm],
+            rid.to(torch.int32))
+
+
+def build_layout_plain(ideal, lane_s, rid, span: int):
+    """Plain version of build_layout: one cummax over the whole lane."""
+    i = torch.arange(ideal.numel(), dtype=torch.int64, device=ideal.device)
+    prefix = torch.clamp(torch.cummax(ideal.to(torch.int64) - i, 0).values,
+                         min=_CARRY_SEED)
+    final = torch.clamp(i + prefix, 0, span - 1)
+    keys = torch.zeros(span, dtype=torch.int64, device=ideal.device)
+    rows = torch.full((span,), -1, dtype=torch.int32, device=ideal.device)
+    keys[final] = lane_s
+    rows[final] = rid
+    return keys, rows
+
+
+def build_layout(ideal, lane_s, rid, span: int):
+    """(keys int64[span], rows int32[span]): row i of the hash order
+    stored at clip(i + max(-2^31 + 1, prefix max of ideal - i))."""
+    if ideal.device.type == "cpu":
+        return build_layout_plain(ideal, lane_s, rid, span)
+    if ideal.device.type != "cuda":
+        raise ValueError(f"build_layout: unsupported device {ideal.device}")
+    cap = ideal.numel()
+    for t, dt in ((ideal, torch.int32), (lane_s, torch.int64),
+                  (rid, torch.int32)):
+        if t.device != ideal.device or t.dtype != dt or t.dim() != 1 or \
+                t.numel() != cap or not t.is_contiguous():
+            raise ValueError(f"build_layout: expected contiguous {dt}[{cap}] "
+                             f"on {ideal.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    if cap == 0 or span < cap:
+        raise ValueError(f"build_layout: bad capacity {cap} / span {span}")
+    dev = ideal.device
+    keys = torch.zeros(span, dtype=torch.int64, device=dev)
+    rows = torch.full((span,), -1, dtype=torch.int32, device=dev)
+    tiles = torch.empty(-(-cap // TILE_ROWS), dtype=torch.int32, device=dev)
+    err = _fn("hashjoin_build_layout")(
+        ideal.data_ptr(), lane_s.data_ptr(), rid.data_ptr(), cap,
+        tiles.data_ptr(), span, keys.data_ptr(), rows.data_ptr(),
+        stream_ptr(dev))
+    # three device launches: the tile maxima, the carry scan of the
+    # tile maxima and the layout pass (csrc/hashjoin.cu)
+    LAUNCHES["build_table"] += 3
+    check_launch(err, "build_table")
+    return keys, rows
+
+
+def build_table(lane: torch.Tensor, valid: torch.Tensor) -> HashTable:
+    """The hash table over one canonical int64 build lane; rows where
+    `valid` is False (dead or null keys) never match."""
+    nbits, span = table_geometry(lane.numel())
+    ideal, lane_s, rid = hash_order(lane, valid, nbits)
+    keys, rows = build_layout(ideal, lane_s, rid, span)
+    return HashTable(keys, rows, nbits, span)
+
+
+def probe_first_plain(table: HashTable, lane: torch.Tensor,
+                      valid: torch.Tensor):
+    """Plain version of probe_first: every pending row advances one slot
+    per step until it hits its key or an empty slot."""
+    lane = lane.to(torch.int64)
+    slot = _shr(mix64(lane), 64 - table.nbits)
+    out = torch.full(lane.shape, -1, dtype=torch.int32, device=lane.device)
+    pending = valid.clone()
+    steps = 0
+    while steps < table.span and bool(pending.any()):
+        r = table.rows[slot]
+        occupied = r >= 0
+        hit = pending & occupied & (table.keys[slot] == lane)
+        out = torch.where(hit, r, out)
+        pending = pending & occupied & ~hit
+        slot = torch.where(pending, torch.clamp(slot + 1, max=table.span - 1),
+                           slot)
+        steps += 1
+    return out, out >= 0
+
+
+def probe_first(table: HashTable, lane: torch.Tensor, valid: torch.Tensor):
+    """(build row int32, found bool) per probe row: the first build row
+    (ascending row id) whose key equals the probe lane, -1 where none
+    does or the probe row is not valid."""
+    if lane.device.type == "cpu":
+        return probe_first_plain(table, lane, valid)
+    if lane.device.type != "cuda":
+        raise ValueError(f"probe_first: unsupported device {lane.device}")
+    cap = lane.numel()
+    if lane.dtype != torch.int64 or valid.dtype != torch.bool or \
+            lane.dim() != 1 or valid.shape != lane.shape or \
+            not lane.is_contiguous() or not valid.is_contiguous() or \
+            valid.device != lane.device or cap == 0:
+        raise ValueError("probe_first: lane must be contiguous int64[n] and "
+                         "valid contiguous bool[n] on one device, n > 0")
+    if table.keys.device != lane.device or \
+            table.keys.numel() != table.span or \
+            table.rows.numel() != table.span:
+        raise ValueError("probe_first: table does not match the probe "
+                         "device or its span")
+    row = torch.empty(cap, dtype=torch.int32, device=lane.device)
+    ok = torch.empty(cap, dtype=torch.bool, device=lane.device)
+    err = _fn("hashjoin_probe_first")(
+        table.keys.data_ptr(), table.rows.data_ptr(), table.span,
+        table.nbits, lane.data_ptr(), valid.data_ptr(), cap, row.data_ptr(),
+        ok.data_ptr(), stream_ptr(lane.device))
+    LAUNCHES["probe_first"] += 1
+    check_launch(err, "probe_first")
+    return row, ok
+
+
+def probe_matched(table: HashTable, lane: torch.Tensor,
+                  valid: torch.Tensor) -> torch.Tensor:
+    """Per probe row matched flag (semi/anti joins): probe_first's `ok`
+    lane."""
+    return probe_first(table, lane, valid)[1]

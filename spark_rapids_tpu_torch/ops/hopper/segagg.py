@@ -255,36 +255,10 @@ def segagg_groupby_trace(pack_spec, key_lanes_info, agg_specs,
             else:
                 spec_vls.append((None, live))
 
-        int_lanes, int_slots = [], {}
-        f64_lanes, f64_slots = [], {}
-
-        def queue_sum(key, lane, is_float):
-            lanes_, slots = (f64_lanes, f64_slots) if is_float \
-                else (int_lanes, int_slots)
-            if key not in slots:
-                slots[key] = len(lanes_)
-                lanes_.append(lane)
-
-        queue_sum(("rows",), live.to(torch.int64), False)
-        for si, spec in enumerate(agg_specs):
-            d, vl = spec_vls[si]
-            dt = spec.dtype
-            if spec.kind == G.COUNT_ALL:
-                queue_sum(("cnt", si), live.to(torch.int64), False)
-            elif spec.kind == G.COUNT:
-                queue_sum(("cnt", si), vl.to(torch.int64), False)
-            elif spec.kind == G.SUM:
-                cd = compute_view(d, dt)
-                if t.is_floating(dt):
-                    x = cd.to(torch.float64)
-                    queue_sum(("sum", si),
-                              torch.where(vl, x, torch.zeros_like(x)), True)
-                else:
-                    x = cd.to(torch.int64)
-                    queue_sum(("sum", si),
-                              torch.where(vl, x, torch.zeros_like(x)), False)
-            if spec.kind not in (G.COUNT, G.COUNT_ALL):
-                queue_sum(("vc", spec.input_idx), vl.to(torch.int64), False)
+        int_lanes, int_slots, f64_lanes, f64_slots = G._queue_sum_lanes(
+            agg_specs, spec_vls, live)
+        int_slots[("rows",)] = len(int_lanes)      # bucket occupancy
+        int_lanes.append(live.to(torch.int64))
 
         iacc, facc = seg_sums(seg, int_lanes, f64_lanes, D)
 

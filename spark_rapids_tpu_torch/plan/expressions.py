@@ -5,7 +5,8 @@ the device evaluation (`eval_dev`) of what TPC-H q1 and q6 and the
 MIN/MAX/FIRST/LAST group-bys reach: column references, literals,
 aliases, + - * (integral, floating and decimal with Spark's result-type
 rules and overflow-to-null), / on doubles, the six comparisons (numeric,
-date and decimal), Kleene AND/OR/NOT, COALESCE and numeric/decimal
+date and decimal), = and != between a dictionary-coded string column and
+a string literal, Kleene AND/OR/NOT, COALESCE and numeric/decimal
 casts.  Anything
 else reports itself in `unsupported_reasons`, and plan/overrides.py
 refuses the plan with that reason: the port has no CPU engine to fall
@@ -445,10 +446,52 @@ class BinaryComparison(Expression):
     def _resolve(self):
         self.dtype = t.BOOLEAN
 
+    def _string_literal_side(self) -> Optional[int]:
+        """Index of a string (or null) Literal child whose sibling is a
+        plain (possibly aliased) column reference, or None."""
+        for lit_i in (1, 0):
+            lit = self.children[lit_i]
+            if isinstance(lit, Literal) and (
+                    isinstance(lit.dtype, t.StringType) or lit.value is None):
+                other = self.children[1 - lit_i]
+                inner = other.children[0] if isinstance(other, Alias) \
+                    else other
+                if isinstance(inner, ColumnRef):
+                    return lit_i
+        return None
+
     def unsupported_reasons(self, conf):
         if any(isinstance(c.dtype, t.StringType) for c in self.children):
-            return ["string comparisons port with the q3 slice"]
+            if type(self) in (EqualTo, NotEqual) and \
+                    self._string_literal_side() is not None:
+                return []
+            return ["string comparisons other than column = / != literal "
+                    "(ordering, column against column) port with the "
+                    "strings slice (ROADMAP Queue 1 item 2)"]
         return []
+
+    def _string_op_dev(self, ctx, kids) -> DevVal:
+        """col = / != literal in code space: the literal's code in the
+        column's dictionary (a literal the dictionary lacks matches no
+        row); nulls on either side give null."""
+        lit_i = self._string_literal_side()
+        col = kids[1 - lit_i]
+        value = self.children[lit_i].value
+        if value is None:
+            return DevVal(ctx.full(False, torch.bool),
+                          ctx.full(False, torch.bool), t.BOOLEAN)
+        d = col.dictionary if col.dictionary is not None \
+            else np.array([], str)
+        if len(d) > 1 and not bool(np.all(d[:-1] < d[1:])):
+            # a dictionary with repeats: value equality per code
+            hit = torch.from_numpy(d == value).to(col.data.device)
+            eq = hit[torch.clamp(col.data, 0, len(d) - 1).long()]
+        else:
+            pos = int(np.searchsorted(d, value))
+            code = pos if pos < len(d) and d[pos] == value else -1
+            eq = col.data == code
+        return DevVal(eq if isinstance(self, EqualTo) else ~eq,
+                      col.validity, t.BOOLEAN)
 
     def _common(self):
         l, r = self.children
@@ -462,6 +505,8 @@ class BinaryComparison(Expression):
         return _promote_binary(*self.children)
 
     def _eval_dev(self, ctx, kids):
+        if any(isinstance(c.dtype, t.StringType) for c in self.children):
+            return self._string_op_dev(ctx, kids)
         l, r = kids
         extra = None
         common = self._common()

@@ -1,9 +1,9 @@
 """Logical plan nodes — the pre-rewrite algebra plan/overrides.py
 converts.
 
-Counterpart of spark_rapids_tpu/plan/logical.py for the nodes this slice
-runs: scan (over a host batch instead of an Arrow table), project,
-filter, aggregate and sort.  Each node declares its schema and nothing
+Counterpart of spark_rapids_tpu/plan/logical.py for the nodes the ported
+slices run: scan (over a host batch instead of an Arrow table), project,
+filter, aggregate, sort, limit and join.  Each node declares its schema and nothing
 else; placement and operator choice belong to plan/overrides.py.
 """
 from __future__ import annotations
@@ -125,3 +125,46 @@ class LogicalSort(LogicalPlan):
     def _resolve_schema(self):
         return self.child.schema
 
+
+class LogicalLimit(LogicalPlan):
+    def __init__(self, limit: int, child: LogicalPlan):
+        super().__init__(child)
+        self.limit = limit
+
+    def _resolve_schema(self):
+        return self.child.schema
+
+
+class LogicalJoin(LogicalPlan):
+    """Equi-join on key expression pairs.  join_type: inner, left_outer,
+    right_outer, full_outer, left_semi, left_anti, cross."""
+
+    def __init__(self, join_type: str, left: LogicalPlan, right: LogicalPlan,
+                 left_keys: Sequence = (), right_keys: Sequence = ()):
+        super().__init__(left, right)
+        self.join_type = join_type
+        self.left_keys = [_as_expr(k) for k in left_keys]
+        self.right_keys = [_as_expr(k) for k in right_keys]
+
+    @property
+    def left(self) -> LogicalPlan:
+        return self.children[0]
+
+    @property
+    def right(self) -> LogicalPlan:
+        return self.children[1]
+
+    def _resolve_schema(self):
+        # key types must match exactly (the join lanes compare raw
+        # storage values): callers cast, as in the reference
+        for lk, rk in zip(self.left_keys, self.right_keys):
+            lt_ = lk.bind(self.left.schema).dtype
+            rt_ = rk.bind(self.right.schema).dtype
+            if lt_ != rt_:
+                raise TypeError(
+                    f"join key type mismatch: {lt_.simple_string} vs "
+                    f"{rt_.simple_string} — add an explicit Cast")
+        lf = list(self.left.schema.fields)
+        if self.join_type in ("left_semi", "left_anti"):
+            return t.StructType(lf)
+        return t.StructType(lf + list(self.right.schema.fields))

@@ -2,7 +2,9 @@
 
 Counterpart of spark_rapids_tpu/plan/overrides.py.  The reference wraps,
 tags and converts every operator, falling back to its pyarrow CPU engine
-per operator.  The port has no CPU engine yet (exec/host_exec.py ports
+per operator.  A Limit directly above a Sort becomes TopNExec, and an
+inner join becomes AdaptiveShuffledJoinExec (HashJoinExec with
+`sql.adaptive.enabled=false`), as in the reference.  The port has no CPU engine yet (exec/host_exec.py ports
 later), so this module prunes columns, checks every node and expression
 the device path would run, and converts — or raises
 NotImplementedError naming the operator and the reason.  It never runs
@@ -17,9 +19,10 @@ import torch
 from .. import types as t
 from ..columnar.device import resolve_device
 from ..columnar.host import HostBatch
-from ..config import DEFAULT_CONF, TpuConf
+from ..config import ADAPTIVE_ENABLED, DEFAULT_CONF, TpuConf
 from ..exec.plan import (ExecContext, FilterExec, HashAggregateExec,
-                         HostScanExec, PlanNode, ProjectExec, SortExec)
+                         HostScanExec, LimitExec, PlanNode, ProjectExec,
+                         SortExec, TopNExec)
 from . import expressions as E
 from . import logical as L
 
@@ -72,6 +75,23 @@ def prune_columns(plan: L.LogicalPlan, required=None) -> L.LogicalPlan:
         for e, _asc, _nf in plan.orders:
             _expr_refs(e, req)
         return L.LogicalSort(plan.orders, prune_columns(plan.child, req))
+    if type(plan) is L.LogicalLimit:
+        return L.LogicalLimit(plan.limit, prune_columns(plan.child, required))
+    if type(plan) is L.LogicalJoin:
+        # the reference also rewrites an inner join whose one side gives
+        # no output column and has unique keys into a left semi join;
+        # that rewrite ports with the semi join (the inner join it
+        # replaces gives the same rows in the same order)
+        lreq = {n for n in required if n in plan.left.schema.names}
+        rreq = {n for n in required if n in plan.right.schema.names}
+        for k in plan.left_keys:
+            _expr_refs(k, lreq)
+        for k in plan.right_keys:
+            _expr_refs(k, rreq)
+        return L.LogicalJoin(plan.join_type,
+                             prune_columns(plan.left, lreq),
+                             prune_columns(plan.right, rreq),
+                             plan.left_keys, plan.right_keys)
     raise NotImplementedError(
         f"{plan.name()} is not ported to the device yet")
 
@@ -82,8 +102,18 @@ def _refuse(op: str, reasons: List[str]) -> None:
             f"{op} cannot run on the device: {'; '.join(reasons)}")
 
 
-def _convert(plan: L.LogicalPlan, conf: TpuConf,
-             under_agg: bool = False) -> PlanNode:
+def _sort_keys(plan: "L.LogicalSort"):
+    from ..ops.sort import SortKey
+    schema_in = plan.child.schema
+    keys = []
+    for e, asc, nf in plan.orders:
+        if not isinstance(e, E.ColumnRef):
+            _refuse("Sort", [f"sort key {e!r} is not a column reference"])
+        keys.append(SortKey(schema_in.field_index(e.name), asc, nf))
+    return keys
+
+
+def _convert(plan: L.LogicalPlan, conf: TpuConf) -> PlanNode:
     schema_in = plan.child.schema if plan.children else None
     if type(plan) is L.LogicalScan:
         return HostScanExec(plan.table, conf.batch_size_rows)
@@ -95,15 +125,11 @@ def _convert(plan: L.LogicalPlan, conf: TpuConf,
         return ProjectExec(plan.exprs, plan.names,
                            _convert(plan.child, conf))
     if type(plan) is L.LogicalFilter:
-        if not under_agg:
-            raise NotImplementedError(
-                "Filter cannot run on the device: a filter that does not "
-                "feed an aggregation compacts rows, which ports with the "
-                "q3 slice")
+        # an aggregate or join right above peels it into a mask; anywhere
+        # else it compacts
         _refuse("Filter",
                 plan.condition.bind(schema_in).tree_unsupported(conf))
-        return FilterExec(plan.condition,
-                          _convert(plan.child, conf, under_agg=True))
+        return FilterExec(plan.condition, _convert(plan.child, conf))
     if type(plan) is L.LogicalAggregate:
         reasons = []
         for k, kn in zip(plan.keys, plan.key_names):
@@ -116,17 +142,38 @@ def _convert(plan: L.LogicalPlan, conf: TpuConf,
             reasons += fn.bind(schema_in).unsupported_reasons(conf)
         _refuse("Aggregate", reasons)
         return HashAggregateExec(plan.keys, plan.key_names, plan.aggs,
-                                 _convert(plan.child, conf, under_agg=True))
+                                 _convert(plan.child, conf))
     if type(plan) is L.LogicalSort:
-        from ..ops.sort import SortKey
-        keys = []
-        for e, asc, nf in plan.orders:
-            if not isinstance(e, E.ColumnRef):
-                _refuse("Sort", [f"sort key {e!r} is not a column reference"])
-            keys.append(SortKey(schema_in.field_index(e.name), asc, nf))
-        return SortExec(keys, _convert(plan.child, conf))
+        return SortExec(_sort_keys(plan), _convert(plan.child, conf))
+    if type(plan) is L.LogicalLimit:
+        # a limit right above a sort collapses into top-N (GpuTopN)
+        if type(plan.child) is L.LogicalSort:
+            return TopNExec(plan.limit, _sort_keys(plan.child),
+                            _convert(plan.child.child, conf))
+        return LimitExec(plan.limit, _convert(plan.child, conf))
+    if type(plan) is L.LogicalJoin:
+        return _convert_join(plan, conf)
     raise NotImplementedError(
         f"{plan.name()} is not ported to the device yet")
+
+
+def _convert_join(plan: "L.LogicalJoin", conf: TpuConf) -> PlanNode:
+    from ..exec.adaptive import AdaptiveShuffledJoinExec
+    from ..exec.join import HashJoinExec, unported_join_reasons
+    lkeys = [k.bind(plan.left.schema) for k in plan.left_keys]
+    rkeys = [k.bind(plan.right.schema) for k in plan.right_keys]
+    reasons = unported_join_reasons(plan.join_type, lkeys, rkeys)
+    for k in lkeys + rkeys:
+        reasons += k.tree_unsupported(conf)
+    _refuse("Join", reasons)
+    left = _convert(plan.left, conf)
+    right = _convert(plan.right, conf)
+    if conf.get(ADAPTIVE_ENABLED):
+        # AQE analogue: the build side is chosen from runtime sizes
+        return AdaptiveShuffledJoinExec(plan.join_type, plan.left_keys,
+                                        plan.right_keys, left, right)
+    return HashJoinExec(plan.join_type, plan.left_keys, plan.right_keys,
+                        left, right)
 
 
 class PhysicalQuery:

@@ -1,6 +1,7 @@
 """User-facing session + DataFrame API.
 
-Counterpart of spark_rapids_tpu/session.py for what TPC-H q1 and q6 use:
+Counterpart of spark_rapids_tpu/session.py for what TPC-H q1, q3 and q6
+use:
 
     s = TpuSession()                     # device "cuda"
     df = s.from_host(batch).filter(E.GreaterThan(col("x"), lit(1))) \\
@@ -76,6 +77,17 @@ class DataFrame:
 
     def sort(self, *orders) -> "DataFrame":
         return self._wrap(L.LogicalSort(list(orders), self._plan))
+
+    def join(self, other: "DataFrame", on=None, how: str = "inner",
+             left_on=None, right_on=None) -> "DataFrame":
+        if on is not None:
+            keys = [on] if isinstance(on, str) else list(on)
+            left_on = right_on = keys
+        return self._wrap(L.LogicalJoin(how, self._plan, other._plan,
+                                        left_on or [], right_on or []))
+
+    def limit(self, n: int) -> "DataFrame":
+        return self._wrap(L.LogicalLimit(n, self._plan))
 
     # -- actions -----------------------------------------------------------
     @property

@@ -10,10 +10,12 @@ dictionary-encode without per-row string work.
 
 `tables` names the tables to materialise; every draw still happens, so
 any subset is value-identical to the full set (the chip smoke builds
-only `lineitem` at SF10).
+customer, orders and lineitem at SF10).
 
-This slice ports q1 (pricing summary: filter + group-by + sort) and q6
-(forecast revenue change: filter + global aggregate).
+Ported queries: q1 (pricing summary: filter + group-by + sort), q3
+(shipping priority: three filters, two joins, a group-by over a high-
+cardinality key, top 10) and q6 (forecast revenue change: filter +
+global aggregate).
 """
 from __future__ import annotations
 
@@ -255,6 +257,25 @@ def q1(s: TpuSession, t: Dict[str, HostBatch]) -> DataFrame:
             .sort("l_returnflag", "l_linestatus"))
 
 
+def q3(s: TpuSession, t: Dict[str, HostBatch]) -> DataFrame:
+    """Shipping priority."""
+    date = _days(pydt.date(1995, 3, 15))
+    cust = s.from_host(t["customer"]).filter(
+        E.EqualTo(col("c_mktsegment"), E.Literal("BUILDING")))
+    orders = s.from_host(t["orders"]).filter(
+        E.LessThan(col("o_orderdate"), E.Literal(date, DTYPE_DATE)))
+    li = s.from_host(t["lineitem"]).filter(
+        E.GreaterThan(col("l_shipdate"), E.Literal(date, DTYPE_DATE)))
+    j = cust.join(orders, left_on=["c_custkey"], right_on=["o_custkey"]) \
+        .join(li, left_on=["o_orderkey"], right_on=["l_orderkey"])
+    revenue = E.Multiply(col("l_extendedprice"),
+                         E.Subtract(E.Literal(1), col("l_discount")))
+    return (j.group_by("o_orderkey", "o_orderdate", "o_shippriority")
+            .agg((Sum(revenue), "revenue"))
+            .sort(("revenue", False, False), ("o_orderdate", True, True))
+            .limit(10))
+
+
 def q6(s: TpuSession, t: Dict[str, HostBatch]) -> DataFrame:
     """Forecast revenue change."""
     d_lo = _days(pydt.date(1994, 1, 1))
@@ -274,4 +295,4 @@ def q6(s: TpuSession, t: Dict[str, HostBatch]) -> DataFrame:
     return li.filter(cond).agg((Sum(revenue), "revenue"))
 
 
-QUERIES = {"q1": q1, "q6": q6}
+QUERIES = {"q1": q1, "q3": q3, "q6": q6}

@@ -50,10 +50,13 @@ def test_gen_tables_value_identical(jtables, ptables, name):
     assert got.to_pydict() == want.to_pydict()
 
 
-def test_gen_tables_subset_draws_identically(ptables):
-    only = PTPCH.gen_tables(0.001, tables=("lineitem",))
-    assert list(only) == ["lineitem"]
-    assert only["lineitem"].to_pydict() == ptables["lineitem"].to_pydict()
+@pytest.mark.parametrize("subset", [("lineitem",),
+                                    ("customer", "orders", "lineitem")])
+def test_gen_tables_subset_draws_identically(ptables, subset):
+    only = PTPCH.gen_tables(0.001, tables=subset)
+    assert list(only) == list(subset)
+    for name in subset:
+        assert only[name].to_pydict() == ptables[name].to_pydict()
 
 
 _LINEITEM_COLUMNS = ["l_orderkey", "l_partkey", "l_suppkey", "l_quantity",

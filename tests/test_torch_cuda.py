@@ -10,6 +10,8 @@ import pytest
 import torch
 
 from spark_rapids_tpu_torch.ops import hopper as PH
+from spark_rapids_tpu_torch.ops.hopper import compact as PC
+from spark_rapids_tpu_torch.ops.hopper import hashjoin as PHJ
 from spark_rapids_tpu_torch.ops.hopper import segagg as PS
 
 
@@ -85,6 +87,79 @@ def test_cuda_wrapper_refuses_bad_inputs(cuda):
         PS.seg_sums(seg, [], [], 4)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap,p", [(1024, 0.5), (1 << 20, 0.05),
+                                   (3_000_017, 0.3), (1 << 16, 0.0),
+                                   (1 << 16, 1.0)])
+def test_compaction_order_kernel_matches_plain(cuda, cap, p):
+    keep = torch.from_numpy(np.random.default_rng(cap).random(cap) < p) \
+        .to(cuda)
+    PH.reset_launch_counts()
+    order, count = PC.compaction_order(keep)
+    porder, pcount = PC.compaction_order_plain(keep)
+    # tile counts, carry scan, scatter
+    assert PH.LAUNCHES["compaction_order"] == 3
+    assert int(count) == int(pcount)
+    assert torch.equal(order, porder)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 100, 1023])
+def test_compact_batch_launches_the_kernel_below_1024_rows(cuda, n):
+    # the reference keeps its argsort below 1024 rows; the port has no
+    # such tier and launches the kernel at every capacity
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar.device import to_device, to_host
+    from spark_rapids_tpu_torch.columnar.host import from_numpy
+    from spark_rapids_tpu_torch.ops.filter import compact_batch
+    rng = np.random.default_rng(n)
+    schema = T.StructType([T.StructField("x", T.LONG)])
+    x = rng.integers(-99, 99, n)
+    batch = from_numpy({"x": x}, schema)
+    keep = rng.random(n) < 0.6
+    got = {}
+    for dev in ("cpu", "cuda"):
+        db = to_device(batch, device=dev)
+        mask = np.zeros(db.capacity, bool)
+        mask[:n] = keep
+        PH.reset_launch_counts()
+        out = compact_batch(db, torch.from_numpy(mask).to(dev))
+        got[dev] = (PH.LAUNCHES["compaction_order"],
+                    to_host(out, int(out.num_rows)).to_pydict())
+    assert got["cpu"][0] == 0 and got["cuda"][0] == 3
+    assert got["cuda"][1] == got["cpu"][1]
+    assert got["cpu"][1]["x"] == x[keep].tolist()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap,span,dead", [(1024, 50, 0.1),
+                                           (1 << 20, 1 << 40, 0.2),
+                                           (4096, 3, 0.0), (2048, 9, 1.0),
+                                           (1 << 16, 2 ** 62, 0.0)])
+def test_build_table_and_probe_first_kernels_match_plain(cuda, cap, span,
+                                                         dead):
+    rng = np.random.default_rng(cap + int(dead * 10))
+    lane = torch.from_numpy(rng.integers(-span, span, cap)).to(cuda)
+    lane[:2] = torch.tensor([2 ** 63 - 1, -2 ** 63])
+    valid = torch.from_numpy(rng.random(cap) >= dead).to(cuda)
+    PH.reset_launch_counts()
+    table = PHJ.build_table(lane, valid)
+    ideal, lane_s, rid = PHJ.hash_order(lane, valid, table.nbits)
+    keys, rows = PHJ.build_layout_plain(ideal, lane_s, rid, table.span)
+    assert torch.equal(table.rows, rows)
+    live = rows >= 0
+    assert torch.equal(table.keys[live], keys[live])
+    probe = torch.from_numpy(rng.integers(-span, span, cap)).to(cuda)
+    probe[: cap // 2] = lane[torch.randperm(cap, device=cuda)[: cap // 2]]
+    pvalid = torch.from_numpy(rng.random(cap) > 0.1).to(cuda)
+    row, ok = PHJ.probe_first(table, probe, pvalid)
+    prow, pok = PHJ.probe_first_plain(table, probe, pvalid)
+    assert torch.equal(row, prow) and torch.equal(ok, pok)
+    # build_table: tile maxima, carry scan, layout; probe_first: one
+    assert PH.LAUNCHES["build_table"] == 3
+    assert PH.LAUNCHES["probe_first"] == 1
+
+
 def _cpu_and_cuda(build):
     from spark_rapids_tpu_torch.session import TpuSession
     cpu = build(TpuSession(device="cpu")).to_pydict()
@@ -94,15 +169,19 @@ def _cpu_and_cuda(build):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("query", ["q1", "q6"])
+@pytest.mark.parametrize("query", ["q1", "q3", "q6"])
 def test_tpch_on_the_card_equals_cpu_and_launches_kernels(cuda, query):
     from spark_rapids_tpu_torch import tpch
-    tables = tpch.gen_tables(0.001, tables=("lineitem",))
+    tables = tpch.gen_tables(0.001, tables=("customer", "orders",
+                                            "lineitem"))
     PH.reset_launch_counts()
     cpu, gpu = _cpu_and_cuda(lambda s: tpch.QUERIES[query](s, tables))
     assert gpu == cpu
-    if query == "q1":                     # q6 is a global sum: no kernel
-        assert PH.LAUNCHES["seg_sums"] > 0
+    # q6 is a global sum: no kernel
+    want = {"q1": ("seg_sums",), "q3": ("build_table", "probe_first",
+                                        "compaction_order"), "q6": ()}
+    for kernel in want[query]:
+        assert PH.LAUNCHES[kernel] > 0
 
 
 @pytest.mark.cuda

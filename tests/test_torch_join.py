@@ -1,0 +1,216 @@
+"""The port's joins, string-literal predicates, limits and top-N against
+the JAX package.
+
+Fact ⋈ dimension inner joins (unique dimension keys, filters fused on
+both sides, nulls and misses in the fact keys) run through the port
+(CPU tensors, the kernels' plain versions) and through the JAX package
+with its kernel tier on and `denseReplace: ON`, so it takes the same
+hash-table tier, and through its CPU oracle.  Results are left unsorted
+where the engines define the order, so the row order is checked too.
+Every join the slice does not port raises NotImplementedError naming the
+slice that does.
+"""
+import warnings
+
+import numpy as np
+import pyarrow as pa
+import pytest
+
+from spark_rapids_tpu.plan import expressions as JE
+from spark_rapids_tpu.session import DataFrame as JDF
+from spark_rapids_tpu.session import TpuSession as JSession
+from spark_rapids_tpu.session import col as jcol
+from spark_rapids_tpu_torch import config as PCONF
+from spark_rapids_tpu_torch.plan import expressions as PE
+from spark_rapids_tpu_torch.session import TpuSession as PSession
+from spark_rapids_tpu_torch.session import col as pcol
+
+PALLAS_ON = {"spark.rapids.tpu.sql.kernels.pallas.enabled": "true",
+             "spark.rapids.tpu.sql.kernels.pallas.segagg": "ON",
+             "spark.rapids.tpu.sql.kernels.pallas.join.denseReplace": "ON"}
+SMALL = {"spark.rapids.tpu.sql.batchSizeRows": "1024"}
+
+
+def _typed(arr, key_type):
+    return arr.cast(pa.int32()).cast(key_type) \
+        if pa.types.is_date(key_type) else arr.cast(key_type)
+
+
+def _fact(n, seed, key_type=pa.int64()):
+    rng = np.random.default_rng(seed)
+    fk = rng.integers(-20, 420, n)               # some keys miss the dim
+    return pa.table({
+        "fk": _typed(pa.array(fk, mask=rng.random(n) < 0.05), key_type),
+        "x": pa.array(rng.integers(-100, 100, n), pa.int64()),
+        "f": pa.array(rng.standard_normal(n)),
+        "tag": pa.array(rng.choice(["p", "q", "r"], n))})
+
+
+def _dim(n=400, seed=0, key_type=pa.int64()):
+    rng = np.random.default_rng(seed)
+    return pa.table({
+        "dk": _typed(pa.array(rng.permutation(n)), key_type),
+        "attr": pa.array(rng.choice(["a", "b", "c", "BUILDING"], n)),
+        "w": pa.array(rng.integers(0, 10 ** 6, n), pa.int64())})
+
+
+def _rows(d):
+    return {k: [repr(v) for v in vs] for k, vs in d.items()}
+
+
+def _run(build, jconf=None, pconf=None):
+    """(port, reference, CPU oracle) results of one query function."""
+    jconf = {**PALLAS_ON, **(jconf or {})}
+    want = build(JE, jcol, JSession(jconf)).collect().to_pydict()
+    cpu = JDF(build(JE, jcol, JSession(jconf))._plan, JSession(
+        {"spark.rapids.tpu.sql.enabled": "false"})).collect().to_pydict()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")          # denseReplace: resolved
+        got = build(PE, pcol, PSession({**jconf, **(pconf or {})},
+                                       device="cpu")).to_pydict()
+    return _rows(got), _rows(want), _rows(cpu)
+
+
+# without adaptivity the right side builds, so only fact ⋈ dim runs there
+@pytest.mark.parametrize("fact_left,conf", [
+    (True, {}), (False, {}), (True, SMALL), (False, SMALL),
+    (True, {"spark.rapids.tpu.sql.adaptive.enabled": "false"})])
+def test_fact_dim_inner_join_with_fused_filters_matches_reference(
+        fact_left, conf):
+    fact, dim = _fact(3000, 1), _dim()
+
+    def build(e, c, s):
+        f = s.from_arrow(fact).filter(e.GreaterThan(c("x"), e.Literal(-50)))
+        d = s.from_arrow(dim).filter(e.NotEqual(c("attr"), e.Literal("c")))
+        if fact_left:
+            return f.join(d, left_on=["fk"], right_on=["dk"])
+        return d.join(f, left_on=["dk"], right_on=["fk"])
+    got, want, cpu = _run(build, conf)
+    assert got == want
+    assert sorted(zip(*got.values())) == sorted(zip(*cpu.values()))
+
+
+@pytest.mark.parametrize("key_type", [pa.int32(), pa.date32(), pa.int16()])
+def test_join_on_narrow_and_date_keys_matches_reference(key_type):
+    fact, dim = _fact(2000, 3, key_type), _dim(400, 4, key_type)
+
+    def build(e, c, s):
+        return (s.from_arrow(fact).join(s.from_arrow(dim), left_on=["fk"],
+                                        right_on=["dk"])
+                .select(c("fk"), c("x"), c("w")))
+    got, want, cpu = _run(build)
+    assert got == want
+    assert sorted(zip(*got.values())) == sorted(zip(*cpu.values()))
+
+
+def test_join_on_double_keys_folds_signed_zero_and_nan():
+    left = pa.table({"k": pa.array([0.0, -0.0, float("nan"), 1.5, None, 2.0]),
+                     "i": pa.array(range(6), pa.int64())})
+    right = pa.table({"d": pa.array([-0.0, float("nan"), 1.5, 7.0]),
+                      "j": pa.array(range(4), pa.int64())})
+
+    def build(e, c, s):
+        return s.from_arrow(left).join(s.from_arrow(right), left_on=["k"],
+                                       right_on=["d"]).select(c("i"), c("j"))
+    got, want, _cpu = _run(build)
+    assert got == want
+    assert got["i"] == ["0", "1", "2", "3"]
+
+
+def test_q3_shaped_join_chain_then_aggregate_top_n():
+    # a join whose unique side gives no output column: the reference
+    # rewrites it into a semi join, the port keeps the inner join; the
+    # rows and their order are the same
+    fact, dim = _fact(5000, 7), _dim(400, 8)
+
+    def build(e, a_mod, c, s):
+        j = (s.from_arrow(dim).filter(e.EqualTo(c("attr"),
+                                                e.Literal("BUILDING")))
+             .join(s.from_arrow(fact), left_on=["dk"], right_on=["fk"]))
+        return (j.group_by("fk").agg((a_mod.Sum(c("x")), "sx"))
+                .sort(("sx", False, False), "fk").limit(7))
+    from spark_rapids_tpu.plan import aggregates as JA
+    from spark_rapids_tpu_torch.plan import aggregates as PA
+    got, want, cpu = _run(lambda e, c, s: build(
+        e, JA if e is JE else PA, c, s), SMALL)
+    assert got == want == cpu
+
+
+def test_string_literal_equality_matches_reference():
+    t = pa.table({"s": pa.array(["a", None, "b", "a", "zz", None, "b"]),
+                  "i": pa.array(range(7), pa.int64())})
+    null_str = (lambda e: e.Literal(None, None))
+
+    def build(e, c, s):
+        return s.from_arrow(t).select(
+            e.Alias(e.EqualTo(c("s"), e.Literal("a")), "eq"),
+            e.Alias(e.NotEqual(c("s"), e.Literal("b")), "ne"),
+            e.Alias(e.EqualTo(e.Literal("zz"), c("s")), "eq_flipped"),
+            e.Alias(e.EqualTo(c("s"), e.Literal("absent")), "absent"),
+            e.Alias(e.NotEqual(c("s"), e.Literal("absent")), "ne_absent"),
+            e.Alias(e.EqualTo(c("s"), null_str(e)), "null_lit"),
+            c("i"))
+    got, want, cpu = _run(build)
+    assert got == want == cpu
+
+
+def test_unported_joins_and_predicates_refuse_naming_their_slice():
+    fact, dim = _fact(3000, 1), _dim()
+    s = PSession(device="cpu")
+    f, d = s.from_arrow(fact), s.from_arrow(dim)
+    cases = [
+        (f.join(d, left_on=["fk"], right_on=["dk"], how="left_outer"),
+         "next join slice"),
+        (f.join(s.from_arrow(_fact(100, 2)), left_on=["fk"],
+                right_on=["fk"]), "not unique"),
+        (f.join(d, left_on=["tag"], right_on=["attr"]), "string"),
+        (f.join(d, left_on=["fk", "x"], right_on=["dk", "w"]), "composite"),
+        (f.filter(PE.LessThan(pcol("tag"), PE.Literal("q"))),
+         "strings slice"),
+        (f.filter(PE.EqualTo(pcol("tag"), pcol("tag"))), "strings slice"),
+    ]
+    for df, match in cases:
+        with pytest.raises(NotImplementedError, match=match):
+            df.collect()
+    off = PSession({"spark.rapids.tpu.sql.kernels.pallas.enabled": "false"},
+                   device="cpu")
+    tiny = PSession({"spark.rapids.tpu.sql.kernels.pallas.join.maxBuildRows":
+                     "16"}, device="cpu")
+    for sess in (off, tiny):
+        with pytest.raises(NotImplementedError, match="hash-table tier"):
+            sess.from_arrow(fact).join(sess.from_arrow(dim), left_on=["fk"],
+                                       right_on=["dk"]).collect()
+    big = PSession(SMALL, device="cpu")
+    with pytest.raises(NotImplementedError, match="sub-partitioned"):
+        big.from_arrow(fact).join(big.from_arrow(_dim(3000)),
+                                  left_on=["fk"], right_on=["dk"]).collect()
+
+
+@pytest.mark.parametrize("conf", [{}, SMALL])
+def test_limit_and_top_n_match_reference(conf):
+    fact = _fact(4000, 12)
+
+    def limit(e, c, s):
+        return s.from_arrow(fact).filter(
+            e.GreaterThan(c("x"), e.Literal(10))).limit(37)
+
+    def top(e, c, s):
+        # many ties on x: the stable sorts keep input order among them
+        return s.from_arrow(fact).sort(("x", False, False)).limit(25)
+    for build in (limit, top):
+        got, want, cpu = _run(build, conf)
+        assert got == want == cpu
+
+
+def test_conf_warns_once_for_keys_the_port_does_not_honour():
+    key = "spark.rapids.tpu.sql.join.runtimeFilter.enabled"
+    PCONF._WARNED.discard(key)
+    with pytest.warns(UserWarning, match="ops/bloom.py"):
+        PCONF.TpuConf({key: "false"})
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        PCONF.TpuConf({key: "false"})                 # once per key
+        PCONF.TpuConf({"spark.rapids.tpu.sql.batchSizeRows": "1024",
+                       "spark.rapids.tpu.sql.adaptive.enabled": "false"})
+    assert PCONF.RESOLVED.keys() <= PCONF._REGISTRY.keys()
+    assert PCONF.HONOURED_KEYS.isdisjoint(PCONF.RESOLVED)

@@ -287,12 +287,14 @@ def test_float_min_max_nan_and_signed_zero_parity():
 
 
 def test_segagg_domain_gate_refuses_until_sort_tier_ports():
-    # flag's packed domain is 4 (three values and the null slot)
+    # flag's packed domain is 4 (three values and the null slot); outside
+    # the gate a dictionary key needs the reference's dense tier, which
+    # is not ported (the sorted tier takes it only when asked to)
     s = PSession({"spark.rapids.tpu.sql.kernels.pallas.segagg.maxDomain":
                   "3"}, device="cpu")
     df = s.from_arrow(_agg_table()).group_by("flag").agg(
         (PA.Sum(pcol("qty")), "sq"))
-    with pytest.raises(NotImplementedError, match="q3 slice"):
+    with pytest.raises(NotImplementedError, match="dense-tiers slice"):
         df.collect()
 
 
@@ -305,4 +307,5 @@ def test_q1_elects_segagg_and_cpu_takes_plain_versions():
     got = tpch.q1(PSession(device="cpu"), tables).collect()
     assert got.num_rows > 0
     # CPU tensors run the plain versions: no kernel launch is counted
-    assert PH.LAUNCHES == {"seg_sums": 0, "seg_reduce": 0}
+    assert set(PH.LAUNCHES) >= {"seg_sums", "seg_reduce"}
+    assert not any(PH.LAUNCHES.values())

@@ -1,11 +1,15 @@
-"""TPC-H q1 and q6 through the PyTorch/CUDA port against the JAX package.
+"""TPC-H q1, q3 and q6 through the PyTorch/CUDA port against the JAX
+package.
 
 At scale 0.001 the port (CPU tensors, kernels' plain versions) must
 equal both the JAX package with its kernel tier on (segagg ON, Pallas in
-interpret mode) and the JAX package's CPU oracle (sql.enabled=false)
-exactly; decimals compare as unscaled integers.
+interpret mode; for q3 also with `denseReplace: ON`, so its joins take
+the hash-table kernels as the port's do) and the JAX package's CPU
+oracle (sql.enabled=false) exactly; decimals compare as unscaled
+integers.
 """
 import decimal as pydec
+import warnings
 
 import pyarrow as pa
 import pytest
@@ -35,7 +39,8 @@ def jtables():
 
 @pytest.fixture(scope="module")
 def ptables():
-    return PTPCH.gen_tables(0.001, tables=("lineitem",))
+    return PTPCH.gen_tables(0.001, tables=("customer", "orders",
+                                           "lineitem"))
 
 
 def _unscaled(d: dict) -> dict:
@@ -55,12 +60,50 @@ def _reference(jdf):
     return dev, cpu
 
 
-@pytest.mark.parametrize("query", ["q1", "q6"])
-def test_query_equals_reference_and_cpu_oracle(jtables, ptables, query):
-    dev, cpu = _reference(JTPCH.QUERIES[query](JSession(PALLAS_ON), jtables))
-    got = PTPCH.QUERIES[query](PSession(device="cpu"), ptables).to_pydict()
+HASH_JOINS = {"spark.rapids.tpu.sql.kernels.pallas.join.denseReplace": "ON"}
+
+
+@pytest.mark.parametrize("query,extra", [("q1", {}), ("q6", {}), ("q3", {}),
+                                         ("q3", HASH_JOINS)])
+def test_query_equals_reference_and_cpu_oracle(jtables, ptables, query,
+                                               extra):
+    dev, cpu = _reference(JTPCH.QUERIES[query](
+        JSession({**PALLAS_ON, **extra}), jtables))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")       # denseReplace: resolved
+        session = PSession(extra, device="cpu")
+    got = PTPCH.QUERIES[query](session, ptables).to_pydict()
     assert list(got) == list(dev)
     assert _unscaled(got) == _unscaled(dev) == _unscaled(cpu)
+
+
+def test_q3_runs_the_join_kernels_and_the_sorted_group_by(ptables,
+                                                          monkeypatch):
+    from spark_rapids_tpu_torch.ops import groupby as PG
+    from spark_rapids_tpu_torch.ops.hopper import compact as PC
+    from spark_rapids_tpu_torch.ops.hopper import hashjoin as PHJ
+    calls = {"build_table": 0, "probe_first": 0, "compaction_order": 0,
+             "groupby_trace": 0}
+
+    def spy(mod, name):
+        real = getattr(mod, name)
+
+        def wrapped(*a, **k):
+            calls[name] += 1
+            return real(*a, **k)
+        monkeypatch.setattr(mod, name, wrapped)
+    spy(PHJ, "build_table")
+    spy(PHJ, "probe_first")
+    spy(PC, "compaction_order")
+    spy(PG, "groupby_trace")
+    small = {"spark.rapids.tpu.sql.batchSizeRows": "1024"}
+    PTPCH.q3(PSession(small, device="cpu"), ptables).collect()
+    # one table per join; one probe and one compaction per probe batch
+    # (2 orders batches, 6 lineitem batches of 1024 rows)
+    assert calls == {"build_table": 2, "probe_first": 8,
+                     "compaction_order": 8, "groupby_trace": calls[
+                         "groupby_trace"]}
+    assert calls["groupby_trace"] > 0
 
 
 def _minmax(m, e, t, c, s, table):
@@ -136,8 +179,12 @@ def test_sort_orders_like_reference():
 def test_unported_operators_refuse_instead_of_falling_back(ptables):
     s = PSession(device="cpu")
     li = s.from_host(ptables["lineitem"])
-    with pytest.raises(NotImplementedError, match="q3 slice"):
-        li.filter(PE.LessThan(pcol("l_tax"), PE.Literal(3))).collect()
+    with pytest.raises(NotImplementedError, match="strings slice"):
+        li.filter(PE.LessThan(pcol("l_shipmode"), PE.Literal("MAIL"))) \
+            .collect()
+    with pytest.raises(NotImplementedError, match="next join slice"):
+        li.join(s.from_host(ptables["orders"]), left_on=["l_orderkey"],
+                right_on=["o_orderkey"], how="left_anti").collect()
     with pytest.raises(NotImplementedError, match="not ported"):
         PSession({"spark.rapids.tpu.sql.enabled": "false"},
                  device="cpu").from_host(ptables["lineitem"]).agg(
