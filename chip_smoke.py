@@ -10,9 +10,13 @@ own failure:
   2. build   — nvcc builds every kernel source (spark_rapids_tpu_torch/
                csrc/) for sm_90a, one process per source, all started
                together; prints the build seconds.
-  3. data    — TPC-H customer, orders and lineitem at scale factor 10
-               from the port's gen_tables, and the independent numpy
-               results of every query of phase 5.
+  3. data    — TPC-H customer, orders, partsupp and lineitem at scale
+               factor 10 from the port's gen_tables, and the independent
+               numpy results of every query of phase 5.  One cut, the
+               reference generator's: partsupp has two suppliers a part
+               (4,000,000 rows at SF10), half of the spec's four
+               (8,000,000), so m2m's and outer's builds repeat each key
+               twice, not four times.
   4. kernels — each kernel against its plain PyTorch version on the
                card, at the shapes the main path gives it.  seg_sums /
                seg_reduce at TPC-H q1's (capacity 4,194,304, the q1 key
@@ -29,21 +33,32 @@ own failure:
                non-power-of-two capacity for compaction and
                duplicate-heavy, all-dead and ±2^63 keys for the table.
                Those three must equal their plain versions exactly.
+               probe_counts and expand_pairs at m2m's shapes: partsupp's
+               part keys tabled at capacity 4,194,304 (two rows a key),
+               probed by the first lineitem batch with the 1994 filter
+               as its validity, and that batch's expansion; plus a key
+               10,000 times in one build, a total of 0, all-dead probes,
+               ±2^63 keys and a probe capacity of 3,000,017; exactly.
                Times each kernel, its plain version and the one-call
                PyTorch yardstick where one exists (index_add_ /
-               scatter_reduce_ / a stable argsort), which the port
-               itself never calls.
-  5. path    — q1, q6, a MIN/MAX/FIRST/LAST group-by and q3 through
-               TpuSession() on cuda, each checked against its numpy
-               result (exact int64 decimal sums via a stable argsort
-               and np.add.reduceat, HALF_UP averages in Python ints; q3
-               joins with np.isin and searchsorted, and on a revenue
-               tie at its 10th row compares the tied set).  Launch
-               counts are zeroed just before each query and read just
-               after it; each query must have launched the kernels of
-               its path (PATH_KERNELS).  Then wall ms per query: one
-               cold run, median of 3 warm; q3's peak device memory; and
-               a torch.profiler breakdown of one warm q1 and one warm q3.
+               scatter_reduce_ / a stable argsort / a stable sort /
+               searchsorted / repeat_interleave), which the port itself
+               never calls.
+  5. path    — q1, q6, a MIN/MAX/FIRST/LAST group-by, q3 and the three
+               join-path queries of tpch.JOIN_QUERIES (m2m, outer, semi)
+               through TpuSession() on cuda, each checked against its
+               numpy result (exact int64 decimal sums via a stable
+               argsort and np.add.reduceat, HALF_UP averages in Python
+               ints; q3 joins with np.isin and searchsorted, and on a
+               revenue tie at its 10th row compares the tied set; the
+               join-path queries expand their pairs with argsort,
+               searchsorted and repeat).  Launch counts are zeroed just
+               before each query and read just after it; each query
+               must have launched the kernels of its path
+               (PATH_KERNELS).  Then wall ms per query: one cold run,
+               median of 3 warm; the peak device memory of the four
+               join queries; and a torch.profiler breakdown of one warm
+               q1, q3 and m2m.
   6. result  — a `kernels` JSON line, the nvidia-smi line, and last
                {"ok": true, "device": {...}}.
 
@@ -73,19 +88,31 @@ TPU_KERNELS = {
     "seg_reduce": "spark_rapids_tpu/ops/pallas/segagg.py:123",
     "compaction_order": "spark_rapids_tpu/ops/pallas/compact.py:53",
     "build_table": "spark_rapids_tpu/ops/pallas/hashjoin.py:111",
-    "probe_first": "spark_rapids_tpu/ops/pallas/hashjoin.py:182"}
+    "probe_first": "spark_rapids_tpu/ops/pallas/hashjoin.py:182",
+    "probe_counts": "spark_rapids_tpu/ops/pallas/hashjoin.py:253",
+    "expand_pairs": "spark_rapids_tpu/ops/pallas/hashjoin.py:324"}
 SOURCES = {"seg_sums": "spark_rapids_tpu_torch/csrc/segagg.cu",
            "seg_reduce": "spark_rapids_tpu_torch/csrc/segagg.cu",
            "compaction_order": "spark_rapids_tpu_torch/csrc/compact.cu",
            "build_table": "spark_rapids_tpu_torch/csrc/hashjoin.cu",
-           "probe_first": "spark_rapids_tpu_torch/csrc/hashjoin.cu"}
+           "probe_first": "spark_rapids_tpu_torch/csrc/hashjoin.cu",
+           "probe_counts": "spark_rapids_tpu_torch/csrc/hashjoin.cu",
+           "expand_pairs": "spark_rapids_tpu_torch/csrc/hashjoin.cu"}
 # the kernels each query of the main path must launch: q1 groups by a
 # packed dictionary domain (seg_sums), q6 is a global reduction that
 # reaches no kernel, the MIN/MAX/FIRST/LAST group-by needs both segagg
-# kernels, and q3's two joins table, probe and compact
+# kernels, q3's two joins (a semi join and a unique-build inner join)
+# table, probe and compact, m2m and outer run the counted probe and the
+# pair expansion over a build with repeated keys (m2m then groups by a
+# 7-value ship mode), and semi probes for the matched flag only
 PATH_KERNELS = {"q1": ("seg_sums",), "q6": (),
                 "minmax": ("seg_sums", "seg_reduce"),
-                "q3": ("build_table", "probe_first", "compaction_order")}
+                "q3": ("build_table", "probe_first", "compaction_order"),
+                "m2m": ("build_table", "probe_counts", "expand_pairs",
+                        "compaction_order", "seg_sums"),
+                "outer": ("build_table", "probe_counts", "expand_pairs",
+                          "compaction_order"),
+                "semi": ("build_table", "probe_first", "compaction_order")}
 Q3_DATE = (pydt.date(1995, 3, 15) - pydt.date(1970, 1, 1)).days
 
 
@@ -427,20 +454,34 @@ def join_kernels_phase(dev, tables):
     probe_ms = cuda_ms(lambda: HJ.probe_first(table, probe, pvalid))
     probe_plain = cuda_ms(lambda: HJ.probe_first_plain(table, probe,
                                                        pvalid), reps=5)
-    # reads key and flag, writes row and flag; each valid row reads at
-    # least its home slot (12 bytes), the least its walk can touch
+    # reads every flag, writes row and flag; only a valid row needs its
+    # key and at least its home slot (12 bytes), the least its walk reads
     nvalid = int(pvalid.sum())
-    probe_bound = bound(pcap * (8 + 1 + 4 + 1) + nvalid * 12, nvalid)
+    probe_bound = bound(pcap * (1 + 4 + 1) + nvalid * (8 + 12), nvalid)
+    # the sorted tier's build and probe as yardsticks: one stable sort of
+    # the build lane (dead rows last), then a searchsorted of the probe
+    # lane and the gather of the build row
+    sort_key = torch.where(valid, lane, torch.full_like(lane, 2 ** 63 - 1))
+    build_lib = cuda_ms(lambda: torch.sort(sort_key, stable=True))
+    svals, sperm = torch.sort(sort_key, stable=True)
+
+    def library_probe():
+        pos = torch.clamp(torch.searchsorted(svals, probe), max=bcap - 1)
+        return sperm[pos], svals[pos] == probe
+
+    probe_lib = cuda_ms(library_probe)
     compact_ms = cuda_ms(lambda: C.compaction_order(keep))
     compact_plain = cuda_ms(lambda: C.compaction_order_plain(keep))
     inv = (~keep).to(torch.int8)
     compact_lib = cuda_ms(lambda: torch.argsort(inv, stable=True))
     compact_bound = bound(pcap * (1 + 4) + 4, pcap)
     log(f"[kernels] build_table layout: kernel {build_ms:.4f} ms, plain "
-        f"{build_plain:.4f} ms, bound {build_bound[0]:.4f} ms; its "
-        f"PyTorch hash-order sort {sort_ms:.4f} ms")
+        f"{build_plain:.4f} ms, stable sort {build_lib:.4f} ms, bound "
+        f"{build_bound[0]:.4f} ms; its PyTorch hash-order sort "
+        f"{sort_ms:.4f} ms")
     log(f"[kernels] probe_first: kernel {probe_ms:.4f} ms, plain "
-        f"{probe_plain:.4f} ms, bound {probe_bound[0]:.4f} ms")
+        f"{probe_plain:.4f} ms, searchsorted + gather {probe_lib:.4f} ms, "
+        f"bound {probe_bound[0]:.4f} ms")
     log(f"[kernels] compaction_order: kernel {compact_ms:.4f} ms, plain "
         f"{compact_plain:.4f} ms, stable argsort {compact_lib:.4f} ms, "
         f"bound {compact_bound[0]:.4f} ms")
@@ -453,13 +494,183 @@ def join_kernels_phase(dev, tables):
         "build_table": dict(
             max_abs_err=err["build_table"], ms=build_ms, plain_ms=build_plain,
             bound_ms=build_bound[0], bound_by=build_bound[1],
-            library_ms=None, hash_sort_ms=sort_ms,
+            library_ms=build_lib, hash_sort_ms=sort_ms,
             shape=f"cap={bcap} keys={int(valid.sum())} span={span}"),
         "probe_first": dict(
             max_abs_err=err["probe_first"], ms=probe_ms, plain_ms=probe_plain,
             bound_ms=probe_bound[0], bound_by=probe_bound[1],
-            library_ms=None,
+            library_ms=probe_lib,
             shape=f"probe={pcap} valid={nvalid} span={span}"),
+    }
+
+
+M2M_DATES = (pydt.date(1994, 1, 1), pydt.date(1995, 1, 1))
+OUTER_DATES = (pydt.date(1995, 3, 1), pydt.date(1995, 3, 8))
+
+
+def _in_dates(li, dates):
+    ship = _col(li, "l_shipdate").data
+    return (ship >= _days(dates[0])) & (ship < _days(dates[1]))
+
+
+def m2m_join_inputs(tables, dev):
+    """The shapes m2m's join gives the counted probe: partsupp's part
+    keys as the build lane at their bucket capacity, the first lineitem
+    batch as the probe lane with the 1994 filter as its validity."""
+    from spark_rapids_tpu_torch.columnar.device import bucket_capacity
+    keys = _col(tables["partsupp"], "ps_partkey").data
+    bcap = bucket_capacity(len(keys))
+    lane = torch.zeros(bcap, dtype=torch.int64, device=dev)
+    lane[:len(keys)] = torch.from_numpy(keys).to(dev)
+    valid = torch.arange(bcap, device=dev) < len(keys)
+    li = tables["lineitem"]
+    pcap = Q1_CAPACITY
+    probe = torch.from_numpy(np.ascontiguousarray(
+        _col(li, "l_partkey").data[:pcap])).to(dev)
+    pvalid = torch.from_numpy(np.ascontiguousarray(
+        _in_dates(li, M2M_DATES)[:pcap])).to(dev)
+    return lane, valid, probe, pvalid
+
+
+def counted_join_kernels_phase(dev, tables):
+    from spark_rapids_tpu_torch.columnar.device import bucket_capacity
+    from spark_rapids_tpu_torch.ops.hopper import hashjoin as HJ
+    lane, valid, probe, pvalid = m2m_join_inputs(tables, dev)
+    bcap, pcap = lane.numel(), probe.numel()
+    table = HJ.build_table(lane, valid)
+    err = {"probe_counts": 0, "expand_pairs": 0}
+
+    def note(kernel, e):
+        err[kernel] = max(err[kernel], e)
+
+    def check_counted(table_, lane_, valid_, what):
+        """probe_counts and the full expansion against their plain
+        versions; returns (first, counts, cum, total, out_cap)."""
+        first, counts, cum = HJ.probe_counts(table_, lane_, valid_)
+        pfirst, pcounts = HJ.probe_counts_plain(table_, lane_, valid_)
+        note("probe_counts", _exact(first, pfirst,
+                                    f"probe_counts first ({what})"))
+        note("probe_counts", _exact(counts, pcounts,
+                                    f"probe_counts counts ({what})"))
+        note("probe_counts", _exact(cum, HJ.inclusive_cumsum(pcounts),
+                                    f"probe_counts cum ({what})"))
+        total = int(cum[-1])
+        out_cap = bucket_capacity(max(total, 1))
+        got = HJ.expand_pairs(table_, first, counts, cum, out_cap, total)
+        want = HJ.expand_pairs_plain(table_, first, counts, cum, out_cap,
+                                     total)
+        for g, w, part in zip(got, want, ("probe rows", "build rows",
+                                          "live flags")):
+            note("expand_pairs", _exact(g, w, f"expand_pairs {part} "
+                                              f"({what})"))
+        return first, counts, cum, total, out_cap
+
+    first, counts, cum, total, out_cap = check_counted(
+        table, probe, pvalid, "m2m first lineitem batch")
+    g = torch.Generator(device=dev).manual_seed(13)
+    # one key 10,000 times in a build of 2^20 rows
+    dup = torch.randint(0, 1 << 40, (1 << 20,), generator=g, device=dev)
+    dup[:10_000] = 42
+    dup_probe = dup[torch.randint(10_000, 1 << 20, (1 << 20,), generator=g,
+                                  device=dev)]
+    dup_probe[:100] = 42                   # 100 probes of 10,000 pairs
+    ones = torch.ones(1 << 20, dtype=torch.bool, device=dev)
+    dup_table = HJ.build_table(dup, ones)
+    dup_total = check_counted(dup_table, dup_probe, ones,
+                              "a key 10,000 times")[3]
+    check(dup_total >= 100 * 10_000, "the duplicate-heavy case expanded "
+          f"only {dup_total} pairs")
+    # a total of 0: every probe key misses; all-dead probes
+    miss = torch.full((1 << 20,), -7, dtype=torch.int64, device=dev)
+    check(check_counted(dup_table, miss, ones, "total 0")[3] == 0,
+          "the all-miss probe found pairs")
+    check(check_counted(table, probe, torch.zeros_like(pvalid),
+                        "all-dead probes")[3] == 0,
+          "the all-dead probe found pairs")
+    # ±2^63 keys, and a probe capacity that is not a power of two
+    edge = torch.randint(-2 ** 63, 2 ** 63 - 1, (1 << 16,), generator=g,
+                         device=dev, dtype=torch.int64)
+    edge[:4] = torch.tensor([-2 ** 63, 2 ** 63 - 1, -1, 0])
+    edge = torch.cat([edge, edge[:4]])                 # repeated edges
+    edge_table = HJ.build_table(edge, torch.ones_like(edge,
+                                                      dtype=torch.bool))
+    check_counted(edge_table, edge.flip(0), torch.rand(
+        edge.numel(), generator=g, device=dev) > 0.1, "±2^63 keys")
+    odd = 3_000_017
+    check_counted(table, probe[:odd].contiguous(),
+                  pvalid[:odd].contiguous(), "probe capacity 3,000,017")
+    nvalid = int(pvalid.sum())
+    log(f"[kernels] probe_counts and expand_pairs equal their plain "
+        f"versions (partsupp build capacity {bcap}, span {table.span}; "
+        f"probe {pcap} rows, {nvalid} valid, {total} pairs at output "
+        f"capacity {out_cap}; a key 10,000 times ({dup_total} pairs), "
+        "total 0, all-dead probes, ±2^63 keys, probe capacity 3,000,017)")
+
+    # ---- timings, at m2m's shapes
+    k_counts = cuda_ms(lambda: HJ.probe_counts(table, probe, pvalid))
+
+    def plain_counts():
+        _f, c = HJ.probe_counts_plain(table, probe, pvalid)
+        return HJ.inclusive_cumsum(c)
+
+    p_counts = cuda_ms(plain_counts, reps=5)
+    # yardstick: the same function on the sorted representation, two
+    # searchsorted calls of the probe lane into the sorted build lane
+    sort_key = torch.where(valid, lane, torch.full_like(lane, 2 ** 63 - 1))
+    svals = torch.sort(sort_key, stable=True).values
+
+    def library_counts():
+        lo = torch.searchsorted(svals, probe)
+        hi = torch.searchsorted(svals, probe, right=True)
+        c = torch.where(pvalid, hi - lo, torch.zeros_like(lo))
+        return lo, torch.cumsum(c, 0, dtype=torch.int32)
+
+    l_counts = cuda_ms(library_counts)
+    # reads every flag and writes first, count and cum (13 bytes a row);
+    # only a valid row needs its key, its run and the slot past it
+    walked = int((counts.to(torch.int64) + 1)[pvalid].sum())
+    counts_bound = bound(pcap * (1 + 12) + nvalid * 8 + walked * 12,
+                         pcap + walked)
+    k_expand = cuda_ms(lambda: HJ.expand_pairs(table, first, counts, cum,
+                                               out_cap, total))
+    p_expand = cuda_ms(lambda: HJ.expand_pairs_plain(
+        table, first, counts, cum, out_cap, total), reps=5)
+    ar = torch.arange(pcap, device=dev)
+    jt = torch.arange(total, device=dev)
+    first64, start64 = first.to(torch.int64), (cum - counts).to(torch.int64)
+
+    counts64 = counts.to(torch.int64)
+
+    def library_expand():
+        p = torch.repeat_interleave(ar, counts64, output_size=total)
+        return p, table.rows[first64[p] + (jt - start64[p])]
+
+    l_expand = cuda_ms(library_expand)
+    # writes 9 bytes an output slot and reads one table row a pair; cum
+    # once (a run starts where the previous row's cum ends) and first at
+    # the rows that own pairs; a search round per level per pair
+    owners = int((counts > 0).sum())
+    expand_bound = bound(out_cap * 9 + total * 4 + pcap * 4 + owners * 4,
+                         total * HJ.search_rounds(pcap))
+    log(f"[kernels] probe_counts (with its 1-D cumsum): kernel "
+        f"{k_counts:.4f} ms, plain {p_counts:.4f} ms, two searchsorted "
+        f"{l_counts:.4f} ms, bound {counts_bound[0]:.4f} ms ({walked} "
+        "table slots walked)")
+    log(f"[kernels] expand_pairs: kernel {k_expand:.4f} ms, plain "
+        f"{p_expand:.4f} ms, repeat_interleave + gather {l_expand:.4f} ms, "
+        f"bound {expand_bound[0]:.4f} ms ({owners} probe rows own pairs)")
+    return {
+        "probe_counts": dict(
+            max_abs_err=err["probe_counts"], ms=k_counts, plain_ms=p_counts,
+            bound_ms=counts_bound[0], bound_by=counts_bound[1],
+            library_ms=l_counts,
+            shape=f"probe={pcap} valid={nvalid} span={table.span} "
+                  f"build={bcap}"),
+        "expand_pairs": dict(
+            max_abs_err=err["expand_pairs"], ms=k_expand, plain_ms=p_expand,
+            bound_ms=expand_bound[0], bound_by=expand_bound[1],
+            library_ms=l_expand,
+            shape=f"probe={pcap} pairs={total} out_cap={out_cap}"),
     }
 
 
@@ -636,6 +847,68 @@ def check_q3(lanes, want) -> None:
           f"10th row:\n{lanes}\n{top}\ntied: {tied}")
 
 
+def _pairs(build_keys, probe_keys):
+    """Equi-join pairs in numpy: (probe row, build row) for every equal
+    key, probe-major with build rows ascending, from a stable argsort of
+    the build keys, two searchsorted calls and np.repeat.  The probe keys
+    are searched in sorted order, which keeps the searches in cache."""
+    order = np.argsort(build_keys, kind="stable")
+    skeys = build_keys[order]
+    qorder = np.argsort(probe_keys)
+    sprobe = probe_keys[qorder]
+    lo = np.empty(len(probe_keys), np.int64)
+    cnt = np.empty(len(probe_keys), np.int64)
+    lo[qorder] = np.searchsorted(skeys, sprobe, side="left")
+    cnt[qorder] = np.searchsorted(skeys, sprobe, side="right") - lo[qorder]
+    probe_rows = np.repeat(np.arange(len(probe_keys)), cnt)
+    offset = np.arange(len(probe_rows)) - np.repeat(np.cumsum(cnt) - cnt,
+                                                    cnt)
+    return probe_rows, order[np.repeat(lo, cnt) + offset], cnt
+
+
+def expected_m2m(tables):
+    """m2m: 1994's lineitem ⋈ partsupp on the part key, per ship mode the
+    exact int64 sum of supplycost x quantity (scale 4) and the pairs."""
+    li, ps = tables["lineitem"], tables["partsupp"]
+    rows = np.flatnonzero(_in_dates(li, M2M_DATES))
+    lrow, prow, _cnt = _pairs(_col(ps, "ps_partkey").data,
+                              _col(li, "l_partkey").data[rows])
+    lrow = rows[lrow]
+    cost = _col(ps, "ps_supplycost").data[prow] * \
+        _col(li, "l_quantity").data[lrow]
+    mode = _col(li, "l_shipmode")
+    order, gmodes, starts = _groups(mode.data[lrow])
+    # the dictionary is sorted, so ascending codes are ascending names
+    return {"l_shipmode": [str(mode.dictionary[m]) for m in gmodes],
+            "cost": np.add.reduceat(cost[order], starts).tolist(),
+            "n": np.diff(np.r_[starts, len(lrow)]).tolist()}
+
+
+def expected_outer(tables):
+    """outer: per partsupp row its matches among one week of lineitem
+    (0 for none), then how many rows have each count, n desc, count
+    desc."""
+    li, ps = tables["lineitem"], tables["partsupp"]
+    week = _col(li, "l_partkey").data[_in_dates(li, OUTER_DATES)]
+    _p, _b, per_row = _pairs(week, _col(ps, "ps_partkey").data)
+    values, n = np.unique(per_row, return_counts=True)
+    rank = np.lexsort((-values, -n))
+    return {"c_count": values[rank].tolist(), "n": n[rank].tolist()}
+
+
+def expected_semi(tables):
+    """semi: the lineitem rows whose (part, supplier) pair partsupp has,
+    their count and the exact sum of their quantities."""
+    li, ps = tables["lineitem"], tables["partsupp"]
+    width = int(_col(ps, "ps_suppkey").data.max()) + 1
+    pair = _col(ps, "ps_partkey").data * width + _col(ps, "ps_suppkey").data
+    lsk = _col(li, "l_suppkey").data
+    _p, _b, cnt = _pairs(pair, _col(li, "l_partkey").data * width + lsk)
+    keep = (cnt > 0) & (lsk < width)
+    return {"n": [int(keep.sum())],
+            "qty": [int(_col(li, "l_quantity").data[keep].sum())]}
+
+
 def lanes_of(hb):
     """Column -> python list of its storage values (strings decoded,
     decimals as unscaled ints), failing on nulls."""
@@ -650,18 +923,21 @@ def lanes_of(hb):
 
 
 def data_phase(scale: float, seed: int):
-    """SF `scale` customer, orders and lineitem, and the numpy results."""
+    """SF `scale` customer, orders, partsupp and lineitem, and the numpy
+    results."""
     from spark_rapids_tpu_torch import tpch
     t0 = time.perf_counter()
-    tables = tpch.gen_tables(scale, seed,
-                             tables=("customer", "orders", "lineitem"))
+    tables = tpch.gen_tables(scale, seed, tables=("customer", "orders",
+                                                  "partsupp", "lineitem"))
     log(f"[data] gen_tables(scale={scale}): " + ", ".join(
         f"{n} {hb.num_rows} rows" for n, hb in tables.items()) +
         f" in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     li = tables["lineitem"]
     want = {"q1": expected_q1(li), "q6": expected_q6(li),
-            "minmax": expected_minmax(li), "q3": expected_q3(tables)}
+            "minmax": expected_minmax(li), "q3": expected_q3(tables),
+            "m2m": expected_m2m(tables), "outer": expected_outer(tables),
+            "semi": expected_semi(tables)}
     log(f"[data] numpy reference in {time.perf_counter() - t0:.1f} s")
     return tables, want
 
@@ -675,7 +951,7 @@ def path_phase(tables, want):
     s = TpuSession()
     check(s.device.type == "cuda", "TpuSession() is not on cuda")
     queries = {"q1": tpch.q1, "q6": tpch.q6, "minmax": minmax_query,
-               "q3": tpch.q3}
+               "q3": tpch.q3, **tpch.JOIN_QUERIES}
     cold, launches = {}, {}
     for name, build in queries.items():
         reset_launch_counts()
@@ -686,10 +962,11 @@ def path_phase(tables, want):
         cold[name] = (time.perf_counter() - t0) * 1e3
         launches[name] = dict(LAUNCHES)
         lanes = lanes_of(got)
+        if name in ("q3", "m2m", "outer", "semi"):
+            log(f"[path] {name} peak device memory "
+                f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
         if name == "q3":
             check_q3(lanes, want[name])
-            log(f"[path] q3 peak device memory "
-                f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
         else:
             check(lanes == want[name], f"{name} differs from the numpy "
                   f"reference:\n{lanes}\n{want[name]}")
@@ -722,7 +999,9 @@ PROFILE_PARTS = (
     ("carry_kernel<tile_scan::Add", "compaction_order"),
     ("layout_kernel", "build_table"), ("tile_max_kernel", "build_table"),
     ("carry_kernel<tile_scan::Max", "build_table"),
-    ("probe_first_kernel", "probe_first"))
+    ("probe_first_kernel", "probe_first"),
+    ("probe_counts_kernel", "probe_counts"),
+    ("expand_pairs_kernel", "expand_pairs"))
 
 
 def profile_query(name, build, tables):
@@ -772,6 +1051,7 @@ def profile_phase(tables):
     from spark_rapids_tpu_torch import tpch
     profile_query("q1", tpch.q1, tables)
     profile_query("q3", tpch.q3, tables)
+    profile_query("m2m", tpch.m2m, tables)
 
 
 def main() -> int:
@@ -796,6 +1076,7 @@ def main() -> int:
     tables, want = data_phase(args.scale, args.seed)
     stats = kernels_phase(dev)
     stats.update(join_kernels_phase(dev, tables))
+    stats.update(counted_join_kernels_phase(dev, tables))
     launches = path_phase(tables, want)
     profile_phase(tables)
     rows = []

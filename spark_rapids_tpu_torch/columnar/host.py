@@ -93,9 +93,10 @@ def _min_max(col: HostColumn):
 
 def _keys_unique(cols: Sequence[HostColumn]) -> bool:
     """No two rows share equal values in `cols`, rows with a null in any
-    of them excluded (null join keys never match).  An integer column
-    settles by pigeonhole (more rows than its value span: not unique) or
-    a bincount over the span; anything else by np.unique."""
+    of them excluded (null join keys never match).  Integer columns whose
+    value spans multiply below 2^62 pack into one lane, which settles by
+    pigeonhole (more rows than the span: not unique), a bincount over a
+    small span or one sort; anything else by np.unique over rows."""
     live = np.ones(len(cols[0]), bool)
     for c in cols:
         if c.validity is not None:
@@ -103,15 +104,35 @@ def _keys_unique(cols: Sequence[HostColumn]) -> bool:
     n = int(live.sum())
     if n <= 1:
         return True
-    if len(cols) == 1 and cols[0].data.dtype.kind in "iub":
-        data = cols[0].data[live].astype(np.int64)
-        lo, hi = int(data.min()), int(data.max())
-        if hi - lo + 1 < n:
+    packed, span = _packed_int_lane([c.data[live] for c in cols])
+    if packed is not None:
+        if span < n:
             return False
-        if hi - lo < 8 * n:
-            return int(np.bincount(data - lo).max()) <= 1
+        if span <= 8 * n:
+            return int(np.bincount(packed).max()) <= 1
+        ordered = np.sort(packed)
+        return not bool(np.any(ordered[1:] == ordered[:-1]))
     rows = np.stack([_equality_lane(c.data[live]) for c in cols], axis=1)
     return len(np.unique(rows, axis=0)) == n
+
+
+def _packed_int_lane(lanes: Sequence[np.ndarray]):
+    """(lane, span): integer lanes folded into one non-negative int64
+    lane below `span` (injective on the rows), or (None, None) when a
+    lane is not integral or the spans multiply past 2^62."""
+    packed, span = None, 1
+    for data in lanes:
+        if data.dtype.kind not in "iub":
+            return None, None
+        data = data.astype(np.int64)
+        lo, hi = int(data.min()), int(data.max())
+        width = hi - lo + 1
+        if span * width >= 1 << 62:
+            return None, None
+        part = data - lo
+        packed = part if packed is None else packed * width + part
+        span *= width
+    return packed, span
 
 
 def _equality_lane(data: np.ndarray) -> np.ndarray:

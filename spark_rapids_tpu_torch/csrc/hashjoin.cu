@@ -1,9 +1,12 @@
-// Hash-table join kernels for Hopper (sm_90a): the table layout and the
-// unique-build probe.
+// Hash-table join kernels for Hopper (sm_90a): the table layout, the
+// unique-build probe, and the counted probe and pair expansion of
+// non-unique builds.
 //
 // Replaces the TPU kernels of spark_rapids_tpu/ops/pallas/hashjoin.py:
-//   build_layout <- _build_trace       (hashjoin.py:111, pallas_call :147)
-//   probe_first  <- _probe_first_trace (hashjoin.py:182, pallas_call :214)
+//   build_layout <- _build_trace        (hashjoin.py:111, pallas_call :147)
+//   probe_first  <- _probe_first_trace  (hashjoin.py:182, pallas_call :214)
+//   probe_counts <- _probe_counts_trace (hashjoin.py:253, pallas_call :289)
+//   expand_pairs <- _expand_trace       (hashjoin.py:324, pallas_call :354)
 //
 // The table is open addressing in hash order over one canonical int64
 // key lane: keys int64[span] and rows int32[span] (row -1 = empty),
@@ -29,13 +32,33 @@
 // it finds its key (writes the build row) or an empty slot (writes -1),
 // for at most span steps.
 //
-// What bounds them on this card: both are bandwidth-bound.  build_layout
-// reads 16 bytes a build row (ideal, key, row id; ideal twice) and
-// scatters 12; probe_first reads 9 bytes a probe row and writes 5, plus
-// at least one 12-byte table slot per valid row, a random access that
-// usually misses the 50 MB L2 for tables of millions of rows.  The
-// design keeps the walk short (load factor at most 0.5) and makes the
-// layout writes land in increasing slots.
+// probe_counts: one thread per probe row walks the same way but counts
+// the run of equal keys: it stops at an empty slot or at the first slot
+// after the run that holds another key, and writes the run's first slot
+// (0 without a match) and its length.  Equal keys are consecutive, so
+// the run is the row's whole match set.  The reference clamps its walk
+// at span - 1 and re-reads that slot until span steps are spent; the
+// kernel reproduces that count in closed form (the layout never stores
+// a live row there, so it only matters for tables built otherwise).
+//
+// expand_pairs: one thread per output slot j.  A live slot (j < total)
+// finds its probe row p by the reference's fixed-round binary search of
+// the inclusive prefix sum `cum` (the least p with cum[p] > j) and its
+// build row at table slot first[p] + j - (cum[p] - counts[p]); a dead
+// slot writes (0, 0, false) and searches nothing.
+//
+// What bounds them on this card: all four are bandwidth-bound.
+// build_layout reads 16 bytes a build row (ideal, key, row id; ideal
+// twice) and scatters 12; probe_first reads 9 bytes a probe row and
+// writes 5, probe_counts reads 9 and writes 8, and each valid probe row
+// reads at least one 12-byte table slot (probe_counts: its run and one
+// slot past it), a random access that usually misses the 50 MB L2 for
+// tables of millions of rows.  expand_pairs writes 9 bytes an output
+// slot and reads one 4-byte table row at random; its search reads `cum`
+// log2(probe capacity) times, of which the first levels stay in L1/L2.
+// The design keeps the walks short (load factor at most 0.5), makes the
+// layout writes land in increasing slots and gives dead output slots no
+// work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -142,6 +165,89 @@ __global__ void probe_first_kernel(const long long* __restrict__ tkeys,
   }
 }
 
+__global__ void probe_counts_kernel(const long long* __restrict__ tkeys,
+                                    const int* __restrict__ trows,
+                                    long long span, int nbits,
+                                    const long long* __restrict__ lane,
+                                    const bool* __restrict__ valid,
+                                    long long cap, int* __restrict__ first_out,
+                                    int* __restrict__ count_out) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       i < cap; i += stride) {
+    int first = 0;
+    int cnt = 0;
+    if (valid[i]) {
+      const long long key = lane[i];
+      long long slot = static_cast<long long>(
+          mix64(static_cast<unsigned long long>(key)) >> (64 - nbits));
+      for (long long step = 0; step < span; ++step) {
+        if (trows[slot] < 0) break;             // an empty slot ends it
+        const bool hit = tkeys[slot] == key;
+        if (hit) {
+          if (cnt == 0) first = static_cast<int>(slot);
+          ++cnt;
+        } else if (cnt > 0) {
+          break;                                // the run has ended
+        }
+        if (slot == span - 1) {
+          // the reference re-reads the clamped last slot for the steps
+          // it has left: each re-read of a hit counts again
+          if (hit) cnt += static_cast<int>(span - 1 - step);
+          break;
+        }
+        ++slot;
+      }
+    }
+    first_out[i] = first;
+    count_out[i] = cnt;
+  }
+}
+
+__global__ void expand_pairs_kernel(const int* __restrict__ trows,
+                                    long long span,
+                                    const int* __restrict__ first,
+                                    const int* __restrict__ counts,
+                                    const int* __restrict__ cum, int pcap,
+                                    int rounds, long long total,
+                                    long long out_cap,
+                                    int* __restrict__ probe_out,
+                                    int* __restrict__ build_out,
+                                    bool* __restrict__ ok_out) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long j = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       j < out_cap; j += stride) {
+    int p = 0;
+    int b = 0;
+    const bool live = j < total;
+    if (live) {
+      const long long tgt = j + 1;
+      int lo = 0;
+      int hi = pcap;
+      for (int r = 0; r < rounds; ++r) {
+        int mid = (lo + hi) / 2;
+        mid = mid < pcap - 1 ? mid : pcap - 1;
+        if (cum[mid] < tgt) {
+          lo = mid + 1;
+        } else {
+          hi = mid;
+        }
+      }
+      p = lo < pcap - 1 ? lo : pcap - 1;
+      const long long start = static_cast<long long>(cum[p]) - counts[p];
+      long long pos = first[p] + (j - start);
+      pos = pos < 0 ? 0 : (pos > span - 1 ? span - 1 : pos);
+      const int r = trows[pos];
+      b = r > 0 ? r : 0;
+    }
+    probe_out[j] = p;
+    build_out[j] = b;
+    ok_out[j] = live;
+  }
+}
+
 int grid_for(long long rows) {
   static int sms = 0;
   if (sms == 0) {
@@ -198,5 +304,41 @@ extern "C" int hashjoin_probe_first(const long long* keys, const int* rows,
     return static_cast<int>(cudaErrorInvalidValue);
   probe_first_kernel<<<grid_for(cap), kThreads, 0, st>>>(
       keys, rows, span, nbits, lane, valid, cap, row_out, ok_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// keys/rows/span/nbits as for hashjoin_probe_first; first_out and
+// count_out int32[cap] (first = 0 and count = 0 where nothing matches).
+extern "C" int hashjoin_probe_counts(const long long* keys, const int* rows,
+                                     long long span, int nbits,
+                                     const long long* lane, const bool* valid,
+                                     long long cap, int* first_out,
+                                     int* count_out, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (cap <= 0 || span <= 0 || nbits < 1 || nbits > 62)
+    return static_cast<int>(cudaErrorInvalidValue);
+  probe_counts_kernel<<<grid_for(cap), kThreads, 0, st>>>(
+      keys, rows, span, nbits, lane, valid, cap, first_out, count_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// rows int32[span] from hashjoin_build_layout; first, counts and cum
+// (inclusive prefix sum of counts) int32[pcap] from hashjoin_probe_counts;
+// `rounds` binary-search rounds (bit_length(pcap - 1) + 1); probe_out,
+// build_out int32[out_cap] and ok_out bool[out_cap], live below `total`.
+extern "C" int hashjoin_expand_pairs(const int* rows, long long span,
+                                     const int* first, const int* counts,
+                                     const int* cum, long long pcap,
+                                     int rounds, long long total,
+                                     long long out_cap, int* probe_out,
+                                     int* build_out, bool* ok_out,
+                                     void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (pcap <= 0 || pcap > 0x7fffffffLL || span <= 0 || out_cap <= 0 ||
+      out_cap > 0x7fffffffLL || total < 0 || total > out_cap || rounds < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  expand_pairs_kernel<<<grid_for(out_cap), kThreads, 0, st>>>(
+      rows, span, first, counts, cum, static_cast<int>(pcap), rounds, total,
+      out_cap, probe_out, build_out, ok_out);
   return static_cast<int>(cudaGetLastError());
 }

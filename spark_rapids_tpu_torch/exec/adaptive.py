@@ -6,8 +6,12 @@ sizes).  `AdaptiveShuffledJoinExec` materializes BOTH join inputs as
 completed stages, measures their device bytes, and builds on the
 smaller side — except that a side with unique join keys is worth more
 than raw size (it unlocks the sync-free probe-aligned path) unless it is
-more than 8x bigger.  A swap mirrors the join type and restores the
-left-then-right column order on output, so the swap is invisible.
+more than 8x bigger.  Only inner and outer joins swap (`_MIRROR`: left
+outer becomes right outer and back, full outer stays); a swap mirrors the
+join type and restores the left-then-right column order on output, so
+the swap is invisible.  A left semi join runs here without a swap (the
+reference sends it here for its bloom filter); a left anti join never
+comes here (plan/overrides.py).
 
 Filters right below either input ride into the join as masks
 (exec/plan.py peel_filters), so the stages hold the raw child batches

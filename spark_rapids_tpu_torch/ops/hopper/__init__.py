@@ -4,8 +4,10 @@ Counterpart of spark_rapids_tpu/ops/pallas/__init__.py: the kernels the
 JAX package wrote in Pallas for the TPU are written here by hand in CUDA
 C++ for `sm_90a` (sources under csrc/), built with nvcc at first use and
 bound through ctypes.  Three families: `segagg` (segmented aggregation),
-`compact` (selection compaction) and `hashjoin` (hash-table build and
-unique-build probe).  This module holds what they share:
+`compact` (selection compaction) and `hashjoin` (hash-table build, the
+unique-build probe, and the counted probe and pair expansion of
+non-unique builds).  Every Pallas kernel of the JAX package has its
+counterpart here.  This module holds what they share:
 
   * `KernelTier` / `kernel_tier` / `elect_segagg` / `elect_join` /
     `elect_compact` — the election.  The conf keys are the reference's
@@ -60,7 +62,8 @@ SOURCES = {"segagg": "segagg.cu", "compact": "compact.cu",
 #: and only there)
 LAUNCHES: Dict[str, int] = {"seg_sums": 0, "seg_reduce": 0,
                             "compaction_order": 0, "build_table": 0,
-                            "probe_first": 0}
+                            "probe_first": 0, "probe_counts": 0,
+                            "expand_pairs": 0}
 
 
 def reset_launch_counts() -> None:

@@ -15,8 +15,17 @@ ascending build-row order.
   * `probe_first` replaces `_probe_first_trace` (hashjoin.py:182): per
     probe row the first build row with an equal key, -1 and False when
     there is none.  `probe_matched` is its `ok` lane.
-  * `probe_counts` / `expand_pairs` (non-unique builds) port with the
-    next join slice.
+  * `probe_counts` replaces `_probe_counts_trace` (hashjoin.py:253): per
+    probe row the first table slot of its key's run and the run's
+    length; the wrapper adds the int32 inclusive prefix sum `cum` (one
+    1-D `torch.cumsum`, which PyTorch runs through cub on the card).
+  * `expand_pairs` replaces `_expand_trace` (hashjoin.py:324): per
+    output slot of a sized expansion its probe row, build row and
+    liveness, in the reference's pair order (probe-major, build rows
+    ascending within a key).  `total` is a host int here.
+  * `build_matched_flags` (hashjoin.py:373, jnp in the reference, not a
+    Pallas kernel) is plain PyTorch: per build row, whether a counted
+    probe run covers its slot (right and full outer joins).
 
 Unsigned 64-bit arithmetic runs on int64 tensors (torch has no usable
 uint64 on CUDA): constants as their signed images, logical right shifts
@@ -46,6 +55,10 @@ _SIGNATURES = {
     "hashjoin_build_layout": [_VP, _VP, _VP, _LL, _VP, _LL, _VP, _VP, _VP],
     "hashjoin_probe_first": [_VP, _VP, _LL, _I, _VP, _VP, _LL, _VP, _VP,
                              _VP],
+    "hashjoin_probe_counts": [_VP, _VP, _LL, _I, _VP, _VP, _LL, _VP, _VP,
+                              _VP],
+    "hashjoin_expand_pairs": [_VP, _LL, _VP, _VP, _VP, _LL, _I, _LL, _LL,
+                              _VP, _VP, _VP, _VP],
 }
 
 INT64_MIN = -(1 << 63)
@@ -182,6 +195,25 @@ def probe_first_plain(table: HashTable, lane: torch.Tensor,
     return out, out >= 0
 
 
+def _check_probe(kernel: str, table: HashTable, lane: torch.Tensor,
+                 valid: torch.Tensor) -> int:
+    """Raise unless a CUDA probe's inputs are what its kernel takes;
+    returns the probe capacity."""
+    cap = lane.numel()
+    if lane.dtype != torch.int64 or valid.dtype != torch.bool or \
+            lane.dim() != 1 or valid.shape != lane.shape or \
+            not lane.is_contiguous() or not valid.is_contiguous() or \
+            valid.device != lane.device or cap == 0:
+        raise ValueError(f"{kernel}: lane must be contiguous int64[n] and "
+                         "valid contiguous bool[n] on one device, n > 0")
+    if table.keys.device != lane.device or \
+            table.keys.numel() != table.span or \
+            table.rows.numel() != table.span:
+        raise ValueError(f"{kernel}: table does not match the probe "
+                         "device or its span")
+    return cap
+
+
 def probe_first(table: HashTable, lane: torch.Tensor, valid: torch.Tensor):
     """(build row int32, found bool) per probe row: the first build row
     (ascending row id) whose key equals the probe lane, -1 where none
@@ -190,18 +222,7 @@ def probe_first(table: HashTable, lane: torch.Tensor, valid: torch.Tensor):
         return probe_first_plain(table, lane, valid)
     if lane.device.type != "cuda":
         raise ValueError(f"probe_first: unsupported device {lane.device}")
-    cap = lane.numel()
-    if lane.dtype != torch.int64 or valid.dtype != torch.bool or \
-            lane.dim() != 1 or valid.shape != lane.shape or \
-            not lane.is_contiguous() or not valid.is_contiguous() or \
-            valid.device != lane.device or cap == 0:
-        raise ValueError("probe_first: lane must be contiguous int64[n] and "
-                         "valid contiguous bool[n] on one device, n > 0")
-    if table.keys.device != lane.device or \
-            table.keys.numel() != table.span or \
-            table.rows.numel() != table.span:
-        raise ValueError("probe_first: table does not match the probe "
-                         "device or its span")
+    cap = _check_probe("probe_first", table, lane, valid)
     row = torch.empty(cap, dtype=torch.int32, device=lane.device)
     ok = torch.empty(cap, dtype=torch.bool, device=lane.device)
     err = _fn("hashjoin_probe_first")(
@@ -218,3 +239,152 @@ def probe_matched(table: HashTable, lane: torch.Tensor,
     """Per probe row matched flag (semi/anti joins): probe_first's `ok`
     lane."""
     return probe_first(table, lane, valid)[1]
+
+
+def probe_counts_plain(table: HashTable, lane: torch.Tensor,
+                       valid: torch.Tensor):
+    """Plain version of the probe_counts kernel, (first, counts): every
+    pending row advances one slot per step, counting its key's run, until
+    an empty slot or the run's end (the reference's vectorized walk)."""
+    lane = lane.to(torch.int64)
+    slot = _shr(mix64(lane), 64 - table.nbits)
+    first = torch.zeros(lane.shape, dtype=torch.int64, device=lane.device)
+    cnt = torch.zeros(lane.shape, dtype=torch.int32, device=lane.device)
+    pending = valid.clone()
+    steps = 0
+    while steps < table.span and bool(pending.any()):
+        occupied = table.rows[slot] >= 0
+        hit = pending & occupied & (table.keys[slot] == lane)
+        first = torch.where(hit & (cnt == 0), slot, first)
+        cnt = cnt + hit.to(torch.int32)
+        pending = pending & occupied & (hit | (cnt == 0))
+        slot = torch.where(pending, torch.clamp(slot + 1, max=table.span - 1),
+                           slot)
+        steps += 1
+    return first.to(torch.int32), cnt
+
+
+def inclusive_cumsum(counts: torch.Tensor) -> torch.Tensor:
+    """int32 inclusive prefix sum of a 1-D count lane (the reference's
+    `blocked_cumsum`); 1-D, so the card runs it through cub."""
+    return torch.cumsum(counts, 0, dtype=torch.int32)
+
+
+def probe_counts(table: HashTable, lane: torch.Tensor, valid: torch.Tensor):
+    """(first int32, counts int32, cum int32) per probe row: the table slot
+    where the probe key's run of matches starts (0 without one), the
+    run's length (0 for invalid or unmatched rows) and the inclusive
+    prefix sum of the lengths."""
+    if lane.device.type == "cpu":
+        first, counts = probe_counts_plain(table, lane, valid)
+        return first, counts, inclusive_cumsum(counts)
+    if lane.device.type != "cuda":
+        raise ValueError(f"probe_counts: unsupported device {lane.device}")
+    cap = _check_probe("probe_counts", table, lane, valid)
+    first = torch.empty(cap, dtype=torch.int32, device=lane.device)
+    counts = torch.empty(cap, dtype=torch.int32, device=lane.device)
+    err = _fn("hashjoin_probe_counts")(
+        table.keys.data_ptr(), table.rows.data_ptr(), table.span,
+        table.nbits, lane.data_ptr(), valid.data_ptr(), cap,
+        first.data_ptr(), counts.data_ptr(), stream_ptr(lane.device))
+    LAUNCHES["probe_counts"] += 1
+    check_launch(err, "probe_counts")
+    return first, counts, inclusive_cumsum(counts)
+
+
+def search_rounds(pcap: int) -> int:
+    """Binary-search rounds over a probe capacity (the reference's)."""
+    return max(1, (max(pcap, 1) - 1).bit_length() + 1)
+
+
+def expand_pairs_plain(table: HashTable, first: torch.Tensor,
+                       counts: torch.Tensor, cum: torch.Tensor,
+                       out_cap: int, total: int):
+    """Plain version of the expand_pairs kernel: the vectorized binary
+    search of every output slot's probe row, then one gather of its
+    build row."""
+    dev = first.device
+    pcap = first.numel()
+    j = torch.arange(out_cap, dtype=torch.int64, device=dev)
+    tgt = j + 1
+    lo = torch.zeros(out_cap, dtype=torch.int64, device=dev)
+    hi = torch.full((out_cap,), pcap, dtype=torch.int64, device=dev)
+    cum64 = cum.to(torch.int64)
+    for _ in range(search_rounds(pcap)):
+        mid = torch.clamp((lo + hi) // 2, max=pcap - 1)
+        go_hi = cum64[mid] < tgt
+        lo, hi = torch.where(go_hi, mid + 1, lo), torch.where(go_hi, hi, mid)
+    p = torch.clamp(lo, max=pcap - 1)
+    start = cum64[p] - counts.to(torch.int64)[p]
+    pos = torch.clamp(first.to(torch.int64)[p] + (j - start), 0,
+                      table.span - 1)
+    live = j < total
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    probe_idx = torch.where(live, p, zero).to(torch.int32)
+    build_idx = torch.where(live, torch.clamp(table.rows[pos], min=0)
+                            .to(torch.int64), zero).to(torch.int32)
+    return probe_idx, build_idx, live
+
+
+def expand_pairs(table: HashTable, first: torch.Tensor, counts: torch.Tensor,
+                 cum: torch.Tensor, out_cap: int, total: int):
+    """(probe_idx int32, build_idx int32, ok bool) at `out_cap` slots for
+    the `total` pairs that probe_counts sized: slot j < total pairs the
+    probe row whose run covers j with the build row at its run position;
+    slots past `total` are (0, 0, False)."""
+    if first.device.type == "cpu":
+        return expand_pairs_plain(table, first, counts, cum, out_cap, total)
+    if first.device.type != "cuda":
+        raise ValueError(f"expand_pairs: unsupported device {first.device}")
+    pcap = first.numel()
+    for t in (first, counts, cum):
+        if t.device != first.device or t.dtype != torch.int32 or \
+                t.dim() != 1 or t.numel() != pcap or not t.is_contiguous():
+            raise ValueError(f"expand_pairs: expected contiguous int32[{pcap}]"
+                             f" on {first.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    if pcap == 0 or out_cap <= 0 or not 0 <= total <= out_cap or \
+            table.rows.device != first.device or \
+            table.rows.numel() != table.span:
+        raise ValueError(f"expand_pairs: bad probe capacity {pcap}, output "
+                         f"capacity {out_cap}, total {total} or table")
+    dev = first.device
+    probe_idx = torch.empty(out_cap, dtype=torch.int32, device=dev)
+    build_idx = torch.empty(out_cap, dtype=torch.int32, device=dev)
+    ok = torch.empty(out_cap, dtype=torch.bool, device=dev)
+    err = _fn("hashjoin_expand_pairs")(
+        table.rows.data_ptr(), table.span, first.data_ptr(),
+        counts.data_ptr(), cum.data_ptr(), pcap, search_rounds(pcap), total,
+        out_cap, probe_idx.data_ptr(), build_idx.data_ptr(), ok.data_ptr(),
+        stream_ptr(dev))
+    LAUNCHES["expand_pairs"] += 1
+    check_launch(err, "expand_pairs")
+    return probe_idx, build_idx, ok
+
+
+def build_matched_flags(table: HashTable, first: torch.Tensor,
+                        counts: torch.Tensor,
+                        build_capacity: int) -> torch.Tensor:
+    """Per build row, whether some counted probe run covers its slot
+    (right and full outer joins), without the expanded pairs: +1 at each
+    run's first slot and -1 past its end, a prefix sum > 0 marks covered
+    slots, and the table's row lane carries them to build rows.  The
+    reference's `.at[].add(mode="drop")` drops index span + 1; here the
+    delta lane has one spare slot that takes those adds and is never
+    read, and the flags scatter into one spare row that is cut off."""
+    span = table.span
+    dev = first.device
+    has = counts > 0
+    first = first.to(torch.int64)
+    ends = first + counts.to(torch.int64)
+    spare = torch.full_like(first, span + 1)
+    delta = torch.zeros(span + 2, dtype=torch.int32, device=dev)
+    ones = torch.ones_like(counts)
+    delta.index_add_(0, torch.where(has, first, spare), ones)
+    delta.index_add_(0, torch.where(has & (ends <= span), ends, spare), -ones)
+    occ = inclusive_cumsum(delta[:span]) > 0
+    tgt = torch.where(occ & (table.rows >= 0), table.rows.to(torch.int64),
+                      torch.full_like(first[:1], build_capacity))
+    flags = torch.zeros(build_capacity + 1, dtype=torch.bool, device=dev)
+    flags[tgt] = True
+    return flags[:build_capacity]

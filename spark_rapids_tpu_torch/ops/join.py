@@ -1,5 +1,5 @@
 """Equi-join building blocks: canonical key lanes, the build side and the
-probe-aligned probe.
+probes of the hash-table tier.
 
 Counterpart of spark_rapids_tpu/ops/join.py for the hash-table tier:
 
@@ -8,18 +8,22 @@ Counterpart of spark_rapids_tpu/ops/join.py for the hash-table tier:
      dates and narrow decimals widen to int64 the same way on both
      sides, dictionary-coded strings use their codes (the caller unifies
      the dictionaries), floats compare as canonical bit patterns (one
-     NaN, -0.0 folded into 0.0);
+     NaN, -0.0 folded into 0.0); composite keys whose ranges pack arrive
+     as one packed lane (`lanes_override`, exec/join.py);
   2. a single-lane build side arms a murmur3 open-addressing hash table
      (`BuildTable.hash_table`, ops/hopper/hashjoin.py), built lazily
      once per build side;
   3. a build side whose keys are unique makes every probe row match at
      most once, so `probe_aligned` returns (build_idx, ok) at the
-     probe's own capacity with no host sync.
+     probe's own capacity with no host sync, and `probe_matched_lazy`
+     gives semi and anti joins their flag the same way;
+  4. any other build is probed by `probe_counts` (one host sync fetches
+     the pair total) and expanded by `expand_pairs` into a sized output,
+     with the per-row matched flags outer joins need.
 
 The reference's dense direct-address tables and its sorted (merge-rank)
-tier, and the non-unique probes (`probe_counts`, `expand_pairs`), port
-with the next join slice; until then `probe_aligned` raises without a
-hash table.
+tier port with the next join slice; until then every probe raises
+without a hash table.
 """
 from __future__ import annotations
 
@@ -77,21 +81,30 @@ class BuildTable:
     the key-valid mask (live rows, `extra_valid` from fused build-side
     filters, non-null keys) and the lazily built hash table.
 
-    `hash_tier` is the elected kernel tier (ops/hopper elect_join); the
-    table arms only for a single lane, as in the reference (composite
-    keys need the sorted tier's collision checks)."""
+    `lanes_override` replaces the per-column canonical lanes (the
+    range-packed lane of a composite key, exec/join.py); key validity
+    still derives from `key_cols`.  `hash_tier` is the elected kernel
+    tier (ops/hopper elect_join); the table arms only for a single lane,
+    as in the reference (other composite keys need the sorted tier's
+    collision checks)."""
 
     def __init__(self, batch: DeviceBatch, key_cols: Sequence[DeviceColumn],
+                 lanes_override: Optional[List[torch.Tensor]] = None,
                  extra_valid: Optional[torch.Tensor] = None,
                  hash_tier=None):
         self.batch = batch
-        self.lanes = key_cols_lanes(key_cols)
+        self.lanes = lanes_override if lanes_override is not None \
+            else key_cols_lanes(key_cols)
         valid = batch.row_mask() if extra_valid is None else extra_valid
         for c in key_cols:
             valid = valid & c.validity      # null keys never match
         self.key_valid = valid
         self.hash_tier = hash_tier if len(self.lanes) == 1 else None
         self._hash_table = None
+
+    @property
+    def capacity(self) -> int:
+        return self.batch.capacity
 
     @property
     def hash_table(self):
@@ -106,19 +119,81 @@ class BuildTable:
         return self._hash_table
 
 
-def probe_aligned(build: BuildTable, probe_lanes: List[torch.Tensor],
-                  probe_valid: torch.Tensor):
-    """Probe a build side whose keys are UNIQUE: (build_idx int32, ok
-    bool) at the probe's capacity, with no host sync.  Single lane only:
-    there the lane is exact, so the one hit IS the match."""
+def _table(build: BuildTable, probe_lanes: List[torch.Tensor]):
+    """The build's hash table for a single-lane probe, or raise: without
+    one the reference runs its dense or sorted tier."""
     assert len(probe_lanes) == 1 and len(build.lanes) == 1, \
-        "probe_aligned requires exact single-lane keys"
+        "the hash-table probes take exact single-lane keys"
     table = build.hash_table
     if table is None:
         raise NotImplementedError(
             "the join kernel tier is off: the reference's dense and sorted "
             "join tiers port with the next join slice (ROADMAP Queue 1)")
+    return table
+
+
+def _lane(probe_lanes: List[torch.Tensor]) -> torch.Tensor:
+    return probe_lanes[0].to(torch.int64).contiguous()
+
+
+def probe_aligned(build: BuildTable, probe_lanes: List[torch.Tensor],
+                  probe_valid: torch.Tensor):
+    """Probe a build side whose keys are UNIQUE: (build_idx int32, ok
+    bool) at the probe's capacity, with no host sync.  Single lane only:
+    there the lane is exact, so the one hit IS the match."""
     from .hopper import hashjoin as HK
-    row, ok = HK.probe_first(table, probe_lanes[0].to(torch.int64)
-                             .contiguous(), probe_valid.contiguous())
+    row, ok = HK.probe_first(_table(build, probe_lanes), _lane(probe_lanes),
+                             probe_valid.contiguous())
     return torch.clamp(row, min=0), ok
+
+
+def probe_matched_lazy(build: BuildTable, probe_lanes: List[torch.Tensor],
+                       probe_valid: torch.Tensor) -> torch.Tensor:
+    """Per probe row matched flag with no host sync (semi and anti joins
+    need only the flag, never the pairs); sound for any build, unique or
+    not, because the single lane is exact."""
+    from .hopper import hashjoin as HK
+    return HK.probe_matched(_table(build, probe_lanes), _lane(probe_lanes),
+                            probe_valid.contiguous())
+
+
+def probe_counts(build: BuildTable, probe_lanes: List[torch.Tensor],
+                 probe_valid: torch.Tensor):
+    """-> (first, counts, cum, total): per probe row the table slot where
+    its matches start and their number, the inclusive prefix sum of the
+    numbers, and the pair total as a host int (the one sync)."""
+    from .hopper import hashjoin as HK
+    first, counts, cum = HK.probe_counts(_table(build, probe_lanes),
+                                         _lane(probe_lanes),
+                                         probe_valid.contiguous())
+    total = int(cum[-1]) if cum.shape[0] else 0
+    return first, counts, cum, total
+
+
+def expand_pairs(build: BuildTable, probe_lanes: List[torch.Tensor],
+                 probe_valid: torch.Tensor, first, counts, cum,
+                 out_cap: int, total: int):
+    """-> (probe_idx, build_idx, ok, probe_matched).
+
+    probe_idx/build_idx: (out_cap,) gather indices of the `total` pairs,
+    probe-major with build rows ascending within a key; ok: the live
+    slots; probe_matched: per probe row."""
+    from .hopper import hashjoin as HK
+    table = _table(build, probe_lanes)
+    if total > out_cap:
+        # callers size out_cap from probe_counts' total; a smaller cap
+        # would silently drop matching rows
+        raise ValueError(f"join candidate pairs {total} exceed output "
+                         f"capacity {out_cap}")
+    probe_idx, build_idx, ok = HK.expand_pairs(table, first, counts, cum,
+                                               out_cap, total)
+    return probe_idx, build_idx, ok, probe_valid & (counts > 0)
+
+
+def build_matched(build: BuildTable, first, counts) -> torch.Tensor:
+    """Per build row, whether a counted probe run matched it (right and
+    full outer joins; the reference computes it inside expand_pairs for
+    every join type)."""
+    from .hopper import hashjoin as HK
+    return HK.build_matched_flags(build.hash_table, first, counts,
+                                  build.capacity)

@@ -2,13 +2,20 @@
 
 Counterpart of spark_rapids_tpu/plan/overrides.py.  The reference wraps,
 tags and converts every operator, falling back to its pyarrow CPU engine
-per operator.  A Limit directly above a Sort becomes TopNExec, and an
-inner join becomes AdaptiveShuffledJoinExec (HashJoinExec with
-`sql.adaptive.enabled=false`), as in the reference.  The port has no CPU engine yet (exec/host_exec.py ports
-later), so this module prunes columns, checks every node and expression
-the device path would run, and converts — or raises
-NotImplementedError naming the operator and the reason.  It never runs
-anything on another engine.
+per operator.  A Limit directly above a Sort becomes TopNExec; inner,
+outer and left semi joins become AdaptiveShuffledJoinExec and left anti
+joins HashJoinExec (every join HashJoinExec with
+`sql.adaptive.enabled=false`), as in the reference.  The reference sends
+left semi joins through the adaptive join for its bloom-filter stage;
+the port keeps that plan shape, but with `runtimeFilter` resolved off
+(ops/bloom.py ports later) the route only materializes the probe side
+before the same HashJoinExec, at a higher peak memory.  Column pruning
+rewrites an inner join whose one side gives no output column and has
+unique keys into a left semi join of the other side, as the reference
+does.  The port has no CPU engine yet (exec/host_exec.py ports later), so
+this module prunes columns, checks every node and expression the device
+path would run, and converts — or raises NotImplementedError naming the
+operator and the reason.  It never runs anything on another engine.
 """
 from __future__ import annotations
 
@@ -22,7 +29,7 @@ from ..columnar.host import HostBatch
 from ..config import ADAPTIVE_ENABLED, DEFAULT_CONF, TpuConf
 from ..exec.plan import (ExecContext, FilterExec, HashAggregateExec,
                          HostScanExec, LimitExec, PlanNode, ProjectExec,
-                         SortExec, TopNExec)
+                         SortExec, TopNExec, key_ref_names)
 from . import expressions as E
 from . import logical as L
 
@@ -78,22 +85,56 @@ def prune_columns(plan: L.LogicalPlan, required=None) -> L.LogicalPlan:
     if type(plan) is L.LogicalLimit:
         return L.LogicalLimit(plan.limit, prune_columns(plan.child, required))
     if type(plan) is L.LogicalJoin:
-        # the reference also rewrites an inner join whose one side gives
-        # no output column and has unique keys into a left semi join;
-        # that rewrite ports with the semi join (the inner join it
-        # replaces gives the same rows in the same order)
         lreq = {n for n in required if n in plan.left.schema.names}
         rreq = {n for n in required if n in plan.right.schema.names}
-        for k in plan.left_keys:
+        join_type = plan.join_type
+        left, right = plan.left, plan.right
+        lk, rk = plan.left_keys, plan.right_keys
+        # an inner join whose one side gives no output column and has
+        # unique keys IS a semi join of the other side: each row matches
+        # at most once and only existence matters (q3's customer join)
+        if join_type == "inner" and not rreq and \
+                _logical_keys_unique(right, key_ref_names(rk)):
+            join_type = "left_semi"
+        elif join_type == "inner" and not lreq and \
+                _logical_keys_unique(left, key_ref_names(lk)):
+            join_type = "left_semi"
+            left, right, lk, rk = right, left, rk, lk
+            lreq, rreq = rreq, lreq
+        for k in lk:
             _expr_refs(k, lreq)
-        for k in plan.right_keys:
+        for k in rk:
             _expr_refs(k, rreq)
-        return L.LogicalJoin(plan.join_type,
-                             prune_columns(plan.left, lreq),
-                             prune_columns(plan.right, rreq),
-                             plan.left_keys, plan.right_keys)
+        return L.LogicalJoin(join_type, prune_columns(left, lreq),
+                             prune_columns(right, rreq), lk, rk)
     raise NotImplementedError(
         f"{plan.name()} is not ported to the device yet")
+
+
+def _logical_keys_unique(plan: L.LogicalPlan, names) -> bool:
+    """Logical-level distinctness from exact scan statistics carried
+    through the operators that keep it (False when unknown): the
+    planner-side mirror of PlanNode.keys_unique."""
+    if not names:
+        return False
+    if type(plan) is L.LogicalScan:
+        return all(n in plan.table.names for n in names) and \
+            plan.table.keys_unique(names)
+    if type(plan) in (L.LogicalFilter, L.LogicalLimit, L.LogicalSort):
+        return _logical_keys_unique(plan.child, names)
+    if type(plan) is L.LogicalProject:
+        mapped = []
+        for n in names:
+            if n not in plan.names:
+                return False
+            ref = key_ref_names([plan.exprs[plan.names.index(n)]])
+            if ref is None:
+                return False
+            mapped.append(ref[0])
+        return _logical_keys_unique(plan.child, mapped)
+    if type(plan) is L.LogicalAggregate:
+        return bool(plan.key_names) and set(plan.key_names) <= set(names)
+    return False
 
 
 def _refuse(op: str, reasons: List[str]) -> None:
@@ -158,18 +199,21 @@ def _convert(plan: L.LogicalPlan, conf: TpuConf) -> PlanNode:
 
 
 def _convert_join(plan: "L.LogicalJoin", conf: TpuConf) -> PlanNode:
-    from ..exec.adaptive import AdaptiveShuffledJoinExec
+    from ..exec.adaptive import _MIRROR, AdaptiveShuffledJoinExec
     from ..exec.join import HashJoinExec, unported_join_reasons
+    left = _convert(plan.left, conf)
+    right = _convert(plan.right, conf)
     lkeys = [k.bind(plan.left.schema) for k in plan.left_keys]
     rkeys = [k.bind(plan.right.schema) for k in plan.right_keys]
-    reasons = unported_join_reasons(plan.join_type, lkeys, rkeys)
+    reasons = unported_join_reasons(plan.join_type, lkeys, rkeys, left,
+                                    right)
     for k in lkeys + rkeys:
         reasons += k.tree_unsupported(conf)
     _refuse("Join", reasons)
-    left = _convert(plan.left, conf)
-    right = _convert(plan.right, conf)
-    if conf.get(ADAPTIVE_ENABLED):
-        # AQE analogue: the build side is chosen from runtime sizes
+    if conf.get(ADAPTIVE_ENABLED) and (plan.join_type in _MIRROR or
+                                       plan.join_type == "left_semi"):
+        # AQE analogue: the build side is chosen from runtime sizes (a
+        # left semi join never swaps; anti joins keep their sides)
         return AdaptiveShuffledJoinExec(plan.join_type, plan.left_keys,
                                         plan.right_keys, left, right)
     return HashJoinExec(plan.join_type, plan.left_keys, plan.right_keys,

@@ -16,6 +16,14 @@ Ported queries: q1 (pricing summary: filter + group-by + sort), q3
 (shipping priority: three filters, two joins, a group-by over a high-
 cardinality key, top 10) and q6 (forecast revenue change: filter +
 global aggregate).
+
+`JOIN_QUERIES` are three DataFrame queries over the same tables that
+drive the general equi-join, which no TPC-H query of the reference
+reaches (its adaptive join finds a unique build side for every one):
+`m2m` (lineitem ⋈ partsupp on part key, a many-to-many join, then
+q9's cost term per ship mode), `outer` (q13's shape: partsupp left
+outer join one week of lineitem, then the distribution of match counts)
+and `semi` (lineitem rows whose (part, supplier) pair is in partsupp).
 """
 from __future__ import annotations
 
@@ -154,7 +162,9 @@ def gen_tables(scale: float = 0.01, seed: int = 20240706,
             "p_size": _lane(p_size, _t.INT)})
 
     # partsupp: (ps_partkey, ps_suppkey) is the primary key — each part's
-    # supplier copies use distinct stride offsets (TPC-H 4.2.3's shape)
+    # supplier copies use distinct stride offsets (TPC-H 4.2.3's shape).
+    # Two suppliers a part, half the spec's four, as the reference makes
+    # them: the scale-0.001 parity tests need its exact values
     n_ps = n_part * 2
     ps_avail = rng.integers(1, 10000, n_ps)
     ps_cost = rng.integers(1_00, 1000_00, n_ps)
@@ -296,3 +306,52 @@ def q6(s: TpuSession, t: Dict[str, HostBatch]) -> DataFrame:
 
 
 QUERIES = {"q1": q1, "q3": q3, "q6": q6}
+
+
+def _date_range(name: str, lo: pydt.date, hi: pydt.date) -> E.Expression:
+    return E.And(E.GreaterThanOrEqual(col(name),
+                                      E.Literal(_days(lo), DTYPE_DATE)),
+                 E.LessThan(col(name), E.Literal(_days(hi), DTYPE_DATE)))
+
+
+def m2m(s: TpuSession, t: Dict[str, HostBatch]) -> DataFrame:
+    """1994's lineitem ⋈ partsupp on the part key (two partsupp rows a
+    part: a build with repeated keys), q9's cost term and the pair count
+    per ship mode."""
+    li = s.from_host(t["lineitem"]).filter(
+        _date_range("l_shipdate", pydt.date(1994, 1, 1),
+                    pydt.date(1995, 1, 1)))
+    cost = E.Multiply(col("ps_supplycost"), col("l_quantity"))
+    return (li.join(s.from_host(t["partsupp"]), left_on=["l_partkey"],
+                    right_on=["ps_partkey"])
+            .group_by("l_shipmode")
+            .agg((Sum(cost), "cost"), (Count(None), "n"))
+            .sort("l_shipmode"))
+
+
+def outer(s: TpuSession, t: Dict[str, HostBatch]) -> DataFrame:
+    """q13's shape over partsupp and one week of lineitem: how many
+    partsupp rows have each number of matching lineitem rows."""
+    li = s.from_host(t["lineitem"]).filter(
+        _date_range("l_shipdate", pydt.date(1995, 3, 1),
+                    pydt.date(1995, 3, 8)))
+    per_row = (s.from_host(t["partsupp"])
+               .join(li, left_on=["ps_partkey"], right_on=["l_partkey"],
+                     how="left_outer")
+               .group_by("ps_partkey", "ps_suppkey")
+               .agg((Count(col("l_orderkey")), "c_count")))
+    return (per_row.group_by("c_count").agg((Count(None), "n"))
+            .sort(("n", False, False), ("c_count", False, False)))
+
+
+def semi(s: TpuSession, t: Dict[str, HostBatch]) -> DataFrame:
+    """The lineitem rows whose (part, supplier) pair partsupp lists: a
+    left semi join on a composite key that packs into one lane."""
+    return (s.from_host(t["lineitem"])
+            .join(s.from_host(t["partsupp"]),
+                  left_on=["l_partkey", "l_suppkey"],
+                  right_on=["ps_partkey", "ps_suppkey"], how="left_semi")
+            .agg((Count(None), "n"), (Sum(col("l_quantity")), "qty")))
+
+
+JOIN_QUERIES = {"m2m": m2m, "outer": outer, "semi": semi}

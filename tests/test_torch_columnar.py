@@ -182,3 +182,39 @@ def test_port_runs_without_jax_reference_or_pyarrow():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip()
+
+
+def _uniq_case(case):
+    """(arrow table, key names, expected) of one uniqueness case."""
+    rng = np.random.default_rng(len(case))
+    a = rng.permutation(5000)
+    b = rng.integers(0, 7, 5000)
+    if case == "single_unique":
+        return pa.table({"a": a}), ["a"], True
+    if case == "single_dup":
+        return pa.table({"a": np.r_[a[:-1], a[0]]}), ["a"], False
+    if case == "wide_span":                # sparse values: the sort path
+        return pa.table({"a": a * 10 ** 12}), ["a"], True
+    if case == "pair_unique":
+        return pa.table({"a": a // 7, "b": a % 7}), ["a", "b"], True
+    if case == "pair_dup":
+        return pa.table({"a": a // 7, "b": b}), ["a", "b"], False
+    if case == "pair_too_wide":            # spans multiply past 2^62
+        return pa.table({"a": a.astype(np.int64) << 40,
+                         "b": (a % 11).astype(np.int64) << 40}), \
+            ["a", "b"], True
+    # a duplicate whose second copy has a null key is not a duplicate
+    mask = np.zeros(5000, bool)
+    mask[-1] = True
+    return pa.table({"a": pa.array(np.r_[a[:-1], a[0]], mask=mask),
+                     "b": a % 3}), ["a", "b"], True
+
+
+@pytest.mark.parametrize("case", ["single_unique", "single_dup",
+                                  "wide_span", "pair_unique", "pair_dup",
+                                  "pair_too_wide", "nulls"])
+def test_keys_unique_statistic_matches_reference(case):
+    from spark_rapids_tpu.exec.plan import _table_keys_unique
+    table, names, want = _uniq_case(case)
+    assert _table_keys_unique(table, tuple(names)) == want
+    assert PHOST.from_arrow(table).keys_unique(names) == want

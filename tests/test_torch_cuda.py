@@ -160,6 +160,43 @@ def test_build_table_and_probe_first_kernels_match_plain(cuda, cap, span,
     assert PH.LAUNCHES["probe_first"] == 1
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap,span,dead,pcap", [
+    (1024, 50, 0.1, 1000), (1 << 20, 1 << 19, 0.2, 1 << 20),
+    (4096, 3, 0.0, 3001), (2048, 9, 1.0, 2048), (1 << 16, 2 ** 62, 0.0,
+                                                 1 << 16)])
+def test_probe_counts_and_expand_pairs_kernels_match_plain(cuda, cap, span,
+                                                           dead, pcap):
+    rng = np.random.default_rng(cap + pcap)
+    lane = torch.from_numpy(rng.integers(-span, span, cap)).to(cuda)
+    lane[:2] = torch.tensor([2 ** 63 - 1, -2 ** 63])
+    valid = torch.from_numpy(rng.random(cap) >= dead).to(cuda)
+    table = PHJ.build_table(lane, valid)
+    probe = torch.from_numpy(rng.integers(-span, span, pcap)).to(cuda)
+    probe[: pcap // 2] = lane[torch.randint(0, cap, (pcap // 2,),
+                                            device=cuda)]
+    probe[-2:] = torch.tensor([2 ** 63 - 1, -2 ** 63])
+    pvalid = torch.from_numpy(rng.random(pcap) > 0.1).to(cuda)
+    PH.reset_launch_counts()
+    first, counts, cum = PHJ.probe_counts(table, probe, pvalid)
+    pfirst, pcounts = PHJ.probe_counts_plain(table, probe, pvalid)
+    assert torch.equal(first, pfirst) and torch.equal(counts, pcounts)
+    assert torch.equal(cum, torch.cumsum(pcounts, 0, dtype=torch.int32))
+    total = int(cum[-1])
+    for out_cap in (max(total, 1), total + 1000):
+        got = PHJ.expand_pairs(table, first, counts, cum, out_cap, total)
+        want = PHJ.expand_pairs_plain(table, first, counts, cum, out_cap,
+                                      total)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert PH.LAUNCHES["probe_counts"] == 1
+    assert PH.LAUNCHES["expand_pairs"] == 2
+    flags = PHJ.build_matched_flags(table, first, counts, cap)
+    cpu_table = PHJ.HashTable(table.keys.cpu(), table.rows.cpu(),
+                              table.nbits, table.span)
+    assert torch.equal(flags.cpu(), PHJ.build_matched_flags(
+        cpu_table, first.cpu(), counts.cpu(), cap))
+
+
 def _cpu_and_cuda(build):
     from spark_rapids_tpu_torch.session import TpuSession
     cpu = build(TpuSession(device="cpu")).to_pydict()
@@ -205,3 +242,20 @@ def test_sort_and_float_minmax_on_the_card_equal_cpu(cuda):
                              .sort("k"))
     assert gpu == cpu
     assert PH.LAUNCHES["seg_reduce"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("query", ["m2m", "outer", "semi"])
+def test_join_queries_on_the_card_equal_cpu_and_launch_kernels(cuda, query):
+    from spark_rapids_tpu_torch import tpch
+    tables = tpch.gen_tables(0.001, tables=("partsupp", "lineitem"))
+    PH.reset_launch_counts()
+    cpu, gpu = _cpu_and_cuda(lambda s: tpch.JOIN_QUERIES[query](s, tables))
+    assert gpu == cpu
+    want = {"m2m": ("build_table", "probe_counts", "expand_pairs",
+                    "compaction_order", "seg_sums"),
+            "outer": ("build_table", "probe_counts", "expand_pairs",
+                      "compaction_order"),
+            "semi": ("build_table", "probe_first", "compaction_order")}
+    for kernel in want[query]:
+        assert PH.LAUNCHES[kernel] > 0

@@ -5,10 +5,12 @@ The same numpy inputs go through spark_rapids_tpu.ops.pallas.hashjoin
 through the port's wrappers on CPU tensors, which run the kernels'
 plain PyTorch versions: `mix64` bit for bit, `build_table`'s geometry
 and row lane exactly and its key lane where a slot holds a row (dead
-rows leave keys in the overflow tail in the reference), `probe_first`
-and `probe_matched` exactly.  The CUDA kernels are held against the
-same plain versions on the card (tests/test_torch_cuda.py,
-chip_smoke.py).
+rows leave keys in the overflow tail in the reference), `probe_first`,
+`probe_matched`, `probe_counts` (first slot, run length and int32
+prefix sum), `expand_pairs` (probe row, build row and liveness of every
+output slot) and `build_matched_flags` exactly.  The CUDA kernels are
+held against the same plain versions on the card
+(tests/test_torch_cuda.py, chip_smoke.py).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -138,3 +140,123 @@ def test_cpu_wrappers_take_plain_versions_and_count_no_launch():
     table = PH.build_table(lane, torch.ones(1024, dtype=torch.bool))
     PH.probe_first(table, lane, torch.ones(1024, dtype=torch.bool))
     assert H.LAUNCHES["build_table"] == H.LAUNCHES["probe_first"] == 0
+
+
+def _pushed_keys(nbits, want=6, seed=5):
+    """Distinct keys whose home slot is among the last two of 2^nbits, so
+    their runs spill into the overflow tail."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.integers(-2 ** 62, 2 ** 62, 1 << 16))
+    home = PH._shr(PH.mix64(x), 64 - nbits)
+    return x[home >= (1 << nbits) - 2][:want].numpy()
+
+
+def _counts_case(kind, cap, pcap, rng):
+    """(build lane, build valid, probe lane, probe valid) of one case."""
+    if kind == "pushed":
+        nbits = max(4, (2 * cap - 1).bit_length())
+        hot = _pushed_keys(nbits)
+        lane = np.resize(np.repeat(hot, 40), cap)
+        probe = rng.choice(np.concatenate([hot, np.arange(50)]), pcap)
+        return lane, np.ones(cap, bool), probe, rng.random(pcap) > 0.1
+    lane = _keys(rng, "duplicates" if kind.startswith("dead") else kind, cap)
+    valid = rng.random(cap) >= (1.0 if kind == "dead" else 0.1)
+    probe = np.concatenate([rng.choice(lane, pcap // 2),
+                            _keys(rng, "edges" if kind == "edges" else
+                                  "unique", pcap - pcap // 2)])
+    pvalid = rng.random(pcap) >= (1.0 if kind == "dead_probe" else 0.15)
+    return lane, valid, probe, pvalid
+
+
+COUNT_CASES = [("duplicates", 1024, 1000), ("unique", 2048, 1536),
+               ("edges", 1024, 3000), ("pushed", 1024, 777),
+               ("dead", 1024, 1024), ("dead_probe", 1536, 1024)]
+
+
+@pytest.mark.parametrize("kind,cap,pcap", COUNT_CASES)
+def test_probe_counts_expand_and_matched_flags_match_reference(kind, cap,
+                                                               pcap):
+    rng = np.random.default_rng(cap + pcap + len(kind))
+    lane, valid, probe, pvalid = _counts_case(kind, cap, pcap, rng)
+    jt, pt = _tables(lane, valid)
+    jfirst, jcounts, jcum = HK.probe_counts(jt, jnp.asarray(probe),
+                                            jnp.asarray(pvalid))
+    first, counts, cum = PH.probe_counts(pt, torch.from_numpy(probe),
+                                         torch.from_numpy(pvalid))
+    assert first.dtype == counts.dtype == cum.dtype == torch.int32
+    for got, want in ((first, jfirst), (counts, jcounts), (cum, jcum)):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    # the counts are the true match counts
+    want_counts = [int(np.sum(valid & (lane == k))) if v else 0
+                   for k, v in zip(probe, pvalid)]
+    np.testing.assert_array_equal(counts.numpy(), want_counts)
+    total = int(cum[-1])
+    for out_cap in sorted({max(total, 1), total + 333}):
+        jp, jb, jok = HK.expand_pairs(jt, jfirst, jcounts, jcum, out_cap,
+                                      total)
+        pp, pb, pok = PH.expand_pairs(pt, first, counts, cum, out_cap, total)
+        np.testing.assert_array_equal(pp.numpy(), np.asarray(jp))
+        np.testing.assert_array_equal(pb.numpy(), np.asarray(jb))
+        np.testing.assert_array_equal(pok.numpy(), np.asarray(jok))
+    # probe-major pairs, build rows ascending within a key
+    want_pairs = [(p, b) for p in range(pcap) if pvalid[p]
+                  for b in np.flatnonzero(valid & (lane == probe[p]))]
+    assert list(zip(pp.numpy()[:total].tolist(),
+                    pb.numpy()[:total].tolist())) == want_pairs
+    np.testing.assert_array_equal(
+        PH.build_matched_flags(pt, first, counts, cap).numpy(),
+        np.asarray(HK.build_matched_flags(jt, jfirst, jcounts, cap)))
+
+
+def test_expand_pairs_with_total_zero_gives_dead_slots():
+    rng = np.random.default_rng(4)
+    lane = rng.integers(0, 40, 1024)
+    jt, pt = _tables(lane, np.ones(1024, bool))
+    probe = rng.integers(100, 200, 1000)                   # all miss
+    pvalid = np.ones(1000, bool)
+    jfirst, jcounts, jcum = HK.probe_counts(jt, jnp.asarray(probe),
+                                            jnp.asarray(pvalid))
+    first, counts, cum = PH.probe_counts(pt, torch.from_numpy(probe),
+                                         torch.from_numpy(pvalid))
+    assert int(cum[-1]) == 0
+    jp, jb, jok = HK.expand_pairs(jt, jfirst, jcounts, jcum, 1024, 0)
+    got = PH.expand_pairs(pt, first, counts, cum, 1024, 0)
+    for g, w in zip(got, (jp, jb, jok)):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert not got[2].any() and not got[0].any() and not got[1].any()
+    assert not PH.build_matched_flags(pt, first, counts, 1024).any()
+
+
+def test_plain_counted_probe_reproduces_the_clamped_last_slot():
+    # a hand-made table whose last slot holds the key: the reference
+    # clamps its walk there and re-reads the slot until span steps are
+    # spent, counting each re-read hit
+    nbits, span = 4, 20
+    key = int(_pushed_keys(nbits, want=1)[0])
+    home = int(PH._shr(PH.mix64(torch.tensor([key])), 64 - nbits)[0])
+    keys = torch.zeros(span, dtype=torch.int64)
+    rows = torch.full((span,), -1, dtype=torch.int32)
+    keys[home:] = key
+    rows[home:] = torch.arange(span - home, dtype=torch.int32)
+    jt = HK.HashTable(jnp.asarray(keys.numpy()), jnp.asarray(rows.numpy()),
+                      nbits, span, True)
+    pt = PH.HashTable(keys, rows, nbits, span)
+    probe = np.array([key, key + 1], np.int64)
+    pvalid = np.ones(2, bool)
+    want = HK.probe_counts(jt, jnp.asarray(probe), jnp.asarray(pvalid))
+    got = PH.probe_counts(pt, torch.from_numpy(probe),
+                          torch.from_numpy(pvalid))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert int(got[1][0]) == span     # one count per step, as the reference
+
+
+def test_cpu_counted_probe_and_expansion_count_no_launch():
+    from spark_rapids_tpu_torch.ops import hopper as H
+    H.reset_launch_counts()
+    lane = torch.arange(1024, dtype=torch.int64) % 7
+    valid = torch.ones(1024, dtype=torch.bool)
+    table = PH.build_table(lane, valid)
+    first, counts, cum = PH.probe_counts(table, lane, valid)
+    PH.expand_pairs(table, first, counts, cum, int(cum[-1]), int(cum[-1]))
+    assert H.LAUNCHES["probe_counts"] == H.LAUNCHES["expand_pairs"] == 0

@@ -1,14 +1,18 @@
 """The port's joins, string-literal predicates, limits and top-N against
 the JAX package.
 
-Fact ⋈ dimension inner joins (unique dimension keys, filters fused on
-both sides, nulls and misses in the fact keys) run through the port
-(CPU tensors, the kernels' plain versions) and through the JAX package
-with its kernel tier on and `denseReplace: ON`, so it takes the same
-hash-table tier, and through its CPU oracle.  Results are left unsorted
-where the engines define the order, so the row order is checked too.
-Every join the slice does not port raises NotImplementedError naming the
-slice that does.
+Every equi-join type (inner, left/right/full outer, left semi, left
+anti) over unique and duplicate-heavy build sides, on one key column and
+on a range-packed composite key, with the adaptive join on and off, plus
+empty build sides, all-null probe keys and filters fused on both sides,
+runs through the port (CPU tensors, the kernels' plain versions) and
+through the JAX package with its kernel tier on and `denseReplace: ON`,
+so it takes the same hash-table tier, and through its CPU oracle.  The
+port must equal the JAX package row for row in the engines' own order
+(results are left unsorted), and the CPU oracle row for row once both
+are sorted (its pyarrow engine orders join output otherwise).  Every
+join the port does not run raises NotImplementedError naming the slice
+that ports it.
 """
 import warnings
 
@@ -21,6 +25,7 @@ from spark_rapids_tpu.session import DataFrame as JDF
 from spark_rapids_tpu.session import TpuSession as JSession
 from spark_rapids_tpu.session import col as jcol
 from spark_rapids_tpu_torch import config as PCONF
+from spark_rapids_tpu_torch import types as PT
 from spark_rapids_tpu_torch.plan import expressions as PE
 from spark_rapids_tpu_torch.session import TpuSession as PSession
 from spark_rapids_tpu_torch.session import col as pcol
@@ -118,9 +123,8 @@ def test_join_on_double_keys_folds_signed_zero_and_nan():
 
 
 def test_q3_shaped_join_chain_then_aggregate_top_n():
-    # a join whose unique side gives no output column: the reference
-    # rewrites it into a semi join, the port keeps the inner join; the
-    # rows and their order are the same
+    # a join whose unique side gives no output column: both engines
+    # rewrite it into a left semi join of the other side
     fact, dim = _fact(5000, 7), _dim(400, 8)
 
     def build(e, a_mod, c, s):
@@ -158,13 +162,16 @@ def test_unported_joins_and_predicates_refuse_naming_their_slice():
     fact, dim = _fact(3000, 1), _dim()
     s = PSession(device="cpu")
     f, d = s.from_arrow(fact), s.from_arrow(dim)
+    as_double = [PE.Cast(pcol("fk"), PT.DOUBLE), pcol("x")]
     cases = [
-        (f.join(d, left_on=["fk"], right_on=["dk"], how="left_outer"),
-         "next join slice"),
-        (f.join(s.from_arrow(_fact(100, 2)), left_on=["fk"],
-                right_on=["fk"]), "not unique"),
+        (f.join(d, how="cross"), "CrossJoinExec"),
+        # keys that are not plain integer columns have no exact range
+        (f.join(d, left_on=as_double, right_on=[
+            PE.Cast(pcol("dk"), PT.DOUBLE), pcol("w")]), "do not pack"),
         (f.join(d, left_on=["tag"], right_on=["attr"]), "string"),
-        (f.join(d, left_on=["fk", "x"], right_on=["dk", "w"]), "composite"),
+        (f.join(d, left_on=["fk", "f"],
+                right_on=["dk", PE.Cast(pcol("w"), PT.DOUBLE)]),
+         "composite"),
         (f.filter(PE.LessThan(pcol("tag"), PE.Literal("q"))),
          "strings slice"),
         (f.filter(PE.EqualTo(pcol("tag"), pcol("tag"))), "strings slice"),
@@ -184,6 +191,98 @@ def test_unported_joins_and_predicates_refuse_naming_their_slice():
     with pytest.raises(NotImplementedError, match="sub-partitioned"):
         big.from_arrow(fact).join(big.from_arrow(_dim(3000)),
                                   left_on=["fk"], right_on=["dk"]).collect()
+
+
+HOWS = ["inner", "left_outer", "right_outer", "full_outer", "left_semi",
+        "left_anti"]
+NO_ADAPTIVE = {"spark.rapids.tpu.sql.adaptive.enabled": "false"}
+
+
+def _probe_side(n=700, seed=21, null_keys=False):
+    rng = np.random.default_rng(seed)
+    fk = rng.integers(-5, 45, n)                 # some keys miss the build
+    mask = np.ones(n, bool) if null_keys else rng.random(n) < 0.05
+    return pa.table({
+        "fk": pa.array(fk, pa.int64(), mask=mask),
+        "g": pa.array(rng.integers(0, 3, n), pa.int64()),
+        "x": pa.array(np.arange(n), pa.int64()),
+        "tag": pa.array(rng.choice(["p", "q", "r"], n))})
+
+
+def _build_side(kind, seed=22):
+    """`unique`: 40 distinct keys, unique alone and with `h`; `dups`:
+    1,200 rows over 30 keys (about 40 rows a key) — more bytes than the
+    700-row probe side, so the adaptive join swaps the inner and outer
+    joins."""
+    rng = np.random.default_rng(seed)
+    if kind == "unique":
+        dk, n = rng.permutation(40), 40
+    elif kind == "dups":
+        n = 1200
+        dk = rng.integers(0, 30, n)
+    else:                                        # empty
+        dk, n = np.zeros(0, np.int64), 0
+    return pa.table({
+        "dk": pa.array(dk, pa.int64()),
+        "h": pa.array(rng.integers(0, 3, n), pa.int64()),
+        "y": pa.array(np.arange(n) * 7, pa.int64()),
+        "attr": pa.array(rng.choice(["a", "b"], n) if n else [], pa.string())})
+
+
+KEYS = {"single": (["fk"], ["dk"]), "packed": (["fk", "g"], ["dk", "h"])}
+
+
+def _check_join(probe, build, how, keys, conf=None, fuse=False):
+    lk, rk = KEYS[keys]
+
+    def q(e, c, s):
+        p, b = s.from_arrow(probe), s.from_arrow(build)
+        if fuse:
+            p = p.filter(e.GreaterThan(c("x"), e.Literal(1800)))
+            b = b.filter(e.NotEqual(c("attr"), e.Literal("b")))
+        return p.join(b, left_on=lk, right_on=rk, how=how)
+    got, want, cpu = _run(q, conf)
+    assert got == want
+    assert sorted(zip(*got.values())) == sorted(zip(*cpu.values()))
+    return got
+
+
+@pytest.mark.parametrize("keys", ["single", "packed"])
+@pytest.mark.parametrize("adaptive", [True, False])
+@pytest.mark.parametrize("build", ["unique", "dups"])
+@pytest.mark.parametrize("how", HOWS)
+def test_join_type_matches_reference_and_cpu_oracle(how, build, adaptive,
+                                                    keys):
+    got = _check_join(_probe_side(), _build_side(build), how, keys,
+                      None if adaptive else NO_ADAPTIVE)
+    assert len(got["x"]) > 0
+
+
+@pytest.mark.parametrize("how", HOWS)
+def test_join_with_an_empty_build_side_matches_reference(how):
+    got = _check_join(_probe_side(300), _build_side("empty"), how, "single")
+    keeps_probe = how in ("left_outer", "full_outer", "left_anti")
+    assert len(got["x"]) == (300 if keeps_probe else 0)
+
+
+@pytest.mark.parametrize("how", HOWS)
+def test_join_with_all_null_probe_keys_matches_reference(how):
+    got = _check_join(_probe_side(300, null_keys=True), _build_side("dups"),
+                      how, "single")
+    # null keys match nothing: no row pairs a probe row with a build row
+    if how in ("inner", "left_semi"):
+        assert not got["x"]
+    elif how == "left_anti":
+        assert len(got["x"]) == 300
+    else:
+        assert all("None" in (x, y) for x, y in zip(got["x"], got["y"]))
+
+
+@pytest.mark.parametrize("how", HOWS)
+def test_join_with_filters_fused_on_both_sides_matches_reference(how):
+    # 1,024-row batches: three probe batches and a concatenated build
+    _check_join(_probe_side(2500), _build_side("dups"), how, "packed",
+                SMALL, fuse=True)
 
 
 @pytest.mark.parametrize("conf", [{}, SMALL])

@@ -1,4 +1,5 @@
-"""TPC-H q1, q3 and q6 through the PyTorch/CUDA port against the JAX
+"""TPC-H q1, q3 and q6, and the chip smoke's three join-path queries
+(`m2m`, `outer`, `semi`), through the PyTorch/CUDA port against the JAX
 package.
 
 At scale 0.001 the port (CPU tensors, kernels' plain versions) must
@@ -8,6 +9,7 @@ the hash-table kernels as the port's do) and the JAX package's CPU
 oracle (sql.enabled=false) exactly; decimals compare as unscaled
 integers.
 """
+import datetime as pydt
 import decimal as pydec
 import warnings
 
@@ -40,7 +42,7 @@ def jtables():
 @pytest.fixture(scope="module")
 def ptables():
     return PTPCH.gen_tables(0.001, tables=("customer", "orders",
-                                           "lineitem"))
+                                           "partsupp", "lineitem"))
 
 
 def _unscaled(d: dict) -> dict:
@@ -104,6 +106,94 @@ def test_q3_runs_the_join_kernels_and_the_sorted_group_by(ptables,
                      "compaction_order": 8, "groupby_trace": calls[
                          "groupby_trace"]}
     assert calls["groupby_trace"] > 0
+
+
+def _join_query(name, m, e, t, c, s, tables):
+    """The JAX package's side of the port's tpch.JOIN_QUERIES."""
+    def days(y, mo, d):
+        return (pydt.date(y, mo, d) - pydt.date(1970, 1, 1)).days
+
+    def between(col_name, lo, hi):
+        return e.And(e.GreaterThanOrEqual(c(col_name), e.Literal(
+            days(*lo), t.DATE)), e.LessThan(c(col_name), e.Literal(
+                days(*hi), t.DATE)))
+    li, ps = s.from_arrow(tables["lineitem"]), s.from_arrow(tables["partsupp"])
+    if name == "m2m":
+        return (li.filter(between("l_shipdate", (1994, 1, 1), (1995, 1, 1)))
+                .join(ps, left_on=["l_partkey"], right_on=["ps_partkey"])
+                .group_by("l_shipmode")
+                .agg((m.Sum(e.Multiply(c("ps_supplycost"),
+                                       c("l_quantity"))), "cost"),
+                     (m.Count(None), "n"))
+                .sort("l_shipmode"))
+    if name == "outer":
+        week = li.filter(between("l_shipdate", (1995, 3, 1), (1995, 3, 8)))
+        return (ps.join(week, left_on=["ps_partkey"], right_on=["l_partkey"],
+                        how="left_outer")
+                .group_by("ps_partkey", "ps_suppkey")
+                .agg((m.Count(c("l_orderkey")), "c_count"))
+                .group_by("c_count").agg((m.Count(None), "n"))
+                .sort(("n", False, False), ("c_count", False, False)))
+    return (li.join(ps, left_on=["l_partkey", "l_suppkey"],
+                    right_on=["ps_partkey", "ps_suppkey"], how="left_semi")
+            .agg((m.Count(None), "n"), (m.Sum(c("l_quantity")), "qty")))
+
+
+@pytest.mark.parametrize("conf", [{}, {"spark.rapids.tpu.sql.batchSizeRows":
+                                       "1024"}])
+@pytest.mark.parametrize("name", ["m2m", "outer", "semi"])
+def test_join_query_equals_reference_and_cpu_oracle(jtables, ptables, name,
+                                                    conf):
+    dev, cpu = _reference(_join_query(name, JA, JE, JT, jcol, JSession(
+        {**PALLAS_ON, **HASH_JOINS, **conf}), jtables))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")       # denseReplace: resolved
+        session = PSession({**HASH_JOINS, **conf}, device="cpu")
+    got = PTPCH.JOIN_QUERIES[name](session, ptables).to_pydict()
+    assert list(got) == list(dev)
+    assert _unscaled(got) == _unscaled(dev) == _unscaled(cpu)
+    assert len(next(iter(got.values()))) > 0
+
+
+def test_join_queries_run_the_counted_probe_and_expansion(ptables,
+                                                          monkeypatch):
+    from spark_rapids_tpu_torch.ops.hopper import hashjoin as PHJ
+    from spark_rapids_tpu_torch.ops.hopper import segagg as PS
+    names = ("build_table", "probe_counts", "expand_pairs",
+             "build_matched_flags", "probe_matched", "probe_first")
+    calls = {}
+
+    def spy(mod, name):
+        real = getattr(mod, name)
+
+        def wrapped(*a, **k):
+            calls[name] = calls.get(name, 0) + 1
+            return real(*a, **k)
+        monkeypatch.setattr(mod, name, wrapped)
+    for name in names:
+        spy(PHJ, name)
+    spy(PS, "seg_sums")
+    small = {"spark.rapids.tpu.sql.batchSizeRows": "1024"}
+    seen = {}
+    for query in ("m2m", "outer", "semi"):
+        calls.clear()
+        PTPCH.JOIN_QUERIES[query](PSession(small, device="cpu"),
+                                  ptables).collect()
+        seen[query] = dict(calls)
+    # one table per join; one counted probe and one expansion per probe
+    # batch that matched (6 lineitem batches of 1024 rows)
+    for query in ("m2m", "outer"):
+        assert seen[query]["build_table"] == 1
+        assert 0 < seen[query]["expand_pairs"] <= \
+            seen[query]["probe_counts"] == 6
+        assert "probe_first" not in seen[query]
+    assert seen["m2m"]["seg_sums"] > 0
+    assert "build_matched_flags" not in seen["m2m"]
+    # the mirrored right outer join marks matched partsupp rows per batch
+    assert seen["outer"]["build_matched_flags"] == \
+        seen["outer"]["expand_pairs"]
+    assert seen["semi"]["probe_matched"] == 6
+    assert "probe_counts" not in seen["semi"]
 
 
 def _minmax(m, e, t, c, s, table):
@@ -182,9 +272,8 @@ def test_unported_operators_refuse_instead_of_falling_back(ptables):
     with pytest.raises(NotImplementedError, match="strings slice"):
         li.filter(PE.LessThan(pcol("l_shipmode"), PE.Literal("MAIL"))) \
             .collect()
-    with pytest.raises(NotImplementedError, match="next join slice"):
-        li.join(s.from_host(ptables["orders"]), left_on=["l_orderkey"],
-                right_on=["o_orderkey"], how="left_anti").collect()
+    with pytest.raises(NotImplementedError, match="CrossJoinExec"):
+        li.join(s.from_host(ptables["orders"]), how="cross").collect()
     with pytest.raises(NotImplementedError, match="not ported"):
         PSession({"spark.rapids.tpu.sql.enabled": "false"},
                  device="cpu").from_host(ptables["lineitem"]).agg(
