@@ -23,11 +23,21 @@ own failure:
                domain, q1's integer lanes plus one f64 lane) over
                int32/int64/float64/int8 reduce lanes, plus edge cases
                (int64 wraparound, all-dead rows, ±0.0/±inf in one
-               bucket); integers exactly, f64 sums to rtol 1e-12
-               (atomics add in run-dependent order).  compaction_order,
-               build_table and probe_first at q3's second join: the
-               first join's ~1.4M unique order keys tabled at capacity
-               4,194,304, probed by the first lineitem batch (4,194,304
+               bucket); integers exactly, f64 sums to rtol 1e-12 (their
+               order follows the grid and the rows).  Then four more
+               bucket distributions, each held and timed: q1's real one
+               (the first lineitem batch's packed l_returnflag,
+               l_linestatus key under q1's filter), every live row in
+               one bucket, domain 1024 (maxDomain's default) with q1's
+               lanes, and the uniform one with its last 60 % of rows
+               dead (a join's output batch past its pair total).
+               Beside each event time (host work of the call included),
+               the kernel's own device time from torch.profiler, and
+               seg_reduce's device launches a call.
+               compaction_order, build_table and probe_first at q3's
+               second join: the first join's ~1.4M unique order keys
+               tabled at capacity 4,194,304, probed by the first
+               lineitem batch (4,194,304
                rows, the shipdate filter as its nulls), whose match mask
                is the compaction's keep; plus 0 %, 100 % and a
                non-power-of-two capacity for compaction and
@@ -143,6 +153,33 @@ def bound(nbytes: int, ops: int):
         (by_ops, "operations")
 
 
+def profiled_ms(fn, fragment: str, reps: int = 20):
+    """(device ms a call of the kernels whose names hold `fragment`,
+    device kernel launches a call of every kind) over `reps` warm calls
+    of `fn`, from torch.profiler.  Fails the run if the profiler saw no
+    launch of such a kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us, launches, own = 0.0, 0, 0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        launches += e.count
+        if fragment in e.key:
+            us += e.self_device_time_total
+            own += e.count
+    check(own > 0, f"torch.profiler saw no {fragment} launch (no device "
+          "activity traced)")
+    return us / 1e3 / reps, launches / reps
+
+
 def cuda_ms(fn, reps: int = 15, warmup: int = 3) -> float:
     """Median device ms of `fn` over `reps` runs, CUDA events each."""
     for _ in range(warmup):
@@ -186,7 +223,19 @@ def q1_kernel_shape():
     return domain, len(lanes)
 
 
-def kernels_phase(dev):
+def q1_buckets(li, cap: int, dev):
+    """The bucket ids q1 gives seg_sums on the first lineitem batch: the
+    packed (l_returnflag, l_linestatus) slot (0 = null, so a value's slot
+    is its code + 1) where q1's shipdate filter holds, else the domain."""
+    cutoff = _days(pydt.date(1998, 12, 1)) - 90
+    rf = _col(li, "l_returnflag").data[:cap].astype(np.int32)
+    ls = _col(li, "l_linestatus").data[:cap].astype(np.int32)
+    seg = (rf + 1) * 3 + (ls + 1)
+    seg[_col(li, "l_shipdate").data[:cap] > cutoff] = (3 + 1) * (2 + 1)
+    return torch.from_numpy(np.ascontiguousarray(seg)).to(dev)
+
+
+def kernels_phase(dev, tables):
     from spark_rapids_tpu_torch.ops.hopper import segagg as S
     cap = Q1_CAPACITY
     domain, ki = q1_kernel_shape()
@@ -324,16 +373,94 @@ def kernels_phase(dev):
         f"{sums_plain_ms:.4f} ms, index_add_ {sums_lib_ms:.4f} ms, bound "
         f"{sums_bound[0]:.4f} ms")
     k_ms, p_ms, l_ms, red_bound = reduce_rows["int64"]
+    sums_kernel_ms, _n = profiled_ms(
+        lambda: S.seg_sums(seg, ints, f64s, domain), "seg_sums_kernel")
+    red_kernel_ms, _n = profiled_ms(
+        lambda: S.seg_reduce(seg, lanes["int64"], domain, True,
+                             torch.iinfo(torch.int64).max),
+        "seg_reduce_kernel")
+    # one device launch a seg_reduce call, narrow lanes included
+    for name in ("int64", "float64", "int8"):
+        lane = lanes[name]
+        ident = float("inf") if lane.dtype.is_floating_point else \
+            torch.iinfo(lane.dtype).max
+        _ms, per_call = profiled_ms(
+            lambda: S.seg_reduce(seg, lane, domain, True, ident),
+            "seg_reduce_kernel", reps=5)
+        check(per_call == 1, f"seg_reduce {name} made {per_call} device "
+              "launches a call, not 1")
+    log(f"[kernels] kernel-only device time (torch.profiler): seg_sums "
+        f"{sums_kernel_ms} ms, seg_reduce int64 {red_kernel_ms} ms; "
+        "seg_reduce is one device launch a call (int64, float64, int8)")
+    dists = skew_phase(dev, tables, S, check_sums, check_reduce, seg, ints,
+                       f64s, lanes["int64"], domain, ki, kf, g)
     return {
         "seg_sums": dict(max_abs_err=err_sums, ms=sums_ms,
                          plain_ms=sums_plain_ms, bound_ms=sums_bound[0],
                          bound_by=sums_bound[1], library_ms=sums_lib_ms,
+                         kernel_ms=sums_kernel_ms,
+                         distributions=dists["seg_sums"],
                          shape=f"cap={cap} D={domain} Ki={ki} Kf={kf}"),
         "seg_reduce": dict(max_abs_err=err_reduce, ms=k_ms, plain_ms=p_ms,
                            bound_ms=red_bound[0], bound_by=red_bound[1],
-                           library_ms=l_ms,
+                           library_ms=l_ms, kernel_ms=red_kernel_ms,
+                           distributions=dists["seg_reduce"],
                            shape=f"cap={cap} D={domain} int64 lane"),
     }
+
+
+def skew_phase(dev, tables, S, check_sums, check_reduce, uniform, ints,
+               f64s, lane, domain, ki, kf, g):
+    """seg_sums (q1's lanes) and seg_reduce (the int64 lane) held against
+    their plain versions and timed at q1's real bucket distribution, with
+    every live row in one bucket, at domain 1024, and with the `uniform`
+    buckets' last 60 % of rows dead (a join's output batch is live only up
+    to its pair total): event ms, kernel-only device ms (profiler) and the
+    bound, per distribution."""
+    cap = lane.numel()
+    real = q1_buckets(tables["lineitem"], cap, dev)
+    live = real < domain
+    one = torch.where(live, torch.full_like(real, 7), real)
+    wide = torch.randint(0, 1024, (cap,), generator=g, device=dev,
+                         dtype=torch.int32)
+    wide = torch.where(live, wide, torch.full_like(wide, 1024))
+    tail = uniform.clone()
+    tail[int(cap * 0.4):] = domain
+    out = {"seg_sums": {}, "seg_reduce": {}}
+    imax = torch.iinfo(torch.int64).max
+    for name, seg, d in (("q1 real", real, domain), ("one bucket", one,
+                                                      domain),
+                         ("D=1024", wide, 1024), ("tail dead", tail,
+                                                  domain)):
+        check_sums(seg, ints, f64s, d, name)
+        for is_min in (True, False):
+            check_reduce(seg, lane, d, is_min, imax if is_min else -imax - 1,
+                         name)
+        rows = int((seg < d).sum())
+        shares = torch.bincount(seg.to(torch.int64), minlength=d + 1)[:d]
+        top = float(shares.max()) / max(rows, 1)
+        s_ms = cuda_ms(lambda: S.seg_sums(seg, ints, f64s, d))
+        s_kern, _n = profiled_ms(lambda: S.seg_sums(seg, ints, f64s, d),
+                                 "seg_sums_kernel")
+        s_bound = bound(cap * 4 + rows * 8 * (ki + kf) + d * 8 * (ki + kf),
+                        rows * (ki + kf))
+        r_ms = cuda_ms(lambda: S.seg_reduce(seg, lane, d, True, imax))
+        r_kern, _n = profiled_ms(lambda: S.seg_reduce(seg, lane, d, True,
+                                                      imax),
+                                 "seg_reduce_kernel")
+        r_bound = bound(cap * 4 + rows * 8 + d * 8, rows)
+        out["seg_sums"][name] = dict(ms=s_ms, kernel_ms=s_kern,
+                                     bound_ms=s_bound[0], live_rows=rows,
+                                     top_bucket_share=top, domain=d)
+        out["seg_reduce"][name] = dict(ms=r_ms, kernel_ms=r_kern,
+                                       bound_ms=r_bound[0], live_rows=rows,
+                                       top_bucket_share=top, domain=d)
+        log(f"[kernels] {name} (D={d}, {rows} live rows, largest bucket "
+            f"{100 * top:.1f} %): seg_sums event {s_ms:.4f} ms, kernel "
+            f"{s_kern} ms, bound {s_bound[0]:.4f} ms; seg_reduce int64 "
+            f"event {r_ms:.4f} ms, kernel {r_kern} ms, bound "
+            f"{r_bound[0]:.4f} ms; both equal their plain versions")
+    return out
 
 
 def _exact(got, want, what: str) -> int:
@@ -993,7 +1120,6 @@ def path_phase(tables, want):
 PROFILE_PARTS = (
     ("HtoD", "upload (memcpy HtoD)"), ("DtoH", "fetch (memcpy DtoH)"),
     ("seg_sums_kernel", "seg_sums"), ("seg_reduce_kernel", "seg_reduce"),
-    ("f64_from_order", "seg_reduce"), ("fill_kernel", "seg_reduce"),
     ("scatter_kernel", "compaction_order"),
     ("tile_count_kernel", "compaction_order"),
     ("carry_kernel<tile_scan::Add", "compaction_order"),
@@ -1027,7 +1153,7 @@ def profile_query(name, build, tables):
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
-        us = getattr(e, "self_device_time_total", 0.0)
+        us = e.self_device_time_total
         names.append((us, e.key, e.count))
         part = next((p for frag, p in PROFILE_PARTS if frag in e.key),
                     "other PyTorch kernels")
@@ -1074,7 +1200,7 @@ def main() -> int:
     build_libraries()
     log(f"[build] nvcc sm_90a: {time.perf_counter() - t0:.1f} s")
     tables, want = data_phase(args.scale, args.seed)
-    stats = kernels_phase(dev)
+    stats = kernels_phase(dev, tables)
     stats.update(join_kernels_phase(dev, tables))
     stats.update(counted_join_kernels_phase(dev, tables))
     launches = path_phase(tables, want)
@@ -1092,7 +1218,9 @@ def main() -> int:
                      "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
                      "bound_by": st["bound_by"],
                      "library_ms": st["library_ms"],
-                     "shape": st["shape"]})
+                     "shape": st["shape"],
+                     **{k: st[k] for k in ("kernel_ms", "distributions")
+                        if k in st}})
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

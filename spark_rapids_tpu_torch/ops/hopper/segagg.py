@@ -10,8 +10,9 @@ Counterpart of spark_rapids_tpu/ops/pallas/segagg.py.
 
 Both kernels are hand-written CUDA (csrc/segagg.cu; the design and
 what bounds it are noted there).  A wrapper given CUDA tensors checks
-device, dtype, shape and contiguity, allocates the outputs, launches on
-PyTorch's current stream and raises if the launch fails; given CPU
+device, dtype, shape and contiguity, allocates the outputs and the
+kernel's scratch (PyTorch's caching allocator, current stream), launches
+on PyTorch's current stream and raises if the launch fails; given CPU
 tensors it runs the plain version beside it, which is also the
 yardstick chip_smoke.py holds the kernel against.  Nothing falls back
 from the card to the plain version.
@@ -26,6 +27,7 @@ from the two kernels exactly as there.
 from __future__ import annotations
 
 import ctypes
+import struct
 
 import numpy as np
 import torch
@@ -40,24 +42,52 @@ _VPP = ctypes.POINTER(ctypes.c_void_p)
 _LL = ctypes.c_longlong
 _I = ctypes.c_int
 _SIGNATURES = {
-    "segagg_seg_sums": [_VP, _LL, _I, _VPP, _I, _VPP, _I, _VP, _VP, _VP,
-                        ctypes.POINTER(_I)],
-    "segagg_seg_reduce_i32": [_VP, _LL, _I, _VP, _I, _I, _VP, _VP],
-    "segagg_seg_reduce_i64": [_VP, _LL, _I, _VP, _LL, _I, _VP, _VP],
-    "segagg_seg_reduce_f64": [_VP, _LL, _I, _VP, ctypes.c_double, _I, _VP,
-                              _VP, _VP],
+    "segagg_seg_sums_scratch": ([_LL, _I, _I, _I], _LL),
+    "segagg_seg_sums": ([_VP, _LL, _I, _VPP, _I, _VPP, _I, _VP, _VP, _VP,
+                         _VP, _I, _VP, ctypes.POINTER(_I)], _I),
+    "segagg_seg_reduce_scratch": ([_LL, _I, _I], _LL),
+    "segagg_seg_reduce": ([_VP, _LL, _I, _VP, _I, _LL, _I, _VP, _VP, _VP,
+                           _I, _VP], _I),
 }
-#: largest domain the kernels' shared-memory accumulators take (48 KB of
-#: 8-byte cells, csrc/segagg.cu kSmemBudget)
+#: largest domain the wrappers take: one lane of 8-byte cells in 48 KB
 MAX_KERNEL_DOMAIN = 48 * 1024 // 8
+#: the seg_reduce kernel's type codes: lanes of these dtypes are read as
+#: they lie (bool as int8); float32 widens to float64 first
+_REDUCE_CODES = {torch.bool: 1, torch.int8: 1, torch.int16: 2,
+                 torch.int32: 4, torch.int64: 8, torch.float64: 9}
 
 
 def _fn(name: str):
     f = getattr(library("segagg"), name)
     if f.argtypes is None:
-        f.argtypes = _SIGNATURES[name]
-        f.restype = _I
+        f.argtypes, f.restype = _SIGNATURES[name]
     return f
+
+
+#: ticket counters of the kernels' flush a stream: a launch takes one
+#: more than its fold groups, at most ceil(sqrt(grid)) + 1 (18 for a
+#: 264-block grid); the kernel refuses a launch they do not cover
+TICKETS = 64
+_TICKETS = {}
+
+
+def _tickets(device: torch.device, stream: int) -> torch.Tensor:
+    """The kernels' int32 ticket counters for one stream: zeroed once, and
+    left zero by every launch that completes (its last blocks reset
+    them), so launches ordered on one stream share them."""
+    key = (device.index, stream)
+    tickets = _TICKETS.get(key)
+    if tickets is None:
+        tickets = torch.zeros(TICKETS, dtype=torch.int32, device=device)
+        _TICKETS[key] = tickets
+    return tickets
+
+
+def _scratch(nbytes: int, device: torch.device, kernel: str) -> torch.Tensor:
+    """The kernel's scratch; its query gives the bytes, or minus the CUDA
+    error that refuses the call."""
+    check_launch(-nbytes if nbytes < 0 else 0, kernel)
+    return torch.empty(max(nbytes // 8, 1), dtype=torch.int64, device=device)
 
 
 def _check_seg(seg: torch.Tensor, domain: int) -> None:
@@ -76,6 +106,16 @@ def _check_lane(lane: torch.Tensor, seg: torch.Tensor, dtype) -> None:
         raise ValueError(f"lane must be contiguous {dtype} of shape "
                          f"{tuple(seg.shape)}, got {lane.dtype} "
                          f"{tuple(lane.shape)}")
+
+
+def _check_lanes(lanes, seg: torch.Tensor, dtype) -> None:
+    """_check_lane for each lane, with one cheap test a lane first (the
+    check is host time on every call)."""
+    shape, dev = seg.shape, seg.device
+    for lane in lanes:
+        if lane.dtype != dtype or lane.shape != shape or \
+                lane.device != dev or not lane.is_contiguous():
+            _check_lane(lane, seg, dtype)
 
 
 def _bucket_index(seg: torch.Tensor, domain: int) -> torch.Tensor:
@@ -114,15 +154,18 @@ def seg_sums(seg, int_lanes, f64_lanes, domain: int):
     if seg.device.type != "cuda":
         raise ValueError(f"seg_sums: unsupported device {seg.device}")
     _check_seg(seg, domain)
-    for lane in int_lanes:
-        _check_lane(lane, seg, torch.int64)
-    for lane in f64_lanes:
-        _check_lane(lane, seg, torch.float64)
+    _check_lanes(int_lanes, seg, torch.int64)
+    _check_lanes(f64_lanes, seg, torch.float64)
     ki, kf = len(int_lanes), len(f64_lanes)
-    iout = torch.zeros((domain, ki), dtype=torch.int64, device=seg.device)
-    fout = torch.zeros((domain, kf), dtype=torch.float64, device=seg.device)
+    dev, cap = seg.device, seg.numel()
+    # the kernel writes every cell, zeros included
+    iout = torch.empty((domain, ki), dtype=torch.int64, device=dev)
+    fout = torch.empty((domain, kf), dtype=torch.float64, device=dev)
     if ki + kf == 0:
         return iout, fout
+    st = stream_ptr(dev)
+    scratch = _scratch(_fn("segagg_seg_sums_scratch")(cap, domain, ki, kf),
+                       dev, "seg_sums")
     # the lanes may be freed once this returns, before the launch has
     # run: PyTorch's caching allocator hands their blocks only to later
     # work on the same stream, which the stream orders after the kernel
@@ -130,10 +173,10 @@ def seg_sums(seg, int_lanes, f64_lanes, domain: int):
     fptrs = (_VP * max(kf, 1))(*[l.data_ptr() for l in f64_lanes])
     launched = _I(0)
     err = _fn("segagg_seg_sums")(
-        seg.data_ptr(), seg.numel(), domain, iptrs, ki, fptrs, kf,
-        iout.data_ptr(), fout.data_ptr(), stream_ptr(seg.device),
-        ctypes.byref(launched))
-    # one launch per tile of lanes that fits the shared-memory budget
+        seg.data_ptr(), cap, domain, iptrs, ki, fptrs, kf, iout.data_ptr(),
+        fout.data_ptr(), scratch.data_ptr(), _tickets(dev, st).data_ptr(),
+        TICKETS, st, ctypes.byref(launched))
+    # one launch per tile of lanes whose accumulator fits shared memory
     LAUNCHES["seg_sums"] += launched.value
     check_launch(err, "seg_sums")
     return iout, fout
@@ -171,43 +214,35 @@ def seg_reduce_plain(seg, lane, domain: int, is_min: bool, ident):
 
 def seg_reduce(seg, lane, domain: int, is_min: bool, ident):
     """(domain,) per-bucket min (is_min) or max of `lane`, `ident` where a
-    bucket has no row.  int8/int16/bool lanes widen to int32 and narrow
-    back; float32 widens to float64; float64 reduces in Java
-    Double.compare order."""
+    bucket has no row.  bool/int8/int16/int32/int64 lanes reduce as they
+    lie; float32 widens to float64 and narrows back; float64 reduces in
+    Java Double.compare order."""
     if seg.device.type == "cpu":
         return seg_reduce_plain(seg, lane, domain, is_min, ident)
     if seg.device.type != "cuda":
         raise ValueError(f"seg_reduce: unsupported device {seg.device}")
     _check_seg(seg, domain)
-    dev, st = seg.device, stream_ptr(seg.device)
     orig = lane.dtype
-    if orig in (torch.bool, torch.int8, torch.int16):
-        lane = lane.to(torch.int32)
-    elif orig == torch.float32:
+    if orig == torch.float32:
         lane = lane.to(torch.float64)
-    lane = lane.contiguous()
-    _check_lane(lane, seg, lane.dtype)
-    cap = seg.numel()
-    if lane.dtype == torch.int32:
-        out = torch.empty(domain, dtype=torch.int32, device=dev)
-        err = _fn("segagg_seg_reduce_i32")(
-            seg.data_ptr(), cap, domain, lane.data_ptr(), int(ident),
-            int(is_min), out.data_ptr(), st)
-    elif lane.dtype == torch.int64:
-        out = torch.empty(domain, dtype=torch.int64, device=dev)
-        err = _fn("segagg_seg_reduce_i64")(
-            seg.data_ptr(), cap, domain, lane.data_ptr(), int(ident),
-            int(is_min), out.data_ptr(), st)
-    elif lane.dtype == torch.float64:
-        scratch = torch.empty(domain, dtype=torch.int64, device=dev)
-        out = torch.empty(domain, dtype=torch.float64, device=dev)
-        err = _fn("segagg_seg_reduce_f64")(
-            seg.data_ptr(), cap, domain, lane.data_ptr(), float(ident),
-            int(is_min), scratch.data_ptr(), out.data_ptr(), st)
-    else:
+    code = _REDUCE_CODES.get(lane.dtype)
+    if code is None:
         raise ValueError(f"seg_reduce: unsupported lane dtype {orig}")
-    # one seg_reduce_kernel launch per call (its fill and float64
-    # convert-back helpers are not counted)
+    _check_lane(lane, seg, lane.dtype)
+    dev, cap, st = seg.device, seg.numel(), stream_ptr(seg.device)
+    if lane.dtype == torch.float64:
+        ident_bits = struct.unpack("<q", struct.pack("<d", float(ident)))[0]
+    else:
+        ident_bits = int(ident)
+    out = torch.empty(domain, dtype=lane.dtype, device=dev)
+    scratch = _scratch(_fn("segagg_seg_reduce_scratch")(cap, domain, code),
+                       dev, "seg_reduce")
+    err = _fn("segagg_seg_reduce")(
+        seg.data_ptr(), cap, domain, lane.data_ptr(), code, ident_bits,
+        int(is_min), out.data_ptr(), scratch.data_ptr(),
+        _tickets(dev, st).data_ptr(), TICKETS, st)
+    # one launch per call: it writes the identities and the float64
+    # values itself
     LAUNCHES["seg_reduce"] += 1
     check_launch(err, "seg_reduce")
     return out if out.dtype == orig else out.to(orig)

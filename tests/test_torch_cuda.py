@@ -22,9 +22,19 @@ def cuda():
     return torch.device("cuda")
 
 
-def _seg(rng, cap, domain):
-    seg = rng.integers(0, domain, cap).astype(np.int32)
-    seg[rng.random(cap) < 0.1] = domain          # dead rows carry D
+def _seg(rng, cap, domain, dist="uniform"):
+    """Bucket ids: uniform; "one" bucket for every live row; "q1", TPC-H
+    q1's skew (about half the rows in one of four occupied buckets);
+    "dead", every row dead."""
+    if dist == "one":
+        seg = np.full(cap, domain // 2, np.int32)
+    elif dist == "q1":
+        occupied = np.arange(4) * max(domain // 4, 1) % domain
+        seg = rng.choice(occupied, cap, p=[0.25, 0.0026, 0.4974, 0.25]) \
+            .astype(np.int32)
+    else:
+        seg = rng.integers(0, domain, cap).astype(np.int32)
+    seg[rng.random(cap) < (1.0 if dist == "dead" else 0.1)] = domain
     return seg
 
 
@@ -33,6 +43,8 @@ def _lane(rng, dtype, cap):
         x = rng.standard_normal(cap)
         x[::13], x[5::13], x[7::29], x[11::31] = 0.0, -0.0, np.inf, -np.inf
         return x
+    if dtype == "bool":
+        return rng.random(cap) < 0.5
     info = np.iinfo(dtype)
     return rng.integers(info.min, info.max, cap, dtype=dtype, endpoint=True)
 
@@ -41,43 +53,90 @@ def _bits(a):
     return a.view(np.int64) if a.dtype == np.float64 else a
 
 
+# (cap, domain, int lanes, f64 lanes, bucket distribution, calls, lane
+# tiles a call): two calls run back to back on one stream at cap and
+# cap // 3 (the tickets must come back to zero between them).  A tile is
+# as many lanes as 200 KB of shared memory holds at the domain, at most
+# 64: D = 1024 takes 25 lanes a launch, D = 6144 four.
+_SUMS_CASES = [
+    (1 << 16, 1, 9, 2, "uniform", 1, 1),
+    (1 << 16, 12, 9, 2, "uniform", 1, 1),
+    (1 << 16, 1024, 9, 2, "uniform", 1, 1),
+    (1 << 16, 12, 19, 1, "one", 1, 1), (1 << 20, 12, 19, 1, "q1", 1, 1),
+    (1, 12, 9, 2, "uniform", 1, 1), (31, 12, 9, 2, "uniform", 1, 1),
+    (3_000_017, 12, 19, 1, "q1", 1, 1), (1 << 16, 12, 9, 2, "dead", 1, 1),
+    (1 << 20, 1024, 19, 1, "q1", 1, 1),
+    (1 << 16, 6144, 9, 2, "uniform", 1, 3),
+    (1 << 20, 12, 19, 1, "q1", 2, 1),
+    (1 << 16, 1024, 19, 1, "uniform", 2, 1)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("domain", [1, 12, 1024])
-def test_seg_sums_kernel_matches_plain(cuda, domain):
-    rng = np.random.default_rng(domain)
-    cap = 1 << 16
-    seg = torch.from_numpy(_seg(rng, cap, domain)).to(cuda)
+@pytest.mark.parametrize("cap,domain,ki,kf,dist,calls,tiles", _SUMS_CASES)
+def test_seg_sums_kernel_matches_plain(cuda, cap, domain, ki, kf, dist,
+                                       calls, tiles):
+    rng = np.random.default_rng(domain + cap)
+    caps = [cap, max(cap // 3, 1)][:calls]
+    segs = [torch.from_numpy(_seg(rng, c, domain, dist)).to(cuda)
+            for c in caps]
     ints = [torch.from_numpy(rng.integers(-2 ** 62, 2 ** 62, cap)).to(cuda)
-            for _ in range(9)]
+            for _ in range(ki)]
     ints[0][:99] = 2 ** 63 - 1                   # int64 wraparound
-    f64s = [torch.from_numpy(rng.random(cap)).to(cuda) for _ in range(2)]
+    f64s = [torch.from_numpy(rng.random(cap)).to(cuda) for _ in range(kf)]
     PH.reset_launch_counts()
-    ci, cf = PS.seg_sums(seg, ints, f64s, domain)
-    pi, pf = PS.seg_sums_plain(seg, ints, f64s, domain)
-    # one launch per tile of lanes that fits 48 KB of 8-byte cells
-    per = min(64, 48 * 1024 // (8 * domain))
-    assert PH.LAUNCHES["seg_sums"] == -(-11 // per)
-    assert torch.equal(ci, pi)
-    assert torch.allclose(cf, pf, rtol=1e-12, atol=0)
+    got = [PS.seg_sums(sg, [x[:sg.numel()] for x in ints],
+                       [x[:sg.numel()] for x in f64s], domain)
+           for sg in segs]
+    # one launch per tile of lanes whose shared accumulator fits
+    assert PH.LAUNCHES["seg_sums"] == calls * tiles
+    for sg, (ci, cf) in zip(segs, got):
+        pi, pf = PS.seg_sums_plain(sg, [x[:sg.numel()] for x in ints],
+                                   [x[:sg.numel()] for x in f64s], domain)
+        assert ci.shape == (domain, ki) and cf.shape == (domain, kf)
+        assert torch.equal(ci, pi)
+        assert torch.allclose(cf, pf, rtol=1e-12, atol=0)
 
 
+# "<lane dtype>" uniform at capacity 2^16, or "<dtype>-<case>": a bucket
+# distribution, an odd capacity, or "twice" (two calls back to back on
+# one stream at capacities 2^16 and 3,001)
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["int32", "int64", "float64", "int8"])
+@pytest.mark.parametrize("dtype", [
+    "int32", "int64", "float64", "int8", "bool", "int16", "int64-one",
+    "float64-one", "int32-q1", "int64-q1", "float64-q1", "int8-q1",
+    "int64-dead", "bool-dead", "int64-cap1", "int32-cap31",
+    "float64-cap3000017", "int16-cap3000017", "int64-twice",
+    "float64-twice", "int64-domain1024", "int32-domain6144"])
 def test_seg_reduce_kernel_matches_plain(cuda, dtype):
-    rng = np.random.default_rng(len(dtype))
-    cap, domain = 1 << 16, 12
-    seg = torch.from_numpy(_seg(rng, cap, domain)).to(cuda)
+    dtype, _, case = dtype.partition("-")
+    rng = np.random.default_rng(len(dtype) + len(case))
+    cap = int(case[3:]) if case.startswith("cap") else 1 << 16
+    domain = int(case[6:]) if case.startswith("domain") else 12
+    dist = case if case in ("one", "q1", "dead") else "uniform"
+    caps = [cap, 3001] if case == "twice" else [cap]
+    segs = [torch.from_numpy(_seg(rng, c, domain, dist)).to(cuda)
+            for c in caps]
     lane = torch.from_numpy(_lane(rng, dtype, cap)).to(cuda)
     for is_min in (True, False):
         if dtype == "float64":
             ident = np.inf if is_min else -np.inf
+        elif dtype == "bool":
+            ident = int(is_min)
         else:
             info = np.iinfo(dtype)
             ident = int(info.max if is_min else info.min)
-        c = PS.seg_reduce(seg, lane, domain, is_min, ident)
-        p = PS.seg_reduce_plain(seg, lane, domain, is_min, ident)
-        assert c.dtype == lane.dtype
-        assert np.array_equal(_bits(c.cpu().numpy()), _bits(p.cpu().numpy()))
+        PH.reset_launch_counts()
+        got = [PS.seg_reduce(sg, lane[:sg.numel()], domain, is_min, ident)
+               for sg in segs]
+        # one launch per call: identities and float64 values written by
+        # the kernel itself, narrow lanes read as they lie
+        assert PH.LAUNCHES["seg_reduce"] == len(segs)
+        for sg, c in zip(segs, got):
+            p = PS.seg_reduce_plain(sg, lane[:sg.numel()], domain, is_min,
+                                    ident)
+            assert c.dtype == lane.dtype
+            assert np.array_equal(_bits(c.cpu().numpy()),
+                                  _bits(p.cpu().numpy()))
 
 
 @pytest.mark.cuda

@@ -40,8 +40,18 @@ PALLAS_ON = {"spark.rapids.tpu.sql.kernels.pallas.enabled": "true",
              "spark.rapids.tpu.sql.kernels.pallas.segagg": "ON"}
 
 
-def _seg(rng, cap, domain, dead=0.1):
-    seg = rng.integers(0, domain, cap).astype(np.int32)
+def _seg(rng, cap, domain, dead=0.1, dist="uniform"):
+    """Bucket ids: uniform over the domain; "one" puts every live row in
+    one bucket; "q1" gives TPC-H q1's skew (about half the rows in one of
+    four occupied buckets, as l_returnflag x l_linestatus packs)."""
+    if dist == "one":
+        seg = np.full(cap, domain // 2, np.int32)
+    elif dist == "q1":
+        occupied = np.arange(4) * max(domain // 4, 1) % domain
+        seg = rng.choice(occupied, cap, p=[0.25, 0.0026, 0.4974, 0.25]) \
+            .astype(np.int32)
+    else:
+        seg = rng.integers(0, domain, cap).astype(np.int32)
     seg[rng.random(cap) < dead] = domain          # dead rows carry D
     return seg
 
@@ -50,12 +60,21 @@ def _seg(rng, cap, domain, dead=0.1):
 # seg_sums vs _seg_matmul_sums
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("cap,domain,ki,kf", [
-    (1024, 12, 3, 1), (2048, 7, 1, 2), (4096, 64, 5, 0), (1024, 3, 0, 2),
-    (1024, 1, 2, 1)])
-def test_seg_sums_matches_pallas(cap, domain, ki, kf):
+_SUMS_CASES = [
+    (1024, 12, 3, 1, "uniform"), (2048, 7, 1, 2, "uniform"),
+    (4096, 64, 5, 0, "uniform"), (1024, 3, 0, 2, "uniform"),
+    (1024, 1, 2, 1, "uniform"), (2048, 12, 19, 1, "one"),
+    (2048, 12, 19, 1, "q1"), (1, 12, 3, 1, "uniform"),
+    (31, 12, 3, 1, "uniform"), (3001, 7, 2, 2, "q1")]
+
+
+@pytest.mark.parametrize(
+    "cap,domain,ki,kf,dist", _SUMS_CASES,
+    ids=["-".join(map(str, c[:4])) + ("" if c[4] == "uniform" else
+                                      f"-{c[4]}") for c in _SUMS_CASES])
+def test_seg_sums_matches_pallas(cap, domain, ki, kf, dist):
     rng = np.random.default_rng(cap * 31 + domain)
-    seg = _seg(rng, cap, domain)
+    seg = _seg(rng, cap, domain, dist=dist)
     ints = [rng.integers(-2 ** 62, 2 ** 62, cap) for _ in range(ki)]
     if ki:
         ints[0][:64] = 2 ** 63 - 1                # forces int64 wraparound
@@ -108,12 +127,19 @@ def _bits(a):
     return a.view(np.int64) if a.dtype == np.float64 else a
 
 
-@pytest.mark.parametrize("dtype", ["int32", "int64", "float64", "int8"])
+# "<lane dtype>" at capacity 2048, or "<dtype>-<distribution or cap>"
+@pytest.mark.parametrize("dtype", [
+    "int32", "int64", "float64", "int8", "int16", "int64-one",
+    "float64-one", "int32-q1", "int64-q1", "float64-q1", "int64-cap1",
+    "int32-cap31", "float64-cap3001"])
 @pytest.mark.parametrize("is_min", [True, False])
 def test_seg_reduce_matches_pallas(dtype, is_min):
-    cap, domain = 2048, 12
+    dtype, _, case = dtype.partition("-")
+    cap = int(case[3:]) if case.startswith("cap") else 2048
+    dist = case if case in ("one", "q1") else "uniform"
+    domain = 12
     rng = np.random.default_rng(len(dtype) * 7 + is_min)
-    seg = _seg(rng, cap, domain)
+    seg = _seg(rng, cap, domain, dist=dist)
     lane = _lane(rng, dtype, cap)
     ident = _ident(dtype, is_min)
     want = JS._seg_reduce(jnp.asarray(seg), jnp.asarray(lane), domain, cap,
