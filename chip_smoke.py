@@ -48,12 +48,19 @@ own failure:
                probed by the first lineitem batch with the 1994 filter
                as its validity, and that batch's expansion; plus a key
                10,000 times in one build, a total of 0, all-dead probes,
-               ±2^63 keys and a probe capacity of 3,000,017; exactly.
-               Times each kernel, its plain version and the one-call
-               PyTorch yardstick where one exists (index_add_ /
-               scatter_reduce_ / a stable argsort / a stable sort /
-               searchsorted / repeat_interleave), which the port itself
-               never calls.
+               ±2^63 keys, a probe capacity of 3,000,017 and a validity
+               lane misaligned by one row; exactly.  compaction_order
+               also at 1 %, 50 % and 99 % kept and on a mask misaligned
+               by one row.  Times each kernel (event
+               time, host work of the call included, and kernel-only
+               device time from torch.profiler, every launch of the call
+               summed), its plain version and the one-call PyTorch
+               yardstick where one exists (index_add_ / scatter_reduce_
+               / a stable argsort / a stable sort / searchsorted /
+               repeat_interleave), which the port itself never calls;
+               compaction_order at each of its masks.  compaction_order
+               must make at most 2 device launches a call and
+               probe_counts 1 (profiler count).
   5. path    — q1, q6, a MIN/MAX/FIRST/LAST group-by, q3 and the three
                join-path queries of tpch.JOIN_QUERIES (m2m, outer, semi)
                through TpuSession() on cuda, each checked against its
@@ -67,12 +74,17 @@ own failure:
                must have launched the kernels of its path
                (PATH_KERNELS).  Then wall ms per query: one cold run,
                median of 3 warm; the peak device memory of the four
-               join queries; and a torch.profiler breakdown of one warm
-               q1, q3 and m2m.
+               join queries; the host-to-device copy rate from pageable
+               memory that the upload sees; and a torch.profiler
+               breakdown of one warm q1, q3 and m2m.
   6. result  — a `kernels` JSON line, the nvidia-smi line, and last
                {"ok": true, "device": {...}}.
 
-Flags: --scale (default 10), --seed (default 20240706).
+Flags: --scale (default 10), --seed (default 20240706), --kernels-only
+(phases 1-4 only, then the kernels line and the nvidia-smi line without
+the result line: copied to the root of another tree of the port, it
+times that tree's kernels the same way, for an A B B A comparison in
+one call).
 """
 from __future__ import annotations
 
@@ -153,10 +165,12 @@ def bound(nbytes: int, ops: int):
         (by_ops, "operations")
 
 
-def profiled_ms(fn, fragment: str, reps: int = 20):
-    """(device ms a call of the kernels whose names hold `fragment`,
-    device kernel launches a call of every kind) over `reps` warm calls
-    of `fn`, from torch.profiler.  Fails the run if the profiler saw no
+def profiled_ms(fn, fragment=None, reps: int = 20, by_name=None):
+    """(device ms a call of the kernels whose names hold `fragment` --
+    of every device launch of the call when `fragment` is None --,
+    device launches a call of every kind) over `reps` warm calls of
+    `fn`, from torch.profiler.  `by_name`, a dict, receives the device
+    ms a call of each kernel name.  Fails the run if the profiler saw no
     launch of such a kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -172,11 +186,13 @@ def profiled_ms(fn, fragment: str, reps: int = 20):
         if e.device_type != DeviceType.CUDA:
             continue
         launches += e.count
-        if fragment in e.key:
+        if fragment is None or fragment in e.key:
             us += e.self_device_time_total
             own += e.count
-    check(own > 0, f"torch.profiler saw no {fragment} launch (no device "
-          "activity traced)")
+            if by_name is not None:
+                by_name[e.key[:80]] = e.self_device_time_total / 1e3 / reps
+    check(own > 0, f"torch.profiler saw no {fragment or 'device'} launch "
+          "(no device activity traced)")
     return us / 1e3 / reps, launches / reps
 
 
@@ -564,11 +580,18 @@ def join_kernels_phase(dev, tables):
     odd = torch.rand(3_000_017, generator=g, device=dev) < 0.3
     check_compact(odd, "capacity 3,000,017")
     check_compact(odd[:300], "capacity 300")
+    check_compact(keep[1:], "misaligned by one row")
+    sparse = torch.rand(pcap, generator=g, device=dev) < 0.01
+    half = torch.rand(pcap, generator=g, device=dev) < 0.5
+    dense = torch.rand(pcap, generator=g, device=dev) < 0.99
+    check_compact(sparse, "1 %")
+    check_compact(half, "50 %")
+    check_compact(dense, "99 %")
     log(f"[kernels] build_table, probe_first and compaction_order equal "
         f"their plain versions (build capacity {bcap}, span {span}, "
         f"{int(valid.sum())} keys; probe {pcap} rows, {matched} matched; "
-        "duplicate-heavy, all-dead, ±2^63, 0 %, 100 %, capacities "
-        "3,000,017 and 300)")
+        "duplicate-heavy, all-dead, ±2^63, 0 %, 1 %, 50 %, 99 %, 100 %, "
+        "capacities 3,000,017 and 300, a mask misaligned by one row)")
 
     # ---- timings
     ideal, lane_s, rid = HJ.hash_order(lane, valid, nbits)
@@ -602,31 +625,52 @@ def join_kernels_phase(dev, tables):
     inv = (~keep).to(torch.int8)
     compact_lib = cuda_ms(lambda: torch.argsort(inv, stable=True))
     compact_bound = bound(pcap * (1 + 4) + 4, pcap)
-    log(f"[kernels] build_table layout: kernel {build_ms:.4f} ms, plain "
-        f"{build_plain:.4f} ms, stable sort {build_lib:.4f} ms, bound "
-        f"{build_bound[0]:.4f} ms; its PyTorch hash-order sort "
-        f"{sort_ms:.4f} ms")
-    log(f"[kernels] probe_first: kernel {probe_ms:.4f} ms, plain "
-        f"{probe_plain:.4f} ms, searchsorted + gather {probe_lib:.4f} ms, "
-        f"bound {probe_bound[0]:.4f} ms")
-    log(f"[kernels] compaction_order: kernel {compact_ms:.4f} ms, plain "
-        f"{compact_plain:.4f} ms, stable argsort {compact_lib:.4f} ms, "
-        f"bound {compact_bound[0]:.4f} ms")
+    # kernel-only: the device time of every launch a call makes
+    build_kern, _n = profiled_ms(lambda: HJ.build_layout(ideal, lane_s, rid,
+                                                         span))
+    probe_kern, _n = profiled_ms(lambda: HJ.probe_first(table, probe,
+                                                        pvalid))
+    compact_parts = {}
+    compact_kern, compact_calls = profiled_ms(
+        lambda: C.compaction_order(keep), by_name=compact_parts)
+    compact_dists = {}
+    for name, m in (("1 %", sparse), ("q3 second join", keep),
+                    ("50 %", half), ("99 %", dense)):
+        compact_dists[name] = dict(
+            kept=int(m.sum()), ms=cuda_ms(lambda: C.compaction_order(m)),
+            kernel_ms=profiled_ms(lambda: C.compaction_order(m))[0])
+        log(f"[kernels] compaction_order at {name} "
+            f"({compact_dists[name]['kept']} of {pcap} kept): event "
+            f"{compact_dists[name]['ms']:.4f} ms, kernel "
+            f"{compact_dists[name]['kernel_ms']:.4f} ms")
+    log(f"[kernels] build_table layout: event {build_ms:.4f} ms, kernel "
+        f"{build_kern:.4f} ms, plain {build_plain:.4f} ms, stable sort "
+        f"{build_lib:.4f} ms, bound {build_bound[0]:.4f} ms; its PyTorch "
+        f"hash-order sort {sort_ms:.4f} ms")
+    log(f"[kernels] probe_first: event {probe_ms:.4f} ms, kernel "
+        f"{probe_kern:.4f} ms, plain {probe_plain:.4f} ms, searchsorted + "
+        f"gather {probe_lib:.4f} ms, bound {probe_bound[0]:.4f} ms")
+    log(f"[kernels] compaction_order: event {compact_ms:.4f} ms, kernel "
+        f"{compact_kern:.4f} ms in {compact_calls:g} device launches a "
+        f"call {compact_parts}, plain {compact_plain:.4f} ms, stable "
+        f"argsort {compact_lib:.4f} ms, bound {compact_bound[0]:.4f} ms")
     return {
         "compaction_order": dict(
             max_abs_err=err["compaction_order"], ms=compact_ms, plain_ms=compact_plain,
             bound_ms=compact_bound[0], bound_by=compact_bound[1],
-            library_ms=compact_lib,
+            library_ms=compact_lib, kernel_ms=compact_kern,
+            launches_per_call=compact_calls, kernel_parts=compact_parts,
+            distributions=compact_dists,
             shape=f"cap={pcap} kept={int(keep.sum())}"),
         "build_table": dict(
             max_abs_err=err["build_table"], ms=build_ms, plain_ms=build_plain,
             bound_ms=build_bound[0], bound_by=build_bound[1],
-            library_ms=build_lib, hash_sort_ms=sort_ms,
+            library_ms=build_lib, hash_sort_ms=sort_ms, kernel_ms=build_kern,
             shape=f"cap={bcap} keys={int(valid.sum())} span={span}"),
         "probe_first": dict(
             max_abs_err=err["probe_first"], ms=probe_ms, plain_ms=probe_plain,
             bound_ms=probe_bound[0], bound_by=probe_bound[1],
-            library_ms=probe_lib,
+            library_ms=probe_lib, kernel_ms=probe_kern,
             shape=f"probe={pcap} valid={nvalid} span={span}"),
     }
 
@@ -726,12 +770,14 @@ def counted_join_kernels_phase(dev, tables):
     odd = 3_000_017
     check_counted(table, probe[:odd].contiguous(),
                   pvalid[:odd].contiguous(), "probe capacity 3,000,017")
+    check_counted(table, probe[1:], pvalid[1:], "validity misaligned by one")
     nvalid = int(pvalid.sum())
     log(f"[kernels] probe_counts and expand_pairs equal their plain "
         f"versions (partsupp build capacity {bcap}, span {table.span}; "
         f"probe {pcap} rows, {nvalid} valid, {total} pairs at output "
         f"capacity {out_cap}; a key 10,000 times ({dup_total} pairs), "
-        "total 0, all-dead probes, ±2^63 keys, probe capacity 3,000,017)")
+        "total 0, all-dead probes, ±2^63 keys, probe capacity 3,000,017, "
+        "validity misaligned by one row)")
 
     # ---- timings, at m2m's shapes
     k_counts = cuda_ms(lambda: HJ.probe_counts(table, probe, pvalid))
@@ -773,30 +819,40 @@ def counted_join_kernels_phase(dev, tables):
         return p, table.rows[first64[p] + (jt - start64[p])]
 
     l_expand = cuda_ms(library_expand)
+    # kernel-only: the device time of every launch a call makes (the
+    # probe with its scan of the counts)
+    counts_parts = {}
+    kern_counts, counts_calls = profiled_ms(
+        lambda: HJ.probe_counts(table, probe, pvalid), by_name=counts_parts)
+    kern_expand, _n = profiled_ms(lambda: HJ.expand_pairs(
+        table, first, counts, cum, out_cap, total))
     # writes 9 bytes an output slot and reads one table row a pair; cum
     # once (a run starts where the previous row's cum ends) and first at
     # the rows that own pairs; a search round per level per pair
     owners = int((counts > 0).sum())
     expand_bound = bound(out_cap * 9 + total * 4 + pcap * 4 + owners * 4,
                          total * HJ.search_rounds(pcap))
-    log(f"[kernels] probe_counts (with its 1-D cumsum): kernel "
-        f"{k_counts:.4f} ms, plain {p_counts:.4f} ms, two searchsorted "
-        f"{l_counts:.4f} ms, bound {counts_bound[0]:.4f} ms ({walked} "
-        "table slots walked)")
-    log(f"[kernels] expand_pairs: kernel {k_expand:.4f} ms, plain "
-        f"{p_expand:.4f} ms, repeat_interleave + gather {l_expand:.4f} ms, "
-        f"bound {expand_bound[0]:.4f} ms ({owners} probe rows own pairs)")
+    log(f"[kernels] probe_counts (first, counts and cum): event "
+        f"{k_counts:.4f} ms, kernel {kern_counts:.4f} ms in "
+        f"{counts_calls:g} device launches a call {counts_parts}, plain "
+        f"{p_counts:.4f} ms, two searchsorted {l_counts:.4f} ms, bound "
+        f"{counts_bound[0]:.4f} ms ({walked} table slots walked)")
+    log(f"[kernels] expand_pairs: event {k_expand:.4f} ms, kernel "
+        f"{kern_expand:.4f} ms, plain {p_expand:.4f} ms, repeat_interleave "
+        f"+ gather {l_expand:.4f} ms, bound {expand_bound[0]:.4f} ms "
+        f"({owners} probe rows own pairs)")
     return {
         "probe_counts": dict(
             max_abs_err=err["probe_counts"], ms=k_counts, plain_ms=p_counts,
             bound_ms=counts_bound[0], bound_by=counts_bound[1],
-            library_ms=l_counts,
+            library_ms=l_counts, kernel_ms=kern_counts,
+            launches_per_call=counts_calls, kernel_parts=counts_parts,
             shape=f"probe={pcap} valid={nvalid} span={table.span} "
                   f"build={bcap}"),
         "expand_pairs": dict(
             max_abs_err=err["expand_pairs"], ms=k_expand, plain_ms=p_expand,
             bound_ms=expand_bound[0], bound_by=expand_bound[1],
-            library_ms=l_expand,
+            library_ms=l_expand, kernel_ms=kern_expand,
             shape=f"probe={pcap} pairs={total} out_cap={out_cap}"),
     }
 
@@ -1049,9 +1105,9 @@ def lanes_of(hb):
     return out
 
 
-def data_phase(scale: float, seed: int):
-    """SF `scale` customer, orders, partsupp and lineitem, and the numpy
-    results."""
+def data_phase(scale: float, seed: int, reference: bool = True):
+    """SF `scale` customer, orders, partsupp and lineitem, and (with
+    `reference`) the numpy results."""
     from spark_rapids_tpu_torch import tpch
     t0 = time.perf_counter()
     tables = tpch.gen_tables(scale, seed, tables=("customer", "orders",
@@ -1059,6 +1115,8 @@ def data_phase(scale: float, seed: int):
     log(f"[data] gen_tables(scale={scale}): " + ", ".join(
         f"{n} {hb.num_rows} rows" for n, hb in tables.items()) +
         f" in {time.perf_counter() - t0:.1f} s")
+    if not reference:
+        return tables, None
     t0 = time.perf_counter()
     li = tables["lineitem"]
     want = {"q1": expected_q1(li), "q6": expected_q6(li),
@@ -1067,6 +1125,20 @@ def data_phase(scale: float, seed: int):
             "semi": expected_semi(tables)}
     log(f"[data] numpy reference in {time.perf_counter() - t0:.1f} s")
     return tables, want
+
+
+def upload_rate(dev) -> float:
+    """GB/s of host-to-device copies from pageable memory, as the scan's
+    upload makes them: 16 copies of a 32 MiB array (one 4M-row int64
+    column of a batch)."""
+    host = np.arange(4 << 20, dtype=np.int64)
+    torch.from_numpy(host).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(16):
+        torch.from_numpy(host).to(dev)
+    torch.cuda.synchronize()
+    return 16 * host.nbytes / (time.perf_counter() - t0) / 1e9
 
 
 def path_phase(tables, want):
@@ -1120,9 +1192,8 @@ def path_phase(tables, want):
 PROFILE_PARTS = (
     ("HtoD", "upload (memcpy HtoD)"), ("DtoH", "fetch (memcpy DtoH)"),
     ("seg_sums_kernel", "seg_sums"), ("seg_reduce_kernel", "seg_reduce"),
-    ("scatter_kernel", "compaction_order"),
-    ("tile_count_kernel", "compaction_order"),
-    ("carry_kernel<tile_scan::Add", "compaction_order"),
+    ("compact_order_kernel", "compaction_order"),
+    ("compact_tail_kernel", "compaction_order"),
     ("layout_kernel", "build_table"), ("tile_max_kernel", "build_table"),
     ("carry_kernel<tile_scan::Max", "build_table"),
     ("probe_first_kernel", "probe_first"),
@@ -1184,6 +1255,13 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--scale", type=float, default=10.0)
     ap.add_argument("--seed", type=int, default=20240706)
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="run the device, build, data and kernel phases "
+                    "only, and print the kernels line without the result "
+                    "line: the mode that times the kernels of another "
+                    "tree of the port, with this script copied to its root "
+                    "(the checks of this tree's launches a call are "
+                    "skipped)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1199,12 +1277,23 @@ def main() -> int:
     t0 = time.perf_counter()
     build_libraries()
     log(f"[build] nvcc sm_90a: {time.perf_counter() - t0:.1f} s")
-    tables, want = data_phase(args.scale, args.seed)
+    tables, want = data_phase(args.scale, args.seed,
+                              reference=not args.kernels_only)
     stats = kernels_phase(dev, tables)
     stats.update(join_kernels_phase(dev, tables))
     stats.update(counted_join_kernels_phase(dev, tables))
-    launches = path_phase(tables, want)
-    profile_phase(tables)
+    launches = {}
+    if not args.kernels_only:
+        # one look-back scan and one tail launch a compaction; the counted
+        # probe scans its counts inside its one launch
+        check(stats["compaction_order"]["launches_per_call"] <= 2,
+              "compaction_order made more than 2 device launches a call")
+        check(stats["probe_counts"]["launches_per_call"] == 1,
+              "probe_counts made more than 1 device launch a call")
+        launches = path_phase(tables, want)
+        log(f"[path] upload copy rate (pageable host to device, 32 MiB "
+            f"copies): {upload_rate(dev):.2f} GB/s")
+        profile_phase(tables)
     rows = []
     for name in TPU_KERNELS:
         st = stats[name]
@@ -1219,10 +1308,13 @@ def main() -> int:
                      "bound_by": st["bound_by"],
                      "library_ms": st["library_ms"],
                      "shape": st["shape"],
-                     **{k: st[k] for k in ("kernel_ms", "distributions")
-                        if k in st}})
+                     **{k: st[k] for k in (
+                         "kernel_ms", "launches_per_call", "kernel_parts",
+                         "distributions") if k in st}})
     print(json.dumps({"kernels": rows}))
     print(smi)
+    if args.kernels_only:
+        return 0
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

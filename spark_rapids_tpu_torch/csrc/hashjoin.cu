@@ -32,14 +32,27 @@
 // it finds its key (writes the build row) or an empty slot (writes -1),
 // for at most span steps.
 //
-// probe_counts: one thread per probe row walks the same way but counts
-// the run of equal keys: it stops at an empty slot or at the first slot
-// after the run that holds another key, and writes the run's first slot
-// (0 without a match) and its length.  Equal keys are consecutive, so
-// the run is the row's whole match set.  The reference clamps its walk
-// at span - 1 and re-reads that slot until span steps are spent; the
+// probe_counts: each probe row walks the same way but counts the run of
+// equal keys: it stops at an empty slot or at the first slot after the
+// run that holds another key, and writes the run's first slot (0
+// without a match) and its length.  Equal keys are consecutive, so the
+// run is the row's whole match set.  The reference clamps its walk at
+// span - 1 and re-reads that slot until span steps are spent; the
 // kernel reproduces that count in closed form (the layout never stores
 // a live row there, so it only matters for tables built otherwise).
+// The int32 inclusive prefix sum of the counts (`cum`, the reference's
+// blocked_cumsum) comes out of the same launch: a tile of 4,096 probe
+// rows compacts its valid rows so that every lane of a warp walks one
+// (a join's probe batch is often mostly invalid: m2m's first batch has
+// 14 % valid rows), and the tile's sum of counts feeds a single-pass
+// decoupled look-back scan (lookback.cuh) that gives the tile its
+// offset.  A thread walks one row at a time: walking two or four at
+// once, so that their misses overlap, measured slower (the walks are
+// bound by the table's random sectors, not by their latency, and the
+// wider walk costs registers).  Each walked slot reads a 32-byte sector
+// from each of two arrays, and the card serves random sectors far below
+// its streaming rate; a table that keeps a key and its row in one
+// 16-byte slot would halve them.
 //
 // expand_pairs: one thread per output slot j.  A live slot (j < total)
 // finds its probe row p by the reference's fixed-round binary search of
@@ -50,19 +63,22 @@
 // What bounds them on this card: all four are bandwidth-bound.
 // build_layout reads 16 bytes a build row (ideal, key, row id; ideal
 // twice) and scatters 12; probe_first reads 9 bytes a probe row and
-// writes 5, probe_counts reads 9 and writes 8, and each valid probe row
-// reads at least one 12-byte table slot (probe_counts: its run and one
-// slot past it), a random access that usually misses the 50 MB L2 for
-// tables of millions of rows.  expand_pairs writes 9 bytes an output
-// slot and reads one 4-byte table row at random; its search reads `cum`
-// log2(probe capacity) times, of which the first levels stay in L1/L2.
-// The design keeps the walks short (load factor at most 0.5), makes the
-// layout writes land in increasing slots and gives dead output slots no
-// work.
+// writes 5, probe_counts reads 1 byte a probe row (8 more for a valid
+// one) and writes 12, and each valid probe row reads at least one
+// 12-byte table slot (probe_counts: its run and one slot past it), a
+// random access that usually misses the 50 MB L2 for tables of
+// millions of rows and costs a 32-byte sector in each of the two
+// arrays.  expand_pairs writes 9 bytes an output slot and reads one
+// 4-byte table row at random; its search reads `cum` log2(probe
+// capacity) times, of which the first levels stay in L1/L2.  The
+// design keeps the walks short (load factor at most 0.5), makes the
+// layout writes land in increasing slots, gives dead output slots no
+// work, and lets only valid probe rows load their key.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "lookback.cuh"
 #include "tile_scan.cuh"
 
 namespace {
@@ -165,44 +181,184 @@ __global__ void probe_first_kernel(const long long* __restrict__ tkeys,
   }
 }
 
-__global__ void probe_counts_kernel(const long long* __restrict__ tkeys,
-                                    const int* __restrict__ trows,
-                                    long long span, int nbits,
-                                    const long long* __restrict__ lane,
-                                    const bool* __restrict__ valid,
-                                    long long cap, int* __restrict__ first_out,
-                                    int* __restrict__ count_out) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < cap; i += stride) {
-    int first = 0;
-    int cnt = 0;
-    if (valid[i]) {
-      const long long key = lane[i];
-      long long slot = static_cast<long long>(
-          mix64(static_cast<unsigned long long>(key)) >> (64 - nbits));
-      for (long long step = 0; step < span; ++step) {
-        if (trows[slot] < 0) break;             // an empty slot ends it
-        const bool hit = tkeys[slot] == key;
-        if (hit) {
-          if (cnt == 0) first = static_cast<int>(slot);
-          ++cnt;
-        } else if (cnt > 0) {
-          break;                                // the run has ended
-        }
-        if (slot == span - 1) {
-          // the reference re-reads the clamped last slot for the steps
-          // it has left: each re-read of a hit counts again
-          if (hit) cnt += static_cast<int>(span - 1 - step);
-          break;
-        }
-        ++slot;
-      }
+// One probe key's walk over its run (probe_counts): (first slot of the
+// run, 0 without one; the run's length).  The row and key of a slot load
+// together, with no branch between them, so a step is one round trip to
+// memory, not two.  The walk ends at an empty slot, at the first slot
+// after its run, or at the last slot (span - 1), where the reference
+// re-reads the clamped slot for the steps it has left: each re-read of a
+// hit counts again, and the steps left are span - 1 - (slot - home) =
+// home.
+__device__ __forceinline__ int2 count_run(const long long* __restrict__ tkeys,
+                                          const int* __restrict__ trows,
+                                          long long span, int nbits,
+                                          long long key) {
+  const long long home = static_cast<long long>(
+      mix64(static_cast<unsigned long long>(key)) >> (64 - nbits));
+  int first = 0;
+  int cnt = 0;
+  for (long long slot = home;; ++slot) {
+    const int r = trows[slot];
+    const long long k = tkeys[slot];
+    if (r < 0) break;                           // an empty slot ends it
+    const bool hit = k == key;
+    if (hit) {
+      if (cnt == 0) first = static_cast<int>(slot);
+      ++cnt;
+    } else if (cnt > 0) {
+      break;                                    // the run has ended
     }
-    first_out[i] = first;
-    count_out[i] = cnt;
+    if (slot == span - 1) {
+      if (hit) cnt += static_cast<int>(home);
+      break;
+    }
   }
+  return make_int2(first, cnt);
+}
+
+// The counted probe over one 4,096-row tile (lookback.cuh): the valid
+// flags load 16 rows a thread; the valid rows compact into a shared
+// list so every lane walks a valid row; the walks' (first, count) land
+// in shared memory at the row's
+// own position; the tile publishes its sum of counts, first and counts
+// leave (they need no prefix), and only then does the block wait for
+// its exclusive prefix and write cum.  Every output leaves in coalesced
+// 16-byte stores, a warp 128 consecutive rows.
+constexpr int kProbeTileRows = lookback::kThreads * lookback::kChunk;
+
+// Coalesced out: each thread writes 4 consecutive rows a pass, a warp
+// 128; `vec` when every address is 16-byte aligned.
+__device__ __forceinline__ void store_rows(int* __restrict__ out,
+                                           const int* __restrict__ tile_vals,
+                                           long long base, long long cap,
+                                           bool vec) {
+  constexpr int kT = lookback::kThreads;
+#pragma unroll
+  for (int m = 0; m < kProbeTileRows / (4 * kT); ++m) {
+    const int v = 4 * (threadIdx.x + kT * m);
+    const int4 x = *reinterpret_cast<const int4*>(&tile_vals[v]);
+    const long long r = base + v;
+    if (vec && r + 4 <= cap) {
+      *reinterpret_cast<int4*>(out + r) = x;
+    } else {
+      const int xs[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (r + k >= 0 && r + k < cap) out[r + k] = xs[k];
+    }
+  }
+}
+
+__global__ void __launch_bounds__(lookback::kThreads) probe_counts_kernel(
+    const long long* __restrict__ tkeys, const int* __restrict__ trows,
+    long long span, int nbits, const long long* __restrict__ lane,
+    const bool* __restrict__ valid, long long cap, int mis, int ntiles,
+    int* __restrict__ first_out, int* __restrict__ count_out,
+    int* __restrict__ cum_out, unsigned long long* __restrict__ status,
+    int* __restrict__ counter, unsigned epoch) {
+  using lookback::kChunk;
+  constexpr int kT = lookback::kThreads;
+  constexpr int kTile = kProbeTileRows;
+  constexpr int kW = lookback::kWarps;
+  __shared__ int s_tile;
+  __shared__ unsigned s_warp[2 * kW];
+  __shared__ unsigned short s_walk[kTile];
+  __shared__ __align__(16) int s_first[kTile];
+  __shared__ __align__(16) int s_count[kTile];   // counts, then cum
+  const int tid = threadIdx.x;
+  const int ln = tid & 31;
+  const int warp = tid >> 5;
+  if (tid == 0) s_tile = lookback::draw_tile(counter, ntiles);
+  __syncthreads();
+  const int tile = s_tile;
+  const long long chunk = static_cast<long long>(tile) * kT + tid;
+  const unsigned bits = lookback::load_flags16(valid, cap, mis, chunk);
+  unsigned warp_total;
+  const unsigned lane_excl =
+      lookback::warp_ballot_scan<5>(__popc(bits), &warp_total);
+  if (ln == 0) s_warp[warp] = warp_total;
+  __syncthreads();
+  unsigned pos = 0;
+  unsigned nvalid = 0;
+#pragma unroll
+  for (int w = 0; w < kW; ++w) {
+    const unsigned v = s_warp[w];
+    pos += w < warp ? v : 0u;
+    nvalid += v;
+  }
+  pos += lane_excl;
+  for (unsigned b = bits; b != 0; b &= b - 1)
+    s_walk[pos++] = static_cast<unsigned short>(tid * kChunk + __ffs(b) - 1);
+  __syncthreads();
+  // the dense walks: row v of the tile is real row base + v
+  const long long base = static_cast<long long>(tile) * kTile - mis;
+  for (unsigned j = tid; j < nvalid; j += kT) {
+    const int v = s_walk[j];
+    const int2 run = count_run(tkeys, trows, span, nbits, lane[base + v]);
+    s_first[v] = run.x;
+    s_count[v] = run.y;
+  }
+  __syncthreads();
+  // this thread's 16 rows: zero the invalid ones (never written), and
+  // their counts' sum, then the tile's sum
+  unsigned c[kChunk];
+  unsigned own = 0;
+#pragma unroll
+  for (int k = 0; k < kChunk; k += 4) {
+    int4* fp = reinterpret_cast<int4*>(&s_first[tid * kChunk + k]);
+    int4* cp = reinterpret_cast<int4*>(&s_count[tid * kChunk + k]);
+    int4 f4 = *fp;
+    int4 c4 = *cp;
+    const unsigned m = bits >> k;
+    f4.x = m & 1u ? f4.x : 0, c4.x = m & 1u ? c4.x : 0;
+    f4.y = m & 2u ? f4.y : 0, c4.y = m & 2u ? c4.y : 0;
+    f4.z = m & 4u ? f4.z : 0, c4.z = m & 4u ? c4.z : 0;
+    f4.w = m & 8u ? f4.w : 0, c4.w = m & 8u ? c4.w : 0;
+    *fp = f4;
+    *cp = c4;
+    c[k] = c4.x, c[k + 1] = c4.y, c[k + 2] = c4.z, c[k + 3] = c4.w;
+    own += c[k] + c[k + 1] + c[k + 2] + c[k + 3];
+  }
+  unsigned incl = own;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const unsigned y = __shfl_up_sync(lookback::kFull, incl, d);
+    if (ln >= d) incl += y;
+  }
+  if (ln == 31) s_warp[warp] = incl;
+  __syncthreads();
+  unsigned before = 0;
+  unsigned agg = 0;
+#pragma unroll
+  for (int w = 0; w < kW; ++w) {
+    const unsigned v = s_warp[w];
+    before += w < warp ? v : 0u;
+    agg += v;
+  }
+  lookback::publish_aggregate(status, tile, agg, epoch);
+  const bool vec =
+      mis == 0 &&
+      ((reinterpret_cast<uintptr_t>(first_out) |
+        reinterpret_cast<uintptr_t>(count_out) |
+        reinterpret_cast<uintptr_t>(cum_out)) & 15) == 0;
+  store_rows(first_out, s_first, base, cap, vec);
+  store_rows(count_out, s_count, base, cap, vec);
+  __syncthreads();                 // s_warp read; s_count out
+  unsigned run = lookback::block_exclusive_prefix(status, tile, agg, epoch,
+                                                  s_warp) +
+                 before + incl - own;
+  // each count turned into its cum, in place
+#pragma unroll
+  for (int k = 0; k < kChunk; k += 4) {
+    int4 s4;
+    s4.x = static_cast<int>(run += c[k]);
+    s4.y = static_cast<int>(run += c[k + 1]);
+    s4.z = static_cast<int>(run += c[k + 2]);
+    s4.w = static_cast<int>(run += c[k + 3]);
+    *reinterpret_cast<int4*>(&s_count[tid * kChunk + k]) = s4;
+  }
+  __syncthreads();
+  store_rows(cum_out, s_count, base, cap, vec);
 }
 
 __global__ void expand_pairs_kernel(const int* __restrict__ trows,
@@ -307,18 +463,30 @@ extern "C" int hashjoin_probe_first(const long long* keys, const int* rows,
   return static_cast<int>(cudaGetLastError());
 }
 
-// keys/rows/span/nbits as for hashjoin_probe_first; first_out and
-// count_out int32[cap] (first = 0 and count = 0 where nothing matches).
+// keys/rows/span/nbits as for hashjoin_probe_first; first_out,
+// count_out and cum_out int32[cap] (first = 0 and count = 0 where
+// nothing matches; cum the inclusive prefix sum of the counts, modulo
+// 2^32); `mis` = valid's address mod 16 and `ntiles` = ceil((cap + mis)
+// / 4096) as the wrapper computed them; `status`, `counter` and `epoch`
+// the look-back scratch (lookback.cuh).  One launch.
 extern "C" int hashjoin_probe_counts(const long long* keys, const int* rows,
                                      long long span, int nbits,
                                      const long long* lane, const bool* valid,
-                                     long long cap, int* first_out,
-                                     int* count_out, void* stream) {
+                                     long long cap, int mis, int ntiles,
+                                     int* first_out, int* count_out,
+                                     int* cum_out, unsigned long long* status,
+                                     int* counter, unsigned epoch,
+                                     void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (cap <= 0 || span <= 0 || nbits < 1 || nbits > 62)
+  if (cap <= 0 || cap > 0x7fffffffLL || span <= 0 || nbits < 1 ||
+      nbits > 62 ||
+      mis != static_cast<int>(reinterpret_cast<uintptr_t>(valid) & 15) ||
+      ntiles != lookback::tiles_for(cap, mis, kProbeTileRows) ||
+      epoch == 0 || epoch >= lookback::kEpochs)
     return static_cast<int>(cudaErrorInvalidValue);
-  probe_counts_kernel<<<grid_for(cap), kThreads, 0, st>>>(
-      keys, rows, span, nbits, lane, valid, cap, first_out, count_out);
+  probe_counts_kernel<<<ntiles, lookback::kThreads, 0, st>>>(
+      keys, rows, span, nbits, lane, valid, cap, mis, ntiles, first_out,
+      count_out, cum_out, status, counter, epoch);
   return static_cast<int>(cudaGetLastError());
 }
 

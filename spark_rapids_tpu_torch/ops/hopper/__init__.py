@@ -21,9 +21,15 @@ counterpart here.  This module holds what they share:
   * `LAUNCHES` — a plain device-launch counter per kernel, raised by
     each wrapper where it launches its kernel and nowhere else, by the
     number of device launches of the kernel's own passes: every tile
-    of `seg_sums`, all three passes of the grid scans in
-    `compaction_order` and `build_table`.  Helper launches (filling the
-    output, converting it back) are not counted.
+    of `seg_sums`, the scan and the identity tail of
+    `compaction_order`, all three passes of `build_table`'s grid scan.
+    Helper launches (filling the output, converting it back) are not
+    counted.
+  * `StreamScratch` / `stream_scratch` — the scratch every kernel on
+    one stream shares: segagg's flush tickets and the decoupled
+    look-back's tile counter and status words (csrc/lookback.cuh),
+    reused from launch to launch without a fill; `mask_tiles` — a
+    look-back scan's tile geometry over a bool mask.
   * `build_libraries` / `library` — nvcc into `_build/` (one process per
     source, started together; the library name hashes the source, the
     shared csrc/*.cuh headers and the flags), then `ctypes.CDLL`.
@@ -69,6 +75,77 @@ LAUNCHES: Dict[str, int] = {"seg_sums": 0, "seg_reduce": 0,
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# Scratch shared by the kernels of one stream
+# ---------------------------------------------------------------------------
+
+#: segagg's flush tickets a stream: a launch takes one more than its fold
+#: groups, at most ceil(sqrt(grid)) + 1 (18 for a 264-block grid); the
+#: kernel refuses a launch they do not cover
+TICKETS = 64
+#: the status words tag their launch with an epoch of 30 bits
+EPOCHS = 1 << 30
+
+
+class StreamScratch:
+    """Scratch of the kernels launched on one stream of one device.
+
+    `tickets` int32[TICKETS + 1]: segagg's flush takes the first TICKETS,
+    the look-back scan's tile counter is the last.  Each launch leaves
+    them zero (its last arrivals reset what they took), so launches
+    ordered on the stream share them.  `status` int64: one look-back
+    word a tile, tagged with the epoch of the launch that wrote it;
+    every look-back launch takes a new epoch, so what earlier launches
+    left reads as "not yet" and needs no fill."""
+
+    def __init__(self, device: torch.device):
+        self.tickets = torch.zeros(TICKETS + 1, dtype=torch.int32,
+                                   device=device)
+        self.counter = self.tickets.data_ptr() + 4 * TICKETS
+        self.status = torch.zeros(0, dtype=torch.int64, device=device)
+        self.epoch = 0
+
+    def lookback(self, tiles: int):
+        """(status address, counter address, epoch) for one look-back
+        launch over `tiles` tiles: at least `tiles` status words, the tile
+        counter (the last ticket) and the launch's epoch in [1, EPOCHS)."""
+        if self.status.numel() < tiles:
+            # a new array is zero; the caching allocator hands the old
+            # one only to later work on this stream, after its launches
+            self.status = torch.zeros(max(tiles, 2 * self.status.numel()),
+                                      dtype=torch.int64,
+                                      device=self.status.device)
+        self.epoch += 1
+        if self.epoch == EPOCHS:
+            # an epoch 2^30 launches old could match again: clear, once
+            self.status.zero_()
+            self.epoch = 1
+        return self.status.data_ptr(), self.counter, self.epoch
+
+
+_SCRATCH: Dict[tuple, StreamScratch] = {}
+
+
+def stream_scratch(device: torch.device, stream: int) -> StreamScratch:
+    """The one StreamScratch of (device, raw stream)."""
+    key = (device.type, device.index, stream)
+    scratch = _SCRATCH.get(key)
+    if scratch is None:
+        scratch = _SCRATCH[key] = StreamScratch(device)
+    return scratch
+
+
+def mask_tiles(ptr: int, cap: int, tile_rows: int):
+    """(mis, tiles) of a look-back scan over a `cap`-row bool mask at
+    address `ptr`: its offset from 16-byte alignment, so that each
+    16-row chunk of a thread starts at an aligned address (rows before
+    the first aligned address and past the last full 16 load one by
+    one), and the number of `tile_rows`-row tiles that cover rows -mis ..
+    cap - 1."""
+    mis = ptr % 16
+    return mis, -(-(cap + mis) // tile_rows)
 
 
 # ---------------------------------------------------------------------------

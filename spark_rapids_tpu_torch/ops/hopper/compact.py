@@ -6,14 +6,15 @@ Counterpart of spark_rapids_tpu/ops/pallas/compact.py.
 order bringing `keep=True` rows to the front stably, with the identity
 in every slot past the kept count (consumers mask validity beyond it,
 so only the front is contractual — the tail is pinned all the same).
-The kernel is hand-written CUDA (csrc/compact.cu: a grid-wide scan of
-the mask and a scatter of each kept row to its rank; the design and
-what bounds it are noted there).  Unlike the reference it also returns
-the kept count, as a 0-d int32 device tensor, so `compact_batch` needs
-no second reduction.
+The kernel is hand-written CUDA (csrc/compact.cu: one pass over the
+mask with a decoupled look-back scan, then a launch that writes the
+identity tail; the design and what bounds it are noted there).  Unlike
+the reference it also returns the kept count, as a 0-d int32 device
+tensor, so `compact_batch` needs no second reduction.
 
-Given CUDA tensors the wrapper checks them, allocates the outputs and
-scratch, launches on PyTorch's current stream and raises if the launch
+Given CUDA tensors the wrapper checks them, allocates one int32 buffer
+of cap + 1 entries (the order, then the count: the count is a view of
+it), launches on PyTorch's current stream and raises if the launch
 fails; given CPU tensors it runs the plain version.  Nothing falls back
 from the card to the plain version.
 """
@@ -23,18 +24,20 @@ import ctypes
 
 import torch
 
-from . import LAUNCHES, check_launch, library, stream_ptr
+from . import (LAUNCHES, check_launch, library, mask_tiles, stream_ptr,
+               stream_scratch)
 
 _VP = ctypes.c_void_p
-#: rows per tile of the kernel's grid-wide scan (csrc/tile_scan.cuh
-#: kTileRows): the wrapper sizes the per-tile scratch with it
-TILE_ROWS = 1024
+#: rows of one look-back tile (csrc/compact.cu kTileRows: 256 threads,
+#: 32 rows each)
+TILE_ROWS = 8192
 
 
 def _fn():
     f = library("compact").compact_order
     if f.argtypes is None:
-        f.argtypes = [_VP, ctypes.c_longlong, _VP, _VP, _VP, _VP]
+        f.argtypes = [_VP, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                      _VP, _VP, _VP, ctypes.c_uint, _VP]
         f.restype = ctypes.c_int
     return f
 
@@ -63,13 +66,15 @@ def compaction_order(keep: torch.Tensor):
                          "tensor")
     cap = keep.numel()
     dev = keep.device
-    order = torch.empty(cap, dtype=torch.int32, device=dev)
-    count = torch.empty((), dtype=torch.int32, device=dev)
-    tiles = torch.empty(-(-cap // TILE_ROWS), dtype=torch.int32, device=dev)
-    err = _fn()(keep.data_ptr(), cap, tiles.data_ptr(), order.data_ptr(),
-                count.data_ptr(), stream_ptr(dev))
-    # three device launches: the tile counts, the carry scan of the tile
-    # counts and the scatter pass (csrc/compact.cu)
-    LAUNCHES["compaction_order"] += 3
+    ptr = keep.data_ptr()
+    mis, tiles = mask_tiles(ptr, cap, TILE_ROWS)
+    out = torch.empty(cap + 1, dtype=torch.int32, device=dev)
+    st = stream_ptr(dev)
+    status, counter, epoch = stream_scratch(dev, st).lookback(tiles)
+    err = _fn()(ptr, cap, mis, tiles, out.data_ptr(), status, counter, epoch,
+                st)
+    # two device launches: the look-back scan and the identity tail
+    # (csrc/compact.cu)
+    LAUNCHES["compaction_order"] += 2
     check_launch(err, "compaction_order")
-    return order, count
+    return out[:cap], out[cap]

@@ -17,8 +17,9 @@ ascending build-row order.
     there is none.  `probe_matched` is its `ok` lane.
   * `probe_counts` replaces `_probe_counts_trace` (hashjoin.py:253): per
     probe row the first table slot of its key's run and the run's
-    length; the wrapper adds the int32 inclusive prefix sum `cum` (one
-    1-D `torch.cumsum`, which PyTorch runs through cub on the card).
+    length, and their int32 inclusive prefix sum `cum`, all three from
+    one launch (a decoupled look-back scan inside the kernel; the plain
+    version takes `inclusive_cumsum`).
   * `expand_pairs` replaces `_expand_trace` (hashjoin.py:324): per
     output slot of a sized expansion its probe row, build row and
     liveness, in the reference's pair order (probe-major, build rows
@@ -45,8 +46,8 @@ from typing import NamedTuple
 import torch
 
 from ..segments import lexsort_capped
-from . import LAUNCHES, check_launch, library, stream_ptr
-from .compact import TILE_ROWS
+from . import (LAUNCHES, check_launch, library, mask_tiles, stream_ptr,
+               stream_scratch)
 
 _VP = ctypes.c_void_p
 _LL = ctypes.c_longlong
@@ -55,8 +56,8 @@ _SIGNATURES = {
     "hashjoin_build_layout": [_VP, _VP, _VP, _LL, _VP, _LL, _VP, _VP, _VP],
     "hashjoin_probe_first": [_VP, _VP, _LL, _I, _VP, _VP, _LL, _VP, _VP,
                              _VP],
-    "hashjoin_probe_counts": [_VP, _VP, _LL, _I, _VP, _VP, _LL, _VP, _VP,
-                              _VP],
+    "hashjoin_probe_counts": [_VP, _VP, _LL, _I, _VP, _VP, _LL, _I, _I,
+                              _VP, _VP, _VP, _VP, _VP, ctypes.c_uint, _VP],
     "hashjoin_expand_pairs": [_VP, _LL, _VP, _VP, _VP, _LL, _I, _LL, _LL,
                               _VP, _VP, _VP, _VP],
 }
@@ -65,6 +66,12 @@ INT64_MIN = -(1 << 63)
 _FMIX1 = 0xFF51AFD7ED558CCD - (1 << 64)     # signed images of the
 _FMIX2 = 0xC4CEB9FE1A85EC53 - (1 << 64)     # fmix64 constants
 _CARRY_SEED = -(1 << 31) + 1
+#: rows of one tile of build_layout's three-pass grid scan
+#: (csrc/tile_scan.cuh kTileRows): the wrapper sizes its scratch with it
+LAYOUT_TILE_ROWS = 1024
+#: probe rows of one look-back tile of probe_counts (csrc/hashjoin.cu
+#: kProbeTileRows: 256 threads, 16 rows each)
+PROBE_TILE_ROWS = 4096
 
 
 def _fn(name: str):
@@ -153,7 +160,8 @@ def build_layout(ideal, lane_s, rid, span: int):
     dev = ideal.device
     keys = torch.zeros(span, dtype=torch.int64, device=dev)
     rows = torch.full((span,), -1, dtype=torch.int32, device=dev)
-    tiles = torch.empty(-(-cap // TILE_ROWS), dtype=torch.int32, device=dev)
+    tiles = torch.empty(-(-cap // LAYOUT_TILE_ROWS), dtype=torch.int32,
+                        device=dev)
     err = _fn("hashjoin_build_layout")(
         ideal.data_ptr(), lane_s.data_ptr(), rid.data_ptr(), cap,
         tiles.data_ptr(), span, keys.data_ptr(), rows.data_ptr(),
@@ -274,22 +282,31 @@ def probe_counts(table: HashTable, lane: torch.Tensor, valid: torch.Tensor):
     """(first int32, counts int32, cum int32) per probe row: the table slot
     where the probe key's run of matches starts (0 without one), the
     run's length (0 for invalid or unmatched rows) and the inclusive
-    prefix sum of the lengths."""
+    prefix sum of the lengths.  On the card the three are views of one
+    buffer."""
     if lane.device.type == "cpu":
         first, counts = probe_counts_plain(table, lane, valid)
         return first, counts, inclusive_cumsum(counts)
     if lane.device.type != "cuda":
         raise ValueError(f"probe_counts: unsupported device {lane.device}")
     cap = _check_probe("probe_counts", table, lane, valid)
-    first = torch.empty(cap, dtype=torch.int32, device=lane.device)
-    counts = torch.empty(cap, dtype=torch.int32, device=lane.device)
+    dev = lane.device
+    mis, tiles = mask_tiles(valid.data_ptr(), cap, PROBE_TILE_ROWS)
+    # each output starts 16-byte aligned, for the kernel's vector stores
+    pad = -(-cap // 4) * 4
+    out = torch.empty(3 * pad, dtype=torch.int32, device=dev)
+    first, counts, cum = (out[i * pad:i * pad + cap] for i in range(3))
+    st = stream_ptr(dev)
+    status, counter, epoch = stream_scratch(dev, st).lookback(tiles)
     err = _fn("hashjoin_probe_counts")(
         table.keys.data_ptr(), table.rows.data_ptr(), table.span,
-        table.nbits, lane.data_ptr(), valid.data_ptr(), cap,
-        first.data_ptr(), counts.data_ptr(), stream_ptr(lane.device))
+        table.nbits, lane.data_ptr(), valid.data_ptr(), cap, mis, tiles,
+        first.data_ptr(), counts.data_ptr(), cum.data_ptr(), status,
+        counter, epoch, st)
+    # one device launch: the walks and the scan of their counts
     LAUNCHES["probe_counts"] += 1
     check_launch(err, "probe_counts")
-    return first, counts, inclusive_cumsum(counts)
+    return first, counts, cum
 
 
 def search_rounds(pcap: int) -> int:

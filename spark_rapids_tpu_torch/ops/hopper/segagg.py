@@ -35,7 +35,8 @@ import torch
 from ... import types as t
 from .. import groupby as G
 from ..kernels import compute_view
-from . import LAUNCHES, check_launch, library, stream_ptr
+from . import (LAUNCHES, TICKETS, check_launch, library, stream_ptr,
+               stream_scratch)
 
 _VP = ctypes.c_void_p
 _VPP = ctypes.POINTER(ctypes.c_void_p)
@@ -62,25 +63,6 @@ def _fn(name: str):
     if f.argtypes is None:
         f.argtypes, f.restype = _SIGNATURES[name]
     return f
-
-
-#: ticket counters of the kernels' flush a stream: a launch takes one
-#: more than its fold groups, at most ceil(sqrt(grid)) + 1 (18 for a
-#: 264-block grid); the kernel refuses a launch they do not cover
-TICKETS = 64
-_TICKETS = {}
-
-
-def _tickets(device: torch.device, stream: int) -> torch.Tensor:
-    """The kernels' int32 ticket counters for one stream: zeroed once, and
-    left zero by every launch that completes (its last blocks reset
-    them), so launches ordered on one stream share them."""
-    key = (device.index, stream)
-    tickets = _TICKETS.get(key)
-    if tickets is None:
-        tickets = torch.zeros(TICKETS, dtype=torch.int32, device=device)
-        _TICKETS[key] = tickets
-    return tickets
 
 
 def _scratch(nbytes: int, device: torch.device, kernel: str) -> torch.Tensor:
@@ -174,8 +156,9 @@ def seg_sums(seg, int_lanes, f64_lanes, domain: int):
     launched = _I(0)
     err = _fn("segagg_seg_sums")(
         seg.data_ptr(), cap, domain, iptrs, ki, fptrs, kf, iout.data_ptr(),
-        fout.data_ptr(), scratch.data_ptr(), _tickets(dev, st).data_ptr(),
-        TICKETS, st, ctypes.byref(launched))
+        fout.data_ptr(), scratch.data_ptr(),
+        stream_scratch(dev, st).tickets.data_ptr(), TICKETS, st,
+        ctypes.byref(launched))
     # one launch per tile of lanes whose accumulator fits shared memory
     LAUNCHES["seg_sums"] += launched.value
     check_launch(err, "seg_sums")
@@ -240,7 +223,7 @@ def seg_reduce(seg, lane, domain: int, is_min: bool, ident):
     err = _fn("segagg_seg_reduce")(
         seg.data_ptr(), cap, domain, lane.data_ptr(), code, ident_bits,
         int(is_min), out.data_ptr(), scratch.data_ptr(),
-        _tickets(dev, st).data_ptr(), TICKETS, st)
+        stream_scratch(dev, st).tickets.data_ptr(), TICKETS, st)
     # one launch per call: it writes the identities and the float64
     # values itself
     LAUNCHES["seg_reduce"] += 1

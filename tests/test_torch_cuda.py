@@ -146,20 +146,62 @@ def test_cuda_wrapper_refuses_bad_inputs(cuda):
         PS.seg_sums(seg, [], [], 4)
 
 
+# caps around a thread's 16 rows and a tile's 4,096, and the main
+# path's; none kept and all kept
+_COMPACT_CASES = [(1, 0.5), (15, 0.5), (16, 0.5), (17, 0.5), (1023, 0.5),
+                  (1024, 0.5), (4095, 0.5), (4096, 0.5), (4097, 0.5),
+                  (1 << 20, 0.05), (3_000_017, 0.3), (3_000_017, 0.99),
+                  (1 << 16, 0.0), (1 << 16, 1.0), (4097, 0.0), (4097, 1.0)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("cap,p", [(1024, 0.5), (1 << 20, 0.05),
-                                   (3_000_017, 0.3), (1 << 16, 0.0),
-                                   (1 << 16, 1.0)])
+@pytest.mark.parametrize("cap,p", _COMPACT_CASES)
 def test_compaction_order_kernel_matches_plain(cuda, cap, p):
     keep = torch.from_numpy(np.random.default_rng(cap).random(cap) < p) \
         .to(cuda)
     PH.reset_launch_counts()
     order, count = PC.compaction_order(keep)
     porder, pcount = PC.compaction_order_plain(keep)
-    # tile counts, carry scan, scatter
-    assert PH.LAUNCHES["compaction_order"] == 3
-    assert int(count) == int(pcount)
+    # the look-back scan and the identity tail
+    assert PH.LAUNCHES["compaction_order"] == 2
+    assert count.dim() == 0 and int(count) == int(pcount)
     assert torch.equal(order, porder)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap", [5, 4095, 100_003])
+def test_compaction_order_kernel_takes_misaligned_masks(cuda, cap):
+    # slices such as mask[1:] start off 16-byte alignment: the head and
+    # tail rows load one by one, the rest 16 at a time
+    base = torch.from_numpy(np.random.default_rng(cap).random(cap + 16)
+                            < 0.4).to(cuda)
+    for off in (1, 3, 8, 15):
+        keep = base[off:off + cap]
+        assert keep.data_ptr() % 16 == off
+        order, count = PC.compaction_order(keep)
+        porder, pcount = PC.compaction_order_plain(keep)
+        assert int(count) == int(pcount)
+        assert torch.equal(order, porder)
+
+
+@pytest.mark.cuda
+def test_compaction_order_kernel_back_to_back_and_on_a_side_stream(cuda):
+    # the tile counter and the status words are reused without a fill:
+    # calls queued back to back, and a call on another stream (its own
+    # scratch)
+    rng = np.random.default_rng(3)
+    masks = [torch.from_numpy(rng.random(n) < p).to(cuda)
+             for n, p in ((1 << 20, 0.5), (70_001, 0.9), (1 << 20, 0.01))]
+    got = [PC.compaction_order(m) for m in masks]
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        on_side = PC.compaction_order(masks[0])
+    torch.cuda.current_stream(cuda).wait_stream(side)
+    for m, (order, count) in zip(masks + masks[:1], got + [on_side]):
+        porder, pcount = PC.compaction_order_plain(m)
+        assert int(count) == int(pcount)
+        assert torch.equal(order, porder)
 
 
 @pytest.mark.cuda
@@ -185,7 +227,7 @@ def test_compact_batch_launches_the_kernel_below_1024_rows(cuda, n):
         out = compact_batch(db, torch.from_numpy(mask).to(dev))
         got[dev] = (PH.LAUNCHES["compaction_order"],
                     to_host(out, int(out.num_rows)).to_pydict())
-    assert got["cpu"][0] == 0 and got["cuda"][0] == 3
+    assert got["cpu"][0] == 0 and got["cuda"][0] == 2
     assert got["cuda"][1] == got["cpu"][1]
     assert got["cpu"][1]["x"] == x[keep].tolist()
 
@@ -254,6 +296,85 @@ def test_probe_counts_and_expand_pairs_kernels_match_plain(cuda, cap, span,
                               table.nbits, table.span)
     assert torch.equal(flags.cpu(), PHJ.build_matched_flags(
         cpu_table, first.cpu(), counts.cpu(), cap))
+
+
+def _probe_case(rng, cuda, pcap, p_valid, span=1 << 19, cap=1 << 16):
+    lane = torch.from_numpy(rng.integers(-span, span, cap)).to(cuda)
+    table = PHJ.build_table(lane, torch.ones(cap, dtype=torch.bool,
+                                             device=cuda))
+    probe = torch.from_numpy(rng.integers(-span, span, pcap)).to(cuda)
+    probe[: pcap // 2] = lane[torch.randint(0, cap, (pcap // 2,),
+                                            device=cuda)]
+    pvalid = torch.from_numpy(rng.random(pcap) < p_valid).to(cuda)
+    return table, probe, pvalid
+
+
+def _check_counts(table, probe, pvalid):
+    first, counts, cum = PHJ.probe_counts(table, probe, pvalid)
+    pfirst, pcounts = PHJ.probe_counts_plain(table, probe, pvalid)
+    assert torch.equal(first, pfirst) and torch.equal(counts, pcounts)
+    assert torch.equal(cum, torch.cumsum(counts, 0, dtype=torch.int32))
+    return int(cum[-1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pcap,p_valid", [
+    (1 << 16, 0.0), (1 << 16, 1.0), (4097, 0.5), (4095, 1.0), (1, 1.0),
+    (3001, 0.14), (1 << 20, 0.14)])
+def test_probe_counts_kernel_edges(cuda, pcap, p_valid):
+    # no valid probe row, every row valid, capacities that are not a
+    # multiple of the 4,096-row tile, m2m's share of valid rows
+    rng = np.random.default_rng(pcap + int(100 * p_valid))
+    table, probe, pvalid = _probe_case(rng, cuda, pcap, p_valid)
+    PH.reset_launch_counts()
+    total = _check_counts(table, probe, pvalid)
+    assert PH.LAUNCHES["probe_counts"] == 1
+    assert p_valid > 0.0 or total == 0        # no valid row, no pair
+
+
+@pytest.mark.cuda
+def test_probe_counts_kernel_back_to_back_and_misaligned(cuda):
+    # calls queued back to back share the look-back scratch; a validity
+    # lane off 16-byte alignment
+    rng = np.random.default_rng(9)
+    cases = [_probe_case(rng, cuda, n, p) for n, p in
+             ((1 << 20, 0.5), (50_001, 0.9), (1 << 18, 0.05))]
+    for table, probe, pvalid in cases + cases:
+        _check_counts(table, probe, pvalid)
+    table, probe, pvalid = cases[1]
+    wide = torch.cat([pvalid[:3], pvalid])
+    assert wide[3:].data_ptr() % 16 == 3
+    _check_counts(table, probe, wide[3:])
+
+
+@pytest.mark.cuda
+def test_probe_counts_kernel_reaches_the_clamped_last_slot(cuda):
+    # a hand-built table whose runs end at span - 1: the reference
+    # re-reads that slot for the steps it has left, and each re-read of
+    # a hit counts again
+    nbits, span = 4, 24
+    keys = np.zeros(span, np.int64)
+    rows = np.full(span, -1, np.int32)
+    cand = torch.arange(1, 5000, dtype=torch.int64)
+    home = (PHJ.mix64(cand) >> (64 - nbits)) & ((1 << nbits) - 1)
+    k_hi = int(cand[home == 15][0])
+    k_lo = int(cand[home == 2][0])
+    # slots 2-14 hold key 7 (home 7), 15-19 k_hi (home 15) and 20-23
+    # k_lo (home 2): k_lo's walk passes 18 slots and its run ends at
+    # the last one
+    keys[2:15], rows[2:15] = 7, np.arange(9, 22)
+    keys[15:20], rows[15:20] = k_hi, np.arange(5)
+    keys[20:], rows[20:] = k_lo, np.arange(5, 9)
+    table = PHJ.HashTable(torch.from_numpy(keys).to(cuda),
+                          torch.from_numpy(rows).to(cuda), nbits, span)
+    probe = torch.tensor([k_hi, k_lo, 7, 123456, k_lo, k_hi],
+                         device=cuda)
+    pvalid = torch.tensor([True, True, True, True, False, True],
+                          device=cuda)
+    _check_counts(table, probe, pvalid)
+    _f, counts, _c = PHJ.probe_counts(table, probe, pvalid)
+    # 4 slots of k_lo's run, and 2 re-reads of the last (its home)
+    assert counts.tolist() == [5, 6, 8, 0, 0, 5]
 
 
 def _cpu_and_cuda(build):
