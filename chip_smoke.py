@@ -43,13 +43,25 @@ own failure:
                non-power-of-two capacity for compaction and
                duplicate-heavy, all-dead and ±2^63 keys for the table.
                Those three must equal their plain versions exactly.
+               probe_first also at semi's shapes (partsupp's (part,
+               supplier) pairs packed into one lane by the port's
+               range_pack_spec and packed_lane, probed by the first
+               lineitem batch, every row valid), with its validity
+               misaligned by one row, every row or no row valid, and
+               3,000,017 rows.
                probe_counts and expand_pairs at m2m's shapes: partsupp's
                part keys tabled at capacity 4,194,304 (two rows a key),
                probed by the first lineitem batch with the 1994 filter
                as its validity, and that batch's expansion; plus a key
                10,000 times in one build, a total of 0, all-dead probes,
-               ±2^63 keys, a probe capacity of 3,000,017 and a validity
-               lane misaligned by one row; exactly.  compaction_order
+               ±2^63 keys, a probe capacity of 3,000,017, a validity
+               lane misaligned by one row and the batch with its first
+               3,000,000 rows owning no pairs; exactly.  expand_pairs is
+               timed at m2m's shapes, the key 10,000 times and the
+               3,000,000 rows without pairs, probe_first at q3's and
+               semi's.  probe_first, probe_counts and expand_pairs are
+               also timed with the L2 flushed before each call (as the
+               query's other work leaves it).  compaction_order
                also at 1 %, 50 % and 99 % kept and on a mask misaligned
                by one row.  Times each kernel (event
                time, host work of the call included, and kernel-only
@@ -59,8 +71,9 @@ own failure:
                / a stable argsort / a stable sort / searchsorted /
                repeat_interleave), which the port itself never calls;
                compaction_order at each of its masks.  compaction_order
-               must make at most 2 device launches a call and
-               probe_counts 1 (profiler count).
+               must make at most 2 device launches a call, and
+               probe_first, probe_counts and expand_pairs 1 at each of
+               their timed shapes (profiler count).
   5. path    — q1, q6, a MIN/MAX/FIRST/LAST group-by, q3 and the three
                join-path queries of tpch.JOIN_QUERIES (m2m, outer, semi)
                through TpuSession() on cuda, each checked against its
@@ -165,32 +178,56 @@ def bound(nbytes: int, ops: int):
         (by_ops, "operations")
 
 
-def profiled_ms(fn, fragment=None, reps: int = 20, by_name=None):
+_FLUSH = []
+
+
+def flush_l2() -> None:
+    """Evict the card's 50 MB L2 with one 256 MiB memset."""
+    if not _FLUSH:
+        _FLUSH.append(torch.empty(256 << 20, dtype=torch.uint8,
+                                  device="cuda"))
+    _FLUSH[0].zero_()
+
+
+def profiled_ms(fn, fragment=None, reps: int = 20, by_name=None,
+                cold: bool = False):
     """(device ms a call of the kernels whose names hold `fragment` --
     of every device launch of the call when `fragment` is None --,
     device launches a call of every kind) over `reps` warm calls of
-    `fn`, from torch.profiler.  `by_name`, a dict, receives the device
-    ms a call of each kernel name.  Fails the run if the profiler saw no
-    launch of such a kernel."""
+    `fn`, from torch.profiler; with `cold`, the L2 is flushed before
+    each call (as a query's other work leaves it for the next batch;
+    the flush is counted among the launches, not in the time of a
+    named kernel).  `by_name`, a dict, receives the device ms a call of
+    each kernel name.  A trace that holds no device
+    activity at all is taken once more; fails the run if the profiler
+    saw no launch of such a kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us, launches, own = 0.0, 0, 0
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        launches += e.count
-        if fragment is None or fragment in e.key:
-            us += e.self_device_time_total
-            own += e.count
-            if by_name is not None:
-                by_name[e.key[:80]] = e.self_device_time_total / 1e3 / reps
+    for attempt in (1, 2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                if cold:
+                    flush_l2()
+                fn()
+            torch.cuda.synchronize()
+        us, launches, own = 0.0, 0, 0
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            launches += e.count
+            if fragment is None or fragment in e.key:
+                us += e.self_device_time_total
+                own += e.count
+                if by_name is not None:
+                    by_name[e.key[:80]] = \
+                        e.self_device_time_total / 1e3 / reps
+        if launches or attempt == 2:
+            break
+        log(f"[kernels] torch.profiler traced no device activity for "
+            f"{fragment or 'a call'}; tracing it again")
     check(own > 0, f"torch.profiler saw no {fragment or 'device'} launch "
           "(no device activity traced)")
     return us / 1e3 / reps, launches / reps
@@ -515,6 +552,56 @@ def q3_join_inputs(tables, dev):
     return lane, valid, probe, pvalid
 
 
+def semi_join_inputs(tables, dev):
+    """The shapes semi's join gives probe_first: partsupp's (part,
+    supplier) pairs folded into one lane by the port's own
+    `range_pack_spec` and `packed_lane` (4,000,000 keys, the build at its
+    bucket capacity), probed by the first lineitem batch's packed lane,
+    every row valid."""
+    from types import SimpleNamespace
+    from spark_rapids_tpu_torch import tpch
+    from spark_rapids_tpu_torch.columnar.device import bucket_capacity
+    from spark_rapids_tpu_torch.exec import join as XJ
+    from spark_rapids_tpu_torch.session import TpuSession
+    node = tpch.semi(TpuSession(device="cpu"), tables).physical().root
+    while not hasattr(node, "left_keys"):
+        node = node.children[0]
+    spec, _span = XJ.range_pack_spec(
+        [e.bind(node.left.output_schema) for e in node.left_keys],
+        [e.bind(node.right.output_schema) for e in node.right_keys],
+        node.left, node.right)
+
+    def packed(hb, names, rows):
+        return XJ.packed_lane([SimpleNamespace(data=torch.from_numpy(
+            np.ascontiguousarray(_col(hb, n).data[:rows])).to(dev))
+            for n in names], spec)
+
+    ps = tables["partsupp"]
+    keys = packed(ps, ("ps_partkey", "ps_suppkey"), ps.num_rows)
+    bcap = bucket_capacity(ps.num_rows)
+    lane = torch.zeros(bcap, dtype=torch.int64, device=dev)
+    lane[:ps.num_rows] = keys
+    valid = torch.arange(bcap, device=dev) < ps.num_rows
+    probe = packed(tables["lineitem"], ("l_partkey", "l_suppkey"),
+                   Q1_CAPACITY)
+    return lane, valid, probe, torch.ones_like(probe, dtype=torch.bool)
+
+
+def plain_layout(HJ, ideal, lane_s, rid, span):
+    """(keys, rows) of the plain table layout: the key and row views of
+    its slot buffer, or its two arrays in a tree of the port whose table
+    keeps keys and rows apart (for --kernels-only in such a tree)."""
+    out = HJ.build_layout_plain(ideal, lane_s, rid, span)
+    return HJ.slot_views(out) if torch.is_tensor(out) else out
+
+
+def probe_bound(pcap: int, nvalid: int):
+    """probe_first's bound: it reads every flag and writes row and flag;
+    only a valid row needs its key and at least its home slot (a key
+    and a row, 12 bytes), the least its walk reads."""
+    return bound(pcap * (1 + 4 + 1) + nvalid * (8 + 12), nvalid)
+
+
 def join_kernels_phase(dev, tables):
     from spark_rapids_tpu_torch.ops.hopper import compact as C
     from spark_rapids_tpu_torch.ops.hopper import hashjoin as HJ
@@ -531,7 +618,7 @@ def join_kernels_phase(dev, tables):
     def check_build(lane_, valid_, what):
         table = HJ.build_table(lane_, valid_)
         ideal, lane_s, rid = HJ.hash_order(lane_, valid_, table.nbits)
-        keys, rows = HJ.build_layout_plain(ideal, lane_s, rid, table.span)
+        keys, rows = plain_layout(HJ, ideal, lane_s, rid, table.span)
         note("build_table", _exact(table.rows, rows,
                                    f"build_table rows ({what})"))
         live = rows >= 0
@@ -563,6 +650,15 @@ def join_kernels_phase(dev, tables):
     check_probe(edge_table, edge.flip(0), torch.rand(
         edge.numel(), generator=g, device=dev) > 0.1, "±2^63 keys")
     matched = int(ok.sum())
+    check_probe(table, probe[1:], pvalid[1:], "validity misaligned by one")
+    check_probe(table, probe, torch.ones_like(pvalid), "every row valid")
+    check_probe(table, probe, torch.zeros_like(pvalid), "no row valid")
+    check_probe(table, probe[:3_000_017].contiguous(),
+                pvalid[:3_000_017].contiguous(), "capacity 3,000,017")
+    s_lane, s_valid, s_probe, s_pvalid = semi_join_inputs(tables, dev)
+    s_table = check_build(s_lane, s_valid, "semi's packed partsupp keys")
+    s_matched = int(check_probe(s_table, s_probe, s_pvalid,
+                                "semi lineitem batch").sum())
 
     # ---- compaction_order: keep = q3's second-join match mask
     def check_compact(keep, what):
@@ -590,8 +686,10 @@ def join_kernels_phase(dev, tables):
     log(f"[kernels] build_table, probe_first and compaction_order equal "
         f"their plain versions (build capacity {bcap}, span {span}, "
         f"{int(valid.sum())} keys; probe {pcap} rows, {matched} matched; "
-        "duplicate-heavy, all-dead, ±2^63, 0 %, 1 %, 50 %, 99 %, 100 %, "
-        "capacities 3,000,017 and 300, a mask misaligned by one row)")
+        f"semi's {int(s_valid.sum())} packed keys, {s_matched} of {pcap} "
+        "probes matched; duplicate-heavy, all-dead, ±2^63, 0 %, 1 %, 50 %, "
+        "99 %, 100 %, capacities 3,000,017 and 300, masks misaligned by "
+        "one row)")
 
     # ---- timings
     ideal, lane_s, rid = HJ.hash_order(lane, valid, nbits)
@@ -601,25 +699,40 @@ def join_kernels_phase(dev, tables):
     sort_ms = cuda_ms(lambda: HJ.hash_order(lane, valid, nbits), reps=5)
     # reads ideal, key and row id once; writes the whole table once
     build_bound = bound(bcap * (4 + 8 + 4) + span * (8 + 4), bcap)
-    probe_ms = cuda_ms(lambda: HJ.probe_first(table, probe, pvalid))
-    probe_plain = cuda_ms(lambda: HJ.probe_first_plain(table, probe,
-                                                       pvalid), reps=5)
-    # reads every flag, writes row and flag; only a valid row needs its
-    # key and at least its home slot (12 bytes), the least its walk reads
-    nvalid = int(pvalid.sum())
-    probe_bound = bound(pcap * (1 + 4 + 1) + nvalid * (8 + 12), nvalid)
-    # the sorted tier's build and probe as yardsticks: one stable sort of
-    # the build lane (dead rows last), then a searchsorted of the probe
-    # lane and the gather of the build row
+    # probe_first at q3's and semi's shapes, each beside the sorted
+    # tier's probe as its yardstick: a searchsorted of the probe lane in
+    # the stably sorted build lane (dead rows last) and the gather of the
+    # build row
+    def time_probe(table_, lane_, valid_, probe_, pvalid_):
+        key = torch.where(valid_, lane_, torch.full_like(lane_, 2 ** 63 - 1))
+        svals, sperm = torch.sort(key, stable=True)
+
+        def library_probe():
+            pos = torch.clamp(torch.searchsorted(svals, probe_),
+                              max=lane_.numel() - 1)
+            return sperm[pos], svals[pos] == probe_
+
+        nvalid_ = int(pvalid_.sum())
+        kern, calls = profiled_ms(lambda: HJ.probe_first(table_, probe_,
+                                                         pvalid_))
+        return dict(
+            ms=cuda_ms(lambda: HJ.probe_first(table_, probe_, pvalid_)),
+            kernel_ms=kern, launches_per_call=calls,
+            cold_kernel_ms=profiled_ms(
+                lambda: HJ.probe_first(table_, probe_, pvalid_),
+                "probe_first_kernel", cold=True)[0],
+            plain_ms=cuda_ms(lambda: HJ.probe_first_plain(
+                table_, probe_, pvalid_), reps=5),
+            library_ms=cuda_ms(library_probe),
+            bound_ms=probe_bound(probe_.numel(), nvalid_)[0], valid=nvalid_,
+            keys=int(valid_.sum()), span=table_.span)
+
+    probe_dists = {"q3": time_probe(table, lane, valid, probe, pvalid),
+                   "semi": time_probe(s_table, s_lane, s_valid, s_probe,
+                                      s_pvalid)}
+    nvalid = probe_dists["q3"]["valid"]
     sort_key = torch.where(valid, lane, torch.full_like(lane, 2 ** 63 - 1))
     build_lib = cuda_ms(lambda: torch.sort(sort_key, stable=True))
-    svals, sperm = torch.sort(sort_key, stable=True)
-
-    def library_probe():
-        pos = torch.clamp(torch.searchsorted(svals, probe), max=bcap - 1)
-        return sperm[pos], svals[pos] == probe
-
-    probe_lib = cuda_ms(library_probe)
     compact_ms = cuda_ms(lambda: C.compaction_order(keep))
     compact_plain = cuda_ms(lambda: C.compaction_order_plain(keep))
     inv = (~keep).to(torch.int8)
@@ -628,8 +741,6 @@ def join_kernels_phase(dev, tables):
     # kernel-only: the device time of every launch a call makes
     build_kern, _n = profiled_ms(lambda: HJ.build_layout(ideal, lane_s, rid,
                                                          span))
-    probe_kern, _n = profiled_ms(lambda: HJ.probe_first(table, probe,
-                                                        pvalid))
     compact_parts = {}
     compact_kern, compact_calls = profiled_ms(
         lambda: C.compaction_order(keep), by_name=compact_parts)
@@ -647,9 +758,14 @@ def join_kernels_phase(dev, tables):
         f"{build_kern:.4f} ms, plain {build_plain:.4f} ms, stable sort "
         f"{build_lib:.4f} ms, bound {build_bound[0]:.4f} ms; its PyTorch "
         f"hash-order sort {sort_ms:.4f} ms")
-    log(f"[kernels] probe_first: event {probe_ms:.4f} ms, kernel "
-        f"{probe_kern:.4f} ms, plain {probe_plain:.4f} ms, searchsorted + "
-        f"gather {probe_lib:.4f} ms, bound {probe_bound[0]:.4f} ms")
+    for name, d in probe_dists.items():
+        log(f"[kernels] probe_first at {name}'s shapes ({d['keys']} keys, "
+            f"span {d['span']}; {d['valid']} of {pcap} probes valid): event "
+            f"{d['ms']:.4f} ms, kernel {d['kernel_ms']:.4f} ms in "
+            f"{d['launches_per_call']:g} device launches a call (L2 "
+            f"flushed before each call {d['cold_kernel_ms']:.4f} ms), "
+            f"plain {d['plain_ms']:.4f} ms, searchsorted + gather "
+            f"{d['library_ms']:.4f} ms, bound {d['bound_ms']:.4f} ms")
     log(f"[kernels] compaction_order: event {compact_ms:.4f} ms, kernel "
         f"{compact_kern:.4f} ms in {compact_calls:g} device launches a "
         f"call {compact_parts}, plain {compact_plain:.4f} ms, stable "
@@ -668,9 +784,12 @@ def join_kernels_phase(dev, tables):
             library_ms=build_lib, hash_sort_ms=sort_ms, kernel_ms=build_kern,
             shape=f"cap={bcap} keys={int(valid.sum())} span={span}"),
         "probe_first": dict(
-            max_abs_err=err["probe_first"], ms=probe_ms, plain_ms=probe_plain,
-            bound_ms=probe_bound[0], bound_by=probe_bound[1],
-            library_ms=probe_lib, kernel_ms=probe_kern,
+            max_abs_err=err["probe_first"],
+            **{k: probe_dists["q3"][k] for k in (
+                "ms", "plain_ms", "bound_ms", "library_ms", "kernel_ms",
+                "cold_kernel_ms", "launches_per_call")},
+            bound_by=probe_bound(pcap, nvalid)[1],
+            distributions=probe_dists,
             shape=f"probe={pcap} valid={nvalid} span={span}"),
     }
 
@@ -747,8 +866,9 @@ def counted_join_kernels_phase(dev, tables):
     dup_probe[:100] = 42                   # 100 probes of 10,000 pairs
     ones = torch.ones(1 << 20, dtype=torch.bool, device=dev)
     dup_table = HJ.build_table(dup, ones)
-    dup_total = check_counted(dup_table, dup_probe, ones,
-                              "a key 10,000 times")[3]
+    dup_case = check_counted(dup_table, dup_probe, ones,
+                             "a key 10,000 times")
+    dup_total = dup_case[3]
     check(dup_total >= 100 * 10_000, "the duplicate-heavy case expanded "
           f"only {dup_total} pairs")
     # a total of 0: every probe key misses; all-dead probes
@@ -771,13 +891,19 @@ def counted_join_kernels_phase(dev, tables):
     check_counted(table, probe[:odd].contiguous(),
                   pvalid[:odd].contiguous(), "probe capacity 3,000,017")
     check_counted(table, probe[1:], pvalid[1:], "validity misaligned by one")
+    # m2m's batch with its first 3,000,000 rows owning no pairs
+    late = pvalid.clone()
+    late[:3_000_000] = False
+    late_case = check_counted(table, probe, late, "3,000,000 leading rows "
+                              "own no pairs")
     nvalid = int(pvalid.sum())
     log(f"[kernels] probe_counts and expand_pairs equal their plain "
         f"versions (partsupp build capacity {bcap}, span {table.span}; "
         f"probe {pcap} rows, {nvalid} valid, {total} pairs at output "
         f"capacity {out_cap}; a key 10,000 times ({dup_total} pairs), "
         "total 0, all-dead probes, ±2^63 keys, probe capacity 3,000,017, "
-        "validity misaligned by one row)")
+        "validity misaligned by one row, 3,000,000 leading rows without "
+        f"pairs ({late_case[3]} pairs))")
 
     # ---- timings, at m2m's shapes
     k_counts = cuda_ms(lambda: HJ.probe_counts(table, probe, pvalid))
@@ -804,55 +930,87 @@ def counted_join_kernels_phase(dev, tables):
     walked = int((counts.to(torch.int64) + 1)[pvalid].sum())
     counts_bound = bound(pcap * (1 + 12) + nvalid * 8 + walked * 12,
                          pcap + walked)
-    k_expand = cuda_ms(lambda: HJ.expand_pairs(table, first, counts, cum,
-                                               out_cap, total))
-    p_expand = cuda_ms(lambda: HJ.expand_pairs_plain(
-        table, first, counts, cum, out_cap, total), reps=5)
-    ar = torch.arange(pcap, device=dev)
-    jt = torch.arange(total, device=dev)
-    first64, start64 = first.to(torch.int64), (cum - counts).to(torch.int64)
-
-    counts64 = counts.to(torch.int64)
-
-    def library_expand():
-        p = torch.repeat_interleave(ar, counts64, output_size=total)
-        return p, table.rows[first64[p] + (jt - start64[p])]
-
-    l_expand = cuda_ms(library_expand)
     # kernel-only: the device time of every launch a call makes (the
     # probe with its scan of the counts)
     counts_parts = {}
     kern_counts, counts_calls = profiled_ms(
         lambda: HJ.probe_counts(table, probe, pvalid), by_name=counts_parts)
-    kern_expand, _n = profiled_ms(lambda: HJ.expand_pairs(
-        table, first, counts, cum, out_cap, total))
-    # writes 9 bytes an output slot and reads one table row a pair; cum
-    # once (a run starts where the previous row's cum ends) and first at
-    # the rows that own pairs; a search round per level per pair
-    owners = int((counts > 0).sum())
-    expand_bound = bound(out_cap * 9 + total * 4 + pcap * 4 + owners * 4,
-                         total * HJ.search_rounds(pcap))
+    cold_counts = profiled_ms(lambda: HJ.probe_counts(table, probe, pvalid),
+                              "probe_counts_kernel", cold=True)[0]
+
+    def time_expand(table_, case):
+        """expand_pairs' times at one case of check_counted, beside the
+        one-call yardstick: repeat_interleave of the probe rows by their
+        counts, then the gather of the build rows."""
+        first_, counts_, cum_, total_, out_cap_ = case
+        pcap_ = first_.numel()
+        ar = torch.arange(pcap_, device=dev)
+        jt = torch.arange(total_, device=dev)
+        first64 = first_.to(torch.int64)
+        start64 = (cum_ - counts_).to(torch.int64)
+        counts64 = counts_.to(torch.int64)
+
+        def library_expand():
+            p = torch.repeat_interleave(ar, counts64, output_size=total_)
+            return p, table_.rows[first64[p] + (jt - start64[p])]
+
+        def run():
+            return HJ.expand_pairs(table_, first_, counts_, cum_, out_cap_,
+                                   total_)
+
+        kern, calls = profiled_ms(run)
+        # writes 9 bytes an output slot and reads one table row a pair;
+        # cum once (a run starts where the previous row's cum ends) and
+        # first at the rows that own pairs; a merge step per slot and
+        # per probe row
+        owners = int((counts_ > 0).sum())
+        b = bound(out_cap_ * 9 + total_ * 4 + pcap_ * 4 + owners * 4,
+                  total_ + pcap_)
+        return dict(ms=cuda_ms(run), kernel_ms=kern, launches_per_call=calls,
+                    cold_kernel_ms=profiled_ms(run, "expand_pairs_kernel",
+                                               cold=True)[0],
+                    plain_ms=cuda_ms(lambda: HJ.expand_pairs_plain(
+                        table_, first_, counts_, cum_, out_cap_, total_),
+                        reps=5),
+                    library_ms=cuda_ms(library_expand), bound_ms=b[0],
+                    bound_by=b[1], pairs=total_, out_cap=out_cap_,
+                    owners=owners, probe=pcap_)
+
+    expand_dists = {
+        "m2m": time_expand(table, (first, counts, cum, total, out_cap)),
+        "a key 10,000 times": time_expand(dup_table, dup_case),
+        "3,000,000 leading rows own no pairs": time_expand(table,
+                                                           late_case)}
     log(f"[kernels] probe_counts (first, counts and cum): event "
         f"{k_counts:.4f} ms, kernel {kern_counts:.4f} ms in "
-        f"{counts_calls:g} device launches a call {counts_parts}, plain "
+        f"{counts_calls:g} device launches a call {counts_parts} (L2 "
+        f"flushed before each call {cold_counts:.4f} ms), plain "
         f"{p_counts:.4f} ms, two searchsorted {l_counts:.4f} ms, bound "
         f"{counts_bound[0]:.4f} ms ({walked} table slots walked)")
-    log(f"[kernels] expand_pairs: event {k_expand:.4f} ms, kernel "
-        f"{kern_expand:.4f} ms, plain {p_expand:.4f} ms, repeat_interleave "
-        f"+ gather {l_expand:.4f} ms, bound {expand_bound[0]:.4f} ms "
-        f"({owners} probe rows own pairs)")
+    for name, d in expand_dists.items():
+        log(f"[kernels] expand_pairs at {name} ({d['pairs']} pairs at "
+            f"output capacity {d['out_cap']}, {d['owners']} of {d['probe']} "
+            f"probe rows own pairs): event {d['ms']:.4f} ms, kernel "
+            f"{d['kernel_ms']:.4f} ms in {d['launches_per_call']:g} device "
+            f"launches a call (L2 flushed before each call "
+            f"{d['cold_kernel_ms']:.4f} ms), plain {d['plain_ms']:.4f} ms, "
+            f"repeat_interleave + gather {d['library_ms']:.4f} ms, bound "
+            f"{d['bound_ms']:.4f} ms")
     return {
         "probe_counts": dict(
             max_abs_err=err["probe_counts"], ms=k_counts, plain_ms=p_counts,
             bound_ms=counts_bound[0], bound_by=counts_bound[1],
             library_ms=l_counts, kernel_ms=kern_counts,
+            cold_kernel_ms=cold_counts,
             launches_per_call=counts_calls, kernel_parts=counts_parts,
             shape=f"probe={pcap} valid={nvalid} span={table.span} "
                   f"build={bcap}"),
         "expand_pairs": dict(
-            max_abs_err=err["expand_pairs"], ms=k_expand, plain_ms=p_expand,
-            bound_ms=expand_bound[0], bound_by=expand_bound[1],
-            library_ms=l_expand, kernel_ms=kern_expand,
+            max_abs_err=err["expand_pairs"],
+            **{k: expand_dists["m2m"][k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "kernel_ms", "cold_kernel_ms", "launches_per_call")},
+            distributions=expand_dists,
             shape=f"probe={pcap} pairs={total} out_cap={out_cap}"),
     }
 
@@ -1282,14 +1440,19 @@ def main() -> int:
     stats = kernels_phase(dev, tables)
     stats.update(join_kernels_phase(dev, tables))
     stats.update(counted_join_kernels_phase(dev, tables))
+    _FLUSH.clear()                # the path's peak memory is the queries'
     launches = {}
     if not args.kernels_only:
         # one look-back scan and one tail launch a compaction; the counted
         # probe scans its counts inside its one launch
         check(stats["compaction_order"]["launches_per_call"] <= 2,
               "compaction_order made more than 2 device launches a call")
-        check(stats["probe_counts"]["launches_per_call"] == 1,
-              "probe_counts made more than 1 device launch a call")
+        for name in ("probe_first", "probe_counts", "expand_pairs"):
+            for case, d in stats[name].get("distributions", {"": stats[
+                    name]}).items():
+                check(d["launches_per_call"] == 1, f"{name} {case} made "
+                      f"{d['launches_per_call']:g} device launches a call, "
+                      "not 1")
         launches = path_phase(tables, want)
         log(f"[path] upload copy rate (pageable host to device, 32 MiB "
             f"copies): {upload_rate(dev):.2f} GB/s")
@@ -1309,8 +1472,8 @@ def main() -> int:
                      "library_ms": st["library_ms"],
                      "shape": st["shape"],
                      **{k: st[k] for k in (
-                         "kernel_ms", "launches_per_call", "kernel_parts",
-                         "distributions") if k in st}})
+                         "kernel_ms", "cold_kernel_ms", "launches_per_call",
+                         "kernel_parts", "distributions") if k in st}})
     print(json.dumps({"kernels": rows}))
     print(smi)
     if args.kernels_only:

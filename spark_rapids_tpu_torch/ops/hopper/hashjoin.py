@@ -7,14 +7,20 @@ docstring gives the layout).  In short: a build lane's rows sort by
 equal keys — and row i of that order lands in slot
 i + prefix_max(ideal - i) of a table of S = 2^nbits home slots plus a
 cap-slot overflow tail; equal keys sit in consecutive slots in
-ascending build-row order.
+ascending build-row order.  A slot is 16 bytes of one int64[span, 2]
+buffer: the key at byte 0, the build row as int32 at byte 8 (-1 =
+empty, whose key is 0) and zero at byte 12, so the kernels read a slot
+in one 16-byte load.  The reference keeps two arrays, `keys` and
+`rows`; `HashTable.keys` and `HashTable.rows` are strided views of the
+buffer that equal them.
 
   * `build_table` replaces `_build_trace` (hashjoin.py:111).  The
     hash-order sort stays in PyTorch, as the reference computes it
     outside its kernel; the kernel is the layout (`build_layout`).
   * `probe_first` replaces `_probe_first_trace` (hashjoin.py:182): per
     probe row the first build row with an equal key, -1 and False when
-    there is none.  `probe_matched` is its `ok` lane.
+    there is none, in one launch that walks only the valid rows.
+    `probe_matched` is its `ok` lane.
   * `probe_counts` replaces `_probe_counts_trace` (hashjoin.py:253): per
     probe row the first table slot of its key's run and the run's
     length, and their int32 inclusive prefix sum `cum`, all three from
@@ -23,7 +29,9 @@ ascending build-row order.
   * `expand_pairs` replaces `_expand_trace` (hashjoin.py:324): per
     output slot of a sized expansion its probe row, build row and
     liveness, in the reference's pair order (probe-major, build rows
-    ascending within a key).  `total` is a host int here.
+    ascending within a key), in one launch: a merge path of the slots
+    against `cum` in place of the reference's search a slot.  `total`
+    is a host int here.
   * `build_matched_flags` (hashjoin.py:373, jnp in the reference, not a
     Pallas kernel) is plain PyTorch: per build row, whether a counted
     probe run covers its slot (right and full outer joins).
@@ -41,7 +49,7 @@ plain version.  Nothing falls back from the card to the plain version.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+import struct
 
 import torch
 
@@ -53,13 +61,13 @@ _VP = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _I = ctypes.c_int
 _SIGNATURES = {
-    "hashjoin_build_layout": [_VP, _VP, _VP, _LL, _VP, _LL, _VP, _VP, _VP],
-    "hashjoin_probe_first": [_VP, _VP, _LL, _I, _VP, _VP, _LL, _VP, _VP,
+    "hashjoin_build_layout": [_VP, _VP, _VP, _LL, _VP, _LL, _VP, _VP],
+    "hashjoin_probe_first": [_VP, _LL, _I, _VP, _VP, _LL, _I, _I, _VP, _VP,
                              _VP],
-    "hashjoin_probe_counts": [_VP, _VP, _LL, _I, _VP, _VP, _LL, _I, _I,
-                              _VP, _VP, _VP, _VP, _VP, ctypes.c_uint, _VP],
-    "hashjoin_expand_pairs": [_VP, _LL, _VP, _VP, _VP, _LL, _I, _LL, _LL,
-                              _VP, _VP, _VP, _VP],
+    "hashjoin_probe_counts": [_VP, _LL, _I, _VP, _VP, _LL, _I, _I, _VP, _VP,
+                              _VP, _VP, _VP, ctypes.c_uint, _VP],
+    "hashjoin_expand_pairs": [_VP, _LL, _VP, _VP, _VP, _LL, _LL, _LL, _VP,
+                              _VP, _VP, _VP],
 }
 
 INT64_MIN = -(1 << 63)
@@ -72,6 +80,15 @@ LAYOUT_TILE_ROWS = 1024
 #: probe rows of one look-back tile of probe_counts (csrc/hashjoin.cu
 #: kProbeTileRows: 256 threads, 16 rows each)
 PROBE_TILE_ROWS = 4096
+#: probe rows of one tile of probe_first (kFirstTileRows: 128 threads,
+#: 16 rows each)
+FIRST_TILE_ROWS = 2048
+#: the second int64 of an empty slot: row -1 at byte 8, zero at byte 12
+EMPTY_ROW_WORD = 0xFFFFFFFF
+#: an empty slot's 16 bytes as one complex128: the real part's bits are
+#: key 0, the imaginary part's the row word (a subnormal double)
+_EMPTY_SLOT = complex(0.0, struct.unpack("<d", struct.pack(
+    "<q", EMPTY_ROW_WORD))[0])
 
 
 def _fn(name: str):
@@ -95,14 +112,54 @@ def mix64(x: torch.Tensor) -> torch.Tensor:
     return x ^ _shr(x, 33)
 
 
-class HashTable(NamedTuple):
-    """keys[s]: the key at slot s (meaningful only where rows[s] >= 0);
-    rows[s]: the build row id, -1 = empty; nbits: home-slot width
-    (S = 1 << nbits); span: physical slots (S + build capacity)."""
-    keys: torch.Tensor        # int64[span]
-    rows: torch.Tensor        # int32[span]
-    nbits: int
-    span: int
+def empty_slots(span: int, device) -> torch.Tensor:
+    """A slot buffer of `span` empty slots (key 0, row -1), written in one
+    pass of 16-byte stores: the fill of a complex128 lane whose bits are
+    the empty slot's (a zero fill and a strided fill of the row words
+    write the buffer one and a half times)."""
+    return torch.empty(span, dtype=torch.complex128, device=device) \
+        .fill_(_EMPTY_SLOT).view(torch.int64).view(span, 2)
+
+
+def slot_views(slots: torch.Tensor):
+    """(keys int64[span], rows int32[span]): strided views of the key and
+    the build row of every slot of a slot buffer."""
+    return slots[:, 0], slots.view(torch.int32)[:, 2]
+
+
+class HashTable:
+    """slots: int64[span, 2], one 16-byte slot each (module docstring);
+    nbits: home-slot width (S = 1 << nbits); span: physical slots (S +
+    build capacity).  `keys[s]` is the key at slot s (meaningful only
+    where rows[s] >= 0), `rows[s]` its build row id, -1 = empty.
+
+    `HashTable(keys, rows, nbits, span)` interleaves two arrays into a
+    new buffer; `HashTable.of_slots` takes a buffer as it is."""
+    __slots__ = ("slots", "nbits", "span")
+
+    def __init__(self, keys: torch.Tensor, rows: torch.Tensor, nbits: int,
+                 span: int):
+        slots = torch.zeros((span, 2), dtype=torch.int64,
+                            device=keys.device)
+        k, r = slot_views(slots)
+        k.copy_(keys)
+        r.copy_(rows)
+        self.slots, self.nbits, self.span = slots, nbits, span
+
+    @classmethod
+    def of_slots(cls, slots: torch.Tensor, nbits: int,
+                 span: int) -> "HashTable":
+        table = cls.__new__(cls)
+        table.slots, table.nbits, table.span = slots, nbits, span
+        return table
+
+    @property
+    def keys(self) -> torch.Tensor:
+        return slot_views(self.slots)[0]
+
+    @property
+    def rows(self) -> torch.Tensor:
+        return slot_views(self.slots)[1]
 
 
 def table_geometry(capacity: int):
@@ -133,16 +190,17 @@ def build_layout_plain(ideal, lane_s, rid, span: int):
     prefix = torch.clamp(torch.cummax(ideal.to(torch.int64) - i, 0).values,
                          min=_CARRY_SEED)
     final = torch.clamp(i + prefix, 0, span - 1)
-    keys = torch.zeros(span, dtype=torch.int64, device=ideal.device)
-    rows = torch.full((span,), -1, dtype=torch.int32, device=ideal.device)
+    slots = empty_slots(span, ideal.device)
+    keys, rows = slot_views(slots)
     keys[final] = lane_s
     rows[final] = rid
-    return keys, rows
+    return slots
 
 
 def build_layout(ideal, lane_s, rid, span: int):
-    """(keys int64[span], rows int32[span]): row i of the hash order
-    stored at clip(i + max(-2^31 + 1, prefix max of ideal - i))."""
+    """The slot buffer int64[span, 2] (module docstring): row i of the
+    hash order stored at clip(i + max(-2^31 + 1, prefix max of ideal -
+    i))."""
     if ideal.device.type == "cpu":
         return build_layout_plain(ideal, lane_s, rid, span)
     if ideal.device.type != "cuda":
@@ -158,19 +216,17 @@ def build_layout(ideal, lane_s, rid, span: int):
     if cap == 0 or span < cap:
         raise ValueError(f"build_layout: bad capacity {cap} / span {span}")
     dev = ideal.device
-    keys = torch.zeros(span, dtype=torch.int64, device=dev)
-    rows = torch.full((span,), -1, dtype=torch.int32, device=dev)
+    slots = empty_slots(span, dev)
     tiles = torch.empty(-(-cap // LAYOUT_TILE_ROWS), dtype=torch.int32,
                         device=dev)
     err = _fn("hashjoin_build_layout")(
         ideal.data_ptr(), lane_s.data_ptr(), rid.data_ptr(), cap,
-        tiles.data_ptr(), span, keys.data_ptr(), rows.data_ptr(),
-        stream_ptr(dev))
+        tiles.data_ptr(), span, slots.data_ptr(), stream_ptr(dev))
     # three device launches: the tile maxima, the carry scan of the
     # tile maxima and the layout pass (csrc/hashjoin.cu)
     LAUNCHES["build_table"] += 3
     check_launch(err, "build_table")
-    return keys, rows
+    return slots
 
 
 def build_table(lane: torch.Tensor, valid: torch.Tensor) -> HashTable:
@@ -178,8 +234,8 @@ def build_table(lane: torch.Tensor, valid: torch.Tensor) -> HashTable:
     `valid` is False (dead or null keys) never match."""
     nbits, span = table_geometry(lane.numel())
     ideal, lane_s, rid = hash_order(lane, valid, nbits)
-    keys, rows = build_layout(ideal, lane_s, rid, span)
-    return HashTable(keys, rows, nbits, span)
+    return HashTable.of_slots(build_layout(ideal, lane_s, rid, span), nbits,
+                              span)
 
 
 def probe_first_plain(table: HashTable, lane: torch.Tensor,
@@ -203,6 +259,16 @@ def probe_first_plain(table: HashTable, lane: torch.Tensor,
     return out, out >= 0
 
 
+def _check_table(kernel: str, table: HashTable, device) -> None:
+    """Raise unless the table is a contiguous slot buffer of its span on
+    `device`."""
+    s = table.slots
+    if s.device != device or s.dtype != torch.int64 or \
+            s.shape != (table.span, 2) or not s.is_contiguous():
+        raise ValueError(f"{kernel}: the table is not a contiguous "
+                         f"int64[{table.span}, 2] slot buffer on {device}")
+
+
 def _check_probe(kernel: str, table: HashTable, lane: torch.Tensor,
                  valid: torch.Tensor) -> int:
     """Raise unless a CUDA probe's inputs are what its kernel takes;
@@ -214,11 +280,7 @@ def _check_probe(kernel: str, table: HashTable, lane: torch.Tensor,
             valid.device != lane.device or cap == 0:
         raise ValueError(f"{kernel}: lane must be contiguous int64[n] and "
                          "valid contiguous bool[n] on one device, n > 0")
-    if table.keys.device != lane.device or \
-            table.keys.numel() != table.span or \
-            table.rows.numel() != table.span:
-        raise ValueError(f"{kernel}: table does not match the probe "
-                         "device or its span")
+    _check_table(kernel, table, lane.device)
     return cap
 
 
@@ -233,10 +295,11 @@ def probe_first(table: HashTable, lane: torch.Tensor, valid: torch.Tensor):
     cap = _check_probe("probe_first", table, lane, valid)
     row = torch.empty(cap, dtype=torch.int32, device=lane.device)
     ok = torch.empty(cap, dtype=torch.bool, device=lane.device)
+    mis, tiles = mask_tiles(valid.data_ptr(), cap, FIRST_TILE_ROWS)
     err = _fn("hashjoin_probe_first")(
-        table.keys.data_ptr(), table.rows.data_ptr(), table.span,
-        table.nbits, lane.data_ptr(), valid.data_ptr(), cap, row.data_ptr(),
-        ok.data_ptr(), stream_ptr(lane.device))
+        table.slots.data_ptr(), table.span, table.nbits, lane.data_ptr(),
+        valid.data_ptr(), cap, mis, tiles, row.data_ptr(), ok.data_ptr(),
+        stream_ptr(lane.device))
     LAUNCHES["probe_first"] += 1
     check_launch(err, "probe_first")
     return row, ok
@@ -299,8 +362,8 @@ def probe_counts(table: HashTable, lane: torch.Tensor, valid: torch.Tensor):
     st = stream_ptr(dev)
     status, counter, epoch = stream_scratch(dev, st).lookback(tiles)
     err = _fn("hashjoin_probe_counts")(
-        table.keys.data_ptr(), table.rows.data_ptr(), table.span,
-        table.nbits, lane.data_ptr(), valid.data_ptr(), cap, mis, tiles,
+        table.slots.data_ptr(), table.span, table.nbits, lane.data_ptr(),
+        valid.data_ptr(), cap, mis, tiles,
         first.data_ptr(), counts.data_ptr(), cum.data_ptr(), status,
         counter, epoch, st)
     # one device launch: the walks and the scan of their counts
@@ -310,7 +373,8 @@ def probe_counts(table: HashTable, lane: torch.Tensor, valid: torch.Tensor):
 
 
 def search_rounds(pcap: int) -> int:
-    """Binary-search rounds over a probe capacity (the reference's)."""
+    """Binary-search rounds over a probe capacity (the reference's, and
+    the plain version's)."""
     return max(1, (max(pcap, 1) - 1).bit_length() + 1)
 
 
@@ -360,19 +424,18 @@ def expand_pairs(table: HashTable, first: torch.Tensor, counts: torch.Tensor,
             raise ValueError(f"expand_pairs: expected contiguous int32[{pcap}]"
                              f" on {first.device}, got {t.dtype} "
                              f"{tuple(t.shape)} on {t.device}")
-    if pcap == 0 or out_cap <= 0 or not 0 <= total <= out_cap or \
-            table.rows.device != first.device or \
-            table.rows.numel() != table.span:
+    if pcap == 0 or out_cap <= 0 or not 0 <= total <= out_cap:
         raise ValueError(f"expand_pairs: bad probe capacity {pcap}, output "
-                         f"capacity {out_cap}, total {total} or table")
+                         f"capacity {out_cap} or total {total}")
+    _check_table("expand_pairs", table, first.device)
     dev = first.device
     probe_idx = torch.empty(out_cap, dtype=torch.int32, device=dev)
     build_idx = torch.empty(out_cap, dtype=torch.int32, device=dev)
     ok = torch.empty(out_cap, dtype=torch.bool, device=dev)
     err = _fn("hashjoin_expand_pairs")(
-        table.rows.data_ptr(), table.span, first.data_ptr(),
-        counts.data_ptr(), cum.data_ptr(), pcap, search_rounds(pcap), total,
-        out_cap, probe_idx.data_ptr(), build_idx.data_ptr(), ok.data_ptr(),
+        table.slots.data_ptr(), table.span, first.data_ptr(),
+        counts.data_ptr(), cum.data_ptr(), pcap, total, out_cap,
+        probe_idx.data_ptr(), build_idx.data_ptr(), ok.data_ptr(),
         stream_ptr(dev))
     LAUNCHES["expand_pairs"] += 1
     check_launch(err, "expand_pairs")

@@ -246,7 +246,8 @@ def test_build_table_and_probe_first_kernels_match_plain(cuda, cap, span,
     PH.reset_launch_counts()
     table = PHJ.build_table(lane, valid)
     ideal, lane_s, rid = PHJ.hash_order(lane, valid, table.nbits)
-    keys, rows = PHJ.build_layout_plain(ideal, lane_s, rid, table.span)
+    keys, rows = PHJ.slot_views(PHJ.build_layout_plain(ideal, lane_s, rid,
+                                                       table.span))
     assert torch.equal(table.rows, rows)
     live = rows >= 0
     assert torch.equal(table.keys[live], keys[live])
@@ -317,6 +318,99 @@ def _check_counts(table, probe, pvalid):
     return int(cum[-1])
 
 
+def _check_first(table, probe, pvalid):
+    row, ok = PHJ.probe_first(table, probe, pvalid)
+    prow, pok = PHJ.probe_first_plain(table, probe, pvalid)
+    assert torch.equal(row, prow) and torch.equal(ok, pok)
+    return int(ok.sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pcap,p_valid", [
+    (1 << 16, 0.0), (1 << 16, 1.0), (1, 1.0), (2047, 0.5), (2049, 0.5),
+    (4095, 0.5), (4096, 0.5), (4097, 0.5), (3_000_017, 0.54)])
+def test_probe_first_kernel_edges(cuda, pcap, p_valid):
+    # no valid probe row, every row valid, capacities around the
+    # 2,048-row tile and its double, and one that is a multiple of
+    # neither; one launch
+    rng = np.random.default_rng(pcap + int(100 * p_valid))
+    table, probe, pvalid = _probe_case(rng, cuda, pcap, p_valid)
+    PH.reset_launch_counts()
+    matched = _check_first(table, probe, pvalid)
+    assert PH.LAUNCHES["probe_first"] == 1
+    assert p_valid > 0.0 or matched == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", range(1, 16))
+def test_probe_first_kernel_takes_misaligned_validity(cuda, offset):
+    rng = np.random.default_rng(offset)
+    table, probe, pvalid = _probe_case(rng, cuda, 50_001, 0.6)
+    wide = torch.cat([pvalid[:offset], pvalid])
+    assert wide[offset:].data_ptr() % 16 == offset
+    _check_first(table, probe, wide[offset:])
+
+
+@pytest.mark.cuda
+def test_probe_first_kernel_back_to_back_and_on_a_side_stream(cuda):
+    rng = np.random.default_rng(21)
+    cases = [_probe_case(rng, cuda, n, p) for n, p in
+             ((1 << 20, 0.5), (70_001, 0.9), (1 << 18, 0.05))]
+    got = [PHJ.probe_first(*c) for c in cases]
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        on_side = PHJ.probe_first(*cases[0])
+    torch.cuda.current_stream(cuda).wait_stream(side)
+    for case, (row, ok) in zip(cases + cases[:1], got + [on_side]):
+        prow, pok = PHJ.probe_first_plain(*case)
+        assert torch.equal(row, prow) and torch.equal(ok, pok)
+
+
+# expand_pairs over counted-probe outputs made by hand (counts per probe
+# row, their cum, random run starts) against a table of random rows:
+# (case, probe capacity, pairs owned by row 777, leading rows owning
+# nothing, dead slots past the total)
+_EXPAND_CASES = [("total 0", 1 << 16, None, 0, 5000),
+                 ("total = out_cap", 1 << 16, None, 0, 0),
+                 ("out_cap off the tile", 1 << 16, None, 0, 16_411),
+                 ("probe capacity 1", 1, None, 0, 3),
+                 ("one row owns 100,000 pairs", 1 << 16, 100_000, 0, 10),
+                 ("3,000,000 leading rows own nothing", 1 << 16, None,
+                  3_000_000, 100)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,pcap,big,lead,dead", _EXPAND_CASES)
+def test_expand_pairs_kernel_edges(cuda, case, pcap, big, lead, dead):
+    rng = np.random.default_rng(len(case))
+    counts = rng.integers(1, 4, pcap) * (rng.random(pcap) < 0.3)
+    if case == "total 0":
+        counts[:] = 0
+    if case == "probe capacity 1":
+        counts[:] = 7
+    if big is not None:
+        counts[777] = big
+    counts = np.concatenate([np.zeros(lead, np.int64), counts])
+    cum = np.cumsum(counts)
+    total = int(cum[-1])
+    out_cap = total + dead
+    span = 1 << 18
+    table = PHJ.HashTable(
+        torch.from_numpy(rng.integers(-2 ** 40, 2 ** 40, span)).to(cuda),
+        torch.from_numpy(rng.integers(-1, 1 << 20, span).astype(np.int32))
+        .to(cuda), 17, span)
+    first, counts, cum = (torch.from_numpy(x.astype(np.int32)).to(cuda)
+                          for x in (rng.integers(0, span, len(counts)),
+                                    counts, cum))
+    PH.reset_launch_counts()
+    got = PHJ.expand_pairs(table, first, counts, cum, out_cap, total)
+    want = PHJ.expand_pairs_plain(table, first, counts, cum, out_cap, total)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert PH.LAUNCHES["expand_pairs"] == 1
+    assert int(got[2].sum()) == total
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("pcap,p_valid", [
     (1 << 16, 0.0), (1 << 16, 1.0), (4097, 0.5), (4095, 1.0), (1, 1.0),
@@ -375,6 +469,8 @@ def test_probe_counts_kernel_reaches_the_clamped_last_slot(cuda):
     _f, counts, _c = PHJ.probe_counts(table, probe, pvalid)
     # 4 slots of k_lo's run, and 2 re-reads of the last (its home)
     assert counts.tolist() == [5, 6, 8, 0, 0, 5]
+    # the unique-build probe walks the same table to its last slot
+    _check_first(table, probe, pvalid)
 
 
 def _cpu_and_cuda(build):

@@ -8,8 +8,9 @@ and row lane exactly and its key lane where a slot holds a row (dead
 rows leave keys in the overflow tail in the reference), `probe_first`,
 `probe_matched`, `probe_counts` (first slot, run length and int32
 prefix sum), `expand_pairs` (probe row, build row and liveness of every
-output slot) and `build_matched_flags` exactly.  The CUDA kernels are
-held against the same plain versions on the card
+output slot) and `build_matched_flags` exactly, and the port's table
+holds the reference's two arrays interleaved in one slot buffer.  The
+CUDA kernels are held against the same plain versions on the card
 (tests/test_torch_cuda.py, chip_smoke.py).
 """
 import jax.numpy as jnp
@@ -73,6 +74,49 @@ def test_build_table_matches_reference(cap, kind, dead):
         slots = np.flatnonzero(live & (pt.keys.numpy() == key))
         assert np.all(np.diff(slots) == 1)
         assert np.all(np.diff(pt.rows.numpy()[slots]) > 0)
+
+
+@pytest.mark.parametrize("cap,kind,dead", CASES)
+def test_table_slots_interleave_the_reference_keys_and_rows(cap, kind, dead):
+    rng = np.random.default_rng(cap + len(kind))
+    lane = _keys(rng, kind, cap)
+    valid = rng.random(cap) >= dead
+    jt, pt = _tables(lane, valid)
+    slots = pt.slots
+    assert slots.dtype == torch.int64 and slots.is_contiguous()
+    assert tuple(slots.shape) == (pt.span, 2)
+    # one 16-byte slot: key, row, zero
+    words = slots.view(torch.int32).numpy()
+    rows = np.asarray(jt.rows)
+    np.testing.assert_array_equal(words[:, 2], rows)
+    assert not words[:, 3].any()
+    live = rows >= 0
+    np.testing.assert_array_equal(slots[:, 0].numpy()[live],
+                                  np.asarray(jt.keys)[live])
+    # keys and rows are views of the buffer, not copies
+    assert pt.keys.data_ptr() == slots.data_ptr()
+    assert pt.rows.data_ptr() == slots.data_ptr() + 8
+    np.testing.assert_array_equal(pt.rows.numpy(), rows)
+
+
+def test_hash_table_constructor_interleaves_two_arrays():
+    rng = np.random.default_rng(8)
+    span = 37
+    keys = torch.from_numpy(rng.integers(-2 ** 63, 2 ** 63 - 1, span,
+                                         endpoint=True))
+    keys[:len(INT64_EDGES)] = torch.tensor(INT64_EDGES)
+    rows = torch.from_numpy(rng.integers(-1, 1000, span).astype(np.int32))
+    rows[:2] = torch.tensor([2 ** 31 - 1, -1], dtype=torch.int32)
+    table = PH.HashTable(keys, rows, 4, span)
+    assert torch.equal(table.keys, keys) and torch.equal(table.rows, rows)
+    assert (table.nbits, table.span) == (4, span)
+    assert not table.slots.view(torch.int32)[:, 3].any()
+    again = PH.HashTable.of_slots(table.slots, 4, span)
+    assert again.slots is table.slots
+    assert torch.equal(again.keys, keys) and torch.equal(again.rows, rows)
+    # an empty buffer: key 0 and row -1 in every slot
+    k, r = PH.slot_views(PH.empty_slots(5, "cpu"))
+    assert not k.any() and bool((r == -1).all())
 
 
 @pytest.mark.parametrize("cap,kind,dead", CASES)

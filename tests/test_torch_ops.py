@@ -5,6 +5,7 @@ reduction of every aggregate kind, the packed key lane, the f64
 total-order mapping and the dictionary rank table, on the same numpy
 inputs through both packages.
 """
+import decimal as pydec
 import zlib
 
 import jax.numpy as jnp
@@ -17,10 +18,17 @@ from spark_rapids_tpu import types as JT
 from spark_rapids_tpu.ops import decimal as JD
 from spark_rapids_tpu.ops import groupby as JG
 from spark_rapids_tpu.ops import sort as JSORT
+from spark_rapids_tpu.plan import expressions as JE
+from spark_rapids_tpu.session import DataFrame as JDF
+from spark_rapids_tpu.session import TpuSession as JSession
+from spark_rapids_tpu.session import col as jcol
 from spark_rapids_tpu_torch import types as PT
 from spark_rapids_tpu_torch.ops import decimal as PD
 from spark_rapids_tpu_torch.ops import groupby as PG
 from spark_rapids_tpu_torch.ops import sort as PSORT
+from spark_rapids_tpu_torch.plan import expressions as PE
+from spark_rapids_tpu_torch.session import TpuSession as PSession
+from spark_rapids_tpu_torch.session import col as pcol
 
 
 @pytest.mark.parametrize("op", ["add_dev", "sub_dev", "mul_dev"])
@@ -46,6 +54,30 @@ def test_decimal_kernels_match_reference(op, scales):
     jok = np.asarray(jok)
     np.testing.assert_array_equal(pok.numpy(), jok)
     np.testing.assert_array_equal(pv.numpy()[jok], np.asarray(jv)[jok])
+
+
+def test_decimal_to_double_is_correctly_rounded_as_the_cpu_oracle():
+    # decimal(12, 2) -> DOUBLE divides the unscaled value by 100.0; under
+    # jit XLA rewrites the reference's division as a multiply by 0.01,
+    # one ulp off the correctly rounded quotient for these values.  The
+    # port divides, as the CPU oracle does.
+    vals = ["965093049.17", "-169834279.70"]
+    unscaled = np.array([96509304917, -16983427970], np.int64)
+    table = pa.table({"d": pa.array([pydec.Decimal(v) for v in vals],
+                                    pa.decimal128(12, 2))})
+    jdf = JSession().from_arrow(table).select(
+        JE.Alias(JE.Cast(jcol("d"), JT.DOUBLE), "x"))
+    ref = np.array(jdf.collect().to_pydict()["x"])
+    oracle = np.array(JDF(jdf._plan, JSession(
+        {"spark.rapids.tpu.sql.enabled": "false"})).collect().to_pydict()["x"])
+    cast = np.array(PSession(device="cpu").from_arrow(table).select(
+        PE.Alias(PE.Cast(pcol("d"), PT.DOUBLE), "x")).to_pydict()["x"])
+    direct = PD.to_double(torch.from_numpy(unscaled), 2).numpy()
+    for got in (direct, cast):
+        np.testing.assert_array_equal(got.view(np.int64),
+                                      oracle.view(np.int64))
+        assert got.tolist() == [float(v) for v in vals]
+        assert np.abs(got.view(np.int64) - ref.view(np.int64)).max() <= 1
 
 
 @pytest.mark.parametrize("from_scale,to_scale", [(2, 6), (6, 2), (4, 4),

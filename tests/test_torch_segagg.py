@@ -312,6 +312,35 @@ def test_float_min_max_nan_and_signed_zero_parity():
         {k: [repr(v) for v in vs] for k, vs in want.items()}
 
 
+@pytest.mark.parametrize("bad", [math.inf, -math.inf, math.nan])
+def test_segagg_sum_and_average_keep_a_non_finite_value_in_its_bucket(
+        bad, monkeypatch):
+    # the reference's one-hot block matmul multiplies 0 x inf and spreads
+    # NaN into every bucket of the block (bucket 1 reads NaN); the port
+    # adds each row into its own bucket only, as the CPU oracle does
+    calls = []
+    trace = PS.segagg_groupby_trace
+    monkeypatch.setattr(PS, "segagg_groupby_trace",
+                        lambda *a, **k: calls.append(1) or trace(*a, **k))
+    table = pa.table({"k": pa.array([0, 0, 1, 1], pa.int64()),
+                      "x": pa.array([bad, 1.0, 2.0, 3.0])})
+
+    def build(m, c):
+        return lambda df: df.group_by("k").agg(
+            (m.Sum(c("x")), "s"), (m.Average(c("x")), "a")).sort("k")
+    jdf = build(JA, jcol)(JSession(PALLAS_ON).from_arrow(table))
+    oracle = JDF(jdf._plan, JSession(
+        {"spark.rapids.tpu.sql.enabled": "false"})).collect().to_pydict()
+    got = build(PA, pcol)(PSession(PALLAS_ON, device="cpu")
+                          .from_arrow(table)).to_pydict()
+    assert calls, "the port's group-by did not take the segagg tier"
+    assert got["k"] == oracle["k"] == [0, 1]
+    for name in ("s", "a"):
+        assert repr(got[name][0]) == repr(oracle[name][0]) == repr(bad)
+        assert got[name][1] == pytest.approx(oracle[name][1], rel=1e-12)
+    assert (got["s"][1], got["a"][1]) == (5.0, 2.5)
+
+
 def test_segagg_domain_gate_refuses_until_sort_tier_ports():
     # flag's packed domain is 4 (three values and the null slot); outside
     # the gate a dictionary key needs the reference's dense tier, which
