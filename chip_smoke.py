@@ -41,8 +41,13 @@ own failure:
                rows, the shipdate filter as its nulls), whose match mask
                is the compaction's keep; plus 0 %, 100 % and a
                non-power-of-two capacity for compaction and
-               duplicate-heavy, all-dead and ±2^63 keys for the table.
-               Those three must equal their plain versions exactly.
+               duplicate-heavy and ±2^63 keys for the table, and four
+               more builds, each held and timed: q3's lane with 1 % of
+               its rows valid, 2,000 valid rows of 2,097,152, one key
+               on 10,000 rows and every row dead.  Those three must
+               equal their plain versions exactly (the table in all 16
+               bytes of every slot), and build_table must make 2 device
+               launches a call at each timed build (profiler count).
                probe_first also at semi's shapes (partsupp's (part,
                supplier) pairs packed into one lane by the port's
                range_pack_spec and packed_lane, probed by the first
@@ -59,11 +64,11 @@ own failure:
                3,000,000 rows owning no pairs; exactly.  expand_pairs is
                timed at m2m's shapes, the key 10,000 times and the
                3,000,000 rows without pairs, probe_first at q3's and
-               semi's.  probe_first, probe_counts and expand_pairs are
-               also timed with the L2 flushed before each call (as the
-               query's other work leaves it).  compaction_order
-               also at 1 %, 50 % and 99 % kept and on a mask misaligned
-               by one row.  Times each kernel (event
+               semi's.  build_table, probe_first, probe_counts and
+               expand_pairs are also timed with the L2 flushed before
+               each call (as the query's other work leaves it).
+               compaction_order also at 1 %, 50 % and 99 % kept and on
+               a mask misaligned by one row.  Times each kernel (event
                time, host work of the call included, and kernel-only
                device time from torch.profiler, every launch of the call
                summed), its plain version and the one-call PyTorch
@@ -149,6 +154,12 @@ PATH_KERNELS = {"q1": ("seg_sums",), "q6": (),
                           "compaction_order"),
                 "semi": ("build_table", "probe_first", "compaction_order")}
 Q3_DATE = (pydt.date(1995, 3, 15) - pydt.date(1970, 1, 1)).days
+# the device launches of one build_layout call, by kernel name: this
+# tree's two passes, and (for an A B B A against an older tree) its
+# three passes and the fill of the slot buffer
+BUILD_KERNELS = ("layout_final_kernel", "layout_slots_kernel",
+                 "tile_max_kernel", "carry_kernel", "layout_kernel",
+                 "FillFunctor<c10::complex<double>")
 
 
 def log(msg: str) -> None:
@@ -191,18 +202,20 @@ def flush_l2() -> None:
 
 def profiled_ms(fn, fragment=None, reps: int = 20, by_name=None,
                 cold: bool = False):
-    """(device ms a call of the kernels whose names hold `fragment` --
-    of every device launch of the call when `fragment` is None --,
-    device launches a call of every kind) over `reps` warm calls of
-    `fn`, from torch.profiler; with `cold`, the L2 is flushed before
-    each call (as a query's other work leaves it for the next batch;
-    the flush is counted among the launches, not in the time of a
-    named kernel).  `by_name`, a dict, receives the device ms a call of
-    each kernel name.  A trace that holds no device
-    activity at all is taken once more; fails the run if the profiler
-    saw no launch of such a kernel."""
+    """(device ms a call of the kernels whose names hold `fragment` (a
+    string, or a tuple of which any one) -- of every device launch of
+    the call when `fragment` is None --, device launches a call of every
+    kind) over `reps` warm calls of `fn`, from torch.profiler; with
+    `cold`, the L2 is flushed before each call (as a query's other work
+    leaves it for the next batch; the flush is counted among the
+    launches, not in the time of a named kernel).  `by_name`, a dict,
+    receives the device ms a call of each kernel name.  A trace that
+    holds no device activity at all, or a count of launches that is not
+    a multiple of the calls (a lost record), is taken once more; fails
+    the run if the profiler saw no launch of such a kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    frags = (fragment,) if isinstance(fragment, str) else fragment
     fn()
     torch.cuda.synchronize()
     for attempt in (1, 2):
@@ -218,16 +231,19 @@ def profiled_ms(fn, fragment=None, reps: int = 20, by_name=None,
             if e.device_type != DeviceType.CUDA:
                 continue
             launches += e.count
-            if fragment is None or fragment in e.key:
+            if frags is None or any(f in e.key for f in frags):
                 us += e.self_device_time_total
                 own += e.count
                 if by_name is not None:
                     by_name[e.key[:80]] = \
                         e.self_device_time_total / 1e3 / reps
-        if launches or attempt == 2:
+        if (launches and launches % reps == 0) or attempt == 2:
             break
-        log(f"[kernels] torch.profiler traced no device activity for "
-            f"{fragment or 'a call'}; tracing it again")
+        # every call makes a whole number of launches, so a count that
+        # is not a multiple of the calls lost records
+        log(f"[kernels] torch.profiler traced {launches} device launches "
+            f"over {reps} calls of {fragment or 'a call'}; tracing it "
+            "again")
     check(own > 0, f"torch.profiler saw no {fragment or 'device'} launch "
           "(no device activity traced)")
     return us / 1e3 / reps, launches / reps
@@ -587,12 +603,25 @@ def semi_join_inputs(tables, dev):
     return lane, valid, probe, torch.ones_like(probe, dtype=torch.bool)
 
 
-def plain_layout(HJ, ideal, lane_s, rid, span):
-    """(keys, rows) of the plain table layout: the key and row views of
-    its slot buffer, or its two arrays in a tree of the port whose table
-    keeps keys and rows apart (for --kernels-only in such a tree)."""
-    out = HJ.build_layout_plain(ideal, lane_s, rid, span)
-    return HJ.slot_views(out) if torch.is_tensor(out) else out
+def layout_cases(lane, valid, g):
+    """The build lanes, beside q3's, at which build_table is held and
+    timed: q3's lane with 1 % of its rows valid (chosen among its keys),
+    2,000 valid rows of its first 2,097,152 (the shape of q17's filtered
+    part at SF10), one of its keys on 10,000 of its rows (a pushed run
+    across slot chunks), and every row dead."""
+    nkeys = int(valid.sum())
+    dev = lane.device
+    sparse = valid & (torch.rand(lane.numel(), generator=g, device=dev) <
+                      0.01 * lane.numel() / nkeys)
+    cut = min(2_097_152, lane.numel())
+    few = torch.zeros(cut, dtype=torch.bool, device=dev)
+    few[:2000] = True
+    hot = lane.clone()
+    hot[torch.randperm(nkeys, generator=g, device=dev)[:10_000]] = lane[0]
+    return {"1 % valid": (lane, sparse),
+            "2,000 valid of 2,097,152": (lane[:cut].contiguous(), few),
+            "a key on 10,000 rows": (hot, valid),
+            "all dead": (lane, torch.zeros_like(valid))}
 
 
 def probe_bound(pcap: int, nvalid: int):
@@ -616,21 +645,23 @@ def join_kernels_phase(dev, tables):
         err[kernel] = max(err[kernel], e)
 
     def check_build(lane_, valid_, what):
+        """The table against the plain layout: all 16 bytes of every
+        slot, dead rows' and empty slots' included."""
         table = HJ.build_table(lane_, valid_)
         ideal, lane_s, rid = HJ.hash_order(lane_, valid_, table.nbits)
-        keys, rows = plain_layout(HJ, ideal, lane_s, rid, table.span)
-        note("build_table", _exact(table.rows, rows,
-                                   f"build_table rows ({what})"))
-        live = rows >= 0
-        note("build_table", _exact(table.keys[live], keys[live],
-                                   f"build_table keys ({what})"))
+        note("build_table", _exact(
+            table.slots, HJ.build_layout_plain(ideal, lane_s, rid,
+                                               table.span),
+            f"build_table slot buffer ({what})"))
         return table
 
     table = check_build(lane, valid, "q3 first-join keys")
     g = torch.Generator(device=dev).manual_seed(11)
     dup = torch.randint(0, 1000, (bcap,), generator=g, device=dev)
     check_build(dup, valid, "duplicate-heavy")
-    check_build(lane, torch.zeros_like(valid), "all dead")
+    build_cases = layout_cases(lane, valid, g)
+    for name, (lane_, valid_) in build_cases.items():
+        check_build(lane_, valid_, name)
     edge = torch.randint(-2 ** 63, 2 ** 63 - 1, (1 << 16,), generator=g,
                          device=dev, dtype=torch.int64)
     edge[:4] = torch.tensor([-2 ** 63, 2 ** 63 - 1, -1, 0])
@@ -687,17 +718,38 @@ def join_kernels_phase(dev, tables):
         f"their plain versions (build capacity {bcap}, span {span}, "
         f"{int(valid.sum())} keys; probe {pcap} rows, {matched} matched; "
         f"semi's {int(s_valid.sum())} packed keys, {s_matched} of {pcap} "
-        "probes matched; duplicate-heavy, all-dead, ±2^63, 0 %, 1 %, 50 %, "
-        "99 %, 100 %, capacities 3,000,017 and 300, masks misaligned by "
-        "one row)")
+        "probes matched; builds: duplicate-heavy, ±2^63, "
+        f"{', '.join(build_cases)}; masks: 0 %, 1 %, 50 %, 99 %, 100 %, "
+        "capacities 3,000,017 and 300, misaligned by one row)")
 
     # ---- timings
+    # build_layout: event and kernel-only time (every launch of a call),
+    # its launches a call, and the kernel-only time with the L2 flushed
+    # before each call, at q3's lane and the four layout cases; it reads
+    # ideal, key and row id once and writes the whole table once
+    def time_build(lane_, valid_):
+        nbits_, span_ = HJ.table_geometry(lane_.numel())
+        args = HJ.hash_order(lane_, valid_, nbits_)
+        parts = {}
+        kern, calls = profiled_ms(lambda: HJ.build_layout(*args, span_),
+                                  by_name=parts)
+        return dict(
+            ms=cuda_ms(lambda: HJ.build_layout(*args, span_)),
+            kernel_ms=kern, launches_per_call=calls, kernel_parts=parts,
+            cold_kernel_ms=profiled_ms(
+                lambda: HJ.build_layout(*args, span_), BUILD_KERNELS,
+                cold=True)[0],
+            bound_ms=bound(lane_.numel() * (4 + 8 + 4) + span_ * (8 + 4),
+                           lane_.numel())[0],
+            valid=int(valid_.sum()), cap=lane_.numel(), span=span_)
+
+    build_dists = {"q3": time_build(lane, valid)}
+    for name, (lane_, valid_) in build_cases.items():
+        build_dists[name] = time_build(lane_, valid_)
     ideal, lane_s, rid = HJ.hash_order(lane, valid, nbits)
-    build_ms = cuda_ms(lambda: HJ.build_layout(ideal, lane_s, rid, span))
     build_plain = cuda_ms(lambda: HJ.build_layout_plain(ideal, lane_s, rid,
                                                         span), reps=5)
     sort_ms = cuda_ms(lambda: HJ.hash_order(lane, valid, nbits), reps=5)
-    # reads ideal, key and row id once; writes the whole table once
     build_bound = bound(bcap * (4 + 8 + 4) + span * (8 + 4), bcap)
     # probe_first at q3's and semi's shapes, each beside the sorted
     # tier's probe as its yardstick: a searchsorted of the probe lane in
@@ -739,8 +791,6 @@ def join_kernels_phase(dev, tables):
     compact_lib = cuda_ms(lambda: torch.argsort(inv, stable=True))
     compact_bound = bound(pcap * (1 + 4) + 4, pcap)
     # kernel-only: the device time of every launch a call makes
-    build_kern, _n = profiled_ms(lambda: HJ.build_layout(ideal, lane_s, rid,
-                                                         span))
     compact_parts = {}
     compact_kern, compact_calls = profiled_ms(
         lambda: C.compaction_order(keep), by_name=compact_parts)
@@ -754,10 +804,16 @@ def join_kernels_phase(dev, tables):
             f"({compact_dists[name]['kept']} of {pcap} kept): event "
             f"{compact_dists[name]['ms']:.4f} ms, kernel "
             f"{compact_dists[name]['kernel_ms']:.4f} ms")
-    log(f"[kernels] build_table layout: event {build_ms:.4f} ms, kernel "
-        f"{build_kern:.4f} ms, plain {build_plain:.4f} ms, stable sort "
-        f"{build_lib:.4f} ms, bound {build_bound[0]:.4f} ms; its PyTorch "
-        f"hash-order sort {sort_ms:.4f} ms")
+    for name, d in build_dists.items():
+        log(f"[kernels] build_table layout at {name} ({d['valid']} of "
+            f"{d['cap']} rows valid, span {d['span']}): event "
+            f"{d['ms']:.4f} ms, kernel {d['kernel_ms']:.4f} ms in "
+            f"{d['launches_per_call']:g} device launches a call "
+            f"{d['kernel_parts']} (L2 flushed before each call "
+            f"{d['cold_kernel_ms']:.4f} ms), bound {d['bound_ms']:.4f} ms")
+    log(f"[kernels] build_table layout at q3's: plain {build_plain:.4f} ms, "
+        f"stable sort {build_lib:.4f} ms; its PyTorch hash-order sort "
+        f"{sort_ms:.4f} ms")
     for name, d in probe_dists.items():
         log(f"[kernels] probe_first at {name}'s shapes ({d['keys']} keys, "
             f"span {d['span']}; {d['valid']} of {pcap} probes valid): event "
@@ -779,9 +835,13 @@ def join_kernels_phase(dev, tables):
             distributions=compact_dists,
             shape=f"cap={pcap} kept={int(keep.sum())}"),
         "build_table": dict(
-            max_abs_err=err["build_table"], ms=build_ms, plain_ms=build_plain,
+            max_abs_err=err["build_table"], plain_ms=build_plain,
             bound_ms=build_bound[0], bound_by=build_bound[1],
-            library_ms=build_lib, hash_sort_ms=sort_ms, kernel_ms=build_kern,
+            library_ms=build_lib, hash_sort_ms=sort_ms,
+            **{k: build_dists["q3"][k] for k in (
+                "ms", "kernel_ms", "cold_kernel_ms", "launches_per_call",
+                "kernel_parts")},
+            distributions=build_dists,
             shape=f"cap={bcap} keys={int(valid.sum())} span={span}"),
         "probe_first": dict(
             max_abs_err=err["probe_first"],
@@ -1352,8 +1412,8 @@ PROFILE_PARTS = (
     ("seg_sums_kernel", "seg_sums"), ("seg_reduce_kernel", "seg_reduce"),
     ("compact_order_kernel", "compaction_order"),
     ("compact_tail_kernel", "compaction_order"),
-    ("layout_kernel", "build_table"), ("tile_max_kernel", "build_table"),
-    ("carry_kernel<tile_scan::Max", "build_table"),
+    ("layout_final_kernel", "build_table"),
+    ("layout_slots_kernel", "build_table"),
     ("probe_first_kernel", "probe_first"),
     ("probe_counts_kernel", "probe_counts"),
     ("expand_pairs_kernel", "expand_pairs"))
@@ -1447,6 +1507,11 @@ def main() -> int:
         # probe scans its counts inside its one launch
         check(stats["compaction_order"]["launches_per_call"] <= 2,
               "compaction_order made more than 2 device launches a call")
+        # the scan of the finals and the slot pass, no fill
+        for case, d in stats["build_table"]["distributions"].items():
+            check(d["launches_per_call"] == 2, f"build_table at {case} "
+                  f"made {d['launches_per_call']:g} device launches a "
+                  "call, not 2")
         for name in ("probe_first", "probe_counts", "expand_pairs"):
             for case, d in stats[name].get("distributions", {"": stats[
                     name]}).items():

@@ -24,14 +24,30 @@
 // outside the kernel (PyTorch, as the reference does outside its
 // kernel), giving per sorted row i its ideal slot (S for dead rows), its
 // key and its build row id (-1 for dead rows).  Linear probing in hash
-// order puts row i at final = i + max(-2^31 + 1, max_{k <= i}(ideal_k -
-// k)): strictly increasing, equal to ideal when nothing pushed it, and
-// contiguous behind a pushed run, so equal keys sit in consecutive slots
-// in ascending build-row order.  The running max is a grid-wide scan:
-// per-tile maxima, one block turning them into per-tile carries, then a
-// pass that rescans its tile, adds the carry and stores the row's slot
-// at clip(final, 0, span - 1) with one 16-byte store.  A block-local max
-// alone would be wrong as soon as a run crosses a tile.
+// order puts row i at final = clip(i + max(-2^31 + 1, max_{k <= i}(ideal_k
+// - k)), 0, span - 1): increasing, equal to ideal when nothing pushed it,
+// and contiguous behind a pushed run, so equal keys sit in consecutive
+// slots in ascending build-row order.  Where clipping gives rows one
+// slot (only for hand-built inputs), the last of them keeps it, as
+// serial stores leave it.  Two launches write every slot exactly once:
+//   1. layout_final_kernel: a single-pass decoupled look-back max-scan
+//      (lookback.cuh, 4,096-row tiles staged in shared memory, 16 rows
+//      a thread) of max(ideal - i, -2^31 + 1) gives each row its final,
+//      stored as int32 scratch.  Each chunk of kChunkSlots slots that
+//      some row lands in gets the first such row from that row's thread
+//      (the row whose predecessor lands before the chunk), as a word
+//      tagged with the launch's epoch after the look-back's status
+//      words; a chunk no row lands in keeps a stale word.
+//   2. layout_slots_kernel: one block a chunk.  A chunk with a current
+//      word stages its slots as empty in shared memory, places the rows
+//      from its first row while they land in it (at most kChunkSlots,
+//      as finals increase; more only where clipping stacks them), and
+//      writes the chunk out; a chunk without one writes empty slots.
+//      Both in coalesced 16-byte stores.
+// So the buffer needs no fill, and no slot is written twice.  The chunk
+// words replace a search of `final` a block (22 dependent loads at 4M
+// rows), and their writers do one store a chunk, so a long gap between
+// two finals (a sparse build) costs no thread a loop.
 //
 // probe_first: a block takes a tile of 2,048 probe rows, loads their
 // valid flags 16 a thread and compacts the valid rows into a shared
@@ -79,31 +95,28 @@
 // [total, out_cap) with (0, 0, false) in coalesced 16-byte stores.
 //
 // What bounds them on this card: all four are bandwidth-bound.
-// build_layout reads 16 bytes a build row (ideal, key, row id; ideal
-// twice) and scatters 16; probe_first reads 1 byte a probe row and 8
-// more for a valid one, writes 5, and each valid row reads at least its
-// home slot; probe_counts writes 12 bytes a probe row, and a valid row
-// reads its run and one slot past it.  A walked slot is a random access
-// that misses the 50 MB L2 for tables of millions of rows, and the card
-// serves such 32-byte sectors far below its streaming rate: one sector
-// a slot is what the interleaved layout buys.  expand_pairs writes 9
+// build_layout must read 16 bytes a build row (ideal, key, row id) and
+// write 16 a slot (it also writes and reads back 4 bytes a row of
+// `final`, which the L2 mostly holds); probe_first reads 1 byte a probe
+// row and 8 more for a valid one, writes 5, and each valid row reads at
+// least its home slot; probe_counts writes 12 bytes a probe row, and a
+// valid row reads its run and one slot past it.  A walked slot is a
+// random access that misses the 50 MB L2 for tables of millions of
+// rows, and the card serves such 32-byte sectors far below its
+// streaming rate: one sector a slot is what the interleaved layout
+// buys.  expand_pairs writes 9
 // bytes an output slot, reads cum once, first and counts at the rows
 // that own pairs, and one table row a pair.  The design keeps the walks
-// short (load factor at most 0.5), makes the layout writes land in
-// increasing slots, walks only valid probe rows, and gives the
-// expansion no per-slot search.
+// short (load factor at most 0.5), writes the table once in whole
+// chunks, walks only valid probe rows, and gives the expansion no
+// per-slot search.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "lookback.cuh"
-#include "tile_scan.cuh"
 
 namespace {
-
-using tile_scan::kItems;
-using tile_scan::kThreads;
-using tile_scan::kTileRows;
 
 constexpr int kSeed = -2147483647;  // -2^31 + 1, the reference's carry seed
 
@@ -131,54 +144,198 @@ __device__ __forceinline__ int slot_row(longlong2 s) {
   return static_cast<int>(static_cast<unsigned>(s.y));
 }
 
-__global__ void tile_max_kernel(const int* __restrict__ ideal, long long cap,
-                                int* __restrict__ tiles) {
-  const long long base = static_cast<long long>(blockIdx.x) * kTileRows +
-                         static_cast<long long>(threadIdx.x) * kItems;
-  int m = kSeed;
-#pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    const long long i = base + k;
-    if (i < cap) {
-      const int rel = ideal[i] - static_cast<int>(i);
-      m = rel > m ? rel : m;
-    }
-  }
-  int total;
-  tile_scan::block_exclusive_scan<kThreads>(m, kSeed, tile_scan::Max(),
-                                            &total);
-  if (threadIdx.x == 0) tiles[blockIdx.x] = total;
+// build_layout's look-back tile (lookback.cuh: 256 threads, 16 rows
+// each) and the slots a block of layout_slots_kernel owns.
+constexpr int kFinalTileRows = lookback::kThreads * lookback::kChunk;
+constexpr int kChunkSlots = 2048;
+constexpr int kSlotThreads = 256;
+constexpr int kSlotsPerThread = kChunkSlots / kSlotThreads;
+
+__device__ __forceinline__ longlong2 empty_slot() {
+  return make_longlong2(0, 0xffffffffLL);
 }
 
-__global__ void layout_kernel(const int* __restrict__ ideal,
-                              const long long* __restrict__ lane,
-                              const int* __restrict__ rid, long long cap,
-                              const int* __restrict__ carries, long long span,
-                              longlong2* __restrict__ table) {
-  const long long base = static_cast<long long>(blockIdx.x) * kTileRows +
-                         static_cast<long long>(threadIdx.x) * kItems;
-  int rel[kItems];
+// A row of a look-back tile in shared memory: 4 ints of padding after
+// every 16, so that a thread's 16 rows (16-byte accesses, 4 rows each)
+// meet no bank twice in a quarter warp, and a warp's 128 consecutive
+// rows at most twice.
+__device__ __forceinline__ int padded_row(int r) {
+  return r + (r >> 4) * 4;
+}
+
+// max(ideal - i, seed) in 64 bits: it fits int32 after the seed.
+__device__ __forceinline__ int rel_of(int ideal, long long i) {
+  const long long d = static_cast<long long>(ideal) - i;
+  return d > kSeed ? static_cast<int>(d) : kSeed;
+}
+
+// Launch 1 of build_layout: each row's final slot, and each occupied
+// chunk's first row (the design note above).  The tile's ideal comes in
+// and its finals go out through shared memory in coalesced 16-byte
+// accesses, 128 rows a warp (16 bytes at a 64-byte stride a thread
+// would write partial sectors); a thread scans its own 16 rows there.
+// `vec`: ideal and final are 16-byte aligned.
+__global__ void __launch_bounds__(lookback::kThreads) layout_final_kernel(
+    const int* __restrict__ ideal, long long cap, long long span, bool vec,
+    int ntiles, int* __restrict__ final_out,
+    unsigned long long* __restrict__ status, int* __restrict__ counter,
+    unsigned epoch, unsigned long long* __restrict__ chunk_first) {
+  constexpr int kT = lookback::kThreads;
+  constexpr int kC = lookback::kChunk;
+  __shared__ __align__(16) int s_rows[kFinalTileRows + kFinalTileRows / 4];
+  __shared__ int s_tile;
+  __shared__ int s_warp[lookback::kWarps];
+  __shared__ unsigned s_red[2 * lookback::kWarps];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  if (tid == 0) s_tile = lookback::draw_tile(counter, ntiles);
+  __syncthreads();
+  const int tile = s_tile;
+  const long long t0 = static_cast<long long>(tile) * kFinalTileRows;
+#pragma unroll
+  for (int q = 0; q < kC / 4; ++q) {
+    const int v = 4 * (tid + kT * q);
+    const long long r = t0 + v;
+    int4 x;
+    if (vec && r + 4 <= cap) {
+      x = __ldg(reinterpret_cast<const int4*>(ideal + r));
+    } else {                        // the tail: rows past cap scan as seed
+      x.x = r < cap ? ideal[r] : kSeed;
+      x.y = r + 1 < cap ? ideal[r + 1] : kSeed;
+      x.z = r + 2 < cap ? ideal[r + 2] : kSeed;
+      x.w = r + 3 < cap ? ideal[r + 3] : kSeed;
+    }
+    *reinterpret_cast<int4*>(&s_rows[padded_row(v)]) = x;
+  }
+  __syncthreads();
+  int4* const mine =
+      reinterpret_cast<int4*>(&s_rows[padded_row(tid * kC)]);
+  const long long r0 = t0 + tid * kC;
   int m = kSeed;
 #pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    const long long i = base + k;
-    rel[k] = i < cap ? ideal[i] - static_cast<int>(i) : kSeed;
-    m = rel[k] > m ? rel[k] : m;
+  for (int q = 0; q < kC / 4; ++q) {
+    const int4 x = mine[q];
+    const long long i = r0 + 4 * q;
+    m = max(m, max(max(rel_of(x.x, i), rel_of(x.y, i + 1)),
+                   max(rel_of(x.z, i + 2), rel_of(x.w, i + 3))));
   }
-  int total;
-  int prefix = tile_scan::block_exclusive_scan<kThreads>(
-      m, kSeed, tile_scan::Max(), &total);
-  const int carry = carries[blockIdx.x];
-  prefix = prefix > carry ? prefix : carry;
+  // the running max over the tile's threads
+  int x = m;
 #pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    const long long i = base + k;
-    if (i >= cap) break;
-    prefix = rel[k] > prefix ? rel[k] : prefix;
-    long long slot = i + prefix;
-    slot = slot < 0 ? 0 : (slot > span - 1 ? span - 1 : slot);
-    table[slot] = make_longlong2(
-        lane[i], static_cast<long long>(static_cast<unsigned>(rid[i])));
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(lookback::kFull, x, d);
+    if (lane >= d) x = max(x, y);
+  }
+  if (lane == 31) s_warp[warp] = x;
+  int prefix = __shfl_up_sync(lookback::kFull, x, 1);
+  if (lane == 0) prefix = kSeed;
+  __syncthreads();
+  int agg = kSeed;
+#pragma unroll
+  for (int w = 0; w < lookback::kWarps; ++w) {
+    const int v = s_warp[w];
+    if (w < warp) prefix = max(prefix, v);
+    agg = max(agg, v);
+  }
+  lookback::publish_aggregate(status, tile, static_cast<unsigned>(agg),
+                              epoch);
+  const int carry = static_cast<int>(
+      lookback::block_exclusive_prefix<lookback::Max>(
+          status, tile, static_cast<unsigned>(agg), epoch, s_red));
+  prefix = max(prefix, carry);
+  // prefix is now the max over every row before r0: row r0 - 1's final
+  long long prev = r0 - 1 + prefix;
+  prev = prev < 0 ? 0 : (prev > span - 1 ? span - 1 : prev);
+#pragma unroll
+  for (int q = 0; q < kC / 4; ++q) {
+    const int4 w = mine[q];
+    int v[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const long long i = r0 + 4 * q + e;
+      prefix = max(prefix, rel_of(v[e], i));
+      long long f = i + prefix;
+      f = f < 0 ? 0 : (f > span - 1 ? span - 1 : f);
+      if (i < cap && (i == 0 || f / kChunkSlots != prev / kChunkSlots))
+        chunk_first[f / kChunkSlots] = lookback::pack(
+            static_cast<unsigned>(i), lookback::kInclusive, epoch);
+      v[e] = static_cast<int>(f);
+      prev = f;
+    }
+    mine[q] = make_int4(v[0], v[1], v[2], v[3]);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int q = 0; q < kC / 4; ++q) {
+    const int v = 4 * (tid + kT * q);
+    const long long r = t0 + v;
+    const int4 f = *reinterpret_cast<const int4*>(&s_rows[padded_row(v)]);
+    if (vec && r + 4 <= cap) {
+      *reinterpret_cast<int4*>(final_out + r) = f;
+    } else {
+      if (r < cap) final_out[r] = f.x;
+      if (r + 1 < cap) final_out[r + 1] = f.y;
+      if (r + 2 < cap) final_out[r + 2] = f.z;
+      if (r + 3 < cap) final_out[r + 3] = f.w;
+    }
+  }
+}
+
+// Launch 2 of build_layout: block c writes slots [c * kChunkSlots,
+// (c + 1) * kChunkSlots) of the span, each once (the design note
+// above).
+__global__ void __launch_bounds__(kSlotThreads) layout_slots_kernel(
+    const int* __restrict__ final_in, const long long* __restrict__ lane,
+    const int* __restrict__ rid, long long cap, long long span,
+    const unsigned long long* __restrict__ chunk_first, unsigned epoch,
+    longlong2* __restrict__ table) {
+  __shared__ longlong2 s_slots[kChunkSlots];
+  const int tid = threadIdx.x;
+  const long long c0 = static_cast<long long>(blockIdx.x) * kChunkSlots;
+  const long long c1 = c0 + kChunkSlots;
+  const unsigned long long word = chunk_first[blockIdx.x];
+  if ((static_cast<unsigned>(word) >> 2) != epoch) {
+    // no row lands here
+#pragma unroll
+    for (int k = 0; k < kSlotsPerThread; ++k) {
+      const long long s = c0 + k * kSlotThreads + tid;
+      if (s < span) table[s] = empty_slot();
+    }
+    return;
+  }
+#pragma unroll
+  for (int k = 0; k < kSlotsPerThread; ++k)
+    s_slots[k * kSlotThreads + tid] = empty_slot();
+  __syncthreads();
+  for (long long base = word >> 32;; base += kChunkSlots) {
+    int fin[kSlotsPerThread];
+    int next[kSlotsPerThread];
+#pragma unroll
+    for (int k = 0; k < kSlotsPerThread; ++k) {
+      const long long i = base + k * kSlotThreads + tid;
+      fin[k] = i < cap ? __ldg(final_in + i) : 0x7fffffff;
+      next[k] = i + 1 < cap ? __ldg(final_in + i + 1) : 0x7fffffff;
+    }
+#pragma unroll
+    for (int k = 0; k < kSlotsPerThread; ++k) {
+      const long long i = base + k * kSlotThreads + tid;
+      // rows from the chunk's first land in it while final < c1; of
+      // rows that clipping stacks on one slot, the last keeps it
+      if (i < cap && fin[k] < c1 && next[k] != fin[k])
+        s_slots[fin[k] - c0] = make_longlong2(
+            __ldg(lane + i),
+            static_cast<long long>(static_cast<unsigned>(__ldg(rid + i))));
+    }
+    // more rows land here only where clipping stacked them
+    const long long after = base + kChunkSlots;
+    if (after >= cap || __ldg(final_in + after) >= c1) break;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < kSlotsPerThread; ++k) {
+    const long long s = c0 + k * kSlotThreads + tid;
+    if (s < span) table[s] = s_slots[k * kSlotThreads + tid];
   }
 }
 
@@ -658,27 +815,38 @@ __global__ void __launch_bounds__(kExpandThreads) expand_pairs_kernel(
 // cudaGetLastError() after its launches (0 = success).  `table` is the
 // slot buffer of span 16-byte slots (key int64, row int32, zero int32).
 
-// ideal/rid int32[cap], lane int64[cap] in (dead, hash) order; `tiles`
-// int32 scratch of ceil(cap / 1024); `table` pre-filled with empty
-// slots (key 0, row -1) by the caller.
+// ideal/rid int32[cap], lane int64[cap] in (dead, hash) order; final
+// int32[cap] scratch; `table` the span slots to write, every one of
+// them (no fill needed).  `ntiles` = ceil(cap / 4096) look-back tiles
+// and `nchunks` = ceil(span / 2048) slot chunks; `status` holds at least
+// ntiles + nchunks words (the chunk words follow the tiles'); `counter`
+// and `epoch` as for the other look-back scans (lookback.cuh).  Two
+// launches.
 extern "C" int hashjoin_build_layout(const int* ideal, const long long* lane,
-                                     const int* rid, long long cap, int* tiles,
-                                     long long span, void* table,
-                                     void* stream) {
+                                     const int* rid, long long cap,
+                                     int* final_out, long long span,
+                                     void* table, int ntiles, int nchunks,
+                                     unsigned long long* status, int* counter,
+                                     unsigned epoch, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (cap <= 0 || cap > 0x7fffffffLL || span < cap ||
-      (reinterpret_cast<uintptr_t>(table) & 15) != 0)
+      span > 0x80000000LL ||
+      (reinterpret_cast<uintptr_t>(table) & 15) != 0 ||
+      ntiles != (cap + kFinalTileRows - 1) / kFinalTileRows ||
+      nchunks != (span + kChunkSlots - 1) / kChunkSlots || epoch == 0 ||
+      epoch >= lookback::kEpochs)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int ntiles = tile_scan::tiles_for(cap);
-  tile_max_kernel<<<ntiles, kThreads, 0, st>>>(ideal, cap, tiles);
-  cudaError_t e = cudaGetLastError();
+  const bool vec = ((reinterpret_cast<uintptr_t>(ideal) |
+                     reinterpret_cast<uintptr_t>(final_out)) & 15) == 0;
+  unsigned long long* chunk_first = status + ntiles;
+  layout_final_kernel<<<ntiles, lookback::kThreads, 0, st>>>(
+      ideal, cap, span, vec, ntiles, final_out, status, counter, epoch,
+      chunk_first);
+  const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  tile_scan::carry_kernel<<<1, 1024, 0, st>>>(tiles, ntiles, kSeed, kSeed,
-                                              tile_scan::Max(), nullptr);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  layout_kernel<<<ntiles, kThreads, 0, st>>>(
-      ideal, lane, rid, cap, tiles, span, static_cast<longlong2*>(table));
+  layout_slots_kernel<<<nchunks, kSlotThreads, 0, st>>>(
+      final_out, lane, rid, cap, span, chunk_first, epoch,
+      static_cast<longlong2*>(table));
   return static_cast<int>(cudaGetLastError());
 }
 

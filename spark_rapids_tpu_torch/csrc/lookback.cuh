@@ -1,7 +1,7 @@
 // Single-pass decoupled look-back scan (Merrill & Garland, "Single-pass
 // Parallel Prefix Scan with Decoupled Look-back", 2016), shared by the
 // scans over a row mask in compact.cu (compaction_order) and hashjoin.cu
-// (probe_counts).
+// (probe_counts), and by build_layout's running max (hashjoin.cu).
 //
 // A tile is a run of consecutive rows, one block of kThreads threads,
 // one or more 16-row chunks a thread.  Each block draws its tile id
@@ -20,8 +20,8 @@
 // data is required and the polls stay plain loads.  The wrapper raises
 // the epoch every launch (ops/hopper StreamScratch), so words left by
 // an earlier launch read as "not yet" and the status array is reused
-// without a fill.  The values add modulo 2^32, as an int32 cumulative
-// sum does.
+// without a fill.  The values combine with an operator: Add (modulo
+// 2^32, as an int32 cumulative sum does) or Max (of int32 values).
 //
 // The mask is read through a virtual row index v = row + mis, where
 // mis = the mask pointer's offset from 16-byte alignment: thread chunk c
@@ -43,6 +43,24 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr unsigned kAggregate = 1;
 constexpr unsigned kInclusive = 2;
 constexpr unsigned kEpochs = 1u << 30;
+
+// The scan's operators on a status word's 32-bit value, each with its
+// identity.
+struct Add {
+  static constexpr unsigned kIdentity = 0u;
+  __device__ __forceinline__ unsigned operator()(unsigned a,
+                                                 unsigned b) const {
+    return a + b;
+  }
+};
+
+struct Max {                      // of the values read as int32
+  static constexpr unsigned kIdentity = 0x80000000u;
+  __device__ __forceinline__ unsigned operator()(unsigned a,
+                                                 unsigned b) const {
+    return static_cast<int>(a) > static_cast<int>(b) ? a : b;
+  }
+};
 
 __device__ __forceinline__ void store_word(unsigned long long* p,
                                            unsigned long long v) {
@@ -131,30 +149,33 @@ __device__ __forceinline__ void publish_aggregate(
 }
 
 // All kThreads threads of a block, after publish_aggregate: the tile's
-// exclusive prefix, published as its inclusive prefix (excl + agg) and
-// returned to every thread.  One round reads kThreads predecessors
-// (thread i the one at distance i + 1) back to the nearest inclusive
-// prefix; while one nearer than it has not published, thread 0 alone
-// polls that one, with a growing pause, and the round is read again.
+// exclusive prefix under `Op` (its identity for tile 0), published as
+// its inclusive prefix (op(excl, agg)) and returned to every thread.
+// One round reads kThreads predecessors (thread i the one at distance
+// i + 1) back to the nearest inclusive prefix; while one nearer than it
+// has not published, thread 0 alone polls that one, with a growing
+// pause, and the round is read again.
 // So a wave of tiles that publish together resolves in a few rounds,
 // and waiting blocks load the L2 with one word a poll, not a window
 // (a warp-wide window of 32 a round, all lanes polling, measured
 // slower: the chain of rounds grows with the tiles in flight, and the
 // polls contend with the other blocks' loads).  `s_red` is 2 * kWarps
 // words of shared scratch.
+template <typename Op = Add>
 __device__ __forceinline__ unsigned block_exclusive_prefix(
     unsigned long long* __restrict__ status, int tile, unsigned agg,
     unsigned epoch, unsigned* s_red) {
-  if (tile == 0) return 0;
+  const Op op{};
+  if (tile == 0) return Op::kIdentity;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  unsigned excl = 0;
+  unsigned excl = Op::kIdentity;
   unsigned pause = 32;
   for (int base = tile - 1;;) {
     const int pred = base - tid;
-    unsigned flag = kInclusive;     // before tile 0: an inclusive 0
-    unsigned value = 0;
+    unsigned flag = kInclusive;     // before tile 0: an inclusive identity
+    unsigned value = Op::kIdentity;
     if (pred >= 0) {
       const unsigned long long w = load_word(&status[pred]);
       const unsigned low = static_cast<unsigned>(w);
@@ -188,19 +209,20 @@ __device__ __forceinline__ unsigned block_exclusive_prefix(
       __syncthreads();
       continue;                     // read the round again
     }
-    unsigned v = tid <= stop ? value : 0u;
+    unsigned v = tid <= stop ? value : Op::kIdentity;
 #pragma unroll
-    for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(kFull, v, d);
+    for (int d = 16; d > 0; d >>= 1)
+      v = op(v, __shfl_xor_sync(kFull, v, d));
     if (lane == 0) s_red[warp] = v;
     __syncthreads();
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) excl += s_red[w];
+    for (int w = 0; w < kWarps; ++w) excl = op(excl, s_red[w]);
     __syncthreads();
     if (stop < kThreads) break;
     base -= kThreads;
   }
   if (tid == 0)
-    store_word(&status[tile], pack(excl + agg, kInclusive, epoch));
+    store_word(&status[tile], pack(op(excl, agg), kInclusive, epoch));
   return excl;
 }
 

@@ -22,9 +22,9 @@ counterpart here.  This module holds what they share:
     each wrapper where it launches its kernel and nowhere else, by the
     number of device launches of the kernel's own passes: every tile
     of `seg_sums`, the scan and the identity tail of
-    `compaction_order`, all three passes of `build_table`'s grid scan.
-    Helper launches (filling the output, converting it back) are not
-    counted.
+    `compaction_order`, the scan of the finals and the slot pass of
+    `build_table`.  Helper launches (filling the output, converting it
+    back) are not counted.
   * `StreamScratch` / `stream_scratch` — the scratch every kernel on
     one stream shares: segagg's flush tickets and the decoupled
     look-back's tile counter and status words (csrc/lookback.cuh),
@@ -96,7 +96,8 @@ class StreamScratch:
     the look-back scan's tile counter is the last.  Each launch leaves
     them zero (its last arrivals reset what they took), so launches
     ordered on the stream share them.  `status` int64: one look-back
-    word a tile, tagged with the epoch of the launch that wrote it;
+    word a tile (and after them build_layout's word a slot chunk),
+    tagged with the epoch of the launch that wrote it;
     every look-back launch takes a new epoch, so what earlier launches
     left reads as "not yet" and needs no fill."""
 

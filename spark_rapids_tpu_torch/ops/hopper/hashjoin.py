@@ -16,7 +16,8 @@ buffer that equal them.
 
   * `build_table` replaces `_build_trace` (hashjoin.py:111).  The
     hash-order sort stays in PyTorch, as the reference computes it
-    outside its kernel; the kernel is the layout (`build_layout`).
+    outside its kernel; the kernel is the layout (`build_layout`), in
+    two launches that write every slot once (no fill of the buffer).
   * `probe_first` replaces `_probe_first_trace` (hashjoin.py:182): per
     probe row the first build row with an equal key, -1 and False when
     there is none, in one launch that walks only the valid rows.
@@ -61,7 +62,8 @@ _VP = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _I = ctypes.c_int
 _SIGNATURES = {
-    "hashjoin_build_layout": [_VP, _VP, _VP, _LL, _VP, _LL, _VP, _VP],
+    "hashjoin_build_layout": [_VP, _VP, _VP, _LL, _VP, _LL, _VP, _I, _I,
+                              _VP, _VP, ctypes.c_uint, _VP],
     "hashjoin_probe_first": [_VP, _LL, _I, _VP, _VP, _LL, _I, _I, _VP, _VP,
                              _VP],
     "hashjoin_probe_counts": [_VP, _LL, _I, _VP, _VP, _LL, _I, _I, _VP, _VP,
@@ -74,9 +76,11 @@ INT64_MIN = -(1 << 63)
 _FMIX1 = 0xFF51AFD7ED558CCD - (1 << 64)     # signed images of the
 _FMIX2 = 0xC4CEB9FE1A85EC53 - (1 << 64)     # fmix64 constants
 _CARRY_SEED = -(1 << 31) + 1
-#: rows of one tile of build_layout's three-pass grid scan
-#: (csrc/tile_scan.cuh kTileRows): the wrapper sizes its scratch with it
-LAYOUT_TILE_ROWS = 1024
+#: rows of one look-back tile of build_layout's scan of the finals, and
+#: the slots of one chunk of its slot pass (csrc/hashjoin.cu
+#: kFinalTileRows, kChunkSlots): the wrapper sizes its scratch with them
+FINAL_TILE_ROWS = 4096
+CHUNK_SLOTS = 2048
 #: probe rows of one look-back tile of probe_counts (csrc/hashjoin.cu
 #: kProbeTileRows: 256 threads, 16 rows each)
 PROBE_TILE_ROWS = 4096
@@ -113,10 +117,9 @@ def mix64(x: torch.Tensor) -> torch.Tensor:
 
 
 def empty_slots(span: int, device) -> torch.Tensor:
-    """A slot buffer of `span` empty slots (key 0, row -1), written in one
-    pass of 16-byte stores: the fill of a complex128 lane whose bits are
-    the empty slot's (a zero fill and a strided fill of the row words
-    write the buffer one and a half times)."""
+    """A slot buffer of `span` empty slots (key 0, row -1), for the plain
+    layout: one fill of a complex128 lane whose bits are the empty
+    slot's."""
     return torch.empty(span, dtype=torch.complex128, device=device) \
         .fill_(_EMPTY_SLOT).view(torch.int64).view(span, 2)
 
@@ -185,22 +188,28 @@ def hash_order(lane: torch.Tensor, valid: torch.Tensor, nbits: int):
 
 
 def build_layout_plain(ideal, lane_s, rid, span: int):
-    """Plain version of build_layout: one cummax over the whole lane."""
+    """Plain version of build_layout: one cummax over the whole lane.
+    Where the clip stacks rows on one slot (inputs built by hand; the
+    hash order never does), the last of them keeps it, as the kernel
+    does: a scatter of equal indices keeps any one."""
     i = torch.arange(ideal.numel(), dtype=torch.int64, device=ideal.device)
     prefix = torch.clamp(torch.cummax(ideal.to(torch.int64) - i, 0).values,
                          min=_CARRY_SEED)
     final = torch.clamp(i + prefix, 0, span - 1)
+    last = torch.ones_like(final, dtype=torch.bool)
+    last[:-1] = final[1:] != final[:-1]
     slots = empty_slots(span, ideal.device)
     keys, rows = slot_views(slots)
-    keys[final] = lane_s
-    rows[final] = rid
+    keys[final[last]] = lane_s[last]
+    rows[final[last]] = rid[last]
     return slots
 
 
 def build_layout(ideal, lane_s, rid, span: int):
     """The slot buffer int64[span, 2] (module docstring): row i of the
     hash order stored at clip(i + max(-2^31 + 1, prefix max of ideal -
-    i))."""
+    i), 0, span - 1).  On the card two launches write every slot once,
+    so the buffer needs no fill."""
     if ideal.device.type == "cpu":
         return build_layout_plain(ideal, lane_s, rid, span)
     if ideal.device.type != "cuda":
@@ -213,18 +222,23 @@ def build_layout(ideal, lane_s, rid, span: int):
             raise ValueError(f"build_layout: expected contiguous {dt}[{cap}] "
                              f"on {ideal.device}, got {t.dtype} "
                              f"{tuple(t.shape)} on {t.device}")
-    if cap == 0 or span < cap:
+    if cap == 0 or span < cap or span > 1 << 31:
         raise ValueError(f"build_layout: bad capacity {cap} / span {span}")
     dev = ideal.device
-    slots = empty_slots(span, dev)
-    tiles = torch.empty(-(-cap // LAYOUT_TILE_ROWS), dtype=torch.int32,
-                        device=dev)
+    slots = torch.empty((span, 2), dtype=torch.int64, device=dev)
+    final = torch.empty(cap, dtype=torch.int32, device=dev)
+    ntiles = -(-cap // FINAL_TILE_ROWS)
+    nchunks = -(-span // CHUNK_SLOTS)
+    st = stream_ptr(dev)
+    status, counter, epoch = stream_scratch(dev, st).lookback(ntiles +
+                                                              nchunks)
     err = _fn("hashjoin_build_layout")(
         ideal.data_ptr(), lane_s.data_ptr(), rid.data_ptr(), cap,
-        tiles.data_ptr(), span, slots.data_ptr(), stream_ptr(dev))
-    # three device launches: the tile maxima, the carry scan of the
-    # tile maxima and the layout pass (csrc/hashjoin.cu)
-    LAUNCHES["build_table"] += 3
+        final.data_ptr(), span, slots.data_ptr(), ntiles, nchunks, status,
+        counter, epoch, st)
+    # two device launches: the look-back scan of the finals and the
+    # chunked slot pass (csrc/hashjoin.cu)
+    LAUNCHES["build_table"] += 2
     check_launch(err, "build_table")
     return slots
 

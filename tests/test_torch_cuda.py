@@ -246,20 +246,125 @@ def test_build_table_and_probe_first_kernels_match_plain(cuda, cap, span,
     PH.reset_launch_counts()
     table = PHJ.build_table(lane, valid)
     ideal, lane_s, rid = PHJ.hash_order(lane, valid, table.nbits)
-    keys, rows = PHJ.slot_views(PHJ.build_layout_plain(ideal, lane_s, rid,
-                                                       table.span))
-    assert torch.equal(table.rows, rows)
-    live = rows >= 0
-    assert torch.equal(table.keys[live], keys[live])
+    slots = PHJ.build_layout_plain(ideal, lane_s, rid, table.span)
+    # every slot's 16 bytes, dead rows' and empty slots' included
+    assert torch.equal(table.slots, slots)
     probe = torch.from_numpy(rng.integers(-span, span, cap)).to(cuda)
     probe[: cap // 2] = lane[torch.randperm(cap, device=cuda)[: cap // 2]]
     pvalid = torch.from_numpy(rng.random(cap) > 0.1).to(cuda)
     row, ok = PHJ.probe_first(table, probe, pvalid)
     prow, pok = PHJ.probe_first_plain(table, probe, pvalid)
     assert torch.equal(row, prow) and torch.equal(ok, pok)
-    # build_table: tile maxima, carry scan, layout; probe_first: one
-    assert PH.LAUNCHES["build_table"] == 3
+    # build_table: the scan of the finals and the slot pass;
+    # probe_first: one
+    assert PH.LAUNCHES["build_table"] == 2
     assert PH.LAUNCHES["probe_first"] == 1
+
+
+def _pushed(nbits, n):
+    """n distinct keys homed at the last two of 2^nbits slots."""
+    cand = torch.from_numpy(np.random.default_rng(5).integers(
+        -2 ** 62, 2 ** 62, 1 << 18))
+    home = (PHJ.mix64(cand) >> (64 - nbits)) & ((1 << nbits) - 1)
+    return cand[home >= (1 << nbits) - 2][:n]
+
+
+def _layout_lane(kind, cap, rng):
+    """(build lane, valid) on the CPU for one layout case."""
+    lane = torch.from_numpy(rng.permutation(cap * 4)[:cap].astype(
+        np.int64) - cap)
+    valid = torch.ones(cap, dtype=torch.bool)
+    if kind == "sparse":
+        valid = torch.from_numpy(rng.random(cap) < 0.01)
+    elif kind == "2,000 valid":
+        valid[2000:] = False
+    elif kind == "all dead":
+        valid[:] = False
+    elif kind == "pushed":
+        # six keys homed at the last two home slots, 200 rows each:
+        # their run crosses row tiles and slot chunks into the tail
+        lane[-1200:] = _pushed(PHJ.table_geometry(cap)[0], 6) \
+            .repeat_interleave(200)
+    elif kind == "key 10,000 times":
+        lane[rng.permutation(cap)[:10_000]] = 12345
+    elif kind == "odd capacity":
+        valid = torch.from_numpy(rng.random(cap) < 0.8)
+    return lane, valid
+
+
+# a chunk with no row, a chunk of dead rows only, a chunk that starts
+# inside a pushed run, runs across 4,096-row tiles and 2,048-slot
+# chunks, capacities off both
+_LAYOUT_CASES = [("sparse", 8192), ("sparse", 1 << 20),
+                 ("2,000 valid", 2_097_152), ("pushed", 2048),
+                 ("pushed", 1 << 16), ("key 10,000 times", 1 << 20),
+                 ("all dead", 5000), ("all dead", 1 << 20),
+                 ("odd capacity", 3001), ("odd capacity", 3_000_017),
+                 ("odd capacity", 1), ("odd capacity", 17)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,cap", _LAYOUT_CASES)
+def test_build_layout_kernel_writes_every_slot_as_plain(cuda, kind, cap):
+    lane, valid = _layout_lane(kind, cap, np.random.default_rng(cap))
+    lane, valid = lane.to(cuda), valid.to(cuda)
+    nbits, span = PHJ.table_geometry(cap)
+    ideal, lane_s, rid = PHJ.hash_order(lane, valid, nbits)
+    PH.reset_launch_counts()
+    got = PHJ.build_layout(ideal, lane_s, rid, span)
+    assert PH.LAUNCHES["build_table"] == 2
+    assert torch.equal(got, PHJ.build_layout_plain(ideal, lane_s, rid, span))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap,span,wild", [(1000, 1200, False),
+                                           (5000, 5100, False),
+                                           (20_001, 20_001, True)])
+def test_build_layout_kernel_clips_hand_built_finals(cuda, cap, span, wild):
+    # ideal below 0 and past the span stack rows on slots 0 and span - 1
+    # after the clip (with `wild`, int32 extremes up front stack nearly
+    # every row on span - 1, more rows than a chunk holds); the last of
+    # them keeps the slot, in both versions
+    rng = np.random.default_rng(cap)
+    ideal = torch.from_numpy(np.sort(rng.integers(-60, span + 100, cap))
+                             .astype(np.int32))
+    if wild:
+        ideal[: cap // 7] = torch.from_numpy(rng.integers(
+            -2 ** 31, 2 ** 31 - 1, cap // 7, endpoint=True).astype(np.int32))
+    lane = torch.from_numpy(rng.integers(-2 ** 63, 2 ** 63 - 1, cap,
+                                         endpoint=True))
+    rid = torch.from_numpy(rng.integers(-1, cap, cap).astype(np.int32))
+    want = PHJ.build_layout_plain(ideal, lane, rid, span)
+    got = PHJ.build_layout(ideal.to(cuda), lane.to(cuda), rid.to(cuda),
+                           span)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_build_layout_kernel_back_to_back_misaligned_and_on_a_side_stream(
+        cuda):
+    # the tile counter, status words and chunk words are reused without
+    # a fill: builds of other sizes queued back to back, inputs off
+    # 16-byte alignment (the scalar path), and a build on another stream
+    rng = np.random.default_rng(9)
+    cases = []
+    for cap, p in ((1 << 20, 0.5), (70_001, 0.9), (1 << 16, 0.01)):
+        lane = torch.from_numpy(rng.integers(-2 ** 40, 2 ** 40, cap)).to(cuda)
+        valid = torch.from_numpy(rng.random(cap) < p).to(cuda)
+        nbits, span = PHJ.table_geometry(cap)
+        cases.append((*PHJ.hash_order(lane, valid, nbits), span))
+    got = [PHJ.build_layout(*c) for c in cases]
+    ideal, lane_s, rid, span = cases[1]
+    odd = (ideal[1:], lane_s[1:], rid[1:], span)
+    assert odd[0].data_ptr() % 16 == 4
+    got.append(PHJ.build_layout(*odd))
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        on_side = PHJ.build_layout(*cases[0])
+    torch.cuda.current_stream(cuda).wait_stream(side)
+    for c, slots in zip(cases + [odd, cases[0]], got + [on_side]):
+        assert torch.equal(slots, PHJ.build_layout_plain(*c))
 
 
 @pytest.mark.cuda

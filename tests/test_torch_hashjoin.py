@@ -4,8 +4,9 @@ The same numpy inputs go through spark_rapids_tpu.ops.pallas.hashjoin
 (interpret mode, as the JAX package's own tests run it on the CPU) and
 through the port's wrappers on CPU tensors, which run the kernels'
 plain PyTorch versions: `mix64` bit for bit, `build_table`'s geometry
-and row lane exactly and its key lane where a slot holds a row (dead
-rows leave keys in the overflow tail in the reference), `probe_first`,
+and row lane exactly and its key lane where a slot holds a row (and
+the whole slot buffer, dead rows' keys and empty slots included, in
+sparse, pushed-run, all-dead and odd-capacity builds), `probe_first`,
 `probe_matched`, `probe_counts` (first slot, run length and int32
 prefix sum), `expand_pairs` (probe row, build row and liveness of every
 output slot) and `build_matched_flags` exactly, and the port's table
@@ -97,6 +98,57 @@ def test_table_slots_interleave_the_reference_keys_and_rows(cap, kind, dead):
     assert pt.keys.data_ptr() == slots.data_ptr()
     assert pt.rows.data_ptr() == slots.data_ptr() + 8
     np.testing.assert_array_equal(pt.rows.numpy(), rows)
+
+
+def _layout_case(kind, cap, rng):
+    """(build lane, valid) of one whole-buffer layout case."""
+    lane = rng.permutation(cap * 4)[:cap].astype(np.int64) - cap
+    if kind == "sparse":
+        return lane, rng.random(cap) < 0.01
+    if kind == "all dead":
+        return lane, np.zeros(cap, bool)
+    if kind == "pushed":
+        # 1,200 rows of six keys homed at the last two of 2^12 slots: they
+        # sort last, at rows 848-2047 (across row 1,024), and their run
+        # fills slots 4,094-5,293 (across slot 4,096 = 2 x 2,048)
+        hot = _pushed_keys((2 * cap - 1).bit_length())
+        assert len(hot) == 6
+        lane[cap - 1200:] = np.repeat(hot, 200)
+        return lane, np.ones(cap, bool)
+    return lane, rng.random(cap) >= 0.2
+
+
+LAYOUT_CASES = [("sparse", 8192), ("pushed", 2048), ("all dead", 5000),
+                ("odd capacity", 3001)]
+
+
+@pytest.mark.parametrize("kind,cap", LAYOUT_CASES)
+def test_build_table_whole_slot_buffer_matches_reference(kind, cap):
+    lane, valid = _layout_case(kind, cap, np.random.default_rng(cap))
+    jt, pt = _tables(lane, valid)
+    assert (pt.nbits, pt.span) == (jt.nbits, jt.span)
+    # every slot: live, dead (key with row -1) and empty (0, -1)
+    np.testing.assert_array_equal(pt.rows.numpy(), np.asarray(jt.rows))
+    np.testing.assert_array_equal(pt.keys.numpy(), np.asarray(jt.keys))
+    assert not pt.slots.view(torch.int32)[:, 3].any()
+    assert int((pt.rows >= 0).sum()) == int(valid.sum())
+    if kind == "pushed":
+        rows = pt.rows.numpy()
+        run = np.flatnonzero(np.isin(pt.keys.numpy(), lane[-1200:]) &
+                             (rows >= 0))
+        assert run[0] < 4096 <= run[-1] and np.all(np.diff(run) == 1)
+
+
+def test_plain_layout_keeps_the_last_row_of_clipped_finals():
+    # hand-built: rows 0-2 clip to slot 0 and rows 4-5 to the last slot;
+    # the last row of each stack keeps it (the kernel does the same)
+    ideal = torch.tensor([-5, -5, 0, 1, 100, 100], dtype=torch.int32)
+    lane = torch.tensor([10, 11, 12, 13, 14, 15], dtype=torch.int64)
+    rid = torch.arange(6, dtype=torch.int32)
+    for _ in range(3):
+        keys, rows = PH.slot_views(PH.build_layout_plain(ideal, lane, rid, 8))
+        assert rows.tolist() == [2, 3, -1, -1, -1, -1, -1, 5]
+        assert keys.tolist() == [12, 13, 0, 0, 0, 0, 0, 15]
 
 
 def test_hash_table_constructor_interleaves_two_arrays():
