@@ -35,8 +35,12 @@ are the same.  The reference's dense presence bitmap for semi/anti joins
 over a dense key domain is its dense tier, not ported: the hash table
 takes those joins, with the same rows.
 
-What stays unported raises NotImplementedError naming its slice: cross
-joins (CrossJoinExec), string keys, composite keys that do not pack (the
+`CrossJoinExec` pairs every probe row with every build row: a build
+of one row by construction (a scalar subquery) is broadcast onto each
+probe batch with no host sync, any other build is gathered pairwise.
+
+What stays unported raises NotImplementedError naming its slice: string
+keys, composite keys that do not pack (the
 sorted tier), a join with the kernel tier off or a build over
 `sql.kernels.pallas.join.maxBuildRows` (the dense and sorted tiers), and
 builds over twice `sql.batchSizeRows` (the reference sub-partitions
@@ -53,7 +57,7 @@ from .. import types as t
 from ..columnar.device import (DeviceBatch, DeviceColumn, bucket_capacity,
                                storage_dtype)
 from ..ops import join as J
-from ..ops.batch_ops import concat_batches
+from ..ops.batch_ops import concat_batches, shrink_to_rows
 from ..ops.filter import compact_batch, gather_batch
 from ..plan import expressions as E
 from .evaluator import conds_mask, evaluate_projection
@@ -129,10 +133,7 @@ def unported_join_reasons(join_type: str, left_keys, right_keys,
     """Why the port cannot run a join (bound keys over the physical
     inputs), [] if it can."""
     reasons = []
-    if join_type == J.CROSS:
-        reasons.append(f"cross joins (CrossJoinExec) port with "
-                       f"{NEXT_JOIN_SLICE}")
-    elif join_type not in JOIN_TYPES:
+    if join_type not in JOIN_TYPES:
         reasons.append(f"unsupported join type {join_type}")
     if any(isinstance(e.dtype, t.StringType)
            for e in list(left_keys) + list(right_keys)):
@@ -244,6 +245,12 @@ class HashJoinExec(PlanNode):
                 "sub-partitioned in the reference; that ports with the "
                 "out-of-core slice (ROADMAP Queue 1 item 6)")
         build_batch = concat_batches(right_batches, ctx.conf)
+        if build_batch.capacity > 2 * ctx.conf.batch_size_rows:
+            # one compacted batch keeps its input's capacity (q18's
+            # 15,000,000 order groups under its HAVING at SF10): re-bucket
+            # it to its rows, as concat_batches packs several
+            build_batch = shrink_to_rows(build_batch,
+                                         int(build_batch.num_rows), ctx.conf)
         yield from self._join_stream(build_batch, left_src.execute(ctx),
                                      ctx, build_conds, probe_conds)
 
@@ -392,3 +399,51 @@ class HashJoinExec(PlanNode):
                 cols += _null_columns(self.right.output_schema, pb.capacity,
                                       pb.device)
             yield DeviceBatch(cols, pb.num_rows, out_names)
+
+
+class CrossJoinExec(PlanNode):
+    """Every (left, right) pair, left columns then right
+    (GpuCartesianProductExec's role).  A right side of exactly one row
+    by construction (`static_row_count() == 1`: a scalar subquery, the
+    HAVING-against-a-total shape) broadcasts its row onto every left
+    batch with no host sync.  Any other right side materializes into
+    one batch of nb rows, and a left batch of n rows gathers left row
+    i // nb and right row i % nb for the first n * nb slots of a bucket
+    of that size."""
+
+    def __init__(self, left: PlanNode, right: PlanNode):
+        super().__init__(left, right)
+
+    @property
+    def output_schema(self) -> t.StructType:
+        return t.StructType(list(self.children[0].output_schema.fields) +
+                            list(self.children[1].output_schema.fields))
+
+    def execute(self, ctx: ExecContext) -> Iterator[DeviceBatch]:
+        left, right = self.children
+        out_names = list(self.output_schema.names)
+        if right.static_row_count() == 1:
+            build = list(right.execute(ctx))[0]
+            for pb in left.execute(ctx):
+                zeros = torch.zeros(pb.capacity, dtype=torch.int64,
+                                    device=pb.device)
+                rg = gather_batch(build, zeros, pb.num_rows)
+                yield DeviceBatch(list(pb.columns) + rg.columns,
+                                  pb.num_rows, out_names)
+            return
+        right_batches = [db for db in right.execute(ctx)
+                         if int(db.num_rows) > 0]
+        if not right_batches:
+            return
+        build = concat_batches(right_batches, ctx.conf)
+        nb = int(build.num_rows)
+        for pb in left.execute(ctx):
+            npr = int(pb.num_rows)
+            if npr == 0:
+                continue
+            total = npr * nb
+            i = torch.arange(bucket_capacity(total, ctx.conf),
+                             dtype=torch.int64, device=pb.device)
+            lg = gather_batch(pb, i // nb, total)
+            rg = gather_batch(build, i % nb, total)
+            yield DeviceBatch(lg.columns + rg.columns, total, out_names)

@@ -7,12 +7,14 @@ Expressions arrive already bound to the child's schema.
 
 The nodes TPC-H q1, q3 and q6 run: the host scan, project, filter
 (fused into an aggregate's or a join's masks when one sits above it,
-else compacting), hash aggregate, sort, limit and top-N.  The joins are
-in exec/join.py and exec/adaptive.py.
+else compacting), hash aggregate, sort, limit and top-N.  The joins
+(hash and cross) are in exec/join.py and exec/adaptive.py.
 
 Plan statistics ride the nodes as in the reference: `column_range`
 (exact integer bounds, which let group keys pack) and `keys_unique`
-(distinct key tuples, which let a join take the probe-aligned path).
+(distinct key tuples, which let a join take the probe-aligned path)
+and `static_row_count` (a global aggregate's one row, which lets a cross
+join broadcast it).
 """
 from __future__ import annotations
 
@@ -98,6 +100,12 @@ class PlanNode:
         probe-aligned).  Conservative default: unknown -> False."""
         return False
 
+    def static_row_count(self) -> Optional[int]:
+        """Exact output row count when statically known (a global
+        aggregate emits exactly one row), else None: a cross join
+        against a scalar subquery then needs no host sync."""
+        return None
+
     def collect(self, ctx: Optional[ExecContext] = None) -> HostBatch:
         """Run the plan and bring the results' live rows to the host."""
         ctx = ctx or ExecContext()
@@ -173,6 +181,9 @@ class ProjectExec(PlanNode):
                                 for n in names])
         return mapped is not None and self.child.keys_unique(mapped)
 
+    def static_row_count(self):
+        return self.child.static_row_count()   # projection keeps rows
+
     def execute(self, ctx: ExecContext) -> Iterator[DeviceBatch]:
         for db in self.child.execute(ctx):
             yield evaluate_projection(self.exprs, self.names, db, ctx.conf)
@@ -236,6 +247,9 @@ class HashAggregateExec(PlanNode):
         # the group-key tuple is unique by construction, and so is any
         # superset of it; a global aggregate has exactly one row
         return not self.key_exprs or set(self.key_names) <= set(names)
+
+    def static_row_count(self) -> Optional[int]:
+        return 1 if not self.key_exprs else None
 
     def _key_ranges(self):
         out = []

@@ -126,7 +126,13 @@ def cast_to_integral(u: torch.Tensor, scale: int) -> torch.Tensor:
 
 
 def to_double(u: torch.Tensor, scale: int) -> torch.Tensor:
-    return u.to(torch.float64) / float(10 ** scale)
+    """decimal -> DOUBLE: the unscaled value over 10^scale, correctly
+    rounded.  The divisor is a 0-d tensor on `u`'s device: PyTorch's CUDA
+    true division by a Python scalar multiplies by the scalar's
+    reciprocal, which lands 1 ulp off for some values (the reference's
+    XLA rewrite does the same, ROADMAP Queue 3 item 1)."""
+    return u.to(torch.float64) / torch.tensor(
+        float(10 ** scale), dtype=torch.float64, device=u.device)
 
 
 def from_double(x: torch.Tensor, out: t.DecimalType):

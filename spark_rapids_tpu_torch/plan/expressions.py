@@ -1,13 +1,14 @@
 """Expression trees evaluated on torch tensors.
 
 Counterpart of spark_rapids_tpu/plan/expressions.py.  This slice ports
-the device evaluation (`eval_dev`) of what TPC-H q1 and q6 and the
-MIN/MAX/FIRST/LAST group-bys reach: column references, literals,
+the device evaluation (`eval_dev`) of what the ported TPC-H queries and
+the MIN/MAX/FIRST/LAST group-bys reach: column references, literals,
 aliases, + - * (integral, floating and decimal with Spark's result-type
 rules and overflow-to-null), / on doubles, the six comparisons (numeric,
-date and decimal), = and != between a dictionary-coded string column and
-a string literal, Kleene AND/OR/NOT, COALESCE and numeric/decimal
-casts.  Anything
+date and decimal), = and != of a dictionary-coded string column against
+a string literal or another string column, Kleene AND/OR/NOT, IS [NOT]
+NULL, COALESCE, IF, CASE WHEN, IN and numeric/decimal casts (floating to
+integral as the reference truncates and clamps).  Anything
 else reports itself in `unsupported_reasons`, and plan/overrides.py
 refuses the plan with that reason: the port has no CPU engine to fall
 back to yet.
@@ -300,6 +301,13 @@ def _cast_dev(v: torch.Tensor, src: t.DataType, dst: t.DataType):
     return v.to(compute_dtype(dst))
 
 
+def _remap_codes(codes: torch.Tensor, remap: np.ndarray) -> torch.Tensor:
+    """Dictionary codes translated through a host remap table (codes of
+    null rows may be anything: they are clamped into the table)."""
+    table = torch.from_numpy(remap).to(codes.device)
+    return table[torch.clamp(codes, 0, table.shape[0] - 1).long()]
+
+
 class BinaryArithmetic(Expression):
     symbol = "?"
     #: ops/decimal.py result-type rule / kernel; None -> not for decimals
@@ -461,20 +469,21 @@ class BinaryComparison(Expression):
         return None
 
     def unsupported_reasons(self, conf):
-        if any(isinstance(c.dtype, t.StringType) for c in self.children):
-            if type(self) in (EqualTo, NotEqual) and \
-                    self._string_literal_side() is not None:
-                return []
-            return ["string comparisons other than column = / != literal "
-                    "(ordering, column against column) port with the "
-                    "strings slice (ROADMAP Queue 1 item 2)"]
+        if any(isinstance(c.dtype, t.StringType) for c in self.children) \
+                and type(self) not in (EqualTo, NotEqual):
+            return ["string ordering comparisons (<, <=, >, >=) port with "
+                    "the strings slice (ROADMAP Queue 1 item 2)"]
         return []
 
     def _string_op_dev(self, ctx, kids) -> DevVal:
-        """col = / != literal in code space: the literal's code in the
-        column's dictionary (a literal the dictionary lacks matches no
-        row); nulls on either side give null."""
+        """String = / != in code space.  Against a literal: the literal's
+        code in the column's dictionary (a literal the dictionary lacks
+        matches no row).  Between two string values: both sides' codes
+        remapped into one unified dictionary, as the reference's
+        `_prepare_string` does.  Nulls on either side give null."""
         lit_i = self._string_literal_side()
+        if lit_i is None:
+            return self._string_pair_dev(ctx, kids)
         col = kids[1 - lit_i]
         value = self.children[lit_i].value
         if value is None:
@@ -492,6 +501,14 @@ class BinaryComparison(Expression):
             eq = col.data == code
         return DevVal(eq if isinstance(self, EqualTo) else ~eq,
                       col.validity, t.BOOLEAN)
+
+    def _string_pair_dev(self, ctx, kids) -> DevVal:
+        from ..ops.batch_ops import unify_dictionaries
+        l, r = kids
+        _unified, remaps = unify_dictionaries([l.dictionary, r.dictionary])
+        lc, rc = (_remap_codes(v.data, m) for v, m in zip(kids, remaps))
+        return DevVal(self._op_dev(lc, rc),
+                      merge_validity(l.validity, r.validity), t.BOOLEAN)
 
     def _common(self):
         l, r = self.children
@@ -620,6 +637,36 @@ class Not(Expression):
         return DevVal(~kids[0].data, kids[0].validity, t.BOOLEAN)
 
 
+class IsNull(Expression):
+    nullable = False
+
+    def __init__(self, child):
+        self.children = (child,)
+
+    def _resolve(self):
+        self.dtype = t.BOOLEAN
+
+    def _eval_dev(self, ctx, kids):
+        v = kids[0].validity
+        return DevVal(ctx.full(False, torch.bool) if v is None else ~v, None,
+                      t.BOOLEAN)
+
+
+class IsNotNull(Expression):
+    nullable = False
+
+    def __init__(self, child):
+        self.children = (child,)
+
+    def _resolve(self):
+        self.dtype = t.BOOLEAN
+
+    def _eval_dev(self, ctx, kids):
+        v = kids[0].validity
+        return DevVal(ctx.full(True, torch.bool) if v is None else v, None,
+                      t.BOOLEAN)
+
+
 class Coalesce(Expression):
     def __init__(self, *children):
         self.children = tuple(children)
@@ -646,6 +693,157 @@ class Coalesce(Expression):
 
 
 # ---------------------------------------------------------------------------
+# Conditionals and IN
+# ---------------------------------------------------------------------------
+
+class If(Expression):
+    """IF(pred, then, else): a null predicate takes the else branch."""
+
+    def __init__(self, pred, then, other):
+        self.children = (pred, then, other)
+
+    def _resolve(self):
+        _, then, other = self.children
+        self.dtype = then.dtype if not isinstance(then.dtype, t.NullType) \
+            else other.dtype
+
+    def unsupported_reasons(self, conf):
+        if isinstance(self.dtype, t.StringType):
+            return ["string-valued if not yet on device"]
+        return []
+
+    def _eval_dev(self, ctx, kids):
+        p, a, b = kids
+        cond = p.data & valid_or_true(p.validity, ctx.capacity, ctx.device)
+        data = torch.where(cond, _cast_dev(a.data, a.dtype, self.dtype),
+                           _cast_dev(b.data, b.dtype, self.dtype))
+        valid = torch.where(
+            cond, valid_or_true(a.validity, ctx.capacity, ctx.device),
+            valid_or_true(b.validity, ctx.capacity, ctx.device))
+        return DevVal(data, valid, self.dtype)
+
+
+class CaseWhen(Expression):
+    """CASE WHEN c1 THEN v1 [WHEN c2 THEN v2]* [ELSE e] END.  The result
+    type is the first non-null branch value's type, else the else
+    value's (the reference's rule, not Spark's coercion).  A null
+    predicate falls through; with no else, no hit gives null.  String
+    values are remapped into one unified dictionary."""
+
+    def __init__(self, branches, otherwise: Optional[Expression] = None):
+        flat = []
+        for c, v in branches:
+            flat += [c, v]
+        self.n_branches = len(branches)
+        self.has_else = otherwise is not None
+        self.children = tuple(flat) + ((otherwise,) if self.has_else
+                                       else ())
+
+    def _resolve(self):
+        for i in range(self.n_branches):
+            v = self.children[2 * i + 1]
+            if not isinstance(v.dtype, t.NullType):
+                self.dtype = v.dtype
+                break
+        else:
+            self.dtype = self.children[-1].dtype if self.has_else else t.NULL
+
+    def _value_slots(self) -> List[int]:
+        """Indices of the branch-value (and else) children."""
+        out = [2 * i + 1 for i in range(self.n_branches)]
+        if self.has_else:
+            out.append(len(self.children) - 1)
+        return out
+
+    def _unified(self, dicts):
+        """(output dictionary, per-value remaps) of a string CASE."""
+        from ..ops.batch_ops import unify_dictionaries
+        unified, remaps = unify_dictionaries(dicts)
+        if len(unified) == 0:
+            # all-null result: its codes are never read, but the
+            # dictionary must stay indexable
+            unified = np.array([""], str)
+        return unified, remaps
+
+    def _prepare(self, pctx, kids):
+        if not isinstance(self.dtype, t.StringType):
+            return HostVal()
+        for i in self._value_slots():
+            e = self.children[i]
+            if kids[i].dictionary is None and \
+                    not isinstance(e.dtype, t.NullType) and \
+                    not (isinstance(e, Literal) and e.value is None):
+                raise TypeError(
+                    "device CASE over a dictionary-less string value")
+        return HostVal(self._unified(
+            [kids[i].dictionary for i in self._value_slots()])[0])
+
+    def _eval_dev(self, ctx, kids):
+        cap, dev = ctx.capacity, ctx.device
+        vals = [kids[i] for i in self._value_slots()]
+        dictionary = None
+        if isinstance(self.dtype, t.StringType):
+            dictionary, remaps = self._unified([v.dictionary for v in vals])
+            lanes = [_remap_codes(v.data, m) for v, m in zip(vals, remaps)]
+        else:
+            lanes = [_cast_dev(v.data, v.dtype, self.dtype) for v in vals]
+        if self.has_else:
+            data = lanes[-1]
+            valid = valid_or_true(vals[-1].validity, cap, dev)
+        else:
+            data = ctx.full(0, compute_dtype(self.dtype)
+                            if dictionary is None else torch.int32)
+            valid = ctx.full(False, torch.bool)
+        decided = ctx.full(False, torch.bool)
+        for i in range(self.n_branches):
+            c = kids[2 * i]
+            hit = c.data & valid_or_true(c.validity, cap, dev) & ~decided
+            data = torch.where(hit, lanes[i], data)
+            valid = torch.where(hit, valid_or_true(vals[i].validity, cap, dev),
+                                valid)
+            decided = decided | hit
+        if not self.has_else:
+            valid = valid & decided
+        return DevVal(data, valid, self.dtype, dictionary)
+
+
+class In(Expression):
+    """value IN (literals...), with Spark's null semantics: a null value
+    gives null, and so does no match when the list holds a null.  A
+    string value tests its code against a membership mask over its
+    dictionary."""
+
+    def __init__(self, value: Expression, items):
+        self.items = tuple(items)
+        self.children = (value,)
+
+    def _resolve(self):
+        self.dtype = t.BOOLEAN
+
+    def _eval_dev(self, ctx, kids):
+        v = kids[0]
+        non_null = [x for x in self.items if x is not None]
+        has_null_item = len(non_null) < len(self.items)
+        if isinstance(self.children[0].dtype, t.StringType):
+            d = v.dictionary if v.dictionary is not None \
+                else np.array([], str)
+            mask = np.isin(d, np.array(non_null, str)) if len(d) \
+                else np.zeros(1, bool)
+            data = _remap_codes(v.data, mask)
+        else:
+            data = ctx.full(False, torch.bool)
+            for x in non_null:
+                data = data | (v.data == torch.tensor(
+                    x, dtype=v.data.dtype, device=ctx.device))
+        vv = valid_or_true(v.validity, ctx.capacity, ctx.device)
+        valid = vv & data if has_null_item else vv
+        return DevVal(data & vv, valid, t.BOOLEAN)
+
+    def _fp_extra(self):
+        return repr(self.items)
+
+
+# ---------------------------------------------------------------------------
 # Casts (numeric, boolean and decimal)
 # ---------------------------------------------------------------------------
 
@@ -663,8 +861,6 @@ class Cast(Expression):
         if src == dst:
             return []
         numeric = (t.NumericType, t.BooleanType)
-        if t.is_floating(src) and t.is_integral(dst):
-            return ["cast of floating to integral not ported yet"]
         if isinstance(src, numeric) and isinstance(dst, numeric):
             return []
         return [f"cast {src.simple_string}->{dst.simple_string} "
@@ -700,9 +896,26 @@ class Cast(Expression):
             return DevVal(data, merge_validity(valid, ok), dst)
         if isinstance(dst, t.BooleanType):
             data = x != 0
+        elif t.is_floating(src) and t.is_integral(dst):
+            data = _floating_to_integral(x, dst)
         else:
             data = x.to(compute_dtype(dst))
         return DevVal(data, valid, dst)
 
     def _fp_extra(self):
         return self.to.simple_string
+
+
+def _floating_to_integral(x: torch.Tensor, dst: t.DataType) -> torch.Tensor:
+    """The reference's floating -> integral cast: NaN -> 0, truncation
+    toward zero, saturation at the f64 values nearest Long's bounds,
+    then a clamp to the target's bounds in the integer domain (which
+    differs from Java's wrapping narrowing for BYTE and SHORT, as the
+    reference documents)."""
+    f = x.to(torch.float64)
+    f = torch.trunc(torch.where(torch.isnan(f), 0.0, f))
+    i64 = torch.clamp(f, -9.223372036854776e18,
+                      9.223372036854775e18).to(torch.int64)
+    info = np.iinfo(t.physical_np_dtype(dst))
+    return torch.clamp(i64, int(info.min), int(info.max)).to(
+        compute_dtype(dst))

@@ -3,9 +3,10 @@
 Counterpart of spark_rapids_tpu/plan/overrides.py.  The reference wraps,
 tags and converts every operator, falling back to its pyarrow CPU engine
 per operator.  A Limit directly above a Sort becomes TopNExec; inner,
-outer and left semi joins become AdaptiveShuffledJoinExec and left anti
-joins HashJoinExec (every join HashJoinExec with
-`sql.adaptive.enabled=false`), as in the reference.  The reference sends
+outer and left semi joins become AdaptiveShuffledJoinExec, left anti
+joins HashJoinExec (every equi-join HashJoinExec with
+`sql.adaptive.enabled=false`) and cross joins CrossJoinExec, as in the
+reference.  The reference sends
 left semi joins through the adaptive join for its bloom-filter stage;
 the port keeps that plan shape, but with `runtimeFilter` resolved off
 (ops/bloom.py ports later) the route only materializes the probe side
@@ -200,9 +201,12 @@ def _convert(plan: L.LogicalPlan, conf: TpuConf) -> PlanNode:
 
 def _convert_join(plan: "L.LogicalJoin", conf: TpuConf) -> PlanNode:
     from ..exec.adaptive import _MIRROR, AdaptiveShuffledJoinExec
-    from ..exec.join import HashJoinExec, unported_join_reasons
+    from ..exec.join import (CrossJoinExec, HashJoinExec,
+                             unported_join_reasons)
     left = _convert(plan.left, conf)
     right = _convert(plan.right, conf)
+    if plan.join_type == "cross":
+        return CrossJoinExec(left, right)
     lkeys = [k.bind(plan.left.schema) for k in plan.left_keys]
     rkeys = [k.bind(plan.right.schema) for k in plan.right_keys]
     reasons = unported_join_reasons(plan.join_type, lkeys, rkeys, left,

@@ -1,7 +1,7 @@
 """User-facing session + DataFrame API.
 
-Counterpart of spark_rapids_tpu/session.py for what TPC-H q1, q3 and q6
-use:
+Counterpart of spark_rapids_tpu/session.py for what the ported TPC-H
+queries use (`how="cross"` joins included):
 
     s = TpuSession()                     # device "cuda"
     df = s.from_host(batch).filter(E.GreaterThan(col("x"), lit(1))) \\

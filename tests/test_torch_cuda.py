@@ -640,3 +640,36 @@ def test_join_queries_on_the_card_equal_cpu_and_launch_kernels(cuda, query):
             "semi": ("build_table", "probe_first", "compaction_order")}
     for kernel in want[query]:
         assert PH.LAUNCHES[kernel] > 0
+
+
+@pytest.mark.cuda
+def test_decimal_to_double_on_the_card_is_correctly_rounded(cuda):
+    # a true division by a Python scalar multiplies by its reciprocal on
+    # the card; to_double divides, as on the CPU (ROADMAP Queue 3 item 1)
+    from spark_rapids_tpu_torch.ops import decimal as PD
+    rng = np.random.default_rng(9)
+    u = np.concatenate([[96509304917, -16983427970],
+                        rng.integers(-10 ** 12, 10 ** 12, 100_000)])
+    for scale in (2, 6):
+        gpu = PD.to_double(torch.from_numpy(u).to(cuda), scale).cpu().numpy()
+        np.testing.assert_array_equal(gpu.view(np.int64), (
+            u.astype(np.float64) / float(10 ** scale)).view(np.int64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("query", ["q4", "q5", "q7", "q8", "q10", "q11",
+                                   "q12", "q15", "q17", "q18", "q19"])
+def test_later_queries_on_the_card_equal_cpu(cuda, query):
+    # DOUBLE sums may add in another order on the card (segagg's atomics,
+    # a device reduction): those compare within rtol 1e-12
+    from spark_rapids_tpu_torch import tpch
+    from spark_rapids_tpu_torch.session import TpuSession
+    tables = tpch.gen_tables(0.01)
+    cpu, gpu = (tpch.QUERIES[query](TpuSession(device=d), tables)
+                .to_pydict() for d in ("cpu", "cuda"))
+    assert list(gpu) == list(cpu)
+    for name, want in cpu.items():
+        if want and isinstance(want[0], float):
+            np.testing.assert_allclose(gpu[name], want, rtol=1e-12, atol=0)
+        else:
+            assert gpu[name] == want, name

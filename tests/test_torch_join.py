@@ -164,7 +164,8 @@ def test_unported_joins_and_predicates_refuse_naming_their_slice():
     f, d = s.from_arrow(fact), s.from_arrow(dim)
     as_double = [PE.Cast(pcol("fk"), PT.DOUBLE), pcol("x")]
     cases = [
-        (f.join(d, how="cross"), "CrossJoinExec"),
+        (f.join(d, how="right_semi", left_on=["fk"], right_on=["dk"]),
+         "unsupported join type"),
         # keys that are not plain integer columns have no exact range
         (f.join(d, left_on=as_double, right_on=[
             PE.Cast(pcol("dk"), PT.DOUBLE), pcol("w")]), "do not pack"),
@@ -174,7 +175,10 @@ def test_unported_joins_and_predicates_refuse_naming_their_slice():
          "composite"),
         (f.filter(PE.LessThan(pcol("tag"), PE.Literal("q"))),
          "strings slice"),
-        (f.filter(PE.EqualTo(pcol("tag"), pcol("tag"))), "strings slice"),
+        (f.filter(PE.GreaterThanOrEqual(pcol("tag"), pcol("tag"))),
+         "strings slice"),
+        (f.select(PE.If(PE.IsNull(pcol("fk")), pcol("tag"), pcol("tag")),
+                  names=["t"]), "string-valued if"),
     ]
     for df, match in cases:
         with pytest.raises(NotImplementedError, match=match):
