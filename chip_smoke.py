@@ -18,15 +18,17 @@ own failure:
                cut, the reference generator's: partsupp has two
                suppliers a part (4,000,000 rows at SF10), half of the
                spec's four (8,000,000), so m2m's and outer's builds
-               repeat each key twice, not four times.  Four later
+               repeat each key twice, not four times.  Seven later
                queries build a join side over the port's gate of
                8,388,608 rows at SF10 (2 x sql.batchSizeRows; the
                sub-partition join that lifts it is ROADMAP Queue 1 item
-               6): q7, q8 and q12 build on orders (15,000,000 rows) and
-               run at SF5 (7,500,000), q4 on its late lineitem (about
-               30,000,000) and runs at SF1 (about 3,000,000), each from
-               its own gen_tables of the tables it reads (CUT_SCALES).
-               Prints the phase's seconds.
+               6): q7, q8, q9, q12 and q21 build on orders (15,000,000
+               rows; q21's status filter fuses into its semi join's
+               build) and q22 on o_custkey, and run at SF5 (7,500,000),
+               q4 on its late lineitem (about 30,000,000) and runs at
+               SF1 (about 3,000,000), each from its own gen_tables of
+               the tables it reads (CUT_SCALES).  Prints the phase's
+               seconds.
   4. kernels — each kernel against its plain PyTorch version on the
                card, at the shapes the main path gives it.  seg_sums /
                seg_reduce at TPC-H q1's (capacity 4,194,304, the q1 key
@@ -96,19 +98,31 @@ own failure:
                validation bound 300 (`q18_300`: the reference's 7200
                keeps no order) and q11 at TPC-H's fraction 0.0001 / SF
                (`q11_spec`: the reference's 0.0001 keeps no part at
-               SF10), through TpuSession() on cuda, each checked against
+               SF10), and the strings and COUNT(DISTINCT) queries q2,
+               q9, q13, q14, q16, q20, q21 and q22, with q20 also for
+               UNITED STATES (`q20_us`: the reference's CANADA keeps no
+               supplier at SF10; every query of this slice but q20 must
+               return rows), through TpuSession() on cuda, each checked against
                its numpy result (exact int64 decimal sums via a stable
                argsort and np.add.reduceat, HALF_UP averages in Python
-               ints; DOUBLE columns within rtol 1e-12, the README's f64
-               tolerance; q3's top 10 and q18's top 100 compare the
-               tied set on a tie at their last row; the join-path
-               queries expand their pairs with argsort, searchsorted and
-               repeat).  Launch counts are zeroed just before each query
-               and read just after it; each query must have launched
-               the kernels of its path (PATH_KERNELS).  Then wall ms per
+               ints; string predicates by np.char over the
+               dictionaries, q22's prefixes by a '<U2' cast, distinct
+               counts by np.unique over the packed (order, supplier) or
+               (group, supplier) lane; DOUBLE columns within rtol 1e-12,
+               the README's f64 tolerance; q3's top 10 and q18's top 100
+               compare the tied set on a tie at their last row; the
+               join-path queries expand their pairs with argsort,
+               searchsorted and repeat).  Launch counts are zeroed just
+               before each query and read just after it; each query
+               must have launched the kernels of its path
+               (PATH_KERNELS).  Then wall ms per
                query: one cold run, median of 3 warm; the peak device
-               memory of every query that joins; the host-to-device copy
-               rate from pageable memory that the upload sees; and a
+               memory of every query; the host-to-device copy
+               rate from pageable memory that the upload sees; the
+               strings slice's dictionary work, each held to numpy:
+               p_name's and c_phone's byte tensors (host clock),
+               Contains over p_name, Substring over c_phone and q21's
+               distinct count over its lineitem (CUDA events); and a
                torch.profiler breakdown of one warm q1, q3, m2m, q5 and
                q18_300.
   6. result  — a `kernels` JSON line (launches by query over every
@@ -165,7 +179,10 @@ SOURCES = {"seg_sums": "spark_rapids_tpu_torch/csrc/segagg.cu",
 # join of the eleven later queries has a unique build side (probe_first);
 # q4 (5 priorities), q5 (25 nations) and q12 (7 ship modes) group by a
 # dictionary domain (seg_sums), the others by a computed Year or by a
-# key whose range is over segagg.maxDomain (the sorted group-by)
+# key whose range is over segagg.maxDomain (the sorted group-by).  The
+# strings and COUNT(DISTINCT) queries have unique builds too; q22 groups
+# by its 25 phone prefixes (seg_sums), q21 at SF5 by a 50,000-name
+# dictionary (sorted: over denseDomainMax)
 UNIQUE_JOIN = ("build_table", "probe_first", "compaction_order")
 PATH_KERNELS = {"q1": ("seg_sums",), "q6": (),
                 "minmax": ("seg_sums", "seg_reduce"),
@@ -183,7 +200,12 @@ PATH_KERNELS = {"q1": ("seg_sums",), "q6": (),
                 "q15": UNIQUE_JOIN,
                 "q17": UNIQUE_JOIN, "q18": UNIQUE_JOIN,
                 "q18_300": UNIQUE_JOIN, "q19": UNIQUE_JOIN,
-                "q11_spec": UNIQUE_JOIN}
+                "q11_spec": UNIQUE_JOIN,
+                "q2": UNIQUE_JOIN, "q9": UNIQUE_JOIN, "q13": UNIQUE_JOIN,
+                "q14": UNIQUE_JOIN, "q16": UNIQUE_JOIN, "q20": UNIQUE_JOIN,
+                "q20_us": UNIQUE_JOIN,
+                "q21": UNIQUE_JOIN, "q21_vn": UNIQUE_JOIN,
+                "q22": UNIQUE_JOIN + ("seg_sums",)}
 Q3_DATE = (pydt.date(1995, 3, 15) - pydt.date(1970, 1, 1)).days
 # the device launches of one build_layout call, by kernel name: this
 # tree's two passes, and (for an A B B A against an older tree) its
@@ -231,7 +253,7 @@ def flush_l2() -> None:
     _FLUSH[0].zero_()
 
 
-def profiled_ms(fn, fragment=None, reps: int = 20, by_name=None,
+def profiled_ms(fn, fragment=None, reps: int = 10, by_name=None,
                 cold: bool = False):
     """(device ms a call of the kernels whose names hold `fragment` (a
     string, or a tuple of which any one) -- of every device launch of
@@ -280,7 +302,7 @@ def profiled_ms(fn, fragment=None, reps: int = 20, by_name=None,
     return us / 1e3 / reps, launches / reps
 
 
-def cuda_ms(fn, reps: int = 15, warmup: int = 3) -> float:
+def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     """Median device ms of `fn` over `reps` runs, CUDA events each."""
     for _ in range(warmup):
         fn()
@@ -1353,20 +1375,34 @@ def expected_semi(tables):
 # rows, 2 x sql.batchSizeRows: orders has 15,000,000 rows, q4's late
 # lineitem about 30,000,000; the sub-partition join that lifts the gate
 # is ROADMAP Queue 1 item 6) run at the largest round scale under it
-CUT_SCALES = {"q4": 1.0, "q7": 5.0, "q8": 5.0, "q12": 5.0}
+# (q9 builds on orders; q21's semi join with the F orders tables every
+# order, its status filter fused into the build; q22's anti join builds
+# on o_custkey, 15,000,000 rows)
+CUT_SCALES = {"q4": 1.0, "q7": 5.0, "q8": 5.0, "q12": 5.0, "q9": 5.0,
+              "q21": 5.0, "q22": 5.0}
 #: the tables each cut query reads
 LATER_TABLES = {"q4": ("orders", "lineitem"),
                 "q7": ("nation", "supplier", "orders", "customer",
                        "lineitem"),
                 "q8": ("region", "nation", "part", "supplier", "orders",
                        "customer", "lineitem"),
-                "q12": ("orders", "lineitem")}
+                "q12": ("orders", "lineitem"),
+                "q9": ("nation", "part", "partsupp", "supplier", "orders",
+                       "lineitem"),
+                "q21": ("nation", "supplier", "orders", "lineitem"),
+                "q22": ("customer", "orders")}
+#: the queries of the strings and COUNT(DISTINCT) slice, and q20 for
+#: UNITED STATES (`q20_us`): the reference's CANADA keeps no supplier at
+#: SF10.  Each but q20 must carry rows on the card
+STRING_QUERIES = ("q2", "q9", "q13", "q14", "q16", "q20", "q20_us", "q21",
+                  "q22")
 LATER_QUERIES = ("q4", "q5", "q7", "q8", "q10", "q11", "q11_spec", "q12",
-                 "q15", "q17", "q18", "q18_300", "q19")
+                 "q15", "q17", "q18", "q18_300", "q19") + STRING_QUERIES
 #: the DOUBLE result columns, held to numpy within rtol 1e-12
 DOUBLE_COLUMNS = {"q8": ("mkt_share",), "q11": ("value",),
                   "q11_spec": ("value",), "q15": ("total_revenue",),
-                  "q17": ("avg_yearly",)}
+                  "q17": ("avg_yearly",), "q14": ("promo_revenue",),
+                  "q22": ("totacctbal",)}
 
 
 def later_query(name: str, scale: float):
@@ -1379,6 +1415,8 @@ def later_query(name: str, scale: float):
         return functools.partial(tpch.q18, bound=300.0)
     if name == "q11_spec":
         return functools.partial(tpch.q11, fraction=0.0001 / scale)
+    if name == "q20_us":
+        return functools.partial(tpch.q20, nation="UNITED STATES")
     return tpch.QUERIES[name]
 
 
@@ -1660,11 +1698,236 @@ def expected_q19(t):
     return {"revenue": [int(_revenue(li, rows[keep]).sum())]}
 
 
+def _entries(c, test) -> np.ndarray:
+    """A per-row bool of a string column from a test over its
+    dictionary's entries (np.char)."""
+    return test(c.dictionary)[c.data]
+
+
+def _in_region(t, region: str) -> np.ndarray:
+    """Per nation key: the nation lies in `region`."""
+    keys = _col(t["region"], "r_regionkey").data[
+        _names(_col(t["region"], "r_name")) == region]
+    return np.isin(_col(t["nation"], "n_regionkey").data, keys)
+
+
+def _strs(c, rows) -> list:
+    return [str(v) for v in c.dictionary[c.data[rows]]]
+
+
+def expected_q2(t):
+    part, supp, ps, nation = (t[n] for n in (
+        "part", "supplier", "partsupp", "nation"))
+    for hb, key in ((part, "p_partkey"), (supp, "s_suppkey"),
+                    (nation, "n_nationkey")):
+        _pk(hb, key)
+    brass = _entries(_col(part, "p_type"),
+                     lambda d: np.char.endswith(d, "BRASS")) & \
+        (_col(part, "p_size").data == 15)
+    snation = _col(supp, "s_nationkey").data
+    pk, sk = _col(ps, "ps_partkey").data, _col(ps, "ps_suppkey").data
+    rows = np.flatnonzero(brass[pk] & _in_region(t, "EUROPE")[snation[sk]])
+    cost = _col(ps, "ps_supplycost").data[rows]
+    least = np.full(part.num_rows, np.iinfo(np.int64).max)
+    np.minimum.at(least, pk[rows], cost)
+    rows = rows[cost == least[pk[rows]]]
+    p, s_ = pk[rows], sk[rows]
+    acct = _col(supp, "s_acctbal").data[s_]
+    nname, sname = _col(nation, "n_name"), _col(supp, "s_name")
+    # the sorted dictionaries' codes order the names
+    top = np.lexsort((p, sname.data[s_], nname.data[snation[s_]],
+                      -acct))[:100]
+    p, s_ = p[top], s_[top]
+    return {"s_acctbal": acct[top].tolist(), "s_name": _strs(sname, s_),
+            "n_name": _strs(nname, snation[s_]), "p_partkey": p.tolist(),
+            "p_mfgr": _strs(_col(part, "p_mfgr"), p),
+            "s_address": _strs(_col(supp, "s_address"), s_),
+            "s_phone": _strs(_col(supp, "s_phone"), s_)}
+
+
+def _ps_rows(t, parts, supps):
+    """partsupp's row of each (part, supplier) pair, and whether it has
+    one, by argsort and searchsorted over the packed pair."""
+    ps, n_supp = t["partsupp"], t["supplier"].num_rows
+    packed = _col(ps, "ps_partkey").data * n_supp + \
+        _col(ps, "ps_suppkey").data
+    order = np.argsort(packed, kind="stable")
+    key = parts * n_supp + supps
+    at = np.clip(np.searchsorted(packed[order], key), 0, len(order) - 1)
+    return order[at], packed[order][at] == key
+
+
+def expected_q9(t):
+    part, supp, orders, nation, li = (t[n] for n in (
+        "part", "supplier", "orders", "nation", "lineitem"))
+    for hb, key in ((part, "p_partkey"), (supp, "s_suppkey"),
+                    (orders, "o_orderkey"), (nation, "n_nationkey")):
+        _pk(hb, key)
+    green = _entries(_col(part, "p_name"),
+                     lambda d: np.char.find(d, "green") >= 0)
+    lp, ls = _col(li, "l_partkey").data, _col(li, "l_suppkey").data
+    rows = np.flatnonzero(green[lp])
+    ps_row, hit = _ps_rows(t, lp[rows], ls[rows])
+    rows, ps_row = rows[hit], ps_row[hit]
+    amount = _revenue(li, rows) - \
+        _col(t["partsupp"], "ps_supplycost").data[ps_row] * \
+        _col(li, "l_quantity").data[rows]
+    nname = _col(nation, "n_name")
+    code = nname.data[_col(supp, "s_nationkey").data[ls[rows]]]
+    year = _year(_col(orders, "o_orderdate").data[
+        _col(li, "l_orderkey").data[rows]])
+    order, keys, starts = _groups(code.astype(np.int64) * 10_000 + year)
+    sums = np.add.reduceat(amount[order], starts)
+    rank = np.lexsort((-(keys % 10_000), keys // 10_000))
+    return {"n_name": [str(nname.dictionary[k]) for k in
+                       keys[rank] // 10_000],
+            "o_year": (keys[rank] % 10_000).tolist(),
+            "sum_profit": sums[rank].tolist()}
+
+
+def expected_q13(t):
+    orders, cust = t["orders"], t["customer"]
+    _pk(cust, "c_custkey")
+    keep = ~_entries(_col(orders, "o_comment"), lambda d: (
+        np.char.find(d, "special") >= 0) & (np.char.find(d, "requests") >= 0))
+    per_cust = np.bincount(_col(orders, "o_custkey").data[keep],
+                           minlength=cust.num_rows)
+    hist = np.bincount(per_cust)
+    counts = np.flatnonzero(hist)
+    rank = np.lexsort((-counts, -hist[counts]))
+    return {"c_count": counts[rank].tolist(),
+            "custdist": hist[counts][rank].tolist()}
+
+
+def expected_q14(t):
+    part, li = t["part"], t["lineitem"]
+    _pk(part, "p_partkey")
+    rows = np.flatnonzero(_between(_col(li, "l_shipdate").data,
+                                   pydt.date(1995, 9, 1),
+                                   pydt.date(1995, 10, 1)))
+    promo = _entries(_col(part, "p_type"), lambda d: np.char.startswith(
+        d, "PROMO"))[_col(li, "l_partkey").data[rows]]
+    revenue = _revenue(li, rows)
+    # both sums are below 2^53: their DOUBLE casts are one rounding each
+    return {"promo_revenue": [100.0 * (float(revenue[promo].sum()) / 1e4) /
+                              (float(revenue.sum()) / 1e4)]}
+
+
+def expected_q16(t):
+    supp, part, ps = t["supplier"], t["part"], t["partsupp"]
+    for hb, key in ((part, "p_partkey"), (supp, "s_suppkey")):
+        _pk(hb, key)
+    bad = _entries(_col(supp, "s_comment"), lambda d: (
+        np.char.find(d, "Customer") >= 0) &
+        (np.char.find(d, "Complaints") >= 0))
+    brand, ptype = _col(part, "p_brand"), _col(part, "p_type")
+    size = _col(part, "p_size").data
+    keep = (_names(brand) != "Brand#45") & ~_entries(
+        ptype, lambda d: np.char.startswith(d, "MEDIUM POLISHED")) & \
+        np.isin(size, [49, 14, 23, 45, 19, 3, 36, 9])
+    pk, sk = _col(ps, "ps_partkey").data, _col(ps, "ps_suppkey").data
+    rows = np.flatnonzero(~bad[sk] & keep[pk])
+    p = pk[rows]
+    n_type, n_supp = len(ptype.dictionary), supp.num_rows
+    group = (brand.data[p].astype(np.int64) * n_type + ptype.data[p]) * 64 \
+        + size[p]
+    # COUNT(DISTINCT supplier): unique (group, supplier) pairs per group
+    pairs = np.unique(group * n_supp + sk[rows])
+    keys, counts = np.unique(pairs // n_supp, return_counts=True)
+    b, ty, sz = keys // 64 // n_type, keys // 64 % n_type, keys % 64
+    rank = np.lexsort((sz, ty, b, -counts))
+    return {"p_brand": [str(v) for v in brand.dictionary[b[rank]]],
+            "p_type": [str(v) for v in ptype.dictionary[ty[rank]]],
+            "p_size": sz[rank].tolist(), "supplier_cnt": counts[rank].tolist()}
+
+
+def expected_q20(t, nation: str = "CANADA"):
+    part, supp, ps, li = (t[n] for n in (
+        "part", "supplier", "partsupp", "lineitem"))
+    for hb, key in ((part, "p_partkey"), (supp, "s_suppkey"),
+                    (t["nation"], "n_nationkey")):
+        _pk(hb, key)
+    green = _entries(_col(part, "p_name"),
+                     lambda d: np.char.startswith(d, "green"))
+    rows = np.flatnonzero(_between(_col(li, "l_shipdate").data,
+                                   pydt.date(1994, 1, 1),
+                                   pydt.date(1995, 1, 1)))
+    n_supp = supp.num_rows
+    order, keys, starts = _groups(
+        _col(li, "l_partkey").data[rows] * n_supp +
+        _col(li, "l_suppkey").data[rows])
+    half = 0.5 * _double(np.add.reduceat(
+        _col(li, "l_quantity").data[rows][order], starts))
+    pk, sk = _col(ps, "ps_partkey").data, _col(ps, "ps_suppkey").data
+    at = np.clip(np.searchsorted(keys, pk * n_supp + sk), 0, len(keys) - 1)
+    ok = (keys[at] == pk * n_supp + sk) & green[pk] & \
+        (_col(ps, "ps_availqty").data.astype(np.float64) > half[at])
+    home = _names(_col(t["nation"], "n_name")) == nation
+    chosen = np.flatnonzero(home[_col(supp, "s_nationkey").data] &
+                            np.isin(np.arange(n_supp), sk[ok]))
+    name = _col(supp, "s_name")
+    chosen = chosen[np.argsort(name.data[chosen], kind="stable")]
+    return {"s_name": _strs(name, chosen),
+            "s_address": _strs(_col(supp, "s_address"), chosen)}
+
+
+def distinct_suppliers(li, n_orders: int, n_supp: int, mask=None):
+    """Per order, its distinct suppliers: np.unique over the packed
+    (order, supplier) lane of the rows in `mask`."""
+    o, s_ = _col(li, "l_orderkey").data, _col(li, "l_suppkey").data
+    if mask is not None:
+        o, s_ = o[mask], s_[mask]
+    pairs = np.unique(o * n_supp + s_)
+    return np.bincount(pairs // n_supp, minlength=n_orders)
+
+
+def expected_q21(t, nation: str = "SAUDI ARABIA"):
+    supp, orders, li = t["supplier"], t["orders"], t["lineitem"]
+    for hb, key in ((supp, "s_suppkey"), (orders, "o_orderkey"),
+                    (t["nation"], "n_nationkey")):
+        _pk(hb, key)
+    n_supp = supp.num_rows
+    late = _col(li, "l_receiptdate").data > _col(li, "l_commitdate").data
+    n_all = distinct_suppliers(li, orders.num_rows, n_supp)
+    n_late = distinct_suppliers(li, orders.num_rows, n_supp, late)
+    status = _col(orders, "o_orderstatus")
+    failed = status.data == _code(status, "F")
+    home = (_names(_col(t["nation"], "n_name")) == nation)[
+        _col(supp, "s_nationkey").data]
+    o, s_ = _col(li, "l_orderkey").data, _col(li, "l_suppkey").data
+    rows = np.flatnonzero(late & home[s_] & failed[o] & (n_all[o] > 1) &
+                          (n_late[o] == 1))
+    waits = np.bincount(s_[rows], minlength=n_supp)
+    sups = np.flatnonzero(waits)
+    name = _col(supp, "s_name")
+    top = sups[np.lexsort((name.data[sups], -waits[sups]))][:100]
+    return {"s_name": _strs(name, top), "numwait": waits[top].tolist()}
+
+
+def expected_q22(t):
+    cust, orders = t["customer"], t["orders"]
+    _pk(cust, "c_custkey")
+    phone = _col(cust, "c_phone")
+    code = phone.dictionary.astype("<U2")[phone.data]
+    chosen = np.isin(code, ["13", "31", "23", "29", "30", "18", "17"])
+    bal = _double(_col(cust, "c_acctbal").data)
+    avg = bal[chosen & (bal > 0.0)].mean()
+    ordered = np.zeros(cust.num_rows, bool)
+    ordered[_col(orders, "o_custkey").data] = True
+    rows = np.flatnonzero(chosen & (bal > avg) & ~ordered)
+    order, codes, starts = _groups(code[rows])
+    return {"cntrycode": [str(c) for c in codes],
+            "numcust": np.diff(np.r_[starts, len(rows)]).tolist(),
+            "totacctbal": np.add.reduceat(bal[rows][order], starts).tolist()}
+
+
 def expected_later(name: str, tables, scale: float):
     if name == "q18_300":
         return expected_q18(tables, 300.0)
     if name == "q11_spec":
         return expected_q11(tables, 0.0001 / scale)
+    if name == "q20_us":
+        return expected_q20(tables, "UNITED STATES")
     return globals()[f"expected_{name}"](tables)
 
 
@@ -1785,9 +2048,8 @@ def path_phase(tables, want, later, scale: float):
         cold[name] = (time.perf_counter() - t0) * 1e3
         launches[name] = dict(LAUNCHES)
         lanes = lanes_of(got)
-        if "build_table" in PATH_KERNELS[name]:
-            log(f"[path] {name} (SF{sc:g}) peak device memory "
-                f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        log(f"[path] {name} (SF{sc:g}) peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
         if name == "q3":
             check_top(name, lanes, want[name])
         elif name in later:
@@ -1795,6 +2057,8 @@ def path_phase(tables, want, later, scale: float):
         else:
             check(lanes == want[name], f"{name} differs from the numpy "
                   f"reference:\n{lanes}\n{want[name]}")
+        if name in STRING_QUERIES and name != "q20":
+            check(got.num_rows > 0, f"{name} returned no row at SF{sc:g}")
         log(f"[path] {name} (SF{sc:g}): {got.num_rows} rows equal the numpy "
             f"reference; kernel launches {launches[name]}")
         for k in PATH_KERNELS[name]:
@@ -1812,6 +2076,80 @@ def path_phase(tables, want, later, scale: float):
             f"{statistics.median(warm):.1f} ms (SF{sc:g}, lineitem rows "
             f"{tabs['lineitem'].num_rows})")
     return launches
+
+
+def _host_ms(fn, reps: int = 3) -> float:
+    """Median host-clock ms of `fn` over `reps` runs, each ending in a
+    device synchronize (for work with host steps: uploads, fetches)."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def strings_phase(dev, tables, later) -> None:
+    """The dictionary work of the strings slice at the main path's sizes,
+    each result held to numpy: p_name's and c_phone's byte tensors (the
+    code points' upload and the device encoding), Contains over p_name
+    (q9's), Substring over c_phone (q22's), and q21's COUNT(DISTINCT)
+    supplier per order over its lineitem."""
+    from spark_rapids_tpu_torch.columnar.device import to_device
+    from spark_rapids_tpu_torch.ops import strings as S
+    from spark_rapids_tpu_torch.ops.distinct import distinct_count_trace
+    byte_tensors = {}
+    for table, name in (("part", "p_name"), ("customer", "c_phone")):
+        d = _col(tables[table], name).dictionary
+        byte_tensors[name] = S.dict_byte_tensors(d, dev)
+        offsets, bytes_ = byte_tensors[name]
+        check(bytes(bytes_.cpu().numpy()) == "".join(d.tolist()).encode(
+            "utf-8"), f"{name}'s UTF-8 bytes differ from Python's encoding")
+        ms = _host_ms(lambda: S.dict_byte_tensors(d, dev))
+        log(f"[strings] {name} byte tensors ({len(d)} entries, "
+            f"{int(offsets[-1])} bytes): {ms:.2f} ms (host clock: the "
+            "code points' upload and the device encoding)")
+    d = _col(tables["part"], "p_name").dictionary
+    offsets, bytes_ = byte_tensors["p_name"]
+    mask = S.match_contains(offsets, bytes_, b"green")
+    check(np.array_equal(mask.cpu().numpy(), np.char.find(d, "green") >= 0),
+          "Contains(p_name, 'green') differs from np.char.find")
+    ms = cuda_ms(lambda: S.match_contains(offsets, bytes_, b"green"))
+    log(f"[strings] Contains over p_name: {ms:.4f} ms device "
+        f"({int(mask.sum())} of {len(d)} entries)")
+    d = _col(tables["customer"], "c_phone").dictionary
+    tensors = byte_tensors["c_phone"]
+    out, remap = S.transform_dict_device(d, "substr", (1, 2), dev,
+                                         byte_tensors=tensors)
+    want = d.astype("<U2")
+    check(np.array_equal(out, np.unique(want)) and np.array_equal(
+        out[remap.cpu().numpy()], want), "Substring(c_phone, 1, 2) differs "
+        "from numpy's two-character prefixes")
+    ms = cuda_ms(lambda: S.transform_dict_device(
+        d, "substr", (1, 2), dev, byte_tensors=tensors), reps=5, warmup=1)
+    log(f"[strings] Substring(c_phone, 1, 2) over {len(d)} entries: "
+        f"{ms:.4f} ms (events; its host fetch included) -> {len(out)} "
+        "sorted unique entries")
+    sc, t21 = later["q21"]
+    li = t21["lineitem"].select(["l_orderkey", "l_suppkey"])
+    db = to_device(li, device=dev)
+    okey, skey = db.column(0), db.column(1)
+    n_orders, n_supp = t21["orders"].num_rows, t21["supplier"].num_rows
+    fn = distinct_count_trace(
+        [(okey.dtype, True, okey.data.dtype)], db.capacity, db.capacity,
+        pack_spec=[(0, n_orders + 1)], val_range=(0, n_supp - 1))
+    live = db.row_mask()
+    _keys, (cnt, _ok), groups = fn([okey.data], [okey.validity], skey, live)
+    want = distinct_suppliers(t21["lineitem"], n_orders, n_supp)
+    check(np.array_equal(cnt[:int(groups)].cpu().numpy(), want[want > 0]),
+          "q21's distinct suppliers per order differ from np.unique")
+    ms = cuda_ms(lambda: fn([okey.data], [okey.validity], skey, live),
+                 reps=3, warmup=1)
+    log(f"[strings] q21 COUNT(DISTINCT l_suppkey) by l_orderkey over "
+        f"{li.num_rows} rows (SF{sc:g}, one packed sort lane): {ms:.2f} ms "
+        "device (events)")
 
 
 # device kernel name fragment -> the part it counts toward (first match)
@@ -1932,6 +2270,7 @@ def main() -> int:
         launches = path_phase(tables, want, later, args.scale)
         log(f"[path] upload copy rate (pageable host to device, 32 MiB "
             f"copies): {upload_rate(dev):.2f} GB/s")
+        strings_phase(dev, tables, later)
         profile_phase(tables, args.scale)
     rows = []
     for name in TPU_KERNELS:

@@ -1193,7 +1193,7 @@ HONOURED_KEYS = frozenset(e.key for e in (
     BUCKET_GROWTH, ADAPTIVE_ENABLED, IMPROVED_FLOAT_OPS,
     DENSE_AGG_DOMAIN_MAX, DENSE_AGG_VIA_SORT, PALLAS_ENABLED, PALLAS_JOIN,
     PALLAS_SEGAGG, PALLAS_COMPACT, PALLAS_SEGAGG_MAX_DOMAIN,
-    PALLAS_JOIN_MAX_BUILD))
+    PALLAS_JOIN_MAX_BUILD, STRING_TRANSFORM_DEVICE_MIN))
 
 #: keys the port resolves to one behaviour for now -> what it does
 RESOLVED = {

@@ -21,7 +21,7 @@ from ..plan.expressions import DevVal, EvalCtx, Expression, PrepCtx
 def _prepare(exprs: Sequence[Expression], db: DeviceBatch, conf: TpuConf):
     """Host phase: -> (PrepCtx, per-expression HostVal)."""
     dicts = {n: c.dictionary for n, c in zip(db.names, db.columns)}
-    pctx = PrepCtx(conf, dicts)
+    pctx = PrepCtx(conf, dicts, db.device)
     return pctx, [e.prepare(pctx) for e in exprs]
 
 

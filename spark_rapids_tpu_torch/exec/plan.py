@@ -32,7 +32,7 @@ from ..columnar.host import HostBatch, HostColumn, concat_host
 from ..config import DEFAULT_CONF, TpuConf
 from ..ops.batch_ops import concat_batches, shrink_to_capacity
 from ..plan import expressions as E
-from ..plan.aggregates import AggregateFunction
+from ..plan.aggregates import AggregateFunction, Min
 from .aggregate import HashAggregate
 from .evaluator import compute_predicate, evaluate_projection
 
@@ -241,6 +241,12 @@ class HashAggregateExec(PlanNode):
         if name in self.key_names:
             ref = _key_ref_name(self.key_exprs[self.key_names.index(name)])
             return None if ref is None else self.child.column_range(ref)
+        # MIN and MAX (a Min) select existing values: a plain column's
+        # range bounds them (q2 joins on its MIN(ps_supplycost))
+        for fn, out_name in self.aggs:
+            if out_name == name and isinstance(fn, Min):
+                ref = _key_ref_name(fn.child)
+                return None if ref is None else self.child.column_range(ref)
         return None
 
     def keys_unique(self, names):

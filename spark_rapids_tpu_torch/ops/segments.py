@@ -18,7 +18,9 @@ run's last row (scan + gather, no scatter):
     already within any cap and the result is the same permutation;
   * `sorted_segments`: the sort-segment core — the keys' lexsort, the
     run boundaries, each run's first and last row and its group key —
-    that `ops/groupby.groupby_trace` aggregates over.
+    that `ops/groupby.groupby_trace` and `ops/distinct.py` reduce over;
+    its minor lanes order rows within a group, and `pack_minor_spec`
+    folds bounded ones into the group keys' single sort lane.
 """
 from __future__ import annotations
 
@@ -167,16 +169,44 @@ class SegRuns(NamedTuple):
     group_live: torch.Tensor
 
 
+def pack_minor_spec(minor_lanes, minor_spec):
+    """Fold statically bounded minor lanes into (packed lane, span), or
+    (None, 1) when any lane is unbounded.  minor_spec entries are (lo,
+    span) with every lane value in [lo, lo + span); minor_lanes come
+    most-minor FIRST, so lane i's stride is the span product of the lanes
+    minor to it and the packed integer order IS the lexsort order."""
+    if minor_spec is None or len(minor_spec) != len(minor_lanes) or \
+            any(s is None for s in minor_spec):
+        return None, 1
+    total = 1
+    for _lo, span in minor_spec:
+        total *= int(span)
+    if total >= (1 << 31):
+        return None, 1
+    packed = None
+    stride = 1
+    for lane, (lo, span) in zip(minor_lanes, minor_spec):
+        slot = torch.clamp(lane.to(torch.int64) - int(lo), 0, int(span) - 1)
+        packed = slot * stride if packed is None else packed + slot * stride
+        stride *= int(span)
+    return packed, total
+
+
 def sorted_segments(key_lanes_info, keys, keys_valid, live, capacity: int,
-                    num_segments: int, pack_spec=None) -> SegRuns:
-    """Order rows by (dead last, group keys) and find the group runs.
-    Keys with a `pack_spec` entry (lo, span) fold into one packed sort
-    lane (ops/groupby._packed_key_lane), the others sort by their
-    null-first lanes; a run opens wherever a sort lane or liveness
+                    num_segments: int, pack_spec=None, minor_lanes=(),
+                    minor_spec=None) -> SegRuns:
+    """Order rows by (dead last, group keys, minor lanes) and find the
+    group runs.  Keys with a `pack_spec` entry (lo, span) fold into one
+    packed sort lane (ops/groupby._packed_key_lane), the others sort by
+    their null-first lanes; a run opens wherever a key lane or liveness
     changes, so the first padding row opens its own dead run.  Each
-    group's key is its run's first row.  The reference's minor lanes
-    (order within a group, for percentile, count-distinct and collect)
-    port with those aggregates."""
+    group's key is its run's first row.
+
+    `minor_lanes` (most-minor first) order the rows WITHIN a group and
+    open no run: count-distinct's value and null lanes.  When every key
+    packs and `minor_spec` bounds every minor lane (pack_minor_spec),
+    keys, liveness and minor lanes fold into ONE int64 lane and the
+    whole order is one sort, as the reference's packed path."""
     from .filter import grouped_take, take_keys_valid
     from .groupby import _eq_prev, _null_first_key_lanes, _packed_key_lane
     from .kernels import compute_view
@@ -190,14 +220,36 @@ def sorted_segments(key_lanes_info, keys, keys_valid, live, capacity: int,
         if i not in packed_idx:
             lanes.extend(l for l in _null_first_key_lanes(
                 compute_view(kd, dt), kv, dt) if l is not None)
-    # np.lexsort order (LAST lane primary), liveness first
-    perm = lexsort_capped(list(reversed(lanes)) + [(~live).to(torch.int8)])
-    s_keys, s_keys_valid, (s_live,) = take_keys_valid(
-        keys, keys_valid, [live], perm)
-    boundary = row0_true(capacity, dev)
-    for lane in grouped_take(lanes, perm):
-        boundary = boundary | _eq_prev(lane)
-    boundary = boundary | _eq_prev(s_live)
+    fused = None
+    if minor_lanes and len(packed_idx) == len(keys):
+        minor_packed, minor_total = pack_minor_spec(minor_lanes, minor_spec)
+        total = 1
+        for i in packed_idx:
+            total *= int(pack_spec[i][1])
+        if minor_packed is not None and \
+                (total + 1) * minor_total < (1 << 62):
+            key = lanes[0] if lanes else torch.zeros(
+                capacity, dtype=torch.int64, device=dev)
+            # dead rows take the key past every group's: they sort last
+            key = torch.where(live, key, torch.full_like(key, total))
+            fused = key * minor_total + minor_packed
+    if fused is not None:
+        s_fused, perm = torch.sort(fused, stable=True)
+        s_key = torch.div(s_fused, minor_total, rounding_mode="floor")
+        s_live = s_key < total
+        s_keys, s_keys_valid, _ = take_keys_valid(keys, keys_valid, [],
+                                                  perm)
+        boundary = _eq_prev(s_key)
+    else:
+        # np.lexsort order (LAST lane primary), liveness first
+        perm = lexsort_capped(list(minor_lanes) + list(reversed(lanes)) +
+                              [(~live).to(torch.int8)])
+        s_keys, s_keys_valid, (s_live,) = take_keys_valid(
+            keys, keys_valid, [live], perm)
+        boundary = row0_true(capacity, dev)
+        for lane in grouped_take(lanes, perm):
+            boundary = boundary | _eq_prev(lane)
+        boundary = boundary | _eq_prev(s_live)
     seg_ids = torch.cumsum(boundary.to(torch.int32), 0,
                            dtype=torch.int32) - 1
     count = live.sum(dtype=torch.int32)

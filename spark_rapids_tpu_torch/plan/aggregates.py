@@ -7,8 +7,8 @@ the evaluate expression over the merged buffers — so partial, merge and
 final phases all run through the same group-by kernels.
 
 This slice ports Count, Sum, Average (decimal averages finish with
-exact HALF_UP integer arithmetic), Min, Max, First, Last, BoolAnd and
-BoolOr.
+exact HALF_UP integer arithmetic), Min, Max, First, Last, BoolAnd,
+BoolOr and CountDistinct (which exec/distinct.py runs).
 """
 from __future__ import annotations
 
@@ -257,6 +257,29 @@ class BoolAnd(AggregateFunction):
 class BoolOr(BoolAnd):
     name = "bool_or"
     _kind = G.ANY
+
+
+class CountDistinct(AggregateFunction):
+    """count(DISTINCT x): never null, 0 for an empty group.  It has no
+    update/merge buffers: an aggregation whose functions are all
+    CountDistinct runs exec/distinct.py's sorted count instead of the
+    hash aggregate (plan/overrides.py)."""
+    name = "count_distinct"
+
+    def _resolve(self):
+        self.dtype = t.LONG
+        self.nullable = False
+
+    def inputs(self):
+        return [self.child]
+
+    def unsupported_reasons(self, conf):
+        out = AggregateFunction.unsupported_reasons(self, conf)
+        dt = self.child.dtype
+        if isinstance(dt, t.DecimalType) and dt.is_wide:
+            out.append("count(DISTINCT) over decimal128 "
+                       "(no single device lane)")
+        return out
 
 
 def _resolved(e: E.Expression) -> E.Expression:

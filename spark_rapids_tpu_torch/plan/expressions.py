@@ -38,11 +38,14 @@ from ..ops.kernels import compute_dtype, merge_validity, valid_or_true
 
 
 class PrepCtx:
-    """Host-phase context: the batch's dictionaries."""
+    """Host-phase context: the batch's dictionaries and its device (where
+    a dictionary transform rewrites a large dictionary)."""
 
-    def __init__(self, conf: TpuConf, dicts: Dict[str, Optional[np.ndarray]]):
+    def __init__(self, conf: TpuConf, dicts: Dict[str, Optional[np.ndarray]],
+                 device=None):
         self.conf = conf
         self.dicts = dicts            # input column name -> dictionary
+        self.device = device
 
 
 class HostVal:

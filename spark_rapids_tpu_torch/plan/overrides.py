@@ -2,7 +2,9 @@
 
 Counterpart of spark_rapids_tpu/plan/overrides.py.  The reference wraps,
 tags and converts every operator, falling back to its pyarrow CPU engine
-per operator.  A Limit directly above a Sort becomes TopNExec; inner,
+per operator.  A Limit directly above a Sort becomes TopNExec; an
+aggregate whose functions are all CountDistinct becomes
+DistinctAggregateExec (a mix with other aggregates refuses); inner,
 outer and left semi joins become AdaptiveShuffledJoinExec, left anti
 joins HashJoinExec (every equi-join HashJoinExec with
 `sql.adaptive.enabled=false`) and cross joins CrossJoinExec, as in the
@@ -33,6 +35,7 @@ from ..exec.plan import (ExecContext, FilterExec, HashAggregateExec,
                          SortExec, TopNExec, key_ref_names)
 from . import expressions as E
 from . import logical as L
+from .aggregates import CountDistinct
 
 
 def _expr_refs(e, out: set) -> None:
@@ -182,7 +185,18 @@ def _convert(plan: L.LogicalPlan, conf: TpuConf) -> PlanNode:
                                " keys are not supported")
         for fn, _n in plan.aggs:
             reasons += fn.bind(schema_in).unsupported_reasons(conf)
+        distinct = [isinstance(fn, CountDistinct) for fn, _n in plan.aggs]
+        if any(distinct) and not all(distinct):
+            reasons.append(
+                "count(DISTINCT) beside other aggregates runs the CPU "
+                "engine in the reference, which is not ported yet (ROADMAP "
+                "Queue 1 item 2)")
         _refuse("Aggregate", reasons)
+        if distinct and all(distinct):
+            from ..exec.distinct import DistinctAggregateExec
+            return DistinctAggregateExec(plan.keys, plan.key_names,
+                                         plan.aggs,
+                                         _convert(plan.child, conf))
         return HashAggregateExec(plan.keys, plan.key_names, plan.aggs,
                                  _convert(plan.child, conf))
     if type(plan) is L.LogicalSort:

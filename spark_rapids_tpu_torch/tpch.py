@@ -11,25 +11,38 @@ dictionary-encode without per-row string work.
 `tables` names the tables to materialise; every draw still happens, so
 any subset is value-identical to the full set.
 
-Ported queries (`QUERIES`, 14 of the 22), each the reference's text:
-q1 (pricing summary: filter + group-by + sort), q3 (shipping priority:
-two joins, a high-cardinality group-by, top 10), q4 (order priority: a
-left semi join), q5 (local supplier volume: a six-way join and a
-column = column filter), q6 (forecast revenue change: filter + global
-aggregate), q7 (volume shipping: nation joined twice, IN, string
-column != column, a Year key), q8 (market share: CASE WHEN over
-DOUBLE volumes per Year), q10 (returned items: top 20), q11 (important
-stock: HAVING against a scalar subquery through a cross join), q12
-(shipping modes: IN and CASE WHEN sums), q15 (top supplier: an
-aggregate view read twice, its MAX through a cross join), q17
-(small-quantity revenue: a per-part average joined back), q18 (large
-volume customers: a HAVING through a join, top 100) and q19 (discounted
-revenue: an OR of ANDs with IN).  q18's HAVING bound is the
-reference's 7200.0, which no order of this generator reaches, so it
-returns no row; `q18(s, t, bound=300.0)`, TPC-H's validation value,
-runs the same plan with rows in its join and top-N.  Likewise q11's
-fraction is the reference's 0.0001 (TPC-H's at SF1), which keeps no
-part at SF10; `q11(s, t, fraction=0.0001 / sf)` is the spec's.
+The 22 queries (`QUERIES`), each the reference's text: q1 (pricing
+summary: filter + group-by + sort), q2 (minimum-cost supplier: EndsWith,
+a MIN joined back on (part, cost)), q3 (shipping priority: two joins, a
+high-cardinality group-by, top 10), q4 (order priority: a left semi
+join), q5 (local supplier volume: a six-way join and a column = column
+filter), q6 (forecast revenue change: filter + global aggregate), q7
+(volume shipping: nation joined twice, IN, string column != column, a
+Year key), q8 (market share: CASE WHEN over DOUBLE volumes per Year), q9
+(product type profit: Contains over p_name, a six-table join), q10
+(returned items: top 20), q11 (important stock: HAVING against a scalar
+subquery through a cross join), q12 (shipping modes: IN and CASE WHEN
+sums), q13 (customer distribution: NOT of an AND of Contains, a left
+outer join, two group-bys), q14 (promotion effect: StartsWith in a CASE
+WHEN), q15 (top supplier: an aggregate view read twice, its MAX through
+a cross join), q16 (parts/supplier relationship: a left anti join and
+COUNT(DISTINCT)), q17 (small-quantity revenue: a per-part average joined
+back), q18 (large volume customers: a HAVING through a join, top 100),
+q19 (discounted revenue: an OR of ANDs with IN), q20 (potential part
+promotion: StartsWith, semi joins), q21 (suppliers who kept orders
+waiting: two COUNT(DISTINCT)s joined back) and q22 (global sales
+opportunity: Substring of c_phone, IN, a left anti join).  q18's HAVING
+bound is the reference's 7200.0, which no order of this generator
+reaches, so it returns no row; `q18(s, t, bound=300.0)`, TPC-H's
+validation value, runs the same plan with rows in its join and top-N.
+Likewise q11's fraction is the reference's 0.0001 (TPC-H's at SF1),
+which keeps no part at SF10; `q11(s, t, fraction=0.0001 / sf)` is the
+spec's.  q21's nation is the reference's SAUDI ARABIA, which has no
+supplier below SF 0.1; `q21(s, t, nation="VIETNAM")` runs the same plan
+where one has.  q20's is the reference's CANADA, which keeps no
+supplier at SF10 (the generator's partsupp lists two suppliers a part,
+so few lineitem pairs are in it); `q20(s, t, nation="UNITED STATES")`
+keeps rows there.
 
 `JOIN_QUERIES` are three DataFrame queries over the same tables that
 drive the general equi-join, which no TPC-H query of the reference
@@ -52,7 +65,8 @@ from .columnar.host import (HostBatch, HostColumn, dictionary_column,
                             string_column)
 from .plan import datetime as DT
 from .plan import expressions as E
-from .plan.aggregates import Average, Count, Max, Sum
+from .plan.aggregates import Average, Count, CountDistinct, Max, Min, Sum
+from .plan.strings import Contains, EndsWith, StartsWith, Substring
 from .session import DataFrame, TpuSession, col
 
 DTYPE_DATE = _t.DATE
@@ -618,9 +632,217 @@ def q19(s: TpuSession, t: Dict[str, HostBatch]) -> DataFrame:
             .agg((Sum(revenue), "revenue")))
 
 
-QUERIES = {"q1": q1, "q3": q3, "q4": q4, "q5": q5, "q6": q6, "q7": q7,
-           "q8": q8, "q10": q10, "q11": q11, "q12": q12, "q15": q15,
-           "q17": q17, "q18": q18, "q19": q19}
+def q2(s: TpuSession, t: Dict[str, HostBatch]) -> DataFrame:
+    """Minimum-cost supplier: correlated MIN subquery as a self-join on
+    (partkey, min cost)."""
+    part = s.from_host(t["part"]).filter(
+        E.And(E.EqualTo(col("p_size"), E.Literal(15)),
+              EndsWith(col("p_type"), "BRASS")))
+    europe = (s.from_host(t["region"])
+              .filter(E.EqualTo(col("r_name"), E.Literal("EUROPE")))
+              .join(s.from_host(t["nation"]),
+                    left_on=["r_regionkey"], right_on=["n_regionkey"]))
+    esupp = europe.join(s.from_host(t["supplier"]),
+                        left_on=["n_nationkey"], right_on=["s_nationkey"])
+    ps = s.from_host(t["partsupp"])
+    eps = ps.join(esupp, left_on=["ps_suppkey"], right_on=["s_suppkey"]) \
+        .join(part, left_on=["ps_partkey"], right_on=["p_partkey"])
+    mins = (eps.group_by("ps_partkey")
+            .agg((Min(col("ps_supplycost")), "min_cost"))
+            .select(col("ps_partkey"), col("min_cost"),
+                    names=["mc_partkey", "min_cost"]))
+    j = eps.join(mins, left_on=["ps_partkey", "ps_supplycost"],
+                 right_on=["mc_partkey", "min_cost"])
+    return (j.select(col("s_acctbal"), col("s_name"), col("n_name"),
+                     col("p_partkey"), col("p_mfgr"), col("s_address"),
+                     col("s_phone"))
+            .sort(("s_acctbal", False, False), ("n_name", True, True),
+                  ("s_name", True, True), ("p_partkey", True, True))
+            .limit(100))
+
+
+def q9(s: TpuSession, t: Dict[str, HostBatch]) -> DataFrame:
+    """Product type profit measure: the spec's 6-table join with
+    ps_supplycost (profit = price*(1-disc) - supplycost*qty)."""
+    part = s.from_host(t["part"]).filter(
+        Contains(col("p_name"), "green"))
+    li = s.from_host(t["lineitem"])
+    ps = s.from_host(t["partsupp"])
+    j = (li.join(part, left_on=["l_partkey"], right_on=["p_partkey"])
+         .join(s.from_host(t["supplier"]),
+               left_on=["l_suppkey"], right_on=["s_suppkey"])
+         .join(ps, left_on=["l_partkey", "l_suppkey"],
+               right_on=["ps_partkey", "ps_suppkey"])
+         .join(s.from_host(t["orders"]),
+               left_on=["l_orderkey"], right_on=["o_orderkey"])
+         .join(s.from_host(t["nation"]),
+               left_on=["s_nationkey"], right_on=["n_nationkey"]))
+    amount = E.Subtract(
+        E.Multiply(col("l_extendedprice"),
+                   E.Subtract(E.Literal(1), col("l_discount"))),
+        E.Multiply(col("ps_supplycost"), col("l_quantity")))
+    year = DT.Year(col("o_orderdate"))
+    return (j.group_by(col("n_name"), E.Alias(year, "o_year"))
+            .agg((Sum(amount), "sum_profit"))
+            .sort(("n_name", True, True), ("o_year", False, False)))
+
+
+def q13(s: TpuSession, t: Dict[str, HostBatch]) -> DataFrame:
+    """Customer distribution: two-level aggregation over a left outer
+    join with a NOT-LIKE filtered order side."""
+    orders = s.from_host(t["orders"]).filter(
+        E.Not(E.And(Contains(col("o_comment"), "special"),
+                    Contains(col("o_comment"), "requests"))))
+    cust = s.from_host(t["customer"])
+    j = cust.join(orders, how="left_outer",
+                  left_on=["c_custkey"], right_on=["o_custkey"])
+    per_cust = (j.group_by("c_custkey")
+                .agg((Count(col("o_orderkey")), "c_count")))
+    return (per_cust.group_by("c_count")
+            .agg((Count(None), "custdist"))
+            .sort(("custdist", False, False), ("c_count", False, False)))
+
+
+def q14(s: TpuSession, t: Dict[str, HostBatch]) -> DataFrame:
+    """Promotion effect: 100 * promo revenue / total revenue."""
+    d_lo = _days(pydt.date(1995, 9, 1))
+    d_hi = _days(pydt.date(1995, 10, 1))
+    li = s.from_host(t["lineitem"]).filter(
+        E.And(E.GreaterThanOrEqual(col("l_shipdate"),
+                                   E.Literal(d_lo, DTYPE_DATE)),
+              E.LessThan(col("l_shipdate"), E.Literal(d_hi, DTYPE_DATE))))
+    part = s.from_host(t["part"])
+    j = li.join(part, left_on=["l_partkey"], right_on=["p_partkey"])
+    revenue = E.Multiply(col("l_extendedprice"),
+                         E.Subtract(E.Literal(1), col("l_discount")))
+    promo = E.CaseWhen([(StartsWith(col("p_type"), "PROMO"), revenue)],
+                       E.Literal(pydec.Decimal("0.00")))
+    agg = j.agg((Sum(promo), "promo"), (Sum(revenue), "total"))
+    ratio = E.Divide(E.Multiply(E.Literal(100.0),
+                                E.Cast(col("promo"), _t.DOUBLE)),
+                     E.Cast(col("total"), _t.DOUBLE))
+    return agg.select(ratio, names=["promo_revenue"])
+
+
+def q16(s: TpuSession, t: Dict[str, HostBatch]) -> DataFrame:
+    """Parts/supplier relationship: NOT IN subquery as anti join +
+    count(distinct)."""
+    bad_supp = s.from_host(t["supplier"]).filter(
+        E.And(Contains(col("s_comment"), "Customer"),
+              Contains(col("s_comment"), "Complaints")))
+    part = s.from_host(t["part"]).filter(
+        E.And(E.Not(E.EqualTo(col("p_brand"), E.Literal("Brand#45"))),
+              E.And(E.Not(StartsWith(col("p_type"), "MEDIUM POLISHED")),
+                    E.In(E.Cast(col("p_size"), _t.INT),
+                         [49, 14, 23, 45, 19, 3, 36, 9]))))
+    ps = (s.from_host(t["partsupp"])
+          .join(bad_supp, how="left_anti",
+                left_on=["ps_suppkey"], right_on=["s_suppkey"])
+          .join(part, left_on=["ps_partkey"], right_on=["p_partkey"]))
+    return (ps.group_by("p_brand", "p_type", "p_size")
+            .agg((CountDistinct(col("ps_suppkey")), "supplier_cnt"))
+            .sort(("supplier_cnt", False, False), ("p_brand", True, True),
+                  ("p_type", True, True), ("p_size", True, True)))
+
+
+def q20(s: TpuSession, t: Dict[str, HostBatch],
+        nation: str = "CANADA") -> DataFrame:
+    """Potential part promotion: nested IN subqueries as semi joins over
+    a half-of-shipped-quantity threshold."""
+    d_lo = _days(pydt.date(1994, 1, 1))
+    d_hi = _days(pydt.date(1995, 1, 1))
+    green = s.from_host(t["part"]).filter(
+        StartsWith(col("p_name"), "green"))
+    shipped = (s.from_host(t["lineitem"])
+               .filter(E.And(
+                   E.GreaterThanOrEqual(col("l_shipdate"),
+                                        E.Literal(d_lo, DTYPE_DATE)),
+                   E.LessThan(col("l_shipdate"),
+                              E.Literal(d_hi, DTYPE_DATE))))
+               .group_by("l_partkey", "l_suppkey")
+               .agg((Sum(col("l_quantity")), "sum_qty")))
+    shipped = shipped.select(
+        col("l_partkey"), col("l_suppkey"),
+        E.Multiply(E.Literal(0.5), E.Cast(col("sum_qty"), _t.DOUBLE)),
+        names=["sh_partkey", "sh_suppkey", "half_qty"])
+    ps = (s.from_host(t["partsupp"])
+          .join(green, how="left_semi",
+                left_on=["ps_partkey"], right_on=["p_partkey"])
+          .join(shipped, left_on=["ps_partkey", "ps_suppkey"],
+                right_on=["sh_partkey", "sh_suppkey"])
+          .filter(E.GreaterThan(E.Cast(col("ps_availqty"), _t.DOUBLE),
+                                col("half_qty"))))
+    supp = (s.from_host(t["supplier"])
+            .join(s.from_host(t["nation"]).filter(
+                E.EqualTo(col("n_name"), E.Literal(nation))),
+                left_on=["s_nationkey"], right_on=["n_nationkey"])
+            .join(ps, how="left_semi",
+                  left_on=["s_suppkey"], right_on=["ps_suppkey"]))
+    return supp.select(col("s_name"), col("s_address")).sort("s_name")
+
+
+def q21(s: TpuSession, t: Dict[str, HostBatch],
+        nation: str = "SAUDI ARABIA") -> DataFrame:
+    """Suppliers who kept orders waiting: EXISTS/NOT-EXISTS pair rewritten
+    as per-order distinct-supplier counts (total > 1, late == 1)."""
+    li = s.from_host(t["lineitem"])
+    late = li.filter(E.GreaterThan(col("l_receiptdate"),
+                                   col("l_commitdate")))
+    total_supp = (li.group_by("l_orderkey")
+                  .agg((CountDistinct(col("l_suppkey")), "n_supp"))
+                  .select(col("l_orderkey"), col("n_supp"),
+                          names=["ts_orderkey", "n_supp"]))
+    late_supp = (late.group_by("l_orderkey")
+                 .agg((CountDistinct(col("l_suppkey")), "n_late"))
+                 .select(col("l_orderkey"), col("n_late"),
+                         names=["ls_orderkey", "n_late"]))
+    fails = s.from_host(t["orders"]).filter(
+        E.EqualTo(col("o_orderstatus"), E.Literal("F")))
+    saudi = (s.from_host(t["supplier"])
+             .join(s.from_host(t["nation"]).filter(
+                 E.EqualTo(col("n_name"), E.Literal(nation))),
+                 left_on=["s_nationkey"], right_on=["n_nationkey"]))
+    j = (late.join(saudi, left_on=["l_suppkey"], right_on=["s_suppkey"])
+         .join(fails, left_on=["l_orderkey"], right_on=["o_orderkey"])
+         .join(total_supp, left_on=["l_orderkey"], right_on=["ts_orderkey"])
+         .join(late_supp, left_on=["l_orderkey"], right_on=["ls_orderkey"])
+         .filter(E.And(E.GreaterThan(col("n_supp"), E.Literal(1)),
+                       E.EqualTo(col("n_late"), E.Literal(1)))))
+    return (j.group_by("s_name")
+            .agg((Count(None), "numwait"))
+            .sort(("numwait", False, False), ("s_name", True, True))
+            .limit(100))
+
+
+def q22(s: TpuSession, t: Dict[str, HostBatch]) -> DataFrame:
+    """Global sales opportunity: phone-prefix IN + scalar AVG subquery +
+    NOT EXISTS anti join."""
+    codes = ["13", "31", "23", "29", "30", "18", "17"]
+    cust = s.from_host(t["customer"]).select(
+        col("c_custkey"), col("c_acctbal"),
+        Substring(col("c_phone"), 1, 2),
+        names=["c_custkey", "c_acctbal", "cntrycode"])
+    cust = cust.filter(E.In(col("cntrycode"), codes))
+    pos = cust.filter(E.GreaterThan(
+        E.Cast(col("c_acctbal"), _t.DOUBLE), E.Literal(0.0)))
+    avg_bal = pos.agg(
+        (Average(E.Cast(col("c_acctbal"), _t.DOUBLE)), "avg_bal"))
+    cand = (cust.join(avg_bal, how="cross")
+            .filter(E.GreaterThan(E.Cast(col("c_acctbal"), _t.DOUBLE),
+                                  col("avg_bal")))
+            .join(s.from_host(t["orders"]), how="left_anti",
+                  left_on=["c_custkey"], right_on=["o_custkey"]))
+    return (cand.group_by("cntrycode")
+            .agg((Count(None), "numcust"),
+                 (Sum(E.Cast(col("c_acctbal"), _t.DOUBLE)), "totacctbal"))
+            .sort("cntrycode"))
+
+
+QUERIES = {"q1": q1, "q2": q2, "q3": q3, "q4": q4, "q5": q5, "q6": q6,
+           "q7": q7, "q8": q8, "q9": q9, "q10": q10, "q11": q11,
+           "q12": q12, "q13": q13, "q14": q14, "q15": q15, "q16": q16,
+           "q17": q17, "q18": q18, "q19": q19, "q20": q20, "q21": q21,
+           "q22": q22}
 
 
 def _date_range(name: str, lo: pydt.date, hi: pydt.date) -> E.Expression:

@@ -658,7 +658,9 @@ def test_decimal_to_double_on_the_card_is_correctly_rounded(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("query", ["q4", "q5", "q7", "q8", "q10", "q11",
-                                   "q12", "q15", "q17", "q18", "q19"])
+                                   "q12", "q15", "q17", "q18", "q19",
+                                   "q2", "q9", "q13", "q14", "q16", "q20",
+                                   "q21", "q22"])
 def test_later_queries_on_the_card_equal_cpu(cuda, query):
     # DOUBLE sums may add in another order on the card (segagg's atomics,
     # a device reduction): those compare within rtol 1e-12
@@ -673,3 +675,55 @@ def test_later_queries_on_the_card_equal_cpu(cuda, query):
             np.testing.assert_allclose(gpu[name], want, rtol=1e-12, atol=0)
         else:
             assert gpu[name] == want, name
+
+
+@pytest.mark.cuda
+def test_string_byte_work_on_the_card_equals_cpu(cuda):
+    # 1- to 4-byte characters and empty entries: the device encoding,
+    # the matchers, Substring's decode and unique, and their remaps
+    from spark_rapids_tpu_torch.ops import strings as S
+    rng = np.random.default_rng(11)
+    alphabet = list("abgren ") + ["é", "日", "😀"]
+    words = {"".join(alphabet[i] for i in rng.integers(0, len(alphabet), k))
+             for k in rng.integers(0, 9, 20_000)}
+    d = np.array(sorted(words), str)
+    cpu, gpu = (S.dict_byte_tensors(d, dev) for dev in ("cpu", cuda))
+    for a, b in zip(cpu, gpu):
+        assert torch.equal(a, b.cpu())
+    for match in (S.match_prefix, S.match_suffix, S.match_contains,
+                  S.match_equals):
+        for pat in ("", "a", "é日", "😀", "x" * 12):
+            raw = pat.encode("utf-8")
+            assert torch.equal(match(*cpu, raw), match(*gpu, raw).cpu())
+    assert torch.equal(S.char_lengths(*cpu), S.char_lengths(*gpu).cpu())
+    for pos, length in ((1, 2), (0, 3), (-2, None), (3, 0), (2, -1)):
+        want, remap = S.transform_dict_device(d, "substr", (pos, length),
+                                              "cpu")
+        got, remap_gpu = S.transform_dict_device(d, "substr", (pos, length),
+                                                 cuda)
+        assert got.tolist() == want.tolist()
+        assert torch.equal(remap, remap_gpu.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("device_min", ["1", "8192"])
+def test_substring_and_count_distinct_on_the_card_equal_cpu(cuda,
+                                                             device_min):
+    from spark_rapids_tpu_torch import tpch
+    from spark_rapids_tpu_torch.plan.aggregates import CountDistinct
+    from spark_rapids_tpu_torch.session import TpuSession, col
+    tables = tpch.gen_tables(0.01, tables=("customer", "orders",
+                                           "lineitem"))
+    conf = {"spark.rapids.tpu.sql.string.transformDeviceMinUnique":
+            device_min}
+    cpu, gpu = (tpch.q22(TpuSession(conf, device=d), tables).to_pydict()
+                for d in ("cpu", "cuda"))
+    assert gpu["cntrycode"] == cpu["cntrycode"] and \
+        gpu["numcust"] == cpu["numcust"]
+    np.testing.assert_allclose(gpu["totacctbal"], cpu["totacctbal"],
+                               rtol=1e-12, atol=0)
+    cpu, gpu = _cpu_and_cuda(lambda s: s.from_host(tables["lineitem"])
+                             .group_by("l_orderkey")
+                             .agg((CountDistinct(col("l_suppkey")), "n"))
+                             .sort("l_orderkey"))
+    assert gpu == cpu

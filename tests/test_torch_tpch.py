@@ -1,17 +1,18 @@
-"""The port's 14 TPC-H queries (`tpch.QUERIES`, and q18 at TPC-H's
-validation bound 300 as `q18_300`) and the chip smoke's three join-path
-queries (`m2m`, `outer`, `semi`), through the PyTorch/CUDA port against
-the JAX package.
+"""The port's 22 TPC-H queries (`tpch.QUERIES`; q18 also at TPC-H's
+validation bound 300 as `q18_300`, q21 also for VIETNAM as `q21_vn`) and
+the chip smoke's three join-path queries (`m2m`, `outer`, `semi`),
+through the PyTorch/CUDA port against the JAX package.
 
-At scale 0.001 the port (CPU tensors, kernels' plain versions) must
-equal both the JAX package with its kernel tier on (segagg ON, Pallas in
-interpret mode; for q3, q5, q10 and q12 also with `denseReplace: ON`,
-so their joins take the hash-table kernels as the port's do) and the
-JAX package's CPU oracle (sql.enabled=false).  Decimals and integers
-compare exactly, as unscaled integers.  The DOUBLE results of q8, q11,
-q15 and q17 (`DOUBLES`) compare within rtol 1e-12: the reference's
-decimal -> DOUBLE cast is 1 ulp off for some values (ROADMAP Queue 3
-item 1), and f64 sums may add in another order.
+At scale 0.001 (q2 and q20 at 0.01, where they carry rows) the port (CPU
+tensors, kernels' plain versions) must equal both the JAX package with
+its kernel tier on (segagg ON, Pallas in interpret mode; for q3, q5, q10
+and q12 also with `denseReplace: ON`, so their joins take the hash-table
+kernels as the port's do) and the JAX package's CPU oracle
+(sql.enabled=false).  Decimals and integers compare exactly, as unscaled
+integers.  The DOUBLE results of q8, q11, q14, q15, q17 and q22
+(`DOUBLES`) compare within rtol 1e-12: the reference's decimal -> DOUBLE
+cast is 1 ulp off for some values (ROADMAP Queue 3 item 1), and f64 sums
+may add in another order.
 """
 import datetime as pydt
 import decimal as pydec
@@ -33,6 +34,7 @@ from spark_rapids_tpu.session import TpuSession as JSession
 from spark_rapids_tpu.session import col as jcol
 from spark_rapids_tpu_torch import tpch as PTPCH
 from spark_rapids_tpu_torch import types as PT
+from spark_rapids_tpu_torch.exec.plan import HashAggregateExec as PHashAgg
 from spark_rapids_tpu_torch.plan import aggregates as PA
 from spark_rapids_tpu_torch.plan import datetime as PDT
 from spark_rapids_tpu_torch.plan import expressions as PE
@@ -51,6 +53,22 @@ def jtables():
 @pytest.fixture(scope="module")
 def ptables():
     return PTPCH.gen_tables(0.001)
+
+
+# q2 and q20 keep no row at scale 0.001: they run at 0.01
+@pytest.fixture(scope="module")
+def jtables_01():
+    return JTPCH.gen_tables(0.01)
+
+
+@pytest.fixture(scope="module")
+def ptables_01():
+    return PTPCH.gen_tables(0.01)
+
+
+@pytest.fixture(scope="module")
+def ptables_005():
+    return PTPCH.gen_tables(0.005)
 
 
 def _unscaled(d: dict) -> dict:
@@ -72,10 +90,16 @@ def _reference(jdf):
 
 HASH_JOINS = {"spark.rapids.tpu.sql.kernels.pallas.join.denseReplace": "ON"}
 #: the DOUBLE result columns, compared within rtol 1e-12
-DOUBLES = {"q8": ("mkt_share",), "q11": ("value",),
-           "q15": ("total_revenue",), "q17": ("avg_yearly",)}
+DOUBLES = {"q8": ("mkt_share",), "q11": ("value",), "q14": ("promo_revenue",),
+           "q15": ("total_revenue",), "q17": ("avg_yearly",),
+           "q22": ("totacctbal",)}
 NEW_QUERIES = ("q4", "q5", "q7", "q8", "q10", "q11", "q12", "q15", "q17",
                "q18", "q18_300", "q19")
+#: the queries of the strings and COUNT(DISTINCT) slice; q21 (the
+#: reference's SAUDI ARABIA has no supplier at these scales) beside q21_vn
+STRING_QUERIES = ("q2", "q9", "q13", "q14", "q16", "q20", "q21", "q21_vn",
+                  "q22")
+AT_0_01 = ("q2", "q20")
 
 
 def _jax_q18(s, t, bound):
@@ -97,11 +121,45 @@ def _jax_q18(s, t, bound):
             .limit(100))
 
 
+def _jax_q21(s, t, nation):
+    """The reference's q21 text with its nation as a parameter."""
+    li = s.from_arrow(t["lineitem"])
+    late = li.filter(JE.GreaterThan(jcol("l_receiptdate"),
+                                    jcol("l_commitdate")))
+    total_supp = (li.group_by("l_orderkey")
+                  .agg((JA.CountDistinct(jcol("l_suppkey")), "n_supp"))
+                  .select(jcol("l_orderkey"), jcol("n_supp"),
+                          names=["ts_orderkey", "n_supp"]))
+    late_supp = (late.group_by("l_orderkey")
+                 .agg((JA.CountDistinct(jcol("l_suppkey")), "n_late"))
+                 .select(jcol("l_orderkey"), jcol("n_late"),
+                         names=["ls_orderkey", "n_late"]))
+    fails = s.from_arrow(t["orders"]).filter(
+        JE.EqualTo(jcol("o_orderstatus"), JE.Literal("F")))
+    supp = (s.from_arrow(t["supplier"])
+            .join(s.from_arrow(t["nation"]).filter(
+                JE.EqualTo(jcol("n_name"), JE.Literal(nation))),
+                left_on=["s_nationkey"], right_on=["n_nationkey"]))
+    j = (late.join(supp, left_on=["l_suppkey"], right_on=["s_suppkey"])
+         .join(fails, left_on=["l_orderkey"], right_on=["o_orderkey"])
+         .join(total_supp, left_on=["l_orderkey"], right_on=["ts_orderkey"])
+         .join(late_supp, left_on=["l_orderkey"], right_on=["ls_orderkey"])
+         .filter(JE.And(JE.GreaterThan(jcol("n_supp"), JE.Literal(1)),
+                        JE.EqualTo(jcol("n_late"), JE.Literal(1)))))
+    return (j.group_by("s_name")
+            .agg((JA.Count(None), "numwait"))
+            .sort(("numwait", False, False), ("s_name", True, True))
+            .limit(100))
+
+
 def _queries(name):
     """(the JAX package's query function, the port's) of a query name."""
     if name == "q18_300":
         return (functools.partial(_jax_q18, bound=300.0),
                 functools.partial(PTPCH.q18, bound=300.0))
+    if name == "q21_vn":
+        return (functools.partial(_jax_q21, nation="VIETNAM"),
+                functools.partial(PTPCH.q21, nation="VIETNAM"))
     return JTPCH.QUERIES[name], PTPCH.QUERIES[name]
 
 
@@ -119,9 +177,10 @@ def _assert_same(got, want, doubles=()):
             assert got[name] == want[name], name
 
 
-def test_ports_the_fourteen_queries():
-    assert sorted(PTPCH.QUERIES) == sorted(
-        ["q1", "q3", "q6"] + [q for q in NEW_QUERIES if q != "q18_300"])
+def test_ports_the_twenty_two_queries():
+    assert sorted(PTPCH.QUERIES) == sorted(JTPCH.QUERIES) == sorted(
+        ["q1", "q3", "q6"] + [q for q in NEW_QUERIES if q != "q18_300"] +
+        [q for q in STRING_QUERIES if q != "q21_vn"])
 
 
 @pytest.mark.parametrize("query,extra", [
@@ -139,6 +198,24 @@ def test_query_equals_reference_and_cpu_oracle(jtables, ptables, query,
     doubles = DOUBLES.get(query, ())
     _assert_same(got, dev, doubles)
     _assert_same(got, cpu, doubles)
+
+
+@pytest.mark.parametrize("query", STRING_QUERIES)
+def test_string_and_distinct_query_equals_reference_and_cpu_oracle(
+        request, query):
+    # q2 and q20 at scale 0.01 (6 and 1 rows), the others at 0.001; q21's
+    # SAUDI ARABIA keeps no row at either, q21_vn does
+    suffix = "_01" if query in AT_0_01 else ""
+    jt = request.getfixturevalue("jtables" + suffix)
+    pt = request.getfixturevalue("ptables" + suffix)
+    jquery, pquery = _queries(query)
+    dev, cpu = _reference(jquery(JSession(PALLAS_ON), jt))
+    got = pquery(PSession(device="cpu"), pt).to_pydict()
+    doubles = DOUBLES.get(query, ())
+    _assert_same(got, dev, doubles)
+    _assert_same(got, cpu, doubles)
+    rows = len(next(iter(got.values())))
+    assert rows == 0 if query == "q21" else rows > 0
 
 
 def test_q18_at_300_carries_rows_and_7200_none(ptables):
@@ -161,8 +238,8 @@ def test_a_compacted_build_is_rebucketed_to_its_rows(ptables):
     assert len(got.to_pydict()["o_orderkey"]) > 0
 
 
-@pytest.mark.parametrize("query", NEW_QUERIES)
-def test_new_query_runs_its_path_kernels(ptables, query, monkeypatch):
+@pytest.mark.parametrize("query", NEW_QUERIES + STRING_QUERIES)
+def test_new_query_runs_its_path_kernels(request, query, monkeypatch):
     # the wrappers chip_smoke.PATH_KERNELS holds each query's run on the
     # card to (there, from the launch counts)
     from spark_rapids_tpu_torch.ops.hopper import compact as PC
@@ -183,7 +260,9 @@ def test_new_query_runs_its_path_kernels(ptables, query, monkeypatch):
     spy(PC, "compaction_order")
     spy(PS, "seg_sums")
     spy(PS, "seg_reduce")
-    _queries(query)[1](PSession(device="cpu"), ptables).collect()
+    tables = request.getfixturevalue(
+        "ptables_01" if query in AT_0_01 else "ptables")
+    _queries(query)[1](PSession(device="cpu"), tables).collect()
     want = chip_smoke.PATH_KERNELS[query]
     assert want and set(want) <= set(calls), (want, calls)
 
@@ -393,3 +472,77 @@ def test_unported_operators_refuse_instead_of_falling_back(ptables):
         PSession({"spark.rapids.tpu.sql.enabled": "false"},
                  device="cpu").from_host(ptables["lineitem"]).agg(
             (PA.Count(None), "n")).collect()
+
+
+def _q2_join(m, e, c, s, t):
+    """q2's join shape without its string filter: partsupp joined to the
+    MIN(ps_supplycost) of its part on (part, cost)."""
+    eps = s.from_arrow(t["partsupp"]).join(
+        s.from_arrow(t["part"]).filter(e.EqualTo(c("p_size"), e.Literal(15))),
+        left_on=["ps_partkey"], right_on=["p_partkey"])
+    mins = (eps.group_by("ps_partkey")
+            .agg((m.Min(c("ps_supplycost")), "min_cost"),
+                 (m.Max(c("ps_supplycost")), "max_cost"))
+            .select(c("ps_partkey"), c("min_cost"), c("max_cost"),
+                    names=["mc_partkey", "min_cost", "max_cost"]))
+    return (eps.join(mins, left_on=["ps_partkey", "ps_supplycost"],
+                     right_on=["mc_partkey", "min_cost"])
+            .select(c("ps_partkey"), c("ps_suppkey"), c("min_cost"),
+                    c("max_cost"))
+            .sort("ps_partkey", "ps_suppkey"))
+
+
+def test_min_max_outputs_carry_their_column_range_so_q2_packs(
+        jtables, monkeypatch):
+    from spark_rapids_tpu_torch.exec import join as PJ
+    from spark_rapids_tpu_torch.ops.hopper import hashjoin as PHJ
+    dev, cpu = _reference(_q2_join(JA, JE, jcol, JSession(PALLAS_ON),
+                                   jtables))
+    packs, tables = [], []
+
+    def spy(real, seen):
+        def wrapped(*a, **k):
+            out = real(*a, **k)
+            seen.append(out)
+            return out
+        return wrapped
+    monkeypatch.setattr(PJ, "range_pack_spec",
+                        spy(PJ.range_pack_spec, packs))
+    monkeypatch.setattr(PHJ, "build_table", spy(PHJ.build_table, tables))
+    df = _q2_join(PA, PE, pcol, PSession(device="cpu"), jtables)
+    got = df.to_pydict()
+    assert _unscaled(got) == _unscaled(dev) == _unscaled(cpu)
+    assert len(got["ps_partkey"]) > 0
+    # the (part, cost) key packs into one lane and takes the hash table
+    # (a table for each of the two partsupp-part joins, one for it)
+    assert any(p is not None for p in packs) and len(tables) == 3
+    cost = jtables["partsupp"].column("ps_supplycost").to_pylist()
+    unscaled = [int(v.scaleb(2)) for v in cost]
+
+    def aggregates(node):
+        found = [node] if isinstance(node, PHashAgg) else []
+        return found + [a for c in node.children for a in aggregates(c)]
+    (agg,) = aggregates(df.physical().root)
+    assert agg.column_range("min_cost") == agg.column_range("max_cost") == \
+        agg.child.column_range("ps_supplycost") == (min(unscaled),
+                                                     max(unscaled))
+
+
+@pytest.mark.parametrize("query", sorted(PTPCH.QUERIES))
+def test_cut_scales_foresee_the_build_gate(request, query):
+    # the build gate is 2 x sql.batchSizeRows; at scale 0.01 with
+    # 4,096-row batches a query meets it as at SF10 with the default
+    # 4,194,304: chip_smoke.CUT_SCALES lists exactly the queries it
+    # refuses, and each runs at its cut scale / 1000
+    gate = {"spark.rapids.tpu.sql.batchSizeRows": "4096"}
+
+    def run(tables):
+        return PTPCH.QUERIES[query](PSession(gate, device="cpu"),
+                                    tables).collect()
+    if query not in chip_smoke.CUT_SCALES:
+        run(request.getfixturevalue("ptables_01"))
+        return
+    with pytest.raises(NotImplementedError, match="sub-partitioned"):
+        run(request.getfixturevalue("ptables_01"))
+    cut = {1.0: "ptables", 5.0: "ptables_005"}[chip_smoke.CUT_SCALES[query]]
+    run(request.getfixturevalue(cut))
