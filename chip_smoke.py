@@ -12,23 +12,18 @@ own failure:
                together; prints the build seconds.
   3. data    — every TPC-H table at scale factor 10 from the port's
                gen_tables, and the independent numpy results of every
-               query of phase 5 (joins as indexes into the 0..n-1
-               primary keys, or argsort and searchsorted; exact int64
-               decimal sums; DOUBLE results by the engine's casts).  One
+               query of phase 5, in forked processes, one a query (joins
+               as indexes into the 0..n-1 primary keys, or argsort and
+               searchsorted; exact int64 decimal sums; DOUBLE results
+               by the engine's casts).  One
                cut, the reference generator's: partsupp has two
                suppliers a part (4,000,000 rows at SF10), half of the
                spec's four (8,000,000), so m2m's and outer's builds
-               repeat each key twice, not four times.  Seven later
-               queries build a join side over the port's gate of
-               8,388,608 rows at SF10 (2 x sql.batchSizeRows; the
-               sub-partition join that lifts it is ROADMAP Queue 1 item
-               6): q7, q8, q9, q12 and q21 build on orders (15,000,000
-               rows; q21's status filter fuses into its semi join's
-               build) and q22 on o_custkey, and run at SF5 (7,500,000),
-               q4 on its late lineitem (about 30,000,000) and runs at
-               SF1 (about 3,000,000), each from its own gen_tables of
-               the tables it reads (CUT_SCALES).  Prints the phase's
-               seconds.
+               repeat each key twice, not four times.  No query runs
+               below SF10 (CUT_SCALES is empty): the seven whose join
+               builds exceed 2 x sql.batchSizeRows (q7, q8, q9, q12 and
+               q21 on orders, q22 on o_custkey, q4 on its late lineitem)
+               sub-partition those joins.  Prints the phase's seconds.
   4. kernels — each kernel against its plain PyTorch version on the
                card, at the shapes the main path gives it.  seg_sums /
                seg_reduce at TPC-H q1's (capacity 4,194,304, the q1 key
@@ -115,7 +110,10 @@ own failure:
                searchsorted and repeat).  Launch counts are zeroed just
                before each query and read just after it; each query
                must have launched the kernels of its path
-               (PATH_KERNELS).  Then wall ms per
+               (PATH_KERNELS), and each of the seven above must have
+               sub-partitioned a join; each prints its sub-partitioned
+               joins, their partition counts k and its bucket joins, and
+               its out-of-core aggregations.  Then wall ms per
                query: one cold run, median of 3 warm; the peak device
                memory of every query; the host-to-device copy
                rate from pageable memory that the upload sees; the
@@ -125,7 +123,18 @@ own failure:
                distinct count over its lineitem (CUDA events); and a
                torch.profiler breakdown of one warm q1, q3, m2m, q5 and
                q18_300.
-  6. result  — a `kernels` JSON line (launches by query over every
+  6. ooc     — q4, q18 at the bound 300 and q21 at SF10 through
+               TpuSession(OOC_CONF): a 1 GiB device budget and a 512 MiB
+               host spill store, so the sub-partitioned joins' buckets
+               and the adaptive join's stages spill to the host and on
+               to disk, and q18's group-by runs out of core.  Each must
+               equal its numpy result; over the three, batches must have
+               spilled to the host and to disk, and q18 must have
+               elected the out-of-core aggregation.  Prints each
+               query's spill batches, bytes and ms beside its cold wall
+               and its unbudgeted cold and warm walls from phase 5.
+Each phase after the data prints its seconds.
+  7. result  — a `kernels` JSON line (launches by query over every
                query of phase 5), the whole run's seconds, the
                nvidia-smi line, and last {"ok": true, "device": {...}}.
 
@@ -138,8 +147,10 @@ one call).
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import datetime as pydt
 import json
+import multiprocessing
 import os
 import statistics
 import subprocess
@@ -180,9 +191,13 @@ SOURCES = {"seg_sums": "spark_rapids_tpu_torch/csrc/segagg.cu",
 # q4 (5 priorities), q5 (25 nations) and q12 (7 ship modes) group by a
 # dictionary domain (seg_sums), the others by a computed Year or by a
 # key whose range is over segagg.maxDomain (the sorted group-by).  The
-# strings and COUNT(DISTINCT) queries have unique builds too; q22 groups
-# by its 25 phone prefixes (seg_sums), q21 at SF5 by a 50,000-name
-# dictionary (sorted: over denseDomainMax)
+# strings and COUNT(DISTINCT) queries have unique builds too.  q18's
+# HAVING at 7200 keeps no order: its group-by runs out of core, its
+# adaptive join then builds on orders, sub-partitioned, and probes with
+# no row, so no table is built (the hash table is built at the first
+# probe) and only the scatter's compactions launch.  q22 groups
+# by its 25 phone prefixes (seg_sums), q21 by a 100,000-name dictionary
+# (sorted: over denseDomainMax)
 UNIQUE_JOIN = ("build_table", "probe_first", "compaction_order")
 PATH_KERNELS = {"q1": ("seg_sums",), "q6": (),
                 "minmax": ("seg_sums", "seg_reduce"),
@@ -198,7 +213,7 @@ PATH_KERNELS = {"q1": ("seg_sums",), "q6": (),
                 "q11": UNIQUE_JOIN,
                 "q12": UNIQUE_JOIN + ("seg_sums",),
                 "q15": UNIQUE_JOIN,
-                "q17": UNIQUE_JOIN, "q18": UNIQUE_JOIN,
+                "q17": UNIQUE_JOIN, "q18": ("compaction_order",),
                 "q18_300": UNIQUE_JOIN, "q19": UNIQUE_JOIN,
                 "q11_spec": UNIQUE_JOIN,
                 "q2": UNIQUE_JOIN, "q9": UNIQUE_JOIN, "q13": UNIQUE_JOIN,
@@ -264,14 +279,15 @@ def profiled_ms(fn, fragment=None, reps: int = 10, by_name=None,
     launches, not in the time of a named kernel).  `by_name`, a dict,
     receives the device ms a call of each kernel name.  A trace that
     holds no device activity at all, or a count of launches that is not
-    a multiple of the calls (a lost record), is taken once more; fails
-    the run if the profiler saw no launch of such a kernel."""
+    a multiple of the calls (a lost record), is taken again, up to three
+    traces; fails the run if the profiler saw no launch of such a
+    kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     frags = (fragment,) if isinstance(fragment, str) else fragment
     fn()
     torch.cuda.synchronize()
-    for attempt in (1, 2):
+    for attempt in (1, 2, 3):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -290,7 +306,7 @@ def profiled_ms(fn, fragment=None, reps: int = 10, by_name=None,
                 if by_name is not None:
                     by_name[e.key[:80]] = \
                         e.self_device_time_total / 1e3 / reps
-        if (launches and launches % reps == 0) or attempt == 2:
+        if (launches and launches % reps == 0) or attempt == 3:
             break
         # every call makes a whole number of launches, so a count that
         # is not a multiple of the calls lost records
@@ -1371,26 +1387,13 @@ def expected_semi(tables):
 # engine's casts (unscaled / 10^scale) and compare within rtol 1e-12.
 # ---------------------------------------------------------------------------
 
-# queries whose builds exceed the port's build gate at SF10 (8,388,608
-# rows, 2 x sql.batchSizeRows: orders has 15,000,000 rows, q4's late
-# lineitem about 30,000,000; the sub-partition join that lifts the gate
-# is ROADMAP Queue 1 item 6) run at the largest round scale under it
-# (q9 builds on orders; q21's semi join with the F orders tables every
-# order, its status filter fused into the build; q22's anti join builds
-# on o_custkey, 15,000,000 rows)
-CUT_SCALES = {"q4": 1.0, "q7": 5.0, "q8": 5.0, "q12": 5.0, "q9": 5.0,
-              "q21": 5.0, "q22": 5.0}
-#: the tables each cut query reads
-LATER_TABLES = {"q4": ("orders", "lineitem"),
-                "q7": ("nation", "supplier", "orders", "customer",
-                       "lineitem"),
-                "q8": ("region", "nation", "part", "supplier", "orders",
-                       "customer", "lineitem"),
-                "q12": ("orders", "lineitem"),
-                "q9": ("nation", "part", "partsupp", "supplier", "orders",
-                       "lineitem"),
-                "q21": ("nation", "supplier", "orders", "lineitem"),
-                "q22": ("customer", "orders")}
+#: queries run below --scale, with the scale they run at: none.  The
+#: seven whose join builds exceed 2 x sql.batchSizeRows at SF10 (q7, q8,
+#: q9, q12 and q21 build on orders, q22 on o_custkey, q4 on its late
+#: lineitem) sub-partition those joins (exec/join.py)
+CUT_SCALES: dict = {}
+#: the queries that sub-partition a join at SF10
+SUB_PARTITIONED = ("q4", "q7", "q8", "q9", "q12", "q21", "q22")
 #: the queries of the strings and COUNT(DISTINCT) slice, and q20 for
 #: UNITED STATES (`q20_us`): the reference's CANADA keeps no supplier at
 #: SF10.  Each but q20 must carry rows on the card
@@ -1881,15 +1884,33 @@ def distinct_suppliers(li, n_orders: int, n_supp: int, mask=None):
     return np.bincount(pairs // n_supp, minlength=n_orders)
 
 
-def expected_q21(t, nation: str = "SAUDI ARABIA"):
+def q21_late(li) -> np.ndarray:
+    return _col(li, "l_receiptdate").data > _col(li, "l_commitdate").data
+
+
+def q21_distinct(t, late: bool) -> np.ndarray:
+    """Each order's distinct suppliers over all its lineitems, or over
+    its late ones."""
+    li = t["lineitem"]
+    return distinct_suppliers(li, t["orders"].num_rows,
+                              t["supplier"].num_rows,
+                              q21_late(li) if late else None)
+
+
+def expected_q21(t, nation: str = "SAUDI ARABIA", n_all=None,
+                 n_late=None):
+    """q21's result; `n_all` and `n_late` are `q21_distinct(t, False)`
+    and `q21_distinct(t, True)` where they were computed apart."""
     supp, orders, li = t["supplier"], t["orders"], t["lineitem"]
     for hb, key in ((supp, "s_suppkey"), (orders, "o_orderkey"),
                     (t["nation"], "n_nationkey")):
         _pk(hb, key)
     n_supp = supp.num_rows
-    late = _col(li, "l_receiptdate").data > _col(li, "l_commitdate").data
-    n_all = distinct_suppliers(li, orders.num_rows, n_supp)
-    n_late = distinct_suppliers(li, orders.num_rows, n_supp, late)
+    late = q21_late(li)
+    if n_all is None:
+        n_all = q21_distinct(t, late=False)
+    if n_late is None:
+        n_late = q21_distinct(t, late=True)
     status = _col(orders, "o_orderstatus")
     failed = status.data == _code(status, "F")
     home = (_names(_col(t["nation"], "n_name")) == nation)[
@@ -1965,11 +1986,10 @@ def lanes_of(hb):
 
 
 def data_phase(scale: float, seed: int, reference: bool = True):
-    """Every TPC-H table at SF `scale`; with `reference`, also the
-    tables of CUT_SCALES and the numpy results.  -> (the SF `scale`
-    tables, the numpy results, {later query: (its scale, its tables)})."""
+    """Every TPC-H table at SF `scale`; with `reference`, also the numpy
+    results (`numpy_results`).  -> (the tables, the numpy results,
+    {later query: (its scale, its tables)})."""
     from spark_rapids_tpu_torch import tpch
-    t_all = time.perf_counter()
     t0 = time.perf_counter()
     tables = tpch.gen_tables(scale, seed)
     log(f"[data] gen_tables(scale={scale}): " + ", ".join(
@@ -1977,38 +1997,62 @@ def data_phase(scale: float, seed: int, reference: bool = True):
         f" in {time.perf_counter() - t0:.1f} s")
     if not reference:
         return tables, None, {}
-    by_scale = {scale: tables}
-    for cut in sorted({min(c, scale) for c in CUT_SCALES.values()}):
-        if cut in by_scale:
-            continue
-        needs = sorted({n for q, c in CUT_SCALES.items() if c == cut
-                        for n in LATER_TABLES[q]})
-        t0 = time.perf_counter()
-        by_scale[cut] = tpch.gen_tables(cut, seed, tables=needs)
-        log(f"[data] gen_tables(scale={cut}) for " + ", ".join(
-            q for q, c in CUT_SCALES.items() if c == cut) + ": " +
-            ", ".join(f"{n} {hb.num_rows} rows"
-                      for n, hb in by_scale[cut].items()) +
-            f" in {time.perf_counter() - t0:.1f} s")
-    later = {}
-    for q in LATER_QUERIES:
-        sc = min(CUT_SCALES.get(q, scale), scale)
-        later[q] = (sc, by_scale[sc])
+    later = {q: (scale, tables) for q in LATER_QUERIES}
+    return tables, numpy_results(tables, scale), later
+
+
+def numpy_results(tables, scale: float) -> dict:
+    """The numpy result of every query, one forked process a query, the
+    slowest first: q21's two np.unique calls over lineitem, each in a
+    process of its own (the one over every row also serves the strings
+    phase), whose counts q21's result then takes here.  They finish
+    before the card is used: run beside the kernel phases, they cost the
+    profiler some of its records of the card's launches.  The children
+    read the parent's tables and return only the results."""
+    global _WANT_TABLES
     t0 = time.perf_counter()
-    li = tables["lineitem"]
-    want = {"q1": expected_q1(li), "q6": expected_q6(li),
-            "minmax": expected_minmax(li), "q3": expected_q3(tables),
-            "m2m": expected_m2m(tables), "outer": expected_outer(tables),
-            "semi": expected_semi(tables)}
-    log(f"[data] numpy reference of the first seven paths in "
-        f"{time.perf_counter() - t0:.1f} s")
+    names = [Q21_DISTINCT, Q21_LATE_DISTINCT] + [
+        n for n in FIRST_PATHS + LATER_QUERIES if n != "q21"]
+    workers = min(len(names), os.cpu_count() or 1)
+    _WANT_TABLES = (tables, scale)
+    with concurrent.futures.ProcessPoolExecutor(
+            max_workers=workers,
+            mp_context=multiprocessing.get_context("fork")) as pool:
+        done = dict(zip(names, pool.map(_want, names)))
+    _WANT_TABLES = None
+    want = {n: r for n, (r, _s) in done.items()}
+    want["q21"] = expected_q21(tables, n_all=want[Q21_DISTINCT],
+                               n_late=want.pop(Q21_LATE_DISTINCT))
+    slowest = sorted(done, key=lambda n: -done[n][1])[:3]
+    log(f"[data] {len(names)} numpy results in {workers} processes, "
+        f"then q21's: {time.perf_counter() - t0:.1f} s; slowest " +
+        ", ".join(f"{n} {done[n][1]:.1f} s" for n in slowest))
+    return want
+
+
+#: the first seven paths (each result from lineitem, or from the tables)
+FIRST_PATHS = ("q1", "q6", "minmax", "q3", "m2m", "outer", "semi")
+#: each order's distinct suppliers (q21's and the strings phase's), and
+#: over its late lineitems (q21's)
+Q21_DISTINCT = "q21 distinct suppliers"
+Q21_LATE_DISTINCT = "q21 late distinct suppliers"
+_WANT_TABLES = None
+
+
+def _want(name: str):
+    """The numpy result of one query over the tables numpy_results set,
+    and the seconds it took."""
+    tables, scale = _WANT_TABLES
     t0 = time.perf_counter()
-    for q, (sc, tabs) in later.items():
-        want[q] = expected_later(q, tabs, sc)
-    log(f"[data] numpy reference of the later queries in "
-        f"{time.perf_counter() - t0:.1f} s")
-    log(f"[data] data phase {time.perf_counter() - t_all:.1f} s")
-    return tables, want, later
+    if name in (Q21_DISTINCT, Q21_LATE_DISTINCT):
+        got = q21_distinct(tables, late=name == Q21_LATE_DISTINCT)
+    elif name in ("q1", "q6", "minmax"):
+        got = globals()[f"expected_{name}"](tables["lineitem"])
+    elif name in FIRST_PATHS:
+        got = globals()[f"expected_{name}"](tables)
+    else:
+        got = expected_later(name, tables, scale)
+    return got, time.perf_counter() - t0
 
 
 def upload_rate(dev) -> float:
@@ -2025,6 +2069,24 @@ def upload_rate(dev) -> float:
     return 16 * host.nbytes / (time.perf_counter() - t0) / 1e9
 
 
+def run_query(s, build, tables):
+    """One collect through the session's plan, with its ExecContext
+    (the out-of-core counters and the budget's spill metrics)."""
+    from spark_rapids_tpu_torch.exec.plan import ExecContext
+    q = build(s, tables).physical()
+    ctx = ExecContext(q.conf, q.device)
+    return q.collect(ctx), ctx
+
+
+def ooc_counts(ctx) -> str:
+    m = ctx.metrics
+    return (f"{m.get('join_subpartition_fallbacks', 0)} sub-partitioned "
+            f"joins (k {m.get('ooc.join_partitions', 0)} in all, "
+            f"{m.get('ooc.join_passes', 0)} bucket joins), "
+            f"{m.get('ooc.agg_elections', 0)} out-of-core aggregations "
+            f"({m.get('ooc.agg_passes', 0)} buckets)")
+
+
 def path_phase(tables, want, later, scale: float):
     from spark_rapids_tpu_torch import tpch
     from spark_rapids_tpu_torch.ops.hopper import LAUNCHES, \
@@ -2038,18 +2100,19 @@ def path_phase(tables, want, later, scale: float):
         ("q3", tpch.q3), *tpch.JOIN_QUERIES.items())}
     for name, (sc, tabs) in later.items():
         queries[name] = (later_query(name, sc), tabs, sc)
-    cold, launches = {}, {}
+    cold, launches, warm = {}, {}, {}
     for name, (build, tabs, sc) in queries.items():
         reset_launch_counts()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        got = build(s, tabs).collect()
+        got, ctx = run_query(s, build, tabs)
         torch.cuda.synchronize()
         cold[name] = (time.perf_counter() - t0) * 1e3
         launches[name] = dict(LAUNCHES)
         lanes = lanes_of(got)
         log(f"[path] {name} (SF{sc:g}) peak device memory "
-            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+            f"{ooc_counts(ctx)}")
         if name == "q3":
             check_top(name, lanes, want[name])
         elif name in later:
@@ -2059,6 +2122,9 @@ def path_phase(tables, want, later, scale: float):
                   f"reference:\n{lanes}\n{want[name]}")
         if name in STRING_QUERIES and name != "q20":
             check(got.num_rows > 0, f"{name} returned no row at SF{sc:g}")
+        if name in SUB_PARTITIONED:
+            check(ctx.metrics.get("join_subpartition_fallbacks", 0) > 0,
+                  f"{name} sub-partitioned no join at SF{sc:g}")
         log(f"[path] {name} (SF{sc:g}): {got.num_rows} rows equal the numpy "
             f"reference; kernel launches {launches[name]}")
         for k in PATH_KERNELS[name]:
@@ -2066,16 +2132,63 @@ def path_phase(tables, want, later, scale: float):
                   f"kernel {k} was not launched on the {name} path")
     log(f"[path] launches per query: {launches}")
     for name, (build, tabs, sc) in queries.items():
-        warm = []
+        runs = []
         for _ in range(3):
             t0 = time.perf_counter()
             build(s, tabs).collect()
             torch.cuda.synchronize()
-            warm.append((time.perf_counter() - t0) * 1e3)
+            runs.append((time.perf_counter() - t0) * 1e3)
+        warm[name] = statistics.median(runs)
         log(f"[path] {name} wall: cold {cold[name]:.1f} ms, warm median "
-            f"{statistics.median(warm):.1f} ms (SF{sc:g}, lineitem rows "
+            f"{warm[name]:.1f} ms (SF{sc:g}, lineitem rows "
             f"{tabs['lineitem'].num_rows})")
-    return launches
+    return launches, cold, warm
+
+
+#: the out-of-core phase: a device budget and a host spill store small
+#: enough that the sub-partitioned joins' buckets and the adaptive
+#: stages spill to the host and on to disk, and that q18's group-by
+#: (over 15,000,000 orders at SF10) runs out of core.  q18 runs at
+#: TPC-H's validation bound 300 (the reference's 7200 keeps no order)
+OOC_CONF = {"spark.rapids.tpu.memory.tpu.budgetBytes": str(1 << 30),
+            "spark.rapids.tpu.memory.host.spillStorageSize": str(1 << 29)}
+OOC_QUERIES = ("q4", "q18_300", "q21")
+
+
+def ooc_phase(tables, want, scale: float, cold, warm) -> None:
+    """Each query once (cold) under OOC_CONF, its wall beside the same
+    query's cold and warm unbudgeted walls of the path phase."""
+    from spark_rapids_tpu_torch.session import TpuSession
+    s = TpuSession(OOC_CONF)
+    totals = {"spilled_batches": 0, "disk_batches": 0}
+    for name in OOC_QUERIES:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        got, ctx = run_query(s, later_query(name, scale), tables)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        check_later(name, lanes_of(got), want[name])
+        bm = ctx.budget.metrics
+        for k in totals:
+            totals[k] += bm[k]
+        if name.startswith("q18"):
+            check(ctx.metrics.get("ooc.agg_elections", 0) > 0,
+                  f"{name}'s group-by did not run out of core")
+        log(f"[ooc] {name} (SF{scale:g}) under a {ctx.budget.limit}-byte "
+            f"budget and a {ctx.budget.host_limit}-byte host store: "
+            f"{got.num_rows} rows equal the numpy reference; cold wall "
+            f"{wall:.1f} ms, {wall / cold[name]:.2f} x the unbudgeted cold "
+            f"wall {cold[name]:.1f} ms (unbudgeted warm median "
+            f"{warm[name]:.1f} ms); "
+            f"{bm['spilled_batches']} batches ({bm['spilled_bytes']} bytes) "
+            f"spilled to the host, {bm['disk_batches']} "
+            f"({bm['disk_bytes']} bytes) on to disk, spill and disk "
+            f"{bm['spill_ms']:.1f} ms; budget peak {bm['peak_bytes']} "
+            f"bytes, device peak "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+            f"{ooc_counts(ctx)}")
+    check(totals["spilled_batches"] > 0, "nothing spilled to the host")
+    check(totals["disk_batches"] > 0, "nothing spilled to disk")
 
 
 def _host_ms(fn, reps: int = 3) -> float:
@@ -2091,7 +2204,7 @@ def _host_ms(fn, reps: int = 3) -> float:
     return statistics.median(times)
 
 
-def strings_phase(dev, tables, later) -> None:
+def strings_phase(dev, tables, later, want) -> None:
     """The dictionary work of the strings slice at the main path's sizes,
     each result held to numpy: p_name's and c_phone's byte tensors (the
     code points' upload and the device encoding), Contains over p_name
@@ -2123,10 +2236,10 @@ def strings_phase(dev, tables, later) -> None:
     tensors = byte_tensors["c_phone"]
     out, remap = S.transform_dict_device(d, "substr", (1, 2), dev,
                                          byte_tensors=tensors)
-    want = d.astype("<U2")
-    check(np.array_equal(out, np.unique(want)) and np.array_equal(
-        out[remap.cpu().numpy()], want), "Substring(c_phone, 1, 2) differs "
-        "from numpy's two-character prefixes")
+    prefixes = d.astype("<U2")
+    check(np.array_equal(out, np.unique(prefixes)) and np.array_equal(
+        out[remap.cpu().numpy()], prefixes), "Substring(c_phone, 1, 2) "
+        "differs from numpy's two-character prefixes")
     ms = cuda_ms(lambda: S.transform_dict_device(
         d, "substr", (1, 2), dev, byte_tensors=tensors), reps=5, warmup=1)
     log(f"[strings] Substring(c_phone, 1, 2) over {len(d)} entries: "
@@ -2142,8 +2255,9 @@ def strings_phase(dev, tables, later) -> None:
         pack_spec=[(0, n_orders + 1)], val_range=(0, n_supp - 1))
     live = db.row_mask()
     _keys, (cnt, _ok), groups = fn([okey.data], [okey.validity], skey, live)
-    want = distinct_suppliers(t21["lineitem"], n_orders, n_supp)
-    check(np.array_equal(cnt[:int(groups)].cpu().numpy(), want[want > 0]),
+    per_order = want[Q21_DISTINCT]
+    check(np.array_equal(cnt[:int(groups)].cpu().numpy(),
+                         per_order[per_order > 0]),
           "q21's distinct suppliers per order differ from np.unique")
     ms = cuda_ms(lambda: fn([okey.data], [okey.validity], skey, live),
                  reps=3, warmup=1)
@@ -2217,6 +2331,49 @@ def profile_phase(tables, scale: float):
     profile_query("q18_300", later_query("q18_300", scale), tables)
 
 
+def phase(name: str, fn, *args):
+    """Run one phase and log its seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"[run] {name} phase {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def card_phases(dev, tables, want, later, args):
+    """Every phase on the card.  -> (the kernel statistics, each path's
+    kernel launches)."""
+    stats = phase("kernels", kernels_phase, dev, tables)
+    stats.update(phase("join kernels", join_kernels_phase, dev, tables))
+    stats.update(phase("counted join kernels", counted_join_kernels_phase,
+                       dev, tables))
+    _FLUSH.clear()                # the path's peak memory is the queries'
+    launches = {}
+    if not args.kernels_only:
+        # one look-back scan and one tail launch a compaction; the counted
+        # probe scans its counts inside its one launch
+        check(stats["compaction_order"]["launches_per_call"] <= 2,
+              "compaction_order made more than 2 device launches a call")
+        # the scan of the finals and the slot pass, no fill
+        for case, d in stats["build_table"]["distributions"].items():
+            check(d["launches_per_call"] == 2, f"build_table at {case} "
+                  f"made {d['launches_per_call']:g} device launches a "
+                  "call, not 2")
+        for name in ("probe_first", "probe_counts", "expand_pairs"):
+            for case, d in stats[name].get("distributions", {"": stats[
+                    name]}).items():
+                check(d["launches_per_call"] == 1, f"{name} {case} made "
+                      f"{d['launches_per_call']:g} device launches a call, "
+                      "not 1")
+        launches, cold, warm = phase(
+            "path", path_phase, tables, want, later, args.scale)
+        log(f"[path] upload copy rate (pageable host to device, 32 MiB "
+            f"copies): {upload_rate(dev):.2f} GB/s")
+        phase("strings", strings_phase, dev, tables, later, want)
+        phase("profile", profile_phase, tables, args.scale)
+        phase("ooc", ooc_phase, tables, want, args.scale, cold, warm)
+    return stats, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--scale", type=float, default=10.0)
@@ -2246,32 +2403,7 @@ def main() -> int:
     log(f"[build] nvcc sm_90a: {time.perf_counter() - t0:.1f} s")
     tables, want, later = data_phase(args.scale, args.seed,
                                      reference=not args.kernels_only)
-    stats = kernels_phase(dev, tables)
-    stats.update(join_kernels_phase(dev, tables))
-    stats.update(counted_join_kernels_phase(dev, tables))
-    _FLUSH.clear()                # the path's peak memory is the queries'
-    launches = {}
-    if not args.kernels_only:
-        # one look-back scan and one tail launch a compaction; the counted
-        # probe scans its counts inside its one launch
-        check(stats["compaction_order"]["launches_per_call"] <= 2,
-              "compaction_order made more than 2 device launches a call")
-        # the scan of the finals and the slot pass, no fill
-        for case, d in stats["build_table"]["distributions"].items():
-            check(d["launches_per_call"] == 2, f"build_table at {case} "
-                  f"made {d['launches_per_call']:g} device launches a "
-                  "call, not 2")
-        for name in ("probe_first", "probe_counts", "expand_pairs"):
-            for case, d in stats[name].get("distributions", {"": stats[
-                    name]}).items():
-                check(d["launches_per_call"] == 1, f"{name} {case} made "
-                      f"{d['launches_per_call']:g} device launches a call, "
-                      "not 1")
-        launches = path_phase(tables, want, later, args.scale)
-        log(f"[path] upload copy rate (pageable host to device, 32 MiB "
-            f"copies): {upload_rate(dev):.2f} GB/s")
-        strings_phase(dev, tables, later)
-        profile_phase(tables, args.scale)
+    stats, launches = card_phases(dev, tables, want, later, args)
     rows = []
     for name in TPU_KERNELS:
         st = stats[name]

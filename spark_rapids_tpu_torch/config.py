@@ -1193,7 +1193,14 @@ HONOURED_KEYS = frozenset(e.key for e in (
     BUCKET_GROWTH, ADAPTIVE_ENABLED, IMPROVED_FLOAT_OPS,
     DENSE_AGG_DOMAIN_MAX, DENSE_AGG_VIA_SORT, PALLAS_ENABLED, PALLAS_JOIN,
     PALLAS_SEGAGG, PALLAS_COMPACT, PALLAS_SEGAGG_MAX_DOMAIN,
-    PALLAS_JOIN_MAX_BUILD, STRING_TRANSFORM_DEVICE_MIN))
+    PALLAS_JOIN_MAX_BUILD, STRING_TRANSFORM_DEVICE_MIN,
+    # the memory runtime and the out-of-core tier (runtime/, exec/ooc*)
+    HASH_SUBPARTITION_FALLBACK, HBM_BUDGET_BYTES, HBM_BUDGET_FRACTION,
+    HOST_SPILL_LIMIT_BYTES, OOC_ENABLED, OOC_FORCE, OOC_RESIDENT_FRACTION,
+    OOC_MAX_PARTITIONS, OOC_MAX_DEPTH, OOC_SORT_WINDOW_ROWS,
+    AGG_FALLBACK_PARTITIONS, RETRY_MAX_SPLITS, RETRY_MAX_ATTEMPTS,
+    RETRY_IO_ATTEMPTS, RETRY_IO_BACKOFF_MS, RETRY_IO_BACKOFF_MULT,
+    RETRY_IO_JITTER))
 
 #: keys the port resolves to one behaviour for now -> what it does
 RESOLVED = {
@@ -1211,9 +1218,6 @@ RESOLVED = {
         "Queue 1 item 4)",
     RUNTIME_FILTER_ENABLED.key:
         "resolves to off until ops/bloom.py ports (ROADMAP Queue 1)",
-    HASH_SUBPARTITION_FALLBACK.key:
-        "resolves to off: a build side over 2 x sql.batchSizeRows raises "
-        "until the out-of-core slice ports (ROADMAP Queue 1 item 6)",
 }
 
 _WARNED: set = set()

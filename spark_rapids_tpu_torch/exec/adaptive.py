@@ -16,11 +16,13 @@ comes here (plan/overrides.py).
 Filters right below either input ride into the join as masks
 (exec/plan.py peel_filters), so the stages hold the raw child batches
 and the sizes compared are pre-filter sizes; correctness never depends
-on the choice.  The stages are plain device batches: the spillable
-stages port with the memory runtime (ROADMAP Queue 1 item 3), and the
-bloom runtime filter with ops/bloom.py (`sql.join.runtimeFilter.enabled`
-resolves to off until then; the reference installs none on q3's joins
-either, whose build keys fit a dense span).
+on the choice.  Each stage batch is a `Spillable` registered with the
+query's budget (runtime/memory.py), so a stage may wait on the host or
+on disk while the other side materializes; the replay takes each batch
+back with `get()` and then `close()`s it.  The bloom runtime filter
+ports with ops/bloom.py (`sql.join.runtimeFilter.enabled` resolves to
+off until then, ROADMAP Queue 1 item 1(d); the reference installs none
+on q3's joins either, whose build keys fit a dense span).
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ from typing import Iterator, List, Sequence
 from .. import types as t
 from ..columnar.device import DeviceBatch
 from ..plan import expressions as E
+from ..runtime.memory import Spillable
 from .join import (HashJoinExec, join_column_range, join_keys_unique,
                    side_unique)
 from .plan import ExecContext, PlanNode, peel_filters
@@ -38,10 +41,10 @@ _MIRROR = {"inner": "inner", "left_outer": "right_outer",
 
 
 class _ReplayStage(PlanNode):
-    """A completed stage (its device batches) the re-planned join
-    replays; statistics delegate to the node that produced it."""
+    """A completed stage (its spillable batches) the re-planned join
+    replays once; statistics delegate to the node that produced it."""
 
-    def __init__(self, batches: List[DeviceBatch], source: PlanNode):
+    def __init__(self, batches: List[Spillable], source: PlanNode):
         super().__init__()
         self.batches = batches
         self._source = source
@@ -57,7 +60,10 @@ class _ReplayStage(PlanNode):
         return self._source.column_range(name)
 
     def execute(self, ctx: ExecContext) -> Iterator[DeviceBatch]:
-        yield from self.batches
+        for sp in self.batches:
+            db = sp.get()
+            sp.close()
+            yield db
 
 
 class AdaptiveShuffledJoinExec(PlanNode):
@@ -96,19 +102,32 @@ class AdaptiveShuffledJoinExec(PlanNode):
                                  name)
 
     @staticmethod
-    def _materialize(node: PlanNode, ctx: ExecContext) -> List[DeviceBatch]:
+    def _materialize(node: PlanNode, ctx: ExecContext, stage: List):
         # no per-batch count sync: empty batches are padding only, and
         # the sizes below are capacity bytes (host-known)
-        return [db for db in node.execute(ctx)
-                if not (isinstance(db.num_rows, int) and db.num_rows == 0)]
+        for db in node.execute(ctx):
+            if not (isinstance(db.num_rows, int) and db.num_rows == 0):
+                stage.append(Spillable(db, ctx.budget))
 
     def execute(self, ctx: ExecContext) -> Iterator[DeviceBatch]:
+        left_stage: List[Spillable] = []
+        right_stage: List[Spillable] = []
+        try:
+            yield from self._run(ctx, left_stage, right_stage)
+        finally:
+            # an abandoned generator (a LIMIT above) releases the stages
+            # the join never replayed; close is idempotent
+            for sp in left_stage + right_stage:
+                sp.close()
+
+    def _run(self, ctx: ExecContext, left_stage, right_stage
+             ) -> Iterator[DeviceBatch]:
         left_src, left_conds = peel_filters(self.left)
         right_src, right_conds = peel_filters(self.right)
-        left_stage = self._materialize(left_src, ctx)
-        right_stage = self._materialize(right_src, ctx)
-        lbytes = sum(db.nbytes() for db in left_stage)
-        rbytes = sum(db.nbytes() for db in right_stage)
+        self._materialize(left_src, ctx, left_stage)
+        self._materialize(right_src, ctx, right_stage)
+        lbytes = sum(sp.nbytes for sp in left_stage)
+        rbytes = sum(sp.nbytes for sp in right_stage)
         swap = self.join_type in _MIRROR and lbytes < rbytes
         if self.join_type in _MIRROR:
             run_u = side_unique(self.right_keys, self.right)

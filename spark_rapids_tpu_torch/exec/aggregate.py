@@ -21,16 +21,20 @@ from __future__ import annotations
 
 from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from .. import types as t
 from ..columnar.device import (DeviceBatch, DeviceColumn, bucket_capacity,
-                               storage_dtype)
+                               storage_dtype, to_host)
+from ..columnar.host import HostBatch, HostColumn
 from ..config import DENSE_AGG_DOMAIN_MAX, DENSE_AGG_VIA_SORT, TpuConf
 from ..ops import groupby as G
-from ..ops.batch_ops import concat_batches, ensure_unique_dict, shrink_to_rows
+from ..ops.batch_ops import (concat_batches, ensure_unique_dict,
+                             shrink_to_rows, unify_dictionaries)
 from ..plan import expressions as E
-from ..plan.aggregates import AggregateFunction, _deep_resolved
+from ..plan.aggregates import (AggregateFunction, _DecimalAvgEvaluate,
+                               _deep_resolved)
 from .evaluator import conds_mask, evaluate_projection
 
 _PACK_BUDGET = 1 << 62
@@ -133,6 +137,36 @@ def _run_groupby(key_cols: List[DeviceColumn], agg_cols: List[DeviceColumn],
     return key_cols, out_keys, outs, int(num_groups)
 
 
+def _buffer_dicts(specs: Sequence[G.AggSpec],
+                  source_cols: Sequence[DeviceColumn]) -> List:
+    """Each buffer's dictionary: a STRING buffer (FIRST/LAST) holds the
+    codes of its input column, so it carries that column's dictionary."""
+    return [source_cols[s.input_idx].dictionary
+            if isinstance(s.dtype, t.StringType) and s.input_idx >= 0
+            else None for s in specs]
+
+
+def _decimal_avg_host(expr: "_DecimalAvgEvaluate", buffers: DeviceBatch,
+                      start: int) -> HostColumn:
+    """A global DECIMAL average from its (sum, count) buffers in Python
+    integers, HALF_UP at the result scale; null for an empty input or a
+    quotient past the result's precision (Spark's non-ANSI overflow)."""
+    s_col, c_col = buffers.columns[start], buffers.columns[start + 1]
+    out_t = expr.dtype
+    value, valid = 0, False
+    if bool(s_col.validity[0]) and bool(c_col.validity[0]) and \
+            int(c_col.data[0]) > 0:
+        num = int(s_col.data[0]) * 10 ** (out_t.scale -
+                                          expr.children[0].dtype.scale)
+        den = int(c_col.data[0])
+        mag, rem = divmod(abs(num), den)
+        mag += 2 * rem >= den
+        value = -mag if num < 0 else mag
+        valid = abs(value) < 10 ** min(out_t.precision, 18)
+    return HostColumn(np.array([value if valid else 0], np.int64),
+                      np.array([valid]), out_t)
+
+
 def _run_reduce(agg_cols: List[DeviceColumn], specs: List[G.AggSpec],
                 live, capacity: int):
     return G.reduce_trace(list(specs), capacity)(
@@ -187,54 +221,77 @@ class HashAggregate:
             live = db.row_mask()
         if not self.key_exprs:
             outs = _run_reduce(agg_cols, self.update_specs, live, db.capacity)
-            return self._reduce_outs_to_batch(outs)
+            return self._reduce_outs_to_batch(
+                outs, _buffer_dicts(self.update_specs, agg_cols))
         key_batch = evaluate_projection(self.key_exprs, self.key_names, db,
                                         self.conf)
         key_cols, out_keys, outs, n_groups = _run_groupby(
             key_batch.columns, agg_cols, self.update_specs, live,
             db.capacity, key_ranges=self.key_ranges, conf=self.conf)
-        return self._groupby_outs_to_batch(key_cols, out_keys, outs, n_groups)
+        return self._groupby_outs_to_batch(
+            key_cols, out_keys, outs, n_groups,
+            _buffer_dicts(self.update_specs, agg_cols))
 
     def partial_fused(self, db: DeviceBatch, conds: Sequence[E.Expression],
                       raw: bool = False):
         """Filter + key/input projection + update group-by for one batch:
         the fused filters become the group-by's live mask.  `raw` (global
-        aggregates) returns the buffer scalars instead of a batch."""
+        aggregates) returns (the buffer scalars, their dictionaries)
+        instead of a batch."""
         live = conds_mask(conds, db, db.row_mask(), self.conf)
         if raw and not self.key_exprs:
             agg_cols = evaluate_projection(
                 self.input_exprs,
                 [f"_in{i}" for i in range(len(self.input_exprs))], db,
                 self.conf).columns
-            return _run_reduce(agg_cols, self.update_specs, live,
-                               db.capacity)
+            return (_run_reduce(agg_cols, self.update_specs, live,
+                                db.capacity),
+                    _buffer_dicts(self.update_specs, agg_cols))
         return self.partial(db, live)
 
-    def merge_raw(self, partial_outs: List[List]) -> List:
-        """Merge per-batch global-aggregate buffer scalars."""
-        if len(partial_outs) == 1:
-            return partial_outs[0]
-        k = len(partial_outs)
-        stacks = [torch.stack([p[i][0] for p in partial_outs])
+    def merge_raw(self, partials: List[Tuple[List, List]]
+                  ) -> Tuple[List, List]:
+        """Merge per-batch global-aggregate (buffer scalars,
+        dictionaries); a STRING buffer's codes move into the union of its
+        batches' dictionaries first."""
+        if len(partials) == 1:
+            return partials[0]
+        k = len(partials)
+        outs = [list(p[0]) for p in partials]
+        dicts = []
+        for i in range(len(self.update_specs)):
+            ds = [p[1][i] for p in partials]
+            if ds[0] is not None and any(d is not ds[0] for d in ds):
+                unified, remaps = unify_dictionaries(ds)
+                for o, r in zip(outs, remaps):
+                    table = torch.from_numpy(r).to(o[i][0].device)
+                    o[i] = (table[torch.clamp(o[i][0], 0, len(r) - 1)
+                                  .long()], o[i][1])
+                ds = [unified]
+            dicts.append(ds[0])
+        stacks = [torch.stack([o[i][0] for o in outs])
                   for i in range(len(self.update_specs))]
-        valids = [torch.stack([p[i][1] for p in partial_outs])
+        valids = [torch.stack([o[i][1] for o in outs])
                   for i in range(len(self.update_specs))]
         live = torch.ones(k, dtype=torch.bool, device=stacks[0].device)
-        return G.reduce_trace(self.merge_specs, k)(stacks, valids, live)
+        return (G.reduce_trace(self.merge_specs, k)(stacks, valids, live),
+                dicts)
 
     def merge(self, partials: List[DeviceBatch]) -> DeviceBatch:
         merged = concat_batches(partials, self.conf)
         nkeys = len(self.key_exprs)
         key_cols = merged.columns[:nkeys]
         buf_cols = merged.columns[nkeys:]
+        dicts = _buffer_dicts(self.merge_specs, buf_cols)
         if not self.key_exprs:
             outs = _run_reduce(buf_cols, self.merge_specs, merged.row_mask(),
                                merged.capacity)
-            return self._reduce_outs_to_batch(outs)
+            return self._reduce_outs_to_batch(outs, dicts)
         key_cols, out_keys, outs, n_groups = _run_groupby(
             key_cols, buf_cols, self.merge_specs, merged.row_mask(),
             merged.capacity, key_ranges=self.key_ranges, conf=self.conf)
-        return self._groupby_outs_to_batch(key_cols, out_keys, outs, n_groups)
+        return self._groupby_outs_to_batch(key_cols, out_keys, outs, n_groups,
+                                           dicts)
 
     def final(self, merged: DeviceBatch) -> DeviceBatch:
         """Evaluate result expressions over (keys + buffers)."""
@@ -253,26 +310,49 @@ class HashAggregate:
     def _buffer_names(self):
         return [f"_buf{i}" for i in range(len(self.update_specs))]
 
-    def _groupby_outs_to_batch(self, key_cols, out_keys, outs, n_groups):
+    def _groupby_outs_to_batch(self, key_cols, out_keys, outs, n_groups,
+                               dicts):
         cols = [DeviceColumn(kd, kv, kc.dtype, kc.dictionary)
                 for (kd, kv), kc in zip(out_keys, key_cols)]
         # update and merge specs share buffer dtypes positionally
-        for (data, valid), spec in zip(outs, self.update_specs):
+        for (data, valid), spec, d in zip(outs, self.update_specs, dicts):
             cols.append(DeviceColumn(data.to(storage_dtype(spec.dtype)),
-                                     valid, spec.dtype))
+                                     valid, spec.dtype, d))
         db = DeviceBatch(cols, n_groups,
                          self.key_names + self._buffer_names())
         return shrink_to_rows(db, n_groups, self.conf)
 
-    def _reduce_outs_to_batch(self, outs) -> DeviceBatch:
+    def _reduce_outs_to_batch(self, outs, dicts) -> DeviceBatch:
         """Global-aggregate buffer scalars as row 0 of a 1-row batch."""
         cap = bucket_capacity(1, self.conf)
         cols = []
-        for (data, valid), spec in zip(outs, self.update_specs):
+        for (data, valid), spec, dic in zip(outs, self.update_specs, dicts):
             sdt = storage_dtype(spec.dtype)
             d = torch.zeros(cap, dtype=sdt, device=data.device)
             v = torch.zeros(cap, dtype=torch.bool, device=data.device)
             d[0] = data.to(sdt)
             v[0] = valid
-            cols.append(DeviceColumn(d, v, spec.dtype))
+            cols.append(DeviceColumn(d, v, spec.dtype, dic))
         return DeviceBatch(cols, 1, self._buffer_names())
+
+    def final_host(self, outs, dicts) -> HostBatch:
+        """Finish a global aggregation on the host from its merged buffer
+        scalars (the reference's `final_host`): the buffers come to the
+        CPU as one 1-row batch and each result expression runs there; a
+        DECIMAL average divides exact Python integers, so a sum whose
+        upscale leaves int64 still averages exactly."""
+        cpu = torch.device("cpu")
+        buffers = self._reduce_outs_to_batch(
+            [(d.to(cpu), v.to(cpu)) for d, v in outs], dicts)
+        schema = buffers.schema
+        cols = []
+        for (fn, _name), (start, end) in zip(self.aggs, self.buffer_slices):
+            refs = [E.ColumnRef(f"_buf{j}").bind(schema)
+                    for j in range(start, end)]
+            expr = _deep_resolved(fn.evaluate(refs))
+            if isinstance(expr, _DecimalAvgEvaluate):
+                cols.append(_decimal_avg_host(expr, buffers, start))
+                continue
+            out = evaluate_projection([expr], ["_out"], buffers, self.conf)
+            cols.append(to_host(out, 1).columns[0])
+        return HostBatch(cols, [name for _fn, name in self.aggs])

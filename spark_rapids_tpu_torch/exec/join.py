@@ -39,12 +39,17 @@ takes those joins, with the same rows.
 of one row by construction (a scalar subquery) is broadcast onto each
 probe batch with no host sync, any other build is gathered pairwise.
 
+A build over twice `sql.batchSizeRows` rows, or over the out-of-core
+resident window in bytes (exec/ooc.py), runs the sub-partition join:
+both sides hash-scatter into spillable buckets
+(`exec/plan._agg_partition_ids`, bit-equal to the reference's, so the
+buckets and their order are the reference's) and each bucket pair joins
+through the same kernels.
+
 What stays unported raises NotImplementedError naming its slice: string
-keys, composite keys that do not pack (the
-sorted tier), a join with the kernel tier off or a build over
-`sql.kernels.pallas.join.maxBuildRows` (the dense and sorted tiers), and
-builds over twice `sql.batchSizeRows` (the reference sub-partitions
-those).
+keys, composite keys that do not pack (the sorted tier), and a join with
+the kernel tier off or a build over
+`sql.kernels.pallas.join.maxBuildRows` (the dense and sorted tiers).
 """
 from __future__ import annotations
 
@@ -56,10 +61,12 @@ import torch
 from .. import types as t
 from ..columnar.device import (DeviceBatch, DeviceColumn, bucket_capacity,
                                storage_dtype)
+from ..config import HASH_SUBPARTITION_FALLBACK
 from ..ops import join as J
 from ..ops.batch_ops import concat_batches, shrink_to_rows
 from ..ops.filter import compact_batch, gather_batch
 from ..plan import expressions as E
+from . import ooc as O
 from .evaluator import conds_mask, evaluate_projection
 from .plan import ExecContext, PlanNode, key_ref_names, peel_filters
 
@@ -236,16 +243,34 @@ class HashJoinExec(PlanNode):
         if not right_batches:
             yield from self._empty_build_output(left_src, probe_conds, ctx)
             return
-        if sum(b.capacity for b in right_batches) > \
-                2 * ctx.conf.batch_size_rows and \
-                sum(int(b.num_rows) for b in right_batches) > \
-                2 * ctx.conf.batch_size_rows:
-            raise NotImplementedError(
-                "a build side over 2 x sql.batchSizeRows rows is "
-                "sub-partitioned in the reference; that ports with the "
-                "out-of-core slice (ROADMAP Queue 1 item 6)")
+        gate = 2 * ctx.conf.batch_size_rows
+        if ctx.conf.get(HASH_SUBPARTITION_FALLBACK):
+            # an oversized build re-hash-partitions BOTH sides into
+            # independent sub-joins (GpuSubPartitionHashJoin): equal keys
+            # land in the same bucket on both sides.  The gate sizes by
+            # rows (two target batches) and by bytes against the
+            # out-of-core resident window, and a forced context trips it;
+            # capacities bound both from above with no host sync
+            policy = O.ooc_policy(ctx)
+            padded = sum(b.nbytes() for b in right_batches)
+            if sum(b.capacity for b in right_batches) > gate or \
+                    policy.bytes_trip(padded) or policy.force:
+                build_rows = sum(int(b.num_rows) for b in right_batches)
+                build_bytes = sum(O.batch_bytes(b) for b in right_batches)
+                if build_rows > gate or policy.bytes_trip(build_bytes) or \
+                        policy.force:
+                    yield from self._sub_partition_join(
+                        right_batches, left_src, build_conds, probe_conds,
+                        ctx, policy)
+                    return
+                right_batches = [b for b in right_batches
+                                 if int(b.num_rows)]
+                if not right_batches:
+                    yield from self._empty_build_output(
+                        left_src, probe_conds, ctx)
+                    return
         build_batch = concat_batches(right_batches, ctx.conf)
-        if build_batch.capacity > 2 * ctx.conf.batch_size_rows:
+        if build_batch.capacity > gate:
             # one compacted batch keeps its input's capacity (q18's
             # 15,000,000 order groups under its HAVING at SF10): re-bucket
             # it to its rows, as concat_batches packs several
@@ -253,6 +278,121 @@ class HashJoinExec(PlanNode):
                                          int(build_batch.num_rows), ctx.conf)
         yield from self._join_stream(build_batch, left_src.execute(ctx),
                                      ctx, build_conds, probe_conds)
+
+    def _scatter(self, db: DeviceBatch, exprs, conds, buckets,
+                 salt: int, ctx: ExecContext) -> int:
+        """Scatter one batch by its join keys (exec/ooc.scatter); the
+        fused filters apply here, so the bucket joins run with none."""
+        return O.scatter(db, self._key_cols(db, exprs, ctx),
+                         conds_mask(conds, db, db.row_mask(), ctx.conf),
+                         buckets, salt, ctx)
+
+    def _sub_partition_join(self, right_batches, left_src, build_conds,
+                            probe_conds, ctx: ExecContext,
+                            policy: "O.OocPolicy"
+                            ) -> Iterator[DeviceBatch]:
+        """The partitioned-spill join (the out-of-core tier): both sides
+        hash-scatter into budget-registered spillable buckets, k from the
+        build's rows and its bytes against the resident window
+        (exec/ooc.py); a bucket whose build still exceeds the window
+        re-partitions with a re-salted hash, at most `sql.ooc.maxDepth`
+        deep.  Each bucket pair runs `_join_stream`, the resident join's
+        kernels, and buckets come out in bucket order."""
+        conf = ctx.conf
+        build_rows = sum(int(b.num_rows) for b in right_batches)
+        build_bytes = sum(O.batch_bytes(b) for b in right_batches)
+        # the row-derived fan-out floors the byte-derived one, so a
+        # context with no budget keeps the reference's row sizing
+        rows_k = min(1 << max(1, (build_rows // conf.batch_size_rows)
+                              .bit_length() - 1), 32)
+        k = O.partition_count(build_bytes, policy, rows_k=rows_k)
+        ctx.bump("join_subpartition_fallbacks")
+        O.record_election(
+            ctx, "join",
+            "bytes" if policy.bytes_trip(build_bytes) else
+            ("forced" if policy.force and
+             build_rows <= 2 * conf.batch_size_rows else "rows"))
+
+        def process(bl, pl, depth):
+            """Join one (build, probe) bucket pair, re-partitioning it
+            while its build exceeds the window."""
+            bucket_bytes = sum(sp.live_nbytes for sp in bl)
+            if bl and policy.bytes_trip(bucket_bytes) and \
+                    depth < policy.max_depth and \
+                    sum(sp.num_rows for sp in bl) > 1:
+                # a skewed bucket: re-salted recursive re-partition
+                O.record_recursion(ctx, "join")
+                k2 = O.partition_count(bucket_bytes, policy)
+                sub_b = [[] for _ in range(k2)]
+                sub_p = [[] for _ in range(k2)]
+                try:
+                    added = 0
+                    for sl, subs, exprs in ((bl, sub_b, self.right_keys),
+                                            (pl, sub_p, self.left_keys)):
+                        for sp in sl:
+                            b = sp.get()
+                            sp.close()
+                            added += self._scatter(b, exprs, (), subs,
+                                                   depth + 1, ctx)
+                    O.record_partitions(ctx, "join", k2, added)
+                    for p in range(k2):
+                        if sub_b[p] or sub_p[p]:
+                            O.fire(ctx, "join", bucket=p, k=k2,
+                                   depth=depth + 1)
+                            yield from process(sub_b[p], sub_p[p],
+                                               depth + 1)
+                finally:
+                    for part in sub_b + sub_p:
+                        for sp in part:
+                            sp.close()
+                return
+
+            def probes():
+                for sp in pl:
+                    b = sp.get()
+                    sp.close()
+                    yield b
+            if not bl:
+                # an empty build bucket: the empty-build rule decides
+                if self.join_type in (J.INNER, J.LEFT_SEMI, J.RIGHT_OUTER):
+                    for sp in pl:     # nothing to emit: no re-upload
+                        sp.close()
+                    return
+                yield from self._empty_build_stream(probes(), (), ctx)
+                return
+            bbs = [sp.get() for sp in bl]
+            build_batch = concat_batches(bbs, conf)
+            for sp in bl:
+                sp.close()
+            yield from self._join_stream(build_batch, probes(), ctx)
+
+        build_parts = [[] for _ in range(k)]
+        probe_parts = [[] for _ in range(k)]
+        try:
+            added = 0
+            for db in right_batches:
+                added += self._scatter(db, self.right_keys, build_conds,
+                                       build_parts, 0, ctx)
+            right_batches.clear()          # the buckets hold the rows now
+            for db in left_src.execute(ctx):
+                if int(db.num_rows) == 0:
+                    continue
+                added += self._scatter(db, self.left_keys, probe_conds,
+                                       probe_parts, 0, ctx)
+            O.record_partitions(ctx, "join", k, added)
+            for p in range(k):
+                bl, pl = build_parts[p], probe_parts[p]
+                if bl or pl:
+                    O.fire(ctx, "join", bucket=p, k=k, depth=0)
+                    yield from process(bl, pl, 0)
+        finally:
+            # an abandoned generator (a LIMIT above) or a failure must not
+            # leak registered spillables or block files; close is
+            # idempotent, so handles the loop consumed release nothing
+            # twice
+            for part in build_parts + probe_parts:
+                for sp in part:
+                    sp.close()
 
     def _with_null_right(self, pb: DeviceBatch, keep: torch.Tensor,
                          ctx: ExecContext) -> DeviceBatch:
@@ -381,14 +521,21 @@ class HashJoinExec(PlanNode):
 
     def _empty_build_output(self, left_src, probe_conds,
                             ctx: ExecContext) -> Iterator[DeviceBatch]:
-        """An empty build side: inner, semi and right outer joins emit
-        nothing (the probe side is not even run); left/full outer and
-        anti joins pass the filter-surviving probe rows through, outer
-        joins with null right columns."""
+        """An empty build side at the top: inner, semi and right outer
+        joins do not even run the probe side."""
         if self.join_type in (J.INNER, J.LEFT_SEMI, J.RIGHT_OUTER):
             return
+        yield from self._empty_build_stream(left_src.execute(ctx),
+                                            probe_conds, ctx)
+
+    def _empty_build_stream(self, probe_iter, probe_conds,
+                            ctx: ExecContext) -> Iterator[DeviceBatch]:
+        """Probe batches against an empty build, for the join types that
+        emit rows there: left/full outer and anti joins pass the
+        filter-surviving probe rows through, outer joins with null right
+        columns."""
         out_names = list(self.output_schema.names)
-        for pb in left_src.execute(ctx):
+        for pb in probe_iter:
             if int(pb.num_rows) == 0:
                 continue
             if probe_conds:

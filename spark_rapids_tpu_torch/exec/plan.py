@@ -19,6 +19,7 @@ join broadcast it).
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -40,12 +41,34 @@ from .evaluator import compute_predicate, evaluate_projection
 @dataclasses.dataclass
 class ExecContext:
     """Per-query execution state threaded through the plan.  `device`
-    None means "cuda" and raises without a card (`resolve_device`)."""
+    None means "cuda" and raises without a card (`resolve_device`).
+
+    `metrics` holds the query's counters (`bump`): the out-of-core
+    tier's elections, partitions and passes (exec/ooc.py), and the
+    fallbacks `join_subpartition_fallbacks` and
+    `agg_repartition_fallbacks`.  `ooc_force` stays False until the
+    query-level OOM ladder ports (it forces every eligible join and
+    aggregation out of core)."""
     conf: TpuConf = DEFAULT_CONF
     device: Optional[torch.device] = None
+    metrics: dict = dataclasses.field(default_factory=dict)
+    ooc_force: bool = False
+    _budget: object = None
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
+
+    @property
+    def budget(self):
+        """The query's device-memory budget (runtime/memory.py), built on
+        first use from the conf and the device."""
+        if self._budget is None:
+            from ..runtime.memory import MemoryBudget
+            self._budget = MemoryBudget(self.conf, self.device)
+        return self._budget
+
+    def bump(self, name: str, n: int = 1):
+        self.metrics[name] = self.metrics.get(name, 0) + n
 
 
 def _key_ref_name(e: E.Expression) -> Optional[str]:
@@ -269,20 +292,66 @@ class HashAggregateExec(PlanNode):
                              ctx.conf, key_ranges=self._key_ranges())
 
     def execute(self, ctx: ExecContext) -> Iterator[DeviceBatch]:
+        from ..config import AGG_FALLBACK_PARTITIONS
+        from . import ooc as O
+        from .ooc_agg import OutOfCoreAggregator
         agg = self._aggregate(ctx)
         # upstream filters become the group-by's live mask: filter,
         # projections and update aggregation run with no compaction
         source, conds = peel_filters(self.child)
+        policy = O.ooc_policy(ctx)
         partials: List[DeviceBatch] = []
+        partial_bytes = 0
+        oocagg: Optional[OutOfCoreAggregator] = None
+
+        def start_ooc(mode: str) -> OutOfCoreAggregator:
+            k = max(ctx.conf.get(AGG_FALLBACK_PARTITIONS),
+                    O.partition_count(partial_bytes, policy))
+            ctx.bump("agg_repartition_fallbacks")
+            O.record_election(ctx, "agg", mode)
+            return OutOfCoreAggregator(agg, len(self.key_names), ctx,
+                                       policy, k)
+
         for db in source.execute(ctx):
             if isinstance(db.num_rows, int) and db.num_rows == 0:
                 continue
-            partials.append(agg.partial_fused(db, conds))
+            p = agg.partial_fused(db, conds)
+            if oocagg is not None:
+                oocagg.add(p)
+                continue
+            partials.append(p)
+            partial_bytes += O.batch_bytes(p)
+            # the byte gate, or a forced context: the partials' working
+            # set exceeds the resident window, so spill-partition by key
+            # now (key-disjoint buckets make the union exact)
+            if self.key_exprs and \
+                    (policy.force or policy.bytes_trip(partial_bytes)):
+                oocagg = start_ooc("forced" if policy.force else "bytes")
+                for q in partials:
+                    oocagg.add(q)
+                partials = []
+                continue
             # bound the pending set: merge when the partials would
             # overflow one target batch (tryMergeAggregatedBatches)
             if len(partials) > 1 and sum(p.capacity for p in partials) > \
                     ctx.conf.batch_size_rows:
-                partials = [agg.merge(partials)]
+                merged = agg.merge(partials)
+                if self.key_exprs and \
+                        merged.num_rows > ctx.conf.batch_size_rows:
+                    # the high-cardinality fallback: merging no longer
+                    # reduces below one target batch, so hash-split the
+                    # groups into independently merged buckets
+                    oocagg = start_ooc("rows")
+                    oocagg.add(merged)
+                    partials = []
+                else:
+                    partials = [merged]
+                    partial_bytes = O.batch_bytes(merged)
+        if oocagg is not None:
+            # results() owns the cleanup sweep, so a LIMIT above this
+            # aggregation leaks no spill files
+            yield from oocagg.results()
+            return
         if not partials:
             if self.key_exprs:
                 return  # grouped agg over empty input -> no rows
@@ -294,8 +363,9 @@ class HashAggregateExec(PlanNode):
 
     def collect(self, ctx: Optional[ExecContext] = None) -> HostBatch:
         """Global (no-key) aggregations merge the per-batch buffer
-        scalars on the device and finish with one 1-row final
-        projection; grouped ones collect like any plan."""
+        scalars on the device and finish on the host from the fetched
+        buffers (the reference's `final_host`); grouped ones collect like
+        any plan."""
         if self.key_exprs:
             return super().collect(ctx)
         ctx = ctx or ExecContext()
@@ -308,14 +378,93 @@ class HashAggregateExec(PlanNode):
             raw = [agg.partial_fused(empty_device_batch(
                 source.output_schema, ctx.conf, ctx.device), conds,
                 raw=True)]
-        final = agg.final(agg._reduce_outs_to_batch(agg.merge_raw(raw)))
-        return fetch_result_batch(final, 1, ctx.conf)
+        return agg.final_host(*agg.merge_raw(raw))
+
+
+_U32 = 0xFFFFFFFF
+
+
+def _agg_partition_ids(pb: DeviceBatch, nkeys: int, num_buckets: int,
+                       salt: int = 0) -> torch.Tensor:
+    """int32 bucket id per row from the leading `nkeys` columns,
+    bit-equal to the reference's (spark_rapids_tpu/exec/plan.py).
+
+    Equal keys map to equal buckets across batches and sides: a string
+    key hashes the crc32 of its dictionary VALUE (per-batch codes are
+    not stable), a DOUBLE key a value-derived lane (never its storage
+    bits), any other key its int64 value folded to 32 bits.  `salt`
+    decorrelates a recursive re-scatter, which the same hash would map
+    onto itself.  The reference folds in wrapping uint32; PyTorch has no
+    uint32 arithmetic on CUDA, so the fold runs in int64 masked to 32
+    bits after every multiply and xor (a wrapping int64 product keeps
+    the low 32 bits; `>>` of an int64 is arithmetic in both packages,
+    and of a masked lane a logical shift)."""
+    dev = pb.device
+    salt_c = (salt * 0x9E3779B9) & _U32
+    h = torch.full((pb.capacity,), 17, dtype=torch.int64, device=dev)
+    for c in pb.columns[:nkeys]:
+        d = c.data
+        if c.dictionary is not None:
+            tab = _dict_crc_table(c.dictionary, dev)
+            lane = tab[torch.clamp(d.to(torch.int64), 0, tab.shape[0] - 1)]
+        elif isinstance(c.dtype, (t.DoubleType, t.FloatType)):
+            f = d.to(torch.float64)
+            isnan = torch.isnan(f)
+            isinf = torch.isinf(f)
+            safe = torch.where(isnan | isinf, torch.zeros_like(f), f)
+            ip = torch.floor(safe)
+            fr = ((safe - ip) * float(1 << 30)).to(torch.int64)
+            ii = torch.clamp(ip, -2.0 ** 62, 2.0 ** 62).to(torch.int64)
+            lane = ((((ii ^ (ii >> 32)) & _U32) * 31) & _U32) ^ fr
+            lane = torch.where(isnan, torch.full_like(lane, 0xA5A5A5A5),
+                               lane)
+            lane = torch.where(isinf & (f > 0),
+                               torch.full_like(lane, 0x77777777), lane)
+            lane = torch.where(isinf & (f < 0),
+                               torch.full_like(lane, 0x33333333), lane)
+        else:
+            x = d.to(torch.int64)
+            lane = (x ^ (x >> 32)) & _U32
+        lane = torch.where(c.validity, lane,
+                           torch.full_like(lane, 0x9E3779B9))
+        # XOR-salt each lane: an additive salt would only rotate bucket
+        # labels, leaving a re-scatter's groupings unchanged
+        h = (h * 2654435761 + (lane ^ salt_c)) & _U32
+    # avalanche, so the low bits (the modulo) see every input bit
+    h = h ^ (h >> 16)
+    h = (h * 0x7FEB352D) & _U32
+    h = h ^ (h >> 15)
+    return (h % num_buckets).to(torch.int32)
+
+
+_CRC_TABLE_CACHE: dict = {}
+
+
+def _dict_crc_table(dictionary: np.ndarray, device: torch.device
+                    ) -> torch.Tensor:
+    """crc32 of each dictionary value (UTF-8) as an int64 tensor, padded
+    to a power of two as the reference's table is; cached by dictionary
+    identity and device (every batch of a scan shares its dictionary)."""
+    import zlib
+    key = (id(dictionary), str(device))
+    hit = _CRC_TABLE_CACHE.get(key)
+    if hit is not None and hit[0] is dictionary:
+        return hit[1]
+    ent = [zlib.crc32(str(v).encode("utf-8")) for v in dictionary] or [0]
+    ent += [0] * ((1 << (len(ent) - 1).bit_length()) - len(ent))
+    tab = torch.tensor(ent, dtype=torch.int64, device=device)
+    if len(_CRC_TABLE_CACHE) > 512:
+        _CRC_TABLE_CACHE.clear()
+    # pin the dictionary so its id stays valid while cached
+    _CRC_TABLE_CACHE[key] = (dictionary, tab)
+    return tab
 
 
 class SortExec(PlanNode):
-    """GpuSortExec: sorts by SortOrder keys.  A multi-batch input
-    concatenates first (the reference's out-of-core sorter ports with
-    the OOC slice)."""
+    """GpuSortExec: sorts by SortOrder keys.  A single batch sorts
+    directly; from the second batch on the input goes through the
+    out-of-core sorter (exec/ooc_sort.py): spillable sorted runs under a
+    budget, one concatenated sort without one."""
 
     def __init__(self, keys, child: PlanNode):
         from ..ops.sort import SortKey
@@ -335,11 +484,19 @@ class SortExec(PlanNode):
 
     def execute(self, ctx: ExecContext) -> Iterator[DeviceBatch]:
         from ..ops.sort import sort_batch
-        batches = list(self.child.execute(ctx))
-        if not batches:
+        from .ooc_sort import OutOfCoreSorter
+        it = self.child.execute(ctx)
+        first = next(it, None)
+        if first is None:
             return
-        yield sort_batch(concat_batches(batches, ctx.conf), self.keys,
-                         ctx.conf)
+        second = next(it, None)
+        if second is None:
+            yield sort_batch(first, self.keys, ctx.conf)
+            return
+        sorter = OutOfCoreSorter(self.keys, ctx)
+        for db in itertools.chain((first, second), it):
+            sorter.add(db)
+        yield from sorter.results()
 
 
 def _truncate(db: DeviceBatch, rows) -> DeviceBatch:

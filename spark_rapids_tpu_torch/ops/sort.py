@@ -48,29 +48,34 @@ def dictionary_ranks(dictionary: Optional[np.ndarray]) -> np.ndarray:
 
 def order_lanes(col: DeviceColumn, asc: bool, nulls_first: bool
                 ) -> List[Tuple[torch.Tensor, bool]]:
-    """(lane, descending) pairs, most significant first, for one key."""
+    """(lane, descending) pairs, most significant first, for one key.
+    Every value lane is zero under the null lane, so null rows tie on
+    this key whatever their storage holds (Spark: nulls are equal)."""
     data = col.data
-    null = torch.where(col.validity,
-                       torch.ones_like(col.validity, dtype=torch.int8),
-                       torch.zeros_like(col.validity, dtype=torch.int8))
+    valid = col.validity
+    null = torch.where(valid, torch.ones_like(valid, dtype=torch.int8),
+                       torch.zeros_like(valid, dtype=torch.int8))
     null_lane = (null if nulls_first else 1 - null, False)
     if isinstance(col.dtype, t.StringType):
         d = col.dictionary
         if d is not None and len(d) > 1 and not bool(np.all(d[:-1] < d[1:])):
             ranks = torch.from_numpy(dictionary_ranks(d)).to(data.device)
             data = ranks[torch.clamp(data, 0, len(d) - 1).to(torch.int64)]
-        return [null_lane, (data, not asc)]
+        return [null_lane, (torch.where(valid, data, torch.zeros_like(data)),
+                            not asc)]
     if data.dtype.is_floating_point:
         # NaN greatest via its own lane; -0.0 and 0.0 compare equal (the
         # reference's value-ordered f64 lanes).  +0.0 turns -0.0 into 0.0
         # so the card's radix sort cannot tell them apart either.
-        isnan = torch.isnan(data)
-        value = torch.where(isnan, torch.zeros_like(data), data) + 0.0
+        isnan = torch.isnan(data) & valid
+        value = torch.where(isnan | ~valid, torch.zeros_like(data),
+                            data) + 0.0
         return [null_lane, (isnan.to(torch.int8), not asc),
                 (value, not asc)]
     if data.dtype == torch.bool:
         data = data.to(torch.int8)
-    return [null_lane, (data, not asc)]
+    return [null_lane, (torch.where(valid, data, torch.zeros_like(data)),
+                        not asc)]
 
 
 def sort_permutation(db: DeviceBatch, keys: Sequence[SortKey],

@@ -727,3 +727,88 @@ def test_substring_and_count_distinct_on_the_card_equal_cpu(cuda,
                              .agg((CountDistinct(col("l_suppkey")), "n"))
                              .sort("l_orderkey"))
     assert gpu == cpu
+
+
+@pytest.mark.cuda
+def test_a_spillable_round_trips_a_cuda_batch_through_pinned_host_and_disk(
+        cuda):
+    from spark_rapids_tpu_torch import tpch
+    from spark_rapids_tpu_torch.columnar.device import to_device
+    from spark_rapids_tpu_torch.config import TpuConf
+    from spark_rapids_tpu_torch.runtime.memory import MemoryBudget, Spillable
+    li = tpch.gen_tables(0.001, tables=("lineitem",))["lineitem"]
+    db = to_device(li, device=cuda)
+    lanes = [(c.data.clone(), c.validity.clone()) for c in db.columns]
+    budget = MemoryBudget(TpuConf({}), cuda)
+    # allocFraction x the card's memory
+    assert budget.limit == int(0.85 * torch.cuda.mem_get_info(cuda)[1])
+    sp = Spillable(db, budget)
+    del db
+    sp.spill()
+    assert sp.on_host and all(x.is_pinned() for x in sp._host)
+    back = sp.get()
+    assert back.device.type == "cuda"
+    for c, (d, v) in zip(back.columns, lanes):
+        assert torch.equal(c.data, d) and torch.equal(c.validity, v)
+    sp.spill()
+    sp.to_disk()
+    assert sp.on_disk and budget.metrics["disk_batches"] == 1
+    back = sp.get()
+    for c, (d, v) in zip(back.columns, lanes):
+        assert torch.equal(c.data, d) and torch.equal(c.validity, v)
+    sp.close()
+    assert budget.live == budget.host_live == 0
+
+
+@pytest.mark.cuda
+def test_partition_ids_on_the_card_equal_the_cpus(cuda):
+    from spark_rapids_tpu_torch.columnar.device import to_device
+    from spark_rapids_tpu_torch.columnar.host import from_numpy
+    from spark_rapids_tpu_torch.exec.plan import _agg_partition_ids
+    rng = np.random.default_rng(41)
+    n = 100_000
+    f = rng.standard_normal(n) * 1e9
+    f[:6] = [np.nan, np.inf, -np.inf, -0.0, 0.0, 1e300]
+    from spark_rapids_tpu_torch import types as t
+    hb = from_numpy({"i": rng.integers(-2 ** 63, 2 ** 63 - 1, n),
+                     "d": f, "s": rng.choice(["a", "é", "zz", ""], n)},
+                    t.StructType([t.StructField("i", t.LONG),
+                                  t.StructField("d", t.DOUBLE),
+                                  t.StructField("s", t.STRING)]))
+    cpu, gpu = to_device(hb, device="cpu"), to_device(hb, device=cuda)
+    for k, salt in ((2, 0), (8, 1), (61, 3)):
+        assert torch.equal(_agg_partition_ids(gpu, 3, k, salt).cpu(),
+                           _agg_partition_ids(cpu, 3, k, salt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("how", ["inner", "left_outer", "right_outer",
+                                 "full_outer", "left_semi", "left_anti"])
+def test_a_sub_partitioned_join_on_the_card_equals_the_resident_join(
+        cuda, how):
+    from spark_rapids_tpu_torch.columnar.host import from_numpy
+    from spark_rapids_tpu_torch.exec.plan import ExecContext
+    from spark_rapids_tpu_torch.session import TpuSession
+    from spark_rapids_tpu_torch import types as t
+
+    def longs(*names):
+        return t.StructType([t.StructField(n, t.LONG) for n in names])
+    rng = np.random.default_rng(43)
+    fact = from_numpy({"fk": rng.integers(-50, 5000, 40_000),
+                       "x": rng.integers(0, 100, 40_000)}, longs("fk", "x"))
+    dim = from_numpy({"dk": rng.integers(0, 4000, 9_000),
+                      "w": rng.integers(0, 100, 9_000)}, longs("dk", "w"))
+    small = {"spark.rapids.tpu.sql.batchSizeRows": "4096"}
+    out = {}
+    for name, conf in (("resident", {}), ("sub", small)):
+        s = TpuSession(conf)
+        q = s.from_host(fact).join(s.from_host(dim), how=how,
+                                   left_on=["fk"], right_on=["dk"]) \
+            .physical()
+        ctx = ExecContext(q.conf, q.device)
+        got = q.collect(ctx).to_pydict()
+        out[name] = sorted(zip(*got.values()),
+                           key=lambda r: tuple((v is None, v) for v in r))
+        assert (ctx.metrics.get("join_subpartition_fallbacks", 0) > 0) == \
+            (name == "sub")
+    assert out["sub"] == out["resident"] and len(out["sub"]) > 0

@@ -1,0 +1,106 @@
+"""Where the port follows the CPU oracle over the JAX package.
+
+Three inputs on which the JAX package's device path is wrong or fails
+by Spark's rules, each held here to the reference's CPU oracle
+(`spark.rapids.tpu.sql.enabled=false`); README lists each deviation:
+
+  * FIRST/LAST of a STRING keep their input's dictionary, grouped and
+    global (the reference's device path raises);
+  * a global AVG of a DECIMAL finishes on the host in exact integers,
+    so a sum whose upscale leaves int64 still averages;
+  * a null sort key ties with every other null, whatever its storage
+    lane holds (the reference orders null rows by their hidden value).
+"""
+import decimal as pydec
+
+import numpy as np
+import pyarrow as pa
+import pytest
+
+from spark_rapids_tpu.plan import aggregates as JA
+from spark_rapids_tpu.plan import expressions as JE
+from spark_rapids_tpu.session import DataFrame as JDF
+from spark_rapids_tpu.session import TpuSession as JSession
+from spark_rapids_tpu.session import col as jcol
+from spark_rapids_tpu_torch.plan import aggregates as PA
+from spark_rapids_tpu_torch.plan import expressions as PE
+from spark_rapids_tpu_torch.session import TpuSession as PSession
+from spark_rapids_tpu_torch.session import col as pcol
+
+
+def _oracle(build, table, conf=None):
+    s = JSession({"spark.rapids.tpu.sql.enabled": "false", **(conf or {})})
+    df = build(JA, JE, jcol, s, table)
+    return JDF(df._plan, s).collect().to_pydict()
+
+
+def _port(build, table, conf=None):
+    return build(PA, PE, pcol, PSession(conf, device="cpu"),
+                 table).to_pydict()
+
+
+FIRST_LAST = pa.table({
+    "k": pa.array([1, 2, 1, None, 2, 3, 1, 3], pa.int64()),
+    "s": pa.array(["b", "a", None, "é", "B", "a", "", "zz"])})
+
+
+@pytest.mark.parametrize("grouped", [True, False], ids=["grouped", "global"])
+def test_first_and_last_of_a_string_keep_the_dictionary(grouped):
+    def build(a, e, c, s, table):
+        df = s.from_arrow(table)
+        if grouped:
+            return (df.group_by("k").agg((a.First(c("s")), "f"),
+                                         (a.Last(c("s")), "l"))
+                    .sort("k"))
+        return df.agg((a.First(c("s")), "f"), (a.Last(c("s")), "l"))
+    want = _oracle(build, FIRST_LAST)
+    if grouped:
+        assert want["f"] == ["é", "b", "a", "a"]
+    assert _port(build, FIRST_LAST) == want
+
+
+def test_global_decimal_average_is_exact_past_the_int64_upscale():
+    # 1,000 x 9999999999.99: the unscaled sum 999999999999000 times 10^4
+    # (the average's scale 6) leaves int64, the Python quotient does not
+    table = pa.table({"d": pa.array([pydec.Decimal("9999999999.99")] * 1000,
+                                    pa.decimal128(12, 2))})
+
+    def build(a, e, c, s, tbl):
+        return s.from_arrow(tbl).agg((a.Average(c("d")), "avg"))
+    want = _oracle(build, table)
+    assert want == {"avg": [pydec.Decimal("9999999999.990000")]}
+    assert _port(build, table) == want
+
+
+NULL_SUMS = pa.table({
+    "a": pa.array([None, None, None, 1, None, 2], pa.int64()),
+    "b": pa.array([30, 10, 20, 5, 40, 6], pa.int64()),
+    "i": pa.array([1, 2, 3, 4, 5, 6], pa.int64())})
+
+
+@pytest.mark.parametrize("limit", [None, 3], ids=["sort", "top_n"])
+def test_null_sort_keys_tie_whatever_their_hidden_value(limit):
+    # a + b is null in four rows whose storage holds 30, 10, 20 and 40:
+    # the nulls tie, so i (descending) orders them
+    def build(a, e, c, s, tbl):
+        df = (s.from_arrow(tbl)
+              .select(e.Alias(e.Add(c("a"), c("b")), "e"), c("i"))
+              .sort("e", ("i", False)))
+        return df if limit is None else df.limit(limit)
+    want = _oracle(build, NULL_SUMS)
+    assert want["i"] == [5, 3, 2, 1, 4, 6][:limit]
+    assert _port(build, NULL_SUMS) == want
+
+
+def test_null_string_sort_keys_tie_over_several_batches():
+    table = pa.table({
+        "s": pa.array(["b", None, "a", None, None, "a"]),
+        "i": pa.array([1, 3, 2, 1, 2, 0], pa.int64())})
+    conf = {"spark.rapids.tpu.sql.batchSizeRows": "2"}
+
+    def build(a, e, c, s, tbl):
+        return s.from_arrow(tbl).sort(("s", False), "i")
+    want = _oracle(build, table, conf)
+    got = _port(build, table, conf)
+    assert got == want
+    assert [i for s, i in zip(got["s"], got["i"]) if s is None] == [1, 2, 3]

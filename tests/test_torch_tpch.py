@@ -66,11 +66,6 @@ def ptables_01():
     return PTPCH.gen_tables(0.01)
 
 
-@pytest.fixture(scope="module")
-def ptables_005():
-    return PTPCH.gen_tables(0.005)
-
-
 def _unscaled(d: dict) -> dict:
     """Decimals as unscaled integers (exact comparison), else as is."""
     out = {}
@@ -528,21 +523,28 @@ def test_min_max_outputs_carry_their_column_range_so_q2_packs(
                                                      max(unscaled))
 
 
+#: the queries that sub-partition a join at scale 0.01 with 4,096-row
+#: batches, as at SF10 with the default 4,194,304: the seven whose build
+#: exceeds 2 x sql.batchSizeRows (orders, q21's orders under its fused
+#: status filter, q22's o_custkey, q4's late lineitem), and q18, whose
+#: adaptive join builds on orders once its group-by runs out of core
+#: (the reference's choice too: tests/test_torch_ooc_tpch.py)
+SUB_PARTITIONED = ("q4", "q7", "q8", "q9", "q12", "q18", "q21", "q22")
+
+
 @pytest.mark.parametrize("query", sorted(PTPCH.QUERIES))
-def test_cut_scales_foresee_the_build_gate(request, query):
+def test_cut_scales_foresee_the_build_gate(ptables_01, query):
     # the build gate is 2 x sql.batchSizeRows; at scale 0.01 with
     # 4,096-row batches a query meets it as at SF10 with the default
-    # 4,194,304: chip_smoke.CUT_SCALES lists exactly the queries it
-    # refuses, and each runs at its cut scale / 1000
+    # 4,194,304.  The queries that meet it sub-partition their joins
+    # instead of refusing, so every query runs at its full scale on the
+    # card: chip_smoke.CUT_SCALES is empty
+    from spark_rapids_tpu_torch.exec.plan import ExecContext
+    assert chip_smoke.CUT_SCALES == {}
     gate = {"spark.rapids.tpu.sql.batchSizeRows": "4096"}
-
-    def run(tables):
-        return PTPCH.QUERIES[query](PSession(gate, device="cpu"),
-                                    tables).collect()
-    if query not in chip_smoke.CUT_SCALES:
-        run(request.getfixturevalue("ptables_01"))
-        return
-    with pytest.raises(NotImplementedError, match="sub-partitioned"):
-        run(request.getfixturevalue("ptables_01"))
-    cut = {1.0: "ptables", 5.0: "ptables_005"}[chip_smoke.CUT_SCALES[query]]
-    run(request.getfixturevalue(cut))
+    q = PTPCH.QUERIES[query](PSession(gate, device="cpu"),
+                             ptables_01).physical()
+    ctx = ExecContext(q.conf, q.device)
+    q.collect(ctx)
+    fallbacks = ctx.metrics.get("join_subpartition_fallbacks", 0)
+    assert (fallbacks > 0) == (query in SUB_PARTITIONED), fallbacks
