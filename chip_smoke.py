@@ -133,9 +133,40 @@ own failure:
                elected the out-of-core aggregation.  Prints each
                query's spill batches, bytes and ms beside its cold wall
                and its unbudgeted cold and warm walls from phase 5.
+  7. tpcds   — the TPC-H tables are dropped first (host memory), then
+               TPC-DS at SF10 from the port's tpcds.gen_tables (the
+               reference generator's values: store_sales 28,804,040
+               rows) and the independent numpy results of its 23
+               queries and of phase 8, in forked processes, before this
+               phase uses the card (chip_smoke_tpcds.py: dimension rows
+               by surrogate key, lexsort groups, exact int64 decimal
+               sums, rollup levels, ranks and window totals spelled
+               out).  Each query (tpcds.QUERIES) runs through
+               TpuSession() on cuda and must equal its numpy result
+               (DOUBLE columns within rtol 1e-12; runs of tied sort keys
+               as multisets) and launch the kernels of its path
+               (PATH_KERNELS ds_*); q27, q36, q70 and q86 must run
+               ExpandExec, q33, q56, q60 and q76 UnionExec, q12, q20,
+               q36, q70, q86 and q98 WindowExec.  Prints each query's
+               cold wall, median of 3 warm walls, peak device memory,
+               operators and launches.
+  8. window  — one WindowExec over all of store_sales, partitioned by
+               ss_item_sk and ordered by ss_sold_date_sk (q47's and
+               q51's shapes): row_number, rank, dense_rank,
+               percent_rank, cume_dist, ntile(4), lead and lag with a
+               default, first_value, last_value, count, the average
+               over the whole partition, and ss_net_paid's sum running,
+               over ROWS -3..3 and over RANGE 30 days preceding, its
+               min and max over ROWS -3..3 and over that RANGE (a
+               sparse table).  Held against numpy (a lexsort, then
+               per-segment arithmetic; the RANGE bounds by searchsorted
+               on the packed (item, date) key) and, over the first
+               1,000,000 rows, against the port's own CPU path.  Prints
+               the collect's cold wall, the operator's warm wall and the
+               peak device memory.
 Each phase after the data prints its seconds.
-  7. result  — a `kernels` JSON line (launches by query over every
-               query of phase 5), the whole run's seconds, the
+  9. result  — a `kernels` JSON line (launches by query over every
+               query of phases 5 and 7), the whole run's seconds, the
                nvidia-smi line, and last {"ok": true, "device": {...}}.
 
 Flags: --scale (default 10), --seed (default 20240706), --kernels-only
@@ -149,6 +180,7 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import datetime as pydt
+import gc
 import json
 import multiprocessing
 import os
@@ -221,6 +253,19 @@ PATH_KERNELS = {"q1": ("seg_sums",), "q6": (),
                 "q20_us": UNIQUE_JOIN,
                 "q21": UNIQUE_JOIN, "q21_vn": UNIQUE_JOIN,
                 "q22": UNIQUE_JOIN + ("seg_sums",)}
+# TPC-DS (tpcds.QUERIES at SF10): every query joins unique dimension
+# builds; q33 (i_manufact_id, 1,000 values), q43 (store name x id,
+# 847 slots), q65 (its per-store average, 120 stores) and q70 (its
+# per-state sums, 8 states) group by domains the segmented-aggregation
+# gate takes (maxDomain 1,024).  The others' keys are over it at SF10
+# (i_item_id: 180,000 values) or carry the grouping id, whose range no
+# scan bounds
+DS_SEGAGG = ("q33", "q43", "q65", "q70")
+DS_QUERIES = ("q3", "q7", "q12", "q19", "q20", "q26", "q27", "q33", "q36",
+              "q42", "q43", "q52", "q55", "q56", "q60", "q65", "q70", "q73",
+              "q76", "q86", "q93", "q96", "q98")
+PATH_KERNELS.update({f"ds_{q}": UNIQUE_JOIN + (
+    ("seg_sums",) if q in DS_SEGAGG else ()) for q in DS_QUERIES})
 Q3_DATE = (pydt.date(1995, 3, 15) - pydt.date(1970, 1, 1)).days
 # the device launches of one build_layout call, by kernel name: this
 # tree's two passes, and (for an A B B A against an older tree) its
@@ -2331,6 +2376,187 @@ def profile_phase(tables, scale: float):
     profile_query("q18_300", later_query("q18_300", scale), tables)
 
 
+#: the rollup, channel and window queries must run their operators
+DS_OPERATORS = {"ExpandExec": ("q27", "q36", "q70", "q86"),
+                "UnionExec": ("q33", "q56", "q60", "q76"),
+                "WindowExec": ("q12", "q20", "q36", "q70", "q86", "q98")}
+DS_SCALE = 10.0
+DS_SEED = 20250804
+#: the window phase's CPU comparison runs over this many rows
+WINDOW_CPU_ROWS = 1_000_000
+#: the window phase's numpy result is computed in this many pieces (item
+#: key ranges), one forked process each
+WINDOW_PARTS = 4
+_DS_TABLES = None
+
+
+def _ds_want(name: str):
+    """A TPC-DS query's numpy result (or the window phase's) over the
+    tables tpcds_data set, and the seconds it took."""
+    import chip_smoke_tpcds as D
+    t0 = time.perf_counter()
+    if name.startswith("window"):
+        got = D.window_part_digests(_DS_TABLES["store_sales"],
+                                    int(name[len("window"):]), WINDOW_PARTS)
+    else:
+        got = D.expected(name, _DS_TABLES)
+    return got, time.perf_counter() - t0
+
+
+def tpcds_data():
+    """TPC-DS at SF10 from the port's gen_tables, and the numpy result of
+    every query and of the window phase, one forked process each, the
+    slowest first; they finish before this phase's card work starts."""
+    global _DS_TABLES
+    import chip_smoke_tpcds as D
+    from spark_rapids_tpu_torch import tpcds
+    t0 = time.perf_counter()
+    tables = tpcds.gen_tables(DS_SCALE, DS_SEED)
+    log(f"[tpcds] gen_tables(scale={DS_SCALE:g}): " + ", ".join(
+        f"{n} {hb.num_rows} rows" for n, hb in tables.items()) +
+        f" in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    names = [f"window{p}" for p in range(WINDOW_PARTS)] + [
+        f"q{q}" for q in sorted(int(n[1:]) for n in DS_QUERIES)]
+    workers = min(len(names), os.cpu_count() or 1)
+    _DS_TABLES = tables
+    with concurrent.futures.ProcessPoolExecutor(
+            max_workers=workers,
+            mp_context=multiprocessing.get_context("fork")) as pool:
+        done = dict(zip(names, pool.map(_ds_want, names)))
+    _DS_TABLES = None
+    slowest = sorted(done, key=lambda n: -done[n][1])[:3]
+    log(f"[tpcds] {len(names)} numpy results in {workers} processes: "
+        f"{time.perf_counter() - t0:.1f} s; slowest " +
+        ", ".join(f"{n} {done[n][1]:.1f} s" for n in slowest))
+    want = {n: r for n, (r, _s) in done.items()
+            if not n.startswith("window")}
+    want["window"] = D.add_digests(r for n, (r, _s) in done.items()
+                                   if n.startswith("window"))
+    return tables, want
+
+
+def _operators(root) -> dict:
+    """Expand, Union and Window operators in a physical plan, by name."""
+    seen = {k: 0 for k in DS_OPERATORS}
+    stack = [root]
+    while stack:
+        node = stack.pop()
+        name = type(node).__name__
+        if name in seen:
+            seen[name] += 1
+        stack.extend(node.children)
+    return seen
+
+
+def tpcds_phase(tables, want):
+    """The 23 TPC-DS queries at SF10 through TpuSession() on cuda: each
+    equal to its numpy result, launching the kernels of its path
+    (PATH_KERNELS ds_*), the rollup / channel / window queries running
+    Expand / Union / Window; cold and warm walls and the peak device
+    memory of each.  -> {ds_<q>: launches}."""
+    import chip_smoke_tpcds as D
+    from spark_rapids_tpu_torch import tpcds
+    from spark_rapids_tpu_torch.ops.hopper import LAUNCHES, \
+        reset_launch_counts
+    s = _cuda_session()
+    launches = {}
+    for q in DS_QUERIES:
+        build = tpcds.QUERIES[q]
+        ops = _operators(build(s, tables).physical().root)
+        for op, queries in DS_OPERATORS.items():
+            if q in queries:
+                check(ops[op] > 0, f"TPC-DS {q} runs no {op}")
+        reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        got, ctx = run_query(s, build, tables)
+        torch.cuda.synchronize()
+        cold = (time.perf_counter() - t0) * 1e3
+        launches[f"ds_{q}"] = dict(LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        msg = D.compare(q, D.result_columns(got), want[q])
+        check(not msg, f"TPC-DS {q} differs from the numpy reference: {msg}")
+        check(got.num_rows > 0, f"TPC-DS {q} returned no row")
+        for k in PATH_KERNELS[f"ds_{q}"]:
+            check(launches[f"ds_{q}"][k] > 0,
+                  f"kernel {k} was not launched on the TPC-DS {q} path")
+        runs = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            build(s, tables).collect()
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0) * 1e3)
+        log(f"[tpcds] {q} (SF{DS_SCALE:g}): {got.num_rows} rows equal the "
+            f"numpy reference; cold {cold:.1f} ms, warm median "
+            f"{statistics.median(runs):.1f} ms; peak device memory "
+            f"{peak:.2f} GiB; operators {ops}; {ooc_counts(ctx)}; kernel "
+            f"launches {launches[f'ds_{q}']}")
+    return launches
+
+
+def _cuda_session():
+    from spark_rapids_tpu_torch.session import TpuSession
+    s = TpuSession()
+    check(s.device.type == "cuda", "TpuSession() is not on cuda")
+    return s
+
+
+def window_phase(tables, want) -> None:
+    """One WindowExec over all of store_sales (partitioned by item,
+    ordered by sale date; every function and frame of plan/window.py)
+    held against numpy, and over its first WINDOW_CPU_ROWS rows against
+    the port's own CPU path."""
+    import chip_smoke_tpcds as D
+    from spark_rapids_tpu_torch.exec.plan import ExecContext
+    from spark_rapids_tpu_torch.session import TpuSession
+    ss = tables["store_sales"]
+    s = _cuda_session()
+    q = D.window_frame(s, ss).physical()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    got = q.collect(ExecContext(q.conf, q.device))
+    torch.cuda.synchronize()
+    cold = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    bad = D.window_digests_equal(got, want["window"])
+    if bad:
+        # locate the difference: the numpy lanes, here, in full
+        try:
+            D.compare_window(got, D.expected_window(ss))
+        except AssertionError as e:
+            check(False, str(e))
+        check(False, f"window outputs {bad} differ from numpy's digests")
+    del got
+    runs = []
+    for _ in range(3):
+        ctx = ExecContext(q.conf, q.device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _db in q.root.execute(ctx):
+            pass
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0) * 1e3)
+    log(f"[window] {len(D.WINDOW_SPECS)} functions over {ss.num_rows} "
+        f"store_sales rows (partition ss_item_sk, order ss_sold_date_sk) "
+        f"equal numpy (digests of all {len(want['window'])} outputs, "
+        f"bit for bit); collect cold "
+        f"{cold:.1f} ms; operator (scan upload included, no fetch) warm "
+        f"median {statistics.median(runs):.1f} ms; peak device memory "
+        f"{peak:.2f} GiB")
+    head = ss.slice(0, min(WINDOW_CPU_ROWS, ss.num_rows))
+    card = D.window_frame(s, head).collect()
+    cpu = D.window_frame(TpuSession(device="cpu"), head).collect()
+    for name, _make in D.WINDOW_SPECS:
+        a, b = card.column_by_name(name), cpu.column_by_name(name)
+        check(np.array_equal(a.data, b.data) and
+              np.array_equal(a.valid_mask(), b.valid_mask()),
+              f"window {name} on the card differs from the port's CPU path "
+              f"over the first {head.num_rows} rows")
+    log(f"[window] the card equals the port's CPU path over the first "
+        f"{head.num_rows} rows, every output")
+
+
 def phase(name: str, fn, *args):
     """Run one phase and log its seconds."""
     t0 = time.perf_counter()
@@ -2404,6 +2630,14 @@ def main() -> int:
     tables, want, later = data_phase(args.scale, args.seed,
                                      reference=not args.kernels_only)
     stats, launches = card_phases(dev, tables, want, later, args)
+    if not args.kernels_only:
+        # the TPC-H tables go first, to bound host memory
+        del tables, want, later
+        gc.collect()
+        torch.cuda.empty_cache()
+        ds_tables, ds_want = phase("tpcds data", tpcds_data)
+        launches.update(phase("tpcds", tpcds_phase, ds_tables, ds_want))
+        phase("window", window_phase, ds_tables, ds_want)
     rows = []
     for name in TPU_KERNELS:
         st = stats[name]

@@ -8,8 +8,10 @@ probe batches stream through.
 
 Every equi-join type of the hash-table tier runs: inner, left/right/full
 outer, left semi and left anti, over unique or non-unique build keys, on
-one key column or on a composite key whose exact column ranges pack it
-into one injective lane (`range_pack_spec`).  Per probe batch:
+one key column (a string key's probe codes remap into the build's
+dictionary, `remap_codes_into`; a string absent there matches nothing)
+or on a composite key whose exact column ranges pack it into one
+injective lane (`range_pack_spec`).  Per probe batch:
 
   * semi/anti: the matched flag (`probe_matched_lazy`, no host sync),
     then one compaction of the kept probe rows;
@@ -46,8 +48,9 @@ both sides hash-scatter into spillable buckets
 buckets and their order are the reference's) and each bucket pair joins
 through the same kernels.
 
-What stays unported raises NotImplementedError naming its slice: string
-keys, composite keys that do not pack (the sorted tier), and a join with
+What stays unported raises NotImplementedError naming its slice:
+composite keys that do not pack, strings among them (the sorted tier),
+and a join with
 the kernel tier off or a build over
 `sql.kernels.pallas.join.maxBuildRows` (the dense and sorted tiers).
 """
@@ -63,7 +66,8 @@ from ..columnar.device import (DeviceBatch, DeviceColumn, bucket_capacity,
                                storage_dtype)
 from ..config import HASH_SUBPARTITION_FALLBACK
 from ..ops import join as J
-from ..ops.batch_ops import concat_batches, shrink_to_rows
+from ..ops.batch_ops import (concat_batches, ensure_unique_dict,
+                             remap_codes_into, shrink_to_rows)
 from ..ops.filter import compact_batch, gather_batch
 from ..plan import expressions as E
 from . import ooc as O
@@ -142,10 +146,11 @@ def unported_join_reasons(join_type: str, left_keys, right_keys,
     reasons = []
     if join_type not in JOIN_TYPES:
         reasons.append(f"unsupported join type {join_type}")
-    if any(isinstance(e.dtype, t.StringType)
-           for e in list(left_keys) + list(right_keys)):
-        reasons.append("string join keys (dictionary unification across "
-                       f"sides) port with {NEXT_JOIN_SLICE}")
+    strings = [isinstance(e.dtype, t.StringType)
+               for e in list(left_keys) + list(right_keys)]
+    if any(strings) and (len(left_keys) > 1 or not all(strings)):
+        reasons.append("composite string join keys take the reference's "
+                       f"sorted tier, which ports with {NEXT_JOIN_SLICE}")
     elif len(left_keys) > 1 and \
             range_pack_spec(left_keys, right_keys, left, right) is None:
         reasons.append("composite keys that do not pack into one lane "
@@ -416,7 +421,8 @@ class HashJoinExec(PlanNode):
                 "reference's dense or sorted join tier, which ports with "
                 f"{NEXT_JOIN_SLICE}")
         jt = self.join_type
-        build_keys = self._key_cols(build_batch, self.right_keys, ctx)
+        build_keys = [ensure_unique_dict(c) for c in self._key_cols(
+            build_batch, self.right_keys, ctx)]
         # fused build-side filters: failing rows never match and never
         # surface as outer-unmatched
         build_pre = conds_mask(build_conds, build_batch,
@@ -445,7 +451,11 @@ class HashJoinExec(PlanNode):
         for pb in probe_iter:
             if isinstance(pb.num_rows, int) and pb.num_rows == 0:
                 continue
-            probe_keys = self._key_cols(pb, self.left_keys, ctx)
+            # a string key's codes move into the build's dictionary
+            probe_keys = [remap_codes_into(c, b.dictionary)
+                          if b.dictionary is not None else c
+                          for c, b in zip(self._key_cols(
+                              pb, self.left_keys, ctx), build_keys)]
             probe_lanes = [packed_lane(probe_keys, pack)] if pack \
                 else J.key_cols_lanes(probe_keys)
             # fused probe-side filters: failing rows are dead for every

@@ -5,10 +5,18 @@ iterator of batches from its child and pushes transformed batches
 downstream (the reference's `GpuExec.internalDoExecuteColumnar` shape).
 Expressions arrive already bound to the child's schema.
 
-The nodes TPC-H q1, q3 and q6 run: the host scan, project, filter
-(fused into an aggregate's or a join's masks when one sits above it,
-else compacting), hash aggregate, sort, limit and top-N.  The joins
-(hash and cross) are in exec/join.py and exec/adaptive.py.
+The nodes the TPC-H and TPC-DS queries run: the host scan, project,
+filter (fused into an aggregate's or a join's masks when one sits above
+it, else compacting), hash aggregate, sort, limit, top-N, union and
+expand.  The joins (hash and cross) are in exec/join.py and
+exec/adaptive.py, the window in exec/window.py.
+
+A union streams its children's batches as they come, each with its own
+string dictionaries (three sales channels scan three dictionaries of one
+column); whatever combines batches unifies them: the aggregate's merge,
+the sort, top-N, the window and a join's build (ops/batch_ops
+`concat_batches`), and a join's probe, whose string keys remap into the
+build's dictionary.
 
 Plan statistics ride the nodes as in the reference: `column_range`
 (exact integer bounds, which let group keys pack) and `keys_unique`
@@ -588,3 +596,55 @@ class TopNExec(PlanNode):
                                          ctx.conf)
         if pending is not None:
             yield pending
+
+
+class UnionExec(PlanNode):
+    """GpuUnionExec: the children's streams one after the other
+    (schema-aligned by position; the first child's names)."""
+
+    def __init__(self, *children: PlanNode):
+        super().__init__(*children)
+
+    @property
+    def output_schema(self) -> t.StructType:
+        return self.children[0].output_schema
+
+    def column_range(self, name):
+        # the children's columns at the same position
+        names = self.output_schema.names
+        if name not in names:
+            return None
+        i = names.index(name)
+        rngs = [c.column_range(c.output_schema.names[i])
+                for c in self.children]
+        if any(r is None for r in rngs):
+            return None
+        return (min(r[0] for r in rngs), max(r[1] for r in rngs))
+
+    def execute(self, ctx: ExecContext) -> Iterator[DeviceBatch]:
+        names = list(self.output_schema.names)
+        for c in self.children:
+            for db in c.execute(ctx):
+                yield DeviceBatch(db.columns, db.num_rows, names)
+
+
+class ExpandExec(PlanNode):
+    """GpuExpandExec: every input batch once through each projection
+    (the rollup / cube / grouping-sets lowering)."""
+
+    def __init__(self, projections: Sequence[Sequence[E.Expression]],
+                 names: Sequence[str], child: PlanNode):
+        super().__init__(child)
+        self.projections = [[e.bind(child.output_schema) for e in p]
+                            for p in projections]
+        self.names = list(names)
+
+    @property
+    def output_schema(self) -> t.StructType:
+        return t.StructType([t.StructField(n, e.dtype) for n, e in
+                             zip(self.names, self.projections[0])])
+
+    def execute(self, ctx: ExecContext) -> Iterator[DeviceBatch]:
+        for db in self.child.execute(ctx):
+            for proj in self.projections:
+                yield evaluate_projection(proj, self.names, db, ctx.conf)

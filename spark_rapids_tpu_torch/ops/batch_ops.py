@@ -1,10 +1,11 @@
 """Device batch utilities: concat and re-bucketing.
 
 Counterpart of spark_rapids_tpu/ops/batch_ops.py for what the
-aggregation merge, the join build side and the limits need.  String
-columns carry per-batch dictionaries, so concat first unifies them on
-the host (numpy; dictionaries are small) and remaps the codes on the
-device with one gather per column.
+aggregation merge, the join build and probe sides and the limits need.
+String columns carry per-batch dictionaries, so concat first unifies
+them on the host (numpy) and remaps the codes on the device with one
+gather per column, unless every batch carries the same sorted
+dictionary (the batches of one scan), whose codes already agree.
 
 `concat_batches` reads every row count that is still a device scalar
 (one sync each) and concatenates the live prefixes tightly, where the
@@ -40,6 +41,39 @@ def remap_string_column(col: DeviceColumn, remap: np.ndarray,
     return DeviceColumn(data, col.validity, col.dtype, unified)
 
 
+_REMAP_CACHE: dict = {}
+
+
+def remap_codes_into(col: DeviceColumn, target: np.ndarray) -> DeviceColumn:
+    """A string column's codes in `target`'s code space (a join probe
+    against its build's dictionary); a string absent from `target` maps
+    to -1, which equals no code.  The host table is cached per (source,
+    target) dictionary pair, so the batches of one scan share it."""
+    src = col.dictionary
+    if src is target:
+        return col
+    key = (id(src), id(target), str(col.data.device))
+    hit = _REMAP_CACHE.get(key)
+    if hit is None or hit[0] is not src or hit[1] is not target:
+        s = np.asarray(src if src is not None else [], str)
+        tgt = np.asarray(target, str)
+        pos = np.searchsorted(tgt, s)
+        found = pos < len(tgt)
+        found[found] = tgt[pos[found]] == s[found]
+        table = np.where(found, pos, -1).astype(np.int32)
+        if not len(table):
+            table = np.full(1, -1, np.int32)
+        if len(_REMAP_CACHE) > 512:
+            _REMAP_CACHE.clear()
+        # pin both dictionaries so their ids stay valid while cached
+        hit = (src, target, torch.from_numpy(table).to(col.data.device))
+        _REMAP_CACHE[key] = hit
+    table = hit[2]
+    data = table[torch.clamp(col.data, 0, table.shape[0] - 1).to(
+        torch.int64)]
+    return DeviceColumn(data, col.validity, col.dtype, target)
+
+
 def ensure_unique_dict(col: DeviceColumn) -> DeviceColumn:
     """Code equality == string equality requires a duplicate-free
     dictionary; host dictionaries are built sorted and unique, so this
@@ -49,6 +83,22 @@ def ensure_unique_dict(col: DeviceColumn) -> DeviceColumn:
         return col
     unified, remaps = unify_dictionaries([d])
     return remap_string_column(col, remaps[0], unified)
+
+
+def _shared_dictionary(cols: Sequence[DeviceColumn]
+                       ) -> Optional[np.ndarray]:
+    """The one dictionary every column carries, when it is a single
+    sorted, duplicate-free array (the batches of one scan share their
+    column's; an empty dictionary, every row null, takes any): the codes
+    are already in one space, so nothing remaps.  None otherwise."""
+    ds = [c.dictionary for c in cols]
+    if any(x is None for x in ds):
+        return None
+    used = [x for x in ds if len(x)] or ds[:1]
+    d = used[0]
+    if any(x is not d for x in used[1:]):
+        return None
+    return d if len(d) <= 1 or bool(np.all(d[:-1] < d[1:])) else None
 
 
 def concat_batches(batches: List[DeviceBatch],
@@ -69,9 +119,12 @@ def concat_batches(batches: List[DeviceBatch],
         dt = cols[0].dtype
         unified = None
         if isinstance(dt, t.StringType):
-            unified, remaps = unify_dictionaries([c.dictionary for c in cols])
-            cols = [remap_string_column(c, r, unified)
-                    for c, r in zip(cols, remaps)]
+            unified = _shared_dictionary(cols)
+            if unified is None:
+                unified, remaps = unify_dictionaries(
+                    [c.dictionary for c in cols])
+                cols = [remap_string_column(c, r, unified)
+                        for c, r in zip(cols, remaps)]
         data = [c.data[:n] for c, n in zip(cols, counts)]
         valid = [c.validity[:n] for c, n in zip(cols, counts)]
         if pad:

@@ -6,8 +6,9 @@ Counterpart of spark_rapids_tpu/ops/kernels.py:
     native float64 on the card, see columnar/device.py)
   * validity lane algebra (Spark three-valued logic)
   * row-liveness masking for reductions over padded buckets
-  * cumulative scans — the reference blocks them only to keep TPU
-    compile times down, so here they are torch.cumsum / torch.cummax
+  * cumulative scans: torch.cumsum / torch.cummax, except that a
+    floating prefix sum keeps the reference's 512-row blocked order,
+    which decides how its float64 sums round
 """
 from __future__ import annotations
 
@@ -62,10 +63,26 @@ def live_mask(capacity: int, num_rows, device=None) -> torch.Tensor:
     return iota < int(num_rows)
 
 
+_SCAN_BLOCK = 512
+_SCAN_MIN = 4096
+
+
 def blocked_cumsum(a: torch.Tensor, axis: int = 0) -> torch.Tensor:
-    """Cumulative sum along axis 0 (the reference's TPU-blocked scan)."""
+    """Cumulative sum along axis 0 of a 1-D lane.  Integer lanes scan in
+    one pass (any order gives the same sums); floating lanes add in the
+    reference's blocked order — 512-row blocks scanned along their rows,
+    then the exclusive scan of the block totals added on — so a float64
+    prefix sum rounds as the reference's does, on the card as well (a
+    (nb, 512) scan along dim 1 runs many short rows)."""
     assert axis == 0
-    return torch.cumsum(a, dim=0)
+    n = a.shape[0]
+    if not a.dtype.is_floating_point or n < _SCAN_MIN or \
+            n % _SCAN_BLOCK != 0:
+        return torch.cumsum(a, dim=0)
+    within = torch.cumsum(a.reshape(n // _SCAN_BLOCK, _SCAN_BLOCK), dim=1)
+    totals = within[:, -1]
+    offs = torch.cumsum(totals, dim=0) - totals
+    return (within + offs[:, None]).reshape(n)
 
 
 def blocked_cummax(a: torch.Tensor) -> torch.Tensor:

@@ -7,8 +7,9 @@ aliases, + - * (integral, floating and decimal with Spark's result-type
 rules and overflow-to-null), / on doubles, the six comparisons (numeric,
 date and decimal), = and != of a dictionary-coded string column against
 a string literal or another string column, Kleene AND/OR/NOT, IS [NOT]
-NULL, COALESCE, IF, CASE WHEN, IN and numeric/decimal casts (floating to
-integral as the reference truncates and clamps).  Anything
+NULL, COALESCE, IF, CASE WHEN, IN, numeric/decimal casts (floating to
+integral as the reference truncates and clamps), and the bitwise and
+shift operators with Java's shift-distance masking.  Anything
 else reports itself in `unsupported_reasons`, and plan/overrides.py
 refuses the plan with that reason: the port has no CPU engine to fall
 back to yet.
@@ -232,17 +233,23 @@ class Literal(Expression):
     def _resolve(self):
         pass
 
+    def _dictionary(self) -> Optional[np.ndarray]:
+        """A string literal's one-entry dictionary; a null one's is empty
+        (every row null), so a projected null STRING column carries one."""
+        if not isinstance(self.dtype, t.StringType):
+            return None
+        return np.array([] if self.value is None else [self.value], str)
+
     def _prepare(self, pctx, kids):
-        if isinstance(self.dtype, t.StringType) and self.value is not None:
-            return HostVal(np.array([self.value], str))
-        return HostVal()
+        return HostVal(self._dictionary())
 
     def _eval_dev(self, ctx, kids):
         if self.value is None:
             dt = self.dtype if not isinstance(self.dtype, t.NullType) \
                 else t.INT
             return DevVal(ctx.full(0, compute_dtype(dt)),
-                          ctx.full(False, torch.bool), self.dtype)
+                          ctx.full(False, torch.bool), self.dtype,
+                          self._dictionary())
         if isinstance(self.dtype, t.StringType):
             return DevVal(ctx.full(0, torch.int32), None, self.dtype,
                           np.array([self.value], str))
@@ -922,3 +929,161 @@ def _floating_to_integral(x: torch.Tensor, dst: t.DataType) -> torch.Tensor:
     info = np.iinfo(t.physical_np_dtype(dst))
     return torch.clamp(i64, int(info.min), int(info.max)).to(
         compute_dtype(dst))
+
+
+# ---------------------------------------------------------------------------
+# Bitwise family (GroupingSets.grouping() compiles to BitwiseAnd of a
+# ShiftRight of the grouping id)
+# ---------------------------------------------------------------------------
+
+def _bits_of(dt: t.DataType) -> int:
+    return 8 * np.dtype(t.physical_np_dtype(dt)).itemsize
+
+
+class _BitwiseBinary(Expression):
+    """a op b on integral lanes, the left operand's type; the operands
+    combine in int64 and the result narrows (wraps) to that type."""
+    _op = None
+
+    def __init__(self, left, right):
+        self.children = (left, right)
+
+    def _resolve(self):
+        self.dtype = self.children[0].dtype
+        self.nullable = any(c.nullable for c in self.children)
+
+    def unsupported_reasons(self, conf):
+        return [f"bitwise over {c.dtype.simple_string}"
+                for c in self.children if not t.is_integral(c.dtype)]
+
+    def _eval_dev(self, ctx, kids):
+        a, b = kids
+        out = type(self)._op(a.data.to(torch.int64), b.data.to(torch.int64))
+        return DevVal(out.to(compute_dtype(self.dtype)),
+                      merge_validity(a.validity, b.validity), self.dtype)
+
+
+class BitwiseAnd(_BitwiseBinary):
+    _op = staticmethod(torch.bitwise_and)
+
+
+class BitwiseOr(_BitwiseBinary):
+    _op = staticmethod(torch.bitwise_or)
+
+
+class BitwiseXor(_BitwiseBinary):
+    _op = staticmethod(torch.bitwise_xor)
+
+
+class BitwiseNot(Expression):
+    def __init__(self, child):
+        self.children = (child,)
+
+    def _resolve(self):
+        self.dtype = self.children[0].dtype
+        self.nullable = self.children[0].nullable
+
+    def unsupported_reasons(self, conf):
+        if not t.is_integral(self.children[0].dtype):
+            return [f"bitwise over {self.children[0].dtype.simple_string}"]
+        return []
+
+    def _eval_dev(self, ctx, kids):
+        return DevVal(torch.bitwise_not(kids[0].data), kids[0].validity,
+                      self.dtype)
+
+
+class _Shift(Expression):
+    """Java shift semantics (Spark ShiftLeft/ShiftRight/
+    ShiftRightUnsigned): the distance is masked to 5 bits for INT and 6
+    for LONG.  Every shift runs in int64: PyTorch has no unsigned 64-bit
+    shift on CUDA, so `>>>` is an arithmetic shift with the sign copies
+    masked off, and INT results wrap back to 32 bits."""
+    _kind = "left"
+
+    def __init__(self, child, amount):
+        self.children = (child, amount)
+
+    def _resolve(self):
+        self.dtype = self.children[0].dtype
+        self.nullable = any(c.nullable for c in self.children)
+
+    def unsupported_reasons(self, conf):
+        out = []
+        if not isinstance(self.children[0].dtype,
+                          (t.IntegerType, t.LongType)):
+            out.append("shift base must be INT or BIGINT")
+        if not t.is_integral(self.children[1].dtype):
+            out.append("shift amount must be integral")
+        return out
+
+    def _eval_dev(self, ctx, kids):
+        bits = _bits_of(self.dtype)
+        sh = kids[1].data.to(torch.int64) & (bits - 1)
+        v = kids[0].data.to(torch.int64)
+        if self._kind == "left":
+            out = v << sh
+        elif self._kind == "right":
+            out = v >> sh
+        else:
+            if bits == 32:
+                v = v & 0xFFFFFFFF
+            # the top `sh` bits of an arithmetic shift are sign copies:
+            # clear them (sh == 0 keeps every bit)
+            keep = torch.where(sh == 0, torch.full_like(sh, -1),
+                               ~(torch.full_like(sh, -1) << (64 - sh)))
+            out = (v >> sh) & keep
+        if bits == 32:
+            # wrap to 32 bits, two's complement
+            out = out & 0xFFFFFFFF
+            out = torch.where(out >= 1 << 31, out - (1 << 32), out)
+        return DevVal(out.to(compute_dtype(self.dtype)),
+                      merge_validity(kids[0].validity, kids[1].validity),
+                      self.dtype)
+
+
+class ShiftLeft(_Shift):
+    _kind = "left"
+
+
+class ShiftRight(_Shift):
+    _kind = "right"
+
+
+class ShiftRightUnsigned(_Shift):
+    _kind = "unsigned"
+
+
+_M1 = 0x5555555555555555
+_M2 = 0x3333333333333333
+_M4 = 0x0F0F0F0F0F0F0F0F
+_H01 = 0x0101010101010101
+
+
+class BitCount(Expression):
+    """bit_count(x): population count of the two's-complement form of
+    the value sign-extended to 64 bits (Spark), by the SWAR steps."""
+
+    def __init__(self, child):
+        self.children = (child,)
+
+    def _resolve(self):
+        self.dtype = t.INT
+        self.nullable = self.children[0].nullable
+
+    def unsupported_reasons(self, conf):
+        dt = self.children[0].dtype
+        if not (t.is_integral(dt) or isinstance(dt, t.BooleanType)):
+            return [f"bit_count over {dt.simple_string}"]
+        return []
+
+    def _eval_dev(self, ctx, kids):
+        x = kids[0].data.to(torch.int64)
+        if kids[0].data.dtype == torch.bool:
+            return DevVal(x.to(torch.int32), kids[0].validity, t.INT)
+        # each mask clears the sign copies an arithmetic >> brings in
+        x = x - ((x >> 1) & _M1)
+        x = (x & _M2) + ((x >> 2) & _M2)
+        x = (x + (x >> 4)) & _M4
+        cnt = ((x * _H01) >> 56) & 0x7F
+        return DevVal(cnt.to(torch.int32), kids[0].validity, t.INT)

@@ -3,7 +3,8 @@ converts.
 
 Counterpart of spark_rapids_tpu/plan/logical.py for the nodes the ported
 slices run: scan (over a host batch instead of an Arrow table), project,
-filter, aggregate, sort, limit and join.  Each node declares its schema and nothing
+filter, aggregate, sort, limit, join, union, expand (the grouping-sets
+lowering) and window.  Each node declares its schema and nothing
 else; placement and operator choice belong to plan/overrides.py.
 """
 from __future__ import annotations
@@ -168,3 +169,60 @@ class LogicalJoin(LogicalPlan):
         if self.join_type in ("left_semi", "left_anti"):
             return t.StructType(lf)
         return t.StructType(lf + list(self.right.schema.fields))
+
+
+class LogicalUnion(LogicalPlan):
+    """UNION ALL of schema-aligned children (the first child's names)."""
+
+    def __init__(self, *children: LogicalPlan):
+        super().__init__(*children)
+
+    def _resolve_schema(self):
+        return self.children[0].schema
+
+
+class LogicalExpand(LogicalPlan):
+    """One output row per input row and projection (rollup, cube and
+    grouping sets lower to it, session.GroupingSets)."""
+
+    def __init__(self, projections: Sequence[Sequence], names: Sequence[str],
+                 child: LogicalPlan):
+        super().__init__(child)
+        self.projections = [[_as_expr(e) for e in p] for p in projections]
+        self.names = list(names)
+
+    def _resolve_schema(self):
+        bound = [e.bind(self.child.schema) for e in self.projections[0]]
+        return t.StructType([t.StructField(n, e.dtype)
+                             for n, e in zip(self.names, bound)])
+
+
+class LogicalWindow(LogicalPlan):
+    """Window functions over (partition keys, order keys).  window_exprs:
+    (WindowFunctionSpec, output name) pairs appended to the child schema
+    (plan/window.py)."""
+
+    def __init__(self, window_exprs: Sequence, partition_keys: Sequence,
+                 order_keys: Sequence, child: LogicalPlan):
+        from .window import check_window_analysis
+        super().__init__(child)
+        check_window_analysis(window_exprs, order_keys)
+        self.window_exprs = list(window_exprs)
+        self.partition_keys = [_as_expr(k) for k in partition_keys]
+        norm = []
+        for o in order_keys:
+            if isinstance(o, (str, E.Expression)):
+                norm.append((_as_expr(o), True, True))
+            else:
+                e, *rest = o
+                asc = rest[0] if rest else True
+                nf = rest[1] if len(rest) > 1 else asc
+                norm.append((_as_expr(e), asc, nf))
+        self.order_keys = norm
+
+    def _resolve_schema(self):
+        fields = list(self.child.schema.fields)
+        for spec, name in self.window_exprs:
+            bound = spec.bind(self.child.schema)
+            fields.append(t.StructField(name, bound.dtype))
+        return t.StructType(fields)

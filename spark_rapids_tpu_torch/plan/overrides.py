@@ -7,18 +7,22 @@ aggregate whose functions are all CountDistinct becomes
 DistinctAggregateExec (a mix with other aggregates refuses); inner,
 outer and left semi joins become AdaptiveShuffledJoinExec, left anti
 joins HashJoinExec (every equi-join HashJoinExec with
-`sql.adaptive.enabled=false`) and cross joins CrossJoinExec, as in the
-reference.  The reference sends
-left semi joins through the adaptive join for its bloom-filter stage;
-the port keeps that plan shape, but with `runtimeFilter` resolved off
-(ops/bloom.py ports later) the route only materializes the probe side
-before the same HashJoinExec, at a higher peak memory.  Column pruning
-rewrites an inner join whose one side gives no output column and has
-unique keys into a left semi join of the other side, as the reference
-does.  The port has no CPU engine yet (exec/host_exec.py ports later), so
-this module prunes columns, checks every node and expression the device
-path would run, and converts — or raises NotImplementedError naming the
-operator and the reason.  It never runs anything on another engine.
+`sql.adaptive.enabled=false`), cross joins CrossJoinExec, unions
+UnionExec, expands ExpandExec and windows WindowExec, as in the
+reference.  A union's children keep their whole outputs (they align by
+position); an expand keeps the output positions its parent reads, and a
+window the columns its parent, its keys and its inputs read.  The
+reference sends left semi joins through the adaptive join for its
+bloom-filter stage; the port keeps that plan shape, but with
+`runtimeFilter` resolved off (ops/bloom.py ports later) the route only
+materializes the probe side before the same HashJoinExec, at a higher
+peak memory.  Column pruning rewrites an inner join whose one side gives
+no output column and has unique keys into a left semi join of the other
+side, as the reference does.  The port has no CPU engine yet
+(exec/host_exec.py ports later), so this module prunes columns, checks
+every node and expression the device path would run, and converts — or
+raises NotImplementedError naming the operator and the reason.  It never
+runs anything on another engine.
 """
 from __future__ import annotations
 
@@ -30,9 +34,10 @@ from .. import types as t
 from ..columnar.device import resolve_device
 from ..columnar.host import HostBatch
 from ..config import ADAPTIVE_ENABLED, DEFAULT_CONF, TpuConf
-from ..exec.plan import (ExecContext, FilterExec, HashAggregateExec,
-                         HostScanExec, LimitExec, PlanNode, ProjectExec,
-                         SortExec, TopNExec, key_ref_names)
+from ..exec.plan import (ExecContext, ExpandExec, FilterExec,
+                         HashAggregateExec, HostScanExec, LimitExec,
+                         PlanNode, ProjectExec, SortExec, TopNExec,
+                         UnionExec, key_ref_names)
 from . import expressions as E
 from . import logical as L
 from .aggregates import CountDistinct
@@ -111,6 +116,35 @@ def prune_columns(plan: L.LogicalPlan, required=None) -> L.LogicalPlan:
             _expr_refs(k, rreq)
         return L.LogicalJoin(join_type, prune_columns(left, lreq),
                              prune_columns(right, rreq), lk, rk)
+    if type(plan) is L.LogicalUnion:
+        # children align by position: each keeps its whole output, as in
+        # the reference, and prunes below that
+        return L.LogicalUnion(*[prune_columns(c, set(c.schema.names))
+                                for c in plan.children])
+    if type(plan) is L.LogicalExpand:
+        # keep the output positions asked for; every projection keeps the
+        # same positions, so the rows stay aligned
+        keep = [i for i, n in enumerate(plan.names) if n in required] or [0]
+        projections = [[p[i] for i in keep] for p in plan.projections]
+        child_req: set = set()
+        for p in projections:
+            for e in p:
+                _expr_refs(e, child_req)
+        return L.LogicalExpand(projections, [plan.names[i] for i in keep],
+                               prune_columns(plan.child, child_req))
+    if type(plan) is L.LogicalWindow:
+        outs = {name for _spec, name in plan.window_exprs}
+        req = {n for n in required if n not in outs}
+        for e in plan.partition_keys:
+            _expr_refs(e, req)
+        for e, _asc, _nf in plan.order_keys:
+            _expr_refs(e, req)
+        for spec, _name in plan.window_exprs:
+            if spec.child is not None:
+                _expr_refs(spec.child, req)
+        return L.LogicalWindow(plan.window_exprs, plan.partition_keys,
+                               plan.order_keys,
+                               prune_columns(plan.child, req))
     raise NotImplementedError(
         f"{plan.name()} is not ported to the device yet")
 
@@ -209,8 +243,55 @@ def _convert(plan: L.LogicalPlan, conf: TpuConf) -> PlanNode:
         return LimitExec(plan.limit, _convert(plan.child, conf))
     if type(plan) is L.LogicalJoin:
         return _convert_join(plan, conf)
+    if type(plan) is L.LogicalUnion:
+        return UnionExec(*[_convert(c, conf) for c in plan.children])
+    if type(plan) is L.LogicalExpand:
+        reasons = []
+        for p in plan.projections:
+            for e in p:
+                reasons += e.bind(schema_in).tree_unsupported(conf)
+        _refuse("Expand", reasons)
+        return ExpandExec(plan.projections, plan.names,
+                          _convert(plan.child, conf))
+    if type(plan) is L.LogicalWindow:
+        _refuse("Window", _window_reasons(plan, conf))
+        from ..exec.window import WindowExec
+        return WindowExec(plan.window_exprs, plan.partition_keys,
+                          plan.order_keys, _convert(plan.child, conf))
     raise NotImplementedError(
         f"{plan.name()} is not ported to the device yet")
+
+
+def _window_reasons(plan: "L.LogicalWindow", conf: TpuConf) -> List[str]:
+    """The reference's WindowMeta checks: each spec's own, the keys',
+    and one integer/date/timestamp order key under a value-offset RANGE
+    frame (its bounds are value arithmetic on that lane)."""
+    schema = plan.child.schema
+    reasons = []
+    for e in plan.partition_keys:
+        reasons += e.bind(schema).tree_unsupported(conf)
+    for e, _asc, _nf in plan.order_keys:
+        b = e.bind(schema)
+        reasons += b.tree_unsupported(conf)
+        if isinstance(b.dtype, t.DecimalType) and b.dtype.is_wide:
+            reasons.append("decimal128 window order key not yet on device")
+    specs = [spec.bind(schema) for spec, _name in plan.window_exprs]
+    for b in specs:
+        name = type(b).__name__
+        if not conf.is_op_enabled("expression", name):
+            reasons.append(f"window function {name} disabled by "
+                           f"spark.rapids.tpu.sql.expression.{name}")
+        reasons += [f"window function {b.name}: {r}"
+                    for r in b.unsupported_reasons(conf)]
+    if any(b.frame is not None and b.frame.is_value_offset for b in specs):
+        ok = len(plan.order_keys) == 1 and isinstance(
+            plan.order_keys[0][0].bind(schema).dtype,
+            (t.ByteType, t.ShortType, t.IntegerType, t.LongType,
+             t.DateType, t.TimestampType))
+        if not ok:
+            reasons.append("value-offset RANGE frame needs a single "
+                           "integer/date/timestamp order key on device")
+    return reasons
 
 
 def _convert_join(plan: "L.LogicalJoin", conf: TpuConf) -> PlanNode:

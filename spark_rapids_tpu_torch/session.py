@@ -1,7 +1,9 @@
 """User-facing session + DataFrame API.
 
 Counterpart of spark_rapids_tpu/session.py for what the ported TPC-H
-queries use (`how="cross"` joins included):
+and TPC-DS queries use (`how="cross"` joins, `with_column`, `union`,
+`window`, and `rollup` / `cube` / `grouping_sets` through the
+`GroupingSets` builder with `grouping()` and `grouping_id()`):
 
     s = TpuSession()                     # device "cuda"
     df = s.from_host(batch).filter(E.GreaterThan(col("x"), lit(1))) \\
@@ -28,7 +30,7 @@ from .exec.plan import ExecContext
 from .plan import expressions as E
 from .plan import logical as L
 from .plan.aggregates import AggregateFunction
-from .plan.overrides import PhysicalQuery, apply_overrides
+from .plan.overrides import PhysicalQuery, _expr_refs, apply_overrides
 
 
 class TpuSession:
@@ -56,6 +58,104 @@ class GroupedData:
             self._df._session)
 
 
+GROUPING_ID_COLUMN = "spark_grouping_id"
+
+
+class GroupingSets:
+    """rollup / cube / grouping-sets aggregation builder.
+
+    Lowers to Expand + Aggregate as the reference does: one Expand
+    projection per grouping set, with the aggregated-away key columns
+    replaced by typed nulls and a literal `spark_grouping_id` bitmask
+    column appended (MSB = first key, 1 = key aggregated away — Spark's
+    grouping_id() bit order), then a hash aggregate over
+    keys + spark_grouping_id.
+
+    The result carries the keys, `spark_grouping_id`, then the
+    aggregates; `grouping(name)` / `grouping_id()` build the Spark
+    expressions over that column for post-aggregation selects.
+    """
+
+    def __init__(self, df: "DataFrame", keys: Sequence,
+                 sets: Sequence[Sequence[str]]):
+        self._df = df
+        self._keys = [k if isinstance(k, str) else k.name for k in keys]
+        schema_names = set(df.schema.names)
+        for k in self._keys:
+            if k not in schema_names:
+                raise KeyError(f"grouping key {k!r} not in "
+                               f"{sorted(schema_names)}")
+            if k == GROUPING_ID_COLUMN:
+                raise ValueError(
+                    f"column name {GROUPING_ID_COLUMN!r} is reserved")
+        norm, seen = [], set()
+        for s in sets:
+            tup = tuple(k for k in self._keys if k in set(s))
+            extra = set(s) - set(self._keys)
+            if extra:
+                raise KeyError(f"grouping set columns {sorted(extra)} "
+                               f"not in keys {self._keys}")
+            if tup not in seen:       # duplicate sets collapse, as in Spark
+                seen.add(tup)
+                norm.append(tup)
+        self._sets = norm
+
+    def grouping_id(self) -> E.Expression:
+        """Spark grouping_id(): the bitmask column itself (bit n-1-i set
+        when key i is aggregated away in this row's grouping set)."""
+        return E.ColumnRef(GROUPING_ID_COLUMN)
+
+    def grouping(self, name: str) -> E.Expression:
+        """Spark grouping(col): 1 when `col` is aggregated away in this
+        row's grouping set, else 0 — derived from the gid bitmask."""
+        if name not in self._keys:
+            raise KeyError(f"grouping({name!r}): not a grouping key of "
+                           f"{self._keys}")
+        shift = len(self._keys) - 1 - self._keys.index(name)
+        return E.BitwiseAnd(
+            E.ShiftRight(E.ColumnRef(GROUPING_ID_COLUMN), E.Literal(shift)),
+            E.Literal(1))
+
+    def agg(self, *aggs: Tuple[AggregateFunction, str]) -> "DataFrame":
+        child = self._df._plan
+        schema = child.schema
+        key_set = set(self._keys)
+        for fn, _name in aggs:
+            if fn.child is not None:
+                refs: set = set()
+                _expr_refs(fn.child, refs)
+                hit = refs & key_set
+                if hit:
+                    # Spark's Expand keeps a second, un-nulled copy of the
+                    # child attributes for aggregate inputs; this engine
+                    # replaces keys in place, so aggregating a grouping
+                    # key would silently see the nulled copies
+                    raise NotImplementedError(
+                        f"aggregating grouping key(s) {sorted(hit)} under "
+                        f"rollup/cube is not supported — aggregate a "
+                        f"projected copy instead")
+        projections = []
+        n = len(self._keys)
+        for s in self._sets:
+            proj = []
+            for f in schema.fields:
+                if f.name in key_set and f.name not in s:
+                    proj.append(E.Literal(None, f.data_type))
+                else:
+                    proj.append(E.ColumnRef(f.name))
+            gid = 0
+            for i, k in enumerate(self._keys):
+                if k not in s:
+                    gid |= 1 << (n - 1 - i)
+            proj.append(E.Literal(gid, t.INT))
+            projections.append(proj)
+        expand = L.LogicalExpand(
+            projections, list(schema.names) + [GROUPING_ID_COLUMN], child)
+        plan = L.LogicalAggregate(
+            list(self._keys) + [GROUPING_ID_COLUMN], list(aggs), expand)
+        return DataFrame(plan, self._df._session)
+
+
 class DataFrame:
     def __init__(self, plan: L.LogicalPlan, session: TpuSession):
         self._plan = plan
@@ -66,11 +166,60 @@ class DataFrame:
                ) -> "DataFrame":
         return self._wrap(L.LogicalProject(list(exprs), self._plan, names))
 
+    def with_column(self, name: str, expr: E.Expression) -> "DataFrame":
+        """Every column but `name`, then `expr` as `name` (last)."""
+        keep = [n for n in self.schema.names if n != name]
+        return self._wrap(L.LogicalProject(
+            [E.ColumnRef(n) for n in keep] + [expr], self._plan,
+            keep + [name]))
+
     def filter(self, condition) -> "DataFrame":
         return self._wrap(L.LogicalFilter(condition, self._plan))
 
     def group_by(self, *keys) -> GroupedData:
         return GroupedData(self, keys)
+
+    def rollup(self, *keys) -> GroupingSets:
+        """GROUP BY ROLLUP(k1, .., kn): the n+1 prefix grouping sets
+        (k1..kn), (k1..kn-1), .., () — subtotal rows per level."""
+        names = [k if isinstance(k, str) else k.name for k in keys]
+        sets = [tuple(names[:i]) for i in range(len(names), -1, -1)]
+        return GroupingSets(self, names, sets)
+
+    def cube(self, *keys) -> GroupingSets:
+        """GROUP BY CUBE(k1, .., kn): all 2^n grouping sets, emitted in
+        ascending grouping_id order."""
+        names = [k if isinstance(k, str) else k.name for k in keys]
+        n = len(names)
+        sets = [tuple(names[i] for i in range(n)
+                      if not (m >> (n - 1 - i)) & 1)
+                for m in range(1 << n)]
+        return GroupingSets(self, names, sets)
+
+    def grouping_sets(self, sets, keys=None) -> GroupingSets:
+        """GROUP BY GROUPING SETS(...): an explicit set list; `keys` fixes
+        the output key order (default: first-appearance order)."""
+        if keys is None:
+            keys, seen = [], set()
+            for s in sets:
+                for k in s:
+                    k = k if isinstance(k, str) else k.name
+                    if k not in seen:
+                        seen.add(k)
+                        keys.append(k)
+        return GroupingSets(self, list(keys), [tuple(s) for s in sets])
+
+    def union(self, other: "DataFrame") -> "DataFrame":
+        """UNION ALL (columns by position, the left side's names)."""
+        return self._wrap(L.LogicalUnion(self._plan, other._plan))
+
+    def window(self, window_exprs, partition_by=(), order_by=()
+               ) -> "DataFrame":
+        """Append window function columns: window_exprs = (spec, name)
+        pairs (plan/window.py specs)."""
+        return self._wrap(L.LogicalWindow(list(window_exprs),
+                                          list(partition_by),
+                                          list(order_by), self._plan))
 
     def agg(self, *aggs: Tuple[AggregateFunction, str]) -> "DataFrame":
         return GroupedData(self, ()).agg(*aggs)

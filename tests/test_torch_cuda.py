@@ -812,3 +812,115 @@ def test_a_sub_partitioned_join_on_the_card_equals_the_resident_join(
         assert (ctx.metrics.get("join_subpartition_fallbacks", 0) > 0) == \
             (name == "sub")
     assert out["sub"] == out["resident"] and len(out["sub"]) > 0
+
+
+def _window_lanes(n, seed):
+    """A partition-sorted batch's lanes for window_trace: INT partition
+    key with nulls, LONG order key with nulls and duplicates, DOUBLE
+    values with NaN and ±0.0, LONG values, decimal(7,2) values."""
+    from spark_rapids_tpu_torch import types as t
+    rng = np.random.default_rng(seed)
+    g = np.sort(rng.integers(0, 40, n)).astype(np.int32)
+    gv = rng.random(n) > 0.02
+    o = rng.integers(0, 300, n).astype(np.int64)
+    o[rng.random(n) < 0.05] = 2 ** 62
+    ov = rng.random(n) > 0.05
+    v = rng.standard_normal(n)
+    v[::17], v[3::17], v[5::23] = np.nan, -0.0, 0.0
+    i = rng.integers(-10 ** 6, 10 ** 6, n).astype(np.int64)
+    m = rng.integers(-10 ** 6, 10 ** 6, n).astype(np.int64)
+    vv = rng.random(n) > 0.1
+    return ((t.INT, g, gv), (t.LONG, o, ov),
+            [(t.DOUBLE, v, vv), (t.LONG, i, None),
+             (t.DecimalType(7, 2), m, vv)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frame", [
+    None, ("rows", None, 0), ("rows", -3, 3), ("rows", None, 2),
+    ("rows", -2, None), ("range", None, None), ("range", 0, None),
+    ("range", 0, 0), ("range", -30, 0), ("range", -5, 12),
+    ("range", -(2 ** 62), 2 ** 62)])
+def test_window_trace_on_the_card_equals_cpu(cuda, frame):
+    from spark_rapids_tpu_torch.ops.window import window_trace
+    from spark_rapids_tpu_torch.plan import expressions as E
+    from spark_rapids_tpu_torch.plan import window as W
+    n = 6000
+    (pdt, g, gv), (odt, o, ov), vals = _window_lanes(n, 45)
+    fr = None if frame is None else W.WindowFrame(*frame)
+    specs = [W.RowNumber(), W.Rank(), W.DenseRank(), W.PercentRank(),
+             W.CumeDist(), W.NTile(4), W.Lead(E.ColumnRef("v0"), 1, 0.5),
+             W.Lag(E.ColumnRef("v1"), 2, -7)]
+    for k in range(3):
+        c = E.ColumnRef(f"v{k}")
+        specs += [W.WinSum(c, fr), W.WinCount(c, fr), W.WinMin(c, fr),
+                  W.WinMax(c, fr), W.WinAverage(c, fr), W.FirstValue(c, fr),
+                  W.LastValue(c, fr)]
+    specs.append(W.WinCount(None, fr))
+    from spark_rapids_tpu_torch import types as t
+    schema = t.StructType([t.StructField(f"v{k}", dt)
+                           for k, (dt, _d, _v) in enumerate(vals)])
+    specs = [s.bind(schema) for s in specs]
+    frames = [(s, s.frame if s.frame is not None else (
+        W.WindowFrame("range", None, None) if s.kind in (
+            "row_number", "rank", "dense_rank", "percent_rank",
+            "cume_dist", "ntile", "lead", "lag")
+        else W.default_frame(True)),
+        -1 if s.child is None else int(s.child.name[1:])) for s in specs]
+    # sort rows by (partition, order) as WindowExec does: nulls first
+    key_g = np.where(gv, g, -1)
+    key_o = np.where(ov, o, -(2 ** 63))
+    perm = np.lexsort((key_o, key_g))
+    out = []
+    for dev in ("cpu", cuda):
+        def lane(x):
+            return None if x is None else torch.from_numpy(
+                np.ascontiguousarray(x[perm])).to(dev)
+        fn = window_trace(((pdt,),), ((odt,),),
+                          tuple((dt,) for dt, _d, _v in vals), frames, n,
+                          order_dirs=((True, True),))
+        outs = fn((lane(g),), (lane(gv),), (lane(o),), (lane(ov),),
+                  tuple(lane(d) for _dt, d, _v in vals),
+                  tuple(lane(v) for _dt, _d, v in vals),
+                  torch.ones(n, dtype=torch.bool, device=dev))
+        out.append([(d.cpu(), v.cpu()) for d, v in outs])
+    # a DOUBLE sum or average over a bounded frame is a difference of
+    # prefix sums, which the card's cumsum adds in another order than
+    # the CPU's, so their rounding differs by a few ulps of the prefix
+    # sums (|prefix| < 200 here): within 1e-9 absolute (README);
+    # everything else exactly
+    bounded = fr is not None and (fr.kind == "rows" and not fr.is_running
+                                  or fr.is_value_offset)
+    for s, (a, av), (b, bv) in zip(specs, *out):
+        assert torch.equal(av, bv), s
+        if a.is_floating_point():
+            assert torch.equal(torch.isnan(a) & av, torch.isnan(b) & bv), s
+            a = torch.where(av & ~torch.isnan(a), a, torch.zeros_like(a))
+            b = torch.where(bv & ~torch.isnan(b), b, torch.zeros_like(b))
+            if bounded and s.kind in ("agg_sum", "agg_avg"):
+                torch.testing.assert_close(b, a, rtol=1e-12, atol=1e-9,
+                                           msg=repr(s))
+                continue
+        assert torch.equal(torch.where(av, a, torch.zeros_like(a)),
+                           torch.where(bv, b, torch.zeros_like(b))), s
+
+
+@pytest.mark.cuda
+def test_a_union_and_rollup_query_on_the_card_equals_cpu(cuda):
+    from spark_rapids_tpu_torch import tpcds
+    from spark_rapids_tpu_torch.session import TpuSession
+    tables = tpcds.gen_tables(0.01)
+    for q in ("q27", "q36", "q76", "q70", "q98"):
+        cpu, gpu = (tpcds.QUERIES[q](TpuSession(device=d), tables)
+                    .to_pydict() for d in ("cpu", cuda))
+        assert list(gpu) == list(cpu), q
+        for k in cpu:
+            if any(isinstance(x, float) for x in cpu[k]):
+                assert [x is None for x in gpu[k]] == \
+                    [x is None for x in cpu[k]], (q, k)
+                np.testing.assert_allclose(
+                    np.array([x for x in gpu[k] if x is not None], float),
+                    np.array([x for x in cpu[k] if x is not None], float),
+                    rtol=1e-12, atol=0, err_msg=f"{q}.{k}")
+            else:
+                assert gpu[k] == cpu[k], (q, k)

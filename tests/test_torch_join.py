@@ -169,7 +169,10 @@ def test_unported_joins_and_predicates_refuse_naming_their_slice():
         # keys that are not plain integer columns have no exact range
         (f.join(d, left_on=as_double, right_on=[
             PE.Cast(pcol("dk"), PT.DOUBLE), pcol("w")]), "do not pack"),
-        (f.join(d, left_on=["tag"], right_on=["attr"]), "string"),
+        # one string key joins (tests/test_torch_union_expand.py); a
+        # composite key with a string takes the sorted tier
+        (f.join(d, left_on=["tag", "fk"], right_on=["attr", "dk"]),
+         "string join keys"),
         (f.join(d, left_on=["fk", "f"],
                 right_on=["dk", PE.Cast(pcol("w"), PT.DOUBLE)]),
          "composite"),
