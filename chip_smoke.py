@@ -164,10 +164,33 @@ own failure:
                1,000,000 rows, against the port's own CPU path.  Prints
                the collect's cold wall, the operator's warm wall and the
                peak device memory.
+  6b. scalars — after ooc, over the TPC-H tables (chip_smoke_scalars.py):
+               the seven statistical aggregates over lineitem grouped by
+               (l_returnflag, l_linestatus) (`moments_q1`: seg_sums), one
+               projection of every new scalar family grouped into SUM,
+               MIN and MAX (`scalars_q1`: seg_sums, seg_reduce),
+               range(0, 100,000,000).sample(0.01, seed=7) grouped by
+               id % 1000 and its count() (`range_sample`:
+               compaction_order) and every new expression over NaN, ±inf,
+               -0.0, nulls and Long.MIN_VALUE, fetched and compared
+               elementwise (`edge_values`), each through TpuSession() on
+               cuda and equal to numpy at chip_smoke_scalars' tolerances
+               (exact families bit for bit, transcendental ones within 4
+               ulps, DOUBLE sums and statistics within rtol 1e-9); the
+               lineitem results come from the data phase's pool, the
+               others from two threads beside the card's queries.
+  9. scalars dense — last: TPC-DS q7, q26, q56 and q60 at scale 0.1
+               (i_item_id's 1,800 values) and store_sales ⋈ item grouped
+               by (i_category, i_class, i_color) at SF10 (1,683 buckets),
+               each equal to numpy and each running the dense group-by
+               tier (exec/aggregate.GROUPBY_TIERS); its SF10 numpy result
+               from the tpcds pool.  Both scalars phases print each
+               query's cold wall, median of 3 warm walls (1 for
+               edge_values), peak device memory and launches.
 Each phase after the data prints its seconds.
-  9. result  — a `kernels` JSON line (launches by query over every
-               query of phases 5 and 7), the whole run's seconds, the
-               nvidia-smi line, and last {"ok": true, "device": {...}}.
+  10. result — a `kernels` JSON line (launches by query over every
+               query of phases 5, 6b, 7 and 9), the whole run's seconds,
+               the nvidia-smi line, and last {"ok": true, "device": {...}}.
 
 Flags: --scale (default 10), --seed (default 20240706), --kernels-only
 (phases 1-4 only, then the kernels line and the nvidia-smi line without
@@ -266,6 +289,18 @@ DS_QUERIES = ("q3", "q7", "q12", "q19", "q20", "q26", "q27", "q33", "q36",
               "q76", "q86", "q93", "q96", "q98")
 PATH_KERNELS.update({f"ds_{q}": UNIQUE_JOIN + (
     ("seg_sums",) if q in DS_SEGAGG else ()) for q in DS_QUERIES})
+# the scalars phase: the statistical aggregates and the scalar families
+# group lineitem by a 12-bucket dictionary domain (segagg: seg_sums, and
+# seg_reduce for scalars_q1's MIN/MAX), the sample compacts its kept
+# rows, edge_values only projects, and the dense-tier queries join
+# unique dimension builds before their 1,683- to 1,801-bucket group-bys
+DENSE_QUERIES = ("q7", "q26", "q56", "q60")
+DENSE_SCALE = 0.1
+PATH_KERNELS.update({"moments_q1": ("seg_sums",),
+                     "scalars_q1": ("seg_sums", "seg_reduce"),
+                     "range_sample": ("compaction_order",),
+                     "edge_values": (), "dense_sf10": UNIQUE_JOIN,
+                     **{f"dense_{q}": UNIQUE_JOIN for q in DENSE_QUERIES}})
 Q3_DATE = (pydt.date(1995, 3, 15) - pydt.date(1970, 1, 1)).days
 # the device launches of one build_layout call, by kernel name: this
 # tree's two passes, and (for an A B B A against an older tree) its
@@ -2056,7 +2091,7 @@ def numpy_results(tables, scale: float) -> dict:
     read the parent's tables and return only the results."""
     global _WANT_TABLES
     t0 = time.perf_counter()
-    names = [Q21_DISTINCT, Q21_LATE_DISTINCT] + [
+    names = [Q21_DISTINCT, Q21_LATE_DISTINCT] + list(SCALAR_WANTS) + [
         n for n in FIRST_PATHS + LATER_QUERIES if n != "q21"]
     workers = min(len(names), os.cpu_count() or 1)
     _WANT_TABLES = (tables, scale)
@@ -2077,6 +2112,10 @@ def numpy_results(tables, scale: float) -> dict:
 
 #: the first seven paths (each result from lineitem, or from the tables)
 FIRST_PATHS = ("q1", "q6", "minmax", "q3", "m2m", "outer", "semi")
+#: the scalars phase's numpy results over lineitem (scalars_q1 in three
+#: parts, a process each)
+SCALAR_WANTS = ("moments_q1", "scalars_q1:0/3", "scalars_q1:1/3",
+                "scalars_q1:2/3")
 #: each order's distinct suppliers (q21's and the strings phase's), and
 #: over its late lineitems (q21's)
 Q21_DISTINCT = "q21 distinct suppliers"
@@ -2091,6 +2130,9 @@ def _want(name: str):
     t0 = time.perf_counter()
     if name in (Q21_DISTINCT, Q21_LATE_DISTINCT):
         got = q21_distinct(tables, late=name == Q21_LATE_DISTINCT)
+    elif name in SCALAR_WANTS:
+        import chip_smoke_scalars as S
+        got = S.expected(name, tables)
     elif name in ("q1", "q6", "minmax"):
         got = globals()[f"expected_{name}"](tables["lineitem"])
     elif name in FIRST_PATHS:
@@ -2398,6 +2440,9 @@ def _ds_want(name: str):
     if name.startswith("window"):
         got = D.window_part_digests(_DS_TABLES["store_sales"],
                                     int(name[len("window"):]), WINDOW_PARTS)
+    elif name == "dense_sf10":
+        import chip_smoke_scalars as S
+        got = S.expected(name, _DS_TABLES)
     else:
         got = D.expected(name, _DS_TABLES)
     return got, time.perf_counter() - t0
@@ -2416,7 +2461,7 @@ def tpcds_data():
         f"{n} {hb.num_rows} rows" for n, hb in tables.items()) +
         f" in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    names = [f"window{p}" for p in range(WINDOW_PARTS)] + [
+    names = [f"window{p}" for p in range(WINDOW_PARTS)] + ["dense_sf10"] + [
         f"q{q}" for q in sorted(int(n[1:]) for n in DS_QUERIES)]
     workers = min(len(names), os.cpu_count() or 1)
     _DS_TABLES = tables
@@ -2557,6 +2602,232 @@ def window_phase(tables, want) -> None:
         f"{head.num_rows} rows, every output")
 
 
+def _timed(s, build, *args, reps: int = 3):
+    """(result, ExecContext, cold ms, warm median ms, peak GiB, launches)
+    of one query: launch counts zeroed just before its first run and
+    read just after it."""
+    from spark_rapids_tpu_torch.exec.plan import ExecContext
+    from spark_rapids_tpu_torch.ops.hopper import LAUNCHES, \
+        reset_launch_counts
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    q = build(s, *args).physical()
+    ctx = ExecContext(q.conf, q.device)
+    got = q.collect(ctx)
+    torch.cuda.synchronize()
+    cold = (time.perf_counter() - t0) * 1e3
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    runs = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        build(s, *args).collect()
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0) * 1e3)
+    return got, ctx, cold, statistics.median(runs), peak, launches
+
+
+def _check_launches(name: str, launches: dict) -> None:
+    for k in PATH_KERNELS[name]:
+        check(launches[k] > 0, f"kernel {k} was not launched on the {name} "
+              "path")
+
+
+def _scalar_log(name, rows, cold, warm, peak, launches, extra=""):
+    log(f"[scalars] {name}: {rows} rows equal numpy{extra}; cold "
+        f"{cold:.1f} ms, warm median {warm:.1f} ms; peak device memory "
+        f"{peak:.2f} GiB; kernel launches {launches}")
+
+
+def scalars_phase(tables, want) -> dict:
+    """The statistical aggregates (moments_q1), every new scalar family
+    grouped into SUM / MIN / MAX (scalars_q1), range + sample
+    (range_sample) and every new expression over NaN, ±inf, -0.0, nulls
+    and Long.MIN_VALUE, fetched (edge_values), through TpuSession() on
+    cuda at SF10, each equal to numpy at chip_smoke_scalars' tolerances.
+    -> {query: launches}."""
+    import chip_smoke_scalars as S
+    from spark_rapids_tpu_torch.exec.aggregate import GROUPBY_TIERS, \
+        reset_groupby_tiers
+    s = _cuda_session()
+    launches = {}
+    li = tables["lineitem"]
+    # the numpy results of range_sample and edge_values (seconds of
+    # ufuncs, which release the GIL) overlap the card's lineitem queries
+    numpy_pool = concurrent.futures.ThreadPoolExecutor(max_workers=2)
+    want_range = numpy_pool.submit(S.expected_range_sample)
+    want_edge = numpy_pool.submit(S.expected_edge)
+    numpy_pool.shutdown(wait=False)
+
+    def keys_of(got):
+        rf = got.column_by_name("l_returnflag")
+        ls = got.column_by_name("l_linestatus")
+        return [str(a) + str(b) for a, b in zip(rf.dictionary[rf.data],
+                                                ls.dictionary[ls.data])]
+
+    def numpy_keys(codes):
+        rf = li.column_by_name("l_returnflag").dictionary
+        ls = li.column_by_name("l_linestatus").dictionary
+        return [str(rf[c // 2]) + str(ls[c % 2]) for c in codes]
+
+    reset_groupby_tiers()
+    got, _ctx, cold, warm, peak, launches["moments_q1"] = _timed(
+        s, S.moments_q1, tables)
+    want_m = want["moments_q1"]
+    check(keys_of(got) == numpy_keys(want_m["_codes"]),
+          "moments_q1 groups differ from numpy's")
+    check(GROUPBY_TIERS["segagg"] > 0, "moments_q1 did not run segagg")
+    for name, _fn, _cols in S.MOMENTS:
+        c = got.column_by_name(name)
+        check(c.valid_mask().all(), f"moments_q1.{name} has nulls")
+        try:
+            S.close(f"moments_q1.{name}", c.data, want_m[name],
+                    scale=want_m[name + ":scale"])
+        except AssertionError as e:
+            check(False, str(e))
+    check(np.array_equal(got.column_by_name("n").data, want_m["n"]),
+          "moments_q1.n differs from numpy's")
+    _check_launches("moments_q1", launches["moments_q1"])
+    _scalar_log("moments_q1", got.num_rows, cold, warm, peak,
+                launches["moments_q1"], f" (rtol {S.RTOL}; {li.num_rows} "
+                "lineitem rows)")
+
+    got, _ctx, cold, warm, peak, launches["scalars_q1"] = _timed(
+        s, S.scalars_q1, tables)
+    want_s = {}
+    for part in (n for n in SCALAR_WANTS if n.startswith("scalars_q1")):
+        want_s.update(want[part])
+    check(keys_of(got) == numpy_keys(want_s["_codes"]),
+          "scalars_q1 groups differ from numpy's")
+    kinds = {n: k for n, (k, _e) in S._scalar_exprs().items()}
+    worst = 0.0
+    for name in got.names[2:]:
+        agg, proj = name.split("_", 1)
+        c = got.column_by_name(name)
+        w = want_s[name]
+        kind = kinds[proj]
+        try:
+            if agg == "sum" and kind in ("exact", "ulp"):
+                S.close(f"scalars_q1.{name}", c.data, w)
+            else:
+                worst = max(worst, S.check_lane(
+                    f"scalars_q1.{name}", "ulp" if kind == "ulp" else
+                    "exact" if kind == "exact" else "int",
+                    (c.data, c.valid_mask()), (w, np.ones(len(w), bool))))
+        except AssertionError as e:
+            check(False, str(e))
+    _check_launches("scalars_q1", launches["scalars_q1"])
+    _scalar_log("scalars_q1", got.num_rows, cold, warm, peak,
+                launches["scalars_q1"], f" ({len(got.names) - 2} aggregates"
+                f" of {len(kinds)} projections; transcendental MIN/MAX at "
+                f"most {worst:.0f} ulps from numpy's, bound {S.ULPS})")
+
+    want_r = want_range.result()
+    got, _ctx, cold, warm, peak, launches["range_sample"] = _timed(
+        s, lambda sess: S.range_sample(sess))
+    lanes = {n: got.column_by_name(n).data for n in ("m", "n", "s")}
+    for n in ("m", "n", "s"):
+        check(np.array_equal(lanes[n], want_r[n]),
+              f"range_sample.{n} differs from numpy's")
+    count = S.range_sample_count(s)
+    check(count == want_r["count"], f"range_sample count() {count}, numpy "
+          f"{want_r['count']}")
+    _check_launches("range_sample", launches["range_sample"])
+    _scalar_log("range_sample", got.num_rows, cold, warm, peak,
+                launches["range_sample"], f" ({S.RANGE_ROWS} ids, "
+                f"{want_r['count']} kept; count() equal)")
+
+    got, _ctx, cold, warm, peak, launches["edge_values"] = _timed(
+        s, lambda sess: S.edge_values(sess), reps=1)
+    want_e = want_edge.result()
+    kinds = {n: k for n, (k, _e) in S._edge_exprs().items()}
+    worst = {}
+    for name, c in zip(got.names, got.columns):
+        try:
+            worst[name] = S.check_lane(
+                f"edge_values.{name}", kinds[name],
+                (c.data, c.valid_mask()), want_e[name])
+        except AssertionError as e:
+            check(False, str(e))
+    try:
+        S.raise_error_query(s).collect()
+        check(False, "raise_error over live rows did not raise on the card")
+    except RuntimeError as e:
+        check(str(e) == "edge", f"raise_error raised {e!r}")
+    ulp_max = max(worst.values())
+    _scalar_log("edge_values", got.num_rows, cold, warm, peak,
+                launches["edge_values"], f" ({len(got.names)} columns, "
+                f"elementwise; transcendental at most {ulp_max:.0f} ulps "
+                f"({max(worst, key=worst.get)}), bound {S.ULPS}; "
+                "raise_error raised)")
+    return launches
+
+
+def dense_phase(ds_tables, ds_want) -> dict:
+    """The dense group-by tier on the card: TPC-DS q7, q26, q56 and q60 at
+    scale 0.1 (i_item_id's 1,800 values: between segagg's maxDomain and
+    denseDomainMax) equal to their numpy results, and at SF10
+    store_sales ⋈ item grouped by (i_category, i_class, i_color) equal to
+    numpy (integers and decimals exactly, the average bit for bit, the
+    standard deviation within rtol).  Each must run the dense tier.
+    -> {query: launches}."""
+    import chip_smoke_scalars as S
+    import chip_smoke_tpcds as D
+    from spark_rapids_tpu_torch import tpcds
+    from spark_rapids_tpu_torch.exec.aggregate import GROUPBY_TIERS, \
+        reset_groupby_tiers
+    s = _cuda_session()
+    launches = {}
+    small = tpcds.gen_tables(DENSE_SCALE, DS_SEED)
+    for q in DENSE_QUERIES:
+        want = D.expected(q, small)
+        reset_groupby_tiers()
+        got, _ctx, cold, warm, peak, launches[f"dense_{q}"] = _timed(
+            s, tpcds.QUERIES[q], small)
+        check(GROUPBY_TIERS["dense"] > 0, f"dense_{q} ran no dense group-by")
+        msg = D.compare(q, D.result_columns(got), want)
+        check(not msg, f"dense_{q} differs from the numpy reference: {msg}")
+        _check_launches(f"dense_{q}", launches[f"dense_{q}"])
+        _scalar_log(f"dense_{q}", got.num_rows, cold, warm, peak,
+                    launches[f"dense_{q}"], f" (TPC-DS scale {DENSE_SCALE};"
+                    f" group-by tiers {dict(GROUPBY_TIERS)})")
+    reset_groupby_tiers()
+    got, _ctx, cold, warm, peak, launches["dense_sf10"] = _timed(
+        s, S.dense_sf10, ds_tables)
+    check(GROUPBY_TIERS["dense"] > 0, "dense_sf10 ran no dense group-by")
+    want = ds_want["dense_sf10"]
+    item = ds_tables["item"]
+    cols = {n: got.column_by_name(n) for n in got.names}
+    dicts = [item.column_by_name(k).dictionary for k in S.DENSE_KEYS]
+    check(got.num_rows == len(want), f"dense_sf10 has {got.num_rows} groups,"
+          f" numpy {len(want)}")
+
+    def key_of(codes):
+        return tuple(None if c < 0 else str(d[c])
+                     for c, d in zip(codes, dicts))
+    want = {key_of(k): v for k, v in want.items()}
+    for r in range(got.num_rows):
+        key = tuple(str(cols[k].dictionary[cols[k].data[r]])
+                    if cols[k].valid_mask()[r] else None
+                    for k in S.DENSE_KEYS)
+        check(key in want, f"dense_sf10 group {key} not in numpy's")
+        w = want[key]
+        vals = [cols[n].data[r] if cols[n].valid_mask()[r] else None
+                for n in ("sum_net_paid", "n", "avg_qty", "min_price",
+                          "max_price", "sd_price")]
+        check(vals[:5] == list(w[:5]), f"dense_sf10 {key}: {vals[:5]} "
+              f"against numpy's {list(w[:5])}")
+        check((vals[5] is None) == (w[5] is None) and (
+            w[5] is None or abs(vals[5] - w[5]) <= S.RTOL * abs(w[5])),
+            f"dense_sf10 {key} stddev {vals[5]} against {w[5]}")
+    _check_launches("dense_sf10", launches["dense_sf10"])
+    _scalar_log("dense_sf10", got.num_rows, cold, warm, peak,
+                launches["dense_sf10"], f" ({ds_tables['store_sales'].num_rows}"
+                f" store_sales rows; group-by tiers {dict(GROUPBY_TIERS)})")
+    return launches
+
+
 def phase(name: str, fn, *args):
     """Run one phase and log its seconds."""
     t0 = time.perf_counter()
@@ -2597,6 +2868,7 @@ def card_phases(dev, tables, want, later, args):
         phase("strings", strings_phase, dev, tables, later, want)
         phase("profile", profile_phase, tables, args.scale)
         phase("ooc", ooc_phase, tables, want, args.scale, cold, warm)
+        launches.update(phase("scalars", scalars_phase, tables, want))
     return stats, launches
 
 
@@ -2638,6 +2910,8 @@ def main() -> int:
         ds_tables, ds_want = phase("tpcds data", tpcds_data)
         launches.update(phase("tpcds", tpcds_phase, ds_tables, ds_want))
         phase("window", window_phase, ds_tables, ds_want)
+        launches.update(phase("scalars dense", dense_phase, ds_tables,
+                              ds_want))
     rows = []
     for name in TPU_KERNELS:
         st = stats[name]

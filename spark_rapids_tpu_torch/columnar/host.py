@@ -306,6 +306,92 @@ def from_numpy(columns: Mapping[str, object], schema: t.StructType
     return HostBatch(cols, schema.names)
 
 
+_NP_TYPES = {np.dtype(np.bool_): t.BOOLEAN, np.dtype(np.int8): t.BYTE,
+             np.dtype(np.int16): t.SHORT, np.dtype(np.int32): t.INT,
+             np.dtype(np.int64): t.LONG, np.dtype(np.float32): t.FLOAT,
+             np.dtype(np.float64): t.DOUBLE}
+
+
+def _infer_type(values) -> t.DataType:
+    """The type pyarrow infers for a numpy array or a list of Python
+    values: bool, int64, float64 (ints and floats mixed), string, date,
+    timestamp, decimal(p, s) spanning every value, null when all are."""
+    if isinstance(values, np.ndarray):
+        if values.dtype in _NP_TYPES:
+            return _NP_TYPES[values.dtype]
+        if values.dtype.kind == "U":
+            return t.STRING
+        values = values.tolist()
+    kinds = {type(v) for v in values if v is not None}
+    if not kinds:
+        return t.NULL
+    if kinds == {bool}:
+        return t.BOOLEAN
+    if kinds <= {int, float}:
+        return t.LONG if kinds == {int} else t.DOUBLE
+    if kinds == {str}:
+        return t.STRING
+    if kinds == {pydt.datetime}:
+        return t.TIMESTAMP
+    if kinds == {pydt.date}:
+        return t.DATE
+    if kinds == {pydec.Decimal}:
+        scale, integral = 0, 1
+        for v in values:
+            if v is not None:
+                _sign, digits, exp = v.as_tuple()
+                scale = max(scale, -exp)
+                integral = max(integral, len(digits) + exp)
+        return t.DecimalType(integral + scale, scale)
+    raise TypeError(f"cannot infer one column type from {sorted(map(str, kinds))}")
+
+
+def _host_lane(values, dt: t.DataType):
+    """(data lane, validity or None) of Python values (None = null) in
+    the host storage form of `dt`."""
+    if isinstance(values, np.ndarray) and values.dtype.kind != "O":
+        return values, None
+    values = list(values)
+    validity = np.array([v is not None for v in values], bool)
+    zero = {t.DateType: pydt.date(1970, 1, 1),
+            t.TimestampType: pydt.datetime(1970, 1, 1,
+                                           tzinfo=pydt.timezone.utc)}
+    if isinstance(dt, t.StringType):
+        return np.array(values, dtype=object), None
+    if isinstance(dt, t.DecimalType):
+        lane = [0 if v is None else int(pydec.Decimal(v).scaleb(dt.scale)
+                                        .to_integral_value(pydec.ROUND_HALF_UP))
+                for v in values]
+    elif isinstance(dt, t.DateType):
+        lane = [0 if v is None else (v - zero[t.DateType]).days
+                for v in values]
+    elif isinstance(dt, t.TimestampType):
+        epoch = zero[t.TimestampType]
+        lane = [0 if v is None else
+                (v if v.tzinfo else v.replace(tzinfo=pydt.timezone.utc))
+                - epoch for v in values]
+        lane = [x if isinstance(x, int) else
+                (x.days * 86400 + x.seconds) * 10 ** 6 + x.microseconds
+                for x in lane]
+    else:
+        lane = [0 if v is None else v for v in values]
+    return (np.asarray(lane).astype(t.physical_np_dtype(dt), copy=False),
+            None if validity.all() else validity)
+
+
+def from_pydict(data: Mapping[str, object],
+                schema: Optional[t.StructType] = None) -> HostBatch:
+    """HostBatch from Python lists or numpy arrays by column name (None =
+    null), each typed by `schema` when given, else as pyarrow infers it
+    (`_infer_type`)."""
+    names = list(data)
+    types = [schema[n].data_type for n in names] if schema is not None \
+        else [_infer_type(data[n]) for n in names]
+    lanes = {n: _host_lane(data[n], dt) for n, dt in zip(names, types)}
+    return from_numpy(lanes, t.StructType([t.StructField(n, dt)
+                                           for n, dt in zip(names, types)]))
+
+
 # ---------------------------------------------------------------------------
 # Arrow interchange (pyarrow imported lazily: the card's machine has none)
 # ---------------------------------------------------------------------------

@@ -6,16 +6,19 @@ partials concatenate and re-group with the merge kinds; the final
 projection evaluates each aggregate's result expression over the merged
 buffers.
 
-Group-bys run through the segmented-aggregation kernels
-(ops/hopper/segagg.py) whenever every key is bounded — dictionary codes,
-booleans, or integers with exact scan ranges — and the packed domain
-passes the election gate (ops/hopper elect_segagg).  Otherwise they run
-the sorted group-by (ops/groupby.groupby_trace), with the bounded keys
-packed into one sort lane.  The reference's scatter-based dense tier
-(`dense_groupby_trace`, for dictionary/boolean keys that segagg
-refuses) ports with the dense-tiers slice and raises until then, unless
-`sql.agg.denseDomainViaSort` routes those keys through the sorted
-group-by as the reference does.
+Group-bys elect their tier as the reference's `_run_groupby` does:
+  * the segmented-aggregation kernels (ops/hopper/segagg.py) whenever
+    every key is bounded — dictionary codes, booleans, or integers with
+    exact scan ranges — and the packed domain passes the election gate
+    (ops/hopper elect_segagg, `segagg.maxDomain`);
+  * else the dense no-sort tier (ops/groupby.dense_groupby_trace) when
+    every key is a dictionary code or a boolean and the bucket product
+    stays within `sql.agg.denseDomainMax` (`_dense_domains`);
+    `sql.agg.denseDomainViaSort=true` sends those keys through the
+    sorted group-by's packed lane instead;
+  * else the sorted group-by (ops/groupby.groupby_trace), with the
+    bounded keys packed into one sort lane.
+`GROUPBY_TIERS` counts each tier's group-by calls.
 """
 from __future__ import annotations
 
@@ -38,6 +41,15 @@ from ..plan.aggregates import (AggregateFunction, _DecimalAvgEvaluate,
 from .evaluator import conds_mask, evaluate_projection
 
 _PACK_BUDGET = 1 << 62
+
+#: group-by calls by elected tier ("segagg", "dense", "sort"), raised in
+#: `_run_groupby`; read (and zeroed) by whoever checks a query's tier
+GROUPBY_TIERS = {"segagg": 0, "dense": 0, "sort": 0}
+
+
+def reset_groupby_tiers() -> None:
+    for k in GROUPBY_TIERS:
+        GROUPBY_TIERS[k] = 0
 
 
 def _dense_domains(key_cols, conf: TpuConf) -> "Optional[List[int]]":
@@ -118,15 +130,14 @@ def _run_groupby(key_cols: List[DeviceColumn], agg_cols: List[DeviceColumn],
         tier = elect_segagg(conf, total, has_float_sum)
     info = [(c.dtype, True, c.data.dtype) for c in key_cols]
     if tier is not None:
+        GROUPBY_TIERS["segagg"] += 1
         fn = segagg_groupby_trace(pack, info, list(specs), capacity,
                                   capacity)
     elif domains is not None and not conf.get(DENSE_AGG_VIA_SORT):
-        raise NotImplementedError(
-            "a dictionary/boolean-keyed group-by outside the segmented-"
-            "aggregation kernels' gate runs the dense group-by tier in the "
-            "reference, which ports with the dense-tiers slice (ROADMAP "
-            "Queue 1); sql.agg.denseDomainViaSort=true sorts it instead")
+        GROUPBY_TIERS["dense"] += 1
+        fn = G.dense_groupby_trace(list(domains), list(specs), capacity)
     else:
+        GROUPBY_TIERS["sort"] += 1
         fn = G.groupby_trace(info, list(specs), capacity, capacity,
                              pack_spec=pack)
     out_keys, outs, num_groups = fn(

@@ -8,7 +8,8 @@ Expressions arrive already bound to the child's schema.
 The nodes the TPC-H and TPC-DS queries run: the host scan, project,
 filter (fused into an aggregate's or a join's masks when one sits above
 it, else compacting), hash aggregate, sort, limit, top-N, union and
-expand.  The joins (hash and cross) are in exec/join.py and
+expand; and the range generator, the Bernoulli sample and the batch
+coalescer.  The joins (hash and cross) are in exec/join.py and
 exec/adaptive.py, the window in exec/window.py.
 
 A union streams its children's batches as they come, each with its own
@@ -136,6 +137,15 @@ class PlanNode:
         aggregate emits exactly one row), else None: a cross join
         against a scalar subquery then needs no host sync."""
         return None
+
+    def describe(self) -> str:
+        """One line of `tree_string`: the operator's name."""
+        return type(self).__name__
+
+    def tree_string(self, depth: int = 0) -> str:
+        """The physical tree, one operator a line, children indented."""
+        return "\n".join(["  " * depth + self.describe()] +
+                         [c.tree_string(depth + 1) for c in self.children])
 
     def collect(self, ctx: Optional[ExecContext] = None) -> HostBatch:
         """Run the plan and bring the results' live rows to the host."""
@@ -648,3 +658,158 @@ class ExpandExec(PlanNode):
         for db in self.child.execute(ctx):
             for proj in self.projections:
                 yield evaluate_projection(proj, self.names, db, ctx.conf)
+
+
+class RangeExec(PlanNode):
+    """GpuRangeExec: the LONG ids start, start + step, ... (below end, or
+    above it for a negative step) made on the device, in batches of at
+    most `batch_rows` (default `sql.batchSizeRows`) rows."""
+
+    def __init__(self, start: int, end: int, step: int = 1,
+                 name: str = "id", batch_rows: Optional[int] = None):
+        super().__init__()
+        assert step != 0
+        self.start, self.end, self.step = start, end, step
+        self.col_name = name
+        self.batch_rows = batch_rows
+
+    @property
+    def output_schema(self) -> t.StructType:
+        return t.StructType([t.StructField(self.col_name, t.LONG, False)])
+
+    def keys_unique(self, names):
+        return list(names) == [self.col_name]   # the ids never repeat
+
+    def describe(self):
+        return f"RangeExec[{self.start}, {self.end}, {self.step}]"
+
+    def execute(self, ctx: ExecContext) -> Iterator[DeviceBatch]:
+        from ..columnar.device import bucket_capacity
+        from ..ops.kernels import live_mask
+        total = max(0, -(-(self.end - self.start) // self.step))
+        chunk = self.batch_rows or ctx.conf.batch_size_rows
+        for emitted in range(0, total, chunk):
+            n = min(chunk, total - emitted)
+            cap = bucket_capacity(n, ctx.conf)
+            base = self.start + emitted * self.step
+            data = torch.arange(cap, dtype=torch.int64,
+                                device=ctx.device) * self.step + base
+            yield DeviceBatch([DeviceColumn(
+                data, live_mask(cap, n, ctx.device), t.LONG)], n,
+                [self.col_name])
+
+
+def sample_hash_u32(idx: torch.Tensor, seed: int) -> torch.Tensor:
+    """The reference's murmur3 finalizer over a row's global position
+    (taken mod 2^32) mixed with the seed, bit for bit.  The reference
+    computes in uint32; PyTorch has no uint32 arithmetic on CUDA, so
+    this runs in int64 masked to 32 bits after every multiply, and every
+    right shift reads a masked (non-negative) lane, where int64 `>>` is
+    the logical shift."""
+    h = (idx & _U32) ^ ((seed * 0x9E3779B9) & _U32)
+    h = h ^ (h >> 16)
+    h = (h * 0x85EBCA6B) & _U32
+    h = h ^ (h >> 13)
+    h = (h * 0xC2B2AE35) & _U32
+    return h ^ (h >> 16)
+
+
+def sample_threshold(fraction: float) -> int:
+    """The uint32 keep threshold of a Bernoulli fraction (a fraction of
+    1 or more keeps every row and never compares)."""
+    return min(int(round(fraction * 2.0 ** 32)), 2 ** 32 - 1)
+
+
+class SampleExec(PlanNode):
+    """GpuSampleExec: Bernoulli sampling without replacement.  A row is
+    kept when the hash of its global live position is below the
+    fraction's threshold: no generator state, so the kept rows depend
+    only on the seed, never on how the input is batched, and equal the
+    reference's device path and CPU fallback.  The kept rows compact
+    (ops/filter.compact_batch: the compaction_order kernel)."""
+
+    def __init__(self, fraction: float, seed: int, child: PlanNode):
+        super().__init__(child)
+        self.fraction = float(fraction)
+        self.seed = int(seed)
+
+    @property
+    def output_schema(self) -> t.StructType:
+        return self.child.output_schema
+
+    def keys_unique(self, names):
+        return self.child.keys_unique(names)   # subset of rows
+
+    def column_range(self, name):
+        return self.child.column_range(name)   # subset of values
+
+    def describe(self):
+        return f"SampleExec[{self.fraction}, seed={self.seed}]"
+
+    def execute(self, ctx: ExecContext) -> Iterator[DeviceBatch]:
+        from ..ops.filter import compact_batch
+        from ..ops.kernels import live_mask
+        threshold = sample_threshold(self.fraction)
+        offset = 0                    # a host int, or a 0-d device tensor
+        for db in self.child.execute(ctx):
+            if isinstance(db.num_rows, int) and db.num_rows == 0:
+                continue
+            if self.fraction < 1.0:
+                pos = torch.arange(db.capacity, dtype=torch.int64,
+                                   device=db.device) + offset
+                keep = live_mask(db.capacity, db.num_rows, db.device) & \
+                    (sample_hash_u32(pos, self.seed) < threshold)
+                out = compact_batch(db, keep, ctx.conf)
+            else:
+                out = db
+            offset = offset + (db.num_rows.to(torch.int64)
+                               if isinstance(db.num_rows, torch.Tensor)
+                               else db.num_rows)
+            yield out
+
+
+class CoalesceBatchesExec(PlanNode):
+    """GpuCoalesceBatches: concatenates batches until the next would pass
+    `target_rows` rows (default `sql.batchSizeRows`), or all of them with
+    `require_single`.  Each batch's row count comes to the host (a sync
+    a batch).  No conversion inserts it; it is built by hand."""
+
+    def __init__(self, child: PlanNode, target_rows: Optional[int] = None,
+                 require_single: bool = False):
+        super().__init__(child)
+        self.target_rows = target_rows
+        self.require_single = require_single
+
+    @property
+    def output_schema(self) -> t.StructType:
+        return self.child.output_schema
+
+    def keys_unique(self, names):
+        return self.child.keys_unique(names)   # same rows, repacked
+
+    def static_row_count(self):
+        return self.child.static_row_count()
+
+    def column_range(self, name):
+        return self.child.column_range(name)
+
+    def describe(self):
+        goal = "RequireSingleBatch" if self.require_single \
+            else f"target={self.target_rows or 'conf'}"
+        return f"CoalesceBatchesExec[{goal}]"
+
+    def execute(self, ctx: ExecContext) -> Iterator[DeviceBatch]:
+        target = self.target_rows or ctx.conf.batch_size_rows
+        pending: List[DeviceBatch] = []
+        rows = 0
+        for db in self.child.execute(ctx):
+            n = int(db.num_rows)
+            if n == 0:
+                continue
+            if not self.require_single and rows and rows + n > target:
+                yield concat_batches(pending, ctx.conf)
+                pending, rows = [], 0
+            pending.append(db)
+            rows += n
+        if pending:
+            yield concat_batches(pending, ctx.conf)

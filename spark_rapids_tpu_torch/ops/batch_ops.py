@@ -151,10 +151,13 @@ def shrink_to_capacity(db: DeviceBatch, row_bound: int,
 def shrink_to_rows(db: DeviceBatch, num_rows: int,
                    conf: TpuConf = DEFAULT_CONF) -> DeviceBatch:
     """Re-bucket a padded batch down to the bucket fitting `num_rows`
-    (after a group-by whose occupancy dropped a bucket or more)."""
+    (after a group-by whose occupancy dropped a bucket or more).  The
+    kept rows are copied, so the full-capacity lanes they came from are
+    freed: a group-by's partial of a few groups must not hold its
+    capacity-sized outputs alive until the merge."""
     cap = bucket_capacity(max(num_rows, 1), conf)
     if cap >= db.capacity:
         return DeviceBatch(db.columns, num_rows, db.names)
-    cols = [DeviceColumn(c.data[:cap], c.validity[:cap], c.dtype,
-                         c.dictionary) for c in db.columns]
+    cols = [DeviceColumn(c.data[:cap].clone(), c.validity[:cap].clone(),
+                         c.dtype, c.dictionary) for c in db.columns]
     return DeviceBatch(cols, num_rows, db.names)

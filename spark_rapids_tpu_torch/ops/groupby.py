@@ -15,12 +15,17 @@ Counterpart of spark_rapids_tpu/ops/groupby.py:
     in the reference;
   * `reduce_trace`: the no-key aggregation (TPC-H q6).
 
-The reference's scatter-based variants (`dense_groupby_trace`, the
-`segments.scatterFree.enabled=false` reductions) are not ported: the
-sorted-run reductions give the same results (exec/aggregate.py refuses
-the dense tier by name).  With a full pack the reference dispatches to
-`packed_groupby_trace`, whose groups, order and sums equal the generic
-path's over the one packed lane, which is what runs here.
+  * `dense_groupby_trace`: the no-sort group-by of keys whose domains
+    are all small and static (dictionary codes, booleans): a mixed-radix
+    bucket id per row and one scatter reduction per aggregate into the
+    buckets (`_batched_sums` for the sum family), occupied buckets
+    compacted to the front in bucket order.
+
+The reference's `segments.scatterFree.enabled=false` reductions are not
+ported: the sorted-run reductions give the same results.  With a full
+pack the reference dispatches to `packed_groupby_trace`, whose groups,
+order and sums equal the generic path's over the one packed lane, which
+is what runs here.
 
 Float MIN/MAX order -0.0 below +0.0 and NaN above +inf, as the
 reference's XLA reductions and its CPU oracle do; torch's own min/max
@@ -239,12 +244,14 @@ def sorted_agg_outputs(agg_specs, spec_vls, s_live, boundary, starts_c,
                     cd, ident)), is_min)
         elif spec.kind in (FIRST_NN, LAST_NN):
             is_first = spec.kind == FIRST_NN
-            masked = torch.where(vl, iota, torch.full_like(
-                iota, capacity if is_first else -1))
-            pick = torch.clamp(reduce_lane(masked, is_first), 0,
-                               capacity - 1).long()
+            none = capacity if is_first else -1
+            masked = torch.where(vl, iota, torch.full_like(iota, none))
+            raw = reduce_lane(masked, is_first)
+            pick = torch.clamp(raw, 0, capacity - 1).long()
             data = cd[pick]
-            out_valid = vl[pick] & group_live
+            # a group with no non-null row is null, whatever the clamped
+            # row holds
+            out_valid = vl[pick] & (raw != none) & group_live
         elif spec.kind == ANY:
             data = reduce_lane((cd & vl).to(torch.int8), False) > 0
         elif spec.kind == EVERY:
@@ -355,5 +362,157 @@ def reduce_trace(agg_specs, capacity: int):
                 raise ValueError(spec.kind)
             outs.append((data, valid))
         return outs
+
+    return run
+
+
+def _segment_reduce(lane: torch.Tensor, seg: torch.Tensor, num_segments: int,
+                    is_min: bool) -> torch.Tensor:
+    """Per-bucket MIN or MAX of an integer lane (`scatter_reduce_`
+    starting from the dtype's identity, so an empty bucket keeps it)."""
+    out = torch.full((num_segments,), _int_ident(lane.dtype, is_min),
+                     dtype=lane.dtype, device=lane.device)
+    return out.scatter_reduce_(0, seg, lane, "amin" if is_min else "amax")
+
+
+def _batched_sums(agg_specs, spec_vls, live_all, seg, num_segments: int,
+                  reindex):
+    """Every sum-like lane in one (N, K) scatter-add per dtype class, as
+    the reference's `_batched_sums` does with one wide `segment_sum`.
+    spec_vls: per spec (data, valid & live); live_all: the COUNT(*) lane;
+    reindex maps the (num_segments, K) sums onto the caller's group
+    order.  On the CPU `index_add_` adds the rows in order, the
+    reference's CPU scatter order; on a card float64 sums are atomics in
+    run-dependent order (the `variableFloatAgg` latitude), integer sums
+    exact.  Returns sum_of(key, is_float) -> (G,) lane."""
+    int_lanes, int_slots, f64_lanes, f64_slots = _queue_sum_lanes(
+        agg_specs, spec_vls, live_all)
+
+    def summed(lanes, dtype):
+        if not lanes:
+            return None
+        src = torch.stack(lanes, dim=1)
+        out = torch.zeros((num_segments, src.shape[1]), dtype=dtype,
+                          device=src.device)
+        return reindex(out.index_add_(0, seg, src))
+
+    int_out = summed(int_lanes, torch.int64)
+    f64_out = summed(f64_lanes, torch.float64)
+
+    def sum_of(key, is_float):
+        return (f64_out[:, f64_slots[key]] if is_float
+                else int_out[:, int_slots[key]])
+    return sum_of
+
+
+def dense_groupby_trace(domain_sizes, agg_specs, capacity: int):
+    """The bounded-domain group-by with no sort and no row gather: every
+    key has a small static domain (codes in [0, size)), rows map to a
+    dense bucket id (a mixed radix over the keys, one extra slot per key
+    for null, dead rows in bucket D) and each aggregate is one scatter
+    reduction into the buckets.  Returns fn(keys, keys_valid, agg_data,
+    agg_valid, live) with groupby_trace's contract: (D,)-sized outputs,
+    the occupied buckets first in bucket order (keys ascending, a null
+    key after its values), keys decoded from the bucket id.
+
+    Float MIN/MAX reduce in the int64 total-order image (NaN above
+    +inf, -0.0 below 0.0), as the sorted group-by does."""
+    strides = []
+    d_total = 1
+    for size in reversed(domain_sizes):
+        strides.append(d_total)
+        d_total *= size + 1                       # +1: the null slot
+    strides.reverse()
+    D = d_total
+    ns = D + 1
+
+    def run(keys, keys_valid, agg_data, agg_valid, live):
+        dev = live.device
+        comb = torch.zeros(capacity, dtype=torch.int64, device=dev)
+        for size, stride, kd, kv in zip(domain_sizes, strides, keys,
+                                        keys_valid):
+            slot = torch.clamp(kd.to(torch.int64), 0, size - 1)
+            if kv is not None:
+                slot = torch.where(kv, slot, torch.full_like(slot, size))
+            comb = comb + slot * stride
+        seg = torch.where(live, comb, torch.full_like(comb, D))
+        occupied = torch.bincount(seg, minlength=ns)[:D] > 0
+        num_groups = occupied.sum(dtype=torch.int32)
+        # the occupied buckets to the front, stably (bucket order)
+        order = torch.argsort((~occupied).to(torch.int8), stable=True)
+        group_live = torch.arange(D, device=dev) < num_groups
+
+        out_keys = []
+        for size, stride, kd in zip(domain_sizes, strides, keys):
+            slot = torch.div(order, stride, rounding_mode="floor") % \
+                (size + 1)
+            okv = (slot < size) & group_live
+            # a null key's lane is 0, never the null slot (a code past
+            # the dictionary's end)
+            out_keys.append((torch.where(okv, slot, torch.zeros_like(slot))
+                             .to(kd.dtype), okv))
+
+        def regroup(a):
+            return a[:D][order]
+
+        spec_vls = []
+        for spec in agg_specs:
+            if spec.input_idx >= 0:
+                v = agg_valid[spec.input_idx]
+                spec_vls.append((agg_data[spec.input_idx],
+                                 live if v is None else v & live))
+            else:
+                spec_vls.append((None, live))
+        sum_of = _batched_sums(agg_specs, spec_vls, live, seg, ns, regroup)
+
+        outs = []
+        for si, spec in enumerate(agg_specs):
+            d, vl = spec_vls[si]
+            dt = spec.dtype
+            if spec.kind in (COUNT, COUNT_ALL):
+                outs.append((sum_of(("cnt", si), False), group_live))
+                continue
+            out_valid = (sum_of(("vc", spec.input_idx), False) > 0) & \
+                group_live
+            cd = compute_view(d, dt)
+            if spec.kind == SUM:
+                data = sum_of(("sum", si), t.is_floating(dt))
+            elif spec.kind in (MIN, MAX):
+                is_min = spec.kind == MIN
+                if t.is_floating(dt):
+                    o = float_order(cd.to(torch.float64))
+                    o = torch.where(vl, o, torch.full_like(
+                        o, _ORDER_MAX if is_min else _ORDER_MIN))
+                    data = float_from_order(regroup(_segment_reduce(
+                        o, seg, ns, is_min))).to(cd.dtype)
+                elif isinstance(dt, t.BooleanType):
+                    acc = torch.where(vl, cd, torch.full_like(cd, is_min))
+                    data = regroup(_segment_reduce(
+                        acc.to(torch.int32), seg, ns, is_min)) > 0
+                else:
+                    acc = torch.where(vl, cd, torch.full_like(
+                        cd, _int_ident(cd.dtype, is_min))).to(torch.int64)
+                    data = regroup(_segment_reduce(
+                        acc, seg, ns, is_min)).to(cd.dtype)
+            elif spec.kind in (FIRST, LAST, FIRST_NN, LAST_NN):
+                is_first = spec.kind in (FIRST, FIRST_NN)
+                sel = vl if spec.kind in (FIRST_NN, LAST_NN) else live
+                none = capacity if is_first else -1
+                idx = torch.arange(capacity, dtype=torch.int64, device=dev)
+                masked = torch.where(sel, idx, torch.full_like(idx, none))
+                raw = regroup(_segment_reduce(masked, seg, ns, is_first))
+                pick = torch.clamp(raw, 0, capacity - 1)
+                data = cd[pick]
+                out_valid = vl[pick] & (raw != none) & group_live
+            elif spec.kind == ANY:
+                data = regroup(_segment_reduce(
+                    (cd & vl).to(torch.int32), seg, ns, False)) > 0
+            elif spec.kind == EVERY:
+                data = regroup(_segment_reduce(
+                    (cd | ~vl).to(torch.int32), seg, ns, True)) > 0
+            else:
+                raise ValueError(f"unknown agg kind {spec.kind}")
+            outs.append((data, out_valid))
+        return out_keys, outs, num_groups
 
     return run

@@ -351,10 +351,12 @@ def segagg_groupby_trace(pack_spec, key_lanes_info, agg_specs,
                 sel = live if spec.kind in (G.FIRST, G.LAST) else vl
                 none = capacity if is_first else -1
                 masked = torch.where(sel, iota, torch.full_like(iota, none))
-                pick = torch.clamp(reduce_of(masked, is_first, none),
-                                   0, capacity - 1).to(torch.int64)
+                raw = reduce_of(masked, is_first, none)
+                pick = torch.clamp(raw, 0, capacity - 1).to(torch.int64)
                 data = cd[pick]
-                out_valid = vl[pick] & group_live
+                # a bucket with no row to pick is null, whatever the
+                # clamped row holds
+                out_valid = vl[pick] & (raw != none) & group_live
             elif spec.kind == G.ANY:
                 data = reduce_of((cd & vl).to(torch.int8), False, 0) > 0
             elif spec.kind == G.EVERY:

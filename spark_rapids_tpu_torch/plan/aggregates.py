@@ -8,7 +8,11 @@ final phases all run through the same group-by kernels.
 
 This slice ports Count, Sum, Average (decimal averages finish with
 exact HALF_UP integer arithmetic), Min, Max, First, Last, BoolAnd,
-BoolOr and CountDistinct (which exec/distinct.py runs).
+BoolOr, CountDistinct (which exec/distinct.py runs) and the statistical
+aggregates (VariancePop, VarianceSamp, StddevPop, StddevSamp, CovarPop,
+CovarSamp, Corr), which lower to COUNT and SUM over projected moment
+inputs and a final expression, so every group-by tier and the global
+reduction run them unchanged.
 """
 from __future__ import annotations
 
@@ -330,3 +334,174 @@ class _DecimalAvgEvaluate(E.Expression):
 
     def _fp_extra(self):
         return self.out_t.simple_string
+
+
+# ---------------------------------------------------------------------------
+# Statistical aggregates: COUNT and SUM over projected moments, as the
+# reference composes them; no kernel of their own
+# ---------------------------------------------------------------------------
+
+def _null_double():
+    return E.Literal(None, t.DOUBLE)
+
+
+def _clamp_nonneg(e: E.Expression) -> E.Expression:
+    """max(e, 0): the moment formula ss - s^2/n can round to a tiny
+    negative for a constant column; a variance is never negative.  The
+    test is `e < 0`, so a NaN moment (a NaN input) stays NaN."""
+    zero = E.Literal(0.0, t.DOUBLE)
+    return E.If(E.LessThan(e, zero), zero, e)
+
+
+def _masked_pair(x: E.Expression, other: E.Expression) -> E.Expression:
+    """x where the partner is non-null: the binary statistics drop rows
+    with either side null."""
+    return _resolved(E.If(E.IsNotNull(other), x, _null_double()))
+
+
+class VariancePop(AggregateFunction):
+    """var_pop: buffers (n, sum x, sum x^2), merged by summation; the final
+    (ss - s^2/n) / (n - ddof) runs in float64 (the moment form can lose
+    digits to cancellation when the mean dwarfs the spread, as the
+    reference's does).  Null for n <= ddof (Spark 3.1+: n = 0, and n = 1
+    for the sample forms)."""
+    name = "var_pop"
+    ddof = 0
+
+    def _resolve(self):
+        self.dtype = t.DOUBLE
+        self.nullable = True
+        self._xd = _resolved(E.Cast(self.child, t.DOUBLE))
+
+    def inputs(self):
+        return [self.child, self._xd,
+                _resolved(E.Multiply(self._xd, self._xd))]
+
+    def update_ops(self):
+        return [(G.COUNT, t.LONG), (G.SUM, t.DOUBLE), (G.SUM, t.DOUBLE)]
+
+    def merge_ops(self):
+        return [(G.SUM, t.LONG), (G.SUM, t.DOUBLE), (G.SUM, t.DOUBLE)]
+
+    def evaluate(self, refs):
+        n = E.Cast(refs[0], t.DOUBLE)
+        s, ss = refs[1], refs[2]
+        m2 = _clamp_nonneg(E.Subtract(ss, E.Divide(E.Multiply(s, s), n)))
+        var = E.Divide(m2, E.Subtract(n, E.Literal(float(self.ddof),
+                                                   t.DOUBLE)))
+        return E.If(E.GreaterThan(refs[0], E.Literal(self.ddof, t.LONG)),
+                    var, _null_double())
+
+
+class VarianceSamp(VariancePop):
+    name = "var_samp"
+    ddof = 1
+
+
+class StddevPop(VariancePop):
+    name = "stddev_pop"
+
+    def evaluate(self, refs):
+        return E.Sqrt(super().evaluate(refs))
+
+
+class StddevSamp(StddevPop):
+    name = "stddev_samp"
+    ddof = 1
+
+
+class _BinaryStatAgg(AggregateFunction):
+    """corr / covar over two children, complete pairs only."""
+
+    def __init__(self, x: E.Expression, y: E.Expression):
+        super().__init__(x)
+        self.child2 = y
+
+    def bind(self, schema):
+        b = copy.copy(self)
+        b.child = self.child.bind(schema)
+        b.child2 = self.child2.bind(schema)
+        b._resolve()
+        return b
+
+    def unsupported_reasons(self, conf):
+        return AggregateFunction.unsupported_reasons(self, conf) + \
+            self.child2.tree_unsupported(conf)
+
+    def _resolve(self):
+        self.dtype = t.DOUBLE
+        self.nullable = True
+        xd = _resolved(E.Cast(self.child, t.DOUBLE))
+        yd = _resolved(E.Cast(self.child2, t.DOUBLE))
+        self._x = _masked_pair(xd, self.child2)
+        self._y = _masked_pair(yd, self.child)
+
+    def _pair_count_input(self):
+        # null unless both sides are: COUNT counts the complete pairs
+        return _resolved(E.Multiply(self._x, self._y))
+
+    def __repr__(self):
+        return f"{self.name}({self.child!r}, {self.child2!r})"
+
+
+class CovarPop(_BinaryStatAgg):
+    """covar_pop: buffers (n, sum x, sum y, sum xy); (sxy - sx sy / n) /
+    (n - ddof), null for n <= ddof."""
+    name = "covar_pop"
+    ddof = 0
+
+    def inputs(self):
+        xy = self._pair_count_input()
+        return [xy, self._x, self._y, xy]
+
+    def update_ops(self):
+        return [(G.COUNT, t.LONG)] + [(G.SUM, t.DOUBLE)] * 3
+
+    def merge_ops(self):
+        return [(G.SUM, t.LONG)] + [(G.SUM, t.DOUBLE)] * 3
+
+    def evaluate(self, refs):
+        n = E.Cast(refs[0], t.DOUBLE)
+        sx, sy, sxy = refs[1], refs[2], refs[3]
+        num = E.Subtract(sxy, E.Divide(E.Multiply(sx, sy), n))
+        cov = E.Divide(num, E.Subtract(n, E.Literal(float(self.ddof),
+                                                    t.DOUBLE)))
+        return E.If(E.GreaterThan(refs[0], E.Literal(self.ddof, t.LONG)),
+                    cov, _null_double())
+
+
+class CovarSamp(CovarPop):
+    name = "covar_samp"
+    ddof = 1
+
+
+class Corr(_BinaryStatAgg):
+    """corr: cov / sqrt(var_x var_y) from (n, sx, sy, sxy, sxx, syy);
+    null for n = 0, NaN where a variance is zero (Spark; Divide alone
+    would give null)."""
+    name = "corr"
+
+    def inputs(self):
+        xy = self._pair_count_input()
+        return [xy, self._x, self._y, xy,
+                _resolved(E.Multiply(self._x, self._x)),
+                _resolved(E.Multiply(self._y, self._y))]
+
+    def update_ops(self):
+        return [(G.COUNT, t.LONG)] + [(G.SUM, t.DOUBLE)] * 5
+
+    def merge_ops(self):
+        return [(G.SUM, t.LONG)] + [(G.SUM, t.DOUBLE)] * 5
+
+    def evaluate(self, refs):
+        n = E.Cast(refs[0], t.DOUBLE)
+        sx, sy, sxy, sxx, syy = refs[1:6]
+        cov = E.Subtract(sxy, E.Divide(E.Multiply(sx, sy), n))
+        vx = _clamp_nonneg(E.Subtract(sxx, E.Divide(E.Multiply(sx, sx), n)))
+        vy = _clamp_nonneg(E.Subtract(syy, E.Divide(E.Multiply(sy, sy), n)))
+        denom = E.Sqrt(E.Multiply(vx, vy))
+        corr = E.If(E.EqualTo(denom, E.Literal(0.0, t.DOUBLE)),
+                    E.Literal(float("nan"), t.DOUBLE),
+                    E.Divide(cov, denom))
+        return E.If(E.GreaterThan(refs[0], E.Literal(0, t.LONG)), corr,
+                    _null_double())

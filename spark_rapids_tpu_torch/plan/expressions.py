@@ -8,11 +8,21 @@ rules and overflow-to-null), / on doubles, the six comparisons (numeric,
 date and decimal), = and != of a dictionary-coded string column against
 a string literal or another string column, Kleene AND/OR/NOT, IS [NOT]
 NULL, COALESCE, IF, CASE WHEN, IN, numeric/decimal casts (floating to
-integral as the reference truncates and clamps), and the bitwise and
-shift operators with Java's shift-distance masking.  Anything
+integral as the reference truncates and clamps), the bitwise and shift
+operators with Java's shift-distance masking, and the scalar families:
+integral divide and remainder with Java's wrapping and sign rules, unary
+minus, abs, <=>, IS NaN, the math functions (DOUBLE results, Spark's
+null domain for the logarithms), floor / ceil to LONG, greatest /
+least in Java's order, round / bround (exact on DECIMAL and integral
+lanes, binary on DOUBLE), width_bucket and raise_error.  Anything
 else reports itself in `unsupported_reasons`, and plan/overrides.py
 refuses the plan with that reason: the port has no CPU engine to fall
 back to yet.
+
+Where the reference is wrong by Spark's rules the port follows its CPU
+oracle (ROADMAP Queue 3 item 10): a DECIMAL operand of a math function,
+floor or ceil is its value, not its unscaled lane; `div` by
+Long.MIN_VALUE truncates; a DOUBLE rounds by a true division.
 
 Evaluation keeps the reference's two phases: a host `prepare` walk
 (dictionary metadata) and the device `eval_dev` walk, which here runs
@@ -509,7 +519,7 @@ class BinaryComparison(Expression):
             pos = int(np.searchsorted(d, value))
             code = pos if pos < len(d) and d[pos] == value else -1
             eq = col.data == code
-        return DevVal(eq if isinstance(self, EqualTo) else ~eq,
+        return DevVal(~eq if isinstance(self, NotEqual) else eq,
                       col.validity, t.BOOLEAN)
 
     def _string_pair_dev(self, ctx, kids) -> DevVal:
@@ -1087,3 +1097,668 @@ class BitCount(Expression):
         x = (x + (x >> 4)) & _M4
         cnt = ((x * _H01) >> 56) & 0x7F
         return DevVal(cnt.to(torch.int32), kids[0].validity, t.INT)
+
+
+# ---------------------------------------------------------------------------
+# Integral division, remainder, negation, abs, <=> and IS NaN
+# ---------------------------------------------------------------------------
+
+class IntegralDivide(BinaryArithmetic):
+    """Spark `div`: LONG division truncating toward zero (Java), x div 0
+    -> NULL, Long.MIN_VALUE div -1 wraps to Long.MIN_VALUE.  The divisor
+    -1 is taken apart so no lane divides MIN by it (a trap on the CPU)."""
+    symbol = "div"
+
+    def _resolve(self):
+        self.dtype = t.LONG
+        self.nullable = True
+
+    def unsupported_reasons(self, conf):
+        out = super().unsupported_reasons(conf)
+        if any(t.is_floating(c.dtype) for c in self.children):
+            out.append("integral divide of floating input")
+        return out
+
+    def _eval_dev(self, ctx, kids):
+        l, r = kids
+        ld = l.data.to(torch.int64)
+        rd = r.data.to(torch.int64)
+        plain = (rd != 0) & (rd != -1)
+        q = torch.div(ld, torch.where(plain, rd, torch.ones_like(rd)),
+                      rounding_mode="trunc")
+        q = torch.where(rd == -1, -ld, q)
+        return DevVal(q, merge_validity(l.validity, r.validity, rd != 0),
+                      t.LONG)
+
+
+def _numpy_on_cpu(torch_fn, numpy_fn):
+    """`torch_fn` on card lanes, `numpy_fn` on CPU lanes: for the
+    functions whose vectorized PyTorch CPU versions fail where the C
+    library and the card's do not."""
+    def fn(*lanes: torch.Tensor) -> torch.Tensor:
+        if lanes[0].device.type == "cpu":
+            with np.errstate(all="ignore"):
+                return torch.from_numpy(numpy_fn(*(x.numpy()
+                                                   for x in lanes)))
+        return torch_fn(*lanes)
+    return fn
+
+
+#: C's fmod of float64 lanes, exact: PyTorch's vectorized CPU fmod
+#: divides first and gives NaN once |a / b| passes the double range
+#: (-1.75e308 % -0.857)
+_fmod = _numpy_on_cpu(torch.fmod, np.fmod)
+
+
+class Remainder(BinaryArithmetic):
+    """Spark %: Java's remainder, the dividend's sign (C fmod, not
+    Python's modulo), x % 0 -> NULL; integral lanes compute in int64 and
+    narrow back, and x % -1 is 0 without dividing (MIN % -1 traps)."""
+    symbol = "%"
+
+    @property
+    def decimal_rule(self):
+        def rule(a: t.DecimalType, b: t.DecimalType) -> t.DecimalType:
+            s = max(a.scale, b.scale)
+            p = min(a.precision - a.scale, b.precision - b.scale) + s
+            return t.DecimalType(max(p, 1), s)
+        return rule
+
+    def _eval_dev(self, ctx, kids):
+        l, r = kids
+        if t.is_floating(self.dtype):
+            ld = l.data.to(torch.float64)
+            rd = r.data.to(torch.float64)
+            nz = rd != 0
+            data = _fmod(ld, torch.where(nz, rd, torch.ones_like(rd)))
+        else:
+            ld = l.data.to(torch.int64)
+            rd = r.data.to(torch.int64)
+            nz = rd != 0
+            plain = nz & (rd != -1)
+            data = torch.fmod(ld, torch.where(plain, rd,
+                                              torch.ones_like(rd)))
+        return DevVal(data.to(compute_dtype(self.dtype)),
+                      merge_validity(l.validity, r.validity, nz), self.dtype)
+
+
+def _numeric_reasons(children) -> List[str]:
+    return [f"non-numeric operand {c.dtype.simple_string}"
+            for c in children
+            if not (t.is_numeric(c.dtype) or isinstance(c.dtype, t.NullType))]
+
+
+class UnaryMinus(Expression):
+    """-x: integral lanes wrap (-Long.MIN_VALUE is Long.MIN_VALUE), a
+    decimal negates its unscaled lane."""
+
+    def __init__(self, child):
+        self.children = (child,)
+
+    def _resolve(self):
+        self.dtype = self.children[0].dtype
+        self.nullable = self.children[0].nullable
+
+    def unsupported_reasons(self, conf):
+        return _numeric_reasons(self.children)
+
+    def _eval_dev(self, ctx, kids):
+        return DevVal(torch.neg(kids[0].data), kids[0].validity, self.dtype)
+
+
+class Abs(Expression):
+    """abs(x): integral lanes wrap (abs(Long.MIN_VALUE) is
+    Long.MIN_VALUE, Java's Math.abs), floats clear the sign bit (-0.0 ->
+    0.0, NaN stays NaN)."""
+
+    def __init__(self, child):
+        self.children = (child,)
+
+    def _resolve(self):
+        self.dtype = self.children[0].dtype
+        self.nullable = self.children[0].nullable
+
+    def unsupported_reasons(self, conf):
+        return _numeric_reasons(self.children)
+
+    def _eval_dev(self, ctx, kids):
+        x = kids[0].data
+        data = torch.abs(x) if x.is_floating_point() \
+            else torch.where(x < 0, torch.neg(x), x)
+        return DevVal(data, kids[0].validity, self.dtype)
+
+
+class EqualNullSafe(BinaryComparison):
+    """a <=> b: never null; true when both sides are null, false when one
+    is, else a = b (the same lanes and dictionaries as EqualTo)."""
+    symbol = "<=>"
+    nullable = False
+
+    def unsupported_reasons(self, conf):
+        return []
+
+    def _op_dev(self, l, r):
+        return l == r
+
+    def _eval_dev(self, ctx, kids):
+        cap, dev = ctx.capacity, ctx.device
+        eq = BinaryComparison._eval_dev(self, ctx, kids)
+        lv = valid_or_true(kids[0].validity, cap, dev)
+        rv = valid_or_true(kids[1].validity, cap, dev)
+        same = eq.data & valid_or_true(eq.validity, cap, dev) & lv & rv
+        return DevVal(same | (~lv & ~rv), None, t.BOOLEAN)
+
+
+class IsNaN(Expression):
+    """isnan(x) of a FLOAT or DOUBLE: never null (a null input is false).
+    Other input types are refused, as the reference's device path does
+    (Spark's analyzer accepts only floating input)."""
+    nullable = False
+
+    def __init__(self, child):
+        self.children = (child,)
+
+    def _resolve(self):
+        self.dtype = t.BOOLEAN
+
+    def unsupported_reasons(self, conf):
+        dt = self.children[0].dtype
+        if t.is_floating(dt) or isinstance(dt, t.NullType):
+            return []
+        return [f"input type {dt.simple_string} not supported"]
+
+    def _eval_dev(self, ctx, kids):
+        nan = torch.isnan(kids[0].data.to(torch.float64))
+        v = kids[0].validity
+        return DevVal(nan if v is None else nan & v, None, t.BOOLEAN)
+
+
+# ---------------------------------------------------------------------------
+# Math functions (DOUBLE results)
+# ---------------------------------------------------------------------------
+
+def _f64(kid: DevVal) -> torch.Tensor:
+    """A numeric operand as float64: a decimal by its value (the unscaled
+    lane over 10^scale, ops/decimal.to_double), any other by its lane."""
+    if isinstance(kid.dtype, t.DecimalType):
+        from ..ops import decimal as D
+        return D.to_double(kid.data.to(torch.int64), kid.dtype.scale)
+    return kid.data.to(torch.float64)
+
+
+def _cbrt(x: torch.Tensor) -> torch.Tensor:
+    """Cube root (PyTorch has none): |x|^(1/3) refined by one Newton step,
+    the sign put back; 0, ±inf and NaN pass through."""
+    a = torch.abs(x)
+    y = torch.pow(a, 1.0 / 3.0)
+    ok = (a > 0) & torch.isfinite(a)
+    ys = torch.where(ok, y, torch.ones_like(y))
+    y = torch.where(ok, ys - (ys * ys * ys - a) / (3.0 * ys * ys), y)
+    return torch.where(x < 0, -y, torch.where(ok, y, x))
+
+
+def _signum(x: torch.Tensor) -> torch.Tensor:
+    """Java Math.signum: ±1.0, a zero keeps its sign, NaN stays NaN."""
+    one = torch.ones_like(x)
+    return torch.where((x == 0) | torch.isnan(x), x,
+                       torch.where(x > 0, one, -one))
+
+
+class UnaryMathExpression(Expression):
+    """f(x) over the operand as float64, DOUBLE result, nulls in -> nulls
+    out.  NaN, ±inf and -0.0 follow IEEE (and the C library) as in the
+    reference: sqrt(-1) and asin(2) are NaN, not null."""
+    fn = None
+
+    def __init__(self, child):
+        self.children = (child,)
+
+    def _resolve(self):
+        self.dtype = t.DOUBLE
+        self.nullable = self.children[0].nullable
+
+    def unsupported_reasons(self, conf):
+        return _numeric_reasons(self.children)
+
+    def _eval_dev(self, ctx, kids):
+        return DevVal(type(self).fn(_f64(kids[0])), kids[0].validity,
+                      t.DOUBLE)
+
+
+class Sqrt(UnaryMathExpression):
+    fn = staticmethod(torch.sqrt)
+
+
+class Exp(UnaryMathExpression):
+    fn = staticmethod(torch.exp)
+
+
+class Expm1(UnaryMathExpression):
+    fn = staticmethod(torch.expm1)
+
+
+class Cbrt(UnaryMathExpression):
+    fn = staticmethod(_cbrt)
+
+
+class Sin(UnaryMathExpression):
+    fn = staticmethod(torch.sin)
+
+
+class Cos(UnaryMathExpression):
+    fn = staticmethod(torch.cos)
+
+
+class Tan(UnaryMathExpression):
+    fn = staticmethod(torch.tan)
+
+
+class Asin(UnaryMathExpression):
+    fn = staticmethod(torch.asin)
+
+
+class Acos(UnaryMathExpression):
+    fn = staticmethod(torch.acos)
+
+
+class Atan(UnaryMathExpression):
+    fn = staticmethod(torch.atan)
+
+
+class Sinh(UnaryMathExpression):
+    # PyTorch's vectorized CPU sinh and cosh overflow to ±inf from
+    # |x| = 709.78 on, where the result is still finite up to 710.47
+    fn = staticmethod(_numpy_on_cpu(torch.sinh, np.sinh))
+
+
+class Cosh(UnaryMathExpression):
+    fn = staticmethod(_numpy_on_cpu(torch.cosh, np.cosh))
+
+
+class Tanh(UnaryMathExpression):
+    fn = staticmethod(torch.tanh)
+
+
+class Cot(UnaryMathExpression):
+    fn = staticmethod(lambda x: torch.reciprocal(torch.tan(x)))
+
+
+class Sec(UnaryMathExpression):
+    fn = staticmethod(lambda x: torch.reciprocal(torch.cos(x)))
+
+
+class Csc(UnaryMathExpression):
+    fn = staticmethod(lambda x: torch.reciprocal(torch.sin(x)))
+
+
+class ToDegrees(UnaryMathExpression):
+    fn = staticmethod(torch.rad2deg)
+
+
+class ToRadians(UnaryMathExpression):
+    fn = staticmethod(torch.deg2rad)
+
+
+class Signum(UnaryMathExpression):
+    fn = staticmethod(_signum)
+
+
+class Rint(UnaryMathExpression):
+    """rint: the nearest integer, ties to even."""
+    fn = staticmethod(torch.round)
+
+
+class _DomainLog(UnaryMathExpression):
+    """A logarithm with Spark's non-ANSI domain rule: null unless the
+    input is above `floor` (x > 0 for ln, log10 and log2; x > -1 for
+    log1p), so a NaN input is null too, as in the reference and its
+    oracle; +inf at +inf."""
+    floor = 0.0
+
+    def _resolve(self):
+        self.dtype = t.DOUBLE
+        self.nullable = True
+
+    def _eval_dev(self, ctx, kids):
+        x = _f64(kids[0])
+        ok = x > self.floor
+        safe = torch.where(ok, x, torch.full_like(x, self.floor + 1.0))
+        return DevVal(type(self).fn(safe),
+                      merge_validity(kids[0].validity, ok), t.DOUBLE)
+
+
+class Log(_DomainLog):
+    fn = staticmethod(torch.log)
+
+
+class Log10(_DomainLog):
+    fn = staticmethod(torch.log10)
+
+
+class Log2(_DomainLog):
+    fn = staticmethod(torch.log2)
+
+
+class Log1p(_DomainLog):
+    fn = staticmethod(torch.log1p)
+    floor = -1.0
+
+
+_LONG_HI = 9.223372036854775e18        # the double just below 2^63
+_LONG_LO = -9.223372036854776e18       # -2^63
+
+
+def _f64_to_long(f: torch.Tensor) -> torch.Tensor:
+    """Spark's double -> long: NaN -> 0, saturation at the doubles
+    nearest Long's bounds, then truncation."""
+    f = torch.where(torch.isnan(f), torch.zeros_like(f), f)
+    return torch.clamp(f, _LONG_LO, _LONG_HI).to(torch.int64)
+
+
+class RoundingToLong(Expression):
+    """floor / ceil -> LONG (Spark's `.toLong` of the rounded double).
+    Integral input passes through; a decimal rounds its unscaled lane
+    exactly in integers."""
+    round_fn = None
+    #: the rounding mode of an exact integer quotient
+    mode = "floor"
+
+    def __init__(self, child):
+        self.children = (child,)
+
+    def _resolve(self):
+        self.dtype = t.LONG
+        self.nullable = self.children[0].nullable
+
+    def unsupported_reasons(self, conf):
+        return _numeric_reasons(self.children)
+
+    def _eval_dev(self, ctx, kids):
+        dt = self.children[0].dtype
+        x = kids[0].data
+        if t.is_integral(dt):
+            return DevVal(x.to(torch.int64), kids[0].validity, t.LONG)
+        if isinstance(dt, t.DecimalType):
+            p = 10 ** dt.scale
+            u = x.to(torch.int64)
+            q = torch.div(u, p, rounding_mode="floor")
+            if self.mode == "ceil":
+                q = q + (q * p != u).to(torch.int64)
+            return DevVal(q, kids[0].validity, t.LONG)
+        f = type(self).round_fn(x.to(torch.float64))
+        return DevVal(_f64_to_long(f), kids[0].validity, t.LONG)
+
+
+class Floor(RoundingToLong):
+    round_fn = staticmethod(torch.floor)
+
+
+class Ceil(RoundingToLong):
+    round_fn = staticmethod(torch.ceil)
+    mode = "ceil"
+
+
+class _BinaryMath(Expression):
+    fn = None
+
+    def __init__(self, left, right):
+        self.children = (left, right)
+
+    def _resolve(self):
+        self.dtype = t.DOUBLE
+        self.nullable = any(c.nullable for c in self.children)
+
+    def unsupported_reasons(self, conf):
+        return _numeric_reasons(self.children)
+
+    def _eval_dev(self, ctx, kids):
+        return DevVal(type(self).fn(_f64(kids[0]), _f64(kids[1])),
+                      merge_validity(kids[0].validity, kids[1].validity),
+                      t.DOUBLE)
+
+
+class Pow(_BinaryMath):
+    fn = staticmethod(torch.pow)
+
+
+class Atan2(_BinaryMath):
+    """atan2(y, x)."""
+    fn = staticmethod(torch.atan2)
+
+
+class Hypot(_BinaryMath):
+    fn = staticmethod(torch.hypot)
+
+
+# ---------------------------------------------------------------------------
+# greatest / least, round / bround, width_bucket, raise_error
+# ---------------------------------------------------------------------------
+
+class Greatest(Expression):
+    """greatest(...): nulls skipped (null only when every input is), NaN
+    the greatest value (Java's order: a NaN never loses to +inf, and
+    least returns a number while one is present), -0.0 below 0.0.  The
+    type is the first non-NULL child's; operands of another type are
+    refused (cast them first)."""
+    _is_greatest = True
+
+    def __init__(self, *items):
+        assert len(items) >= 2
+        self.children = tuple(items)
+
+    def _resolve(self):
+        self.dtype = next((c.dtype for c in self.children
+                           if not isinstance(c.dtype, t.NullType)), t.NULL)
+        self.nullable = all(c.nullable for c in self.children)
+
+    def unsupported_reasons(self, conf):
+        types = [c.dtype for c in self.children
+                 if not isinstance(c.dtype, t.NullType)]
+        if any(isinstance(d, t.StringType) for d in types):
+            return ["string greatest/least ports with the strings slice "
+                    "(ROADMAP Queue 1 item 2)"]
+        if any(d != self.dtype for d in types):
+            return ["operands of several types: cast them to one"]
+        return []
+
+    def _eval_dev(self, ctx, kids):
+        cap, dev = ctx.capacity, ctx.device
+        is_fp = t.is_floating(self.dtype)
+        acc_d = kids[0].data
+        acc_v = valid_or_true(kids[0].validity, cap, dev)
+        for k in kids[1:]:
+            d = k.data
+            v = valid_or_true(k.validity, cap, dev)
+            if is_fp:
+                na, nb = torch.isnan(acc_d), torch.isnan(d)
+                sa, sb = torch.signbit(acc_d), torch.signbit(d)
+                zero_tie = ~na & ~nb & (d == acc_d)
+                if self._is_greatest:
+                    take_b = (nb & ~na) | (~na & ~nb & (d > acc_d)) | \
+                        (zero_tie & sa & ~sb)
+                else:
+                    take_b = (na & ~nb) | (~na & ~nb & (d < acc_d)) | \
+                        (zero_tie & ~sa & sb)
+            else:
+                take_b = d > acc_d if self._is_greatest else d < acc_d
+            pick_b = v & (~acc_v | take_b)
+            acc_d = torch.where(pick_b, d, acc_d)
+            acc_v = acc_v | v
+        return DevVal(acc_d, acc_v, self.dtype)
+
+
+class Least(Greatest):
+    _is_greatest = False
+
+
+def _round_int(d: torch.Tensor, drop: int, half_even: bool) -> torch.Tensor:
+    """int64 values rounded to a multiple of 10^drop, as the quotient:
+    HALF_UP (or HALF_EVEN) away from zero on the magnitude, computed
+    from the truncated quotient and its remainder so Long.MIN_VALUE
+    needs no abs."""
+    if drop >= 19:
+        # every int64 is below 10^19 / 2 in magnitude
+        return torch.zeros_like(d)
+    p = 10 ** drop
+    q = torch.div(d, p, rounding_mode="trunc")
+    r2 = torch.abs(d - q * p) * 2
+    up = r2 > p if half_even else r2 >= p
+    if half_even:
+        up = up | ((r2 == p) & (q % 2 != 0))
+    step = torch.where(d < 0, -torch.ones_like(d), torch.ones_like(d))
+    return q + torch.where(up, step, torch.zeros_like(d))
+
+
+class Round(Expression):
+    """round(x, scale) HALF_UP (BRound: HALF_EVEN), scale may be negative.
+    A decimal rounds its unscaled int64 lane exactly, to decimal(p - s +
+    max(scale, 0) + 1, max(scale, 0)) (the +1 holds the carry, 999.99 ->
+    1000.0); an integral value rounds to a multiple of 10^-scale (Java's
+    `toLong` wrap past Long's range); a DOUBLE rounds in binary, x * 10^s
+    rounded then divided by 10^s (a 0-d tensor divisor), as the
+    reference does, so a value on a decimal half-way point that binary
+    cannot hold (2.675) may round the other way than Spark's BigDecimal;
+    NaN and ±inf pass through."""
+    _half_even = False
+
+    def __init__(self, child, scale: int = 0):
+        self.children = (child,)
+        self.scale = scale
+
+    def _fp_extra(self):
+        return str(self.scale)
+
+    def _resolve(self):
+        dt = self.children[0].dtype
+        if isinstance(dt, t.DecimalType):
+            if self.scale >= dt.scale:
+                self.dtype = dt
+            else:
+                self.dtype = t.DecimalType(
+                    min(38, dt.precision - dt.scale + max(self.scale, 0)
+                        + 1), max(self.scale, 0))
+        elif t.is_integral(dt):
+            self.dtype = dt
+        else:
+            self.dtype = t.DOUBLE
+        self.nullable = self.children[0].nullable
+
+    def unsupported_reasons(self, conf):
+        out = _numeric_reasons(self.children)
+        c = self.children[0]
+        if isinstance(c.dtype, t.DecimalType) and isinstance(c, ColumnRef) \
+                and c.dtype.is_wide:
+            out.append("128-bit host decimal lane not consumable on device")
+        return out
+
+    def _eval_dev(self, ctx, kids):
+        dt = self.children[0].dtype
+        x = kids[0].data
+        if isinstance(dt, t.DecimalType) or t.is_integral(dt):
+            d = x.to(torch.int64)
+            drop = (dt.scale if isinstance(dt, t.DecimalType) else 0) - \
+                self.scale
+            if drop <= 0:
+                return DevVal(d.to(compute_dtype(self.dtype)),
+                              kids[0].validity, self.dtype)
+            q = _round_int(d, drop, self._half_even)
+            if self.scale < 0:
+                q = q * 10 ** (-self.scale)
+            return DevVal(q.to(compute_dtype(self.dtype)), kids[0].validity,
+                          self.dtype)
+        f = x.to(torch.float64)
+        p = 10.0 ** self.scale
+        y = f * p
+        if self._half_even:
+            y = torch.round(y)
+        else:
+            y = torch.trunc(y + torch.where(f >= 0, 0.5, -0.5))
+        # a 0-d tensor divisor: PyTorch's CUDA division by a Python
+        # scalar multiplies by its reciprocal (ROADMAP Queue 3 item 1)
+        p = torch.tensor(p, dtype=torch.float64, device=y.device)
+        return DevVal(y / p, kids[0].validity, t.DOUBLE)
+
+
+class BRound(Round):
+    """bround: HALF_EVEN (banker's rounding)."""
+    _half_even = True
+
+
+class WidthBucket(Expression):
+    """width_bucket(v, lo, hi, n): 0 below the range, n + 1 at or past
+    its end, else floor((v - lo) / (hi - lo) * n) + 1 (a descending range
+    mirrors it).  Null for a null input and, as Spark, for n <= 0 or
+    n = Long.MAX_VALUE, lo = hi, a NaN v / lo / hi, or an infinite lo or
+    hi.  Every bound is the value as a double (a decimal by its value)."""
+
+    def __init__(self, value, lo, hi, nbuckets):
+        self.children = (value, lo, hi, nbuckets)
+
+    def _resolve(self):
+        self.dtype = t.LONG
+        self.nullable = True
+
+    def unsupported_reasons(self, conf):
+        out = _numeric_reasons(self.children)
+        if not (t.is_integral(self.children[3].dtype) or
+                isinstance(self.children[3].dtype, t.NullType)):
+            out.append("width_bucket's bucket count must be integral")
+        return out
+
+    def _eval_dev(self, ctx, kids):
+        v, lo, hi = (_f64(k) for k in kids[:3])
+        n = kids[3].data.to(torch.int64)
+        asc = lo < hi
+        below = torch.where(asc, v < lo, v > lo)
+        above = torch.where(asc, v >= hi, v <= hi)
+        frac = torch.where(asc, (v - lo) / (hi - lo), (lo - v) / (lo - hi))
+        bad = (n <= 0) | (n == 2 ** 63 - 1) | (lo == hi) | torch.isnan(v) | \
+            torch.isnan(lo) | torch.isnan(hi) | torch.isinf(lo) | \
+            torch.isinf(hi)
+        inside = ~(below | above | bad)
+        mid = torch.where(inside, frac * n.to(torch.float64),
+                          torch.zeros_like(frac)).to(torch.int64) + 1
+        out = torch.where(below, torch.zeros_like(n),
+                          torch.where(above, n + 1, mid))
+        valid = merge_validity(*(k.validity for k in kids))
+        return DevVal(out, ~bad if valid is None else valid & ~bad, t.LONG)
+
+
+class RaiseError(Expression):
+    """raise_error(msg): evaluating it over a batch with a live row raises
+    RuntimeError with the message (an expression's message is its first
+    row's value, "" when null), as the reference's CPU operator does; a
+    batch with no live row yields nulls.  On a card the live-row test is
+    one host sync at the operator that evaluates it."""
+
+    def __init__(self, message):
+        if isinstance(message, Expression):
+            self.children = (message,)
+            self.message = None
+        else:
+            self.children = ()
+            self.message = str(message)
+
+    def _resolve(self):
+        self.dtype = t.NULL
+        self.nullable = True
+
+    def _fp_extra(self):
+        return repr(self.message)
+
+    def _eval_dev(self, ctx, kids):
+        from ..ops.kernels import live_mask
+        if bool(live_mask(ctx.capacity, ctx.num_rows, ctx.device).any()):
+            msg = self.message
+            if msg is None:
+                k = kids[0]
+                ok = k.validity is None or bool(k.validity[0])
+                if not ok:
+                    msg = ""
+                elif k.dictionary is not None:
+                    msg = str(k.dictionary[int(k.data[0])])
+                else:
+                    msg = str(k.data[0].item())
+            raise RuntimeError(msg)
+        return DevVal(ctx.full(0, torch.int32), ctx.full(False, torch.bool),
+                      t.NULL)

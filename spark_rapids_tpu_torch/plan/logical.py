@@ -2,9 +2,9 @@
 converts.
 
 Counterpart of spark_rapids_tpu/plan/logical.py for the nodes the ported
-slices run: scan (over a host batch instead of an Arrow table), project,
-filter, aggregate, sort, limit, join, union, expand (the grouping-sets
-lowering) and window.  Each node declares its schema and nothing
+slices run: scan (over a host batch instead of an Arrow table), range, project,
+filter, aggregate, sort, limit, sample, join, union, expand (the
+grouping-sets lowering) and window.  Each node declares its schema and nothing
 else; placement and operator choice belong to plan/overrides.py.
 """
 from __future__ import annotations
@@ -60,6 +60,39 @@ class LogicalScan(LogicalPlan):
 
     def _resolve_schema(self):
         return self.table.schema
+
+
+class LogicalRange(LogicalPlan):
+    """Leaf: the LONG ids start, start + step, ... below end (above it for
+    a negative step), in one non-null column."""
+
+    def __init__(self, start: int, end: int, step: int = 1,
+                 name: str = "id"):
+        super().__init__()
+        if step == 0:
+            raise ValueError("range step must not be 0")
+        self.start, self.end, self.step = int(start), int(end), int(step)
+        self.col_name = name
+
+    def _resolve_schema(self):
+        return t.StructType([t.StructField(self.col_name, t.LONG, False)])
+
+
+class LogicalSample(LogicalPlan):
+    """Bernoulli sample: each row kept with probability `fraction`,
+    decided by a counter-based hash of (seed, the row's global
+    position), so the same seed keeps the same rows however the input
+    is batched."""
+
+    def __init__(self, fraction: float, seed: int, child: LogicalPlan):
+        super().__init__(child)
+        if not 0.0 <= fraction <= 1.0:
+            raise ValueError(f"sample fraction {fraction} not in [0, 1]")
+        self.fraction = float(fraction)
+        self.seed = int(seed)
+
+    def _resolve_schema(self):
+        return self.child.schema
 
 
 class LogicalProject(LogicalPlan):

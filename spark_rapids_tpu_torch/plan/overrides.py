@@ -8,8 +8,8 @@ DistinctAggregateExec (a mix with other aggregates refuses); inner,
 outer and left semi joins become AdaptiveShuffledJoinExec, left anti
 joins HashJoinExec (every equi-join HashJoinExec with
 `sql.adaptive.enabled=false`), cross joins CrossJoinExec, unions
-UnionExec, expands ExpandExec and windows WindowExec, as in the
-reference.  A union's children keep their whole outputs (they align by
+UnionExec, expands ExpandExec, windows WindowExec, ranges RangeExec and
+samples SampleExec, as in the reference.  A union's children keep their whole outputs (they align by
 position); an expand keeps the output positions its parent reads, and a
 window the columns its parent, its keys and its inputs read.  The
 reference sends left semi joins through the adaptive join for its
@@ -36,8 +36,8 @@ from ..columnar.host import HostBatch
 from ..config import ADAPTIVE_ENABLED, DEFAULT_CONF, TpuConf
 from ..exec.plan import (ExecContext, ExpandExec, FilterExec,
                          HashAggregateExec, HostScanExec, LimitExec,
-                         PlanNode, ProjectExec, SortExec, TopNExec,
-                         UnionExec, key_ref_names)
+                         PlanNode, ProjectExec, RangeExec, SampleExec,
+                         SortExec, TopNExec, UnionExec, key_ref_names)
 from . import expressions as E
 from . import logical as L
 from .aggregates import CountDistinct
@@ -56,6 +56,11 @@ def prune_columns(plan: L.LogicalPlan, required=None) -> L.LogicalPlan:
     reads (every surplus column would be a full padded device lane)."""
     if required is None:
         required = set(plan.schema.names)
+    if type(plan) is L.LogicalRange:
+        return plan
+    if type(plan) is L.LogicalSample:
+        return L.LogicalSample(plan.fraction, plan.seed,
+                               prune_columns(plan.child, required))
     if type(plan) is L.LogicalScan:
         names = [n for n in plan.table.names if n in required]
         if len(names) == len(plan.table.names):
@@ -81,8 +86,9 @@ def prune_columns(plan: L.LogicalPlan, required=None) -> L.LogicalPlan:
         for k in plan.keys:
             _expr_refs(k, req)
         for fn, _n in plan.aggs:
-            if fn.child is not None:
-                _expr_refs(fn.child, req)
+            for c in (fn.child, getattr(fn, "child2", None)):
+                if c is not None:
+                    _expr_refs(c, req)
         return L.LogicalAggregate(plan.keys, plan.aggs,
                                   prune_columns(plan.child, req),
                                   key_names=plan.key_names)
@@ -158,8 +164,11 @@ def _logical_keys_unique(plan: L.LogicalPlan, names) -> bool:
     if type(plan) is L.LogicalScan:
         return all(n in plan.table.names for n in names) and \
             plan.table.keys_unique(names)
-    if type(plan) in (L.LogicalFilter, L.LogicalLimit, L.LogicalSort):
+    if type(plan) in (L.LogicalFilter, L.LogicalLimit, L.LogicalSort,
+                      L.LogicalSample):
         return _logical_keys_unique(plan.child, names)
+    if type(plan) is L.LogicalRange:
+        return list(names) == [plan.col_name]
     if type(plan) is L.LogicalProject:
         mapped = []
         for n in names:
@@ -196,6 +205,11 @@ def _convert(plan: L.LogicalPlan, conf: TpuConf) -> PlanNode:
     schema_in = plan.child.schema if plan.children else None
     if type(plan) is L.LogicalScan:
         return HostScanExec(plan.table, conf.batch_size_rows)
+    if type(plan) is L.LogicalRange:
+        return RangeExec(plan.start, plan.end, plan.step, plan.col_name)
+    if type(plan) is L.LogicalSample:
+        return SampleExec(plan.fraction, plan.seed,
+                          _convert(plan.child, conf))
     if type(plan) is L.LogicalProject:
         reasons = []
         for e in plan.exprs:
@@ -330,6 +344,10 @@ class PhysicalQuery:
     def collect(self, ctx: Optional[ExecContext] = None) -> HostBatch:
         ctx = ctx or ExecContext(self.conf, self.device)
         return self.root.collect(ctx)
+
+    def explain(self) -> str:
+        """The physical tree (`PlanNode.tree_string`) and the device."""
+        return f"Physical plan on {self.device}:\n{self.root.tree_string(1)}"
 
 
 def apply_overrides(plan: L.LogicalPlan, conf: TpuConf = DEFAULT_CONF,

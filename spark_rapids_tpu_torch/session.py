@@ -3,7 +3,8 @@
 Counterpart of spark_rapids_tpu/session.py for what the ported TPC-H
 and TPC-DS queries use (`how="cross"` joins, `with_column`, `union`,
 `window`, and `rollup` / `cube` / `grouping_sets` through the
-`GroupingSets` builder with `grouping()` and `grouping_id()`):
+`GroupingSets` builder with `grouping()` and `grouping_id()`), and
+`from_pydict`, `range`, `sample`, `count` and `explain`:
 
     s = TpuSession()                     # device "cuda"
     df = s.from_host(batch).filter(E.GreaterThan(col("x"), lit(1))) \\
@@ -24,7 +25,7 @@ import torch
 
 from . import types as t
 from .columnar.device import resolve_device
-from .columnar.host import HostBatch, from_arrow
+from .columnar.host import HostBatch, from_arrow, from_pydict
 from .config import TpuConf
 from .exec.plan import ExecContext
 from .plan import expressions as E
@@ -45,6 +46,20 @@ class TpuSession:
     def from_arrow(self, table) -> "DataFrame":
         """A DataFrame over a pyarrow Table (needs pyarrow installed)."""
         return self.from_host(from_arrow(table))
+
+    def from_pydict(self, data: Dict, schema: Optional[t.StructType] = None
+                    ) -> "DataFrame":
+        """A DataFrame over Python lists or numpy arrays by column name,
+        typed as pyarrow would infer them unless `schema` says
+        (columnar/host.from_pydict); no pyarrow needed."""
+        return self.from_host(from_pydict(data, schema))
+
+    def range(self, start: int, end: Optional[int] = None, step: int = 1,
+              name: str = "id") -> "DataFrame":
+        """range(end) or range(start, end[, step]): one LONG column."""
+        if end is None:
+            start, end = 0, start
+        return DataFrame(L.LogicalRange(start, end, step, name), self)
 
 
 class GroupedData:
@@ -238,6 +253,12 @@ class DataFrame:
     def limit(self, n: int) -> "DataFrame":
         return self._wrap(L.LogicalLimit(n, self._plan))
 
+    def sample(self, fraction: float, seed: int = 42) -> "DataFrame":
+        """Bernoulli sample: each row kept with probability `fraction`,
+        by a hash of (seed, the row's position): the same rows for a
+        seed as the reference keeps, on either device."""
+        return self._wrap(L.LogicalSample(fraction, seed, self._plan))
+
     # -- actions -----------------------------------------------------------
     @property
     def schema(self) -> t.StructType:
@@ -253,6 +274,17 @@ class DataFrame:
 
     def to_pydict(self) -> dict:
         return self.collect().to_pydict()
+
+    def count(self) -> int:
+        """The number of rows (a global COUNT(*))."""
+        from .plan.aggregates import Count
+        res = self.agg((Count(None), "count")).collect()
+        return int(res.columns[0].data[0])
+
+    def explain(self) -> str:
+        """The physical plan this DataFrame runs (the port's operators;
+        the reference's text names its JAX execs instead)."""
+        return self.physical().explain()
 
     def _wrap(self, plan: L.LogicalPlan) -> "DataFrame":
         return DataFrame(plan, self._session)

@@ -924,3 +924,196 @@ def test_a_union_and_rollup_query_on_the_card_equals_cpu(cuda):
                     rtol=1e-12, atol=0, err_msg=f"{q}.{k}")
             else:
                 assert gpu[k] == cpu[k], (q, k)
+
+
+def _dense_inputs(rng, cap, sizes):
+    keys = [rng.integers(0, s, cap).astype(np.int32) for s in sizes]
+    kvalid = [rng.random(cap) > 0.05 for _ in sizes]
+    f = rng.standard_normal(cap)
+    f[::37], f[1::37], f[::101] = -0.0, 0.0, np.nan
+    data = [rng.integers(-2 ** 40, 2 ** 40, cap), f,
+            rng.random(cap) > 0.4,
+            rng.integers(-2 ** 31, 2 ** 31 - 1, cap).astype(np.int32)]
+    valid = [rng.random(cap) > 0.2 for _ in data]
+    return keys, kvalid, data, valid, rng.random(cap) > 0.1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sizes", [(1800,), (1300, 2), (10, 16, 8)])
+def test_dense_groupby_on_the_card_equals_cpu(cuda, sizes):
+    """The dense tier's buckets, group order, counts, integer sums,
+    MIN/MAX, FIRST/LAST and ANY/EVERY equal the CPU's exactly; float64
+    sums are atomics in run-dependent order on the card: rtol 1e-12."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.ops import groupby as G
+    kinds = [("sum", 0, T.LONG), ("sum", 1, T.DOUBLE), ("count", 1, T.LONG),
+             ("count_all", -1, T.LONG), ("min", 1, T.DOUBLE),
+             ("max", 1, T.DOUBLE), ("min", 0, T.LONG), ("max", 3, T.INT),
+             ("min", 2, T.BOOLEAN), ("first", 0, T.LONG),
+             ("last", 1, T.DOUBLE), ("first_nn", 3, T.INT),
+             ("last_nn", 1, T.DOUBLE), ("any", 2, T.BOOLEAN),
+             ("every", 2, T.BOOLEAN)]
+    specs = [G.AggSpec(k, i, t) for k, i, t in kinds]
+    cap = 1 << 18
+    inputs = _dense_inputs(np.random.default_rng(sum(sizes)), cap, sizes)
+    outs = []
+    for dev in ("cpu", cuda):
+        keys, kvalid, data, valid, live = [
+            [torch.from_numpy(a).to(dev) for a in x]
+            if isinstance(x, list) else torch.from_numpy(x).to(dev)
+            for x in inputs]
+        outs.append(G.dense_groupby_trace(list(sizes), specs, cap)(
+            keys, kvalid, data, valid, live))
+    (ck, co, cn), (gk, go, gn) = outs
+    n = int(cn)
+    assert int(gn) == n and n > 0
+    for (a, av), (b, bv) in zip(ck, gk):
+        assert torch.equal(av[:n], bv[:n].cpu())
+        assert torch.equal(a[:n], b[:n].cpu())
+    for (k, _i, _t), (a, av), (b, bv) in zip(kinds, co, go):
+        b, bv = b[:n].cpu(), bv[:n].cpu()
+        a, av = a[:n], av[:n]
+        assert torch.equal(av, bv), k
+        a = torch.where(av, a, torch.zeros_like(a))
+        b = torch.where(bv, b, torch.zeros_like(b))
+        if k == "sum" and a.is_floating_point():
+            torch.testing.assert_close(b, a, rtol=1e-12, atol=0,
+                                       equal_nan=True, msg=k)
+        elif a.is_floating_point():
+            assert torch.equal(a.view(torch.int64) if a.dtype ==
+                               torch.float64 else a,
+                               b.view(torch.int64) if b.dtype ==
+                               torch.float64 else b), k
+        else:
+            assert torch.equal(a, b), k
+
+
+@pytest.mark.cuda
+def test_sample_and_range_on_the_card_keep_the_cpus_rows(cuda):
+    from spark_rapids_tpu_torch.exec import plan as P
+    from spark_rapids_tpu_torch.session import TpuSession
+    pos = torch.arange(0, 3 * 2 ** 31, 4097, dtype=torch.int64)
+    for seed in (0, 7, -3):
+        assert torch.equal(P.sample_hash_u32(pos.to(cuda), seed).cpu(),
+                           P.sample_hash_u32(pos, seed))
+    conf = {"spark.rapids.tpu.sql.batchSizeRows": "65536"}
+    for seed, frac in ((7, 0.01), (1, 0.3), (2, 1.0), (3, 0.0)):
+        cpu, gpu = (TpuSession(conf, device=d).range(-100_000, 400_000)
+                    .sample(frac, seed=seed).to_pydict()
+                    for d in ("cpu", cuda))
+        assert gpu == cpu, (seed, frac)
+    assert TpuSession(conf, device=cuda).range(0, 1_000_000).sample(
+        0.01, seed=7).count() == TpuSession(conf, device="cpu").range(
+        0, 1_000_000).sample(0.01, seed=7).count()
+
+
+def _edge_table():
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar.host import from_numpy
+    rng = np.random.default_rng(5)
+    n = 50_000
+    f = rng.standard_normal(n) * 10.0 ** rng.integers(-5, 6, n)
+    f[::17], f[1::17], f[2::17] = np.nan, np.inf, -np.inf
+    f[3::17], f[4::17] = 0.0, -0.0
+    g = rng.standard_normal(n) * 3.0
+    g[::23] = 0.0
+    longs = rng.integers(-2 ** 62, 2 ** 62, n)
+    longs[:4] = [-2 ** 63, 2 ** 63 - 1, -1, 0]
+    m = rng.integers(-9, 9, n)
+    m[:4] = [-1, -1, 0, -2 ** 63]
+    schema = T.StructType([T.StructField("f", T.DOUBLE),
+                           T.StructField("g", T.DOUBLE),
+                           T.StructField("l", T.LONG),
+                           T.StructField("m", T.LONG),
+                           T.StructField("d", T.DecimalType(9, 2))])
+    return from_numpy({"f": (f, rng.random(n) > 0.05), "g": g, "l": longs,
+                       "m": (m, rng.random(n) > 0.05),
+                       "d": rng.integers(-10 ** 6, 10 ** 6, n)}, schema)
+
+
+#: family -> (builder over E, col, T; ulps allowed against the CPU)
+_CARD_FAMILIES = {
+    "arithmetic": (lambda E, c, T: [
+        E.IntegralDivide(c("l"), c("m")), E.Remainder(c("l"), c("m")),
+        E.Remainder(c("f"), c("g")), E.UnaryMinus(c("l")), E.Abs(c("l")),
+        E.Abs(c("f")), E.EqualNullSafe(c("f"), c("g")), E.IsNaN(c("f"))],
+        0),
+    "rounding": (lambda E, c, T: [
+        E.Floor(c("f")), E.Ceil(c("f")), E.Floor(c("d")), E.Ceil(c("d")),
+        E.Round(c("f"), 2), E.BRound(c("f"), 2), E.Round(c("f"), -1),
+        E.Round(c("d"), 1), E.BRound(c("d"), 0), E.Round(c("d"), -2),
+        E.Round(c("l"), -3), E.Rint(c("f")), E.Signum(c("f")),
+        E.ToDegrees(c("f")), E.ToRadians(c("f"))], 0),
+    "ordering": (lambda E, c, T: [
+        E.Greatest(c("f"), c("g")), E.Least(c("f"), c("g"), E.Literal(0.0)),
+        E.Greatest(c("l"), c("m")), E.WidthBucket(
+            c("f"), E.Literal(-5.0), E.Literal(5.0), E.Literal(7))], 0),
+    # the CPU's vectorized sqrt is within 1 ulp; the card's is exact
+    "sqrt": (lambda E, c, T: [E.Sqrt(c("f")), E.Sqrt(c("d"))], 1),
+    "transcendental": (lambda E, c, T: [
+        getattr(E, n)(c("f")) for n in (
+            "Exp", "Expm1", "Log", "Log10", "Log2", "Log1p", "Cbrt", "Sin",
+            "Cos", "Tan", "Asin", "Acos", "Atan", "Sinh", "Cosh", "Tanh",
+            "Cot", "Sec", "Csc")] + [
+        E.Pow(c("f"), c("g")), E.Atan2(c("f"), c("g")),
+        E.Hypot(c("f"), c("g")), E.Log(c("d"))], 4),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", sorted(_CARD_FAMILIES))
+def test_scalar_family_on_the_card_equals_cpu(cuda, family):
+    """Each family's projection on the card against the port's CPU path
+    on the same input: exact families bit for bit, the transcendental
+    ones within 4 ulps (CUDA's libdevice and glibc round differently)."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.plan import expressions as E
+    from spark_rapids_tpu_torch.session import TpuSession, col
+    build, ulps = _CARD_FAMILIES[family]
+    table = _edge_table()
+    out = []
+    for d in ("cpu", cuda):
+        exprs = build(E, col, T)
+        out.append(TpuSession(device=d).from_host(table).select(
+            *[E.Alias(e, f"c{i}") for i, e in enumerate(exprs)]).collect())
+    for a, b in zip(*[o.columns for o in out]):
+        assert np.array_equal(a.valid_mask(), b.valid_mask())
+        v = a.valid_mask()
+        x, y = a.data[v], b.data[v]
+        if x.dtype == np.float64:
+            same = (x.view(np.int64) == y.view(np.int64)) | \
+                (np.isnan(x) & np.isnan(y))
+            if ulps:
+                ok = ~same & np.isfinite(x) & np.isfinite(y) & \
+                    (np.sign(x) == np.sign(y))
+                dist = np.abs(x.view(np.int64) - y.view(np.int64))
+                same |= ok & (dist <= ulps)
+            assert same.all(), (family, x[~same][:5], y[~same][:5])
+        else:
+            assert np.array_equal(x, y), family
+
+
+@pytest.mark.cuda
+def test_statistics_on_the_card_equal_cpu(cuda):
+    from spark_rapids_tpu_torch import tpch
+    from spark_rapids_tpu_torch.plan import aggregates as A
+    from spark_rapids_tpu_torch.session import TpuSession, col
+    tables = tpch.gen_tables(0.01, tables=("lineitem",))
+
+    def q(d):
+        q_, p, t = (col(c) for c in ("l_quantity", "l_extendedprice",
+                                     "l_tax"))
+        return (TpuSession(device=d).from_host(tables["lineitem"])
+                .group_by("l_returnflag", "l_linestatus")
+                .agg((A.VariancePop(q_), "vp"), (A.VarianceSamp(p), "vs"),
+                     (A.StddevPop(t), "sp"), (A.StddevSamp(q_), "ss"),
+                     (A.CovarPop(q_, p), "cp"), (A.CovarSamp(p, q_), "cs"),
+                     (A.Corr(q_, p), "corr"))
+                .sort("l_returnflag", "l_linestatus").to_pydict())
+    cpu, gpu = q("cpu"), q(cuda)
+    for k in cpu:
+        if k.startswith("l_"):
+            assert gpu[k] == cpu[k]
+        else:
+            np.testing.assert_allclose(gpu[k], cpu[k], rtol=1e-9, atol=0,
+                                       err_msg=k)

@@ -52,9 +52,16 @@ def _inputs(cap, seed):
     return keys, kvalid, data, valid, rng.random(cap) > 0.1
 
 
-def _assert_outputs_equal(kinds, jout, pout, n):
-    for (k, _i, typ), (jd, jv), (pd_, pv) in zip(kinds, jout, pout):
+def _assert_outputs_equal(kinds, jout, pout, n, has_valid=None):
+    """`has_valid` (input index -> per group bool): FIRST/LAST ignoring
+    nulls of a group with no non-null input is null in the port, as the
+    CPU oracle; the reference keeps its clamped row's validity (ROADMAP
+    Queue 3 item 9), so there the port's validity is the reference's
+    and the group's."""
+    for (k, i, typ), (jd, jv), (pd_, pv) in zip(kinds, jout, pout):
         jv, pv = np.asarray(jv)[:n], pv.numpy()[:n]
+        if has_valid is not None and k in ("first_nn", "last_nn"):
+            jv = jv & has_valid[i]
         np.testing.assert_array_equal(pv, jv, err_msg=k)
         a, b = np.asarray(jd)[:n][jv], pd_.numpy()[:n][pv]
         if typ == "DOUBLE" and k == "sum":
@@ -93,7 +100,30 @@ def test_groupby_trace_matches_reference(pack, cap):
         np.testing.assert_array_equal(pv, jv)         # null keys first
         np.testing.assert_array_equal(pd_.numpy()[:n][pv],
                                       np.asarray(jd)[:n][jv])
-    _assert_outputs_equal(KINDS, jo, po, n)
+    _assert_outputs_equal(KINDS, jo, po, n,
+                          _groups_with_valid(keys, kvalid, valid, live, pk,
+                                             n))
+
+
+def _key_tuples(lanes, n):
+    """Per row a hashable key: (valid, value or 0) of every key."""
+    cols = []
+    for d, v in lanes:
+        d, v = np.asarray(d)[:n], np.asarray(v)[:n]
+        cols += [v, np.where(v, d, 0)]
+    return list(zip(*[c.tolist() for c in cols]))
+
+
+def _groups_with_valid(keys, kvalid, valid, live, out_keys, n):
+    """input index -> per output group: has a live row with a non-null
+    input."""
+    rows = _key_tuples(list(zip(keys, kvalid)), len(live))
+    groups = _key_tuples([(d.numpy(), v.numpy()) for d, v in out_keys], n)
+    out = {}
+    for i, v in enumerate(valid):
+        seen = {r for r, ok in zip(rows, (v & live).tolist()) if ok}
+        out[i] = np.array([g in seen for g in groups])
+    return out
 
 
 def test_groupby_trace_double_keys_group_nan_and_signed_zero():
@@ -247,14 +277,24 @@ def test_unbounded_group_by_runs_sorted_tier_like_reference(keys):
 
 
 def test_dense_domain_refused_unless_routed_through_sort():
+    # a dictionary key whose float sum segagg refuses (strict float
+    # aggregation) ran nowhere before the dense tier was ported; it now
+    # runs the dense tier, and the sorted group-by when routed there,
+    # both equal to the reference
+    from spark_rapids_tpu_torch.exec import aggregate as PAGG
     table = _table(2000, 9)
 
     def q(s):
         return (s.from_arrow(table).group_by("g")
                 .agg((PA.Sum(pcol("f")), "sf")).sort("g"))
     strict = {"spark.rapids.tpu.sql.variableFloatAgg.enabled": "false"}
-    with pytest.raises(NotImplementedError, match="dense-tiers slice"):
-        q(PSession(strict, device="cpu")).collect()
+    PAGG.reset_groupby_tiers()
+    dense = q(PSession(strict, device="cpu")).to_pydict()
+    assert PAGG.GROUPBY_TIERS["dense"] > 0
+    ref = (JSession(strict).from_arrow(table).group_by("g")
+           .agg((JA.Sum(jcol("f")), "sf")).sort("g")).collect().to_pydict()
+    assert dense["g"] == ref["g"]
+    np.testing.assert_allclose(dense["sf"], ref["sf"], rtol=1e-12)
     via_sort = {**strict, "spark.rapids.tpu.sql.agg.denseDomainViaSort":
                 "true"}
     got = q(PSession(via_sort, device="cpu")).to_pydict()

@@ -104,3 +104,36 @@ def test_null_string_sort_keys_tie_over_several_batches():
     got = _port(build, table, conf)
     assert got == want
     assert [i for s, i in zip(got["s"], got["i"]) if s is None] == [1, 2, 3]
+
+
+# two full batches of four rows: in the first, key "c" has no non-null
+# value, and the batch's last row, in key order too, (key "d") has one
+ALL_NULL_IN_A_BATCH = pa.table({
+    "k": pa.array(["a", "c", "a", "d", "c", "a", "c", "d"]),
+    "f": pa.array([1.0, None, 2.0, 3.0, 7.0, 4.0, None, 5.0])})
+TIERS = {
+    "segagg": {},
+    "dense": {"spark.rapids.tpu.sql.kernels.pallas.segagg": "OFF"},
+    "sort": {"spark.rapids.tpu.sql.kernels.pallas.segagg": "OFF",
+             "spark.rapids.tpu.sql.agg.denseDomainViaSort": "true"}}
+
+
+@pytest.mark.parametrize("tier", sorted(TIERS))
+def test_first_last_ignore_nulls_of_a_group_null_in_a_batch(tier):
+    # the reference's partial picks the clamped row of a group with no
+    # non-null value, and keeps that row's validity: "c" gets the first
+    # batch's last value 3.0 (the sorted tier: the last row in key order)
+    conf = {"spark.rapids.tpu.sql.batchSizeRows": "4",
+            "spark.rapids.tpu.sql.shape.minBucketRows": "4", **TIERS[tier]}
+
+    def build(a, e, c, s, tbl):
+        return (s.from_arrow(tbl)
+                .group_by("k").agg((a.First(c("f"), ignore_nulls=True),
+                                    "first"),
+                                   (a.Last(c("f"), ignore_nulls=True),
+                                    "last"))
+                .sort("k"))
+    want = _oracle(build, ALL_NULL_IN_A_BATCH, conf)
+    assert want == {"k": ["a", "c", "d"], "first": [1.0, 7.0, 3.0],
+                    "last": [4.0, 7.0, 5.0]}
+    assert _port(build, ALL_NULL_IN_A_BATCH, conf) == want

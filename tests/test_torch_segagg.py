@@ -343,24 +343,28 @@ def test_segagg_sum_and_average_keep_a_non_finite_value_in_its_bucket(
 
 def test_segagg_domain_gate_refuses_until_sort_tier_ports():
     # flag's packed domain is 4 (three values and the null slot); outside
-    # the gate a dictionary key needs the reference's dense tier, which
-    # is not ported (the sorted tier takes it only when asked to)
-    s = PSession({"spark.rapids.tpu.sql.kernels.pallas.segagg.maxDomain":
-                  "3"}, device="cpu")
-    df = s.from_arrow(_agg_table()).group_by("flag").agg(
-        (PA.Sum(pcol("qty")), "sq"))
-    with pytest.raises(NotImplementedError, match="dense-tiers slice"):
-        df.collect()
+    # the gate a dictionary key takes the reference's dense tier (it
+    # raised before that tier was ported), with the reference's groups
+    from spark_rapids_tpu_torch.exec import aggregate as PAGG
+    conf = {"spark.rapids.tpu.sql.kernels.pallas.segagg.maxDomain": "3"}
+    PAGG.reset_groupby_tiers()
+    got = PSession(conf, device="cpu").from_arrow(_agg_table()) \
+        .group_by("flag").agg((PA.Sum(pcol("qty")), "sq")).to_pydict()
+    assert PAGG.GROUPBY_TIERS == {"segagg": 0, "dense": 1, "sort": 0}
+    want = JSession(conf).from_arrow(_agg_table()).group_by("flag").agg(
+        (JA.Sum(jcol("qty")), "sq")).collect().to_pydict()
+    assert got == want
 
 
 def test_q1_elects_segagg_and_cpu_takes_plain_versions():
     from spark_rapids_tpu_torch import tpch
     tables = tpch.gen_tables(0.001, tables=("lineitem",))
     PH.reset_launch_counts()
-    # a group-by the segagg gate refuses raises (test above), so a q1
-    # that returns its groups was elected onto segagg
+    from spark_rapids_tpu_torch.exec import aggregate as PAGG
+    PAGG.reset_groupby_tiers()
     got = tpch.q1(PSession(device="cpu"), tables).collect()
     assert got.num_rows > 0
+    assert PAGG.GROUPBY_TIERS["segagg"] > 0
     # CPU tensors run the plain versions: no kernel launch is counted
     assert set(PH.LAUNCHES) >= {"seg_sums", "seg_reduce"}
     assert not any(PH.LAUNCHES.values())
