@@ -117,7 +117,8 @@ own failure:
                query: one cold run, median of 3 warm; the peak device
                memory of every query; the host-to-device copy
                rate from pageable memory that the upload sees; the
-               strings slice's dictionary work, each held to numpy:
+               `dictionary` phase: the dictionary work of q9, q21 and
+               q22, each held to numpy:
                p_name's and c_phone's byte tensors (host clock),
                Contains over p_name, Substring over c_phone and q21's
                distinct count over its lineitem (CUDA events); and a
@@ -179,6 +180,30 @@ own failure:
                ulps, DOUBLE sums and statistics within rtol 1e-9); the
                lineitem results come from the data phase's pool, the
                others from two threads beside the card's queries.
+  6c. strings — after scalars, over the TPC-H tables
+               (chip_smoke_strings.py): q2, q9, q13, q14, q16 and q20 with
+               their string predicates as TPC-H's LIKE text (`like_q2` ...
+               `like_q20`, q20 for UNITED STATES), each equal to phase 5's
+               numpy result of its Contains / StartsWith form;
+               `strings_groupby` (customer above the middle name ⋈
+               orders, 1,500,000 ⋈ 15,000,000, grouped by
+               lower(c_mktsegment) and the phone's country code cast to
+               INT: 125 buckets, segagg; SUM, COUNT, MIN(length(upper)),
+               MAX(instr) and SUM of a cast substring), equal to numpy
+               (np.char over the dictionaries, exact int64 sums; from
+               the data phase's pool); `string_dicts`: upper, lower and
+               the trims over c_name's 1,500,000 and p_name's 2,000,000
+               entries on the card, each equal to np.char's and timed
+               with CUDA events, and lpad's host loop on the host clock;
+               `string_edges`: every new string class and cast over
+               4,194,304 rows of 65,536 edge entries, fetched and equal to
+               the port's own CPU path value for value (column digests;
+               the CPU path runs in a spawned process from the phase's
+               start, beside the card's queries).  Each prints its
+               cold wall, median of 3 warm walls (none for string_edges,
+               whose host loops over its entries every run repeats),
+               peak device memory and launches, and the phase its
+               seconds.
   9. scalars dense — last: TPC-DS q7, q26, q56 and q60 at scale 0.1
                (i_item_id's 1,800 values) and store_sales ⋈ item grouped
                by (i_category, i_class, i_color) at SF10 (1,683 buckets),
@@ -189,7 +214,7 @@ own failure:
                edge_values), peak device memory and launches.
 Each phase after the data prints its seconds.
   10. result — a `kernels` JSON line (launches by query over every
-               query of phases 5, 6b, 7 and 9), the whole run's seconds,
+               query of phases 5, 6b, 6c, 7 and 9), the whole run's seconds,
                the nvidia-smi line, and last {"ok": true, "device": {...}}.
 
 Flags: --scale (default 10), --seed (default 20240706), --kernels-only
@@ -301,6 +326,14 @@ PATH_KERNELS.update({"moments_q1": ("seg_sums",),
                      "range_sample": ("compaction_order",),
                      "edge_values": (), "dense_sf10": UNIQUE_JOIN,
                      **{f"dense_{q}": UNIQUE_JOIN for q in DENSE_QUERIES}})
+# the strings phase: the LIKE forms run their queries' joins;
+# strings_groupby filters customer, joins it and groups by a 5 x 25
+# domain into SUM / COUNT (seg_sums) and MIN / MAX (seg_reduce); the
+# dictionary transforms and the edge projection reach no kernel
+PATH_KERNELS.update({**{f"like_{q}": UNIQUE_JOIN for q in (
+    "q2", "q9", "q13", "q14", "q16", "q20")},
+    "strings_groupby": UNIQUE_JOIN + ("seg_sums", "seg_reduce"),
+    "string_dicts": (), "string_edges": ()})
 Q3_DATE = (pydt.date(1995, 3, 15) - pydt.date(1970, 1, 1)).days
 # the device launches of one build_layout call, by kernel name: this
 # tree's two passes, and (for an A B B A against an older tree) its
@@ -2091,7 +2124,8 @@ def numpy_results(tables, scale: float) -> dict:
     read the parent's tables and return only the results."""
     global _WANT_TABLES
     t0 = time.perf_counter()
-    names = [Q21_DISTINCT, Q21_LATE_DISTINCT] + list(SCALAR_WANTS) + [
+    names = [Q21_DISTINCT, Q21_LATE_DISTINCT] + list(SCALAR_WANTS) + list(
+        STRING_WANTS) + [
         n for n in FIRST_PATHS + LATER_QUERIES if n != "q21"]
     workers = min(len(names), os.cpu_count() or 1)
     _WANT_TABLES = (tables, scale)
@@ -2116,6 +2150,8 @@ FIRST_PATHS = ("q1", "q6", "minmax", "q3", "m2m", "outer", "semi")
 #: parts, a process each)
 SCALAR_WANTS = ("moments_q1", "scalars_q1:0/3", "scalars_q1:1/3",
                 "scalars_q1:2/3")
+#: the strings phase's numpy results over the TPC-H tables
+STRING_WANTS = ("strings_groupby",)
 #: each order's distinct suppliers (q21's and the strings phase's), and
 #: over its late lineitems (q21's)
 Q21_DISTINCT = "q21 distinct suppliers"
@@ -2132,6 +2168,9 @@ def _want(name: str):
         got = q21_distinct(tables, late=name == Q21_LATE_DISTINCT)
     elif name in SCALAR_WANTS:
         import chip_smoke_scalars as S
+        got = S.expected(name, tables)
+    elif name in STRING_WANTS:
+        import chip_smoke_strings as S
         got = S.expected(name, tables)
     elif name in ("q1", "q6", "minmax"):
         got = globals()[f"expected_{name}"](tables["lineitem"])
@@ -2291,7 +2330,7 @@ def _host_ms(fn, reps: int = 3) -> float:
     return statistics.median(times)
 
 
-def strings_phase(dev, tables, later, want) -> None:
+def dictionary_phase(dev, tables, later, want) -> None:
     """The dictionary work of the strings slice at the main path's sizes,
     each result held to numpy: p_name's and c_phone's byte tensors (the
     code points' upload and the device encoding), Contains over p_name
@@ -2308,7 +2347,7 @@ def strings_phase(dev, tables, later, want) -> None:
         check(bytes(bytes_.cpu().numpy()) == "".join(d.tolist()).encode(
             "utf-8"), f"{name}'s UTF-8 bytes differ from Python's encoding")
         ms = _host_ms(lambda: S.dict_byte_tensors(d, dev))
-        log(f"[strings] {name} byte tensors ({len(d)} entries, "
+        log(f"[dictionary] {name} byte tensors ({len(d)} entries, "
             f"{int(offsets[-1])} bytes): {ms:.2f} ms (host clock: the "
             "code points' upload and the device encoding)")
     d = _col(tables["part"], "p_name").dictionary
@@ -2317,7 +2356,7 @@ def strings_phase(dev, tables, later, want) -> None:
     check(np.array_equal(mask.cpu().numpy(), np.char.find(d, "green") >= 0),
           "Contains(p_name, 'green') differs from np.char.find")
     ms = cuda_ms(lambda: S.match_contains(offsets, bytes_, b"green"))
-    log(f"[strings] Contains over p_name: {ms:.4f} ms device "
+    log(f"[dictionary] Contains over p_name: {ms:.4f} ms device "
         f"({int(mask.sum())} of {len(d)} entries)")
     d = _col(tables["customer"], "c_phone").dictionary
     tensors = byte_tensors["c_phone"]
@@ -2329,7 +2368,7 @@ def strings_phase(dev, tables, later, want) -> None:
         "differs from numpy's two-character prefixes")
     ms = cuda_ms(lambda: S.transform_dict_device(
         d, "substr", (1, 2), dev, byte_tensors=tensors), reps=5, warmup=1)
-    log(f"[strings] Substring(c_phone, 1, 2) over {len(d)} entries: "
+    log(f"[dictionary] Substring(c_phone, 1, 2) over {len(d)} entries: "
         f"{ms:.4f} ms (events; its host fetch included) -> {len(out)} "
         "sorted unique entries")
     sc, t21 = later["q21"]
@@ -2348,7 +2387,7 @@ def strings_phase(dev, tables, later, want) -> None:
           "q21's distinct suppliers per order differ from np.unique")
     ms = cuda_ms(lambda: fn([okey.data], [okey.validity], skey, live),
                  reps=3, warmup=1)
-    log(f"[strings] q21 COUNT(DISTINCT l_suppkey) by l_orderkey over "
+    log(f"[dictionary] q21 COUNT(DISTINCT l_suppkey) by l_orderkey over "
         f"{li.num_rows} rows (SF{sc:g}, one packed sort lane): {ms:.2f} ms "
         "device (events)")
 
@@ -2625,7 +2664,8 @@ def _timed(s, build, *args, reps: int = 3):
         build(s, *args).collect()
         torch.cuda.synchronize()
         runs.append((time.perf_counter() - t0) * 1e3)
-    return got, ctx, cold, statistics.median(runs), peak, launches
+    return got, ctx, cold, statistics.median(runs) if runs else None, peak, \
+        launches
 
 
 def _check_launches(name: str, launches: dict) -> None:
@@ -2634,10 +2674,12 @@ def _check_launches(name: str, launches: dict) -> None:
               "path")
 
 
-def _scalar_log(name, rows, cold, warm, peak, launches, extra=""):
-    log(f"[scalars] {name}: {rows} rows equal numpy{extra}; cold "
-        f"{cold:.1f} ms, warm median {warm:.1f} ms; peak device memory "
-        f"{peak:.2f} GiB; kernel launches {launches}")
+def _query_log(name, rows, cold, warm, peak, launches, extra="",
+               tag="scalars", equal="numpy"):
+    warm = "no warm run" if warm is None else f"warm median {warm:.1f} ms"
+    log(f"[{tag}] {name}: {rows} rows equal {equal}{extra}; cold "
+        f"{cold:.1f} ms, {warm}; peak device memory {peak:.2f} GiB; kernel "
+        f"launches {launches}")
 
 
 def scalars_phase(tables, want) -> dict:
@@ -2689,7 +2731,7 @@ def scalars_phase(tables, want) -> dict:
     check(np.array_equal(got.column_by_name("n").data, want_m["n"]),
           "moments_q1.n differs from numpy's")
     _check_launches("moments_q1", launches["moments_q1"])
-    _scalar_log("moments_q1", got.num_rows, cold, warm, peak,
+    _query_log("moments_q1", got.num_rows, cold, warm, peak,
                 launches["moments_q1"], f" (rtol {S.RTOL}; {li.num_rows} "
                 "lineitem rows)")
 
@@ -2718,7 +2760,7 @@ def scalars_phase(tables, want) -> dict:
         except AssertionError as e:
             check(False, str(e))
     _check_launches("scalars_q1", launches["scalars_q1"])
-    _scalar_log("scalars_q1", got.num_rows, cold, warm, peak,
+    _query_log("scalars_q1", got.num_rows, cold, warm, peak,
                 launches["scalars_q1"], f" ({len(got.names) - 2} aggregates"
                 f" of {len(kinds)} projections; transcendental MIN/MAX at "
                 f"most {worst:.0f} ulps from numpy's, bound {S.ULPS})")
@@ -2734,7 +2776,7 @@ def scalars_phase(tables, want) -> dict:
     check(count == want_r["count"], f"range_sample count() {count}, numpy "
           f"{want_r['count']}")
     _check_launches("range_sample", launches["range_sample"])
-    _scalar_log("range_sample", got.num_rows, cold, warm, peak,
+    _query_log("range_sample", got.num_rows, cold, warm, peak,
                 launches["range_sample"], f" ({S.RANGE_ROWS} ids, "
                 f"{want_r['count']} kept; count() equal)")
 
@@ -2756,7 +2798,7 @@ def scalars_phase(tables, want) -> dict:
     except RuntimeError as e:
         check(str(e) == "edge", f"raise_error raised {e!r}")
     ulp_max = max(worst.values())
-    _scalar_log("edge_values", got.num_rows, cold, warm, peak,
+    _query_log("edge_values", got.num_rows, cold, warm, peak,
                 launches["edge_values"], f" ({len(got.names)} columns, "
                 f"elementwise; transcendental at most {ulp_max:.0f} ulps "
                 f"({max(worst, key=worst.get)}), bound {S.ULPS}; "
@@ -2789,7 +2831,7 @@ def dense_phase(ds_tables, ds_want) -> dict:
         msg = D.compare(q, D.result_columns(got), want)
         check(not msg, f"dense_{q} differs from the numpy reference: {msg}")
         _check_launches(f"dense_{q}", launches[f"dense_{q}"])
-        _scalar_log(f"dense_{q}", got.num_rows, cold, warm, peak,
+        _query_log(f"dense_{q}", got.num_rows, cold, warm, peak,
                     launches[f"dense_{q}"], f" (TPC-DS scale {DENSE_SCALE};"
                     f" group-by tiers {dict(GROUPBY_TIERS)})")
     reset_groupby_tiers()
@@ -2822,9 +2864,105 @@ def dense_phase(ds_tables, ds_want) -> dict:
             w[5] is None or abs(vals[5] - w[5]) <= S.RTOL * abs(w[5])),
             f"dense_sf10 {key} stddev {vals[5]} against {w[5]}")
     _check_launches("dense_sf10", launches["dense_sf10"])
-    _scalar_log("dense_sf10", got.num_rows, cold, warm, peak,
+    _query_log("dense_sf10", got.num_rows, cold, warm, peak,
                 launches["dense_sf10"], f" ({ds_tables['store_sales'].num_rows}"
                 f" store_sales rows; group-by tiers {dict(GROUPBY_TIERS)})")
+    return launches
+
+
+def strings_phase(dev, tables, want) -> dict:
+    """The device string functions on the card over the TPC-H tables:
+    the six LIKE forms (each equal to phase 5's numpy result of its
+    Contains / StartsWith form), strings_groupby (equal to numpy, through
+    segagg), the device dictionary transforms over c_name and p_name
+    (equal to np.char) beside lpad's host loop, and every new class and
+    cast over the edge rows (equal to the port's CPU path).
+    -> {query: launches}."""
+    import chip_smoke_strings as S
+    from spark_rapids_tpu_torch.config import TpuConf
+    from spark_rapids_tpu_torch.exec.aggregate import GROUPBY_TIERS, \
+        reset_groupby_tiers
+    from spark_rapids_tpu_torch.ops import strings as PS
+    from spark_rapids_tpu_torch.ops.hopper import LAUNCHES, \
+        reset_launch_counts
+    from spark_rapids_tpu_torch.plan.strings import Lpad
+    from spark_rapids_tpu_torch.session import col
+    s = _cuda_session()
+    launches = {}
+    # string_edges on the CPU path: a spawned process, beside the card's
+    # queries (its host loops over the edge entries take seconds)
+    cpu_pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=1, mp_context=multiprocessing.get_context("spawn"))
+    cpu_edges = cpu_pool.submit(S.cpu_edge_digests, S.EDGE_ROWS,
+                                S.EDGE_ENTRIES)
+    cpu_pool.shutdown(wait=False)
+    for name, base in S.LIKE_OF.items():
+        got, _ctx, cold, warm, peak, launches[name] = _timed(
+            s, S.like_query(name), tables)
+        check_later(base, lanes_of(got), want[base])
+        check(got.num_rows > 0, f"{name} returned no row")
+        _check_launches(name, launches[name])
+        _query_log(name, got.num_rows, cold, warm, peak, launches[name],
+                   tag="strings", equal=f"{base}'s numpy result")
+
+    reset_groupby_tiers()
+    got, _ctx, cold, warm, peak, launches["strings_groupby"] = _timed(
+        s, S.strings_groupby, tables)
+    lanes = lanes_of(got)
+    check(lanes == want["strings_groupby"], "strings_groupby differs from "
+          f"numpy:\n{lanes}\n{want['strings_groupby']}")
+    check(GROUPBY_TIERS["segagg"] > 0, "strings_groupby did not run segagg")
+    _check_launches("strings_groupby", launches["strings_groupby"])
+    _query_log("strings_groupby", got.num_rows, cold, warm, peak,
+               launches["strings_groupby"],
+               f" (group-by tiers {dict(GROUPBY_TIERS)})", tag="strings")
+
+    reset_launch_counts()
+    for table, column in (("customer", "c_name"), ("part", "p_name")):
+        d = _col(tables[table], column).dictionary
+        for kind in S.DICT_TRANSFORMS:
+            out, remap = PS.transform_dict_device(d, kind, (), dev)
+            check(np.array_equal(out[remap.cpu().numpy()],
+                                 S.expected_transform(d, kind)) and
+                  bool(np.all(out[:-1] < out[1:])),
+                  f"{kind}({column}) differs from np.char's")
+            # one timed call: the checked call above warmed it up
+            ms = cuda_ms(lambda: PS.transform_dict_device(d, kind, (), dev),
+                         reps=1, warmup=0)
+            log(f"[strings] string_dicts {kind}({column}) over {len(d)} "
+                f"entries: {ms:.2f} ms (CUDA events; the code points' "
+                f"upload and the output's fetch included) -> {len(out)} "
+                "sorted unique entries, equal np.char's")
+        if column == "c_name":
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rw = Lpad(col(column), 24, "*").transformed(d, TpuConf(), dev)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            check(np.array_equal(rw.dictionary[rw.remap.cpu().numpy()],
+                                 np.char.rjust(d, 24, "*")),
+                  "lpad(c_name, 24, '*') differs from np.char.rjust")
+            log(f"[strings] string_dicts lpad({column}, 24, '*') over "
+                f"{len(d)} entries: {ms:.1f} ms (host clock, one run: the "
+                "exact per-entry loop on the host and the remap's upload)")
+    launches["string_dicts"] = dict(LAUNCHES)
+
+    table = S.edge_table(S.EDGE_ROWS, S.EDGE_ENTRIES)
+    # one (cold) run: the host loops over the 65,536 entries, which every
+    # run repeats, dominate it
+    got, _ctx, cold, warm, peak, launches["string_edges"] = _timed(
+        s, lambda sess: S.edge_values(sess, table), reps=0)
+    want_edges, cpu_ms = cpu_edges.result()
+    bad = [n for n, c in zip(got.names, got.columns)
+           if S.column_digest(c) != want_edges[n]]
+    check(not bad, f"string_edges on the card differ from the CPU path: "
+          f"{bad}")
+    _query_log("string_edges", got.num_rows, cold, warm, peak,
+               launches["string_edges"],
+               f" ({len(got.names)} columns over "
+               f"{len(table.column_by_name('s').dictionary)} entries; "
+               f"{cpu_ms:.1f} ms there)", tag="strings",
+               equal="the port's CPU path")
     return launches
 
 
@@ -2865,10 +3003,11 @@ def card_phases(dev, tables, want, later, args):
             "path", path_phase, tables, want, later, args.scale)
         log(f"[path] upload copy rate (pageable host to device, 32 MiB "
             f"copies): {upload_rate(dev):.2f} GB/s")
-        phase("strings", strings_phase, dev, tables, later, want)
+        phase("dictionary", dictionary_phase, dev, tables, later, want)
         phase("profile", profile_phase, tables, args.scale)
         phase("ooc", ooc_phase, tables, want, args.scale, cold, warm)
         launches.update(phase("scalars", scalars_phase, tables, want))
+        launches.update(phase("strings", strings_phase, dev, tables, want))
     return stats, launches
 
 

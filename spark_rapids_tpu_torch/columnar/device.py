@@ -75,11 +75,16 @@ class DeviceColumn:
     validity  : bool tensor (capacity,); padding rows are False.
     dtype     : logical Spark type.
     dictionary: host numpy array of the sorted unique strings (STRING).
+    value_range: exact (lo, hi) of the valid integer values, where the
+                expression that made the column knows one (a cast of a
+                string: plan/expressions.DevVal); the group-by packs
+                such a key.
     """
     data: torch.Tensor
     validity: torch.Tensor
     dtype: t.DataType
     dictionary: Optional[np.ndarray] = None
+    value_range: Optional[tuple] = None
 
     @property
     def capacity(self) -> int:

@@ -1218,6 +1218,13 @@ RESOLVED = {
         "Queue 1 item 4)",
     RUNTIME_FILTER_ENABLED.key:
         "resolves to off until ops/bloom.py ports (ROADMAP Queue 1)",
+    ENCODED_EXECUTION.key:
+        "resolves to on for a string compared with a literal, which runs "
+        "in code space (the reference's default); the rest of encoded "
+        "execution ports with ROADMAP Queue 1 item 4",
+    ENCODED_DICT_PREDICATES.key:
+        "resolves to on: a string compared with a literal runs in code "
+        "space (the reference's AUTO)",
 }
 
 _WARNED: set = set()

@@ -9,7 +9,9 @@ buffers.
 Group-bys elect their tier as the reference's `_run_groupby` does:
   * the segmented-aggregation kernels (ops/hopper/segagg.py) whenever
     every key is bounded — dictionary codes, booleans, or integers with
-    exact scan ranges — and the packed domain passes the election gate
+    exact scan ranges (or the exact range a cast of a string knows from
+    its dictionary: `DeviceColumn.value_range`) — and the packed domain
+    passes the election gate
     (ops/hopper elect_segagg, `segagg.maxDomain`);
   * else the dense no-sort tier (ops/groupby.dense_groupby_trace) when
     every key is a dictionary code or a boolean and the bucket product
@@ -117,6 +119,9 @@ def _run_groupby(key_cols: List[DeviceColumn], agg_cols: List[DeviceColumn],
     from ..ops.hopper import elect_segagg
     from ..ops.hopper.segagg import segagg_groupby_trace
     key_cols = [ensure_unique_dict(c) for c in key_cols]
+    # a key without a plan range may know its own (a cast of a string)
+    key_ranges = [c.value_range if r is None else r for c, r in zip(
+        key_cols, key_ranges or [None] * len(key_cols))]
     domains = _dense_domains(key_cols, conf)
     pack = _domains_as_pack(domains) if domains is not None \
         else _key_pack_spec(key_cols, key_ranges)
@@ -323,7 +328,7 @@ class HashAggregate:
 
     def _groupby_outs_to_batch(self, key_cols, out_keys, outs, n_groups,
                                dicts):
-        cols = [DeviceColumn(kd, kv, kc.dtype, kc.dictionary)
+        cols = [DeviceColumn(kd, kv, kc.dtype, kc.dictionary, kc.value_range)
                 for (kd, kv), kc in zip(out_keys, key_cols)]
         # update and merge specs share buffer dtypes positionally
         for (data, valid), spec, d in zip(outs, self.update_specs, dicts):

@@ -28,7 +28,7 @@ def _prepare(exprs: Sequence[Expression], db: DeviceBatch, conf: TpuConf):
 def _build_inputs(db: DeviceBatch) -> Dict[str, DevVal]:
     """name -> DevVal over the batch's compute views."""
     return {n: DevVal(compute_view(c.data, c.dtype), c.validity, c.dtype,
-                      c.dictionary)
+                      c.dictionary, c.value_range)
             for n, c in zip(db.names, db.columns)}
 
 
@@ -50,7 +50,7 @@ def evaluate_projection(exprs: Sequence[Expression], names: Sequence[str],
         dv = e.eval_dev(ctx)
         valid = live if dv.validity is None else dv.validity & live
         cols.append(DeviceColumn(storage_view(dv.data, e.dtype), valid,
-                                 e.dtype, hv.dictionary))
+                                 e.dtype, hv.dictionary, dv.value_range))
     return DeviceBatch(cols, db.num_rows, list(names))
 
 

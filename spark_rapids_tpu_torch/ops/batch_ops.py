@@ -130,8 +130,11 @@ def concat_batches(batches: List[DeviceBatch],
         if pad:
             data.append(torch.zeros(pad, dtype=data[0].dtype, device=dev))
             valid.append(torch.zeros(pad, dtype=torch.bool, device=dev))
+        ranges = [c.value_range for c in cols]
+        rng = None if any(r is None for r in ranges) else (
+            min(r[0] for r in ranges), max(r[1] for r in ranges))
         out_cols.append(DeviceColumn(torch.cat(data), torch.cat(valid), dt,
-                                     unified))
+                                     unified, rng))
     return DeviceBatch(out_cols, total, list(batches[0].names))
 
 
@@ -144,7 +147,7 @@ def shrink_to_capacity(db: DeviceBatch, row_bound: int,
     if cap >= db.capacity:
         return db
     cols = [DeviceColumn(c.data[:cap], c.validity[:cap], c.dtype,
-                         c.dictionary) for c in db.columns]
+                         c.dictionary, c.value_range) for c in db.columns]
     return DeviceBatch(cols, db.num_rows, db.names)
 
 
@@ -159,5 +162,6 @@ def shrink_to_rows(db: DeviceBatch, num_rows: int,
     if cap >= db.capacity:
         return DeviceBatch(db.columns, num_rows, db.names)
     cols = [DeviceColumn(c.data[:cap].clone(), c.validity[:cap].clone(),
-                         c.dtype, c.dictionary) for c in db.columns]
+                         c.dtype, c.dictionary, c.value_range)
+            for c in db.columns]
     return DeviceBatch(cols, num_rows, db.names)

@@ -11,11 +11,19 @@ result is a gather by its code:
   * `byte_lengths`, `char_lengths`;
   * `match_prefix`, `match_suffix`, `match_contains`, `match_equals`:
     one bool per entry;
+  * `LikePlan`, `compile_like` and `like_to_regex`: a LIKE pattern of
+    one of the simple shapes (equals, prefix, suffix, contains,
+    prefix%suffix) as a composition of the matchers; any other pattern
+    compiles to None, and the caller masks the dictionary with the
+    pattern's full-match regex on the host;
   * `substr_bytes` and `transform_dict_device`: Spark's 1-based
     `substring(str, pos, len)` by characters (UTF-8 lead bytes) over
-    every entry, decoded on the device into a sorted duplicate-free
-    dictionary plus the int32 remap of the input's codes, which stays on
-    the device.
+    every entry, and upper, lower, trim, ltrim and rtrim over the
+    entries' code points (an ASCII rewrite on the device; an entry with
+    a character past ASCII is redone on the host by Python's exact
+    `str.upper` / `lower` / `strip`, since 'ß'.upper() is 'SS'), each
+    decoded into a sorted duplicate-free dictionary plus the int32 remap
+    of the input's codes, which stays on the device.
 
 The reference pads its byte tensors to bucket capacities to bound its
 jit cache; PyTorch runs eagerly, so the tensors here are exactly the
@@ -24,7 +32,8 @@ range).
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import re
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -165,6 +174,106 @@ def match_equals(offsets: torch.Tensor, bytes_: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# LIKE: the simple shapes as matcher compositions, the rest as a regex
+# ---------------------------------------------------------------------------
+
+class LikePlan:
+    """A LIKE pattern of a simple shape: `kind` is equals, prefix,
+    suffix, contains or prefix_suffix, `parts` its UTF-8 literals."""
+
+    def __init__(self, kind: str, parts: List[bytes]):
+        self.kind = kind
+        self.parts = parts
+
+    def eval_device(self, offsets: torch.Tensor, bytes_: torch.Tensor
+                    ) -> torch.Tensor:
+        """bool per dictionary entry: the entry matches the pattern."""
+        if self.kind == "equals":
+            return match_equals(offsets, bytes_, self.parts[0])
+        if self.kind == "prefix":
+            return match_prefix(offsets, bytes_, self.parts[0])
+        if self.kind == "suffix":
+            return match_suffix(offsets, bytes_, self.parts[0])
+        if self.kind == "contains":
+            return match_contains(offsets, bytes_, self.parts[0])
+        if self.kind == "prefix_suffix":
+            pre, suf = self.parts
+            lens = byte_lengths(offsets)
+            return (match_prefix(offsets, bytes_, pre) &
+                    match_suffix(offsets, bytes_, suf) &
+                    (lens >= len(pre) + len(suf)))
+        raise AssertionError(self.kind)
+
+
+#: the wildcard tokens of a LIKE pattern, apart from any literal chunk
+#: (a literal "%" is an escaped character, not a wildcard)
+_ANY, _ONE = object(), object()
+
+
+def compile_like(pattern: str, escape: str = "\\") -> Optional[LikePlan]:
+    """The matcher composition of a simple LIKE shape, or None for any
+    other pattern (an `_` anywhere, or literals between two `%` runs
+    that are not the prefix%suffix shape)."""
+    literal: List[str] = []
+    tokens: list = []              # literal chunks, _ANY and _ONE
+    i = 0
+    while i < len(pattern):
+        c = pattern[i]
+        if c == escape and i + 1 < len(pattern):
+            literal.append(pattern[i + 1])
+            i += 2
+            continue
+        if c in ("%", "_"):
+            if literal:
+                tokens.append("".join(literal))
+                literal = []
+            tokens.append(_ANY if c == "%" else _ONE)
+            i += 1
+            continue
+        literal.append(c)
+        i += 1
+    if literal:
+        tokens.append("".join(literal))
+    if any(tk is _ONE for tk in tokens):
+        return None
+    # a run of % is one %
+    coll: list = []
+    for tk in tokens:
+        if not (tk is _ANY and coll and coll[-1] is _ANY):
+            coll.append(tk)
+    lits = [tk.encode("utf-8") for tk in coll if tk is not _ANY]
+    if not coll:
+        return LikePlan("equals", [b""])
+    if not lits:
+        return LikePlan("contains", [b""])
+    if len(lits) == 1:
+        starts, ends = coll[0] is _ANY, coll[-1] is _ANY
+        kind = {(False, False): "equals", (False, True): "prefix",
+                (True, False): "suffix", (True, True): "contains"}[
+                    (starts, ends)]
+        return LikePlan(kind, lits)
+    if len(lits) == 2 and len(coll) == 3:
+        return LikePlan("prefix_suffix", lits)
+    return None
+
+
+def like_to_regex(pattern: str, escape: str = "\\") -> str:
+    """The full-match regex of a LIKE pattern: `%` is `.*`, `_` is `.`,
+    an escaped character and every other one stand for themselves."""
+    out = []
+    i = 0
+    while i < len(pattern):
+        c = pattern[i]
+        if c == escape and i + 1 < len(pattern):
+            out.append(re.escape(pattern[i + 1]))
+            i += 2
+            continue
+        out.append(".*" if c == "%" else "." if c == "_" else re.escape(c))
+        i += 1
+    return "".join(out)
+
+
+# ---------------------------------------------------------------------------
 # Substring over every dictionary entry
 # ---------------------------------------------------------------------------
 
@@ -269,19 +378,80 @@ def unique_remap(cps: torch.Tensor) -> Tuple[np.ndarray, torch.Tensor]:
     return as_str_array(uniq), inverse.to(torch.int32)
 
 
+#: the ASCII characters Python's str.isspace() holds: str.strip() with no
+#: argument removes exactly these from an ASCII entry
+_ASCII_SPACE = (9, 10, 11, 12, 13, 28, 29, 30, 31, 32)
+#: the exact per-entry transform that redoes an entry past ASCII
+_HOST_EXACT = {"upper": str.upper, "lower": str.lower, "trim": str.strip,
+               "ltrim": str.lstrip, "rtrim": str.rstrip}
+
+
+def _case_cps(cps: torch.Tensor, upper: bool) -> torch.Tensor:
+    lo, hi, shift = (97, 122, -32) if upper else (65, 90, 32)
+    return torch.where((cps >= lo) & (cps <= hi), cps + shift, cps)
+
+
+def _trim_cps(cps: torch.Tensor, left: bool, right: bool) -> torch.Tensor:
+    """Each row's characters without its leading (`left`) and trailing
+    (`right`) ASCII white space, moved to the row's start."""
+    n, width = cps.shape
+    pos = torch.arange(width, device=cps.device)
+    nchars = _char_counts(cps).long()
+    space = torch.isin(cps, torch.tensor(_ASCII_SPACE, dtype=cps.dtype,
+                                         device=cps.device))
+    keep = (pos[None, :] < nchars[:, None]) & ~space
+    start = torch.minimum(torch.where(keep, pos, width).amin(dim=1), nchars) \
+        if left else torch.zeros_like(nchars)
+    end = torch.where(keep, pos + 1, 0).amax(dim=1) if right else nchars
+    length = torch.clamp(end - start, min=0)
+    src = torch.clamp(start[:, None] + pos[None, :], max=width - 1)
+    out = torch.gather(cps, 1, src)
+    return torch.where(pos[None, :] < length[:, None], out,
+                       torch.zeros_like(out))
+
+
+def _redo_on_host(out: torch.Tensor, dictionary: np.ndarray,
+                  redo: torch.Tensor, fn) -> torch.Tensor:
+    """`out` with the rows flagged in `redo` replaced by `fn` of the
+    entry, computed on the host (the output may be longer: the rows
+    widen to fit)."""
+    rows = torch.nonzero(redo).flatten()
+    if rows.numel() == 0:
+        return out
+    idx = rows.cpu().numpy()
+    fixed = code_points(np.array([fn(s) for s in dictionary[idx].tolist()],
+                                 str), out.device)
+    width = max(out.shape[1], fixed.shape[1])
+    out = torch.nn.functional.pad(out, (0, width - out.shape[1]))
+    out[rows] = torch.nn.functional.pad(fixed, (0, width - fixed.shape[1]))
+    return out
+
+
 def transform_dict_device(dictionary: np.ndarray, kind: str, args: tuple,
                           device, byte_tensors=None
                           ) -> Tuple[np.ndarray, torch.Tensor]:
     """Every dictionary entry transformed on `device` -> (the sorted
     duplicate-free output dictionary, the int32 code remap on the
-    device).  `kind` "substr" with args (pos, len); `byte_tensors` reuses
-    the dictionary's (offsets, bytes) when the caller has them."""
-    if kind != "substr":
+    device).  `kind` is "substr" with args (pos, len), over the UTF-8
+    bytes (`byte_tensors` reuses the dictionary's (offsets, bytes) when
+    the caller has them), or "upper", "lower", "trim", "ltrim" or
+    "rtrim" over the code points: an ASCII rewrite, and the entries with
+    a character past ASCII redone on the host."""
+    if kind != "substr" and kind not in _HOST_EXACT:
         raise ValueError(f"no device transform {kind!r}")
     if len(dictionary) == 0:
         return np.array([], str), torch.zeros(1, dtype=torch.int32,
                                               device=device)
-    offsets, bytes_ = byte_tensors if byte_tensors is not None \
-        else dict_byte_tensors(dictionary, device)
-    out_offs, out_bytes = substr_bytes(offsets, bytes_, *args)
-    return unique_remap(decode_code_points(out_offs, out_bytes))
+    if kind == "substr":
+        offsets, bytes_ = byte_tensors if byte_tensors is not None \
+            else dict_byte_tensors(dictionary, device)
+        out_offs, out_bytes = substr_bytes(offsets, bytes_, *args)
+        return unique_remap(decode_code_points(out_offs, out_bytes))
+    cps = code_points(dictionary, device)
+    if kind in ("upper", "lower"):
+        out = _case_cps(cps, kind == "upper")
+    else:
+        out = _trim_cps(cps, kind != "rtrim", kind != "ltrim")
+    out = _redo_on_host(out, dictionary, (cps >= 0x80).any(dim=1),
+                        _HOST_EXACT[kind])
+    return unique_remap(out)

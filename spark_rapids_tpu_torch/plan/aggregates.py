@@ -154,7 +154,7 @@ class Min(AggregateFunction):
     def unsupported_reasons(self, conf):
         out = AggregateFunction.unsupported_reasons(self, conf)
         if isinstance(self.child.dtype, t.StringType):
-            out.append("string min/max not yet on device")
+            out.append(f"string min/max runs on {E.CPU_ENGINE}")
         return out
 
 

@@ -14,10 +14,16 @@ integral divide and remainder with Java's wrapping and sign rules, unary
 minus, abs, <=>, IS NaN, the math functions (DOUBLE results, Spark's
 null domain for the logarithms), floor / ceil to LONG, greatest /
 least in Java's order, round / bround (exact on DECIMAL and integral
-lanes, binary on DOUBLE), width_bucket and raise_error.  Anything
-else reports itself in `unsupported_reasons`, and plan/overrides.py
-refuses the plan with that reason: the port has no CPU engine to fall
-back to yet.
+lanes, binary on DOUBLE), width_bucket and raise_error; casts from
+STRING to every numeric type, BOOLEAN and DATE (each dictionary entry
+parsed once on the host, as the reference's `_parse_entry` does, and
+gathered by code), and < <= > >= of a string column against a string
+literal (the literal's insertion point in the column's sorted
+dictionary, against the codes).  Anything else reports itself in
+`unsupported_reasons`, and plan/overrides.py refuses the plan with that
+reason: the port has no CPU engine to fall back to yet.  A family the
+reference itself runs only on its CPU engine names that engine's slice
+(`CPU_ENGINE`).
 
 Where the reference is wrong by Spark's rules the port follows its CPU
 oracle (ROADMAP Queue 3 item 10): a DECIMAL operand of a math function,
@@ -46,6 +52,48 @@ import torch
 from .. import types as t
 from ..config import TpuConf
 from ..ops.kernels import compute_dtype, merge_validity, valid_or_true
+
+
+#: where the families that the reference runs only on its CPU engine
+#: port (string COALESCE / IF, string ordering between two columns,
+#: string MIN / MAX, casts to STRING, format_number, bin, concat of two
+#: columns)
+CPU_ENGINE = "the CPU engine, exec/host_exec.py (ROADMAP Queue 1 item 2)"
+#: where RLIKE and the regexp functions port
+REGEX_SLICE = "ops/regex.py (ROADMAP Queue 1 item 7)"
+#: dictionaries an expression keeps derived tensors for at once
+_CACHE_ENTRIES = 4
+
+
+class PerDictionary:
+    """What an expression derived from each dictionary it met, by the
+    dictionary's identity (the entry holds the dictionary, so its id is
+    not reused while cached)."""
+
+    def __init__(self):
+        self.entries = {}
+
+    def get(self, d: np.ndarray, make):
+        hit = self.entries.get(id(d))
+        if hit is not None and hit[0] is d:
+            return hit[1]
+        value = make()
+        if len(self.entries) >= _CACHE_ENTRIES:
+            self.entries.pop(next(iter(self.entries)))
+        self.entries[id(d)] = (d, value)
+        return value
+
+
+def per_dictionary(e: "Expression", name: str) -> PerDictionary:
+    """The expression's own cache (bound copies each make theirs)."""
+    cache = e.__dict__.get(name)
+    if cache is None:
+        cache = e.__dict__[name] = PerDictionary()
+    return cache
+
+
+def dict_or_empty(d: Optional[np.ndarray]) -> np.ndarray:
+    return np.array([], str) if d is None else d
 
 
 class PrepCtx:
@@ -84,14 +132,19 @@ class EvalCtx:
 
 class DevVal:
     """A column value on the device: compute lane + validity (None = all
-    rows valid) + logical type (+ dictionary for strings)."""
+    rows valid) + logical type (+ dictionary for strings) (+ an exact
+    (lo, hi) bound of its valid integer values where the expression knows
+    one: a cast of a string parses a whole dictionary, so the group-by
+    can pack such a key as it packs a scanned column)."""
 
     def __init__(self, data, validity, dtype: t.DataType,
-                 dictionary: Optional[np.ndarray] = None):
+                 dictionary: Optional[np.ndarray] = None,
+                 value_range: Optional[Tuple[int, int]] = None):
         self.data = data
         self.validity = validity
         self.dtype = dtype
         self.dictionary = dictionary
+        self.value_range = value_range
 
 
 class Expression:
@@ -490,17 +543,20 @@ class BinaryComparison(Expression):
 
     def unsupported_reasons(self, conf):
         if any(isinstance(c.dtype, t.StringType) for c in self.children) \
-                and type(self) not in (EqualTo, NotEqual):
-            return ["string ordering comparisons (<, <=, >, >=) port with "
-                    "the strings slice (ROADMAP Queue 1 item 2)"]
+                and type(self) not in (EqualTo, NotEqual) and \
+                self._string_literal_side() is None:
+            return ["string ordering (<, <=, >, >=) other than a column "
+                    f"against a literal runs on {CPU_ENGINE}"]
         return []
 
     def _string_op_dev(self, ctx, kids) -> DevVal:
-        """String = / != in code space.  Against a literal: the literal's
-        code in the column's dictionary (a literal the dictionary lacks
-        matches no row).  Between two string values: both sides' codes
-        remapped into one unified dictionary, as the reference's
-        `_prepare_string` does.  Nulls on either side give null."""
+        """String comparisons in code space.  = / != against a literal:
+        the literal's code in the column's dictionary (a literal the
+        dictionary lacks matches no row); < <= > >= against a literal:
+        `_string_order_dev`.  = / != between two string values: both
+        sides' codes remapped into one unified dictionary, as the
+        reference's `_prepare_string` does.  Nulls on either side give
+        null."""
         lit_i = self._string_literal_side()
         if lit_i is None:
             return self._string_pair_dev(ctx, kids)
@@ -509,8 +565,10 @@ class BinaryComparison(Expression):
         if value is None:
             return DevVal(ctx.full(False, torch.bool),
                           ctx.full(False, torch.bool), t.BOOLEAN)
-        d = col.dictionary if col.dictionary is not None \
-            else np.array([], str)
+        d = dict_or_empty(col.dictionary)
+        if isinstance(self, (LessThan, LessThanOrEqual, GreaterThan,
+                             GreaterThanOrEqual)):
+            return self._string_order_dev(col, d, value, lit_i)
         if len(d) > 1 and not bool(np.all(d[:-1] < d[1:])):
             # a dictionary with repeats: value equality per code
             hit = torch.from_numpy(d == value).to(col.data.device)
@@ -521,6 +579,28 @@ class BinaryComparison(Expression):
             eq = col.data == code
         return DevVal(~eq if isinstance(self, NotEqual) else eq,
                       col.validity, t.BOOLEAN)
+
+    def _string_order_dev(self, col: DevVal, d: np.ndarray, value: str,
+                          lit_i: int) -> DevVal:
+        """col OP literal, ordered as Spark orders strings (by UTF-8
+        bytes, which is code-point order, numpy's).  Over a sorted
+        duplicate-free dictionary the literal's insertion points bound
+        the codes: col < v iff code < #(entries < v), col <= v iff code <
+        #(entries <= v).  Over any other dictionary a per-entry mask is
+        gathered by code."""
+        sym = self.symbol if lit_i == 1 else \
+            {"<": ">", "<=": ">=", ">": "<", ">=": "<="}[self.symbol]
+        if len(d) <= 1 or bool(np.all(d[:-1] < d[1:])):
+            less = int(np.searchsorted(d, value, side="left"))
+            leq = int(np.searchsorted(d, value, side="right"))
+            code = col.data
+            out = {"<": code < less, "<=": code < leq, ">": code >= leq,
+                   ">=": code >= less}[sym]
+        else:
+            mask = {"<": d < value, "<=": d <= value, ">": d > value,
+                    ">=": d >= value}[sym]
+            out = _remap_codes(col.data, mask)
+        return DevVal(out, col.validity, t.BOOLEAN)
 
     def _string_pair_dev(self, ctx, kids) -> DevVal:
         from ..ops.batch_ops import unify_dictionaries
@@ -698,7 +778,7 @@ class Coalesce(Expression):
 
     def unsupported_reasons(self, conf):
         if isinstance(self.dtype, t.StringType):
-            return ["string coalesce not yet on device"]
+            return [f"string coalesce runs on {CPU_ENGINE}"]
         return []
 
     def _eval_dev(self, ctx, kids):
@@ -729,7 +809,7 @@ class If(Expression):
 
     def unsupported_reasons(self, conf):
         if isinstance(self.dtype, t.StringType):
-            return ["string-valued if not yet on device"]
+            return [f"string-valued if runs on {CPU_ENGINE}"]
         return []
 
     def _eval_dev(self, ctx, kids):
@@ -864,17 +944,23 @@ class In(Expression):
 
 
 # ---------------------------------------------------------------------------
-# Casts (numeric, boolean and decimal)
+# Casts (numeric, boolean and decimal; from STRING by the dictionary)
 # ---------------------------------------------------------------------------
 
 class Cast(Expression):
+    """CAST(child AS to).  From STRING, each dictionary entry is parsed
+    once on the host by `_parse_entry` (the reference's rules: trimmed
+    input, non-ANSI, null for anything invalid) into a value lane and an
+    ok lane, which the rows gather by code."""
+
     def __init__(self, child, to: t.DataType):
         self.children = (child,)
         self.to = to
 
     def _resolve(self):
         self.dtype = self.to
-        self.nullable = self.children[0].nullable
+        self.nullable = self.children[0].nullable or isinstance(
+            self.children[0].dtype, t.StringType)
 
     def unsupported_reasons(self, conf):
         src, dst = self.children[0].dtype, self.to
@@ -883,8 +969,80 @@ class Cast(Expression):
         numeric = (t.NumericType, t.BooleanType)
         if isinstance(src, numeric) and isinstance(dst, numeric):
             return []
+        if isinstance(src, t.StringType) and \
+                isinstance(dst, numeric + (t.DateType,)):
+            return []
+        if isinstance(dst, t.StringType):
+            return [f"cast {src.simple_string}->string runs on {CPU_ENGINE}"]
         return [f"cast {src.simple_string}->{dst.simple_string} "
                 "not ported yet"]
+
+    @staticmethod
+    def _parse_entry(s: Optional[str], dst: t.DataType):
+        """Spark's non-ANSI string cast as the reference (and its CPU
+        oracle) runs it: the text trimmed by str.strip(); invalid text,
+        and a value outside the target type, give None.  Integral
+        targets parse through Decimal and truncate toward zero; DECIMAL
+        rounds HALF_UP to the scale (its unscaled value); DATE takes
+        'y-m-d' before any 'T' or ' '; BOOLEAN takes t/true/y/yes/1 and
+        f/false/n/no/0 in any case."""
+        if s is None:
+            return None
+        s = s.strip()
+        if not s:
+            return None
+        try:
+            if isinstance(dst, t.DateType):
+                parts = s.split("T")[0].split(" ")[0].split("-")
+                if len(parts) != 3:
+                    return None
+                y, m, d = (int(p) for p in parts)
+                return (pydt.date(y, m, d) - pydt.date(1970, 1, 1)).days
+            if isinstance(dst, t.DecimalType):
+                v = pydec.Decimal(s).scaleb(dst.scale).to_integral_value(
+                    rounding=pydec.ROUND_HALF_UP)
+                iv = int(v)
+                if abs(iv) > 10 ** min(dst.precision, 18) - 1:
+                    return None
+                return iv
+            if t.is_floating(dst):
+                return float(s)
+            if t.is_integral(dst):
+                d = pydec.Decimal(s)
+                iv = int(d.to_integral_value(rounding=pydec.ROUND_DOWN))
+                info = np.iinfo(t.physical_np_dtype(dst))
+                if iv < info.min or iv > info.max:
+                    return None
+                return iv
+            if isinstance(dst, t.BooleanType):
+                low = s.lower()
+                if low in ("t", "true", "y", "yes", "1"):
+                    return True
+                if low in ("f", "false", "n", "no", "0"):
+                    return False
+                return None
+        except (ValueError, ArithmeticError):
+            return None
+        return None
+
+    def parsed(self, d: np.ndarray, device):
+        """(value lane, ok lane, exact (lo, hi) of the ok integral values
+        or None) of dictionary `d` on `device`, one entry each (one
+        not-ok entry for an empty dictionary)."""
+        def make():
+            dst = self.to
+            out = [self._parse_entry(v, dst) for v in d.tolist()] or [None]
+            ok = np.array([v is not None for v in out], bool)
+            vals = np.array([0 if v is None else v for v in out],
+                            np.float64 if t.is_floating(dst)
+                            else t.physical_np_dtype(dst))
+            with np.errstate(over="ignore"):     # FLOAT: past it is inf
+                vals = vals.astype(t.physical_np_dtype(dst))
+            rng = (int(vals[ok].min()), int(vals[ok].max())) \
+                if t.is_integral(dst) and ok.any() else None
+            return (torch.from_numpy(vals).to(device),
+                    torch.from_numpy(ok).to(device), rng)
+        return per_dictionary(self, "_parsed").get(d, make)
 
     def _eval_dev(self, ctx, kids):
         from ..ops import decimal as D
@@ -892,6 +1050,12 @@ class Cast(Expression):
         x, valid = kids[0].data, kids[0].validity
         if src == dst:
             return kids[0]
+        if isinstance(src, t.StringType):
+            vals, ok, rng = self.parsed(dict_or_empty(kids[0].dictionary),
+                                        ctx.device)
+            codes = torch.clamp(x, 0, vals.shape[0] - 1).long()
+            return DevVal(vals[codes], merge_validity(valid, ok[codes]), dst,
+                          value_range=rng)
         if isinstance(src, t.DecimalType):
             u = x.to(torch.int64)
             if isinstance(dst, t.DecimalType):

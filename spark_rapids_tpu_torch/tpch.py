@@ -44,6 +44,14 @@ supplier at SF10 (the generator's partsupp lists two suppliers a part,
 so few lineitem pairs are in it); `q20(s, t, nation="UNITED STATES")`
 keeps rows there.
 
+`LIKE_QUERIES` are q2, q9, q13, q14, q16 and q20 with each string
+predicate written as TPC-H v3.0.1's text writes it, a LIKE with the
+reference's literal (`like=True`): '%BRASS', '%green%', NOT LIKE
+'%special%requests%', 'PROMO%', NOT LIKE 'MEDIUM POLISHED%' with LIKE
+'%Customer%Complaints%', and 'green%'.  The generator's comments hold
+each pair of words in that order, so each keeps the rows of its
+Contains / StartsWith / EndsWith form.
+
 `JOIN_QUERIES` are three DataFrame queries over the same tables that
 drive the general equi-join, which no TPC-H query of the reference
 reaches (its adaptive join finds a unique build side for every one):
@@ -56,6 +64,7 @@ from __future__ import annotations
 
 import datetime as pydt
 import decimal as pydec
+import functools
 from typing import Dict, Iterable, Optional
 
 import numpy as np
@@ -66,7 +75,7 @@ from .columnar.host import (HostBatch, HostColumn, dictionary_column,
 from .plan import datetime as DT
 from .plan import expressions as E
 from .plan.aggregates import Average, Count, CountDistinct, Max, Min, Sum
-from .plan.strings import Contains, EndsWith, StartsWith, Substring
+from .plan.strings import Contains, EndsWith, Like, StartsWith, Substring
 from .session import DataFrame, TpuSession, col
 
 DTYPE_DATE = _t.DATE
@@ -632,12 +641,14 @@ def q19(s: TpuSession, t: Dict[str, HostBatch]) -> DataFrame:
             .agg((Sum(revenue), "revenue")))
 
 
-def q2(s: TpuSession, t: Dict[str, HostBatch]) -> DataFrame:
+def q2(s: TpuSession, t: Dict[str, HostBatch],
+       like: bool = False) -> DataFrame:
     """Minimum-cost supplier: correlated MIN subquery as a self-join on
     (partkey, min cost)."""
+    brass = Like(col("p_type"), "%BRASS") if like \
+        else EndsWith(col("p_type"), "BRASS")
     part = s.from_host(t["part"]).filter(
-        E.And(E.EqualTo(col("p_size"), E.Literal(15)),
-              EndsWith(col("p_type"), "BRASS")))
+        E.And(E.EqualTo(col("p_size"), E.Literal(15)), brass))
     europe = (s.from_host(t["region"])
               .filter(E.EqualTo(col("r_name"), E.Literal("EUROPE")))
               .join(s.from_host(t["nation"]),
@@ -661,11 +672,13 @@ def q2(s: TpuSession, t: Dict[str, HostBatch]) -> DataFrame:
             .limit(100))
 
 
-def q9(s: TpuSession, t: Dict[str, HostBatch]) -> DataFrame:
+def q9(s: TpuSession, t: Dict[str, HostBatch],
+       like: bool = False) -> DataFrame:
     """Product type profit measure: the spec's 6-table join with
     ps_supplycost (profit = price*(1-disc) - supplycost*qty)."""
     part = s.from_host(t["part"]).filter(
-        Contains(col("p_name"), "green"))
+        Like(col("p_name"), "%green%") if like
+        else Contains(col("p_name"), "green"))
     li = s.from_host(t["lineitem"])
     ps = s.from_host(t["partsupp"])
     j = (li.join(part, left_on=["l_partkey"], right_on=["p_partkey"])
@@ -687,12 +700,14 @@ def q9(s: TpuSession, t: Dict[str, HostBatch]) -> DataFrame:
             .sort(("n_name", True, True), ("o_year", False, False)))
 
 
-def q13(s: TpuSession, t: Dict[str, HostBatch]) -> DataFrame:
+def q13(s: TpuSession, t: Dict[str, HostBatch],
+        like: bool = False) -> DataFrame:
     """Customer distribution: two-level aggregation over a left outer
     join with a NOT-LIKE filtered order side."""
-    orders = s.from_host(t["orders"]).filter(
-        E.Not(E.And(Contains(col("o_comment"), "special"),
-                    Contains(col("o_comment"), "requests"))))
+    special = Like(col("o_comment"), "%special%requests%") if like \
+        else E.And(Contains(col("o_comment"), "special"),
+                   Contains(col("o_comment"), "requests"))
+    orders = s.from_host(t["orders"]).filter(E.Not(special))
     cust = s.from_host(t["customer"])
     j = cust.join(orders, how="left_outer",
                   left_on=["c_custkey"], right_on=["o_custkey"])
@@ -703,7 +718,8 @@ def q13(s: TpuSession, t: Dict[str, HostBatch]) -> DataFrame:
             .sort(("custdist", False, False), ("c_count", False, False)))
 
 
-def q14(s: TpuSession, t: Dict[str, HostBatch]) -> DataFrame:
+def q14(s: TpuSession, t: Dict[str, HostBatch],
+        like: bool = False) -> DataFrame:
     """Promotion effect: 100 * promo revenue / total revenue."""
     d_lo = _days(pydt.date(1995, 9, 1))
     d_hi = _days(pydt.date(1995, 10, 1))
@@ -715,7 +731,9 @@ def q14(s: TpuSession, t: Dict[str, HostBatch]) -> DataFrame:
     j = li.join(part, left_on=["l_partkey"], right_on=["p_partkey"])
     revenue = E.Multiply(col("l_extendedprice"),
                          E.Subtract(E.Literal(1), col("l_discount")))
-    promo = E.CaseWhen([(StartsWith(col("p_type"), "PROMO"), revenue)],
+    is_promo = Like(col("p_type"), "PROMO%") if like \
+        else StartsWith(col("p_type"), "PROMO")
+    promo = E.CaseWhen([(is_promo, revenue)],
                        E.Literal(pydec.Decimal("0.00")))
     agg = j.agg((Sum(promo), "promo"), (Sum(revenue), "total"))
     ratio = E.Divide(E.Multiply(E.Literal(100.0),
@@ -724,15 +742,19 @@ def q14(s: TpuSession, t: Dict[str, HostBatch]) -> DataFrame:
     return agg.select(ratio, names=["promo_revenue"])
 
 
-def q16(s: TpuSession, t: Dict[str, HostBatch]) -> DataFrame:
+def q16(s: TpuSession, t: Dict[str, HostBatch],
+        like: bool = False) -> DataFrame:
     """Parts/supplier relationship: NOT IN subquery as anti join +
     count(distinct)."""
-    bad_supp = s.from_host(t["supplier"]).filter(
-        E.And(Contains(col("s_comment"), "Customer"),
-              Contains(col("s_comment"), "Complaints")))
+    complaints = Like(col("s_comment"), "%Customer%Complaints%") if like \
+        else E.And(Contains(col("s_comment"), "Customer"),
+                   Contains(col("s_comment"), "Complaints"))
+    polished = Like(col("p_type"), "MEDIUM POLISHED%") if like \
+        else StartsWith(col("p_type"), "MEDIUM POLISHED")
+    bad_supp = s.from_host(t["supplier"]).filter(complaints)
     part = s.from_host(t["part"]).filter(
         E.And(E.Not(E.EqualTo(col("p_brand"), E.Literal("Brand#45"))),
-              E.And(E.Not(StartsWith(col("p_type"), "MEDIUM POLISHED")),
+              E.And(E.Not(polished),
                     E.In(E.Cast(col("p_size"), _t.INT),
                          [49, 14, 23, 45, 19, 3, 36, 9]))))
     ps = (s.from_host(t["partsupp"])
@@ -746,13 +768,14 @@ def q16(s: TpuSession, t: Dict[str, HostBatch]) -> DataFrame:
 
 
 def q20(s: TpuSession, t: Dict[str, HostBatch],
-        nation: str = "CANADA") -> DataFrame:
+        nation: str = "CANADA", like: bool = False) -> DataFrame:
     """Potential part promotion: nested IN subqueries as semi joins over
     a half-of-shipped-quantity threshold."""
     d_lo = _days(pydt.date(1994, 1, 1))
     d_hi = _days(pydt.date(1995, 1, 1))
     green = s.from_host(t["part"]).filter(
-        StartsWith(col("p_name"), "green"))
+        Like(col("p_name"), "green%") if like
+        else StartsWith(col("p_name"), "green"))
     shipped = (s.from_host(t["lineitem"])
                .filter(E.And(
                    E.GreaterThanOrEqual(col("l_shipdate"),
@@ -843,6 +866,11 @@ QUERIES = {"q1": q1, "q2": q2, "q3": q3, "q4": q4, "q5": q5, "q6": q6,
            "q12": q12, "q13": q13, "q14": q14, "q15": q15, "q16": q16,
            "q17": q17, "q18": q18, "q19": q19, "q20": q20, "q21": q21,
            "q22": q22}
+
+
+#: the six queries with their string predicates as TPC-H's LIKE text
+LIKE_QUERIES = {f"like_{q}": functools.partial(QUERIES[q], like=True)
+                for q in ("q2", "q9", "q13", "q14", "q16", "q20")}
 
 
 def _date_range(name: str, lo: pydt.date, hi: pydt.date) -> E.Expression:

@@ -1117,3 +1117,92 @@ def test_statistics_on_the_card_equal_cpu(cuda):
         else:
             np.testing.assert_allclose(gpu[k], cpu[k], rtol=1e-9, atol=0,
                                        err_msg=k)
+
+
+# ---------------------------------------------------------------------------
+# The device string functions (ops/strings.py, plan/strings.py)
+# ---------------------------------------------------------------------------
+
+#: ASCII letters, white space (Python's: \x1c-\x1f too) and one- to
+#: four-byte characters whose case or length changes ('ß'.upper() is
+#: 'SS', 'ﬆ'.upper() 'ST')
+_STRING_ALPHABET = list("aAbZz %_\\\t\n\x1f") + [
+    "é", "ß", "ﬆ", "\u0301", "ǅ", "日", "😀"]
+
+
+def _string_dictionary(seed, n=3000, ascii_only=False):
+    rng = np.random.default_rng(seed)
+    alphabet = [c for c in _STRING_ALPHABET if c.isascii() or not ascii_only]
+    words = {"", " ", "  x  ", "ß", "ﬆ"} if not ascii_only else {"", " "}
+    for k in rng.integers(0, 10, n).tolist():
+        words.add("".join(alphabet[i] for i in rng.integers(
+            0, len(alphabet), k)))
+    return np.array(sorted(words), str)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ascii_only", [True, False], ids=["ascii", "utf8"])
+@pytest.mark.parametrize("kind", ["upper", "lower", "trim", "ltrim", "rtrim"])
+def test_device_string_transform_on_the_card_equals_cpu(cuda, kind,
+                                                        ascii_only):
+    from spark_rapids_tpu_torch.ops import strings as S
+    d = _string_dictionary(21, ascii_only=ascii_only)
+    fn = {"upper": str.upper, "lower": str.lower, "trim": str.strip,
+          "ltrim": str.lstrip, "rtrim": str.rstrip}[kind]
+    out = {}
+    for dev in ("cpu", cuda):
+        words, remap = S.transform_dict_device(d, kind, (), dev)
+        assert remap.device.type == torch.device(dev).type
+        out[str(dev)] = (words.tolist(), remap.cpu().tolist())
+        assert words[remap.cpu().numpy()].tolist() == [fn(s) for s in d]
+    assert out["cpu"] == out[str(cuda)]
+
+
+_CARD_LIKE = ["a%", "%z", "%ß%", "a", "%", "", "a%z", "%a%b%", "_", "a_%",
+              r"%\%%", "%\\\\%", "%😀"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ascii_only", [True, False], ids=["ascii", "utf8"])
+@pytest.mark.parametrize("pattern", _CARD_LIKE)
+def test_like_mask_on_the_card_equals_cpu(cuda, pattern, ascii_only):
+    import re
+    from spark_rapids_tpu_torch.ops import strings as S
+    from spark_rapids_tpu_torch.plan.strings import Like
+    from spark_rapids_tpu_torch.session import col
+    d = _string_dictionary(22, ascii_only=ascii_only)
+    masks = [Like(col("s"), pattern).entry_mask(d, dev).cpu().tolist()
+             for dev in ("cpu", cuda)]
+    rx = re.compile(S.like_to_regex(pattern), re.DOTALL)
+    assert masks[0] == masks[1] == [rx.fullmatch(s) is not None for s in d]
+
+
+@pytest.mark.cuda
+def test_string_edges_on_the_card_equal_cpu(cuda):
+    """Every new string class, LIKE shape, ordering and cast
+    (chip_smoke_strings.EDGE_CASES) on the card against the port's CPU
+    path over the same rows, value for value."""
+    import chip_smoke_strings as CS
+    from spark_rapids_tpu_torch.session import TpuSession
+    table = CS.edge_table(rows=1 << 14, entries=2048)
+    card, cpu = (CS.edge_values(TpuSession(device=d), table).collect()
+                 for d in (cuda, "cpu"))
+    bad = [n for n, a, b in zip(card.names, card.columns, cpu.columns)
+           if CS.column_digest(a) != CS.column_digest(b)]
+    assert not bad
+
+
+@pytest.mark.cuda
+def test_device_transforms_on_the_card_equal_the_host_loop(cuda):
+    # the device rewrite (transformDeviceMinUnique=1) against the host
+    # loop, each on the card, over the edge dictionary
+    import chip_smoke_strings as CS
+    from spark_rapids_tpu_torch.session import TpuSession
+    table = CS.edge_table(rows=1 << 14, entries=2048)
+    names = ("upper", "lower", "trim", "ltrim", "rtrim", "substring")
+    out = [CS.edge_values(TpuSession(conf, device=cuda), table, names)
+           .collect() for conf in (
+               {"spark.rapids.tpu.sql.string.transformDeviceMinUnique": "1"},
+               None)]
+    assert all(CS.column_digest(a) == CS.column_digest(b)
+               for a, b in zip(out[0].columns, out[1].columns))

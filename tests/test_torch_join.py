@@ -176,10 +176,12 @@ def test_unported_joins_and_predicates_refuse_naming_their_slice():
         (f.join(d, left_on=["fk", "f"],
                 right_on=["dk", PE.Cast(pcol("w"), PT.DOUBLE)]),
          "composite"),
-        (f.filter(PE.LessThan(pcol("tag"), PE.Literal("q"))),
-         "strings slice"),
+        # a string ordering against a literal runs; between two columns
+        # it is the reference's CPU engine's
+        (f.filter(PE.LessThan(pcol("tag"), pcol("tag"))),
+         "exec/host_exec.py"),
         (f.filter(PE.GreaterThanOrEqual(pcol("tag"), pcol("tag"))),
-         "strings slice"),
+         "exec/host_exec.py"),
         (f.select(PE.If(PE.IsNull(pcol("fk")), pcol("tag"), pcol("tag")),
                   names=["t"]), "string-valued if"),
     ]
