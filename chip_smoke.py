@@ -212,10 +212,27 @@ own failure:
                from the tpcds pool.  Both scalars phases print each
                query's cold wall, median of 3 warm walls (1 for
                edge_values), peak device memory and launches.
+  9b. fallback — after scalars dense (chip_smoke_fallback.py): the 22
+               TPC-H queries with sql.enabled=false at SF1 on the port's
+               CPU engine (numpy, in a spawned process from the phase's
+               start), each equal to the card's result of the query at
+               SF1 (SF0.1 with the cut printed if the CPU part passes
+               120 s), each printing the CPU engine's wall beside the
+               card's warm wall; and three SF10 plans that mix the
+               engines (fb_concat_groupby: a CPU projection uploaded into
+               a card join and group-by; fb_q16_mix: a card join fetched
+               into a CPU aggregate with COUNT(DISTINCT) beside SUM and a
+               string MIN; fb_q3_format: q3 on the card under a CPU
+               projection), each equal to numpy, with its placement held
+               to the stated one from its explain lines and physical
+               tree, and printing its cold wall, median of 3 warm walls,
+               peak, launches, CPU operators' ms and each transition's
+               bytes and ms.
 Each phase after the data prints its seconds.
   10. result — a `kernels` JSON line (launches by query over every
-               query of phases 5, 6b, 6c, 7 and 9), the whole run's seconds,
-               the nvidia-smi line, and last {"ok": true, "device": {...}}.
+               query of phases 5, 6b, 6c, 7, 9 and 9b), the whole run's
+               seconds, the nvidia-smi line, and last {"ok": true,
+               "device": {...}}.
 
 Flags: --scale (default 10), --seed (default 20240706), --kernels-only
 (phases 1-4 only, then the kernels line and the nvidia-smi line without
@@ -334,6 +351,13 @@ PATH_KERNELS.update({**{f"like_{q}": UNIQUE_JOIN for q in (
     "q2", "q9", "q13", "q14", "q16", "q20")},
     "strings_groupby": UNIQUE_JOIN + ("seg_sums", "seg_reduce"),
     "string_dicts": (), "string_edges": ()})
+# the fallback phase: fb_concat_groupby joins orders with the uploaded
+# customer projection (unique c_custkey) and groups by its 125-value
+# string on the card (SUM, COUNT: seg_sums; MIN, MAX: seg_reduce);
+# fb_q16_mix and fb_q3_format run q16's and q3's joins on the card
+PATH_KERNELS.update({"fb_concat_groupby": UNIQUE_JOIN + ("seg_sums",
+                                                         "seg_reduce"),
+                     "fb_q16_mix": UNIQUE_JOIN, "fb_q3_format": UNIQUE_JOIN})
 Q3_DATE = (pydt.date(1995, 3, 15) - pydt.date(1970, 1, 1)).days
 # the device launches of one build_layout call, by kernel name: this
 # tree's two passes, and (for an A B B A against an older tree) its
@@ -3042,7 +3066,10 @@ def main() -> int:
                                      reference=not args.kernels_only)
     stats, launches = card_phases(dev, tables, want, later, args)
     if not args.kernels_only:
-        # the TPC-H tables go first, to bound host memory
+        import chip_smoke_fallback as F
+        # the TPC-H tables go first, to bound host memory; the fallback
+        # phase keeps the columns it reads
+        fb_tables = F.narrow(tables)
         del tables, want, later
         gc.collect()
         torch.cuda.empty_cache()
@@ -3051,6 +3078,10 @@ def main() -> int:
         phase("window", window_phase, ds_tables, ds_want)
         launches.update(phase("scalars dense", dense_phase, ds_tables,
                               ds_want))
+        del ds_tables, ds_want
+        gc.collect()
+        launches.update(phase("fallback", F.fallback_phase,
+                              sys.modules[__name__], fb_tables, args.seed))
     rows = []
     for name in TPU_KERNELS:
         st = stats[name]

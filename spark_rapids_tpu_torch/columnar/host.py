@@ -204,26 +204,42 @@ class HostBatch:
         return f"HostBatch({self.num_rows} rows, {self.schema.simple_string})"
 
 
+def concat_columns(parts: Sequence[HostColumn]) -> HostColumn:
+    """Row-wise concatenation of same-type columns; string codes are
+    remapped into the sorted union of the parts' dictionaries (no
+    per-row string work)."""
+    dt = parts[0].dtype
+    valid = None
+    if any(p.validity is not None for p in parts):
+        valid = np.concatenate([p.valid_mask() for p in parts])
+    if not isinstance(dt, t.StringType):
+        lane = t.physical_np_dtype(dt)
+        return HostColumn(np.concatenate([p.data.astype(lane, copy=False)
+                                          for p in parts]), valid, dt)
+    dicts = [np.array([], str) if p.dictionary is None else p.dictionary
+             for p in parts]
+    unified = np.unique(np.concatenate(dicts)).astype(str)
+    codes = []
+    for p, d in zip(parts, dicts):
+        if len(d) and len(p):
+            codes.append(np.searchsorted(unified, d)[
+                np.clip(p.data, 0, len(d) - 1)])
+        else:
+            codes.append(np.zeros(len(p), np.int64))
+    data = np.concatenate(codes).astype(np.int32)
+    if valid is not None:
+        data = np.where(valid, data, 0).astype(np.int32)
+    return HostColumn(data, valid, t.STRING, unified)
+
+
 def concat_host(batches: Sequence[HostBatch]) -> HostBatch:
-    """Row-wise concatenation of same-schema batches (string codes are
-    re-encoded into one sorted dictionary)."""
+    """Row-wise concatenation of same-schema batches (`concat_columns`)."""
     if not batches:
         raise ValueError("concat of zero batches")
     if len(batches) == 1:
         return batches[0]
-    cols = []
-    for ci, name in enumerate(batches[0].names):
-        parts = [b.columns[ci] for b in batches]
-        dt = parts[0].dtype
-        valid = None
-        if any(p.validity is not None for p in parts):
-            valid = np.concatenate([p.valid_mask() for p in parts])
-        if isinstance(dt, t.StringType):
-            values = [v for p in parts for v in p.to_pylist()]
-            cols.append(string_column(np.array(values, dtype=object)))
-        else:
-            cols.append(HostColumn(np.concatenate([p.data for p in parts]),
-                                   valid, dt))
+    cols = [concat_columns([b.columns[i] for b in batches])
+            for i in range(len(batches[0].columns))]
     return HostBatch(cols, batches[0].names)
 
 

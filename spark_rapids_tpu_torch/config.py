@@ -1189,7 +1189,10 @@ JOIN_LATE_MATERIALIZATION = conf(
 
 #: keys the port reads; setting any other registered key warns
 HONOURED_KEYS = frozenset(e.key for e in (
-    SQL_ENABLED, BATCH_SIZE_ROWS, SHAPE_BUCKETS, BUCKET_MIN_ROWS,
+    # placement: the overrides' kill switch, modes, explain logging and
+    # the cost-based optimizer (plan/overrides.py, plan/cbo.py; the
+    # sql.exec.* and sql.expression.* disables are dynamic keys)
+    SQL_ENABLED, MODE, EXPLAIN, CBO_ENABLED, BATCH_SIZE_ROWS, SHAPE_BUCKETS, BUCKET_MIN_ROWS,
     BUCKET_GROWTH, ADAPTIVE_ENABLED, IMPROVED_FLOAT_OPS,
     DENSE_AGG_DOMAIN_MAX, DENSE_AGG_VIA_SORT, PALLAS_ENABLED, PALLAS_JOIN,
     PALLAS_SEGAGG, PALLAS_COMPACT, PALLAS_SEGAGG_MAX_DOMAIN,

@@ -1,0 +1,373 @@
+"""numpy kernels of the CPU engine (exec/host_exec.py).
+
+The CPU engine runs on numpy alone, so it runs on the card's machine,
+which has no pyarrow.  Its columns are `columnar/host.HostColumn`s: a
+data lane in the device storage form, a validity lane (None = all
+valid), and for strings int32 codes into a sorted, duplicate-free
+dictionary, whose code order is therefore the strings' order.
+
+  * validity algebra (`and_valid`, `valid_of`);
+  * Spark's total order of floating values (`float_order`: NaN the
+    greatest, -0.0 equal to 0.0), the lanes that order, group and join
+    (`order_lane`, `factorize`), and reductions over group ids
+    (`Groups`);
+  * gathers with -1 as a null row (`take`);
+  * the decimal arithmetic of ops/decimal.py over int64 unscaled lanes,
+    with the same overflow-to-null rules, in numpy;
+  * STRING results from per-entry values (`strings_from_entries`).
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from .. import types as t
+from ..columnar.host import HostColumn, dictionary_column
+
+_I64_MAX = 2 ** 63 - 1
+
+
+# ---------------------------------------------------------------------------
+# validity
+# ---------------------------------------------------------------------------
+
+def and_valid(*vs: Optional[np.ndarray]) -> Optional[np.ndarray]:
+    """AND of validity lanes; None means all valid."""
+    out = None
+    for v in vs:
+        if v is None:
+            continue
+        out = v.copy() if out is None else out & v
+    return out
+
+
+def valid_of(v: Optional[np.ndarray], n: int) -> np.ndarray:
+    return np.ones(n, bool) if v is None else v
+
+
+def column(data: np.ndarray, validity: Optional[np.ndarray],
+           dtype: t.DataType, dictionary=None) -> HostColumn:
+    """A HostColumn whose data lane is in `dtype`'s storage form, with
+    null rows zeroed (so equal rows have equal lanes) and an all-true
+    validity dropped."""
+    data = np.asarray(data)
+    want = t.physical_np_dtype(dtype)
+    if data.dtype != want:
+        data = data.astype(want)
+    if validity is not None:
+        validity = np.asarray(validity, bool)
+        if validity.all():
+            validity = None
+        else:
+            data = np.where(validity, data, np.zeros((), data.dtype))
+    return HostColumn(data, validity, dtype, dictionary)
+
+
+def strings(col: HostColumn) -> np.ndarray:
+    """The column's values as a numpy str array ('' for null rows)."""
+    d = col.dictionary
+    if d is None or len(d) == 0:
+        return np.full(len(col), "", dtype="<U1")
+    out = d[np.clip(col.data, 0, len(d) - 1)]
+    if col.validity is not None:
+        out = np.where(col.validity, out, "")
+    return out
+
+
+def strings_from_entries(codes: np.ndarray, values: Sequence[Optional[str]],
+                         validity: Optional[np.ndarray]) -> HostColumn:
+    """STRING column of rows that take `values[codes]` (a None value is a
+    null row), re-encoded into a sorted, duplicate-free dictionary."""
+    codes = np.asarray(codes, np.int64)
+    n_opts = len(values)
+    ok = np.array([v is not None for v in values], bool)
+    if n_opts == 0:
+        return column(np.zeros(len(codes), np.int32),
+                      np.zeros(len(codes), bool), t.STRING,
+                      np.array([], str))
+    safe = np.clip(codes, 0, n_opts - 1)
+    valid = and_valid(validity, None if ok.all() else ok[safe])
+    # equal values of different entries share one dictionary entry
+    uniq, inv = np.unique(np.array([v if v is not None else ""
+                                    for v in values], str),
+                          return_inverse=True)
+    out = dictionary_column(inv.reshape(-1)[safe], uniq, valid)
+    return column(out.data, out.validity, t.STRING, out.dictionary)
+
+
+def string_literal_column(value: Optional[str], n: int) -> HostColumn:
+    if value is None:
+        return HostColumn(np.zeros(n, np.int32), np.zeros(n, bool),
+                          t.STRING, np.array([], str))
+    return HostColumn(np.zeros(n, np.int32), None, t.STRING,
+                      np.array([value], str))
+
+
+# ---------------------------------------------------------------------------
+# order and equality
+# ---------------------------------------------------------------------------
+
+def float_order(x: np.ndarray, signed_zero: bool = False) -> np.ndarray:
+    """float values -> int64 lane in Spark's order: -inf < ... < -0.0 =
+    0.0 < ... < +inf < NaN, every NaN equal (with `signed_zero`, -0.0
+    below 0.0: MIN and MAX, Java's Double order)."""
+    x = np.asarray(x, np.float64)
+    if not signed_zero:
+        x = x + 0.0                                # -0.0 -> 0.0
+    bits = x.view(np.int64).copy()
+    bits[np.isnan(x)] = 0x7FF8000000000000
+    # negative doubles order reversed: flip their magnitude bits
+    return np.where(bits < 0, bits ^ np.int64(_I64_MAX), bits)
+
+
+def float_from_order(o: np.ndarray) -> np.ndarray:
+    """The inverse of `float_order` (NaN comes back canonical)."""
+    bits = np.where(o < 0, o ^ np.int64(_I64_MAX), o)
+    return bits.astype(np.int64).view(np.float64)
+
+
+def order_lane(col: HostColumn) -> np.ndarray:
+    """An integer lane whose order is the column's value order (strings:
+    their codes; floats: `float_order`; null rows: 0), and which is equal
+    exactly where the values are equal by Spark's key equality (-0.0 =
+    0.0, NaN = NaN): the grouping, join and sort lane."""
+    data = col.data
+    if data.dtype.kind == "f":
+        lane = float_order(data)
+    elif data.dtype.kind == "b":
+        lane = data.astype(np.int64)
+    else:
+        lane = data.astype(np.int64, copy=False)
+    if col.validity is not None:
+        lane = np.where(col.validity, lane, 0)
+    return lane
+
+
+def _dense(ids: np.ndarray, span: int) -> Tuple[np.ndarray, int]:
+    """`ids` (in [0, span)) renumbered densely, order kept: a bincount
+    over a small span, else one sort."""
+    if span <= max(4 * len(ids), 1 << 16):
+        present = np.bincount(ids, minlength=span) > 0
+        remap = np.cumsum(present) - 1
+        return remap[ids], int(present.sum())
+    uniq, inv = np.unique(ids, return_inverse=True)
+    return inv.reshape(-1).astype(np.int64), len(uniq)
+
+
+def factorize(lanes: Sequence[np.ndarray]) -> Tuple[np.ndarray, int]:
+    """(dense int64 id per row, number of ids) of the row tuples over
+    `lanes`: equal tuples share an id, ids ascend in tuple order.  A lane
+    of integers over a small range (dictionary codes, flags) takes its
+    offsets as they are; any other lane is densified by one sort."""
+    n = len(lanes[0]) if lanes else 0
+    ids = np.zeros(n, np.int64)
+    if not n:
+        return ids, 0
+    span = 1
+    for lane in lanes:
+        lo, hi = int(lane.min()), int(lane.max())
+        width = hi - lo + 1
+        if width <= max(4 * n, 1 << 16):
+            inv = lane.astype(np.int64) - lo
+        else:
+            uniq, inv = np.unique(lane, return_inverse=True)
+            inv, width = inv.reshape(-1), len(uniq)
+        if span * width >= 1 << 62:
+            ids, span = _dense(ids, span)
+        ids = ids * width + inv
+        span *= width
+    return _dense(ids, span)
+
+
+def first_of_ids(ids: np.ndarray, count: int) -> np.ndarray:
+    """The first row holding each of the dense ids 0 .. count - 1."""
+    first = np.empty(count, np.int64)
+    # a fancy assignment keeps the last write: write the rows backwards
+    first[ids[::-1]] = np.arange(len(ids) - 1, -1, -1, dtype=np.int64)
+    return first
+
+
+def group_ids(keys: Sequence[HostColumn], n: int
+              ) -> Tuple[np.ndarray, int, np.ndarray]:
+    """(group id per row, group count, first row of each group) with the
+    groups numbered in order of first appearance; a null key is a value
+    of its own."""
+    if not keys:
+        return np.zeros(n, np.int64), 1, np.zeros(1, np.int64)
+    lanes = []
+    for k in keys:
+        if k.validity is not None:
+            lanes.append((~k.validity).astype(np.int64))
+        lanes.append(order_lane(k))
+    ids, count = factorize(lanes)
+    first = first_of_ids(ids, count)
+    order = np.argsort(first, kind="stable")
+    rank = np.empty(count, np.int64)
+    rank[order] = np.arange(count, dtype=np.int64)
+    return rank[ids], count, first[order]
+
+
+# ---------------------------------------------------------------------------
+# gathers
+# ---------------------------------------------------------------------------
+
+def take(col: HostColumn, idx: np.ndarray) -> HostColumn:
+    """Rows `idx` of `col`; an index of -1 gives a null row."""
+    idx = np.asarray(idx, np.int64)
+    miss = idx < 0
+    safe = np.where(miss, 0, idx) if miss.any() else idx
+    if len(col) == 0:
+        data = np.zeros(len(idx), col.data.dtype)
+        valid = np.zeros(len(idx), bool)
+    else:
+        data = col.data[safe]
+        valid = None if col.validity is None else col.validity[safe]
+        if miss.any():
+            valid = valid_of(valid, len(idx)) & ~miss
+    return column(data, valid, col.dtype, col.dictionary)
+
+
+# ---------------------------------------------------------------------------
+# decimal arithmetic over int64 unscaled lanes (ops/decimal.py in numpy)
+# ---------------------------------------------------------------------------
+
+def upscale(u: np.ndarray, ds: int):
+    if ds == 0:
+        return u, np.ones(len(u), bool)
+    f = 10 ** ds
+    if f > _I64_MAX:
+        return np.zeros_like(u), u == 0
+    with np.errstate(over="ignore"):
+        return u * np.int64(f), np.abs(u) <= _I64_MAX // f
+
+
+def downscale_half_up(u: np.ndarray, ds: int) -> np.ndarray:
+    if ds == 0:
+        return u
+    if ds >= 19:
+        return np.zeros_like(u)
+    f = np.int64(10 ** ds)
+    mag = (np.abs(u) + f // 2) // f
+    return np.where(u < 0, -mag, mag)
+
+
+def rescale(u: np.ndarray, from_scale: int, to_scale: int):
+    if to_scale >= from_scale:
+        return upscale(u, to_scale - from_scale)
+    return downscale_half_up(u, from_scale - to_scale), np.ones(len(u), bool)
+
+
+def fits_precision(u: np.ndarray, p: int) -> np.ndarray:
+    if p >= 19:
+        return np.ones(len(u), bool)
+    return np.abs(u) <= 10 ** p - 1
+
+
+def decimal_add(ua, sa, ub, sb, out: t.DecimalType):
+    va, ok_a = rescale(ua, sa, out.scale)
+    vb, ok_b = rescale(ub, sb, out.scale)
+    with np.errstate(over="ignore"):
+        r = va + vb
+    ovf = ((va >= 0) == (vb >= 0)) & ((r >= 0) != (va >= 0))
+    return r, ok_a & ok_b & ~ovf & fits_precision(r, out.precision)
+
+
+def decimal_mul(ua, sa, ub, sb, out: t.DecimalType):
+    with np.errstate(over="ignore"):
+        prod = ua * ub
+    est = np.abs(ua.astype(np.float64)) * np.abs(ub.astype(np.float64))
+    ok = est < float(2 ** 62)
+    r, ok2 = rescale(prod, sa + sb, out.scale)
+    return r, ok & ok2 & fits_precision(r, out.precision)
+
+
+def decimal_to_double(u: np.ndarray, scale: int) -> np.ndarray:
+    return u.astype(np.float64) / float(10 ** scale)
+
+
+def decimal_from_double(x: np.ndarray, out: t.DecimalType):
+    with np.errstate(all="ignore"):
+        scaled = x.astype(np.float64) * float(10 ** out.scale)
+    finite = np.isfinite(scaled)
+    bounded = np.abs(np.where(finite, scaled, 0.0)) < float(2 ** 62)
+    safe = np.where(finite & bounded, scaled, 0.0)
+    mag = np.floor(np.abs(safe) + 0.5)
+    u = np.where(safe < 0, -mag, mag).astype(np.int64)
+    return u, finite & bounded & fits_precision(u, out.precision)
+
+
+def decimal_to_integral(u: np.ndarray, scale: int) -> np.ndarray:
+    if scale == 0:
+        return u
+    mag = np.abs(u) // np.int64(10 ** scale)
+    return np.where(u < 0, -mag, mag)
+
+
+def decimal_avg(sums: np.ndarray, counts: np.ndarray, shift: int):
+    """sum / count at `shift` more digits of scale, HALF_UP, exact in
+    int64 -> (value, ok)."""
+    us, ok = upscale(sums, shift)
+    safe_c = np.maximum(counts, 1)
+    mag = (np.abs(us) + safe_c // 2) // safe_c
+    return np.where(us < 0, -mag, mag), ok & (counts > 0)
+
+
+# ---------------------------------------------------------------------------
+# segmented reductions over group ids
+# ---------------------------------------------------------------------------
+
+class Groups:
+    """The rows' group ids (0 .. count - 1) and, computed once and shared
+    by every aggregate over them, the rows' stable order by group."""
+
+    def __init__(self, gid: np.ndarray, count: int):
+        self.gid = gid
+        self.count = count
+        self._bounds = None
+
+    def subset(self, keep: Optional[np.ndarray]) -> "Groups":
+        """The groups of the rows `keep` selects (None: every row)."""
+        return self if keep is None else Groups(self.gid[keep], self.count)
+
+    def bounds(self):
+        """(stable order of the rows by group, start of each group's run
+        in that order, rows per group)."""
+        if self._bounds is None:
+            order = np.argsort(self.gid, kind="stable")
+            counts = np.bincount(self.gid, minlength=self.count) \
+                .astype(np.int64)
+            starts = np.cumsum(counts) - counts
+            self._bounds = (order, starts, counts)
+        return self._bounds
+
+    def reduce(self, ufunc, values: np.ndarray
+               ) -> Tuple[np.ndarray, np.ndarray]:
+        """(per-group ufunc reduction in row order, rows per group) of
+        `values` (one per row); an empty group's value is 0."""
+        out = np.zeros(self.count, values.dtype)
+        if not len(values):
+            return out, np.zeros(self.count, np.int64)
+        order, starts, counts = self.bounds()
+        have = counts > 0
+        out[have] = ufunc.reduceat(values[order], starts[have])
+        return out, counts
+
+
+def first_rows(gid: np.ndarray, ngroups: int, last: bool = False
+               ) -> np.ndarray:
+    """Row index of the first (or last) row of each group, -1 if none."""
+    out = np.full(ngroups, -1, np.int64)
+    rows = np.arange(len(gid), dtype=np.int64)
+    if last:
+        out[gid] = rows                  # later rows overwrite earlier
+    else:
+        out[gid[::-1]] = rows[::-1]
+    return out
+
+
+def lexsort_rows(lanes: List[np.ndarray]) -> np.ndarray:
+    """Stable row order by `lanes`, the first lane the primary key."""
+    if not lanes:
+        return np.zeros(0, np.int64)
+    return np.lexsort(tuple(reversed(lanes))).astype(np.int64)

@@ -13,17 +13,28 @@ aggregates (VariancePop, VarianceSamp, StddevPop, StddevSamp, CovarPop,
 CovarSamp, Corr), which lower to COUNT and SUM over projected moment
 inputs and a final expression, so every group-by tier and the global
 reduction run them unchanged.
+
+On the CPU engine (exec/host_exec.CpuAggregateExec) each function's
+`cpu_agg` reduces its input over the rows' group ids in numpy: the
+counterpart of the reference's pyarrow `cpu_agg` and its python
+fallbacks.  There MIN / MAX order floats as Java does (NaN greatest,
+-0.0 below 0.0) and strings by value (their codes in a sorted
+dictionary), and the statistical aggregates take two passes (the mean,
+then the squared deviations), as the reference's CPU engine does.
 """
 from __future__ import annotations
 
 import copy
 from typing import List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from .. import types as t
+from ..columnar.host import HostBatch, HostColumn
 from ..config import TpuConf
 from ..ops import groupby as G
+from ..ops import host as H
 from . import expressions as E
 
 
@@ -71,8 +82,25 @@ class AggregateFunction:
                            f"{self.child.dtype.simple_string}")
         return out
 
+    def cpu_agg(self, batch: HostBatch, groups: H.Groups) -> HostColumn:
+        """The aggregate of each group (`groups`: the rows' group ids)
+        over `batch`, on the CPU engine."""
+        raise NotImplementedError(type(self).__name__)
+
+    def _valid_input(self, batch: HostBatch, groups: H.Groups):
+        """(input column, its valid rows' values, their groups)."""
+        col = self.child.eval_cpu(batch)
+        if col.validity is None:
+            return col, col, groups
+        keep = col.validity
+        return col, H.take(col, np.flatnonzero(keep)), groups.subset(keep)
+
     def __repr__(self):
         return f"{self.name}({self.child!r})"
+
+
+def _count_column(counts: np.ndarray) -> HostColumn:
+    return HostColumn(counts.astype(np.int64), None, t.LONG)
 
 
 class Count(AggregateFunction):
@@ -99,6 +127,12 @@ class Count(AggregateFunction):
         if self.child is None:
             return []
         return AggregateFunction.unsupported_reasons(self, conf)
+
+    def cpu_agg(self, batch, groups):
+        if self.child is not None:
+            _c, _v, groups = self._valid_input(batch, groups)
+        return _count_column(np.bincount(groups.gid,
+                                         minlength=groups.count))
 
 
 def _sum_result_type(dt: t.DataType) -> t.DataType:
@@ -130,6 +164,13 @@ class Sum(AggregateFunction):
     def evaluate(self, refs):
         return refs[0]
 
+    def cpu_agg(self, batch, groups):
+        _c, v, g = self._valid_input(batch, groups)
+        lane = v.data.astype(t.physical_np_dtype(self.dtype))
+        with np.errstate(over="ignore"):
+            sums, counts = g.reduce(np.add, lane)
+        return H.column(sums, counts > 0, self.dtype)
+
 
 class Min(AggregateFunction):
     name = "min"
@@ -154,8 +195,20 @@ class Min(AggregateFunction):
     def unsupported_reasons(self, conf):
         out = AggregateFunction.unsupported_reasons(self, conf)
         if isinstance(self.child.dtype, t.StringType):
-            out.append(f"string min/max runs on {E.CPU_ENGINE}")
+            out.append("string min/max not yet on device")
         return out
+
+    def cpu_agg(self, batch, groups):
+        col, v, g = self._valid_input(batch, groups)
+        ufunc = np.minimum if self._kind == G.MIN else np.maximum
+        data = v.data
+        if data.dtype.kind == "f":
+            red, counts = g.reduce(ufunc, H.float_order(data,
+                                                        signed_zero=True))
+            out = H.float_from_order(red).astype(data.dtype)
+        else:
+            out, counts = g.reduce(ufunc, data)
+        return H.column(out, counts > 0, self.dtype, col.dictionary)
 
 
 class Max(Min):
@@ -202,6 +255,18 @@ class Average(AggregateFunction):
             return _DecimalAvgEvaluate(refs[0], refs[1], self.dtype)
         return E.Divide(refs[0], refs[1])
 
+    def cpu_agg(self, batch, groups):
+        _c, v, g = self._valid_input(batch, groups)
+        if self._is_decimal():
+            sums, counts = g.reduce(np.add, v.data.astype(np.int64))
+            q, ok = H.decimal_avg(sums, counts,
+                                  self.dtype.scale - self.child.dtype.scale)
+            return H.column(q, ok, self.dtype)
+        sums, counts = g.reduce(np.add, E._f64_np(v))
+        with np.errstate(all="ignore"):
+            return H.column(sums / np.maximum(counts, 1), counts > 0,
+                            t.DOUBLE)
+
 
 class First(AggregateFunction):
     name = "first"
@@ -228,6 +293,16 @@ class First(AggregateFunction):
 
     def evaluate(self, refs):
         return refs[0]
+
+    def cpu_agg(self, batch, groups):
+        col = self.child.eval_cpu(batch)
+        rows = np.arange(len(col), dtype=np.int64)
+        if self.ignore_nulls and col.validity is not None:
+            rows = rows[col.validity]
+        pick = H.first_rows(groups.gid[rows], groups.count,
+                            last=isinstance(self, Last))
+        return H.take(col, np.where(pick >= 0, rows[np.maximum(pick, 0)]
+                                    if len(rows) else -1, -1))
 
 
 class Last(First):
@@ -257,6 +332,12 @@ class BoolAnd(AggregateFunction):
     def evaluate(self, refs):
         return refs[0]
 
+    def cpu_agg(self, batch, groups):
+        _c, v, g = self._valid_input(batch, groups)
+        ufunc = np.logical_and if self._kind == G.EVERY else np.logical_or
+        out, counts = g.reduce(ufunc, v.data.astype(bool))
+        return H.column(out, counts > 0, t.BOOLEAN)
+
 
 class BoolOr(BoolAnd):
     name = "bool_or"
@@ -281,9 +362,19 @@ class CountDistinct(AggregateFunction):
         out = AggregateFunction.unsupported_reasons(self, conf)
         dt = self.child.dtype
         if isinstance(dt, t.DecimalType) and dt.is_wide:
-            out.append("count(DISTINCT) over decimal128 "
-                       "(no single device lane)")
+            out.append(E.Unported(
+                "count(DISTINCT) over decimal128 (no single device lane; "
+                f"the CPU engine waits on {E.WIDE_DECIMAL_SLICE})"))
         return out
+
+    def cpu_agg(self, batch, groups):
+        _c, v, g = self._valid_input(batch, groups)
+        if not len(g.gid):
+            return _count_column(np.zeros(g.count, np.int64))
+        ids, n = H.factorize([g.gid, H.order_lane(v)])
+        pair_group = np.empty(n, np.int64)
+        pair_group[ids] = g.gid             # each pair lies in one group
+        return _count_column(np.bincount(pair_group, minlength=g.count))
 
 
 def _resolved(e: E.Expression) -> E.Expression:
@@ -341,6 +432,19 @@ class _DecimalAvgEvaluate(E.Expression):
 # reference composes them; no kernel of their own
 # ---------------------------------------------------------------------------
 
+def _moments(x: np.ndarray, y: np.ndarray, g: H.Groups):
+    """(rows per group, sum of (x - mean x)(y - mean y) per group): the
+    two-pass form of the reference's CPU engine."""
+    sx, n = g.reduce(np.add, x)
+    sy, _n = g.reduce(np.add, y)
+    with np.errstate(all="ignore"):
+        mx = sx / np.maximum(n, 1)
+        my = sy / np.maximum(n, 1)
+        dev = (x - mx[g.gid]) * (y - my[g.gid])
+    out, _n = g.reduce(np.add, dev)
+    return n, out
+
+
 def _null_double():
     return E.Literal(None, t.DOUBLE)
 
@@ -392,6 +496,18 @@ class VariancePop(AggregateFunction):
         return E.If(E.GreaterThan(refs[0], E.Literal(self.ddof, t.LONG)),
                     var, _null_double())
 
+    def _finish(self, var: np.ndarray) -> np.ndarray:
+        return var
+
+    def cpu_agg(self, batch, groups):
+        _c, v, g = self._valid_input(batch, groups)
+        x = E._f64_np(v)
+        n, m2 = _moments(x, x, g)
+        ok = n > self.ddof
+        with np.errstate(all="ignore"):
+            var = m2 / np.where(ok, n - self.ddof, 1)
+        return H.column(self._finish(var), ok, t.DOUBLE)
+
 
 class VarianceSamp(VariancePop):
     name = "var_samp"
@@ -403,6 +519,10 @@ class StddevPop(VariancePop):
 
     def evaluate(self, refs):
         return E.Sqrt(super().evaluate(refs))
+
+    def _finish(self, var):
+        with np.errstate(invalid="ignore"):
+            return np.sqrt(var)
 
 
 class StddevSamp(StddevPop):
@@ -440,6 +560,16 @@ class _BinaryStatAgg(AggregateFunction):
         # null unless both sides are: COUNT counts the complete pairs
         return _resolved(E.Multiply(self._x, self._y))
 
+    def _pairs(self, batch, groups):
+        """(x, y, groups) of the rows where both sides are valid."""
+        a = self.child.eval_cpu(batch)
+        b = self.child2.eval_cpu(batch)
+        keep = H.and_valid(a.validity, b.validity)
+        if keep is None:
+            return E._f64_np(a), E._f64_np(b), groups
+        return (E._f64_np(a)[keep], E._f64_np(b)[keep],
+                groups.subset(keep))
+
     def __repr__(self):
         return f"{self.name}({self.child!r}, {self.child2!r})"
 
@@ -468,6 +598,14 @@ class CovarPop(_BinaryStatAgg):
                                                     t.DOUBLE)))
         return E.If(E.GreaterThan(refs[0], E.Literal(self.ddof, t.LONG)),
                     cov, _null_double())
+
+    def cpu_agg(self, batch, groups):
+        x, y, g = self._pairs(batch, groups)
+        n, sxy = _moments(x, y, g)
+        ok = n > self.ddof
+        with np.errstate(all="ignore"):
+            return H.column(sxy / np.where(ok, n - self.ddof, 1), ok,
+                            t.DOUBLE)
 
 
 class CovarSamp(CovarPop):
@@ -505,3 +643,13 @@ class Corr(_BinaryStatAgg):
                     E.Divide(cov, denom))
         return E.If(E.GreaterThan(refs[0], E.Literal(0, t.LONG)), corr,
                     _null_double())
+
+    def cpu_agg(self, batch, groups):
+        x, y, g = self._pairs(batch, groups)
+        n, sxy = _moments(x, y, g)
+        _n, sxx = _moments(x, x, g)
+        _n, syy = _moments(y, y, g)
+        with np.errstate(all="ignore"):
+            d = np.sqrt(sxx * syy)
+            out = np.where(d != 0, sxy / np.where(d != 0, d, 1.0), np.nan)
+        return H.column(out, n > 0, t.DOUBLE)

@@ -8,14 +8,33 @@ the integer calendar of ops/datetime.py on the lane's device.
 A TIMESTAMP input needs the session timezone's transition tables; it
 refuses, as do DateAdd, DateDiff, AddMonths, LastDay, TruncDate and the
 time fields, until ROADMAP Queue 1 item 1(e) ports them.
+
+On the CPU engine (`_eval_cpu`) each field is numpy's proleptic
+Gregorian calendar (`datetime64`), the device path's yardstick.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .. import types as t
 from ..ops import datetime as DK
-from .expressions import DevVal, Expression
+from ..ops import host as H
+from .expressions import DevVal, Expression, Unported
+
+
+def _civil_np(days: np.ndarray):
+    """(year, month, day) int64 lanes of int64 days since the epoch."""
+    d = days.astype("datetime64[D]")
+    y = d.astype("datetime64[Y]")
+    m = d.astype("datetime64[M]")
+    return (y.astype(np.int64) + 1970, m.astype(np.int64) % 12 + 1,
+            (d - m).astype(np.int64) + 1)
+
+
+def _day_of_year_np(days: np.ndarray) -> np.ndarray:
+    d = days.astype("datetime64[D]")
+    return (d - d.astype("datetime64[Y]")).astype(np.int64) + 1
 
 class DateField(Expression):
     """Base: an INT field of a DATE."""
@@ -30,8 +49,9 @@ class DateField(Expression):
     def unsupported_reasons(self, conf):
         dt = self.children[0].dtype
         if isinstance(dt, t.TimestampType):
-            return ["datetime fields of a TIMESTAMP need the session "
-                    "timezone, which ports with ROADMAP Queue 1 item 1(e)"]
+            return [Unported("datetime fields of a TIMESTAMP need the "
+                             "session timezone, which ports with ROADMAP "
+                             "Queue 1 item 1(e)")]
         if not isinstance(dt, (t.DateType, t.NullType)):
             return [f"datetime field of {dt.simple_string}"]
         return []
@@ -43,20 +63,38 @@ class DateField(Expression):
     def _field_dev(self, days):
         raise NotImplementedError(type(self).__name__)
 
+    def _eval_cpu(self, batch, kids):
+        if isinstance(self.children[0].dtype, t.TimestampType):
+            raise NotImplementedError(
+                "datetime fields of a TIMESTAMP need the session timezone, "
+                "which ports with ROADMAP Queue 1 item 1(e)")
+        k = kids[0]
+        return H.column(self._field_np(k.data.astype(np.int64)), k.validity,
+                        t.INT)
+
 
 class Year(DateField):
     def _field_dev(self, days):
         return DK.civil_from_days(days)[0]
+
+    def _field_np(self, days):
+        return _civil_np(days)[0]
 
 
 class Month(DateField):
     def _field_dev(self, days):
         return DK.civil_from_days(days)[1]
 
+    def _field_np(self, days):
+        return _civil_np(days)[1]
+
 
 class DayOfMonth(DateField):
     def _field_dev(self, days):
         return DK.civil_from_days(days)[2]
+
+    def _field_np(self, days):
+        return _civil_np(days)[2]
 
 
 class DayOfWeek(DateField):
@@ -65,6 +103,9 @@ class DayOfWeek(DateField):
     def _field_dev(self, days):
         return DK.day_of_week_sunday1(days)
 
+    def _field_np(self, days):
+        return (days + 4) % 7 + 1
+
 
 class WeekDay(DateField):
     """Spark: 0 = Monday .. 6 = Sunday."""
@@ -72,15 +113,24 @@ class WeekDay(DateField):
     def _field_dev(self, days):
         return DK.weekday_monday0(days)
 
+    def _field_np(self, days):
+        return (days + 3) % 7
+
 
 class DayOfYear(DateField):
     def _field_dev(self, days):
         return DK.day_of_year(days)
 
+    def _field_np(self, days):
+        return _day_of_year_np(days)
+
 
 class Quarter(DateField):
     def _field_dev(self, days):
         return (DK.civil_from_days(days)[1] - 1) // 3 + 1
+
+    def _field_np(self, days):
+        return (_civil_np(days)[1] - 1) // 3 + 1
 
 
 class WeekOfYear(DateField):
@@ -88,3 +138,8 @@ class WeekOfYear(DateField):
 
     def _field_dev(self, days):
         return DK.iso_week(days)
+
+    def _field_np(self, days):
+        thursday = days + 3 - (days + 3) % 7
+        return (_day_of_year_np(thursday) - 1) // 7 + 1
+

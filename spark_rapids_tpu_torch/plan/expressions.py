@@ -20,10 +20,16 @@ parsed once on the host, as the reference's `_parse_entry` does, and
 gathered by code), and < <= > >= of a string column against a string
 literal (the literal's insertion point in the column's sorted
 dictionary, against the codes).  Anything else reports itself in
-`unsupported_reasons`, and plan/overrides.py refuses the plan with that
-reason: the port has no CPU engine to fall back to yet.  A family the
-reference itself runs only on its CPU engine names that engine's slice
-(`CPU_ENGINE`).
+`unsupported_reasons`, and plan/overrides.py sends the operator to the
+CPU engine with that reason, as the reference's tagging does; a reason
+that the port refuses instead, where the reference runs the expression
+on its device, is an `Unported` naming the slice that ports it.
+
+Every class also evaluates on the CPU engine (`eval_cpu`, numpy over a
+`HostBatch`, exec/host_exec.py), the counterpart of the reference's
+pyarrow `eval_cpu`: the families that the reference runs only there
+(string COALESCE, IF and CASE over two dictionaries, string ordering
+between two columns, casts to STRING) too.
 
 Where the reference is wrong by Spark's rules the port follows its CPU
 oracle (ROADMAP Queue 3 item 10): a DECIMAL operand of a math function,
@@ -50,17 +56,33 @@ import numpy as np
 import torch
 
 from .. import types as t
+from ..columnar.host import HostBatch, HostColumn
 from ..config import TpuConf
+from ..ops import host as H
 from ..ops.kernels import compute_dtype, merge_validity, valid_or_true
 
 
-#: where the families that the reference runs only on its CPU engine
-#: port (string COALESCE / IF, string ordering between two columns,
-#: string MIN / MAX, casts to STRING, format_number, bin, concat of two
-#: columns)
-CPU_ENGINE = "the CPU engine, exec/host_exec.py (ROADMAP Queue 1 item 2)"
 #: where RLIKE and the regexp functions port
 REGEX_SLICE = "ops/regex.py (ROADMAP Queue 1 item 7)"
+#: where host decimals wider than one int64 lane port
+WIDE_DECIMAL_SLICE = ("the wide host decimal lane (ROADMAP Queue 1 "
+                      "item 2)")
+
+
+class Unported(str):
+    """A reason that the port refuses instead of falling back: the
+    reference runs this on its device, and the port's device form is
+    not ported yet (the reason names the slice).  plan/overrides.py
+    raises NotImplementedError for an operator that holds one unless
+    another reason already sends it to the CPU engine, so the CPU
+    engine takes only what the reference's own tagging puts there."""
+
+
+def has_device_rule(e: "Expression") -> bool:
+    """The port's own expression classes have a device rule (the
+    reference's `_EXPR_RULES` registry); any other class (a test's, a
+    user's) runs on the CPU engine only."""
+    return type(e).__module__.startswith(__name__.rsplit(".", 2)[0] + ".")
 #: dictionaries an expression keeps derived tensors for at once
 _CACHE_ENTRIES = 4
 
@@ -176,7 +198,8 @@ class Expression:
         out = []
         if not conf.is_op_enabled("expression", type(self).__name__):
             out.append(f"{type(self).__name__} disabled by conf")
-        out += [f"{type(self).__name__}: {r}"
+        # an Unported reason stays one through the prefix
+        out += [type(r)(f"{type(self).__name__}: {r}")
                 for r in self.unsupported_reasons(conf)]
         for c in self.children:
             out += c.tree_unsupported(conf)
@@ -196,6 +219,17 @@ class Expression:
         return self._eval_dev(ctx, kids)
 
     def _eval_dev(self, ctx: EvalCtx, kids: List[DevVal]) -> DevVal:
+        raise NotImplementedError(type(self).__name__)
+
+    # ---- CPU engine (exec/host_exec.py) ----
+    def eval_cpu(self, batch: HostBatch) -> HostColumn:
+        """This expression over a host batch, on numpy: the CPU engine's
+        evaluation, as the reference's `eval_cpu` is its pyarrow one."""
+        kids = [c.eval_cpu(batch) for c in self.children]
+        return self._eval_cpu(batch, kids)
+
+    def _eval_cpu(self, batch: HostBatch, kids: List[HostColumn]
+                  ) -> HostColumn:
         raise NotImplementedError(type(self).__name__)
 
     # ---- identity ----
@@ -232,6 +266,9 @@ class ColumnRef(Expression):
 
     def _eval_dev(self, ctx, kids):
         return ctx.inputs[self.name]
+
+    def _eval_cpu(self, batch, kids):
+        return batch.column_by_name(self.name)
 
     def _fp_extra(self):
         return self.name
@@ -319,6 +356,18 @@ class Literal(Expression):
         return DevVal(ctx.full(self._physical_value(),
                                compute_dtype(self.dtype)), None, self.dtype)
 
+    def _eval_cpu(self, batch, kids):
+        n = batch.num_rows
+        if isinstance(self.dtype, t.StringType):
+            return H.string_literal_column(self.value, n)
+        dt = self.dtype if not isinstance(self.dtype, t.NullType) else t.INT
+        lane = t.physical_np_dtype(dt)
+        if self.value is None:
+            return HostColumn(np.zeros(n, lane), np.zeros(n, bool),
+                              self.dtype)
+        return HostColumn(np.full(n, self._physical_value(), lane), None,
+                          self.dtype)
+
     def _fp_extra(self):
         return f"{self.value!r}:{self.dtype.simple_string}"
 
@@ -340,6 +389,9 @@ class Alias(Expression):
 
     def _fp_extra(self):
         return self.name
+
+    def _eval_cpu(self, batch, kids):
+        return kids[0]
 
 
 # ---------------------------------------------------------------------------
@@ -381,11 +433,38 @@ def _remap_codes(codes: torch.Tensor, remap: np.ndarray) -> torch.Tensor:
     return table[torch.clamp(codes, 0, table.shape[0] - 1).long()]
 
 
+def _lane(col: HostColumn, dt: t.DataType) -> np.ndarray:
+    """A host column's data lane in `dt`'s storage dtype (the CPU
+    engine's `_cast_dev`)."""
+    want = t.physical_np_dtype(dt if not isinstance(dt, t.NullType)
+                               else t.INT)
+    return col.data.astype(want, copy=False)
+
+
+def _unified_codes(cols: List[HostColumn]):
+    """(sorted unified dictionary, each string column's codes in it)."""
+    from ..ops.batch_ops import unify_dictionaries
+    unified, remaps = unify_dictionaries([c.dictionary for c in cols])
+    codes = [m[np.clip(c.data, 0, len(m) - 1)] if len(c) else
+             np.zeros(0, np.int32) for c, m in zip(cols, remaps)]
+    return unified, codes
+
+
+def _f64_np(col: HostColumn) -> np.ndarray:
+    """A numeric host column as float64 (a decimal by its value)."""
+    if isinstance(col.dtype, t.DecimalType):
+        return H.decimal_to_double(col.data.astype(np.int64),
+                                   col.dtype.scale)
+    return col.data.astype(np.float64)
+
+
 class BinaryArithmetic(Expression):
     symbol = "?"
     #: ops/decimal.py result-type rule / kernel; None -> not for decimals
     decimal_rule = None
     decimal_kernel = None
+    #: the CPU engine computes this operator over decimals
+    decimal_cpu = True
 
     def __init__(self, left: Expression, right: Expression):
         self.children = (left, right)
@@ -414,8 +493,29 @@ class BinaryArithmetic(Expression):
                     isinstance(c, ColumnRef) and c.dtype.is_wide:
                 return ["128-bit host decimal lane not consumable on device"]
         if self._is_decimal() and self.decimal_kernel is None:
+            if not self.decimal_cpu:
+                return [Unported(
+                    f"decimal {self.symbol}: Spark's result type is wider "
+                    "than the host's int64 decimal lane, which waits on "
+                    f"{WIDE_DECIMAL_SLICE}")]
             return [f"decimal {self.symbol} not yet on device"]
         return []
+
+    def _eval_cpu(self, batch, kids):
+        l, r = kids
+        if self._is_decimal():
+            sa = _as_decimal(l.dtype).scale
+            sb = _as_decimal(r.dtype).scale
+            data, ok = self._decimal_cpu(l.data.astype(np.int64), sa,
+                                         r.data.astype(np.int64), sb,
+                                         self.dtype)
+            return H.column(data, H.and_valid(l.validity, r.validity, ok),
+                            self.dtype)
+        with np.errstate(all="ignore"):
+            data, extra = self._op_cpu(_lane(l, self.dtype),
+                                       _lane(r, self.dtype))
+        return H.column(data, H.and_valid(l.validity, r.validity, extra),
+                        self.dtype)
 
     def _eval_dev(self, ctx, kids):
         l, r = kids
@@ -453,6 +553,13 @@ class Add(BinaryArithmetic):
     def _op_dev(self, l, r):
         return l + r, None
 
+    def _op_cpu(self, l, r):
+        return l + r, None
+
+    @staticmethod
+    def _decimal_cpu(ua, sa, ub, sb, out):
+        return H.decimal_add(ua, sa, ub, sb, out)
+
 
 class Subtract(BinaryArithmetic):
     symbol = "-"
@@ -469,6 +576,13 @@ class Subtract(BinaryArithmetic):
 
     def _op_dev(self, l, r):
         return l - r, None
+
+    def _op_cpu(self, l, r):
+        return l - r, None
+
+    @staticmethod
+    def _decimal_cpu(ua, sa, ub, sb, out):
+        return H.decimal_add(ua, sa, -ub, sb, out)
 
 
 class Multiply(BinaryArithmetic):
@@ -487,18 +601,27 @@ class Multiply(BinaryArithmetic):
     def _op_dev(self, l, r):
         return l * r, None
 
+    def _op_cpu(self, l, r):
+        return l * r, None
+
+    @staticmethod
+    def _decimal_cpu(ua, sa, ub, sb, out):
+        return H.decimal_mul(ua, sa, ub, sb, out)
+
 
 class Divide(BinaryArithmetic):
     """Spark Divide on non-decimals: DOUBLE result, x/0 -> NULL.  Decimal
     division is not on the device in the reference either (its CPU
-    engine runs it); here it is refused until the CPU engine ports."""
+    engine runs it at Spark's result type, wider than the port's int64
+    host lane); here it is refused until the wide host lane ports."""
     symbol = "/"
 
     def _resolve(self):
         if self._is_decimal():
             raise NotImplementedError(
-                "decimal divide runs on the CPU engine, which is not "
-                "ported yet")
+                "decimal divide: Spark's result type is wider than the "
+                f"host's int64 decimal lane, which waits on "
+                f"{WIDE_DECIMAL_SLICE}")
         for c in self.children:
             if not (t.is_numeric(c.dtype) or isinstance(c.dtype, t.NullType)):
                 raise TypeError(f"divide on {c.dtype}")
@@ -512,6 +635,16 @@ class Divide(BinaryArithmetic):
         data = ld / torch.where(nz, rd, torch.ones_like(rd))
         return DevVal(data, merge_validity(l.validity, r.validity, nz),
                       t.DOUBLE)
+
+    def _eval_cpu(self, batch, kids):
+        l, r = kids
+        ld = l.data.astype(np.float64)
+        rd = r.data.astype(np.float64)
+        nz = rd != 0.0
+        with np.errstate(all="ignore"):
+            data = ld / np.where(nz, rd, 1.0)
+        return H.column(data, H.and_valid(l.validity, r.validity, nz),
+                        t.DOUBLE)
 
 
 # ---------------------------------------------------------------------------
@@ -545,8 +678,7 @@ class BinaryComparison(Expression):
         if any(isinstance(c.dtype, t.StringType) for c in self.children) \
                 and type(self) not in (EqualTo, NotEqual) and \
                 self._string_literal_side() is None:
-            return ["string ordering (<, <=, >, >=) other than a column "
-                    f"against a literal runs on {CPU_ENGINE}"]
+            return ["string ordering comparison not yet on device"]
         return []
 
     def _string_op_dev(self, ctx, kids) -> DevVal:
@@ -641,6 +773,28 @@ class BinaryComparison(Expression):
                       merge_validity(l.validity, r.validity, extra),
                       t.BOOLEAN)
 
+    def _eval_cpu(self, batch, kids):
+        l, r = kids
+        valid = H.and_valid(l.validity, r.validity)
+        if any(isinstance(c.dtype, t.StringType) for c in self.children):
+            # codes in one sorted dictionary order as the strings do
+            _u, (lc, rc) = _unified_codes([l, r])
+            return H.column(self._op_cpu(lc, rc), valid, t.BOOLEAN)
+        common = self._common()
+        if isinstance(common, t.DecimalType):
+            sa = _as_decimal(self.children[0].dtype).scale
+            sb = _as_decimal(self.children[1].dtype).scale
+            ld, ok_a = H.rescale(l.data.astype(np.int64), sa, common.scale)
+            rd, ok_b = H.rescale(r.data.astype(np.int64), sb, common.scale)
+            return H.column(self._op_cpu(ld, rd),
+                            H.and_valid(valid, ok_a & ok_b), t.BOOLEAN)
+        with np.errstate(invalid="ignore"):
+            data = self._op_cpu(_lane(l, common), _lane(r, common))
+        return H.column(data, valid, t.BOOLEAN)
+
+    def _op_cpu(self, l, r):
+        return self._op_dev(l, r)
+
     def _fp_extra(self):
         return self.symbol
 
@@ -707,6 +861,14 @@ class And(Expression):
         valid = (lv & rv) | (lv & ~l.data) | (rv & ~r.data)
         return DevVal(data, valid, t.BOOLEAN)
 
+    def _eval_cpu(self, batch, kids):
+        l, r = kids
+        n = batch.num_rows
+        lv, rv = H.valid_of(l.validity, n), H.valid_of(r.validity, n)
+        ld, rd = l.data.astype(bool), r.data.astype(bool)
+        return H.column((ld & lv) & (rd & rv),
+                        (lv & rv) | (lv & ~ld) | (rv & ~rd), t.BOOLEAN)
+
 
 class Or(Expression):
     def __init__(self, l, r):
@@ -724,6 +886,15 @@ class Or(Expression):
         return DevVal(true_l | true_r, (lv & rv) | true_l | true_r,
                       t.BOOLEAN)
 
+    def _eval_cpu(self, batch, kids):
+        l, r = kids
+        n = batch.num_rows
+        lv, rv = H.valid_of(l.validity, n), H.valid_of(r.validity, n)
+        true_l = lv & l.data.astype(bool)
+        true_r = rv & r.data.astype(bool)
+        return H.column(true_l | true_r, (lv & rv) | true_l | true_r,
+                        t.BOOLEAN)
+
 
 class Not(Expression):
     def __init__(self, child):
@@ -735,6 +906,10 @@ class Not(Expression):
 
     def _eval_dev(self, ctx, kids):
         return DevVal(~kids[0].data, kids[0].validity, t.BOOLEAN)
+
+    def _eval_cpu(self, batch, kids):
+        return H.column(~kids[0].data.astype(bool), kids[0].validity,
+                        t.BOOLEAN)
 
 
 class IsNull(Expression):
@@ -751,6 +926,10 @@ class IsNull(Expression):
         return DevVal(ctx.full(False, torch.bool) if v is None else ~v, None,
                       t.BOOLEAN)
 
+    def _eval_cpu(self, batch, kids):
+        return H.column(~H.valid_of(kids[0].validity, batch.num_rows), None,
+                        t.BOOLEAN)
+
 
 class IsNotNull(Expression):
     nullable = False
@@ -766,6 +945,10 @@ class IsNotNull(Expression):
         return DevVal(ctx.full(True, torch.bool) if v is None else v, None,
                       t.BOOLEAN)
 
+    def _eval_cpu(self, batch, kids):
+        return H.column(H.valid_of(kids[0].validity, batch.num_rows).copy(),
+                        None, t.BOOLEAN)
+
 
 class Coalesce(Expression):
     def __init__(self, *children):
@@ -778,8 +961,23 @@ class Coalesce(Expression):
 
     def unsupported_reasons(self, conf):
         if isinstance(self.dtype, t.StringType):
-            return [f"string coalesce runs on {CPU_ENGINE}"]
+            return ["string coalesce not yet on device"]
         return []
+
+    def _eval_cpu(self, batch, kids):
+        n = batch.num_rows
+        dictionary = None
+        if isinstance(self.dtype, t.StringType):
+            dictionary, lanes = _unified_codes(kids)
+        else:
+            lanes = [_lane(k, self.dtype) for k in kids]
+        data = np.zeros(n, t.physical_np_dtype(self.dtype))
+        taken = np.zeros(n, bool)
+        for k, lane in zip(kids, lanes):
+            use = H.valid_of(k.validity, n) & ~taken
+            data = np.where(use, lane, data)
+            taken |= use
+        return H.column(data, taken, self.dtype, dictionary)
 
     def _eval_dev(self, ctx, kids):
         data = ctx.full(0, compute_dtype(self.dtype))
@@ -809,8 +1007,22 @@ class If(Expression):
 
     def unsupported_reasons(self, conf):
         if isinstance(self.dtype, t.StringType):
-            return [f"string-valued if runs on {CPU_ENGINE}"]
+            return ["string-valued if not yet on device"]
         return []
+
+    def _eval_cpu(self, batch, kids):
+        n = batch.num_rows
+        p, a, b = kids
+        cond = p.data.astype(bool) & H.valid_of(p.validity, n)
+        dictionary = None
+        if isinstance(self.dtype, t.StringType):
+            dictionary, (ad, bd) = _unified_codes([a, b])
+        else:
+            ad, bd = _lane(a, self.dtype), _lane(b, self.dtype)
+        return H.column(np.where(cond, ad, bd),
+                        np.where(cond, H.valid_of(a.validity, n),
+                                 H.valid_of(b.validity, n)),
+                        self.dtype, dictionary)
 
     def _eval_dev(self, ctx, kids):
         p, a, b = kids
@@ -906,6 +1118,33 @@ class CaseWhen(Expression):
             valid = valid & decided
         return DevVal(data, valid, self.dtype, dictionary)
 
+    def _eval_cpu(self, batch, kids):
+        n = batch.num_rows
+        vals = [kids[i] for i in self._value_slots()]
+        dictionary = None
+        if isinstance(self.dtype, t.StringType):
+            dictionary, lanes = _unified_codes(vals)
+            if len(dictionary) == 0:
+                dictionary = np.array([""], str)
+        else:
+            lanes = [_lane(v, self.dtype) for v in vals]
+        if self.has_else:
+            data = lanes[-1]
+            valid = H.valid_of(vals[-1].validity, n)
+        else:
+            data = np.zeros(n, t.physical_np_dtype(self.dtype))
+            valid = np.zeros(n, bool)
+        decided = np.zeros(n, bool)
+        for i in range(self.n_branches):
+            c = kids[2 * i]
+            hit = c.data.astype(bool) & H.valid_of(c.validity, n) & ~decided
+            data = np.where(hit, lanes[i], data)
+            valid = np.where(hit, H.valid_of(vals[i].validity, n), valid)
+            decided |= hit
+        if not self.has_else:
+            valid = valid & decided
+        return H.column(data, valid, self.dtype, dictionary)
+
 
 class In(Expression):
     """value IN (literals...), with Spark's null semantics: a null value
@@ -938,6 +1177,24 @@ class In(Expression):
         vv = valid_or_true(v.validity, ctx.capacity, ctx.device)
         valid = vv & data if has_null_item else vv
         return DevVal(data & vv, valid, t.BOOLEAN)
+
+    def _eval_cpu(self, batch, kids):
+        v = kids[0]
+        n = batch.num_rows
+        non_null = [x for x in self.items if x is not None]
+        if isinstance(self.children[0].dtype, t.StringType):
+            d = v.dictionary if v.dictionary is not None \
+                else np.array([], str)
+            mask = np.isin(d, np.array(non_null, str)) if len(d) \
+                else np.zeros(1, bool)
+            data = mask[np.clip(v.data, 0, len(mask) - 1)]
+        elif non_null:
+            data = np.isin(v.data, np.array(non_null).astype(v.data.dtype))
+        else:
+            data = np.zeros(n, bool)
+        vv = H.valid_of(v.validity, n)
+        valid = vv & data if len(non_null) < len(self.items) else vv
+        return H.column(data & vv, valid, t.BOOLEAN)
 
     def _fp_extra(self):
         return repr(self.items)
@@ -973,9 +1230,9 @@ class Cast(Expression):
                 isinstance(dst, numeric + (t.DateType,)):
             return []
         if isinstance(dst, t.StringType):
-            return [f"cast {src.simple_string}->string runs on {CPU_ENGINE}"]
-        return [f"cast {src.simple_string}->{dst.simple_string} "
-                "not ported yet"]
+            return [f"cast {src.simple_string}->string not yet on device"]
+        return [Unported(f"cast {src.simple_string}->{dst.simple_string} "
+                         "not ported yet (ROADMAP Queue 1 item 1(e))")]
 
     @staticmethod
     def _parse_entry(s: Optional[str], dst: t.DataType):
@@ -1044,6 +1301,73 @@ class Cast(Expression):
                     torch.from_numpy(ok).to(device), rng)
         return per_dictionary(self, "_parsed").get(d, make)
 
+    def parsed_np(self, d: np.ndarray):
+        """(value lane, ok lane) of dictionary `d` on the host, one entry
+        each (one not-ok entry for an empty dictionary)."""
+        def make():
+            dst = self.to
+            out = [self._parse_entry(v, dst) for v in d.tolist()] or [None]
+            ok = np.array([v is not None for v in out], bool)
+            vals = np.array([0 if v is None else v for v in out],
+                            np.float64 if t.is_floating(dst)
+                            else t.physical_np_dtype(dst))
+            with np.errstate(over="ignore"):
+                vals = vals.astype(t.physical_np_dtype(dst))
+            return vals, ok
+        return per_dictionary(self, "_parsed_np").get(d, make)
+
+    def _eval_cpu(self, batch, kids):
+        src, dst = self.children[0].dtype, self.to
+        k = kids[0]
+        x, valid = k.data, k.validity
+        if src == dst:
+            return k
+        if isinstance(dst, t.StringType):
+            return _to_string_column(k, src)
+        if isinstance(src, t.StringType):
+            vals, ok = self.parsed_np(dict_or_empty(k.dictionary))
+            codes = np.clip(x, 0, len(vals) - 1)
+            return H.column(vals[codes], H.and_valid(valid, ok[codes]), dst)
+        if not isinstance(src, (t.NumericType, t.BooleanType, t.NullType)) \
+                or not isinstance(dst, (t.NumericType, t.BooleanType)):
+            raise NotImplementedError(
+                f"cast {src.simple_string}->{dst.simple_string} is not "
+                "ported yet (ROADMAP Queue 1 item 1(e))")
+        if isinstance(src, t.DecimalType):
+            u = x.astype(np.int64)
+            if isinstance(dst, t.DecimalType):
+                data, ok = H.rescale(u, src.scale, dst.scale)
+                ok = ok & H.fits_precision(data, dst.precision)
+                return H.column(data, H.and_valid(valid, ok), dst)
+            if t.is_floating(dst):
+                return H.column(H.decimal_to_double(u, src.scale), valid,
+                                dst)
+            if isinstance(dst, t.BooleanType):
+                return H.column(u != 0, valid, dst)
+            ints = H.decimal_to_integral(u, src.scale)
+            info = np.iinfo(t.physical_np_dtype(dst))
+            ok = (ints >= int(info.min)) & (ints <= int(info.max))
+            return H.column(ints, H.and_valid(valid, ok), dst)
+        if isinstance(dst, t.DecimalType):
+            if t.is_floating(src):
+                data, ok = H.decimal_from_double(x, dst)
+            else:
+                data, ok = H.upscale(x.astype(np.int64), dst.scale)
+                ok = ok & H.fits_precision(data, dst.precision)
+            return H.column(data, H.and_valid(valid, ok), dst)
+        if isinstance(dst, t.BooleanType):
+            data = x != 0
+        elif t.is_floating(src) and t.is_integral(dst):
+            f = np.trunc(np.where(np.isnan(x), 0.0, x.astype(np.float64)))
+            i64 = np.clip(f, -9.223372036854776e18,
+                          9.223372036854775e18).astype(np.int64)
+            info = np.iinfo(t.physical_np_dtype(dst))
+            data = np.clip(i64, int(info.min), int(info.max))
+        else:
+            with np.errstate(over="ignore"):
+                data = x.astype(t.physical_np_dtype(dst))
+        return H.column(data, valid, dst)
+
     def _eval_dev(self, ctx, kids):
         from ..ops import decimal as D
         src, dst = self.children[0].dtype, self.to
@@ -1088,6 +1412,73 @@ class Cast(Expression):
 
     def _fp_extra(self):
         return self.to.simple_string
+
+
+def format_double(v: float, single: bool = False) -> str:
+    """A FLOAT or DOUBLE as the reference's CPU engine writes it in a
+    cast to STRING: the shortest digits that read back to the value,
+    fixed notation for decimal exponents -6 to 9 and scientific beyond
+    (1e+10, 1e-7), no trailing '.0', and nan, inf, -inf."""
+    if v != v:
+        return "nan"
+    if v in (float("inf"), float("-inf")):
+        return "inf" if v > 0 else "-inf"
+    if v == 0:
+        return "-0" if np.signbit(v) else "0"
+    x = np.float32(v) if single else np.float64(v)
+    sci = np.format_float_scientific(x, unique=True, trim="-")
+    mant, exp = sci.split("e")
+    e = int(exp)
+    sign = "-" if mant.startswith("-") else ""
+    digits = mant.lstrip("-").replace(".", "")
+    if -6 <= e < 10:
+        if e >= 0:
+            whole = digits[:e + 1].ljust(e + 1, "0")
+            frac = digits[e + 1:]
+        else:
+            whole, frac = "0", "0" * (-e - 1) + digits
+        return sign + whole + ("." + frac if frac else "")
+    body = digits[0] + ("." + digits[1:] if len(digits) > 1 else "")
+    return f"{sign}{body}e{'+' if e >= 0 else '-'}{abs(e)}"
+
+
+def _format_value(v, src: t.DataType) -> str:
+    """One storage-lane value of type `src` as a cast to STRING writes
+    it (the reference's CPU engine: Arrow's casts)."""
+    if isinstance(src, t.BooleanType):
+        return "true" if v else "false"
+    if t.is_floating(src):
+        return format_double(float(v), isinstance(src, t.FloatType))
+    if isinstance(src, t.DecimalType):
+        return format(pydec.Decimal(int(v)).scaleb(-src.scale), "f")
+    if isinstance(src, t.DateType):
+        d = np.datetime64(int(v), "D").astype(object)
+        if isinstance(d, pydt.date):
+            return f"{d.year:04d}-{d.month:02d}-{d.day:02d}"
+        return str(np.datetime64(int(v), "D"))
+    if isinstance(src, t.TimestampType):
+        us = int(v)
+        ts = pydt.datetime(1970, 1, 1) + pydt.timedelta(microseconds=us)
+        return ts.strftime("%Y-%m-%d %H:%M:%S.%f") + "Z"
+    return str(int(v))
+
+
+def _to_string_column(k: HostColumn, src: t.DataType) -> HostColumn:
+    """CAST(k AS STRING): each distinct value formatted once, the rows
+    re-encoded into a sorted dictionary."""
+    n = len(k)
+    if isinstance(src, t.NullType):
+        return H.string_literal_column(None, n)
+    if isinstance(src, t.StringType):
+        return k
+    lane = k.data
+    if lane.dtype.kind == "f":
+        # by bits: -0.0 and 0.0 print differently
+        lane = lane.astype(np.float64).view(np.int64)
+    uniq, inv = np.unique(lane, return_inverse=True)
+    values = uniq.view(np.float64) if k.data.dtype.kind == "f" else uniq
+    entries = [_format_value(v, src) for v in values.tolist()]
+    return H.strings_from_entries(inv.reshape(-1), entries, k.validity)
 
 
 def _floating_to_integral(x: torch.Tensor, dst: t.DataType) -> torch.Tensor:
@@ -1136,17 +1527,27 @@ class _BitwiseBinary(Expression):
         return DevVal(out.to(compute_dtype(self.dtype)),
                       merge_validity(a.validity, b.validity), self.dtype)
 
+    def _eval_cpu(self, batch, kids):
+        a, b = kids
+        out = type(self)._np_op(a.data.astype(np.int64),
+                                b.data.astype(np.int64))
+        return H.column(out.astype(t.physical_np_dtype(self.dtype)),
+                        H.and_valid(a.validity, b.validity), self.dtype)
+
 
 class BitwiseAnd(_BitwiseBinary):
     _op = staticmethod(torch.bitwise_and)
+    _np_op = staticmethod(np.bitwise_and)
 
 
 class BitwiseOr(_BitwiseBinary):
     _op = staticmethod(torch.bitwise_or)
+    _np_op = staticmethod(np.bitwise_or)
 
 
 class BitwiseXor(_BitwiseBinary):
     _op = staticmethod(torch.bitwise_xor)
+    _np_op = staticmethod(np.bitwise_xor)
 
 
 class BitwiseNot(Expression):
@@ -1165,6 +1566,10 @@ class BitwiseNot(Expression):
     def _eval_dev(self, ctx, kids):
         return DevVal(torch.bitwise_not(kids[0].data), kids[0].validity,
                       self.dtype)
+
+    def _eval_cpu(self, batch, kids):
+        return H.column(np.bitwise_not(kids[0].data), kids[0].validity,
+                        self.dtype)
 
 
 class _Shift(Expression):
@@ -1215,6 +1620,26 @@ class _Shift(Expression):
                       merge_validity(kids[0].validity, kids[1].validity),
                       self.dtype)
 
+    def _eval_cpu(self, batch, kids):
+        bits = _bits_of(self.dtype)
+        sh = kids[1].data.astype(np.int64) & (bits - 1)
+        v = kids[0].data.astype(np.int64)
+        with np.errstate(over="ignore"):
+            if self._kind == "left":
+                out = np.left_shift(v, sh)
+            elif self._kind == "right":
+                out = np.right_shift(v, sh)
+            else:
+                u = v.view(np.uint64) if bits == 64 else \
+                    (v & 0xFFFFFFFF).astype(np.uint64)
+                out = np.right_shift(u, sh.astype(np.uint64)).view(np.int64)
+        if bits == 32:
+            out = out & 0xFFFFFFFF
+            out = np.where(out >= 1 << 31, out - (1 << 32), out)
+        return H.column(out.astype(t.physical_np_dtype(self.dtype)),
+                        H.and_valid(kids[0].validity, kids[1].validity),
+                        self.dtype)
+
 
 class ShiftLeft(_Shift):
     _kind = "left"
@@ -1232,6 +1657,8 @@ _M1 = 0x5555555555555555
 _M2 = 0x3333333333333333
 _M4 = 0x0F0F0F0F0F0F0F0F
 _H01 = 0x0101010101010101
+#: bits set in each byte value
+_POPCOUNT8 = np.array([bin(i).count("1") for i in range(256)], np.int32)
 
 
 class BitCount(Expression):
@@ -1261,6 +1688,16 @@ class BitCount(Expression):
         x = (x + (x >> 4)) & _M4
         cnt = ((x * _H01) >> 56) & 0x7F
         return DevVal(cnt.to(torch.int32), kids[0].validity, t.INT)
+
+    def _eval_cpu(self, batch, kids):
+        x = kids[0].data
+        if x.dtype == np.bool_:
+            return H.column(x.astype(np.int32), kids[0].validity, t.INT)
+        u = x.astype(np.int64).view(np.uint64)
+        cnt = np.zeros(len(u), np.int32)
+        for shift in range(0, 64, 8):
+            cnt += _POPCOUNT8[(u >> np.uint64(shift)) & np.uint64(0xFF)]
+        return H.column(cnt, kids[0].validity, t.INT)
 
 
 # ---------------------------------------------------------------------------
@@ -1294,6 +1731,39 @@ class IntegralDivide(BinaryArithmetic):
         return DevVal(q, merge_validity(l.validity, r.validity, rd != 0),
                       t.LONG)
 
+    def _eval_cpu(self, batch, kids):
+        l, r = kids
+        valid = H.and_valid(l.validity, r.validity)
+        if self._is_decimal():
+            # exact: both unscaled values at one scale, quotient
+            # truncated toward zero (Python ints: no int64 step)
+            sa = _as_decimal(l.dtype).scale
+            sb = _as_decimal(r.dtype).scale
+            s_ = max(sa, sb)
+            lv = H.valid_of(valid, len(l))
+            out = np.zeros(len(l), np.int64)
+            ok = np.zeros(len(l), bool)
+            for i, (a, b) in enumerate(zip(l.data.tolist(), r.data.tolist())):
+                a, b = int(a) * 10 ** (s_ - sa), int(b) * 10 ** (s_ - sb)
+                if not lv[i] or b == 0:
+                    continue
+                q = abs(a) // abs(b)
+                q = -q if (a < 0) != (b < 0) else q
+                if -2 ** 63 <= q < 2 ** 63:
+                    out[i], ok[i] = q, True
+            return H.column(out, ok, t.LONG)
+        ld = l.data.astype(np.int64)
+        rd = r.data.astype(np.int64)
+        plain = (rd != 0) & (rd != -1)
+        safe = np.where(plain, rd, 1)
+        # floor division, moved toward zero (no abs: |Long.MIN_VALUE|
+        # wraps)
+        q = ld // safe
+        q = np.where((q * safe != ld) & ((ld < 0) != (safe < 0)), q + 1, q)
+        with np.errstate(over="ignore"):
+            q = np.where(rd == -1, -ld, q)
+        return H.column(q, H.and_valid(valid, rd != 0), t.LONG)
+
 
 def _numpy_on_cpu(torch_fn, numpy_fn):
     """`torch_fn` on card lanes, `numpy_fn` on CPU lanes: for the
@@ -1319,6 +1789,7 @@ class Remainder(BinaryArithmetic):
     Python's modulo), x % 0 -> NULL; integral lanes compute in int64 and
     narrow back, and x % -1 is 0 without dividing (MIN % -1 traps)."""
     symbol = "%"
+    decimal_cpu = False
 
     @property
     def decimal_rule(self):
@@ -1345,6 +1816,22 @@ class Remainder(BinaryArithmetic):
         return DevVal(data.to(compute_dtype(self.dtype)),
                       merge_validity(l.validity, r.validity, nz), self.dtype)
 
+    def _eval_cpu(self, batch, kids):
+        l, r = kids
+        with np.errstate(all="ignore"):
+            if t.is_floating(self.dtype):
+                ld, rd = l.data.astype(np.float64), r.data.astype(np.float64)
+                nz = rd != 0
+                data = np.fmod(ld, np.where(nz, rd, 1.0))
+            else:
+                ld, rd = l.data.astype(np.int64), r.data.astype(np.int64)
+                nz = rd != 0
+                plain = nz & (rd != -1)
+                data = np.where(plain, np.fmod(ld, np.where(plain, rd, 1)),
+                                0)
+        return H.column(data.astype(t.physical_np_dtype(self.dtype)),
+                        H.and_valid(l.validity, r.validity, nz), self.dtype)
+
 
 def _numeric_reasons(children) -> List[str]:
     return [f"non-numeric operand {c.dtype.simple_string}"
@@ -1369,6 +1856,11 @@ class UnaryMinus(Expression):
     def _eval_dev(self, ctx, kids):
         return DevVal(torch.neg(kids[0].data), kids[0].validity, self.dtype)
 
+    def _eval_cpu(self, batch, kids):
+        with np.errstate(over="ignore"):
+            return H.column(np.negative(kids[0].data), kids[0].validity,
+                            self.dtype)
+
 
 class Abs(Expression):
     """abs(x): integral lanes wrap (abs(Long.MIN_VALUE) is
@@ -1391,6 +1883,13 @@ class Abs(Expression):
             else torch.where(x < 0, torch.neg(x), x)
         return DevVal(data, kids[0].validity, self.dtype)
 
+    def _eval_cpu(self, batch, kids):
+        x = kids[0].data
+        with np.errstate(over="ignore"):
+            data = np.abs(x) if x.dtype.kind == "f" else \
+                np.where(x < 0, np.negative(x), x)
+        return H.column(data, kids[0].validity, self.dtype)
+
 
 class EqualNullSafe(BinaryComparison):
     """a <=> b: never null; true when both sides are null, false when one
@@ -1411,6 +1910,14 @@ class EqualNullSafe(BinaryComparison):
         rv = valid_or_true(kids[1].validity, cap, dev)
         same = eq.data & valid_or_true(eq.validity, cap, dev) & lv & rv
         return DevVal(same | (~lv & ~rv), None, t.BOOLEAN)
+
+    def _eval_cpu(self, batch, kids):
+        n = batch.num_rows
+        eq = BinaryComparison._eval_cpu(self, batch, kids)
+        lv = H.valid_of(kids[0].validity, n)
+        rv = H.valid_of(kids[1].validity, n)
+        same = eq.data & H.valid_of(eq.validity, n) & lv & rv
+        return H.column(same | (~lv & ~rv), None, t.BOOLEAN)
 
 
 class IsNaN(Expression):
@@ -1436,6 +1943,11 @@ class IsNaN(Expression):
         v = kids[0].validity
         return DevVal(nan if v is None else nan & v, None, t.BOOLEAN)
 
+    def _eval_cpu(self, batch, kids):
+        nan = np.isnan(kids[0].data.astype(np.float64))
+        return H.column(nan & H.valid_of(kids[0].validity, batch.num_rows),
+                        None, t.BOOLEAN)
+
 
 # ---------------------------------------------------------------------------
 # Math functions (DOUBLE results)
@@ -1459,6 +1971,10 @@ def _cbrt(x: torch.Tensor) -> torch.Tensor:
     ys = torch.where(ok, y, torch.ones_like(y))
     y = torch.where(ok, ys - (ys * ys * ys - a) / (3.0 * ys * ys), y)
     return torch.where(x < 0, -y, torch.where(ok, y, x))
+
+
+def _signum_np(x: np.ndarray) -> np.ndarray:
+    return np.where((x == 0) | np.isnan(x), x, np.where(x > 0, 1.0, -1.0))
 
 
 def _signum(x: torch.Tensor) -> torch.Tensor:
@@ -1488,88 +2004,113 @@ class UnaryMathExpression(Expression):
         return DevVal(type(self).fn(_f64(kids[0])), kids[0].validity,
                       t.DOUBLE)
 
+    def _eval_cpu(self, batch, kids):
+        with np.errstate(all="ignore"):
+            out = type(self).np_fn(_f64_np(kids[0]))
+        return H.column(out, kids[0].validity, t.DOUBLE)
+
 
 class Sqrt(UnaryMathExpression):
     fn = staticmethod(torch.sqrt)
+    np_fn = staticmethod(np.sqrt)
 
 
 class Exp(UnaryMathExpression):
     fn = staticmethod(torch.exp)
+    np_fn = staticmethod(np.exp)
 
 
 class Expm1(UnaryMathExpression):
     fn = staticmethod(torch.expm1)
+    np_fn = staticmethod(np.expm1)
 
 
 class Cbrt(UnaryMathExpression):
     fn = staticmethod(_cbrt)
+    np_fn = staticmethod(np.cbrt)
 
 
 class Sin(UnaryMathExpression):
     fn = staticmethod(torch.sin)
+    np_fn = staticmethod(np.sin)
 
 
 class Cos(UnaryMathExpression):
     fn = staticmethod(torch.cos)
+    np_fn = staticmethod(np.cos)
 
 
 class Tan(UnaryMathExpression):
     fn = staticmethod(torch.tan)
+    np_fn = staticmethod(np.tan)
 
 
 class Asin(UnaryMathExpression):
     fn = staticmethod(torch.asin)
+    np_fn = staticmethod(np.arcsin)
 
 
 class Acos(UnaryMathExpression):
     fn = staticmethod(torch.acos)
+    np_fn = staticmethod(np.arccos)
 
 
 class Atan(UnaryMathExpression):
     fn = staticmethod(torch.atan)
+    np_fn = staticmethod(np.arctan)
 
 
 class Sinh(UnaryMathExpression):
     # PyTorch's vectorized CPU sinh and cosh overflow to ±inf from
     # |x| = 709.78 on, where the result is still finite up to 710.47
     fn = staticmethod(_numpy_on_cpu(torch.sinh, np.sinh))
+    np_fn = staticmethod(np.sinh)
 
 
 class Cosh(UnaryMathExpression):
     fn = staticmethod(_numpy_on_cpu(torch.cosh, np.cosh))
+    np_fn = staticmethod(np.cosh)
 
 
 class Tanh(UnaryMathExpression):
     fn = staticmethod(torch.tanh)
+    np_fn = staticmethod(np.tanh)
 
 
 class Cot(UnaryMathExpression):
     fn = staticmethod(lambda x: torch.reciprocal(torch.tan(x)))
+    np_fn = staticmethod(lambda x: 1.0 / np.tan(x))
 
 
 class Sec(UnaryMathExpression):
     fn = staticmethod(lambda x: torch.reciprocal(torch.cos(x)))
+    np_fn = staticmethod(lambda x: 1.0 / np.cos(x))
 
 
 class Csc(UnaryMathExpression):
     fn = staticmethod(lambda x: torch.reciprocal(torch.sin(x)))
+    np_fn = staticmethod(lambda x: 1.0 / np.sin(x))
 
 
 class ToDegrees(UnaryMathExpression):
     fn = staticmethod(torch.rad2deg)
+    np_fn = staticmethod(np.degrees)
 
 
 class ToRadians(UnaryMathExpression):
     fn = staticmethod(torch.deg2rad)
+    np_fn = staticmethod(np.radians)
 
 
 class Signum(UnaryMathExpression):
     fn = staticmethod(_signum)
+    np_fn = staticmethod(_signum_np)
 
 
 class Rint(UnaryMathExpression):
     """rint: the nearest integer, ties to even."""
     fn = staticmethod(torch.round)
+    np_fn = staticmethod(np.rint)
 
 
 class _DomainLog(UnaryMathExpression):
@@ -1590,21 +2131,32 @@ class _DomainLog(UnaryMathExpression):
         return DevVal(type(self).fn(safe),
                       merge_validity(kids[0].validity, ok), t.DOUBLE)
 
+    def _eval_cpu(self, batch, kids):
+        x = _f64_np(kids[0])
+        with np.errstate(invalid="ignore"):
+            ok = x > self.floor
+        out = type(self).np_fn(np.where(ok, x, self.floor + 1.0))
+        return H.column(out, H.and_valid(kids[0].validity, ok), t.DOUBLE)
+
 
 class Log(_DomainLog):
     fn = staticmethod(torch.log)
+    np_fn = staticmethod(np.log)
 
 
 class Log10(_DomainLog):
     fn = staticmethod(torch.log10)
+    np_fn = staticmethod(np.log10)
 
 
 class Log2(_DomainLog):
     fn = staticmethod(torch.log2)
+    np_fn = staticmethod(np.log2)
 
 
 class Log1p(_DomainLog):
     fn = staticmethod(torch.log1p)
+    np_fn = staticmethod(np.log1p)
     floor = -1.0
 
 
@@ -1652,13 +2204,32 @@ class RoundingToLong(Expression):
         f = type(self).round_fn(x.to(torch.float64))
         return DevVal(_f64_to_long(f), kids[0].validity, t.LONG)
 
+    def _eval_cpu(self, batch, kids):
+        dt = self.children[0].dtype
+        x = kids[0].data
+        if t.is_integral(dt) or isinstance(dt, t.NullType):
+            return H.column(x.astype(np.int64), kids[0].validity, t.LONG)
+        if isinstance(dt, t.DecimalType):
+            p = np.int64(10 ** dt.scale)
+            u = x.astype(np.int64)
+            q = u // p
+            if self.mode == "ceil":
+                q = q + (q * p != u).astype(np.int64)
+            return H.column(q, kids[0].validity, t.LONG)
+        f = type(self).np_round(x.astype(np.float64))
+        f = np.where(np.isnan(f), 0.0, f)
+        return H.column(np.clip(f, _LONG_LO, _LONG_HI).astype(np.int64),
+                        kids[0].validity, t.LONG)
+
 
 class Floor(RoundingToLong):
     round_fn = staticmethod(torch.floor)
+    np_round = staticmethod(np.floor)
 
 
 class Ceil(RoundingToLong):
     round_fn = staticmethod(torch.ceil)
+    np_round = staticmethod(np.ceil)
     mode = "ceil"
 
 
@@ -1680,18 +2251,27 @@ class _BinaryMath(Expression):
                       merge_validity(kids[0].validity, kids[1].validity),
                       t.DOUBLE)
 
+    def _eval_cpu(self, batch, kids):
+        with np.errstate(all="ignore"):
+            out = type(self).np_fn(_f64_np(kids[0]), _f64_np(kids[1]))
+        return H.column(out, H.and_valid(kids[0].validity,
+                                         kids[1].validity), t.DOUBLE)
+
 
 class Pow(_BinaryMath):
     fn = staticmethod(torch.pow)
+    np_fn = staticmethod(np.power)
 
 
 class Atan2(_BinaryMath):
     """atan2(y, x)."""
     fn = staticmethod(torch.atan2)
+    np_fn = staticmethod(np.arctan2)
 
 
 class Hypot(_BinaryMath):
     fn = staticmethod(torch.hypot)
+    np_fn = staticmethod(np.hypot)
 
 
 # ---------------------------------------------------------------------------
@@ -1703,7 +2283,8 @@ class Greatest(Expression):
     the greatest value (Java's order: a NaN never loses to +inf, and
     least returns a number while one is present), -0.0 below 0.0.  The
     type is the first non-NULL child's; operands of another type are
-    refused (cast them first)."""
+    refused (cast them first).  STRING operands run on the CPU engine,
+    as in the reference, ordered by value."""
     _is_greatest = True
 
     def __init__(self, *items):
@@ -1719,11 +2300,45 @@ class Greatest(Expression):
         types = [c.dtype for c in self.children
                  if not isinstance(c.dtype, t.NullType)]
         if any(isinstance(d, t.StringType) for d in types):
-            return ["string greatest/least ports with the strings slice "
-                    "(ROADMAP Queue 1 item 2)"]
+            # the reference's signatures keep STRING off its device (whose
+            # path would compare the codes of unrelated dictionaries): its
+            # CPU engine, and the port's, order the strings by value
+            return ["input type string not supported",
+                    "output type string not supported"]
         if any(d != self.dtype for d in types):
-            return ["operands of several types: cast them to one"]
+            return [Unported("operands of several types: cast them to "
+                             "one")]
         return []
+
+    def _eval_cpu(self, batch, kids):
+        n = batch.num_rows
+        dictionary = None
+        if isinstance(self.dtype, t.StringType):
+            dictionary, lanes = _unified_codes(kids)
+        else:
+            lanes = [_lane(k, self.dtype) for k in kids]
+        is_fp = t.is_floating(self.dtype)
+        acc_d = lanes[0]
+        acc_v = H.valid_of(kids[0].validity, n)
+        for k, d in zip(kids[1:], lanes[1:]):
+            v = H.valid_of(k.validity, n)
+            if is_fp:
+                na, nb = np.isnan(acc_d), np.isnan(d)
+                sa, sb = np.signbit(acc_d), np.signbit(d)
+                zero_tie = ~na & ~nb & (d == acc_d)
+                with np.errstate(invalid="ignore"):
+                    if self._is_greatest:
+                        take_b = (nb & ~na) | (~na & ~nb & (d > acc_d)) | \
+                            (zero_tie & sa & ~sb)
+                    else:
+                        take_b = (na & ~nb) | (~na & ~nb & (d < acc_d)) | \
+                            (zero_tie & ~sa & sb)
+            else:
+                take_b = d > acc_d if self._is_greatest else d < acc_d
+            pick_b = v & (~acc_v | take_b)
+            acc_d = np.where(pick_b, d, acc_d)
+            acc_v = acc_v | v
+        return H.column(acc_d, acc_v, self.dtype, dictionary)
 
     def _eval_dev(self, ctx, kids):
         cap, dev = ctx.capacity, ctx.device
@@ -1771,6 +2386,21 @@ def _round_int(d: torch.Tensor, drop: int, half_even: bool) -> torch.Tensor:
         up = up | ((r2 == p) & (q % 2 != 0))
     step = torch.where(d < 0, -torch.ones_like(d), torch.ones_like(d))
     return q + torch.where(up, step, torch.zeros_like(d))
+
+
+def _round_int_np(d: np.ndarray, drop: int, half_even: bool) -> np.ndarray:
+    """`_round_int` on numpy lanes."""
+    if drop >= 19:
+        return np.zeros_like(d)
+    p = np.int64(10 ** drop)
+    q = d // p
+    q = np.where((d < 0) & (q * p != d), q + 1, q)     # toward zero
+    with np.errstate(over="ignore"):
+        r2 = np.abs(d - q * p) * 2
+    up = r2 > p if half_even else r2 >= p
+    if half_even:
+        up = up | ((r2 == p) & (q % 2 != 0))
+    return q + np.where(up, np.where(d < 0, -1, 1), 0)
 
 
 class Round(Expression):
@@ -1842,6 +2472,28 @@ class Round(Expression):
         p = torch.tensor(p, dtype=torch.float64, device=y.device)
         return DevVal(y / p, kids[0].validity, t.DOUBLE)
 
+    def _eval_cpu(self, batch, kids):
+        dt = self.children[0].dtype
+        x = kids[0].data
+        if isinstance(dt, t.DecimalType) or t.is_integral(dt):
+            d = x.astype(np.int64)
+            drop = (dt.scale if isinstance(dt, t.DecimalType) else 0) - \
+                self.scale
+            if drop <= 0:
+                return H.column(d, kids[0].validity, self.dtype)
+            q = _round_int_np(d, drop, self._half_even)
+            if self.scale < 0:
+                with np.errstate(over="ignore"):
+                    q = q * np.int64(10 ** (-self.scale))
+            return H.column(q, kids[0].validity, self.dtype)
+        f = x.astype(np.float64)
+        p = 10.0 ** self.scale
+        with np.errstate(all="ignore"):
+            y = f * p
+            y = np.rint(y) if self._half_even else \
+                np.trunc(y + np.where(f >= 0, 0.5, -0.5))
+            return H.column(y / p, kids[0].validity, t.DOUBLE)
+
 
 class BRound(Round):
     """bround: HALF_EVEN (banker's rounding)."""
@@ -1887,6 +2539,23 @@ class WidthBucket(Expression):
         valid = merge_validity(*(k.validity for k in kids))
         return DevVal(out, ~bad if valid is None else valid & ~bad, t.LONG)
 
+    def _eval_cpu(self, batch, kids):
+        v, lo, hi = (_f64_np(k) for k in kids[:3])
+        n = kids[3].data.astype(np.int64)
+        with np.errstate(all="ignore"):
+            asc = lo < hi
+            below = np.where(asc, v < lo, v > lo)
+            above = np.where(asc, v >= hi, v <= hi)
+            frac = np.where(asc, (v - lo) / (hi - lo), (lo - v) / (lo - hi))
+            bad = (n <= 0) | (n == 2 ** 63 - 1) | (lo == hi) | np.isnan(v) | \
+                np.isnan(lo) | np.isnan(hi) | np.isinf(lo) | np.isinf(hi)
+            inside = ~(below | above | bad)
+            mid = np.where(inside, frac * n.astype(np.float64),
+                           0.0).astype(np.int64) + 1
+        out = np.where(below, 0, np.where(above, n + 1, mid))
+        valid = H.and_valid(*(k.validity for k in kids))
+        return H.column(out, H.and_valid(valid, ~bad), t.LONG)
+
 
 class RaiseError(Expression):
     """raise_error(msg): evaluating it over a batch with a live row raises
@@ -1926,3 +2595,13 @@ class RaiseError(Expression):
             raise RuntimeError(msg)
         return DevVal(ctx.full(0, torch.int32), ctx.full(False, torch.bool),
                       t.NULL)
+
+    def _eval_cpu(self, batch, kids):
+        n = batch.num_rows
+        if n > 0:
+            msg = self.message
+            if msg is None:
+                v0 = kids[0].to_pylist()[0]
+                msg = "" if v0 is None else str(v0)
+            raise RuntimeError(msg)
+        return HostColumn(np.zeros(0, np.int32), np.zeros(0, bool), t.NULL)

@@ -1,15 +1,41 @@
-"""Logical plan -> physical device plan.
+"""Logical plan -> physical plan: wrap, tag, convert.
 
-Counterpart of spark_rapids_tpu/plan/overrides.py.  The reference wraps,
-tags and converts every operator, falling back to its pyarrow CPU engine
-per operator.  A Limit directly above a Sort becomes TopNExec; an
-aggregate whose functions are all CountDistinct becomes
-DistinctAggregateExec (a mix with other aggregates refuses); inner,
-outer and left semi joins become AdaptiveShuffledJoinExec, left anti
-joins HashJoinExec (every equi-join HashJoinExec with
-`sql.adaptive.enabled=false`), cross joins CrossJoinExec, unions
-UnionExec, expands ExpandExec, windows WindowExec, ranges RangeExec and
-samples SampleExec, as in the reference.  A union's children keep their whole outputs (they align by
+Counterpart of spark_rapids_tpu/plan/overrides.py (the GpuOverrides
+role).  `apply_overrides` prunes columns, wraps every logical node in a
+`PlanMeta` (and every expression and aggregate in an `ExprMeta` /
+`AggMeta`), tags each with the reasons it cannot run on the device, and
+converts: a node without reasons becomes a device `PlanNode`, any other
+a CPU operator of exec/host_exec.py, with `HostToDeviceExec` /
+`DeviceToHostExec` inserted where the two meet.  The reasons are the
+reference's: its rules (the expressions' and aggregates'
+`unsupported_reasons`, a sort key that is not a column, COUNT(DISTINCT)
+beside other aggregates, a join type outside the device's), the
+`spark.rapids.tpu.sql.exec.<Name>Exec` and
+`spark.rapids.tpu.sql.expression.<Name>` disables, `sql.enabled`, and
+the cost-based optimizer (plan/cbo.py, `sql.optimizer.enabled`).
+`sql.mode=explainOnly` tags for the device and runs on the CPU;
+`sql.explain` (NONE, ALL, NOT_ON_TPU) logs the placement.  Explain lines
+read as the reference's: `*Exec <Filter> will run on TPU` and `!Exec
+<Project> cannot run on TPU because ...`.
+
+Where the reference runs something on its device and the port has not
+ported that device form (an `expressions.Unported` reason: composite
+string join keys, TIMESTAMP fields, the regexp family, ...), the node
+is not sent to the CPU engine: `apply_overrides` raises
+NotImplementedError naming the slice, unless another reason already
+puts the node on the CPU (or `sql.enabled` is false).  A window that
+the reference would run on its CPU engine raises too, naming
+`CpuWindowExec`, which ports later.  Nothing reroutes an operator
+between the engines at run time.
+
+The device conversion is unchanged: a Limit directly above a device
+Sort becomes TopNExec; an aggregate whose functions are all
+CountDistinct becomes DistinctAggregateExec; inner, outer and left semi
+joins become AdaptiveShuffledJoinExec, left anti joins HashJoinExec
+(every equi-join HashJoinExec with `sql.adaptive.enabled=false`), cross
+joins CrossJoinExec, unions UnionExec, expands ExpandExec, windows
+WindowExec, ranges RangeExec and samples SampleExec, as in the
+reference.  A union's children keep their whole outputs (they align by
 position); an expand keeps the output positions its parent reads, and a
 window the columns its parent, its keys and its inputs read.  The
 reference sends left semi joins through the adaptive join for its
@@ -18,29 +44,29 @@ bloom-filter stage; the port keeps that plan shape, but with
 materializes the probe side before the same HashJoinExec, at a higher
 peak memory.  Column pruning rewrites an inner join whose one side gives
 no output column and has unique keys into a left semi join of the other
-side, as the reference does.  The port has no CPU engine yet
-(exec/host_exec.py ports later), so this module prunes columns, checks
-every node and expression the device path would run, and converts — or
-raises NotImplementedError naming the operator and the reason.  It never
-runs anything on another engine.
+side, as the reference does.
 """
 from __future__ import annotations
 
-from typing import List, Optional
+import logging
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 from .. import types as t
 from ..columnar.device import resolve_device
 from ..columnar.host import HostBatch
-from ..config import ADAPTIVE_ENABLED, DEFAULT_CONF, TpuConf
+from ..config import ADAPTIVE_ENABLED, CBO_ENABLED, DEFAULT_CONF, TpuConf
+from ..exec import host_exec as H
 from ..exec.plan import (ExecContext, ExpandExec, FilterExec,
                          HashAggregateExec, HostScanExec, LimitExec,
                          PlanNode, ProjectExec, RangeExec, SampleExec,
                          SortExec, TopNExec, UnionExec, key_ref_names)
 from . import expressions as E
 from . import logical as L
-from .aggregates import CountDistinct
+from .aggregates import AggregateFunction, CountDistinct
+
+log = logging.getLogger(__name__)
 
 
 def _expr_refs(e, out: set) -> None:
@@ -184,159 +210,477 @@ def _logical_keys_unique(plan: L.LogicalPlan, names) -> bool:
     return False
 
 
-def _refuse(op: str, reasons: List[str]) -> None:
-    if reasons:
-        raise NotImplementedError(
-            f"{op} cannot run on the device: {'; '.join(reasons)}")
+#: where the CPU engine's window operator ports
+CPU_WINDOW_SLICE = "CpuWindowExec (ROADMAP Queue 1 item 2)"
 
 
-def _sort_keys(plan: "L.LogicalSort"):
+def _sort_keys(node: "L.LogicalSort"):
     from ..ops.sort import SortKey
-    schema_in = plan.child.schema
-    keys = []
-    for e, asc, nf in plan.orders:
-        if not isinstance(e, E.ColumnRef):
-            _refuse("Sort", [f"sort key {e!r} is not a column reference"])
-        keys.append(SortKey(schema_in.field_index(e.name), asc, nf))
-    return keys
+    schema_in = node.child.schema
+    return [SortKey(schema_in.field_index(e.name), asc, nf)
+            for e, asc, nf in node.orders]
 
 
-def _convert(plan: L.LogicalPlan, conf: TpuConf) -> PlanNode:
-    schema_in = plan.child.schema if plan.children else None
-    if type(plan) is L.LogicalScan:
-        return HostScanExec(plan.table, conf.batch_size_rows)
-    if type(plan) is L.LogicalRange:
-        return RangeExec(plan.start, plan.end, plan.step, plan.col_name)
-    if type(plan) is L.LogicalSample:
-        return SampleExec(plan.fraction, plan.seed,
-                          _convert(plan.child, conf))
-    if type(plan) is L.LogicalProject:
-        reasons = []
-        for e in plan.exprs:
-            reasons += e.bind(schema_in).tree_unsupported(conf)
-        _refuse("Project", reasons)
-        return ProjectExec(plan.exprs, plan.names,
-                           _convert(plan.child, conf))
-    if type(plan) is L.LogicalFilter:
+def _host_to_device(node: "H.HostNode") -> PlanNode:
+    """A CPU node under a device parent: every type of the port's host
+    columns has a device lane, so the upload takes the whole output."""
+    return H.HostToDeviceExec(node)
+
+
+def _prefixed(prefix: str, r: str) -> str:
+    """`r` under a prefix, still an `Unported` if it was one."""
+    return type(r)(f"{prefix}{r}")
+
+
+# ---------------------------------------------------------------------------
+# Meta hierarchy
+# ---------------------------------------------------------------------------
+
+class BaseMeta:
+    def __init__(self, conf: TpuConf):
+        self.conf = conf
+        self.reasons: List[str] = []
+        #: reasons the port refuses instead of falling back (Unported)
+        self.unported: List[str] = []
+
+    def will_not_work(self, reason: str):
+        into = self.unported if isinstance(reason, E.Unported) \
+            else self.reasons
+        if reason not in into:
+            into.append(reason)
+
+    @property
+    def can_replace(self) -> bool:
+        return not self.reasons
+
+    def _roll_up(self, other: "BaseMeta"):
+        for r in other.reasons + other.unported:
+            self.will_not_work(r)
+
+
+class ExprMeta(BaseMeta):
+    """Wraps one bound expression.  Child reasons roll up: expressions
+    are replaced only as whole trees inside an operator."""
+
+    def __init__(self, expr: E.Expression, conf: TpuConf):
+        super().__init__(conf)
+        self.expr = expr
+        self.children = [ExprMeta(c, conf) for c in expr.children]
+
+    def tag(self):
+        for c in self.children:
+            c.tag()
+            self._roll_up(c)
+        name = type(self.expr).__name__
+        if not self.conf.is_op_enabled("expression", name):
+            self.will_not_work(
+                f"expression {name} disabled by "
+                f"spark.rapids.tpu.sql.expression.{name}")
+            return
+        if not E.has_device_rule(self.expr):
+            self.will_not_work(f"expression {name} has no TPU rule")
+            return
+        for r in self.expr.unsupported_reasons(self.conf):
+            self.will_not_work(_prefixed(f"expression {name}: ", r))
+
+
+class AggMeta(BaseMeta):
+    def __init__(self, fn: AggregateFunction, conf: TpuConf):
+        super().__init__(conf)
+        self.fn = fn
+
+    def tag(self):
+        name = type(self.fn).__name__
+        for r in self.fn.unsupported_reasons(self.conf):
+            self.will_not_work(_prefixed(f"aggregate {name}: ", r))
+
+
+class PlanMeta(BaseMeta):
+    """Wraps one logical node; subclasses add expression metas, their own
+    checks (`tag_self`) and the two conversions."""
+
+    def __init__(self, node: L.LogicalPlan, conf: TpuConf,
+                 parent: Optional["PlanMeta"]):
+        super().__init__(conf)
+        self.node = node
+        self.parent = parent
+        self.children = [wrap_plan(c, conf, self) for c in node.children]
+        self.expr_metas: List[ExprMeta] = []
+        self.agg_metas: List[AggMeta] = []
+
+    def _wrap_exprs(self, exprs: Sequence[E.Expression],
+                    schema: t.StructType) -> List[E.Expression]:
+        bound = []
+        for e in exprs:
+            b = e.bind(schema)
+            self.expr_metas.append(ExprMeta(b, self.conf))
+            bound.append(b)
+        return bound
+
+    # -- tagging -----------------------------------------------------------
+    def tag(self):
+        for c in self.children:
+            c.tag()
+        if not self.conf.sql_enabled:
+            self.will_not_work("spark.rapids.tpu.sql.enabled is false")
+            return
+        key_name = type(self.node).__name__.removeprefix("Logical") + "Exec"
+        if not self.conf.is_op_enabled("exec", key_name):
+            self.will_not_work(
+                f"exec {key_name} disabled by "
+                f"spark.rapids.tpu.sql.exec.{key_name}")
+        for m in self.expr_metas + self.agg_metas:
+            m.tag()
+            self._roll_up(m)
+        self.tag_self()
+
+    def tag_self(self):
+        pass
+
+    def check_unported(self):
+        """Raise NotImplementedError where this tree would put on the
+        device a node whose device form the port lacks."""
+        for c in self.children:
+            c.check_unported()
+        if self.unported and self.can_replace:
+            raise NotImplementedError(
+                f"{self.node.name()} cannot run on the device: "
+                + "; ".join(self.unported))
+
+    # -- conversion --------------------------------------------------------
+    def convert(self) -> Tuple[str, object]:
+        """("device", PlanNode) or ("host", HostNode)."""
+        if self.can_replace and not self.conf.explain_only:
+            return "device", self.to_device()
+        return "host", self.to_host()
+
+    def to_device(self) -> PlanNode:
+        raise NotImplementedError
+
+    def to_host(self) -> "H.HostNode":
+        raise NotImplementedError
+
+    def _device_child(self, i: int = 0) -> PlanNode:
+        kind, node = self.children[i].convert()
+        return node if kind == "device" else _host_to_device(node)
+
+    def _host_child(self, i: int = 0) -> "H.HostNode":
+        kind, node = self.children[i].convert()
+        return node if kind == "host" else H.DeviceToHostExec(node)
+
+    # -- explain -----------------------------------------------------------
+    def explain_lines(self, depth: int = 0) -> List[str]:
+        mark = "*" if self.can_replace else "!"
+        line = f"{'  ' * depth}{mark}Exec <{self.node.name()}>"
+        if self.can_replace:
+            line += " will run on TPU"
+        else:
+            line += (" cannot run on TPU because "
+                     + "; ".join(self.reasons[:4]))
+            if len(self.reasons) > 4:
+                line += f" (+{len(self.reasons) - 4} more)"
+        out = [line]
+        for c in self.children:
+            out += c.explain_lines(depth + 1)
+        return out
+
+
+# ---------------------------------------------------------------------------
+# Per-node metas
+# ---------------------------------------------------------------------------
+
+class ScanMeta(PlanMeta):
+    def to_device(self):
+        return HostScanExec(self.node.table, self.conf.batch_size_rows)
+
+    def to_host(self):
+        return H.HostSourceExec(self.node.table, self.conf.batch_size_rows)
+
+
+class ProjectMeta(PlanMeta):
+    def __init__(self, node, conf, parent):
+        super().__init__(node, conf, parent)
+        self._wrap_exprs(node.exprs, node.child.schema)
+
+    def to_device(self):
+        return ProjectExec(self.node.exprs, self.node.names,
+                           self._device_child())
+
+    def to_host(self):
+        return H.CpuProjectExec(self.node.exprs, self.node.names,
+                                self._host_child())
+
+
+class FilterMeta(PlanMeta):
+    def __init__(self, node, conf, parent):
+        super().__init__(node, conf, parent)
+        self._wrap_exprs([node.condition], node.child.schema)
+
+    def to_device(self):
         # an aggregate or join right above peels it into a mask; anywhere
         # else it compacts
-        _refuse("Filter",
-                plan.condition.bind(schema_in).tree_unsupported(conf))
-        return FilterExec(plan.condition, _convert(plan.child, conf))
-    if type(plan) is L.LogicalAggregate:
-        reasons = []
-        for k, kn in zip(plan.keys, plan.key_names):
-            bk = k.bind(schema_in)
-            reasons += bk.tree_unsupported(conf)
-            if isinstance(bk.dtype, (t.DecimalType,)) and bk.dtype.is_wide:
-                reasons.append(f"group key {kn}: decimal({bk.dtype.precision})"
-                               " keys are not supported")
-        for fn, _n in plan.aggs:
-            reasons += fn.bind(schema_in).unsupported_reasons(conf)
-        distinct = [isinstance(fn, CountDistinct) for fn, _n in plan.aggs]
+        return FilterExec(self.node.condition, self._device_child())
+
+    def to_host(self):
+        return H.CpuFilterExec(self.node.condition, self._host_child())
+
+
+class AggregateMeta(PlanMeta):
+    def __init__(self, node, conf, parent):
+        super().__init__(node, conf, parent)
+        schema = node.child.schema
+        self._wrap_exprs(node.keys, schema)
+        for fn, _name in node.aggs:
+            b = fn.bind(schema)
+            self.agg_metas.append(AggMeta(b, conf))
+            for c in (b.child, getattr(b, "child2", None)):
+                if c is not None:
+                    self.expr_metas.append(ExprMeta(c, conf))
+
+    def tag_self(self):
+        for k, kn in zip(self.node.keys, self.node.key_names):
+            kdt = k.bind(self.node.child.schema).dtype
+            if isinstance(kdt, t.DecimalType) and kdt.is_wide:
+                self.will_not_work(
+                    f"group key {kn}: decimal({kdt.precision}) keys "
+                    "carry a second lane the group-by cannot compare")
+        # holistic aggregates (sort-based device execs) cannot mix with
+        # streaming ones in one device aggregation
+        distinct = [isinstance(fn, CountDistinct) for fn, _n in self.node.aggs]
         if any(distinct) and not all(distinct):
-            reasons.append(
-                "count(DISTINCT) beside other aggregates runs the CPU "
-                "engine in the reference, which is not ported yet (ROADMAP "
-                "Queue 1 item 2)")
-        _refuse("Aggregate", reasons)
-        if distinct and all(distinct):
+            self.will_not_work(
+                "count(DISTINCT) mixed with other aggregates (device path "
+                "requires a uniform aggregation)")
+
+    def to_device(self):
+        if self.node.aggs and all(isinstance(fn, CountDistinct)
+                                  for fn, _n in self.node.aggs):
             from ..exec.distinct import DistinctAggregateExec
-            return DistinctAggregateExec(plan.keys, plan.key_names,
-                                         plan.aggs,
-                                         _convert(plan.child, conf))
-        return HashAggregateExec(plan.keys, plan.key_names, plan.aggs,
-                                 _convert(plan.child, conf))
-    if type(plan) is L.LogicalSort:
-        return SortExec(_sort_keys(plan), _convert(plan.child, conf))
-    if type(plan) is L.LogicalLimit:
-        # a limit right above a sort collapses into top-N (GpuTopN)
-        if type(plan.child) is L.LogicalSort:
-            return TopNExec(plan.limit, _sort_keys(plan.child),
-                            _convert(plan.child.child, conf))
-        return LimitExec(plan.limit, _convert(plan.child, conf))
-    if type(plan) is L.LogicalJoin:
-        return _convert_join(plan, conf)
-    if type(plan) is L.LogicalUnion:
-        return UnionExec(*[_convert(c, conf) for c in plan.children])
-    if type(plan) is L.LogicalExpand:
-        reasons = []
-        for p in plan.projections:
-            for e in p:
-                reasons += e.bind(schema_in).tree_unsupported(conf)
-        _refuse("Expand", reasons)
-        return ExpandExec(plan.projections, plan.names,
-                          _convert(plan.child, conf))
-    if type(plan) is L.LogicalWindow:
-        _refuse("Window", _window_reasons(plan, conf))
+            return DistinctAggregateExec(self.node.keys, self.node.key_names,
+                                         self.node.aggs, self._device_child())
+        return HashAggregateExec(self.node.keys, self.node.key_names,
+                                 self.node.aggs, self._device_child())
+
+    def to_host(self):
+        return H.CpuAggregateExec(self.node.keys, self.node.key_names,
+                                  self.node.aggs, self._host_child())
+
+
+class SortMeta(PlanMeta):
+    def __init__(self, node, conf, parent):
+        super().__init__(node, conf, parent)
+        self._wrap_exprs([e for e, _, _ in node.orders], node.child.schema)
+
+    def tag_self(self):
+        for e, _asc, _nf in self.node.orders:
+            if not isinstance(e, E.ColumnRef):
+                self.will_not_work(
+                    f"sort key {e!r} is not a column reference "
+                    "(planner pre-projection not yet implemented)")
+
+    def to_device(self):
+        return SortExec(_sort_keys(self.node), self._device_child())
+
+    def to_host(self):
+        return H.CpuSortExec(self.node.orders, self._host_child())
+
+
+class LimitMeta(PlanMeta):
+    def to_device(self):
+        # a limit right above a device sort collapses into top-N
+        # (GpuTopN)
+        child_meta = self.children[0]
+        if isinstance(child_meta, SortMeta) and child_meta.can_replace:
+            return TopNExec(self.node.limit, _sort_keys(child_meta.node),
+                            child_meta._device_child())
+        return LimitExec(self.node.limit, self._device_child())
+
+    def to_host(self):
+        return H.CpuLimitExec(self.node.limit, self._host_child())
+
+
+class JoinMeta(PlanMeta):
+    def __init__(self, node, conf, parent):
+        super().__init__(node, conf, parent)
+        self.lkeys = self._wrap_exprs(node.left_keys, node.left.schema)
+        self.rkeys = self._wrap_exprs(node.right_keys, node.right.schema)
+
+    def tag_self(self):
+        from ..exec.join import JOIN_TYPES, NEXT_JOIN_SLICE
+        if self.node.join_type not in JOIN_TYPES + ("cross",):
+            self.will_not_work(
+                f"join type {self.node.join_type} not supported on TPU")
+        strings = [isinstance(e.dtype, t.StringType)
+                   for e in self.lkeys + self.rkeys]
+        if any(strings) and (len(self.lkeys) > 1 or not all(strings)):
+            self.will_not_work(E.Unported(
+                "composite string join keys take the reference's sorted "
+                f"tier, which ports with {NEXT_JOIN_SLICE}"))
+
+    def to_device(self):
+        from ..exec.adaptive import _MIRROR, AdaptiveShuffledJoinExec
+        from ..exec.join import (CrossJoinExec, HashJoinExec,
+                                 unported_join_reasons)
+        left = self._device_child(0)
+        right = self._device_child(1)
+        n = self.node
+        if n.join_type == "cross":
+            return CrossJoinExec(left, right)
+        reasons = unported_join_reasons(
+            n.join_type, [k.bind(n.left.schema) for k in n.left_keys],
+            [k.bind(n.right.schema) for k in n.right_keys], left, right)
+        if reasons:
+            raise NotImplementedError(
+                f"Join cannot run on the device: {'; '.join(reasons)}")
+        if self.conf.get(ADAPTIVE_ENABLED) and (
+                n.join_type in _MIRROR or n.join_type == "left_semi"):
+            # AQE analogue: the build side is chosen from runtime sizes (a
+            # left semi join never swaps; anti joins keep their sides)
+            return AdaptiveShuffledJoinExec(n.join_type, n.left_keys,
+                                            n.right_keys, left, right)
+        return HashJoinExec(n.join_type, n.left_keys, n.right_keys, left,
+                            right)
+
+    def to_host(self):
+        n = self.node
+        return H.CpuJoinExec(n.join_type, n.left_keys, n.right_keys,
+                             self._host_child(0), self._host_child(1))
+
+
+class UnionMeta(PlanMeta):
+    def convert(self):
+        kids = [c.convert() for c in self.children]
+        if self.can_replace and not self.conf.explain_only:
+            return "device", UnionExec(*[
+                k if kind == "device" else _host_to_device(k)
+                for kind, k in kids])
+        return "host", H.CpuUnionExec(*[
+            k if kind == "host" else H.DeviceToHostExec(k)
+            for kind, k in kids])
+
+
+class RangeMeta(PlanMeta):
+    def to_device(self):
+        n = self.node
+        return RangeExec(n.start, n.end, n.step, n.col_name)
+
+    def to_host(self):
+        n = self.node
+        return H.CpuRangeExec(n.start, n.end, n.step, n.col_name)
+
+
+class ExpandMeta(PlanMeta):
+    def __init__(self, node, conf, parent):
+        super().__init__(node, conf, parent)
+        for p in node.projections:
+            self._wrap_exprs(p, node.child.schema)
+
+    def to_device(self):
+        return ExpandExec(self.node.projections, self.node.names,
+                          self._device_child())
+
+    def to_host(self):
+        return H.CpuExpandExec(self.node.projections, self.node.names,
+                               self._host_child())
+
+
+class SampleMeta(PlanMeta):
+    def to_device(self):
+        return SampleExec(self.node.fraction, self.node.seed,
+                          self._device_child())
+
+    def to_host(self):
+        return H.CpuSampleExec(self.node.fraction, self.node.seed,
+                               self._host_child())
+
+
+class WindowMeta(PlanMeta):
+    """LogicalWindow -> WindowExec.  The reference's WindowMeta checks:
+    each spec's own, the keys', and one integer/date/timestamp order key
+    under a value-offset RANGE frame.  A window that fails them runs the
+    reference's CPU window operator, which the port lacks: it raises
+    naming that slice."""
+
+    def __init__(self, node, conf, parent):
+        super().__init__(node, conf, parent)
+        schema = node.child.schema
+        self._wrap_exprs(node.partition_keys, schema)
+        self._wrap_exprs([e for e, _, _ in node.order_keys], schema)
+        self.specs = []
+        for spec, _name in node.window_exprs:
+            b = spec.bind(schema)
+            self.specs.append(b)
+            if b.child is not None:
+                self.expr_metas.append(ExprMeta(b.child, conf))
+
+    def tag_self(self):
+        schema = self.node.child.schema
+        for b in self.specs:
+            name = type(b).__name__
+            if not self.conf.is_op_enabled("expression", name):
+                self.will_not_work(
+                    f"window function {name} disabled by "
+                    f"spark.rapids.tpu.sql.expression.{name}")
+            for r in b.unsupported_reasons(self.conf):
+                self.will_not_work(_prefixed(f"window function {b.name}: ",
+                                             r))
+        for e, _a, _nf in self.node.order_keys:
+            dt = e.bind(schema).dtype
+            if isinstance(dt, t.DecimalType) and dt.is_wide:
+                self.will_not_work("decimal128 window order key "
+                                   "not yet on device")
+        if any(b.frame is not None and b.frame.is_value_offset
+               for b in self.specs):
+            ok = len(self.node.order_keys) == 1 and isinstance(
+                self.node.order_keys[0][0].bind(schema).dtype,
+                (t.ByteType, t.ShortType, t.IntegerType, t.LongType,
+                 t.DateType, t.TimestampType))
+            if not ok:
+                self.will_not_work(
+                    "value-offset RANGE frame needs a single "
+                    "integer/date/timestamp order key on device")
+
+    def to_device(self):
         from ..exec.window import WindowExec
-        return WindowExec(plan.window_exprs, plan.partition_keys,
-                          plan.order_keys, _convert(plan.child, conf))
-    raise NotImplementedError(
-        f"{plan.name()} is not ported to the device yet")
+        n = self.node
+        return WindowExec(n.window_exprs, n.partition_keys, n.order_keys,
+                          self._device_child())
+
+    def to_host(self):
+        raise NotImplementedError(
+            "Window cannot run on the device ("
+            + "; ".join(self.reasons) + "), and the CPU engine's window "
+            f"operator is not ported yet: {CPU_WINDOW_SLICE}")
 
 
-def _window_reasons(plan: "L.LogicalWindow", conf: TpuConf) -> List[str]:
-    """The reference's WindowMeta checks: each spec's own, the keys',
-    and one integer/date/timestamp order key under a value-offset RANGE
-    frame (its bounds are value arithmetic on that lane)."""
-    schema = plan.child.schema
-    reasons = []
-    for e in plan.partition_keys:
-        reasons += e.bind(schema).tree_unsupported(conf)
-    for e, _asc, _nf in plan.order_keys:
-        b = e.bind(schema)
-        reasons += b.tree_unsupported(conf)
-        if isinstance(b.dtype, t.DecimalType) and b.dtype.is_wide:
-            reasons.append("decimal128 window order key not yet on device")
-    specs = [spec.bind(schema) for spec, _name in plan.window_exprs]
-    for b in specs:
-        name = type(b).__name__
-        if not conf.is_op_enabled("expression", name):
-            reasons.append(f"window function {name} disabled by "
-                           f"spark.rapids.tpu.sql.expression.{name}")
-        reasons += [f"window function {b.name}: {r}"
-                    for r in b.unsupported_reasons(conf)]
-    if any(b.frame is not None and b.frame.is_value_offset for b in specs):
-        ok = len(plan.order_keys) == 1 and isinstance(
-            plan.order_keys[0][0].bind(schema).dtype,
-            (t.ByteType, t.ShortType, t.IntegerType, t.LongType,
-             t.DateType, t.TimestampType))
-        if not ok:
-            reasons.append("value-offset RANGE frame needs a single "
-                           "integer/date/timestamp order key on device")
-    return reasons
+_META_FOR = {
+    L.LogicalScan: ScanMeta, L.LogicalProject: ProjectMeta,
+    L.LogicalFilter: FilterMeta, L.LogicalAggregate: AggregateMeta,
+    L.LogicalSort: SortMeta, L.LogicalLimit: LimitMeta,
+    L.LogicalJoin: JoinMeta, L.LogicalUnion: UnionMeta,
+    L.LogicalRange: RangeMeta, L.LogicalExpand: ExpandMeta,
+    L.LogicalSample: SampleMeta, L.LogicalWindow: WindowMeta,
+}
 
 
-def _convert_join(plan: "L.LogicalJoin", conf: TpuConf) -> PlanNode:
-    from ..exec.adaptive import _MIRROR, AdaptiveShuffledJoinExec
-    from ..exec.join import (CrossJoinExec, HashJoinExec,
-                             unported_join_reasons)
-    left = _convert(plan.left, conf)
-    right = _convert(plan.right, conf)
-    if plan.join_type == "cross":
-        return CrossJoinExec(left, right)
-    lkeys = [k.bind(plan.left.schema) for k in plan.left_keys]
-    rkeys = [k.bind(plan.right.schema) for k in plan.right_keys]
-    reasons = unported_join_reasons(plan.join_type, lkeys, rkeys, left,
-                                    right)
-    for k in lkeys + rkeys:
-        reasons += k.tree_unsupported(conf)
-    _refuse("Join", reasons)
-    if conf.get(ADAPTIVE_ENABLED) and (plan.join_type in _MIRROR or
-                                       plan.join_type == "left_semi"):
-        # AQE analogue: the build side is chosen from runtime sizes (a
-        # left semi join never swaps; anti joins keep their sides)
-        return AdaptiveShuffledJoinExec(plan.join_type, plan.left_keys,
-                                        plan.right_keys, left, right)
-    return HashJoinExec(plan.join_type, plan.left_keys, plan.right_keys,
-                        left, right)
+def wrap_plan(node: L.LogicalPlan, conf: TpuConf,
+              parent: Optional[PlanMeta] = None) -> PlanMeta:
+    return _META_FOR[type(node)](node, conf, parent)
 
+
+# ---------------------------------------------------------------------------
+# Entry point (GpuOverrides.applyOverrides analogue)
+# ---------------------------------------------------------------------------
 
 class PhysicalQuery:
-    """A converted device plan plus the conf and device it runs with."""
+    """A tagged and converted plan, with the conf and the device it runs
+    with.  `kind` is where its root runs: "device" (a PlanNode) or "host"
+    (a CPU HostNode); `collect` gives a HostBatch either way."""
 
-    def __init__(self, root: PlanNode, conf: TpuConf, device: torch.device):
+    def __init__(self, meta: PlanMeta, kind: str, root, conf: TpuConf,
+                 device: torch.device):
+        self.meta = meta
+        self.kind = kind
         self.root = root
         self.conf = conf
         self.device = device
@@ -346,18 +690,42 @@ class PhysicalQuery:
         return self.root.collect(ctx)
 
     def explain(self) -> str:
-        """The physical tree (`PlanNode.tree_string`) and the device."""
-        return f"Physical plan on {self.device}:\n{self.root.tree_string(1)}"
+        """The placement, one line a logical node, in the reference's
+        words."""
+        return "\n".join(self.meta.explain_lines())
+
+    def physical_tree(self) -> str:
+        return self.root.tree_string()
+
+    def fallback_reasons(self) -> List[str]:
+        """Every tagger reason in the meta tree (depth-first): the
+        structured form of the '!Exec ... because ...' lines."""
+        out, stack = [], [self.meta]
+        while stack:
+            m = stack.pop()
+            for r in m.reasons:
+                if r not in out:
+                    out.append(r)
+            stack.extend(m.children)
+        return out
 
 
 def apply_overrides(plan: L.LogicalPlan, conf: TpuConf = DEFAULT_CONF,
                     device=None) -> PhysicalQuery:
-    """Prune, check and convert a logical plan for the device (`device`
-    None means "cuda" and raises without a card: `resolve_device`)."""
+    """Prune, wrap, tag and convert a logical plan (`device` None means
+    "cuda" and raises without a card: `resolve_device`)."""
     device = resolve_device(device)
-    if not conf.sql_enabled:
-        raise NotImplementedError(
-            "spark.rapids.tpu.sql.enabled=false runs the CPU engine, which "
-            "is not ported yet")
-    root = _convert(prune_columns(plan), conf)
-    return PhysicalQuery(root, conf, device)
+    meta = wrap_plan(prune_columns(plan), conf)
+    meta.tag()
+    if conf.get(CBO_ENABLED):
+        from .cbo import apply_cbo
+        apply_cbo(meta)
+    if conf.sql_enabled:
+        meta.check_unported()
+    mode = conf.explain
+    if mode != "NONE":
+        for line in meta.explain_lines():
+            if mode == "ALL" or line.lstrip().startswith("!"):
+                log.info(line)
+    kind, root = meta.convert()
+    return PhysicalQuery(meta, kind, root, conf, device)

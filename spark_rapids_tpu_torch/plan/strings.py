@@ -32,10 +32,17 @@ entry, and a row's result is a gather by its code:
     `Ascii`, `Levenshtein` and `FindInSet`: one int32 per entry, on the
     host, gathered by code.
 
-Arguments other than the one string operand must be literals, as in the
-reference.  Two non-literal operands (concat of two columns), format_number
-and bin run on the reference's CPU engine and are refused here naming
-its slice; RLIKE and the regexp functions wait for the regex transpiler.
+Arguments other than the one string operand must be literals on the
+device, as in the reference.  Two non-literal operands (concat of two
+columns), format_number and bin run on the CPU engine, as in the
+reference; RLIKE and the regexp functions refuse on the device until the
+regex transpiler ports.
+
+Every class also has `_eval_cpu`, the CPU engine's evaluation
+(exec/host_exec.py): the same per-entry Python functions over the
+dictionary on the host, the rows gathered by code in numpy, each result
+re-encoded into a sorted, duplicate-free dictionary; operands that are
+not literals run once per distinct combination of values.
 
 The port has no prepare-phase auxiliary inputs (the reference's
 `pctx.add` / `ctx.aux_of`): each bound expression keeps what it derived
@@ -53,11 +60,13 @@ import numpy as np
 import torch
 
 from .. import types as t
+from ..columnar.host import HostColumn
 from ..config import STRING_TRANSFORM_DEVICE_MIN
+from ..ops import host as H
 from ..ops import strings as S
 from ..ops.kernels import merge_validity
-from .expressions import (CPU_ENGINE, REGEX_SLICE, DevVal, Expression,
-                          HostVal, Literal, dict_or_empty, per_dictionary)
+from .expressions import (REGEX_SLICE, DevVal, Expression, HostVal, Literal,
+                          Unported, dict_or_empty, per_dictionary)
 
 
 def _lift(x) -> Expression:
@@ -72,6 +81,44 @@ def _byte_tensors(e: Expression, d: np.ndarray, device):
 
 def _gather(lane: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     return lane[torch.clamp(codes, 0, lane.shape[0] - 1).long()]
+
+
+def _entry_lane(e: Expression, name: str, d: np.ndarray, fn, dtype):
+    """(value lane, ok lane) of `fn` over each entry of `d` (None is a
+    null result), once per dictionary: the CPU engine's per-entry work,
+    which the rows gather by code (one not-ok entry for an empty
+    dictionary)."""
+    def make():
+        vals = [fn(v) for v in d.tolist()] or [None]
+        ok = np.array([v is not None for v in vals], bool)
+        lane = np.array([0 if v is None else v for v in vals], dtype)
+        return lane, ok
+    return per_dictionary(e, name).get(d, make)
+
+
+def _gather_np(col: HostColumn, lane: np.ndarray, ok: np.ndarray,
+               dtype: t.DataType, *validity) -> HostColumn:
+    codes = np.clip(col.data, 0, len(lane) - 1)
+    return H.column(lane[codes], H.and_valid(col.validity, ok[codes],
+                                             *validity), dtype)
+
+
+def _row_tuples(kids: List[HostColumn]):
+    """(tuple id per row, the Python values of each distinct tuple): the
+    CPU engine's row-wise path for operands that are not literals, which
+    works once per distinct combination of operand values."""
+    n = len(kids[0])
+    lanes = []
+    for k in kids:
+        lanes.append((~H.valid_of(k.validity, n)).astype(np.int64))
+        lanes.append(H.order_lane(k) if k.data.dtype.kind != "f"
+                     else k.data.astype(np.float64).view(np.int64))
+    ids, count = H.factorize(lanes)
+    if not n:
+        return ids, []
+    first = H.first_of_ids(ids, count)
+    cols = [H.take(k, first).to_pylist() for k in kids]
+    return ids, list(zip(*cols))
 
 
 def _string_operand_reasons(e: Expression) -> List[str]:
@@ -125,20 +172,41 @@ class StringPredicate(Expression):
         mask = self.entry_mask(dict_or_empty(s.dictionary), ctx.device)
         return DevVal(_gather(mask, s.data), s.validity, t.BOOLEAN)
 
+    def _eval_cpu(self, batch, kids):
+        s, p = kids
+        fn = type(self).py_fn
+        if not isinstance(self.children[1], Literal):
+            ids, rows = _row_tuples(kids)
+            vals = [None if a is None or b is None else fn(a, b)
+                    for a, b in rows]
+            ok = np.array([v is not None for v in vals] or [False], bool)
+            lane = np.array([bool(v) for v in vals] or [False], bool)
+            return H.column(lane[ids], ok[ids], t.BOOLEAN)
+        pat = self._pattern()
+        if pat is None:
+            n = batch.num_rows
+            return H.column(np.zeros(n, bool), np.zeros(n, bool), t.BOOLEAN)
+        lane, ok = _entry_lane(self, "_cpu_masks", dict_or_empty(
+            s.dictionary), lambda v: fn(v, pat), bool)
+        return _gather_np(s, lane, ok, t.BOOLEAN)
+
     def _fp_extra(self):
         return repr(self._pattern())
 
 
 class StartsWith(StringPredicate):
     kernel = staticmethod(S.match_prefix)
+    py_fn = staticmethod(lambda s, p: s.startswith(p))
 
 
 class EndsWith(StringPredicate):
     kernel = staticmethod(S.match_suffix)
+    py_fn = staticmethod(lambda s, p: s.endswith(p))
 
 
 class Contains(StringPredicate):
     kernel = staticmethod(S.match_contains)
+    py_fn = staticmethod(lambda s, p: p in s)
 
 
 class Like(Expression):
@@ -180,6 +248,13 @@ class Like(Expression):
         mask = self.entry_mask(dict_or_empty(s.dictionary), ctx.device)
         return DevVal(_gather(mask, s.data), s.validity, t.BOOLEAN)
 
+    def _eval_cpu(self, batch, kids):
+        rx = re.compile(S.like_to_regex(self.pattern, self.escape),
+                        re.DOTALL)
+        lane, ok = _entry_lane(self, "_cpu_masks", dict_or_empty(
+            kids[0].dictionary), lambda v: rx.fullmatch(v) is not None, bool)
+        return _gather_np(kids[0], lane, ok, t.BOOLEAN)
+
     def _fp_extra(self):
         return f"{self.pattern!r};{self.escape!r}"
 
@@ -217,6 +292,15 @@ class Length(Expression):
         lane = per_dictionary(self, "_lanes").get(d, make)
         return DevVal(_gather(lane, s.data), s.validity, t.INT)
 
+    @staticmethod
+    def _py_len(v: str) -> int:
+        return len(v)
+
+    def _eval_cpu(self, batch, kids):
+        lane, ok = _entry_lane(self, "_cpu_lanes", dict_or_empty(
+            kids[0].dictionary), self._py_len, np.int32)
+        return _gather_np(kids[0], lane, ok, t.INT)
+
 
 class OctetLength(Length):
     """octet_length(str): UTF-8 bytes per entry."""
@@ -225,6 +309,10 @@ class OctetLength(Length):
     def _lane(offsets, bytes_):
         return S.byte_lengths(offsets)
 
+    @staticmethod
+    def _py_len(v: str) -> int:
+        return len(v.encode("utf-8"))
+
 
 class BitLength(Length):
     """bit_length(str): 8 x the UTF-8 bytes per entry."""
@@ -232,6 +320,10 @@ class BitLength(Length):
     @staticmethod
     def _lane(offsets, bytes_):
         return S.byte_lengths(offsets) * 8
+
+    @staticmethod
+    def _py_len(v: str) -> int:
+        return 8 * len(v.encode("utf-8"))
 
 
 # ---------------------------------------------------------------------------
@@ -290,8 +382,8 @@ class DictTransform(Expression):
         out += [f"argument {i} must be a literal" for i in others
                 if i in self.literal_slots]
         if any(i not in self.literal_slots for i in others):
-            out.append("more than one non-literal operand (a dictionary "
-                       f"transform reads one code lane) runs on {CPU_ENGINE}")
+            out.append("more than one non-literal string operand "
+                       "(dictionary transform needs a single code lane)")
         code = self.children[ci]
         if not isinstance(code.dtype, (t.StringType, t.NullType)):
             out.append(f"operand is {code.dtype.simple_string}, not string")
@@ -358,6 +450,46 @@ class DictTransform(Expression):
                                None if rw.valid is None
                                else _gather(rw.valid, k.data))
         return DevVal(codes, valid, t.STRING, rw.dictionary)
+
+    def _row_value(self, values) -> Optional[str]:
+        """The result of one row from all its operand values (the CPU
+        engine's path for operands that are not literals): null if any
+        operand is."""
+        if any(v is None for v in values):
+            return None
+        return self._transform_value(values[self._code_child_index()],
+                                     list(values))
+
+    def _eval_cpu(self, batch, kids):
+        """Each dictionary entry transformed once, the rows gathered by
+        code; with more than one non-literal operand, each distinct
+        combination of operand values once."""
+        ci = self._code_child_index()
+        if any(i != ci and not isinstance(c, Literal)
+               for i, c in enumerate(self.children)):
+            ids, rows = _row_tuples(kids)
+            return H.strings_from_entries(
+                ids, [self._row_value(r) for r in rows], None)
+        k = kids[ci]
+        d = dict_or_empty(k.dictionary)
+        args = self._args()
+        n = batch.num_rows
+        if self._all_null():
+            return H.string_literal_column(None, n)
+        values = per_dictionary(self, "_cpu_entries").get(
+            d, lambda: [self._transform_value(v, args) for v in d.tolist()]
+            + [self._null_row(args)])
+        codes = np.clip(k.data, 0, max(len(d) - 1, 0))
+        if k.validity is not None:
+            codes = np.where(k.validity, codes, len(d))
+        return H.strings_from_entries(codes, values,
+                                      self._literal_validity(kids, ci))
+
+    def _literal_validity(self, kids, ci):
+        """The rows' validity from the literal operands: a null one
+        nulls the row."""
+        return H.and_valid(*(c.validity for i, c in enumerate(kids)
+                             if i != ci))
 
 
 class Upper(DictTransform):
@@ -464,7 +596,7 @@ class Substring(DictTransform):
         return args[1], (args[2] if len(args) > 2 else None)
 
     def _transform_value(self, s, args):
-        pos, length = self._pos_len()
+        pos, length = args[1], (args[2] if len(args) > 2 else None)
         return _spark_substring(s, int(pos), None if length is None
                                 else int(length))
 
@@ -487,6 +619,11 @@ class Concat(DictTransform):
     def _transform_value(self, s, args):
         ci = self._code_child_index()
         return "".join(s if i == ci else str(a) for i, a in enumerate(args))
+
+    def _row_value(self, values):
+        if any(v is None for v in values):
+            return None
+        return "".join(str(v) for v in values)
 
 
 class ConcatWs(DictTransform):
@@ -517,6 +654,15 @@ class ConcatWs(DictTransform):
         ci = self._code_child_index()
         return args[0].join(str(a) for i, a in enumerate(args)
                             if i not in (0, ci) and a is not None)
+
+    def _row_value(self, values):
+        if values[0] is None:
+            return None
+        return values[0].join(str(v) for v in values[1:] if v is not None)
+
+    def _literal_validity(self, kids, ci):
+        # null operands are skipped: only a null separator nulls a row
+        return kids[0].validity
 
     def _eval_dev(self, ctx, kids):
         sep = kids[0]
@@ -894,6 +1040,29 @@ class DictIntTransform(Expression):
                                None if ok is None else _gather(ok, k.data))
         return DevVal(_gather(lane, k.data), valid, self.dtype)
 
+    def _eval_cpu(self, batch, kids):
+        ci = self._code_child_index()
+        if any(i != ci and not isinstance(c, Literal)
+               for i, c in enumerate(self.children)):
+            ids, rows = _row_tuples(kids)
+            vals = [None if any(v is None for v in r) else
+                    self._per_entry(r[ci], list(r)) for r in rows]
+            ok = np.array([v is not None for v in vals] or [False], bool)
+            lane = np.array([0 if v is None else v for v in vals] or [0],
+                            np.int32)
+            return H.column(lane[ids], ok[ids], self.dtype)
+        args = self._args()
+        if any(a is None for i, a in enumerate(args) if i != ci):
+            n = batch.num_rows
+            return H.column(np.zeros(n, np.int32), np.zeros(n, bool),
+                            self.dtype)
+        k = kids[ci]
+        lane, ok = _entry_lane(self, "_cpu_lanes", dict_or_empty(
+            k.dictionary), lambda v: self._per_entry(v, args), np.int32)
+        return _gather_np(k, lane, ok, self.dtype,
+                          *(c.validity for i, c in enumerate(kids)
+                            if i != ci))
+
 
 class StringLocate(DictIntTransform):
     """locate(substr, str[, start]): the 1-based position of substr at or
@@ -971,64 +1140,156 @@ class FindInSet(DictIntTransform):
 
 
 # ---------------------------------------------------------------------------
-# Families that run on another slice
+# Families that only the CPU engine runs
 # ---------------------------------------------------------------------------
 
-class _Elsewhere(Expression):
-    """A string function the device path does not run: it binds, and
-    `unsupported_reasons` names the slice it ports with."""
+class _PerRowString(Expression):
+    """A string function that the reference runs only on its CPU engine
+    (per-row string building): `unsupported_reasons` says so, and
+    `_eval_cpu` formats each distinct value once."""
     result_type = t.STRING
     what = ""
-    where = CPU_ENGINE
 
     def _resolve(self):
         self.dtype = self.result_type
         self.nullable = True
 
     def unsupported_reasons(self, conf):
-        return [f"{self.what} runs on {self.where}"]
+        return ["per-row string building (CPU path)"]
+
+    def _format(self, v) -> str:
+        raise NotImplementedError
+
+    def _eval_cpu(self, batch, kids):
+        ids, rows = _row_tuples(kids)
+        return H.strings_from_entries(
+            ids, [None if r[0] is None else self._format(r[0])
+                  for r in rows], None)
 
 
-class FormatNumber(_Elsewhere):
-    what = "format_number (per-row string building)"
+class FormatNumber(_PerRowString):
+    """format_number(x, d): HALF_EVEN to d places, thousands separated
+    by commas."""
 
     def __init__(self, child, d: int):
         self.children = (child,)
         self.d = int(d)
 
+    def _format(self, v):
+        import decimal as pydec
+        q = pydec.Decimal(str(v)).quantize(pydec.Decimal(1).scaleb(-self.d),
+                                           rounding=pydec.ROUND_HALF_EVEN)
+        return f"{q:,.{self.d}f}"
 
-class Bin(_Elsewhere):
-    what = "bin (per-row string building)"
+    def _fp_extra(self):
+        return str(self.d)
+
+
+class Bin(_PerRowString):
+    """bin(x): the binary digits of the 64-bit two's complement value."""
 
     def __init__(self, child):
         self.children = (child,)
 
+    def unsupported_reasons(self, conf):
+        if not t.is_integral(self.children[0].dtype):
+            return [f"bin over {self.children[0].dtype.simple_string}"]
+        return super().unsupported_reasons(conf)
 
-class RLike(_Elsewhere):
+    def _format(self, v):
+        return format(int(v) & ((1 << 64) - 1), "b")
+
+
+def _java_replacement_to_python(rep: str) -> str:
+    """A Java replacement string ($N group references, backslash escapes)
+    as a Python re template."""
+    out = []
+    i = 0
+    while i < len(rep):
+        c = rep[i]
+        if c == "$" and i + 1 < len(rep) and rep[i + 1].isdigit():
+            out.append("\\" + rep[i + 1])
+            i += 2
+        elif c == "\\" and i + 1 < len(rep):
+            nxt = rep[i + 1]
+            out.append("\\\\" if nxt == "\\" else nxt)
+            i += 2
+        elif c == "\\":
+            out.append("\\\\")
+            i += 1
+        else:
+            out.append(c)
+            i += 1
+    return "".join(out)
+
+
+class _Regex(Expression):
+    """A regexp function: the reference runs it on its device through the
+    regex transpiler, which ports with ROADMAP Queue 1 item 7, so the
+    device path refuses it naming that slice.  The CPU engine (with
+    sql.enabled=false, or where another reason already sends the
+    operator there) evaluates each dictionary entry with Python `re`."""
+    result_type = t.STRING
+    what = ""
+
+    def _resolve(self):
+        self.dtype = self.result_type
+        self.nullable = True
+
+    def unsupported_reasons(self, conf):
+        return [Unported(f"{self.what} runs on the regex transpiler, "
+                         f"{REGEX_SLICE}")]
+
+    def _entry(self, rx, v):
+        raise NotImplementedError
+
+    def _eval_cpu(self, batch, kids):
+        rx = re.compile(self.pattern)
+        k = kids[0]
+        d = dict_or_empty(k.dictionary)
+        if self.result_type == t.BOOLEAN:
+            lane, ok = _entry_lane(self, "_cpu_lanes", d,
+                                   lambda v: self._entry(rx, v), bool)
+            return _gather_np(k, lane, ok, t.BOOLEAN)
+        values = per_dictionary(self, "_cpu_entries").get(
+            d, lambda: [self._entry(rx, v) for v in d.tolist()])
+        return H.strings_from_entries(np.clip(k.data, 0, max(len(d) - 1, 0)),
+                                      values, k.validity)
+
+
+class RLike(_Regex):
     result_type = t.BOOLEAN
     what = "rlike"
-    where = f"the regex transpiler, {REGEX_SLICE}"
 
     def __init__(self, left, pattern: str):
         self.children = (left,)
         self.pattern = pattern
 
+    def _entry(self, rx, v):
+        return rx.search(v) is not None
 
-class RegexpExtract(_Elsewhere):
+
+class RegexpExtract(_Regex):
     what = "regexp_extract"
-    where = f"the regex transpiler, {REGEX_SLICE}"
 
     def __init__(self, subject, pattern: str, idx: int = 1):
         self.children = (subject,)
         self.pattern = pattern
         self.idx = idx
 
+    def _entry(self, rx, v):
+        m = rx.search(v)
+        g = None if m is None else m.group(self.idx)
+        return "" if g is None else g
 
-class RegexpReplace(_Elsewhere):
+
+class RegexpReplace(_Regex):
     what = "regexp_replace"
-    where = f"the regex transpiler, {REGEX_SLICE}"
 
     def __init__(self, subject, pattern: str, replacement: str):
         self.children = (subject,)
         self.pattern = pattern
         self.replacement = replacement
+
+    def _entry(self, rx, v):
+        return rx.sub(_java_replacement_to_python(self.replacement), v)

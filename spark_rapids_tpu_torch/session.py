@@ -15,7 +15,10 @@ and TPC-DS queries use (`how="cross"` joins, `with_column`, `union`,
 constructor raises when no CUDA device is present — nothing carries on
 on the CPU by itself.  `device="cpu"` runs the same plan on CPU tensors,
 where every kernel wrapper takes its plain PyTorch version (the tests
-do this).
+do this).  Operators that the overrides place on the CPU engine
+(exec/host_exec.py) run on numpy either way; with
+`spark.rapids.tpu.sql.enabled=false` the whole query does, and
+`collect()` returns a HostBatch whichever engine holds the root.
 """
 from __future__ import annotations
 
@@ -282,9 +285,12 @@ class DataFrame:
         return int(res.columns[0].data[0])
 
     def explain(self) -> str:
-        """The physical plan this DataFrame runs (the port's operators;
-        the reference's text names its JAX execs instead)."""
-        return self.physical().explain()
+        """Where each operator runs, in the reference's words (`*Exec
+        <Filter> will run on TPU`, `!Exec <Project> cannot run on TPU
+        because ...`), then the physical plan (the port's operators; the
+        reference's names its JAX execs instead)."""
+        q = self.physical()
+        return q.explain() + "\n\nPhysical plan:\n" + q.physical_tree()
 
     def _wrap(self, plan: L.LogicalPlan) -> "DataFrame":
         return DataFrame(plan, self._session)

@@ -1206,3 +1206,92 @@ def test_device_transforms_on_the_card_equal_the_host_loop(cuda):
                None)]
     assert all(CS.column_digest(a) == CS.column_digest(b)
                for a, b in zip(out[0].columns, out[1].columns))
+
+
+def _fallback_batch(n: int, seed: int):
+    """A host batch with strings (many entries), nulls and doubles."""
+    from spark_rapids_tpu_torch import types as t
+    from spark_rapids_tpu_torch.columnar.host import from_numpy
+    rng = np.random.default_rng(seed)
+    words = np.array([f"w{i % 997}" for i in range(n)], dtype=object)
+    words[rng.random(n) < 0.05] = None
+    schema = t.StructType([t.StructField("k", t.LONG),
+                           t.StructField("x", t.DOUBLE),
+                           t.StructField("s", t.STRING)])
+    x = rng.standard_normal(n)
+    x[::11] = np.nan
+    return from_numpy({"k": rng.permutation(n).astype(np.int64),
+                       "x": (x, rng.random(n) > 0.03), "s": words}, schema)
+
+
+def _device_rows(db):
+    from spark_rapids_tpu_torch.columnar.device import fetch_result_batch
+    hb = fetch_result_batch(db)
+    return [c.to_pylist() for c in hb.columns]
+
+
+@pytest.mark.cuda
+def test_host_to_device_of_a_cpu_operator_equals_to_device(cuda):
+    # a CPU projection's output (a re-encoded string dictionary, nulls)
+    # uploads in slices of sql.batchSizeRows, each equal to to_device of
+    # the same rows
+    from spark_rapids_tpu_torch.columnar.device import to_device
+    from spark_rapids_tpu_torch.config import TpuConf
+    from spark_rapids_tpu_torch.exec.host_exec import (CpuProjectExec,
+                                                      HostSourceExec,
+                                                      HostToDeviceExec)
+    from spark_rapids_tpu_torch.exec.plan import ExecContext
+    from spark_rapids_tpu_torch.plan import strings as S
+    from spark_rapids_tpu_torch.session import col
+    hb = _fallback_batch(10_000, 5)
+    conf = TpuConf({"spark.rapids.tpu.sql.batchSizeRows": "4096"})
+    proj = CpuProjectExec([col("k"), col("x"), S.Upper(col("s"))],
+                          ["k", "x", "u"], HostSourceExec(hb))
+    ctx = ExecContext(conf, cuda)
+    host_out = proj.collect(ExecContext(conf, cuda))
+    d = host_out.column_by_name("u").dictionary
+    assert bool(np.all(d[:-1] < d[1:]))
+    batches = list(HostToDeviceExec(proj).execute(ctx))
+    assert [int(b.num_rows) for b in batches] == [4096, 4096, 1808]
+    for i, db in enumerate(batches):
+        want = to_device(host_out.slice(i * 4096, int(db.num_rows)), conf,
+                         device=cuda)
+        assert np.array_equal(db.columns[2].dictionary,
+                              host_out.columns[2].dictionary)
+        assert repr(_device_rows(db)) == repr(_device_rows(want))
+    assert ctx.metrics["h2d_rows"] == 10_000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("how", ["inner", "left_outer", "left_semi",
+                                 "left_anti", "full_outer"])
+def test_device_to_host_of_a_join_equals_the_cpu_engine(cuda, how):
+    # a join on the card under a CPU aggregate (DeviceToHostExec) equals
+    # the whole plan on the CPU engine
+    from spark_rapids_tpu_torch.plan import aggregates as A
+    from spark_rapids_tpu_torch.plan import expressions as E
+    from spark_rapids_tpu_torch.session import TpuSession, col
+    fact = _fallback_batch(20_000, 6)
+    dim = _fallback_batch(3_000, 7).select(["k", "s"])
+
+    def build(s):
+        j = s.from_host(fact).join(s.from_host(dim).select(
+            E.Alias(col("k"), "dk"), E.Alias(col("s"), "ds")), how=how,
+            left_on=["k"], right_on=["dk"])
+        key = "s"
+        return j.group_by(key).agg(
+            (A.CountDistinct(col("k")), "n"), (A.Sum(col("x")), "sx"),
+            (A.Min(col("s")), "ms")).sort(key)
+    q = build(TpuSession()).physical()
+    assert "DeviceToHostExec" in q.physical_tree()
+    assert q.meta.children[0].reasons       # the aggregate runs on the host
+    got = q.collect().to_pydict()
+    cpu = build(TpuSession({"spark.rapids.tpu.sql.enabled": "false"},
+                           device="cpu")).collect().to_pydict()
+    assert got.keys() == cpu.keys()
+    for k in got:
+        if k == "sx":
+            assert np.allclose(np.array(got[k], float), np.array(cpu[k],
+                               float), rtol=1e-12, equal_nan=True)
+        else:
+            assert got[k] == cpu[k]

@@ -143,11 +143,25 @@ def test_count_distinct_over_no_row(grouped):
     assert got == ref == oracle == {"n": [0]}
 
 
-def test_count_distinct_beside_another_aggregate_refuses():
-    df = PSession(device="cpu").from_arrow(_table(5))
-    with pytest.raises(NotImplementedError, match="CPU engine"):
-        df.group_by("k").agg((PA.CountDistinct(pcol("l")), "n"),
-                             (PA.Count(None), "c")).collect()
+def test_count_distinct_beside_another_aggregate_falls_back():
+    # the reference's holistic split: the mix runs its CPU engine, and
+    # the port's (NaN-free DOUBLE: the reference's CPU engine counts each
+    # NaN apart)
+    table = _without_nan(_table(5))
+
+    def build(E, A, c, df):
+        return (df.group_by("k")
+                .agg((A.CountDistinct(c("l")), "n"), (A.Count(None), "c"),
+                     (A.CountDistinct(c("d")), "nd"), (A.Sum(c("m")), "sm"))
+                .sort("k"))
+    got, ref, oracle = _run(table, build)
+    assert got == ref == oracle
+    q = build(PE, PA, pcol, PSession(device="cpu").from_arrow(table)) \
+        .physical()
+    assert q.fallback_reasons() == [
+        "count(DISTINCT) mixed with other aggregates (device path requires "
+        "a uniform aggregation)"]
+    assert "!Exec <Aggregate> cannot run on TPU" in q.explain()
 
 
 def test_count_distinct_refuses_a_wide_decimal():

@@ -108,10 +108,17 @@ def test_conditionals_match_reference_and_cpu_oracle(case):
 
 
 def test_string_if_refuses():
+    # no longer refused: a string-valued IF runs on the CPU engine, where
+    # the reference's tagging puts it, and equals the reference
     df = PSession(device="cpu").from_arrow(NUMS).select(PE.Alias(PE.If(
         PE.IsNull(pcol("x")), pcol("s1"), pcol("s2")), "r"))
-    with pytest.raises(NotImplementedError, match="string-valued if"):
-        df.collect()
+    q = df.physical()
+    assert q.kind == "host"
+    assert q.fallback_reasons() == [
+        "expression If: string-valued if not yet on device"]
+    want = JSession().from_arrow(NUMS).select(JE.Alias(JE.If(
+        JE.IsNull(jcol("x")), jcol("s1"), jcol("s2")), "r")).collect()
+    assert q.collect().to_pydict() == want.to_pydict()
 
 
 FLOATS = [float("nan"), float("inf"), float("-inf"), 0.5, -0.5, 1.5, -1.5,

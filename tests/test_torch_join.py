@@ -140,6 +140,32 @@ def test_q3_shaped_join_chain_then_aggregate_top_n():
     assert got == want == cpu
 
 
+def test_string_ordering_and_if_between_columns_fall_back():
+    # a string ordering against a literal runs on the device; between two
+    # columns, and a string-valued IF, the reference's tagging puts them
+    # on its CPU engine, and the port's runs them
+    fact, dim = _fact(3000, 1), _dim()
+    cases = [
+        (lambda e, c: e.LessThan(c("tag"), c("attr")),
+         "string ordering comparison not yet on device"),
+        (lambda e, c: e.GreaterThanOrEqual(c("attr"), c("tag")),
+         "string ordering comparison not yet on device"),
+        (lambda e, c: e.If(e.IsNull(c("fk")), c("attr"), c("tag")),
+         "string-valued if not yet on device")]
+    for make, reason in cases:
+        def build(e, c, s):
+            j = s.from_arrow(fact).join(s.from_arrow(dim), left_on=["fk"],
+                                        right_on=["dk"], how="left_outer")
+            return j.select(c("x"), e.Alias(make(e, c), "r")).sort("x")
+        got, want, cpu = _run(build)
+        assert sorted(zip(*got.values())) == sorted(zip(*want.values())) \
+            == sorted(zip(*cpu.values()))
+        q = build(PE, pcol, PSession(device="cpu")).physical()
+        # the projection under the sort carries the reference's reason
+        name = type(make(PE, pcol)).__name__
+        assert q.meta.children[0].reasons == [f"expression {name}: {reason}"]
+
+
 def test_string_literal_equality_matches_reference():
     t = pa.table({"s": pa.array(["a", None, "b", "a", "zz", None, "b"]),
                   "i": pa.array(range(7), pa.int64())})
@@ -176,14 +202,6 @@ def test_unported_joins_and_predicates_refuse_naming_their_slice():
         (f.join(d, left_on=["fk", "f"],
                 right_on=["dk", PE.Cast(pcol("w"), PT.DOUBLE)]),
          "composite"),
-        # a string ordering against a literal runs; between two columns
-        # it is the reference's CPU engine's
-        (f.filter(PE.LessThan(pcol("tag"), pcol("tag"))),
-         "exec/host_exec.py"),
-        (f.filter(PE.GreaterThanOrEqual(pcol("tag"), pcol("tag"))),
-         "exec/host_exec.py"),
-        (f.select(PE.If(PE.IsNull(pcol("fk")), pcol("tag"), pcol("tag")),
-                  names=["t"]), "string-valued if"),
     ]
     for df, match in cases:
         with pytest.raises(NotImplementedError, match=match):

@@ -362,16 +362,40 @@ def test_raise_error_raises_for_live_rows_only():
 
 
 def test_isnan_refuses_integral_input():
+    # the device refuses it with the reference's reason, so the projection
+    # runs on the CPU engine, as the reference's does: never NaN
     df = PSession(device="cpu").from_arrow(TABLE).select(
         PE.Alias(PE.IsNaN(pcol("l")), "r"))
-    with pytest.raises(NotImplementedError, match="bigint not supported"):
-        df.collect()
+    q = df.physical()
+    assert q.kind == "host"
+    assert q.fallback_reasons() == [
+        "expression IsNaN: input type bigint not supported"]
+    want = JSession().from_arrow(TABLE).select(
+        JE.Alias(JE.IsNaN(jcol("l")), "r")).collect().to_pydict()
+    assert q.collect().to_pydict() == want == {"r": [False] * len(L)}
 
 
-@pytest.mark.parametrize("args,match", [
-    (("l", "i"), "several types"), (("s", "s"), "strings slice")])
+@pytest.mark.parametrize("args,match", [(("l", "i"), "several types")])
 def test_greatest_refuses_mixed_types_and_strings(args, match):
     df = PSession(device="cpu").from_arrow(TABLE).select(
         PE.Alias(PE.Greatest(*[pcol(a) for a in args]), "r"))
     with pytest.raises(NotImplementedError, match=match):
         df.collect()
+
+
+@pytest.mark.parametrize("fn", ["Greatest", "Least"])
+def test_string_greatest_least_run_the_cpu_engine(fn):
+    # the reference's signatures keep STRING operands off its device; both
+    # CPU engines order them by value, nulls skipped
+    table = pa.table({"s": ["b", None, "a", "é", None],
+                      "t": ["a", "c", None, "e", None]})
+    jq = JSession().from_arrow(table).select(
+        JE.Alias(getattr(JE, fn)(jcol("s"), jcol("t")), "r")).physical()
+    pq = PSession(device="cpu").from_arrow(table).select(
+        PE.Alias(getattr(PE, fn)(pcol("s"), pcol("t")), "r")).physical()
+    assert jq.kind == pq.kind == "host"
+    assert pq.fallback_reasons() == jq.fallback_reasons()
+    want = ["b", "c", "a", "é", None] if fn == "Greatest" else \
+        ["a", "c", "a", "e", None]
+    assert pq.collect().to_pydict() == jq.collect().to_pydict() == {
+        "r": want}

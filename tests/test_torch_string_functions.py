@@ -340,28 +340,59 @@ def test_a_cast_key_packs_into_the_segmented_group_by():
 
 
 # ---------------------------------------------------------------------------
-# What stays refused, naming its slice
+# The families the reference runs on its CPU engine, and what stays
+# refused, naming its slice
 # ---------------------------------------------------------------------------
 
-CPU_ENGINE = "exec/host_exec.py"
+#: the families the reference's tagging puts on its CPU engine: each runs
+#: on the port's CPU engine with the reference's reason
+CPU_ENGINE = {
+    "string_coalesce": lambda E, S, T, c: E.Coalesce(c("s"), E.Literal("x")),
+    "string_if": lambda E, S, T, c: E.If(E.IsNull(c("s")), E.Literal("x"),
+                                         c("s")),
+    "column_ordering": lambda E, S, T, c: E.LessThan(c("s"), c("t")),
+    "cast_to_string": lambda E, S, T, c: E.Cast(c("i"), T.STRING),
+    "format_number": lambda E, S, T, c: S.FormatNumber(c("i"), 2),
+    "bin": lambda E, S, T, c: S.Bin(c("i")),
+    "concat_two_columns": lambda E, S, T, c: S.Concat(c("s"), c("t")),
+    "concat_ws_two_columns": lambda E, S, T, c: S.ConcatWs("-", c("s"),
+                                                           c("t")),
+}
+#: where the reference's CPU engine is wrong by Spark's rules (it joins
+#: only its first non-literal operand) the port gives Spark's answer
+SPARK_NOT_REFERENCE = {"concat_ws_two_columns": ["a-b", "c", "-e", "f"]}
 REFUSED = {
-    "string_coalesce": (lambda c: PE.Coalesce(c("s"), PE.Literal("x")),
-                        CPU_ENGINE),
-    "string_if": (lambda c: PE.If(PE.IsNull(c("s")), PE.Literal("x"),
-                                  c("s")), CPU_ENGINE),
-    "column_ordering": (lambda c: PE.LessThan(c("s"), c("t")), CPU_ENGINE),
-    "cast_to_string": (lambda c: PE.Cast(c("i"), PT.STRING), CPU_ENGINE),
-    "format_number": (lambda c: PS.FormatNumber(c("i"), 2), CPU_ENGINE),
-    "bin": (lambda c: PS.Bin(c("i")), CPU_ENGINE),
-    "concat_two_columns": (lambda c: PS.Concat(c("s"), c("t")), CPU_ENGINE),
-    "concat_ws_two_columns": (lambda c: PS.ConcatWs("-", c("s"), c("t")),
-                              CPU_ENGINE),
     "rlike": (lambda c: PS.RLike(c("s"), "a+"), "ops/regex.py"),
     "regexp_extract": (lambda c: PS.RegexpExtract(c("s"), "(a)", 1),
                        "ops/regex.py"),
     "regexp_replace": (lambda c: PS.RegexpReplace(c("s"), "a", "b"),
                        "ops/regex.py"),
 }
+SMALL = {"s": ["a", None, "", "f"], "t": ["b", "c", "e", None],
+         "i": [1, 2, None, -3]}
+
+
+@pytest.mark.parametrize("family", list(CPU_ENGINE))
+def test_the_cpu_engine_families_fall_back_with_the_reference_reason(
+        family):
+    build = CPU_ENGINE[family]
+    table = pa.table(SMALL)
+    jq = JSession().from_arrow(table).select(
+        JE.Alias(build(JE, JS, JT, jcol), "r")).physical()
+    pq = PSession(device="cpu").from_arrow(table).select(
+        PE.Alias(build(PE, PS, PT, pcol), "r")).physical()
+    assert jq.kind == pq.kind == "host"
+    assert pq.fallback_reasons() == jq.fallback_reasons()
+    assert pq.explain().startswith("!Exec <Project> cannot run on TPU "
+                                   "because ")
+    got = pq.collect().to_pydict()["r"]
+    ref = jq.collect().to_pydict()["r"]
+    oracle = JSession(ORACLE).from_arrow(table).select(
+        JE.Alias(build(JE, JS, JT, jcol), "r")).collect().to_pydict()["r"]
+    if family in SPARK_NOT_REFERENCE:
+        assert ref == oracle != got == SPARK_NOT_REFERENCE[family]
+    else:
+        assert _same(got, ref) and _same(got, oracle)
 
 
 @pytest.mark.parametrize("family", list(REFUSED))
@@ -373,12 +404,42 @@ def test_the_families_of_other_slices_refuse_naming_them(family):
         df.select(PE.Alias(build(pcol), "r")).collect()
 
 
+@pytest.mark.parametrize("family", list(REFUSED))
+def test_the_regexp_family_runs_the_cpu_engine_with_sql_disabled(family):
+    # the reference's tagging keeps these on its device; only with
+    # sql.enabled=false does the CPU engine take them
+    build, _where = REFUSED[family]
+    table = pa.table({"s": ["aa", None, "ba", "c"], "i": [1, 2, 3, 4]})
+    jbuild = {"rlike": lambda c: JS.RLike(c("s"), "a+"),
+              "regexp_extract": lambda c: JS.RegexpExtract(c("s"), "(a)", 1),
+              "regexp_replace": lambda c: JS.RegexpReplace(c("s"), "a", "b")
+              }[family]
+    got = PSession(ORACLE, device="cpu").from_arrow(table).select(
+        PE.Alias(build(pcol), "r")).to_pydict()
+    oracle = JSession(ORACLE).from_arrow(table).select(
+        JE.Alias(jbuild(jcol), "r")).collect().to_pydict()
+    assert got == oracle
+
+
 @pytest.mark.parametrize("agg", ["Min", "Max"])
-def test_string_min_max_refuse_naming_the_cpu_engine(agg):
-    df = PSession(device="cpu").from_arrow(pa.table(
-        {"s": ["a", None], "k": [1, 1]}))
-    with pytest.raises(NotImplementedError, match=CPU_ENGINE):
-        df.group_by("k").agg((getattr(PA, agg)(pcol("s")), "m")).collect()
+def test_string_min_max_fall_back_to_the_cpu_engine(agg):
+    table = pa.table({"s": ["b", None, "a", "c", None], "k": [1, 1, 1, 2, 3]})
+    jq = JSession().from_arrow(table).group_by("k").agg(
+        (getattr(JA, agg)(jcol("s")), "m")).physical()
+    pq = PSession(device="cpu").from_arrow(table).group_by("k").agg(
+        (getattr(PA, agg)(pcol("s")), "m")).physical()
+    assert jq.kind == pq.kind == "host"
+    assert pq.fallback_reasons() == jq.fallback_reasons() == [
+        f"aggregate {agg}: string min/max not yet on device"]
+    assert pq.collect().to_pydict() == jq.collect().to_pydict() == {
+        "k": [1, 2, 3], "m": ["a" if agg == "Min" else "b", "c", None]}
+
+
+def test_every_case_on_the_cpu_engine_equals_the_oracle(table, reference):
+    # sql.enabled=false: every class's eval_cpu, per dictionary entry
+    names = list(CS.EDGE_CASES)
+    got = _port(table, names, ORACLE)
+    assert [n for n in names if not _same(got[n], reference[n][1])] == []
 
 
 def test_every_case_over_an_all_null_column_equals_the_oracle():

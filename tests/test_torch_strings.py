@@ -255,14 +255,29 @@ def test_substring_dictionary_is_sorted_unique_and_codes_remapped(
 
 
 def test_string_expressions_refuse_a_pattern_that_is_not_a_literal():
-    table = pa.table({"s": ["ab", "cd"], "t": ["a", "c"]})
+    # the device refuses them with the reference's reasons, so they run
+    # on the CPU engine, row by row; the reference's CPU engine reads the
+    # missing literal as null (README "Deviations"), the port gives
+    # Spark's answer
+    table = pa.table({"s": ["ab", "cd", None], "t": ["a", "d", "x"],
+                      "i": [2, -1, 1]})
     s = PSession(device="cpu").from_arrow(table)
-    with pytest.raises(NotImplementedError, match="must be a literal"):
-        s.select(PE.Alias(PPS.StartsWith(pcol("s"), pcol("t")), "r")) \
-            .collect()
-    with pytest.raises(NotImplementedError, match="must be a literal"):
-        s.select(PE.Alias(PPS.Substring(pcol("s"), pcol("t")), "r")) \
-            .collect()
+    j = JSession().from_arrow(table)
+    for pe, je, reason, spark in (
+            (PPS.StartsWith(pcol("s"), pcol("t")),
+             JPS.StartsWith(jcol("s"), jcol("t")),
+             "expression StartsWith: search pattern must be a literal",
+             [True, False, None]),
+            (PPS.Substring(pcol("s"), pcol("i")),
+             JPS.Substring(jcol("s"), jcol("i")),
+             "expression Substring: argument 1 must be a literal",
+             ["b", "d", None])):
+        q = s.select(PE.Alias(pe, "r")).physical()
+        jq = j.select(JE.Alias(je, "r")).physical()
+        assert q.kind == jq.kind == "host"
+        assert q.fallback_reasons() == jq.fallback_reasons() == [reason]
+        assert q.collect().to_pydict() == {"r": spark}
+        assert jq.collect().to_pydict() == {"r": [None, None, None]}
 
 
 def test_a_failing_device_transform_raises(monkeypatch):

@@ -449,14 +449,32 @@ def test_sort_orders_like_reference():
              for k, vs in want.to_pydict().items()}, orders
 
 
+def test_string_ordering_and_sql_disabled_run_the_cpu_engine(
+        ptables, jtables):
+    # a string ordering between two columns is the reference's CPU
+    # engine's, and so is every operator with sql.enabled=false
+    def ordering(e, c, s, t):
+        return s.from_arrow(t["lineitem"]).filter(
+            e.LessThan(c("l_shipmode"), c("l_returnflag"))).select(
+            c("l_orderkey"), c("l_shipmode")).sort("l_orderkey",
+                                                   "l_shipmode")
+    want = ordering(JE, jcol, JSession(), jtables).collect().to_pydict()
+    q = ordering(PE, pcol, PSession(device="cpu"), jtables).physical()
+    assert q.kind == "device"            # the sort above runs on the device
+    assert q.fallback_reasons() == [
+        "expression LessThan: string ordering comparison not yet on device"]
+    assert "HostToDeviceExec" in q.physical_tree()
+    assert q.collect().to_pydict() == want
+    off = PSession({"spark.rapids.tpu.sql.enabled": "false"}, device="cpu")
+    q = off.from_host(ptables["lineitem"]).agg(
+        (PA.Count(None), "n")).physical()
+    assert q.kind == "host" and "!Exec <Aggregate>" in q.explain()
+    assert q.collect().to_pydict() == {"n": [ptables["lineitem"].num_rows]}
+
+
 def test_unported_operators_refuse_instead_of_falling_back(ptables):
     s = PSession(device="cpu")
     li = s.from_host(ptables["lineitem"])
-    # a string ordering against a literal runs; between two columns it
-    # is the reference's CPU engine's
-    with pytest.raises(NotImplementedError, match="exec/host_exec.py"):
-        li.filter(PE.LessThan(pcol("l_shipmode"), pcol("l_returnflag"))) \
-            .collect()
     # one string key joins (its probe codes remap into the build's
     # dictionary); a composite key of strings takes the sorted tier
     with pytest.raises(NotImplementedError, match="string join keys"):
@@ -468,10 +486,6 @@ def test_unported_operators_refuse_instead_of_falling_back(ptables):
     with pytest.raises(NotImplementedError, match="TIMESTAMP"):
         s.from_arrow(stamps).select(PE.Alias(PDT.Year(pcol("ts")),
                                              "y")).collect()
-    with pytest.raises(NotImplementedError, match="not ported"):
-        PSession({"spark.rapids.tpu.sql.enabled": "false"},
-                 device="cpu").from_host(ptables["lineitem"]).agg(
-            (PA.Count(None), "n")).collect()
 
 
 def _q2_join(m, e, c, s, t):
