@@ -228,9 +228,23 @@ own failure:
                tree, and printing its cold wall, median of 3 warm walls,
                peak, launches, CPU operators' ms and each transition's
                bytes and ms.
+  9c. decimals — the wide decimal lane, CpuWindowExec and the
+               aggregate-twin CSE (chip_smoke_decimals.py): dec_ds_window
+               (TPC-DS q98 with WinSum disabled, its window on the CPU
+               engine) right after scalars dense, while the TPC-DS tables
+               are loaded; after fallback, at SF10 on the TPC-H columns
+               kept from the data phase: dec_q1 (q1's DECIMAL sums as two
+               half lanes through seg_sums), dec_wrap (SUM and AVG of a
+               DECIMAL(18,8) past 2^63, exact), dec_rank (a card
+               aggregate ranked by CpuWindowExec on its decimal128 key)
+               and cse_q15 (q15's shared view: its group-by calls halved
+               against the plan with the sharing off).  Each equal to
+               numpy, its placement held to the stated one, printing its
+               cold wall, median of 3 warm walls, peak, launches, CPU
+               operators' ms and transitions' bytes and ms.
 Each phase after the data prints its seconds.
   10. result — a `kernels` JSON line (launches by query over every
-               query of phases 5, 6b, 6c, 7, 9 and 9b), the whole run's
+               query of phases 5, 6b, 6c, 7, 9, 9b and 9c), the whole run's
                seconds, the nvidia-smi line, and last {"ok": true,
                "device": {...}}.
 
@@ -358,6 +372,14 @@ PATH_KERNELS.update({**{f"like_{q}": UNIQUE_JOIN for q in (
 PATH_KERNELS.update({"fb_concat_groupby": UNIQUE_JOIN + ("seg_sums",
                                                          "seg_reduce"),
                      "fb_q16_mix": UNIQUE_JOIN, "fb_q3_format": UNIQUE_JOIN})
+# the decimals phase: dec_q1 and dec_wrap group by q1's 12-bucket
+# dictionary domain into two half lanes a DECIMAL sum (seg_sums);
+# dec_rank's 100,000 suppliers take the sorted group-by and its window
+# the CPU engine (no kernel); dec_ds_window runs q98's joins, cse_q15
+# q15's
+PATH_KERNELS.update({"dec_q1": ("seg_sums",), "dec_wrap": ("seg_sums",),
+                     "dec_rank": (), "dec_ds_window": UNIQUE_JOIN,
+                     "cse_q15": UNIQUE_JOIN})
 Q3_DATE = (pydt.date(1995, 3, 15) - pydt.date(1970, 1, 1)).days
 # the device launches of one build_layout call, by kernel name: this
 # tree's two passes, and (for an A B B A against an older tree) its
@@ -405,6 +427,15 @@ def flush_l2() -> None:
     _FLUSH[0].zero_()
 
 
+_WINDOW = "chip_smoke_counted_calls"
+_PAD = 2
+
+
+def _on_device(e) -> bool:
+    from torch.autograd import DeviceType
+    return e.device_type == DeviceType.CUDA
+
+
 def profiled_ms(fn, fragment=None, reps: int = 10, by_name=None,
                 cold: bool = False):
     """(device ms a call of the kernels whose names hold `fragment` (a
@@ -414,45 +445,67 @@ def profiled_ms(fn, fragment=None, reps: int = 10, by_name=None,
     `cold`, the L2 is flushed before each call (as a query's other work
     leaves it for the next batch; the flush is counted among the
     launches, not in the time of a named kernel).  `by_name`, a dict,
-    receives the device ms a call of each kernel name.  A trace that
-    holds no device activity at all, or a count of launches that is not
-    a multiple of the calls (a lost record), is taken again, up to three
-    traces; fails the run if the profiler saw no launch of such a
-    kernel."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    receives the device ms a call of each kernel name.
+
+    The profiler can drop a device record at either end of a trace, so
+    the counted calls run in a marked window between _PAD calls before
+    and after, each side set apart by a synchronize and a pause, and
+    only the device records that start inside the window count.  Where
+    the window's count of launches is not a positive multiple of the
+    calls (a record lost inside it), the trace is counted over all its
+    calls if that count is whole, else taken again, up to five traces;
+    fails the run if the profiler saw no launch of such a kernel."""
+    from torch.profiler import ProfilerActivity, profile, record_function
     frags = (fragment,) if isinstance(fragment, str) else fragment
     fn()
     torch.cuda.synchronize()
-    for attempt in (1, 2, 3):
+
+    def calls(n):
+        for _ in range(n):
+            if cold:
+                flush_l2()
+            fn()
+        torch.cuda.synchronize()
+
+    for attempt in range(1, 6):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                if cold:
-                    flush_l2()
-                fn()
-            torch.cuda.synchronize()
-        us, launches, own = 0.0, 0, 0
-        for e in prof.key_averages():
-            if e.device_type != DeviceType.CUDA:
-                continue
-            launches += e.count
-            if frags is None or any(f in e.key for f in frags):
-                us += e.self_device_time_total
-                own += e.count
-                if by_name is not None:
-                    by_name[e.key[:80]] = \
-                        e.self_device_time_total / 1e3 / reps
-        if (launches and launches % reps == 0) or attempt == 3:
+            calls(_PAD)
+            time.sleep(0.002)
+            with record_function(_WINDOW):
+                calls(reps)
+            time.sleep(0.002)
+            calls(_PAD)
+        events = list(prof.events())
+        window = [e.time_range for e in events
+                  if e.name == _WINDOW and not _on_device(e)]
+        device = [e for e in events
+                  if _on_device(e) and not e.is_user_annotation]
+        counted = [e for e in device if window
+                   and window[0].start <= e.time_range.start
+                   <= window[0].end]
+        n = reps
+        if not (counted and len(counted) % reps == 0):
+            counted, n = device, reps + 2 * _PAD
+        if (counted and len(counted) % n == 0) or attempt == 5:
             break
         # every call makes a whole number of launches, so a count that
         # is not a multiple of the calls lost records
-        log(f"[kernels] torch.profiler traced {launches} device launches "
-            f"over {reps} calls of {fragment or 'a call'}; tracing it "
-            "again")
+        log(f"[kernels] torch.profiler traced {len(device)} device "
+            f"launches over {reps + 2 * _PAD} calls of "
+            f"{fragment or 'a call'}; tracing it again")
+    us, own = 0.0, 0
+    for e in counted:
+        if frags is None or any(f in e.name for f in frags):
+            us += e.time_range.elapsed_us()
+            own += 1
+            if by_name is not None:
+                key = e.name[:80]
+                by_name[key] = by_name.get(key, 0.0) \
+                    + e.time_range.elapsed_us() / 1e3 / n
     check(own > 0, f"torch.profiler saw no {fragment or 'device'} launch "
           "(no device activity traced)")
-    return us / 1e3 / reps, launches / reps
+    return us / 1e3 / n, len(counted) / n
 
 
 def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
@@ -488,10 +541,10 @@ def q1_kernel_shape():
     plan = tpch.q1(TpuSession(device="cpu"), tiny).physical().root.child
     agg = HashAggregate(plan.key_exprs, plan.key_names, plan.aggs,
                         TpuConf())
-    lanes = {("rows",)}
+    lanes = {("all",)}                      # the bucket occupancy
     for si, s in enumerate(agg.update_specs):
         if s.kind in (G.COUNT, G.COUNT_ALL, G.SUM):
-            lanes.add(("cnt" if s.kind != G.SUM else "sum", si))
+            lanes.add(G.sum_lane_key(s, si))
         if s.kind not in (G.COUNT, G.COUNT_ALL):
             lanes.add(("vc", s.input_idx))
     domain = (3 + 1) * (2 + 1)
@@ -2111,12 +2164,15 @@ def check_later(name: str, lanes, want) -> None:
 
 def lanes_of(hb):
     """Column -> python list of its storage values (strings decoded,
-    decimals as unscaled ints), failing on nulls."""
+    decimals as unscaled ints, a high word included), failing on
+    nulls."""
     out = {}
     for name, c in zip(hb.names, hb.columns):
         check(c.validity is None or c.validity.all(), f"{name} has nulls")
         if c.dictionary is not None:
             out[name] = [str(v) for v in c.dictionary[c.data]]
+        elif c.hi is not None:
+            out[name] = c.unscaled().tolist()
         else:
             out[name] = c.data.tolist()
     return out
@@ -3066,10 +3122,12 @@ def main() -> int:
                                      reference=not args.kernels_only)
     stats, launches = card_phases(dev, tables, want, later, args)
     if not args.kernels_only:
+        import chip_smoke_decimals as DEC
         import chip_smoke_fallback as F
         # the TPC-H tables go first, to bound host memory; the fallback
-        # phase keeps the columns it reads
+        # and decimals phases keep the columns they read
         fb_tables = F.narrow(tables)
+        dec_tables = DEC.narrow(tables)
         del tables, want, later
         gc.collect()
         torch.cuda.empty_cache()
@@ -3078,10 +3136,15 @@ def main() -> int:
         phase("window", window_phase, ds_tables, ds_want)
         launches.update(phase("scalars dense", dense_phase, ds_tables,
                               ds_want))
+        launches.update(phase("decimals (TPC-DS part)", DEC.ds_window_phase,
+                              sys.modules[__name__], ds_tables, ds_want))
         del ds_tables, ds_want
         gc.collect()
         launches.update(phase("fallback", F.fallback_phase,
                               sys.modules[__name__], fb_tables, args.seed))
+        del fb_tables
+        launches.update(phase("decimals", DEC.decimals_phase,
+                              sys.modules[__name__], dec_tables))
     rows = []
     for name in TPU_KERNELS:
         st = stats[name]

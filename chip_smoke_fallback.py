@@ -157,22 +157,25 @@ def narrow(tables) -> dict:
 # Placement
 # ---------------------------------------------------------------------------
 
-def placement_errors(name: str, explain: str, tree: str) -> list:
-    """What differs from the stated placement: the explain lines' '!'
-    nodes, every other line '*', and the transitions of the physical
-    tree, top down."""
+def placement_errors(name: str, explain: str, tree: str,
+                     host_nodes=None, transitions=None) -> list:
+    """What differs from the stated placement (HOST_NODES, TRANSITIONS
+    unless given): the explain lines' '!' nodes, every other line '*',
+    and the transitions of the physical tree, top down."""
+    host_nodes = HOST_NODES if host_nodes is None else host_nodes
+    transitions = TRANSITIONS if transitions is None else transitions
     errors = []
     host = [line.strip()[1:].split(">")[0].replace("Exec <", "")
             for line in explain.splitlines() if line.strip().startswith("!")]
-    if host != HOST_NODES[name]:
-        errors.append(f"CPU nodes {host}, stated {HOST_NODES[name]}")
+    if host != host_nodes[name]:
+        errors.append(f"CPU nodes {host}, stated {host_nodes[name]}")
     if any(not line.strip().startswith(("*", "!"))
            for line in explain.splitlines() if line.strip()):
         errors.append("an explain line is neither '*' nor '!'")
     trans = [line.strip() for line in tree.splitlines()
              if line.strip() in ("HostToDeviceExec", "DeviceToHostExec")]
-    if trans != TRANSITIONS[name]:
-        errors.append(f"transitions {trans}, stated {TRANSITIONS[name]}")
+    if trans != transitions[name]:
+        errors.append(f"transitions {trans}, stated {transitions[name]}")
     return errors
 
 

@@ -137,11 +137,17 @@ def scalars_q1(s, t):
         *[col(k) for k in KEYS], *[E.Alias(e, n) for n, (_k, e) in
                                    exprs.items()])
     aggs = []
-    for name in exprs:
+    for name, (kind, _e) in exprs.items():
+        # the DECIMAL(23-25) roundings are read through a one-operand
+        # COALESCE (the same values): a DECIMAL wider than 18 digits read
+        # straight off a column places its aggregate on the CPU engine
+        # (the reference's plan-time rule, for a host column's high
+        # word), and this phase holds the card's aggregation; their SUMs
+        # run as two half lanes each
+        ref = E.Coalesce(col(name)) if kind == "dec" else col(name)
         if not name.endswith("_date"):
-            aggs.append((A.Sum(col(name)), f"sum_{name}"))
-        aggs += [(A.Min(col(name)), f"min_{name}"),
-                 (A.Max(col(name)), f"max_{name}")]
+            aggs.append((A.Sum(ref), f"sum_{name}"))
+        aggs += [(A.Min(ref), f"min_{name}"), (A.Max(ref), f"max_{name}")]
     return proj.group_by(*KEYS).agg(*aggs).sort(*KEYS)
 
 

@@ -12,7 +12,9 @@ the same:
   * **Validity as a bool lane** per column (True = valid).
   * **Strings as dictionary codes**: int32 codes on the device, the
     sorted numpy dictionary on the host.
-  * **Decimals as int64 unscaled lanes.**
+  * **Decimals as int64 unscaled lanes**, and a DECIMAL wider than 18
+    digits with an optional high int64 lane (`DeviceColumn.hi`, the
+    value hi * 2^64 + (data as unsigned), the reference's `data_hi`).
 
 One deliberate difference: DOUBLE is stored as native float64.  The
 reference keeps int64 bit patterns because the TPU emulates f64 lossily;
@@ -79,16 +81,30 @@ class DeviceColumn:
                 expression that made the column knows one (a cast of a
                 string: plan/expressions.DevVal); the group-by packs
                 such a key.
+    hi        : the high word of a DECIMAL wider than 18 digits (int64,
+                capacity), or None: the value is `data` itself.  Every
+                operator that moves rows moves it (`take`).
     """
     data: torch.Tensor
     validity: torch.Tensor
     dtype: t.DataType
     dictionary: Optional[np.ndarray] = None
     value_range: Optional[tuple] = None
+    hi: Optional[torch.Tensor] = None
 
     @property
     def capacity(self) -> int:
         return self.data.shape[0]
+
+    def take(self, idx, live=None) -> "DeviceColumn":
+        """The rows at `idx` (a tensor or a slice), validity ANDed with
+        `live` when given; the high word comes along."""
+        valid = self.validity[idx]
+        if live is not None:
+            valid = valid & live
+        return DeviceColumn(self.data[idx], valid, self.dtype,
+                            self.dictionary, None,
+                            None if self.hi is None else self.hi[idx])
 
 
 @dataclasses.dataclass
@@ -133,7 +149,9 @@ class DeviceBatch:
     def nbytes(self) -> int:
         """Device bytes of the padded lanes (capacity-based: no sync)."""
         return sum(c.data.numel() * c.data.element_size() +
-                   c.validity.numel() for c in self.columns)
+                   c.validity.numel() +
+                   (0 if c.hi is None else c.hi.numel() * 8)
+                   for c in self.columns)
 
     def row_mask(self) -> torch.Tensor:
         """Bool mask of the live prefix (row < num_rows)."""
@@ -182,7 +200,9 @@ def column_to_device(col: HostColumn, capacity: int,
         validity = torch.arange(capacity, device=device) < n
     else:
         validity = _upload(col.validity, capacity, torch.bool, device)
-    return DeviceColumn(data, validity, col.dtype, col.dictionary)
+    hi = None if col.hi is None else \
+        _upload(col.hi, capacity, torch.int64, device)
+    return DeviceColumn(data, validity, col.dtype, col.dictionary, None, hi)
 
 
 def to_device(hb: HostBatch, conf: TpuConf = DEFAULT_CONF,
@@ -217,8 +237,9 @@ def to_host(db: DeviceBatch, rows: int) -> HostBatch:
     for c in db.columns:
         data = c.data[:rows].cpu().numpy()
         valid = c.validity[:rows].cpu().numpy()
+        hi = None if c.hi is None else c.hi[:rows].cpu().numpy()
         cols.append(HostColumn(data, None if valid.all() else valid,
-                               c.dtype, c.dictionary))
+                               c.dtype, c.dictionary, hi))
     return HostBatch(cols, list(db.names))
 
 

@@ -9,7 +9,10 @@ with the card needs no pyarrow:
   * STRING columns are int32 codes into a numpy dictionary of str that
     is sorted and duplicate-free (the JAX package's
     `encoded.dict.sortOnScan` form, built once on the host);
-  * DECIMAL(p, s) is the int64 unscaled value (p <= 18 on the host);
+  * DECIMAL(p, s) is the int64 unscaled value; a DECIMAL with p > 18
+    may carry a second int64 lane `hi`, the value being
+    hi * 2^64 + (data as unsigned) (the reference's decimal128 word
+    order); without `hi` the value is `data` itself;
   * DATE is int32 days since the epoch, TIMESTAMP int64 microseconds.
 
 `from_numpy` builds a batch from plain arrays; `from_arrow`/`to_arrow`
@@ -28,14 +31,26 @@ import numpy as np
 from .. import types as t
 
 
+#: a decimal context wide enough for any DECIMAL(38) value and its
+#: products: the default context's 28 digits would round past them
+EXACT = pydec.Context(prec=100)
+
+
+def decimal_value(unscaled: int, scale: int) -> pydec.Decimal:
+    """An unscaled DECIMAL as its exact value."""
+    return pydec.Decimal(int(unscaled)).scaleb(-scale, EXACT)
+
+
 @dataclasses.dataclass
 class HostColumn:
     """One host column: data lane, validity (None = all valid), logical
-    type and, for strings, the sorted duplicate-free dictionary."""
+    type, for strings the sorted duplicate-free dictionary, and for a
+    DECIMAL wider than 18 digits an optional high word `hi`."""
     data: np.ndarray
     validity: Optional[np.ndarray]
     dtype: t.DataType
     dictionary: Optional[np.ndarray] = None
+    hi: Optional[np.ndarray] = None
 
     def __len__(self) -> int:
         return len(self.data)
@@ -43,8 +58,23 @@ class HostColumn:
     def slice(self, offset: int, length: int) -> "HostColumn":
         v = None if self.validity is None \
             else self.validity[offset:offset + length]
+        hi = None if self.hi is None else self.hi[offset:offset + length]
         return HostColumn(self.data[offset:offset + length], v, self.dtype,
-                          self.dictionary)
+                          self.dictionary, hi)
+
+    def hi_lane(self) -> np.ndarray:
+        """The high word, the sign extension of `data` where not kept."""
+        return self.data.astype(np.int64) >> 63 if self.hi is None \
+            else self.hi
+
+    def unscaled(self) -> np.ndarray:
+        """A DECIMAL column's unscaled values as Python ints (object
+        array; null rows hold whatever their lanes hold)."""
+        lo = self.data.astype(np.int64)
+        if self.hi is None:
+            return lo.astype(object)
+        return self.hi.astype(object) * _U64 + lo.view(np.uint64) \
+            .astype(object)
 
     def valid_mask(self) -> np.ndarray:
         return np.ones(len(self.data), bool) if self.validity is None \
@@ -59,8 +89,8 @@ class HostColumn:
             vals = self.dictionary[data].tolist() if len(self.dictionary) \
                 else [None] * len(data)
         elif isinstance(dt, t.DecimalType):
-            vals = [pydec.Decimal(int(u)).scaleb(-dt.scale)
-                    for u in data.tolist()]
+            vals = [decimal_value(u, dt.scale)
+                    for u in self.unscaled().tolist()]
         elif isinstance(dt, t.DateType):
             epoch = pydt.date(1970, 1, 1)
             vals = [epoch + pydt.timedelta(days=int(d)) for d in data.tolist()]
@@ -84,6 +114,8 @@ def _min_max(col: HostColumn):
     dt = col.dtype
     if not isinstance(dt, (t.IntegralType, t.DateType, t.TimestampType,
                            t.BooleanType, t.DecimalType)):
+        return None
+    if col.hi is not None:
         return None
     data = col.data if col.validity is None else col.data[col.validity]
     if not len(data):
@@ -214,8 +246,12 @@ def concat_columns(parts: Sequence[HostColumn]) -> HostColumn:
         valid = np.concatenate([p.valid_mask() for p in parts])
     if not isinstance(dt, t.StringType):
         lane = t.physical_np_dtype(dt)
+        hi = None
+        if any(p.hi is not None for p in parts):
+            hi = np.concatenate([p.hi_lane() for p in parts])
         return HostColumn(np.concatenate([p.data.astype(lane, copy=False)
-                                          for p in parts]), valid, dt)
+                                          for p in parts]), valid, dt,
+                          None, hi)
     dicts = [np.array([], str) if p.dictionary is None else p.dictionary
              for p in parts]
     unified = np.unique(np.concatenate(dicts)).astype(str)
@@ -296,13 +332,44 @@ def _as_lane(values, dt: t.DataType) -> np.ndarray:
     return np.asarray(values).astype(t.physical_np_dtype(dt), copy=False)
 
 
+_U64 = 1 << 64
+_MASK64 = _U64 - 1
+
+
+def wide_decimal_column(data, validity: Optional[np.ndarray],
+                        dt: t.DecimalType) -> HostColumn:
+    """A DECIMAL(p > 18) column from its unscaled values: an int64 lane
+    (the values themselves), an (n, 2) int64 array of [lo, hi] words, or
+    Python ints (any sequence, object array).  The high word is kept
+    only where some row needs it."""
+    arr = np.asarray(data)
+    if arr.dtype.kind in "iu" and arr.ndim == 1:
+        return HostColumn(arr.astype(np.int64, copy=False), validity, dt)
+    if arr.dtype.kind in "iu" and arr.ndim == 2:
+        lo, hi = arr[:, 0].astype(np.int64), arr[:, 1].astype(np.int64)
+    else:
+        ints = np.array([int(v) for v in arr.tolist()] + [0],
+                        dtype=object)[:-1]
+        lo = (ints & _MASK64).astype(np.uint64).view(np.int64) \
+            if len(ints) else np.zeros(0, np.int64)
+        hi = (ints >> 64).astype(np.int64) if len(ints) \
+            else np.zeros(0, np.int64)
+    if validity is not None:
+        lo = np.where(validity, lo, 0)
+        hi = np.where(validity, hi, 0)
+    keep = not np.array_equal(hi, lo >> 63)
+    return HostColumn(lo, validity, dt, None, hi if keep else None)
+
+
 def from_numpy(columns: Mapping[str, object], schema: t.StructType
                ) -> HostBatch:
     """HostBatch from numpy columns.  Each value is the data lane or a
     (data, validity) pair; `schema` gives the logical types.  Lanes are
     in the device storage form (decimal = int64 unscaled at the type's
-    scale, date = int32 days); strings are arrays of str (None = null)
-    and are dictionary-encoded here."""
+    scale, date = int32 days); a DECIMAL wider than 18 digits may also
+    come as Python ints or [lo, hi] word pairs (`wide_decimal_column`);
+    strings are arrays of str (None = null) and are dictionary-encoded
+    here."""
     cols = []
     for f in schema.fields:
         v = columns[f.name]
@@ -313,9 +380,7 @@ def from_numpy(columns: Mapping[str, object], schema: t.StructType
             cols.append(string_column(data, validity))
         elif isinstance(f.data_type, t.DecimalType) and \
                 f.data_type.is_wide:
-            raise NotImplementedError(
-                f"{f.name}: host decimal({f.data_type.precision}) wider "
-                "than an int64 lane is not supported by the port")
+            cols.append(wide_decimal_column(data, validity, f.data_type))
         else:
             cols.append(HostColumn(_as_lane(data, f.data_type), validity,
                                    f.data_type))
@@ -375,9 +440,12 @@ def _host_lane(values, dt: t.DataType):
     if isinstance(dt, t.StringType):
         return np.array(values, dtype=object), None
     if isinstance(dt, t.DecimalType):
-        lane = [0 if v is None else int(pydec.Decimal(v).scaleb(dt.scale)
-                                        .to_integral_value(pydec.ROUND_HALF_UP))
-                for v in values]
+        lane = [0 if v is None else int(
+            pydec.Decimal(v).scaleb(dt.scale, EXACT)
+            .to_integral_value(pydec.ROUND_HALF_UP)) for v in values]
+        if dt.is_wide:
+            return (np.array(lane + [0], dtype=object)[:-1],
+                    None if validity.all() else validity)
     elif isinstance(dt, t.DateType):
         lane = [0 if v is None else (v - zero[t.DateType]).days
                 for v in values]
@@ -462,13 +530,12 @@ def _arrow_column(arr, dt: t.DataType) -> HostColumn:
         values = arr.to_numpy(zero_copy_only=False)
         return string_column(values, validity)
     if isinstance(dt, t.DecimalType):
-        if dt.is_wide:
-            raise NotImplementedError(
-                f"host decimal({dt.precision}) wider than an int64 lane "
-                "is not supported by the port")
         buf = arr.buffers()[1]
         words = np.frombuffer(buf, dtype=np.int64)
-        data = words[arr.offset * 2:(arr.offset + n) * 2:2].copy()
+        words = words[arr.offset * 2:(arr.offset + n) * 2].reshape(-1, 2)
+        if dt.is_wide:
+            return wide_decimal_column(words, validity, dt)
+        data = words[:, 0].copy()
     elif isinstance(dt, t.DateType):
         data = arr.cast(pa.int32()).fill_null(0).to_numpy(
             zero_copy_only=False)

@@ -1193,6 +1193,9 @@ HONOURED_KEYS = frozenset(e.key for e in (
     # the cost-based optimizer (plan/overrides.py, plan/cbo.py; the
     # sql.exec.* and sql.expression.* disables are dynamic keys)
     SQL_ENABLED, MODE, EXPLAIN, CBO_ENABLED, BATCH_SIZE_ROWS, SHAPE_BUCKETS, BUCKET_MIN_ROWS,
+    # the Spark line whose semantics run (shims.py: the shim gate, the
+    # legacy statistical aggregates, the ANSI default)
+    SPARK_VERSION,
     BUCKET_GROWTH, ADAPTIVE_ENABLED, IMPROVED_FLOAT_OPS,
     DENSE_AGG_DOMAIN_MAX, DENSE_AGG_VIA_SORT, PALLAS_ENABLED, PALLAS_JOIN,
     PALLAS_SEGAGG, PALLAS_COMPACT, PALLAS_SEGAGG_MAX_DOMAIN,
@@ -1310,10 +1313,17 @@ class TpuConf:
     @property
     def ansi(self):
         # explicit session setting wins; otherwise the pinned Spark
-        # version's default (false through 3.x, true from 4.0)
+        # version's default (false through 3.x, true in 4.0 — shims.py)
         if ANSI_ENABLED.key in self._raw:
             return self.get(ANSI_ENABLED)
-        return int(str(self.get(SPARK_VERSION)).split(".")[0]) >= 4
+        return self.shims.ansi_default
+
+    @property
+    def shims(self):
+        """Version shims for `spark.rapids.tpu.spark.version`
+        (ShimLoader role, shims.py)."""
+        from .shims import get_shims
+        return get_shims(str(self.get(SPARK_VERSION)))
 
     @property
     def bucket_set(self):

@@ -26,20 +26,20 @@ from __future__ import annotations
 
 from typing import List, Optional, Sequence, Tuple
 
-import numpy as np
 import torch
 
 from .. import types as t
 from ..columnar.device import (DeviceBatch, DeviceColumn, bucket_capacity,
                                storage_dtype, to_host)
-from ..columnar.host import HostBatch, HostColumn
+from ..columnar.host import HostBatch
 from ..config import DENSE_AGG_DOMAIN_MAX, DENSE_AGG_VIA_SORT, TpuConf
 from ..ops import groupby as G
 from ..ops.batch_ops import (concat_batches, ensure_unique_dict,
                              shrink_to_rows, unify_dictionaries)
 from ..plan import expressions as E
-from ..plan.aggregates import (AggregateFunction, _DecimalAvgEvaluate,
-                               _deep_resolved)
+from ..plan.aggregates import (ROWS_EXACT, AggregateFunction,
+                               _deep_resolved, past_rows_error,
+                               uses_half_lanes)
 from .evaluator import conds_mask, evaluate_projection
 
 _PACK_BUDGET = 1 << 62
@@ -162,25 +162,18 @@ def _buffer_dicts(specs: Sequence[G.AggSpec],
             else None for s in specs]
 
 
-def _decimal_avg_host(expr: "_DecimalAvgEvaluate", buffers: DeviceBatch,
-                      start: int) -> HostColumn:
-    """A global DECIMAL average from its (sum, count) buffers in Python
-    integers, HALF_UP at the result scale; null for an empty input or a
-    quotient past the result's precision (Spark's non-ANSI overflow)."""
-    s_col, c_col = buffers.columns[start], buffers.columns[start + 1]
-    out_t = expr.dtype
-    value, valid = 0, False
-    if bool(s_col.validity[0]) and bool(c_col.validity[0]) and \
-            int(c_col.data[0]) > 0:
-        num = int(s_col.data[0]) * 10 ** (out_t.scale -
-                                          expr.children[0].dtype.scale)
-        den = int(c_col.data[0])
-        mag, rem = divmod(abs(num), den)
-        mag += 2 * rem >= den
-        value = -mag if num < 0 else mag
-        valid = abs(value) < 10 ** min(out_t.precision, 18)
-    return HostColumn(np.array([value if valid else 0], np.int64),
-                      np.array([valid]), out_t)
+def check_agg_buffers_supported(aggs) -> None:
+    """A wide (p > 18) DECIMAL read straight off a column may carry a high
+    word, which no buffer lane reads: plan-time tagging sends such an
+    aggregate to the CPU engine (`AggregateFunction.unsupported_reasons`);
+    a direct caller fails here (the reference's check of the same
+    name)."""
+    for fn, _name in aggs:
+        child = getattr(fn, "child", None)
+        if child is not None and E.consumes_wide_host(child):
+            raise NotImplementedError(
+                f"128-bit host decimal input to {fn.name} not supported "
+                "on device")
 
 
 def _run_reduce(agg_cols: List[DeviceColumn], specs: List[G.AggSpec],
@@ -200,21 +193,31 @@ class HashAggregate:
         self.key_names = list(key_names)
         self.aggs = list(aggs)
         self.conf = conf
+        check_agg_buffers_supported(self.aggs)
         # exact (lo, hi) per key from plan statistics (or None): lets
         # bounded integer keys pack into the kernel's bucket lane
         self.key_ranges = list(key_ranges) if key_ranges is not None \
             else [None] * len(self.key_exprs)
         self.update_specs: List[G.AggSpec] = []
         self.merge_specs: List[G.AggSpec] = []
+        # rows read so far (the batches' capacities: no sync), bounded
+        # where a wide DECIMAL sum's half lanes are exact
+        self.rows_read = 0
+        self.rows_bounded = any(uses_half_lanes(fn) for fn, _n in self.aggs)
         self.input_exprs: List[E.Expression] = []
         self.buffer_slices: List[Tuple[int, int]] = []
         for fn, _name in self.aggs:
             start = len(self.update_specs)
+            # an input object a function lists twice (AVG's sum and
+            # count) is projected, gathered and counted once
+            seen = {}
             for (kind, bdt), inp in zip(fn.update_ops(), fn.inputs()):
                 idx = -1
                 if inp is not None:
-                    idx = len(self.input_exprs)
-                    self.input_exprs.append(inp)
+                    idx = seen.get(id(inp), len(self.input_exprs))
+                    if idx == len(self.input_exprs):
+                        seen[id(inp)] = idx
+                        self.input_exprs.append(inp)
                 self.update_specs.append(G.AggSpec(kind, idx, bdt))
             self.buffer_slices.append((start, len(self.update_specs)))
         # merge specs operate on buffer columns positionally
@@ -232,7 +235,8 @@ class HashAggregate:
         agg_cols = evaluate_projection(
             self.input_exprs,
             [f"_in{i}" for i in range(len(self.input_exprs))], db,
-            self.conf).columns if self.input_exprs else []
+            self.conf, narrow="HashAggregateExec").columns \
+            if self.input_exprs else []
         if live is None:
             live = db.row_mask()
         if not self.key_exprs:
@@ -240,7 +244,7 @@ class HashAggregate:
             return self._reduce_outs_to_batch(
                 outs, _buffer_dicts(self.update_specs, agg_cols))
         key_batch = evaluate_projection(self.key_exprs, self.key_names, db,
-                                        self.conf)
+                                        self.conf, narrow="HashAggregateExec")
         key_cols, out_keys, outs, n_groups = _run_groupby(
             key_batch.columns, agg_cols, self.update_specs, live,
             db.capacity, key_ranges=self.key_ranges, conf=self.conf)
@@ -253,13 +257,18 @@ class HashAggregate:
         """Filter + key/input projection + update group-by for one batch:
         the fused filters become the group-by's live mask.  `raw` (global
         aggregates) returns (the buffer scalars, their dictionaries)
-        instead of a batch."""
+        instead of a batch.  Every input batch passes here: past
+        `ROWS_EXACT` rows an aggregation with a wide DECIMAL sum raises
+        rather than wrap its half lanes."""
+        self.rows_read += db.capacity
+        if self.rows_bounded and self.rows_read > ROWS_EXACT:
+            raise past_rows_error(self.rows_read)
         live = conds_mask(conds, db, db.row_mask(), self.conf)
         if raw and not self.key_exprs:
             agg_cols = evaluate_projection(
                 self.input_exprs,
                 [f"_in{i}" for i in range(len(self.input_exprs))], db,
-                self.conf).columns
+                self.conf, narrow="HashAggregateExec").columns
             return (_run_reduce(agg_cols, self.update_specs, live,
                                 db.capacity),
                     _buffer_dicts(self.update_specs, agg_cols))
@@ -355,8 +364,8 @@ class HashAggregate:
         """Finish a global aggregation on the host from its merged buffer
         scalars (the reference's `final_host`): the buffers come to the
         CPU as one 1-row batch and each result expression runs there; a
-        DECIMAL average divides exact Python integers, so a sum whose
-        upscale leaves int64 still averages exactly."""
+        DECIMAL average whose upscaled sum leaves int64 divides exact
+        Python integers (`_DecimalAvgEvaluate`)."""
         cpu = torch.device("cpu")
         buffers = self._reduce_outs_to_batch(
             [(d.to(cpu), v.to(cpu)) for d, v in outs], dicts)
@@ -366,9 +375,6 @@ class HashAggregate:
             refs = [E.ColumnRef(f"_buf{j}").bind(schema)
                     for j in range(start, end)]
             expr = _deep_resolved(fn.evaluate(refs))
-            if isinstance(expr, _DecimalAvgEvaluate):
-                cols.append(_decimal_avg_host(expr, buffers, start))
-                continue
             out = evaluate_projection([expr], ["_out"], buffers, self.conf)
             cols.append(to_host(out, 1).columns[0])
         return HostBatch(cols, [name for _fn, name in self.aggs])

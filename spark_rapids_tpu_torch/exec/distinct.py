@@ -84,7 +84,8 @@ class DistinctAggregateExec(PlanNode):
         proj = evaluate_projection(
             self.key_exprs + val_exprs,
             [f"_k{i}" for i in range(nk)] +
-            [f"_v{j}" for j in range(len(val_exprs))], merged, conf)
+            [f"_v{j}" for j in range(len(val_exprs))], merged, conf,
+            narrow="DistinctAggregateExec")
         key_cols = [ensure_unique_dict(c) for c in proj.columns[:nk]]
         val_cols = [ensure_unique_dict(c) for c in proj.columns[nk:]]
         live = merged.row_mask()

@@ -8,14 +8,15 @@ program cache.
 """
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 
 from ..columnar.device import DeviceBatch, DeviceColumn
 from ..config import TpuConf
 from ..ops.kernels import compute_view, live_mask, storage_view
-from ..plan.expressions import DevVal, EvalCtx, Expression, PrepCtx
+from ..plan.expressions import (DevVal, EvalCtx, Expression, PrepCtx,
+                                narrow_dev)
 
 
 def _prepare(exprs: Sequence[Expression], db: DeviceBatch, conf: TpuConf):
@@ -28,7 +29,7 @@ def _prepare(exprs: Sequence[Expression], db: DeviceBatch, conf: TpuConf):
 def _build_inputs(db: DeviceBatch) -> Dict[str, DevVal]:
     """name -> DevVal over the batch's compute views."""
     return {n: DevVal(compute_view(c.data, c.dtype), c.validity, c.dtype,
-                      c.dictionary, c.value_range)
+                      c.dictionary, c.value_range, c.hi)
             for n, c in zip(db.names, db.columns)}
 
 
@@ -38,19 +39,26 @@ def eval_ctx(db: DeviceBatch, pctx: PrepCtx, conf: TpuConf) -> EvalCtx:
 
 
 def evaluate_projection(exprs: Sequence[Expression], names: Sequence[str],
-                        db: DeviceBatch, conf: TpuConf) -> DeviceBatch:
+                        db: DeviceBatch, conf: TpuConf,
+                        narrow: Optional[str] = None) -> DeviceBatch:
     """Project `db` through bound expressions -> new DeviceBatch (also
     ProjectExec's entry point: the reference's `project_batch` differs
-    only by its late-materialization pass-through, which ports later)."""
+    only by its late-materialization pass-through, which ports later).
+    `narrow` names a consumer that reads one int64 lane of a DECIMAL
+    (a group-by, a window): each result goes through
+    `expressions.narrow_dev` for it."""
     pctx, hostvals = _prepare(exprs, db, conf)
     ctx = eval_ctx(db, pctx, conf)
     live = live_mask(db.capacity, db.num_rows, db.device)
     cols = []
     for e, hv in zip(exprs, hostvals):
         dv = e.eval_dev(ctx)
+        if narrow is not None:
+            dv = narrow_dev(dv, narrow)
         valid = live if dv.validity is None else dv.validity & live
         cols.append(DeviceColumn(storage_view(dv.data, e.dtype), valid,
-                                 e.dtype, hv.dictionary, dv.value_range))
+                                 e.dtype, hv.dictionary, dv.value_range,
+                                 dv.hi))
     return DeviceBatch(cols, db.num_rows, list(names))
 
 

@@ -35,7 +35,8 @@ import numpy as np
 
 from .. import types as t
 from ..columnar.device import DeviceBatch, fetch_result_batch, to_device
-from ..columnar.host import HostBatch, HostColumn, concat_host
+from ..columnar.host import (HostBatch, HostColumn, concat_host,
+                             decimal_value)
 from ..ops import host as H
 from ..plan import expressions as E
 from ..plan.aggregates import AggregateFunction
@@ -60,7 +61,9 @@ def sort_indices_per_key(keys: Sequence[Tuple[HostColumn, bool, bool]]
         if col.validity is not None:
             null = (~col.validity).astype(np.int64)
             lanes.append(-null if nf else null)
-        lane = H.order_lane(col)
+        lanes_k = H.order_lanes(col)
+        # a two-lane DECIMAL key: its dense rank over both lanes
+        lane = lanes_k[0] if len(lanes_k) == 1 else H.factorize(lanes_k)[0]
         if not asc:
             _u, rank = np.unique(lane, return_inverse=True)
             lane = -rank.reshape(-1).astype(np.int64)
@@ -515,10 +518,21 @@ def _join_key_ids(lcols: List[HostColumn], rcols: List[HostColumn]):
             sa = getattr(a.dtype, "scale", 0)
             sb = getattr(b.dtype, "scale", 0)
             s = max(sa, sb)
-            a = H.column(H.rescale(a.data.astype(np.int64), sa, s)[0],
-                         a.validity, t.LONG)
-            b = H.column(H.rescale(b.data.astype(np.int64), sb, s)[0],
-                         b.validity, t.LONG)
+            ua, ok_a = H.rescale(a.data.astype(np.int64), sa, s)
+            ub, ok_b = H.rescale(b.data.astype(np.int64), sb, s)
+            if a.hi is None and b.hi is None and ok_a.all() and ok_b.all():
+                a = H.column(ua, a.validity, t.LONG)
+                b = H.column(ub, b.validity, t.LONG)
+            else:
+                # a key past int64: its exact value in two lanes
+                wide = t.DecimalType(38, s)
+                a = H.wide_column(a.unscaled() * 10 ** (s - sa), a.validity,
+                                  wide)
+                b = H.wide_column(b.unscaled() * 10 ** (s - sb), b.validity,
+                                  wide)
+                ids_a, ids_b = _pair_order_ids(a, b)
+                lanes.append(np.concatenate([ids_a, ids_b]))
+                continue
         elif a.data.dtype.kind == "f" or b.data.dtype.kind == "f":
             a = H.column(a.data.astype(np.float64), a.validity, t.DOUBLE)
             b = H.column(b.data.astype(np.float64), b.validity, t.DOUBLE)
@@ -530,6 +544,16 @@ def _join_key_ids(lcols: List[HostColumn], rcols: List[HostColumn]):
                                  H.valid_of(b.validity, len(b))])
     ids = np.where(valid, ids, -1)
     return ids[:nl], ids[nl:], count
+
+
+def _pair_order_ids(a: HostColumn, b: HostColumn):
+    """Dense ids of two columns' values over one id space, in value
+    order (`ops/host.order_lanes`, several lanes for a high word)."""
+    def two(c):
+        return [c.hi_lane(), c.data.astype(np.int64) ^ np.int64(-2 ** 63)]
+    ids, _n = H.factorize([np.concatenate([x, y])
+                           for x, y in zip(two(a), two(b))])
+    return ids[:len(a)], ids[len(a):]
 
 
 def join_pairs(join_type: str, lid: np.ndarray, rid: np.ndarray,
@@ -671,3 +695,336 @@ class CpuExpandExec(HostNode):
         for hb in self.child.execute(ctx):
             for proj in self.projections:
                 yield _eval_named(proj, self.names, hb)
+
+
+# ---------------------------------------------------------------------------
+# Windows
+# ---------------------------------------------------------------------------
+
+_RANKING = ("row_number", "rank", "dense_rank", "percent_rank", "cume_dist",
+            "ntile")
+
+
+def _run_ids(lanes: List[np.ndarray], n: int) -> np.ndarray:
+    """Per-row run start flags of sorted rows over key lanes."""
+    b = np.zeros(n, bool)
+    if n:
+        b[0] = True
+    for lane in lanes:
+        b[1:] |= lane[1:] != lane[:-1]
+    return b
+
+
+def _edges(flags: np.ndarray, n: int):
+    """(first row, last row) of each row's run, runs starting at
+    `flags`."""
+    ids = np.cumsum(flags) - 1
+    starts = np.flatnonzero(flags)
+    ends = np.append(starts[1:], n) - 1
+    return starts[ids], ends[ids]
+
+
+def _key_lanes(col: HostColumn) -> List[np.ndarray]:
+    """Lanes equal exactly where Spark's key equality holds (nulls equal
+    each other, apart from every value)."""
+    null = (~H.valid_of(col.validity, len(col))).astype(np.int64)
+    return [null] + H.order_lanes(col)
+
+
+class CpuWindowExec(HostNode):
+    """Window functions on numpy over the partition-sorted table (the
+    reference's CpuWindowExec, which computes through pandas: the card's
+    machine has none).  Rows sort by (partition keys, order keys) as
+    `sort_indices_per_key` orders them; partitions and peer groups are
+    runs of equal keys (nulls equal, NaN equal, -0.0 = 0.0).  Every
+    function and frame of plan/window.py runs: ranking, lead/lag with a
+    default, ROWS and RANGE frames (unbounded, current row, row offsets,
+    value offsets over one order key) for count, sum, avg, min, max,
+    first_value and last_value.  Sums and averages of integral and
+    floating inputs are prefix-sum differences, as the reference's are; a
+    frame's NaN and infinities are counted apart, so a non-finite value
+    reaches only the frames that hold it.  A DECIMAL sum or average is
+    exact (Python ints), where the reference computes it through
+    float64; MIN and MAX order floats as Java does (NaN greatest)."""
+
+    def __init__(self, window_exprs, partition_keys, order_keys,
+                 child: HostNode):
+        from ..plan.window import check_window_analysis
+        super().__init__(child)
+        check_window_analysis(window_exprs, order_keys)
+        schema = child.output_schema
+        self.window_exprs = [(spec.bind(schema), name)
+                             for spec, name in window_exprs]
+        self.partition_keys = [e.bind(schema) for e in partition_keys]
+        self.order_keys = [(e.bind(schema), asc, nf)
+                           for e, asc, nf in order_keys]
+
+    @property
+    def output_schema(self) -> t.StructType:
+        fields = list(self.child.output_schema.fields)
+        for spec, name in self.window_exprs:
+            fields.append(t.StructField(name, spec.dtype))
+        return t.StructType(fields)
+
+    def _execute(self, ctx):
+        from ..plan.window import default_frame
+        hb = self._table(ctx)
+        n = hb.num_rows
+        pcols = [e.eval_cpu(hb) for e in self.partition_keys]
+        ocols = [e.eval_cpu(hb) for e, _a, _nf in self.order_keys]
+        keys = [(c, True, True) for c in pcols] + \
+            [(c, asc, nf) for c, (_e, asc, nf) in zip(ocols,
+                                                       self.order_keys)]
+        idx = sort_indices_per_key(keys) if keys and n \
+            else np.arange(n, dtype=np.int64)
+        sb = take_rows(hb, idx)
+        pcols = [H.take(c, idx) for c in pcols]
+        ocols = [H.take(c, idx) for c in ocols]
+        plane = [x for c in pcols for x in _key_lanes(c)]
+        olane = [x for c in ocols for x in _key_lanes(c)]
+        part_b = _run_ids(plane, n)
+        peer_b = part_b | _run_ids(olane, n)
+        w = _Frames(n, part_b, peer_b, ocols, self.order_keys)
+        out = list(sb.columns)
+        for spec, _name in self.window_exprs:
+            frame = spec.frame
+            if frame is None and spec.kind not in _RANKING + ("lead", "lag"):
+                frame = default_frame(bool(self.order_keys))
+            src = None if spec.child is None else spec.child.eval_cpu(sb)
+            out.append(w.run(spec, frame, src))
+        yield HostBatch(out, self.output_schema.names)
+
+    def describe(self):
+        return f"CpuWindowExec[{[n for _, n in self.window_exprs]}]"
+
+
+class _Frames:
+    """The partition and peer structure of the sorted rows, and each
+    window function over it."""
+
+    def __init__(self, n, part_b, peer_b, ocols, order_keys):
+        self.n = n
+        self.idx = np.arange(n, dtype=np.int64)
+        self.part_b = part_b
+        self.peer_b = peer_b
+        self.part_start, self.part_end = _edges(part_b, n)
+        self.peer_start, self.peer_end = _edges(peer_b, n)
+        self.part_rows = self.part_end - self.part_start + 1
+        self.rn0 = self.idx - self.part_start
+        self.ocols = ocols
+        self.order_keys = order_keys
+
+    # -- frames ------------------------------------------------------------
+    def bounds(self, frame):
+        """(lo, hi) row of each row's frame (empty where hi < lo)."""
+        if frame.is_value_offset:
+            return self._range_bounds(frame)
+        if frame.kind == "range":
+            lo = self.part_start if frame.lower is None else self.peer_start
+            hi = self.part_end if frame.upper is None else self.peer_end
+            return lo, hi
+        lo = self.part_start if frame.lower is None else \
+            np.maximum(self.part_start, self.idx + frame.lower)
+        hi = self.part_end if frame.upper is None else \
+            np.minimum(self.part_end, self.idx + frame.upper)
+        return lo, hi
+
+    def _range_bounds(self, frame):
+        """Value-offset RANGE bounds over the one order key, per
+        partition by binary search (exact Python ints for integral,
+        DATE and TIMESTAMP keys; DECIMAL keys by value; floats as
+        float64); null order rows are a frame of their own."""
+        from ..plan.window import WindowAnalysisError
+        if len(self.order_keys) != 1:
+            raise WindowAnalysisError(
+                "a value-offset RANGE frame requires exactly one window "
+                "ORDER BY expression")
+        col = self.ocols[0]
+        dt = col.dtype
+        asc = self.order_keys[0][1]
+        if not (t.is_numeric(dt) or isinstance(dt, (t.DateType,
+                                                    t.TimestampType))):
+            raise WindowAnalysisError(
+                f"value-offset RANGE frame over {dt.simple_string} order "
+                "key")
+        if t.is_floating(dt):
+            vals = col.data.astype(np.float64)
+        elif isinstance(dt, t.DecimalType):
+            vals = np.array([decimal_value(u, dt.scale)
+                             for u in col.unscaled().tolist()] + [0],
+                            object)[:-1]
+        else:
+            vals = col.data.astype(np.int64).astype(object)
+        vals = vals if asc else -vals
+        valid = H.valid_of(col.validity, self.n)
+        lo = np.empty(self.n, np.int64)
+        hi = np.empty(self.n, np.int64)
+        starts = np.flatnonzero(self.part_b)
+        for s, e in zip(starts, np.append(starts[1:], self.n)):
+            vidx = np.flatnonzero(valid[s:e])
+            if not len(vidx):
+                lo[s:e], hi[s:e] = s, e - 1
+                continue
+            vs, ve = int(vidx[0]), int(vidx[-1])
+            sub = vals[s + vs:s + ve + 1]
+            m = len(sub)
+            lo_ = np.zeros(m, np.int64) if frame.lower is None else \
+                np.searchsorted(sub, sub + frame.lower, "left")
+            hi_ = np.full(m, m - 1, np.int64) if frame.upper is None else \
+                np.searchsorted(sub, sub + frame.upper, "right") - 1
+            lo[s + vs:s + ve + 1] = s + vs + lo_
+            hi[s + vs:s + ve + 1] = s + vs + hi_
+            if vs > 0:
+                lo[s:s + vs], hi[s:s + vs] = s, s + vs - 1
+            if s + ve + 1 < e:
+                lo[s + ve + 1:e], hi[s + ve + 1:e] = s + ve + 1, e - 1
+        return lo, hi
+
+    # -- functions ---------------------------------------------------------
+    def run(self, spec, frame, src: Optional[HostColumn]) -> HostColumn:
+        k, n = spec.kind, self.n
+        if k in _RANKING:
+            return self._ranking(spec)
+        if k in ("lead", "lag"):
+            return self._offset(spec, src)
+        lo, hi = self.bounds(frame)
+        nonempty = hi >= lo
+        if k in ("first_value", "last_value"):
+            pick = np.where(nonempty, lo if k == "first_value" else hi, -1)
+            return H.take(src, pick)
+        valid = np.ones(n, bool) if src is None else \
+            H.valid_of(src.validity, n)
+        cnt = self._frame_sum(valid.astype(np.int64), lo, hi, nonempty)
+        if k == "agg_count":
+            return H.column(cnt, None, t.LONG)
+        if k in ("agg_sum", "agg_avg"):
+            return self._sum_avg(spec, src, valid, lo, hi, nonempty, cnt)
+        return self._minmax(spec, frame, src, valid, lo, hi, nonempty, cnt)
+
+    def _ranking(self, spec) -> HostColumn:
+        k = spec.kind
+        if k == "row_number":
+            out = self.rn0 + 1
+        elif k == "rank":
+            out = self.peer_start - self.part_start + 1
+        elif k == "dense_rank":
+            pg = np.cumsum(self.peer_b) - 1
+            out = pg - pg[self.part_start] + 1
+        elif k == "percent_rank":
+            denom = np.maximum(self.part_rows - 1, 1)
+            out = np.where(self.part_rows == 1, 0.0,
+                           (self.peer_start - self.part_start) / denom)
+        elif k == "cume_dist":
+            out = (self.peer_end - self.part_start + 1) / self.part_rows
+        else:                                           # ntile
+            nt, rows, rn0 = spec.n, self.part_rows, self.rn0
+            kk, rem = rows // nt, rows % nt
+            cut = rem * (kk + 1)
+            bucket = np.where(rn0 < cut, rn0 // np.maximum(kk + 1, 1),
+                              rem + (rn0 - cut) // np.maximum(kk, 1))
+            out = np.where(rows < nt, rn0, bucket) + 1
+        return H.column(out, None, spec.dtype)
+
+    def _offset(self, spec, src: HostColumn) -> HostColumn:
+        shift = spec.offset * (1 if spec.kind == "lead" else -1)
+        pos = self.idx + shift
+        inside = (pos >= self.part_start) & (pos <= self.part_end)
+        if spec.default is None:
+            return H.take(src, np.where(inside, pos, -1))
+        one = HostBatch([HostColumn(np.zeros(1, np.int32), None, t.INT)],
+                        ["_"])
+        dflt = E.Literal(spec.default, src.dtype).eval_cpu(one)
+        from ..columnar.host import concat_columns
+        both = concat_columns([src, dflt])
+        return H.take(both, np.where(inside, pos, self.n))
+
+    def _frame_sum(self, lane, lo, hi, nonempty):
+        """Per-row sum of `lane` over [lo, hi]: a prefix-sum difference
+        (the reference's form; object lanes stay exact)."""
+        n = self.n
+        if not n:
+            return lane[:0]
+        zero = lane.dtype.type(0) if lane.dtype != object else 0
+        with np.errstate(over="ignore", invalid="ignore"):
+            ps = np.cumsum(lane)
+            loc = np.clip(lo - 1, 0, n - 1)
+            base = np.where(lo > 0, ps[loc], zero)
+            out = ps[np.clip(hi, 0, n - 1)] - base
+        return np.where(nonempty, out, zero)
+
+    def _sum_avg(self, spec, src, valid, lo, hi, nonempty, cnt):
+        dt = src.dtype
+        ok = cnt > 0
+        if isinstance(dt, t.DecimalType):
+            vals = np.where(valid, src.unscaled(), 0)
+            s = self._frame_sum(vals, lo, hi, nonempty)
+            if spec.kind == "agg_sum":
+                return H.wide_column(s, ok, spec.dtype)
+            shift = 10 ** (spec.dtype.scale - dt.scale)
+            q = [H._div_half_up(int(a) * shift, int(c)) if c > 0 else 0
+                 for a, c in zip(s.tolist(), cnt.tolist())]
+            return H.wide_column(np.array(q + [0], object)[:-1], ok,
+                                 spec.dtype)
+        if t.is_floating(dt):
+            x = src.data.astype(np.float64)
+            finite = valid & np.isfinite(x)
+            s = self._frame_sum(np.where(finite, x, 0.0), lo, hi, nonempty)
+            nan = self._frame_sum((valid & np.isnan(x)).astype(np.int64),
+                                  lo, hi, nonempty)
+            pinf = self._frame_sum((valid & (x == np.inf)).astype(np.int64),
+                                   lo, hi, nonempty)
+            ninf = self._frame_sum((valid & (x == -np.inf))
+                                   .astype(np.int64), lo, hi, nonempty)
+            s = np.where(pinf > 0, np.inf, s)
+            s = np.where(ninf > 0, -np.inf, s)
+            s = np.where((nan > 0) | ((pinf > 0) & (ninf > 0)), np.nan, s)
+        else:
+            s = self._frame_sum(np.where(valid, src.data.astype(np.int64),
+                                         0), lo, hi, nonempty)
+        if spec.kind == "agg_sum":
+            return H.column(s, ok, spec.dtype)
+        with np.errstate(all="ignore"):
+            return H.column(s / np.maximum(cnt, 1), ok, t.DOUBLE)
+
+    def _minmax(self, spec, frame, src, valid, lo, hi, nonempty, cnt):
+        """MIN / MAX in an order lane (Java's float order, NaN greatest;
+        string codes of the sorted dictionary; exact ints for a DECIMAL
+        with a high word), decoded back to the value."""
+        n = self.n
+        is_min = spec.kind == "agg_min"
+        dt = src.dtype
+        is_float = src.data.dtype.kind == "f"
+        if src.hi is not None:
+            lane = src.unscaled()
+            big = 1 << 130
+            ident = big if is_min else -big
+        elif is_float:
+            lane = H.float_order(src.data, signed_zero=True)
+            ident = np.int64(2 ** 63 - 1) if is_min else np.int64(-2 ** 63)
+        else:
+            lane = src.data.astype(np.int64)
+            ident = np.int64(2 ** 63 - 1) if is_min else np.int64(-2 ** 63)
+        masked = np.where(valid, lane, ident)
+        op = np.minimum if is_min else np.maximum
+        starts = np.flatnonzero(self.part_b)
+        if frame.is_unbounded_both and n:
+            red = op.reduceat(masked, starts)[np.cumsum(self.part_b) - 1]
+        elif frame.lower is None and frame.upper == 0 and n:
+            red = np.empty_like(masked)
+            for s, e in zip(starts, np.append(starts[1:], n)):
+                red[s:e] = op.accumulate(masked[s:e])
+            if frame.kind == "range":          # the current row's peers
+                red = red[np.clip(hi, 0, n - 1)]
+        else:
+            red = np.array([op.reduce(masked[a:b + 1]) if b >= a else ident
+                            for a, b in zip(lo.tolist(), hi.tolist())]
+                           + [ident], masked.dtype)[:-1]
+        ok = (cnt > 0) & nonempty
+        if src.hi is not None:
+            return H.wide_column(np.where(ok, red, 0), ok, dt)
+        if is_float:
+            red = H.float_from_order(np.where(ok, red, 0)).astype(
+                src.data.dtype)
+        return H.column(np.where(ok, red, 0), ok, dt, src.dictionary)
+
+

@@ -63,6 +63,9 @@ class ExecContext:
     metrics: dict = dataclasses.field(default_factory=dict)
     ooc_force: bool = False
     _budget: object = None
+    #: a shared subtree's output for its readers (`HashAggregateExec`
+    #: with `shared_readers` > 1): id(node) -> [spillables, readers left]
+    shared: dict = dataclasses.field(default_factory=dict)
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -259,7 +262,16 @@ class FilterExec(PlanNode):
 
 class HashAggregateExec(PlanNode):
     """GpuHashAggregateExec: streaming partial aggregation per batch,
-    concat+merge regroup, final projection."""
+    concat+merge regroup, final projection.
+
+    An aggregate that several parents read (plan/overrides
+    `dedupe_agg_twins` sets `shared_readers`) runs once per query: the
+    first reader runs it and holds its output batches in the ExecContext
+    as spillables of runtime/memory.py, every reader reads them, and the
+    last one to finish releases them."""
+
+    #: parents that read this node (plan/overrides.dedupe_agg_twins)
+    shared_readers = 1
 
     def __init__(self, key_exprs: Sequence[E.Expression],
                  key_names: Sequence[str],
@@ -309,7 +321,32 @@ class HashAggregateExec(PlanNode):
         return HashAggregate(self.key_exprs, self.key_names, self.aggs,
                              ctx.conf, key_ranges=self._key_ranges())
 
+    def describe(self) -> str:
+        if self.shared_readers > 1:
+            return f"HashAggregateExec[shared by {self.shared_readers}]"
+        return "HashAggregateExec"
+
     def execute(self, ctx: ExecContext) -> Iterator[DeviceBatch]:
+        if self.shared_readers < 2:
+            yield from self._execute(ctx)
+            return
+        from ..runtime.memory import Spillable
+        entry = ctx.shared.get(id(self))
+        if entry is None:
+            held = [Spillable(db, ctx.budget) for db in self._execute(ctx)]
+            entry = ctx.shared[id(self)] = [held, self.shared_readers]
+            ctx.bump("shared_subtree_runs")
+        try:
+            for sp in entry[0]:
+                yield sp.get()
+        finally:
+            entry[1] -= 1
+            if entry[1] == 0:
+                for sp in entry[0]:
+                    sp.close()
+                del ctx.shared[id(self)]
+
+    def _execute(self, ctx: ExecContext) -> Iterator[DeviceBatch]:
         from ..config import AGG_FALLBACK_PARTITIONS
         from . import ooc as O
         from .ooc_agg import OutOfCoreAggregator
@@ -522,8 +559,8 @@ def _truncate(db: DeviceBatch, rows) -> DeviceBatch:
     the rest padding."""
     from ..ops.kernels import live_mask
     live = live_mask(db.capacity, rows, db.device)
-    cols = [DeviceColumn(c.data, c.validity & live, c.dtype, c.dictionary)
-            for c in db.columns]
+    cols = [DeviceColumn(c.data, c.validity & live, c.dtype, c.dictionary,
+                         None, c.hi) for c in db.columns]
     return DeviceBatch(cols, rows, list(db.names))
 
 

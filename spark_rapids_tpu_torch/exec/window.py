@@ -105,6 +105,14 @@ class WindowExec(PlanNode):
             n_inputs += 1
         aug = evaluate_projection(aug_exprs, aug_names, db, ctx.conf)
         del db
+        # keys and inputs are read as one int64 lane; the child's own
+        # columns pass through with their high words
+        for i in p_idx + o_idx + v_idx:
+            c = aug.columns[i]
+            dv = E.narrow_dev(E.DevVal(c.data, c.validity, c.dtype,
+                                       hi=c.hi), "WindowExec")
+            aug.columns[i] = DeviceColumn(dv.data, c.validity, c.dtype,
+                                          c.dictionary, c.value_range)
 
         # --- 3. sort by (partition, order) ---
         sort_keys = [SortKey(i, True, True) for i in p_idx]

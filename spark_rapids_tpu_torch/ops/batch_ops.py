@@ -127,14 +127,21 @@ def concat_batches(batches: List[DeviceBatch],
                         for c, r in zip(cols, remaps)]
         data = [c.data[:n] for c, n in zip(cols, counts)]
         valid = [c.validity[:n] for c, n in zip(cols, counts)]
+        hi = None
+        if any(c.hi is not None for c in cols):
+            hi = [(c.data[:n] >> 63) if c.hi is None else c.hi[:n]
+                  for c, n in zip(cols, counts)]
         if pad:
             data.append(torch.zeros(pad, dtype=data[0].dtype, device=dev))
             valid.append(torch.zeros(pad, dtype=torch.bool, device=dev))
+            if hi is not None:
+                hi.append(torch.zeros(pad, dtype=torch.int64, device=dev))
         ranges = [c.value_range for c in cols]
         rng = None if any(r is None for r in ranges) else (
             min(r[0] for r in ranges), max(r[1] for r in ranges))
         out_cols.append(DeviceColumn(torch.cat(data), torch.cat(valid), dt,
-                                     unified, rng))
+                                     unified, rng,
+                                     None if hi is None else torch.cat(hi)))
     return DeviceBatch(out_cols, total, list(batches[0].names))
 
 
@@ -147,7 +154,9 @@ def shrink_to_capacity(db: DeviceBatch, row_bound: int,
     if cap >= db.capacity:
         return db
     cols = [DeviceColumn(c.data[:cap], c.validity[:cap], c.dtype,
-                         c.dictionary, c.value_range) for c in db.columns]
+                         c.dictionary, c.value_range,
+                         None if c.hi is None else c.hi[:cap])
+            for c in db.columns]
     return DeviceBatch(cols, db.num_rows, db.names)
 
 
@@ -162,6 +171,7 @@ def shrink_to_rows(db: DeviceBatch, num_rows: int,
     if cap >= db.capacity:
         return DeviceBatch(db.columns, num_rows, db.names)
     cols = [DeviceColumn(c.data[:cap].clone(), c.validity[:cap].clone(),
-                         c.dtype, c.dictionary, c.value_range)
+                         c.dtype, c.dictionary, c.value_range,
+                         None if c.hi is None else c.hi[:cap].clone())
             for c in db.columns]
     return DeviceBatch(cols, num_rows, db.names)

@@ -50,6 +50,12 @@ def mul_result(a: t.DecimalType, b: t.DecimalType) -> t.DecimalType:
     return _adjust(a.precision + b.precision + 1, a.scale + b.scale)
 
 
+def div_result(a: t.DecimalType, b: t.DecimalType) -> t.DecimalType:
+    s = max(6, a.scale + b.precision + 1)
+    p = a.precision - a.scale + b.scale + s
+    return _adjust(p, s)
+
+
 def integral_as_decimal(dt: t.DataType) -> t.DecimalType:
     return {t.ByteType: t.DecimalType(3, 0), t.ShortType: t.DecimalType(5, 0),
             t.IntegerType: t.DecimalType(10, 0),
@@ -61,20 +67,30 @@ def _ones(u: torch.Tensor) -> torch.Tensor:
 
 
 def upscale(u: torch.Tensor, ds: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """u * 10^ds with int64-overflow detection -> (value, ok)."""
+    """u * 10^ds with int64-overflow detection -> (value, ok).  Both
+    bounds are compared: abs() of Long.MIN_VALUE stays negative."""
     if ds == 0:
         return u, _ones(u)
     f = 10 ** ds
-    return u * f, torch.abs(u) <= _I64_MAX // f
+    if f > _I64_MAX:
+        return torch.zeros_like(u), u == 0
+    lim = _I64_MAX // f
+    return u * f, (u <= lim) & (u >= -lim)
 
 
 def downscale_half_up(u: torch.Tensor, ds: int) -> torch.Tensor:
-    """u / 10^ds rounding half away from zero (Spark HALF_UP)."""
+    """u / 10^ds rounding half away from zero (Spark HALF_UP), from the
+    floor quotient and its remainder (no abs(), which overflows at
+    Long.MIN_VALUE, and no add that can pass int64)."""
     if ds == 0:
         return u
+    if ds >= 19:
+        half = 5 * 10 ** 18 if ds == 19 else _I64_MAX
+        return (u >= half).to(u.dtype) - (u <= -half).to(u.dtype)
     f = 10 ** ds
-    mag = torch.div(torch.abs(u) + f // 2, f, rounding_mode="floor")
-    return torch.where(u < 0, -mag, mag)
+    q = torch.div(u, f, rounding_mode="floor")
+    r2 = (u - q * f) * 2
+    return q + torch.where(u < 0, r2 > f, r2 >= f).to(u.dtype)
 
 
 def rescale(u: torch.Tensor, from_scale: int, to_scale: int
@@ -89,7 +105,8 @@ def fits_precision(u: torch.Tensor, p: int) -> torch.Tensor:
     """ok mask: |u| representable in precision p (int64-capped)."""
     if p >= 19:
         return _ones(u)
-    return torch.abs(u) <= max_unscaled(p)
+    m = max_unscaled(p)
+    return (u <= m) & (u >= -m)
 
 
 def add_dev(ua, sa, ub, sb, out: t.DecimalType):
@@ -133,6 +150,20 @@ def to_double(u: torch.Tensor, scale: int) -> torch.Tensor:
     XLA rewrite does the same, ROADMAP Queue 3 item 1)."""
     return u.to(torch.float64) / torch.tensor(
         float(10 ** scale), dtype=torch.float64, device=u.device)
+
+
+def wide_to_double(lo: torch.Tensor, hi: torch.Tensor,
+                   scale: int) -> torch.Tensor:
+    """A two-lane DECIMAL (hi * 2^64 + unsigned lo) as DOUBLE: the
+    reference's combination in float64 from 32-bit halves, then the
+    unscale."""
+    lo = lo.to(torch.int64)
+    mask = 0xFFFFFFFF
+    f = (hi.to(torch.float64) * 2.0 ** 64
+         + ((lo >> 32) & mask).to(torch.float64) * 2.0 ** 32
+         + (lo & mask).to(torch.float64))
+    return f / torch.tensor(float(10 ** scale), dtype=torch.float64,
+                            device=lo.device)
 
 
 def from_double(x: torch.Tensor, out: t.DecimalType):

@@ -66,10 +66,13 @@ def compact_batch(db: DeviceBatch, keep: torch.Tensor,
     live = live_mask(db.capacity, count, db.device)
     lanes = []
     for c in db.columns:
-        lanes += [c.data, c.validity]
-    moved = grouped_take(lanes, order)
-    cols = [DeviceColumn(moved[2 * i], moved[2 * i + 1] & live, c.dtype,
-                         c.dictionary) for i, c in enumerate(db.columns)]
+        lanes += [c.data, c.validity] + ([] if c.hi is None else [c.hi])
+    moved = iter(grouped_take(lanes, order))
+    cols = []
+    for c in db.columns:
+        data, valid = next(moved), next(moved)
+        cols.append(DeviceColumn(data, valid & live, c.dtype, c.dictionary,
+                                 None, None if c.hi is None else next(moved)))
     out = DeviceBatch(cols, count, list(db.names))
     if not sync:
         return out
@@ -91,6 +94,5 @@ def gather_batch(db: DeviceBatch, indices: torch.Tensor, out_rows,
     safe = torch.clamp(indices, 0, max(db.capacity - 1, 0)).long()
     live = live_mask(cap_out, out_rows, indices.device)
     vmask = live & in_bounds if null_out_of_bounds else live
-    cols = [DeviceColumn(c.data[safe], c.validity[safe] & vmask, c.dtype,
-                         c.dictionary) for c in db.columns]
+    cols = [c.take(safe, vmask) for c in db.columns]
     return DeviceBatch(cols, out_rows, names or list(db.names))

@@ -133,10 +133,22 @@ def _eq_prev(lane: torch.Tensor) -> torch.Tensor:
     return torch.cat([head, lane[1:] != lane[:-1]])
 
 
+def sum_lane_key(spec: AggSpec, si: int) -> tuple:
+    """The key of spec `si`'s sum-like lane.  Specs that sum the same
+    lane share it: COUNT(*) the live rows, COUNT its input's valid count
+    (the ("vc", input) lane every other spec's validity reads), SUM its
+    input in one type."""
+    if spec.kind == COUNT_ALL:
+        return ("all",)
+    if spec.kind == COUNT:
+        return ("vc", spec.input_idx)
+    return ("sum", spec.input_idx, spec.dtype)
+
+
 def _queue_sum_lanes(agg_specs, spec_vls, live_all):
     """Every sum-like lane (SUM buffers, COUNT/COUNT_ALL, per-input valid
-    counts) in two dtype-class lists.  Returns (int_lanes, int_slots,
-    f64_lanes, f64_slots)."""
+    counts) in two dtype-class lists, each lane once (`sum_lane_key`).
+    Returns (int_lanes, int_slots, f64_lanes, f64_slots)."""
     int_lanes, int_slots = [], {}
     f64_lanes, f64_slots = [], {}
 
@@ -150,20 +162,21 @@ def _queue_sum_lanes(agg_specs, spec_vls, live_all):
     for si, spec in enumerate(agg_specs):
         d, vl = spec_vls[si]
         dt = spec.dtype
-        if spec.kind == COUNT_ALL:
-            queue(("cnt", si), live_all.to(torch.int64), False)
+        key = sum_lane_key(spec, si)
+        if key in int_slots or key in f64_slots:
+            pass
+        elif spec.kind == COUNT_ALL:
+            queue(key, live_all.to(torch.int64), False)
         elif spec.kind == COUNT:
-            queue(("cnt", si), vl.to(torch.int64), False)
+            queue(key, vl.to(torch.int64), False)
         elif spec.kind == SUM:
             cd = compute_view(d, dt)
             if t.is_floating(dt):
                 x = cd.to(torch.float64)
-                queue(("sum", si), torch.where(vl, x, torch.zeros_like(x)),
-                      True)
+                queue(key, torch.where(vl, x, torch.zeros_like(x)), True)
             else:
                 x = cd.to(torch.int64)
-                queue(("sum", si), torch.where(vl, x, torch.zeros_like(x)),
-                      False)
+                queue(key, torch.where(vl, x, torch.zeros_like(x)), False)
         if spec.kind not in (COUNT, COUNT_ALL):
             queue(("vc", spec.input_idx), vl.to(torch.int64), False)
     return int_lanes, int_slots, f64_lanes, f64_slots
@@ -216,13 +229,13 @@ def sorted_agg_outputs(agg_specs, spec_vls, s_live, boundary, starts_c,
         d, vl = spec_vls[si]
         dt = spec.dtype
         if spec.kind in (COUNT, COUNT_ALL):
-            outs.append((sum_of(("cnt", si), False), group_live))
+            outs.append((sum_of(sum_lane_key(spec, si), False), group_live))
             continue
         valid_count = sum_of(("vc", spec.input_idx), False)
         out_valid = (valid_count > 0) & group_live
         cd = compute_view(d, dt)
         if spec.kind == SUM:
-            data = sum_of(("sum", si), t.is_floating(dt))
+            data = sum_of(sum_lane_key(spec, si), t.is_floating(dt))
         elif spec.kind == FIRST:
             # runs hold only live rows (liveness is the primary sort lane)
             data = cd[starts_l]
@@ -470,13 +483,13 @@ def dense_groupby_trace(domain_sizes, agg_specs, capacity: int):
             d, vl = spec_vls[si]
             dt = spec.dtype
             if spec.kind in (COUNT, COUNT_ALL):
-                outs.append((sum_of(("cnt", si), False), group_live))
+                outs.append((sum_of(sum_lane_key(spec, si), False), group_live))
                 continue
             out_valid = (sum_of(("vc", spec.input_idx), False) > 0) & \
                 group_live
             cd = compute_view(d, dt)
             if spec.kind == SUM:
-                data = sum_of(("sum", si), t.is_floating(dt))
+                data = sum_of(sum_lane_key(spec, si), t.is_floating(dt))
             elif spec.kind in (MIN, MAX):
                 is_min = spec.kind == MIN
                 if t.is_floating(dt):

@@ -275,8 +275,9 @@ def segagg_groupby_trace(pack_spec, key_lanes_info, agg_specs,
 
         int_lanes, int_slots, f64_lanes, f64_slots = G._queue_sum_lanes(
             agg_specs, spec_vls, live)
-        int_slots[("rows",)] = len(int_lanes)      # bucket occupancy
-        int_lanes.append(live.to(torch.int64))
+        if ("all",) not in int_slots:              # bucket occupancy
+            int_slots[("all",)] = len(int_lanes)
+            int_lanes.append(live.to(torch.int64))
 
         iacc, facc = seg_sums(seg, int_lanes, f64_lanes, D)
 
@@ -284,7 +285,7 @@ def segagg_groupby_trace(pack_spec, key_lanes_info, agg_specs,
             return (facc[:, f64_slots[key]] if is_float
                     else iacc[:, int_slots[key]])
 
-        occupied = sum_of(("rows",), False) > 0
+        occupied = sum_of(("all",), False) > 0
         num_groups = occupied.sum(dtype=torch.int32)
         # occupied buckets to the front, stably (ascending packed key)
         order = torch.sort((~occupied).to(torch.int8), stable=True).indices
@@ -315,13 +316,13 @@ def segagg_groupby_trace(pack_spec, key_lanes_info, agg_specs,
             d, vl = spec_vls[si]
             dt = spec.dtype
             if spec.kind in (G.COUNT, G.COUNT_ALL):
-                outs.append((sum_of(("cnt", si), False)[order], group_live))
+                outs.append((sum_of(G.sum_lane_key(spec, si), False)[order], group_live))
                 continue
             valid_count = sum_of(("vc", spec.input_idx), False)[order]
             out_valid = (valid_count > 0) & group_live
             cd = compute_view(d, dt)
             if spec.kind == G.SUM:
-                data = sum_of(("sum", si), t.is_floating(dt))[order]
+                data = sum_of(G.sum_lane_key(spec, si), t.is_floating(dt))[order]
             elif spec.kind in (G.MIN, G.MAX):
                 is_min = spec.kind == G.MIN
                 if t.is_floating(dt):

@@ -13,7 +13,9 @@ dictionary, whose code order is therefore the strings' order.
     (`Groups`);
   * gathers with -1 as a null row (`take`);
   * the decimal arithmetic of ops/decimal.py over int64 unscaled lanes,
-    with the same overflow-to-null rules, in numpy;
+    with the same overflow-to-null rules, in numpy, and exact arithmetic
+    in Python ints where a value or a result passes int64 (a DECIMAL
+    wider than 18 digits: `HostColumn.hi`, `wide_column`);
   * STRING results from per-entry values (`strings_from_entries`).
 """
 from __future__ import annotations
@@ -23,7 +25,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 
 from .. import types as t
-from ..columnar.host import HostColumn, dictionary_column
+from ..columnar.host import HostColumn, dictionary_column, wide_decimal_column
 
 _I64_MAX = 2 ** 63 - 1
 
@@ -144,6 +146,17 @@ def order_lane(col: HostColumn) -> np.ndarray:
     return lane
 
 
+def order_lanes(col: HostColumn) -> List[np.ndarray]:
+    """`order_lane` as a list of lanes, most significant first: a DECIMAL
+    with a high word orders by it, then by its low word unsigned."""
+    if col.hi is None:
+        return [order_lane(col)]
+    hi, lo = col.hi, col.data.astype(np.int64) ^ np.int64(-2 ** 63)
+    if col.validity is not None:
+        hi, lo = np.where(col.validity, hi, 0), np.where(col.validity, lo, 0)
+    return [hi, lo]
+
+
 def _dense(ids: np.ndarray, span: int) -> Tuple[np.ndarray, int]:
     """`ids` (in [0, span)) renumbered densely, order kept: a bincount
     over a small span, else one sort."""
@@ -199,7 +212,7 @@ def group_ids(keys: Sequence[HostColumn], n: int
     for k in keys:
         if k.validity is not None:
             lanes.append((~k.validity).astype(np.int64))
-        lanes.append(order_lane(k))
+        lanes += order_lanes(k)
     ids, count = factorize(lanes)
     first = first_of_ids(ids, count)
     order = np.argsort(first, kind="stable")
@@ -225,7 +238,12 @@ def take(col: HostColumn, idx: np.ndarray) -> HostColumn:
         valid = None if col.validity is None else col.validity[safe]
         if miss.any():
             valid = valid_of(valid, len(idx)) & ~miss
-    return column(data, valid, col.dtype, col.dictionary)
+    out = column(data, valid, col.dtype, col.dictionary)
+    if col.hi is not None and len(col):
+        hi = col.hi[safe]
+        out.hi = hi if out.validity is None else \
+            np.where(out.validity, hi, 0)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -238,18 +256,22 @@ def upscale(u: np.ndarray, ds: int):
     f = 10 ** ds
     if f > _I64_MAX:
         return np.zeros_like(u), u == 0
+    lim = _I64_MAX // f
     with np.errstate(over="ignore"):
-        return u * np.int64(f), np.abs(u) <= _I64_MAX // f
+        return u * np.int64(f), (u <= lim) & (u >= -lim)
 
 
 def downscale_half_up(u: np.ndarray, ds: int) -> np.ndarray:
+    """HALF_UP from the floor quotient and its remainder (ops/decimal.py)."""
     if ds == 0:
         return u
     if ds >= 19:
-        return np.zeros_like(u)
+        half = 5 * 10 ** 18 if ds == 19 else _I64_MAX
+        return (u >= half).astype(np.int64) - (u <= -half).astype(np.int64)
     f = np.int64(10 ** ds)
-    mag = (np.abs(u) + f // 2) // f
-    return np.where(u < 0, -mag, mag)
+    q = u // f
+    r2 = (u - q * f) * 2
+    return q + np.where(u < 0, r2 > f, r2 >= f)
 
 
 def rescale(u: np.ndarray, from_scale: int, to_scale: int):
@@ -261,7 +283,8 @@ def rescale(u: np.ndarray, from_scale: int, to_scale: int):
 def fits_precision(u: np.ndarray, p: int) -> np.ndarray:
     if p >= 19:
         return np.ones(len(u), bool)
-    return np.abs(u) <= 10 ** p - 1
+    m = 10 ** p - 1
+    return (u <= m) & (u >= -m)
 
 
 def decimal_add(ua, sa, ub, sb, out: t.DecimalType):
@@ -304,13 +327,162 @@ def decimal_to_integral(u: np.ndarray, scale: int) -> np.ndarray:
     return np.where(u < 0, -mag, mag)
 
 
-def decimal_avg(sums: np.ndarray, counts: np.ndarray, shift: int):
-    """sum / count at `shift` more digits of scale, HALF_UP, exact in
-    int64 -> (value, ok)."""
-    us, ok = upscale(sums, shift)
-    safe_c = np.maximum(counts, 1)
-    mag = (np.abs(us) + safe_c // 2) // safe_c
-    return np.where(us < 0, -mag, mag), ok & (counts > 0)
+# ---------------------------------------------------------------------------
+# exact decimals past int64: Python ints over object arrays
+# ---------------------------------------------------------------------------
+
+def wide_column(ints: np.ndarray, validity: Optional[np.ndarray],
+                dtype: t.DecimalType) -> HostColumn:
+    """A DECIMAL column of exact unscaled values, an int64 lane or Python
+    ints (object array); rows past the type's precision are null.  Where
+    every value fits int64 the column is built in numpy alone."""
+    if ints.dtype == object:
+        try:
+            ints = ints.astype(np.int64)
+        except OverflowError:
+            pass                    # some row leaves int64: Python ints
+    ok = fits_ints(ints, dtype.precision)
+    valid = and_valid(validity, None if ok.all() else ok)
+    if valid is not None:
+        ints = np.where(valid, ints, 0)
+        if valid.all():
+            valid = None
+    if not dtype.is_wide:
+        return column(ints.astype(np.int64), valid, dtype)
+    return wide_decimal_column(ints, valid, dtype)
+
+
+def fits_ints(ints: np.ndarray, p: int) -> np.ndarray:
+    """|v| <= 10^p - 1 per row, of an int64 lane or of Python ints."""
+    if ints.dtype != object:
+        return fits_precision(ints, p)
+    m = 10 ** p - 1
+    return ((ints >= -m) & (ints <= m)).astype(bool)
+
+
+def words_int64(h: np.ndarray, a_lo: np.ndarray):
+    """(value, fits): the 128-bit h * 2^32 + a_lo (0 <= a_lo < 2^32) as
+    one int64 lane where it fits there (h a signed 32-bit value), 0
+    elsewhere.  The operators serve numpy arrays and torch tensors."""
+    fits = (h >= -(1 << 31)) & (h < (1 << 31))
+    return (h * fits) * (1 << 32) + a_lo * fits, fits
+
+
+def words_ints(h: np.ndarray, a_lo: np.ndarray) -> np.ndarray:
+    """h * 2^32 + a_lo as exact Python ints (object array)."""
+    return np.array([(x << 32) + y for x, y in
+                     zip(h.tolist(), a_lo.tolist())] + [0], object)[:-1]
+
+
+def words_column(h: np.ndarray, a_lo: np.ndarray,
+                 validity: Optional[np.ndarray],
+                 dtype: t.DecimalType) -> HostColumn:
+    """The DECIMAL column h * 2^32 + a_lo, null past the precision: an
+    int64 lane in numpy, Python ints only for the rows that leave it."""
+    v, fits = words_int64(h, a_lo)
+    base = wide_column(v, validity, dtype)
+    redo = np.flatnonzero(valid_of(validity, len(v)) & ~fits)
+    if not len(redo):
+        return base
+    return patch_rows(base, redo, wide_column(words_ints(h[redo], a_lo[redo]),
+                                              None, dtype))
+
+
+def half_up_ints(v: np.ndarray, ds: int) -> np.ndarray:
+    """v / 10^ds rounded half away from zero, or v * 10^-ds (Python
+    ints)."""
+    if ds <= 0:
+        return v * 10 ** (-ds)
+    f = 10 ** ds
+    return np.array([_div_half_up(x, f) for x in v.tolist()] + [0],
+                    dtype=object)[:-1]
+
+
+def _div_half_up(num: int, den: int) -> int:
+    """num / den rounded half away from zero (den != 0)."""
+    mag = (2 * abs(num) + abs(den)) // (2 * abs(den))
+    return -mag if (num < 0) != (den < 0) else mag
+
+
+def wide_decimal_op(op: str, a: HostColumn, sa: int, b: HostColumn,
+                    sb: int, out: t.DecimalType) -> HostColumn:
+    """a OP b (op in + - * / %) exactly at Spark's result type `out`:
+    Python ints at the exact scale, then HALF_UP to `out.scale`, null
+    past its precision and for / or % by zero."""
+    ua, ub = a.unscaled(), b.unscaled()
+    valid = and_valid(a.validity, b.validity)
+    rows = range(len(ua))
+    vals = [0] * len(ua)
+    ok = np.ones(len(ua), bool)
+    la, lb = ua.tolist(), ub.tolist()
+    if op in "+-":
+        s = max(sa, sb)
+        fa, fb = 10 ** (s - sa), 10 ** (s - sb)
+        sign = 1 if op == "+" else -1
+        vals = [la[i] * fa + sign * lb[i] * fb for i in rows]
+        res = half_up_ints(np.array(vals + [0], object)[:-1], s - out.scale)
+    elif op == "*":
+        vals = [la[i] * lb[i] for i in rows]
+        res = half_up_ints(np.array(vals + [0], object)[:-1],
+                           sa + sb - out.scale)
+    elif op == "/":
+        k = out.scale - sa + sb
+        num_f, den_f = (10 ** k, 1) if k >= 0 else (1, 10 ** -k)
+        for i in rows:
+            if lb[i] == 0:
+                ok[i] = False
+            else:
+                vals[i] = _div_half_up(la[i] * num_f, lb[i] * den_f)
+        res = np.array(vals + [0], object)[:-1]
+    else:                                   # Java's %: the dividend's sign
+        s = out.scale
+        fa, fb = 10 ** (s - sa), 10 ** (s - sb)
+        for i in rows:
+            x, y = la[i] * fa, lb[i] * fb
+            if y == 0:
+                ok[i] = False
+            else:
+                r = abs(x) % abs(y)
+                vals[i] = -r if x < 0 else r
+        res = np.array(vals + [0], object)[:-1]
+    return wide_column(res, and_valid(valid, None if ok.all() else ok), out)
+
+
+def exact_where_int64_fails(base: HostColumn, valid: Optional[np.ndarray],
+                            ok: np.ndarray, exact) -> HostColumn:
+    """`base` (an int64-lane result wider than 18 digits) with the valid
+    rows whose int64 step overflowed (`ok` false) replaced by
+    `exact(rows)`, their values in Python ints."""
+    if not base.dtype.is_wide:
+        return base
+    redo = np.flatnonzero(valid_of(valid, len(base)) & ~ok)
+    if not len(redo):
+        return base
+    return patch_rows(base, redo, exact(redo))
+
+
+def patch_rows(base: HostColumn, idx: np.ndarray,
+               part: HostColumn) -> HostColumn:
+    """`base` with rows `idx` replaced by `part`'s (a DECIMAL: the high
+    word comes along)."""
+    data = base.data.copy()
+    data[idx] = part.data
+    valid = valid_of(base.validity, len(base)).copy()
+    valid[idx] = valid_of(part.validity, len(part))
+    out = column(data, valid, base.dtype)
+    if part.hi is not None:
+        hi = base.hi_lane().copy()
+        hi[idx] = part.hi
+        out.hi = hi
+    return out
+
+
+def wide_rescale(col: HostColumn, from_scale: int,
+                 out: t.DecimalType) -> HostColumn:
+    """A DECIMAL (or integral, at scale 0) column at `out`'s scale and
+    precision, exact: HALF_UP down, null past the precision."""
+    return wide_column(half_up_ints(col.unscaled(), from_scale - out.scale),
+                       col.validity, out)
 
 
 # ---------------------------------------------------------------------------

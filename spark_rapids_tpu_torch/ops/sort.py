@@ -74,6 +74,12 @@ def order_lanes(col: DeviceColumn, asc: bool, nulls_first: bool
                 (value, not asc)]
     if data.dtype == torch.bool:
         data = data.to(torch.int8)
+    if col.hi is not None:
+        # a two-lane DECIMAL: the signed high word, then the low word in
+        # unsigned order (its sign bit flipped)
+        zero = torch.zeros_like(data)
+        return [null_lane, (torch.where(valid, col.hi, zero), not asc),
+                (torch.where(valid, data ^ (-2 ** 63), zero), not asc)]
     return [null_lane, (torch.where(valid, data, torch.zeros_like(data)),
                         not asc)]
 
@@ -96,8 +102,7 @@ def sort_permutation(db: DeviceBatch, keys: Sequence[SortKey],
 
 def permute_batch(db: DeviceBatch, perm: torch.Tensor) -> DeviceBatch:
     """Gather every lane of every column through a row permutation."""
-    cols = [DeviceColumn(c.data[perm], c.validity[perm], c.dtype,
-                         c.dictionary) for c in db.columns]
+    cols = [c.take(perm) for c in db.columns]
     return DeviceBatch(cols, db.num_rows, list(db.names))
 
 

@@ -80,6 +80,8 @@ class AggregateFunction:
                                              t.MapType, t.BinaryType)):
                 out.append(f"{self.name} over "
                            f"{self.child.dtype.simple_string}")
+            if E.consumes_wide_host(self.child):
+                out.append(E.WIDE_HOST_REASON)
         return out
 
     def cpu_agg(self, batch: HostBatch, groups: H.Groups) -> HostColumn:
@@ -145,27 +147,79 @@ def _sum_result_type(dt: t.DataType) -> t.DataType:
     raise TypeError(f"sum over {dt}")
 
 
+def _is_wide_decimal(dt: t.DataType) -> bool:
+    return isinstance(dt, t.DecimalType) and dt.is_wide
+
+
+def _halves(child: E.Expression) -> List[E.Expression]:
+    return [_resolved(_HalfLane(child, False)),
+            _resolved(_HalfLane(child, True))]
+
+
+def uses_half_lanes(fn: "AggregateFunction") -> bool:
+    """True for a SUM or AVG whose buffers are a wide DECIMAL sum's two
+    half lanes: exact only while the aggregation reads at most
+    `ROWS_EXACT` rows (`exec.aggregate.HashAggregate` holds it there)."""
+    return isinstance(fn, (Sum, Average)) and fn._wide()
+
+
+def _word_sums(v: HostColumn, g: H.Groups):
+    """(h, a_lo, rows per group): the exact per-group sums of a DECIMAL
+    column's valid rows `v` as the words of `_wide_words`, from the two
+    32-bit half lanes in numpy; None where a value has a high word or a
+    group passes `ROWS_EXACT` rows (the caller then sums Python ints)."""
+    if v.hi is not None:
+        return None
+    x = v.data.astype(np.int64)
+    lo, counts = g.reduce(np.add, x & _MASK32)
+    if len(counts) and counts.max() > ROWS_EXACT:
+        return None
+    hi, _n = g.reduce(np.add, x >> 32)
+    return (*_wide_words(lo, hi), counts)
+
+
 class Sum(AggregateFunction):
+    """SUM.  A DECIMAL sum whose result type passes 18 digits is exact
+    on both engines: on the device its buffer is two int64 lanes, the
+    sums of each input's low 32 bits (unsigned) and of its arithmetic
+    high 32 bits (`_HalfLane`), which every group-by tier, the global
+    reduction and the merges add as they add any LONG (exact up to
+    `ROWS_EXACT` input rows); `_WideSumEvaluate` forms the 128-bit
+    value, null past the result precision as Spark's non-ANSI sum."""
     name = "sum"
 
     def _resolve(self):
         self.dtype = _sum_result_type(self.child.dtype)
         self.nullable = True
 
+    def _wide(self) -> bool:
+        return _is_wide_decimal(self.dtype)
+
     def inputs(self):
-        return [self.child]
+        return _halves(self.child) if self._wide() else [self.child]
 
     def update_ops(self):
+        if self._wide():
+            return [(G.SUM, t.LONG), (G.SUM, t.LONG)]
         return [(G.SUM, self.dtype)]
 
     def merge_ops(self):
-        return [(G.SUM, self.dtype)]
+        return self.update_ops()
 
     def evaluate(self, refs):
+        if self._wide():
+            return _WideSumEvaluate(refs[0], refs[1], self.dtype)
         return refs[0]
 
     def cpu_agg(self, batch, groups):
         _c, v, g = self._valid_input(batch, groups)
+        if self._wide():
+            words = _word_sums(v, g)
+            if words is None:
+                sums, counts = g.reduce(np.add, v.unscaled())
+                return H.wide_column(sums, counts > 0, self.dtype)
+            h, a_lo, counts = words
+            return H.words_column(h, a_lo, counts > 0, self.dtype)
         lane = v.data.astype(t.physical_np_dtype(self.dtype))
         with np.errstate(over="ignore"):
             sums, counts = g.reduce(np.add, lane)
@@ -202,6 +256,9 @@ class Min(AggregateFunction):
         col, v, g = self._valid_input(batch, groups)
         ufunc = np.minimum if self._kind == G.MIN else np.maximum
         data = v.data
+        if v.hi is not None:
+            out, counts = g.reduce(ufunc, v.unscaled())
+            return H.wide_column(out, counts > 0, self.dtype)
         if data.dtype.kind == "f":
             red, counts = g.reduce(ufunc, H.float_order(data,
                                                         signed_zero=True))
@@ -238,30 +295,48 @@ class Average(AggregateFunction):
             return t.DecimalType(min(38, d.precision + 10), d.scale)
         return t.DOUBLE
 
+    def _wide(self) -> bool:
+        return _is_wide_decimal(self._sum_type())
+
     def inputs(self):
+        if self._wide():
+            # the count reads the high half (the same object: projected,
+            # gathered and counted once)
+            lo, hi = _halves(self.child)
+            return [lo, hi, hi]
         if self._is_decimal():
             return [self.child, self.child]
         # sum in double space (Spark: avg sums as double for non-decimal)
         return [_resolved(E.Cast(self.child, t.DOUBLE)), self.child]
 
     def update_ops(self):
+        if self._wide():
+            return [(G.SUM, t.LONG), (G.SUM, t.LONG), (G.COUNT, t.LONG)]
         return [(G.SUM, self._sum_type()), (G.COUNT, t.LONG)]
 
     def merge_ops(self):
+        if self._wide():
+            return [(G.SUM, t.LONG)] * 3
         return [(G.SUM, self._sum_type()), (G.SUM, t.LONG)]
+
+    def _shift(self) -> int:
+        return self.dtype.scale - self.child.dtype.scale
 
     def evaluate(self, refs):
         if self._is_decimal():
-            return _DecimalAvgEvaluate(refs[0], refs[1], self.dtype)
+            return _DecimalAvgEvaluate(refs[:-1], refs[-1], self.dtype,
+                                       self._shift())
         return E.Divide(refs[0], refs[1])
 
     def cpu_agg(self, batch, groups):
         _c, v, g = self._valid_input(batch, groups)
         if self._is_decimal():
-            sums, counts = g.reduce(np.add, v.data.astype(np.int64))
-            q, ok = H.decimal_avg(sums, counts,
-                                  self.dtype.scale - self.child.dtype.scale)
-            return H.column(q, ok, self.dtype)
+            words = _word_sums(v, g)
+            if words is None:
+                sums, counts = g.reduce(np.add, v.unscaled())
+                return _exact_average(sums, counts, self.dtype,
+                                      self._shift())
+            return _average_words(*words, None, self.dtype, self._shift())
         sums, counts = g.reduce(np.add, E._f64_np(v))
         with np.errstate(all="ignore"):
             return H.column(sums / np.maximum(counts, 1), counts > 0,
@@ -362,16 +437,15 @@ class CountDistinct(AggregateFunction):
         out = AggregateFunction.unsupported_reasons(self, conf)
         dt = self.child.dtype
         if isinstance(dt, t.DecimalType) and dt.is_wide:
-            out.append(E.Unported(
-                "count(DISTINCT) over decimal128 (no single device lane; "
-                f"the CPU engine waits on {E.WIDE_DECIMAL_SLICE})"))
+            out.append("count(DISTINCT) over decimal128 "
+                       "(no single device lane)")
         return out
 
     def cpu_agg(self, batch, groups):
         _c, v, g = self._valid_input(batch, groups)
         if not len(g.gid):
             return _count_column(np.zeros(g.count, np.int64))
-        ids, n = H.factorize([g.gid, H.order_lane(v)])
+        ids, n = H.factorize([g.gid] + H.order_lanes(v))
         pair_group = np.empty(n, np.int64)
         pair_group[ids] = g.gid             # each pair lies in one group
         return _count_column(np.bincount(pair_group, minlength=g.count))
@@ -394,13 +468,82 @@ def _deep_resolved(e: E.Expression) -> E.Expression:
     return e
 
 
-class _DecimalAvgEvaluate(E.Expression):
-    """sum_buffer / count at Spark's avg scale (s+4), HALF_UP — exact
-    integer arithmetic on the unscaled lanes (no float round-trip)."""
+_MASK32 = 0xFFFFFFFF
+#: A wide DECIMAL sum's half lanes are exact while the aggregation reads
+#: at most this many rows: the low lane's sum, read as unsigned, stays
+#: below 2^64, and the high lane's within int64.
+ROWS_EXACT = (1 << 32) - 1
+# A quotient's vectorised step needs |upscaled sum| below this (no
+# overflow in |us| + count / 2).
+_QUOT_SAFE = 1 << 62
 
-    def __init__(self, sum_e: E.Expression, count_e: E.Expression,
+
+class _HalfLane(E.Expression):
+    """One 32-bit half of an int64 DECIMAL lane as a LONG: the low half
+    taken unsigned, or the arithmetic high half.  A wide SUM's buffer
+    sums the two apart (`Sum`); hi * 2^32 + lo is the exact sum."""
+
+    def __init__(self, child: E.Expression, high: bool):
+        self.children = (child,)
+        self.high = high
+
+    def _resolve(self):
+        self.dtype = t.LONG
+        self.nullable = self.children[0].nullable
+
+    def _eval_dev(self, ctx, kids):
+        x = kids[0].data.to(torch.int64)
+        return E.DevVal(x >> 32 if self.high else x & _MASK32,
+                        kids[0].validity, t.LONG)
+
+    def _eval_cpu(self, batch, kids):
+        x = kids[0].data.astype(np.int64)
+        return H.column(x >> 32 if self.high else x & _MASK32,
+                        kids[0].validity, t.LONG)
+
+    def _fp_extra(self):
+        return "hi" if self.high else "lo"
+
+
+def _wide_words(lo_sum, hi_sum):
+    """(h, a_lo): the 128-bit value hi_sum * 2^32 + lo_sum, lo_sum read as
+    unsigned, as h * 2^32 + a_lo with 0 <= a_lo < 2^32, both int64 (no
+    step overflows up to `ROWS_EXACT` rows).  numpy arrays or torch
+    tensors."""
+    return hi_sum + ((lo_sum >> 32) & _MASK32), lo_sum & _MASK32
+
+
+def _fits_words(h: torch.Tensor, a_lo: torch.Tensor, p: int
+                ) -> torch.Tensor:
+    """|h * 2^32 + a_lo| <= 10^p - 1, compared in int64 words."""
+    b = 10 ** p - 1
+    ok = torch.ones_like(h, dtype=torch.bool)
+    q, r = b >> 32, b & _MASK32
+    if q < 2 ** 63 - 1:
+        ok &= (h < q) | ((h == q) & (a_lo <= r))
+    nq, nr = (-b) >> 32, (-b) & _MASK32
+    if nq > -2 ** 63:
+        ok &= (h > nq) | ((h == nq) & (a_lo >= nr))
+    return ok
+
+
+def past_rows_error(rows: int) -> NotImplementedError:
+    return NotImplementedError(
+        f"an aggregation over {rows} rows (more than {ROWS_EXACT}) passes "
+        "the exact range of a wide DECIMAL sum's half lanes "
+        f"({E.WIDE_DECIMAL_SLICE})")
+
+
+class _WideSumEvaluate(E.Expression):
+    """The finished wide DECIMAL sum from its two half-lane buffers: the
+    low word (h's low 32 bits above a_lo, as a signed int64) and the
+    high word (h >> 32), null past the result precision.  The result
+    carries the high word (`DevVal.hi`); a consumer reads one int64 lane
+    only where every value fits it (`expressions.narrow_dev`)."""
+
+    def __init__(self, lo_e: E.Expression, hi_e: E.Expression,
                  out_t: t.DecimalType):
-        self.children = (sum_e, count_e)
+        self.children = (lo_e, hi_e)
         self.out_t = out_t
         self._resolve()
 
@@ -409,22 +552,123 @@ class _DecimalAvgEvaluate(E.Expression):
         self.nullable = True
 
     def _eval_dev(self, ctx, kids):
-        from ..ops import decimal as D
         from ..ops.kernels import merge_validity
-        shift = self.out_t.scale - self.children[0].dtype.scale
-        us, ok = D.upscale(kids[0].data.to(torch.int64), shift)
-        c = kids[1].data.to(torch.int64)
-        safe_c = torch.clamp(c, min=1)
-        mag = torch.div(torch.abs(us) + torch.div(safe_c, 2,
-                                                  rounding_mode="floor"),
-                        safe_c, rounding_mode="floor")
-        q = torch.where(us < 0, -mag, mag)
-        valid = merge_validity(kids[0].validity, kids[1].validity,
-                               ok & (c > 0))
-        return E.DevVal(q, valid, self.out_t)
+        live = merge_validity(kids[0].validity, kids[1].validity)
+        h, a_lo = _wide_words(kids[0].data.to(torch.int64),
+                              kids[1].data.to(torch.int64))
+        low32 = h & _MASK32
+        signed32 = (low32 ^ (1 << 31)) - (1 << 31)
+        lo = signed32 * (1 << 32) + a_lo
+        valid = merge_validity(live,
+                               _fits_words(h, a_lo, self.out_t.precision))
+        return E.DevVal(lo, valid, self.out_t, hi=h >> 32)
+
+    def _eval_cpu(self, batch, kids):
+        live = H.and_valid(kids[0].validity, kids[1].validity)
+        h, a_lo = _wide_words(kids[0].data.astype(np.int64),
+                              kids[1].data.astype(np.int64))
+        return H.words_column(h, a_lo, live, self.out_t)
 
     def _fp_extra(self):
         return self.out_t.simple_string
+
+
+def _half_up_quotient(us, counts):
+    """us / counts rounded half away from zero, for |us| < `_QUOT_SAFE`
+    (a count <= 0 is taken as 1): numpy arrays or torch tensors."""
+    safe = counts * (counts > 0) + (counts <= 0)
+    mag = (abs(us) + safe // 2) // safe
+    return mag - 2 * mag * (us < 0)
+
+
+def _exact_average(sums: np.ndarray, counts: np.ndarray,
+                   out_t: t.DecimalType, shift: int) -> HostColumn:
+    """Per-group sum / count at `shift` more digits of scale, HALF_UP,
+    in Python ints; null for an empty group and past the precision."""
+    f = 10 ** shift
+    q = [H._div_half_up(int(s) * f, int(c)) if c > 0 else 0
+         for s, c in zip(sums.tolist(), counts.tolist())]
+    return H.wide_column(np.array(q + [0], object)[:-1],
+                         np.asarray(counts) > 0, out_t)
+
+
+def _average_words(h: np.ndarray, a_lo: np.ndarray, counts: np.ndarray,
+                   validity: Optional[np.ndarray], out_t: t.DecimalType,
+                   shift: int) -> HostColumn:
+    """The CPU engine's `_DecimalAvgEvaluate`: the groups whose upscaled
+    sum stays within int64 divide in numpy, the rest in Python ints."""
+    s, fits = H.words_int64(h, a_lo)
+    us, ok = H.upscale(s, shift)
+    live = H.valid_of(validity, len(s)) & (counts > 0)
+    fast = fits & ok & (us < _QUOT_SAFE) & (us > -_QUOT_SAFE)
+    base = H.wide_column(np.where(fast, _half_up_quotient(us, counts), 0),
+                         live & fast, out_t)
+    redo = np.flatnonzero(live & ~fast)
+    if not len(redo):
+        return base
+    return H.patch_rows(base, redo, _exact_average(
+        H.words_ints(h[redo], a_lo[redo]), counts[redo], out_t, shift))
+
+
+class _DecimalAvgEvaluate(E.Expression):
+    """AVG(DECIMAL)'s finish, grouped and global: sum / count at Spark's
+    result scale (s + 4), HALF_UP, exact.  The sum is one int64 lane, or
+    the two half lanes of a sum type past 18 digits (`Sum`).  Every group
+    whose upscaled sum stays within int64 divides in one vectorised step
+    on the device; only the groups that leave it come to the host and
+    divide in Python ints (one host sync says whether any do)."""
+
+    def __init__(self, sums: List[E.Expression], count_e: E.Expression,
+                 out_t: t.DecimalType, shift: int):
+        self.children = (*sums, count_e)
+        self.out_t = out_t
+        self.shift = shift
+        self._resolve()
+
+    def _resolve(self):
+        self.dtype = self.out_t
+        self.nullable = True
+
+    def _words(self, lanes):
+        if len(lanes) == 2:
+            return _wide_words(*lanes)
+        return lanes[0] >> 32, lanes[0] & _MASK32
+
+    def _eval_dev(self, ctx, kids):
+        from ..ops import decimal as D
+        from ..ops.kernels import merge_validity
+        lanes = [k.data.to(torch.int64) for k in kids]
+        c = lanes[-1]
+        h, a_lo = self._words(lanes[:-1])
+        s, fits = H.words_int64(h, a_lo)
+        us, ok = D.upscale(s, self.shift)
+        live = merge_validity(*(k.validity for k in kids), c > 0)
+        fast = fits & ok & (us < _QUOT_SAFE) & (us > -_QUOT_SAFE)
+        q = _half_up_quotient(us, c)
+        valid = live & fast & D.fits_precision(q, self.out_t.precision)
+        slow = live & ~fast
+        hi = q >> 63 if self.out_t.is_wide else None
+        if bool(slow.any()):
+            idx = torch.nonzero(slow).flatten()
+
+            def host(x):
+                return x[idx].cpu().numpy()
+            part = _exact_average(H.words_ints(host(h), host(a_lo)), host(c),
+                                  self.out_t, self.shift)
+            q[idx] = torch.from_numpy(part.data).to(q.device)
+            valid[idx] = torch.from_numpy(part.valid_mask()).to(q.device)
+            if hi is not None:
+                hi[idx] = torch.from_numpy(part.hi_lane()).to(q.device)
+        return E.DevVal(q, valid, self.out_t, hi=hi)
+
+    def _eval_cpu(self, batch, kids):
+        lanes = [k.data.astype(np.int64) for k in kids]
+        live = H.and_valid(*(k.validity for k in kids))
+        return _average_words(*self._words(lanes[:-1]), lanes[-1], live,
+                              self.out_t, self.shift)
+
+    def _fp_extra(self):
+        return f"{self.out_t.simple_string};{self.shift}"
 
 
 # ---------------------------------------------------------------------------
@@ -487,14 +731,26 @@ class VariancePop(AggregateFunction):
     def merge_ops(self):
         return [(G.SUM, t.LONG), (G.SUM, t.DOUBLE), (G.SUM, t.DOUBLE)]
 
+    def _legacy_nan(self) -> bool:
+        """Spark < 3.1 (SPARK-33726): the sample variance of one row is
+        NaN, not null; `_shims` (shims.py) is set at plan conversion
+        (plan/overrides.AggregateMeta)."""
+        shims = getattr(self, "_shims", None)
+        return self.ddof == 1 and shims is not None and \
+            shims.legacy_statistical_aggregate
+
     def evaluate(self, refs):
         n = E.Cast(refs[0], t.DOUBLE)
         s, ss = refs[1], refs[2]
         m2 = _clamp_nonneg(E.Subtract(ss, E.Divide(E.Multiply(s, s), n)))
         var = E.Divide(m2, E.Subtract(n, E.Literal(float(self.ddof),
                                                    t.DOUBLE)))
+        empty = _null_double()
+        if self._legacy_nan():
+            empty = E.If(E.EqualTo(refs[0], E.Literal(1, t.LONG)),
+                         E.Literal(float("nan"), t.DOUBLE), empty)
         return E.If(E.GreaterThan(refs[0], E.Literal(self.ddof, t.LONG)),
-                    var, _null_double())
+                    var, empty)
 
     def _finish(self, var: np.ndarray) -> np.ndarray:
         return var
@@ -506,6 +762,9 @@ class VariancePop(AggregateFunction):
         ok = n > self.ddof
         with np.errstate(all="ignore"):
             var = m2 / np.where(ok, n - self.ddof, 1)
+        if self._legacy_nan():
+            var = np.where(n == 1, np.nan, var)
+            ok = ok | (n == 1)
         return H.column(self._finish(var), ok, t.DOUBLE)
 
 

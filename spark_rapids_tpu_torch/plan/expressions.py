@@ -56,7 +56,7 @@ import numpy as np
 import torch
 
 from .. import types as t
-from ..columnar.host import HostBatch, HostColumn
+from ..columnar.host import EXACT, HostBatch, HostColumn, decimal_value
 from ..config import TpuConf
 from ..ops import host as H
 from ..ops.kernels import compute_dtype, merge_validity, valid_or_true
@@ -64,8 +64,9 @@ from ..ops.kernels import compute_dtype, merge_validity, valid_or_true
 
 #: where RLIKE and the regexp functions port
 REGEX_SLICE = "ops/regex.py (ROADMAP Queue 1 item 7)"
-#: where host decimals wider than one int64 lane port
-WIDE_DECIMAL_SLICE = ("the wide host decimal lane (ROADMAP Queue 1 "
+#: where the two-lane device forms of a DECIMAL wider than 18 digits
+#: (arithmetic, comparisons, MIN/MAX over a value past int64) port
+WIDE_DECIMAL_SLICE = ("the two-lane device decimal forms (ROADMAP Queue 1 "
                       "item 2)")
 
 
@@ -157,16 +158,39 @@ class DevVal:
     rows valid) + logical type (+ dictionary for strings) (+ an exact
     (lo, hi) bound of its valid integer values where the expression knows
     one: a cast of a string parses a whole dictionary, so the group-by
-    can pack such a key as it packs a scanned column)."""
+    can pack such a key as it packs a scanned column) (+ the high word
+    of a DECIMAL wider than 18 digits, `hi`: see `narrow_dev`)."""
 
     def __init__(self, data, validity, dtype: t.DataType,
                  dictionary: Optional[np.ndarray] = None,
-                 value_range: Optional[Tuple[int, int]] = None):
+                 value_range: Optional[Tuple[int, int]] = None,
+                 hi=None):
         self.data = data
         self.validity = validity
         self.dtype = dtype
         self.dictionary = dictionary
         self.value_range = value_range
+        self.hi = hi
+
+
+def narrow_dev(v: DevVal, consumer: str) -> DevVal:
+    """`v` as one int64 lane for a device consumer without a two-lane
+    form: every valid row's high word must be the sign extension of its
+    low word (then the low word is the value), else this raises naming
+    the slice that brings the two-lane forms; it never returns a
+    wrapped value.  One host sync, paid only by a value that has a high
+    word (a finished wide DECIMAL sum)."""
+    if v.hi is None:
+        return v
+    bad = v.hi != (v.data.to(torch.int64) >> 63)
+    if v.validity is not None:
+        bad = bad & v.validity
+    if bool(bad.any()):
+        raise NotImplementedError(
+            f"{consumer}: a DECIMAL({v.dtype.precision}) value leaves "
+            "int64 on the device, and this consumer has no two-lane form "
+            f"yet ({WIDE_DECIMAL_SLICE})")
+    return DevVal(v.data, v.validity, v.dtype, v.dictionary, v.value_range)
 
 
 class Expression:
@@ -214,8 +238,14 @@ class Expression:
         return HostVal()
 
     # ---- device phase ----
+    #: reads a child's DECIMAL high word itself; every other class sees
+    #: its children as one int64 lane (`narrow_dev`)
+    reads_hi = False
+
     def eval_dev(self, ctx: EvalCtx) -> DevVal:
         kids = [c.eval_dev(ctx) for c in self.children]
+        if not self.reads_hi:
+            kids = [narrow_dev(k, type(self).__name__) for k in kids]
         return self._eval_dev(ctx, kids)
 
     def _eval_dev(self, ctx: EvalCtx, kids: List[DevVal]) -> DevVal:
@@ -313,7 +343,7 @@ class Literal(Expression):
         v, dt = self.value, self.dtype
         if isinstance(dt, t.DecimalType):
             d = v if isinstance(v, pydec.Decimal) else pydec.Decimal(str(v))
-            return int(d.scaleb(dt.scale).to_integral_value(
+            return int(d.scaleb(dt.scale, EXACT).to_integral_value(
                 rounding=pydec.ROUND_HALF_UP))
         if isinstance(dt, t.DateType):
             if isinstance(v, pydt.date):
@@ -353,8 +383,14 @@ class Literal(Expression):
         if isinstance(self.dtype, t.StringType):
             return DevVal(ctx.full(0, torch.int32), None, self.dtype,
                           np.array([self.value], str))
-        return DevVal(ctx.full(self._physical_value(),
-                               compute_dtype(self.dtype)), None, self.dtype)
+        v = self._physical_value()
+        if isinstance(self.dtype, t.DecimalType) and \
+                not -2 ** 63 <= v < 2 ** 63:
+            lo = (v & ((1 << 64) - 1)) - ((v >> 63 & 1) << 64)
+            return DevVal(ctx.full(lo, torch.int64), None, self.dtype,
+                          hi=ctx.full(v >> 64, torch.int64))
+        return DevVal(ctx.full(v, compute_dtype(self.dtype)), None,
+                      self.dtype)
 
     def _eval_cpu(self, batch, kids):
         n = batch.num_rows
@@ -365,8 +401,11 @@ class Literal(Expression):
         if self.value is None:
             return HostColumn(np.zeros(n, lane), np.zeros(n, bool),
                               self.dtype)
-        return HostColumn(np.full(n, self._physical_value(), lane), None,
-                          self.dtype)
+        v = self._physical_value()
+        if isinstance(dt, t.DecimalType) and not -2 ** 63 <= v < 2 ** 63:
+            return H.wide_column(np.array([v] * n + [0], object)[:-1], None,
+                                 dt)
+        return HostColumn(np.full(n, v, lane), None, self.dtype)
 
     def _fp_extra(self):
         return f"{self.value!r}:{self.dtype.simple_string}"
@@ -380,6 +419,8 @@ class Alias(Expression):
     def _resolve(self):
         self.dtype = self.children[0].dtype
         self.nullable = self.children[0].nullable
+
+    reads_hi = True
 
     def _prepare(self, pctx, kids):
         return kids[0]          # forward dictionary metadata transparently
@@ -407,6 +448,20 @@ def _promote_binary(a: Expression, b: Expression) -> t.DataType:
     if da == db:
         return da
     return t.numeric_promote(da, db)
+
+
+WIDE_HOST_REASON = "128-bit host decimal lane not consumable on device"
+
+
+def consumes_wide_host(e: Expression) -> bool:
+    """True when `e` reads a wide (p > 18) decimal straight off a column
+    (the reference's `_consumes_wide_host`): such a column may carry a
+    high word, which the single-lane device forms cannot read, so the
+    reference tags its consumer for the CPU engine.  A reference through
+    an Alias counts too."""
+    inner = e.children[0] if isinstance(e, Alias) else e
+    return isinstance(inner, ColumnRef) and \
+        isinstance(inner.dtype, t.DecimalType) and inner.dtype.is_wide
 
 
 def _is_decimal_op(da: t.DataType, db: t.DataType) -> bool:
@@ -463,9 +518,6 @@ class BinaryArithmetic(Expression):
     #: ops/decimal.py result-type rule / kernel; None -> not for decimals
     decimal_rule = None
     decimal_kernel = None
-    #: the CPU engine computes this operator over decimals
-    decimal_cpu = True
-
     def __init__(self, left: Expression, right: Expression):
         self.children = (left, right)
 
@@ -489,28 +541,39 @@ class BinaryArithmetic(Expression):
             if not t.is_numeric(c.dtype) and \
                     not isinstance(c.dtype, t.NullType):
                 return [f"non-numeric operand {c.dtype.simple_string}"]
-            if isinstance(c.dtype, t.DecimalType) and \
-                    isinstance(c, ColumnRef) and c.dtype.is_wide:
-                return ["128-bit host decimal lane not consumable on device"]
+            if consumes_wide_host(c):
+                return [WIDE_HOST_REASON]
         if self._is_decimal() and self.decimal_kernel is None:
-            if not self.decimal_cpu:
-                return [Unported(
-                    f"decimal {self.symbol}: Spark's result type is wider "
-                    "than the host's int64 decimal lane, which waits on "
-                    f"{WIDE_DECIMAL_SLICE}")]
             return [f"decimal {self.symbol} not yet on device"]
         return []
+
+    #: the int64 numpy form of this operator over decimals (None: only
+    #: the exact Python-int form, ops/host.wide_decimal_op)
+    _decimal_cpu = None
+
+    def _decimal_eval_cpu(self, l: HostColumn, r: HostColumn) -> HostColumn:
+        """Decimal arithmetic on the CPU engine, exact at Spark's result
+        type as the reference's CPU engine is: the int64 lanes in numpy,
+        and the rows whose int64 step overflows (or an operand with a
+        high word) again in Python ints, where the result type is wider
+        than 18 digits."""
+        sa = _as_decimal(l.dtype).scale
+        sb = _as_decimal(r.dtype).scale
+        out_t = self.dtype
+        if self._decimal_cpu is None or l.hi is not None or r.hi is not None:
+            return H.wide_decimal_op(self.symbol, l, sa, r, sb, out_t)
+        data, ok = self._decimal_cpu(l.data.astype(np.int64), sa,
+                                     r.data.astype(np.int64), sb, out_t)
+        valid = H.and_valid(l.validity, r.validity)
+        return H.exact_where_int64_fails(
+            H.column(data, H.and_valid(valid, ok), out_t), valid, ok,
+            lambda rows: H.wide_decimal_op(self.symbol, H.take(l, rows), sa,
+                                           H.take(r, rows), sb, out_t))
 
     def _eval_cpu(self, batch, kids):
         l, r = kids
         if self._is_decimal():
-            sa = _as_decimal(l.dtype).scale
-            sb = _as_decimal(r.dtype).scale
-            data, ok = self._decimal_cpu(l.data.astype(np.int64), sa,
-                                         r.data.astype(np.int64), sb,
-                                         self.dtype)
-            return H.column(data, H.and_valid(l.validity, r.validity, ok),
-                            self.dtype)
+            return self._decimal_eval_cpu(l, r)
         with np.errstate(all="ignore"):
             data, extra = self._op_cpu(_lane(l, self.dtype),
                                        _lane(r, self.dtype))
@@ -610,18 +673,23 @@ class Multiply(BinaryArithmetic):
 
 
 class Divide(BinaryArithmetic):
-    """Spark Divide on non-decimals: DOUBLE result, x/0 -> NULL.  Decimal
-    division is not on the device in the reference either (its CPU
-    engine runs it at Spark's result type, wider than the port's int64
-    host lane); here it is refused until the wide host lane ports."""
+    """Spark Divide: DOUBLE result for non-decimals, x/0 -> NULL.  Decimal
+    division runs on the CPU engine, as in the reference: exact at
+    Spark's result type (`ops/decimal.div_result`), HALF_UP."""
     symbol = "/"
+
+    @property
+    def decimal_rule(self):
+        from ..ops import decimal as D
+        return D.div_result
 
     def _resolve(self):
         if self._is_decimal():
-            raise NotImplementedError(
-                "decimal divide: Spark's result type is wider than the "
-                f"host's int64 decimal lane, which waits on "
-                f"{WIDE_DECIMAL_SLICE}")
+            self.dtype = self.decimal_rule(
+                _as_decimal(self.children[0].dtype),
+                _as_decimal(self.children[1].dtype))
+            self.nullable = True
+            return
         for c in self.children:
             if not (t.is_numeric(c.dtype) or isinstance(c.dtype, t.NullType)):
                 raise TypeError(f"divide on {c.dtype}")
@@ -638,6 +706,8 @@ class Divide(BinaryArithmetic):
 
     def _eval_cpu(self, batch, kids):
         l, r = kids
+        if self._is_decimal():
+            return self._decimal_eval_cpu(l, r)
         ld = l.data.astype(np.float64)
         rd = r.data.astype(np.float64)
         nz = rd != 0.0
@@ -675,10 +745,14 @@ class BinaryComparison(Expression):
         return None
 
     def unsupported_reasons(self, conf):
-        if any(isinstance(c.dtype, t.StringType) for c in self.children) \
-                and type(self) not in (EqualTo, NotEqual) and \
-                self._string_literal_side() is None:
-            return ["string ordering comparison not yet on device"]
+        if any(isinstance(c.dtype, t.StringType) for c in self.children):
+            if type(self) not in (EqualTo, NotEqual) and \
+                    self._string_literal_side() is None:
+                return ["string ordering comparison not yet on device"]
+            return []
+        for c in self.children:
+            if consumes_wide_host(c):
+                return [WIDE_HOST_REASON]
         return []
 
     def _string_op_dev(self, ctx, kids) -> DevVal:
@@ -786,8 +860,14 @@ class BinaryComparison(Expression):
             sb = _as_decimal(self.children[1].dtype).scale
             ld, ok_a = H.rescale(l.data.astype(np.int64), sa, common.scale)
             rd, ok_b = H.rescale(r.data.astype(np.int64), sb, common.scale)
-            return H.column(self._op_cpu(ld, rd),
-                            H.and_valid(valid, ok_a & ok_b), t.BOOLEAN)
+            if l.hi is None and r.hi is None and (ok_a & ok_b).all():
+                return H.column(self._op_cpu(ld, rd), valid, t.BOOLEAN)
+            # a value past int64 (a high word, or the common scale's
+            # upscale): compare the exact values
+            ld = l.unscaled() * 10 ** (common.scale - sa)
+            rd = r.unscaled() * 10 ** (common.scale - sb)
+            return H.column(np.asarray(self._op_cpu(ld, rd), bool), valid,
+                            t.BOOLEAN)
         with np.errstate(invalid="ignore"):
             data = self._op_cpu(_lane(l, common), _lane(r, common))
         return H.column(data, valid, t.BOOLEAN)
@@ -1210,6 +1290,8 @@ class Cast(Expression):
     input, non-ANSI, null for anything invalid) into a value lane and an
     ok lane, which the rows gather by code."""
 
+    reads_hi = True
+
     def __init__(self, child, to: t.DataType):
         self.children = (child,)
         self.to = to
@@ -1221,6 +1303,9 @@ class Cast(Expression):
 
     def unsupported_reasons(self, conf):
         src, dst = self.children[0].dtype, self.to
+        if consumes_wide_host(self.children[0]):
+            # two-lane -> f64 (_eval_dev), the reference's one form
+            return [] if t.is_floating(dst) else [WIDE_HOST_REASON]
         if src == dst:
             return []
         numeric = (t.NumericType, t.BooleanType)
@@ -1256,7 +1341,7 @@ class Cast(Expression):
                 y, m, d = (int(p) for p in parts)
                 return (pydt.date(y, m, d) - pydt.date(1970, 1, 1)).days
             if isinstance(dst, t.DecimalType):
-                v = pydec.Decimal(s).scaleb(dst.scale).to_integral_value(
+                v = pydec.Decimal(s).scaleb(dst.scale, EXACT).to_integral_value(
                     rounding=pydec.ROUND_HALF_UP)
                 iv = int(v)
                 if abs(iv) > 10 ** min(dst.precision, 18) - 1:
@@ -1333,12 +1418,17 @@ class Cast(Expression):
             raise NotImplementedError(
                 f"cast {src.simple_string}->{dst.simple_string} is not "
                 "ported yet (ROADMAP Queue 1 item 1(e))")
+        if isinstance(src, t.DecimalType) and k.hi is not None:
+            return _wide_cast_cpu(k, src, dst)
         if isinstance(src, t.DecimalType):
             u = x.astype(np.int64)
             if isinstance(dst, t.DecimalType):
                 data, ok = H.rescale(u, src.scale, dst.scale)
                 ok = ok & H.fits_precision(data, dst.precision)
-                return H.column(data, H.and_valid(valid, ok), dst)
+                return H.exact_where_int64_fails(
+                    H.column(data, H.and_valid(valid, ok), dst), valid, ok,
+                    lambda rows: H.wide_rescale(H.take(k, rows), src.scale,
+                                                dst))
             if t.is_floating(dst):
                 return H.column(H.decimal_to_double(u, src.scale), valid,
                                 dst)
@@ -1354,6 +1444,9 @@ class Cast(Expression):
             else:
                 data, ok = H.upscale(x.astype(np.int64), dst.scale)
                 ok = ok & H.fits_precision(data, dst.precision)
+                return H.exact_where_int64_fails(
+                    H.column(data, H.and_valid(valid, ok), dst), valid, ok,
+                    lambda rows: H.wide_rescale(H.take(k, rows), 0, dst))
             return H.column(data, H.and_valid(valid, ok), dst)
         if isinstance(dst, t.BooleanType):
             data = x != 0
@@ -1371,9 +1464,14 @@ class Cast(Expression):
     def _eval_dev(self, ctx, kids):
         from ..ops import decimal as D
         src, dst = self.children[0].dtype, self.to
-        x, valid = kids[0].data, kids[0].validity
         if src == dst:
             return kids[0]
+        if kids[0].hi is not None and t.is_floating(dst):
+            return DevVal(D.wide_to_double(kids[0].data, kids[0].hi,
+                                           src.scale).to(compute_dtype(dst)),
+                          kids[0].validity, dst)
+        kids = [narrow_dev(kids[0], "Cast")]
+        x, valid = kids[0].data, kids[0].validity
         if isinstance(src, t.StringType):
             vals, ok, rng = self.parsed(dict_or_empty(kids[0].dictionary),
                                         ctx.device)
@@ -1414,6 +1512,33 @@ class Cast(Expression):
         return self.to.simple_string
 
 
+def _wide_cast_cpu(k: HostColumn, src: t.DecimalType,
+                   dst: t.DataType) -> HostColumn:
+    """CAST of a DECIMAL column holding a high word, exact in Python
+    ints: to DECIMAL HALF_UP and null past the precision, to DOUBLE the
+    correctly rounded quotient, to an integral type truncated and null
+    outside it, to BOOLEAN non-zero."""
+    ints = k.unscaled()
+    if isinstance(dst, t.DecimalType):
+        return H.wide_rescale(k, src.scale, dst)
+    if isinstance(dst, t.StringType):
+        return _to_string_column(k, src)
+    f = 10 ** src.scale
+    vals = ints.tolist()
+    if t.is_floating(dst):
+        return H.column(np.array([v / f for v in vals], np.float64),
+                        k.validity, dst)
+    if isinstance(dst, t.BooleanType):
+        return H.column(np.array([v != 0 for v in vals], bool), k.validity,
+                        dst)
+    info = np.iinfo(t.physical_np_dtype(dst))
+    q = [(abs(v) // f) * (-1 if v < 0 else 1) for v in vals]
+    ok = np.array([int(info.min) <= x <= int(info.max) for x in q], bool)
+    data = np.array([x if o else 0 for x, o in zip(q, ok)] + [0],
+                    np.int64)[:-1]
+    return H.column(data, H.and_valid(k.validity, ok), dst)
+
+
 def format_double(v: float, single: bool = False) -> str:
     """A FLOAT or DOUBLE as the reference's CPU engine writes it in a
     cast to STRING: the shortest digits that read back to the value,
@@ -1450,7 +1575,7 @@ def _format_value(v, src: t.DataType) -> str:
     if t.is_floating(src):
         return format_double(float(v), isinstance(src, t.FloatType))
     if isinstance(src, t.DecimalType):
-        return format(pydec.Decimal(int(v)).scaleb(-src.scale), "f")
+        return format(decimal_value(v, src.scale), "f")
     if isinstance(src, t.DateType):
         d = np.datetime64(int(v), "D").astype(object)
         if isinstance(d, pydt.date):
@@ -1471,7 +1596,7 @@ def _to_string_column(k: HostColumn, src: t.DataType) -> HostColumn:
         return H.string_literal_column(None, n)
     if isinstance(src, t.StringType):
         return k
-    lane = k.data
+    lane = k.data if k.hi is None else k.unscaled()
     if lane.dtype.kind == "f":
         # by bits: -0.0 and 0.0 print differently
         lane = lane.astype(np.float64).view(np.int64)
@@ -1743,7 +1868,8 @@ class IntegralDivide(BinaryArithmetic):
             lv = H.valid_of(valid, len(l))
             out = np.zeros(len(l), np.int64)
             ok = np.zeros(len(l), bool)
-            for i, (a, b) in enumerate(zip(l.data.tolist(), r.data.tolist())):
+            for i, (a, b) in enumerate(zip(l.unscaled().tolist(),
+                                           r.unscaled().tolist())):
                 a, b = int(a) * 10 ** (s_ - sa), int(b) * 10 ** (s_ - sb)
                 if not lv[i] or b == 0:
                     continue
@@ -1789,7 +1915,6 @@ class Remainder(BinaryArithmetic):
     Python's modulo), x % 0 -> NULL; integral lanes compute in int64 and
     narrow back, and x % -1 is 0 without dividing (MIN % -1 traps)."""
     symbol = "%"
-    decimal_cpu = False
 
     @property
     def decimal_rule(self):
@@ -1818,6 +1943,8 @@ class Remainder(BinaryArithmetic):
 
     def _eval_cpu(self, batch, kids):
         l, r = kids
+        if self._is_decimal():
+            return self._decimal_eval_cpu(l, r)
         with np.errstate(all="ignore"):
             if t.is_floating(self.dtype):
                 ld, rd = l.data.astype(np.float64), r.data.astype(np.float64)
@@ -2308,13 +2435,17 @@ class Greatest(Expression):
         if any(d != self.dtype for d in types):
             return [Unported("operands of several types: cast them to "
                              "one")]
-        return []
+        return [WIDE_HOST_REASON for c in self.children
+                if consumes_wide_host(c)][:1]
 
     def _eval_cpu(self, batch, kids):
         n = batch.num_rows
         dictionary = None
+        wide = any(k.hi is not None for k in kids)
         if isinstance(self.dtype, t.StringType):
             dictionary, lanes = _unified_codes(kids)
+        elif wide:
+            lanes = [k.unscaled() for k in kids]
         else:
             lanes = [_lane(k, self.dtype) for k in kids]
         is_fp = t.is_floating(self.dtype)
@@ -2338,6 +2469,8 @@ class Greatest(Expression):
             pick_b = v & (~acc_v | take_b)
             acc_d = np.where(pick_b, d, acc_d)
             acc_v = acc_v | v
+        if wide:
+            return H.wide_column(acc_d, acc_v, self.dtype)
         return H.column(acc_d, acc_v, self.dtype, dictionary)
 
     def _eval_dev(self, ctx, kids):
@@ -2439,10 +2572,8 @@ class Round(Expression):
 
     def unsupported_reasons(self, conf):
         out = _numeric_reasons(self.children)
-        c = self.children[0]
-        if isinstance(c.dtype, t.DecimalType) and isinstance(c, ColumnRef) \
-                and c.dtype.is_wide:
-            out.append("128-bit host decimal lane not consumable on device")
+        if consumes_wide_host(self.children[0]):
+            out.append(WIDE_HOST_REASON)
         return out
 
     def _eval_dev(self, ctx, kids):

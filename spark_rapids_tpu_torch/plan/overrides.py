@@ -23,10 +23,8 @@ ported that device form (an `expressions.Unported` reason: composite
 string join keys, TIMESTAMP fields, the regexp family, ...), the node
 is not sent to the CPU engine: `apply_overrides` raises
 NotImplementedError naming the slice, unless another reason already
-puts the node on the CPU (or `sql.enabled` is false).  A window that
-the reference would run on its CPU engine raises too, naming
-`CpuWindowExec`, which ports later.  Nothing reroutes an operator
-between the engines at run time.
+puts the node on the CPU (or `sql.enabled` is false).  Nothing reroutes
+an operator between the engines at run time.
 
 The device conversion is unchanged: a Limit directly above a device
 Sort becomes TopNExec; an aggregate whose functions are all
@@ -48,6 +46,7 @@ side, as the reference does.
 """
 from __future__ import annotations
 
+import dataclasses
 import logging
 from typing import List, Optional, Sequence, Tuple
 
@@ -210,10 +209,6 @@ def _logical_keys_unique(plan: L.LogicalPlan, names) -> bool:
     return False
 
 
-#: where the CPU engine's window operator ports
-CPU_WINDOW_SLICE = "CpuWindowExec (ROADMAP Queue 1 item 2)"
-
-
 def _sort_keys(node: "L.LogicalSort"):
     from ..ops.sort import SortKey
     schema_in = node.child.schema
@@ -272,6 +267,11 @@ class ExprMeta(BaseMeta):
             c.tag()
             self._roll_up(c)
         name = type(self.expr).__name__
+        if name in self.conf.shims.unavailable_expressions:
+            self.will_not_work(
+                f"expression {name} does not exist in Spark "
+                f"{self.conf.shims.version_prefix} (shim gate)")
+            return
         if not self.conf.is_op_enabled("expression", name):
             self.will_not_work(
                 f"expression {name} disabled by "
@@ -291,6 +291,11 @@ class AggMeta(BaseMeta):
 
     def tag(self):
         name = type(self.fn).__name__
+        if name in self.conf.shims.unavailable_expressions:
+            self.will_not_work(
+                f"aggregate {name} does not exist in Spark "
+                f"{self.conf.shims.version_prefix} (shim gate)")
+            return
         for r in self.fn.unsupported_reasons(self.conf):
             self.will_not_work(_prefixed(f"aggregate {name}: ", r))
 
@@ -431,6 +436,9 @@ class AggregateMeta(PlanMeta):
         schema = node.child.schema
         self._wrap_exprs(node.keys, schema)
         for fn, _name in node.aggs:
+            # version-dependent semantics (shims.py) reach the device
+            # evaluate() and the CPU cpu_agg() alike
+            fn._shims = conf.shims
             b = fn.bind(schema)
             self.agg_metas.append(AggMeta(b, conf))
             for c in (b.child, getattr(b, "child2", None)):
@@ -597,9 +605,8 @@ class SampleMeta(PlanMeta):
 class WindowMeta(PlanMeta):
     """LogicalWindow -> WindowExec.  The reference's WindowMeta checks:
     each spec's own, the keys', and one integer/date/timestamp order key
-    under a value-offset RANGE frame.  A window that fails them runs the
-    reference's CPU window operator, which the port lacks: it raises
-    naming that slice."""
+    under a value-offset RANGE frame.  A window that fails them runs on
+    the CPU engine (exec/host_exec.CpuWindowExec), as in the reference."""
 
     def __init__(self, node, conf, parent):
         super().__init__(node, conf, parent)
@@ -647,10 +654,9 @@ class WindowMeta(PlanMeta):
                           self._device_child())
 
     def to_host(self):
-        raise NotImplementedError(
-            "Window cannot run on the device ("
-            + "; ".join(self.reasons) + "), and the CPU engine's window "
-            f"operator is not ported yet: {CPU_WINDOW_SLICE}")
+        n = self.node
+        return H.CpuWindowExec(n.window_exprs, n.partition_keys,
+                               n.order_keys, self._host_child())
 
 
 _META_FOR = {
@@ -728,4 +734,304 @@ def apply_overrides(plan: L.LogicalPlan, conf: TpuConf = DEFAULT_CONF,
             if mode == "ALL" or line.lstrip().startswith("!"):
                 log.info(line)
     kind, root = meta.convert()
+    if kind == "device":
+        dedupe_agg_twins(root)
     return PhysicalQuery(meta, kind, root, conf, device)
+
+
+# ---------------------------------------------------------------------------
+# Plan-level CSE of aggregate subtrees
+# ---------------------------------------------------------------------------
+
+def _node_exprs(node) -> Optional[list]:
+    """The bound expression trees a physical node evaluates, in a fixed
+    order (the reference's `exec/compiled._node_exprs`, kept here: the
+    port has no compiled plans yet); None for a node class this walk
+    does not cover, whose subtree then never deduplicates."""
+    from ..exec.adaptive import AdaptiveShuffledJoinExec
+    from ..exec.distinct import DistinctAggregateExec
+    from ..exec.join import CrossJoinExec, HashJoinExec
+    if isinstance(node, ProjectExec):
+        return list(node.exprs)
+    if isinstance(node, FilterExec):
+        return [node.condition]
+    if isinstance(node, (HashAggregateExec, DistinctAggregateExec)):
+        return list(node.key_exprs)
+    if isinstance(node, (HashJoinExec, AdaptiveShuffledJoinExec)):
+        return list(node.left_keys) + list(node.right_keys)
+    if isinstance(node, ExpandExec):
+        return [e for p in node.projections for e in p]
+    if isinstance(node, (HostScanExec, SortExec, TopNExec, LimitExec,
+                         UnionExec, RangeExec, SampleExec, CrossJoinExec)):
+        return []
+    return None
+
+
+def _node_extras(node) -> tuple:
+    """Non-expression structure of a node (the reference's
+    `exec/compiled._node_extras`): sort keys, limits, range and sample
+    parameters, the join type, output names, and each aggregate's class,
+    name, parameters and full input fingerprints."""
+    extras: list = []
+    if isinstance(node, (SortExec, TopNExec)):
+        extras.append(tuple(node.keys))
+    if isinstance(node, (LimitExec, TopNExec)):
+        extras.append(node.limit)
+    if isinstance(node, RangeExec):
+        extras.append((node.start, node.end, node.step, node.col_name))
+    if isinstance(node, SampleExec):
+        extras.append((node.fraction, node.seed))
+    jt = getattr(node, "join_type", None)
+    if jt is not None:
+        extras.append(("join", jt))
+    names = getattr(node, "names", None) or getattr(node, "key_names", None)
+    if names is not None:
+        extras.append(tuple(names))
+    agg_sig = []
+    for fn, name in getattr(node, "aggs", ()) or ():
+        params = tuple(sorted(
+            (k, repr(v)) for k, v in fn.__dict__.items()
+            if k != "_shims" and not isinstance(v, E.Expression)))
+        kids = tuple(c.fingerprint()
+                     for c in (getattr(fn, "child", None),
+                               getattr(fn, "child2", None))
+                     if c is not None)
+        agg_sig.append((type(fn).__name__, name, params, kids))
+    if agg_sig:
+        extras.append(tuple(agg_sig))
+    return tuple(extras)
+
+
+def _subtree_fp(node) -> Optional[str]:
+    """A physical subtree's identity: full expression fingerprints
+    (literal values kept), node extras and, per scan, the source table
+    (a scan pruned to other columns of the same table is another
+    HostBatch sharing the table's statistics) with its columns and batch
+    size; None where the walk does not cover a node."""
+    exprs = _node_exprs(node)
+    if exprs is None:
+        return None
+    parts = [type(node).__name__, ";".join(e.fingerprint() for e in exprs),
+             repr(_node_extras(node))]
+    if isinstance(node, HostScanExec):
+        parts.append(f"tbl{id(node.table._stats)}:{node.table.names}:"
+                     f"{node.batch_rows}")
+    for c in node.children:
+        cfp = _subtree_fp(c)
+        if cfp is None:
+            return None
+        parts.append(cfp)
+    return "(" + "|".join(parts) + ")"
+
+
+def dedupe_agg_twins(root: PlanNode) -> None:
+    """Plan-level CSE for aggregate subtrees (the reference's
+    `_dedupe_agg_twins`): a grouped view that one query reads several
+    times (q15's revenue view, read directly and under its own MAX)
+    converts into identical but separate physical subtrees; later
+    references are re-pointed at the first subtree object.  The
+    identity is `_subtree_fp`: aggregates over different tables (the
+    q56 class: one shape per channel) never merge.  Sharing the object
+    alone saves nothing on the port's eager path, where each parent
+    runs its child again: the shared aggregate counts its readers
+    (`HashAggregateExec.shared_readers`) and runs once per query."""
+    by_fp: dict = {}
+    seen = set()
+    readers: dict = {}
+
+    def walk(node):
+        if id(node) in seen:
+            return
+        seen.add(id(node))
+        for i, c in enumerate(node.children):
+            if isinstance(c, HashAggregateExec):
+                cfp = _subtree_fp(c)
+                if cfp is not None:
+                    first = by_fp.setdefault(cfp, c)
+                    if first is not c:
+                        node.children[i] = c = first
+            readers[id(c)] = (c, readers.get(id(c), (c, 0))[1] + 1)
+            walk(c)
+
+    walk(root)
+    for node, n in readers.values():
+        if isinstance(node, HashAggregateExec) and n > 1:
+            node.shared_readers = n
+
+
+# ---------------------------------------------------------------------------
+# The rule registry and the supported-ops table
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class ExprRule:
+    cls: type
+    input_sig: t.TypeSig
+    output_sig: t.TypeSig
+    desc: str = ""
+
+
+@dataclasses.dataclass
+class ExecRule:
+    cls: type
+    output_sig: t.TypeSig
+    desc: str = ""
+
+
+#: the port's classes with the reference's type signatures (its
+#: `_EXPR_RULES`, `_AGG_RULES`, `_EXEC_RULES`), for the classes the port
+#: has; tagging reads each class's own `unsupported_reasons`
+EXPR_RULES: dict = {}
+AGG_RULES: dict = {}
+EXEC_RULES: dict = {}
+
+
+def _rules(into, module, names, input_sig, output_sig=None, desc=""):
+    for name in names.split():
+        cls = getattr(module, name, None)
+        if cls is not None:
+            into[cls] = ExprRule(cls, input_sig, output_sig or input_sig,
+                                 desc)
+
+
+def _register_rules() -> None:
+    from . import aggregates as A
+    from . import datetime as DT
+    from . import strings as STR
+    T = t.T
+    common = T.DEVICE_COMMON
+    simple = T.NUMERIC + T.STRING + T.BOOLEAN + T.DATETIME + T.NULL
+    x = EXPR_RULES
+    # no ARRAY lanes yet (ROADMAP Queue 1 item 7), where the reference's
+    # ColumnRef, Scan, Project and Aggregate list ARRAY
+    _rules(x, E, "ColumnRef", common, desc="column reference")
+    _rules(x, E, "Literal", common + T.NULL, desc="literal value")
+    _rules(x, E, "Alias", common, desc="named expression")
+    _rules(x, E, "Add Subtract Multiply Divide IntegralDivide Remainder "
+           "UnaryMinus Abs", T.NUMERIC + T.NULL, desc="arithmetic")
+    _rules(x, E, "EqualTo NotEqual LessThan LessThanOrEqual GreaterThan "
+           "GreaterThanOrEqual EqualNullSafe", T.COMPARABLE, T.BOOLEAN,
+           desc="comparison")
+    _rules(x, E, "And Or Not", T.BOOLEAN + T.NULL, T.BOOLEAN,
+           desc="boolean logic")
+    _rules(x, E, "IsNull IsNotNull", T.ALL_SIMPLE, T.BOOLEAN,
+           desc="null predicate")
+    _rules(x, E, "IsNaN", T.FP, T.BOOLEAN, desc="NaN predicate")
+    _rules(x, E, "Coalesce", common, desc="first non-null")
+    _rules(x, E, "If", common, desc="if/else")
+    _rules(x, E, "CaseWhen", common, desc="case/when")
+    _rules(x, E, "In", common, T.BOOLEAN, desc="IN list")
+    _rules(x, E, "Sqrt Exp Log Pow Sin Cos Tan Asin Acos Atan Sinh Cosh "
+           "Tanh Log10 Log2 Cbrt Signum Atan2 ToDegrees ToRadians Expm1 "
+           "Log1p Rint Cot Sec Csc Hypot", T.NUMERIC, T.FP, desc="math fn")
+    _rules(x, E, "Floor Ceil", T.NUMERIC, T.INTEGRAL, desc="rounding")
+    _rules(x, E, "Round BRound", T.NUMERIC,
+           desc="round/bround (HALF_UP / HALF_EVEN)")
+    _rules(x, E, "Greatest Least",
+           T.NUMERIC + T.DATETIME + T.BOOLEAN + T.NULL,
+           desc="n-ary extremum (null-skipping, NaN greatest)")
+    _rules(x, E, "BitwiseAnd BitwiseOr BitwiseXor BitwiseNot",
+           T.INTEGRAL + T.NULL, desc="bitwise op")
+    _rules(x, E, "ShiftLeft ShiftRight ShiftRightUnsigned",
+           T.INTEGRAL + T.NULL, desc="Java shift (distance mod width)")
+    _rules(x, E, "BitCount", T.INTEGRAL + T.BOOLEAN, T.INTEGRAL,
+           desc="population count")
+    _rules(x, E, "WidthBucket", T.NUMERIC, T.INTEGRAL,
+           desc="ANSI histogram bucket")
+    _rules(x, E, "RaiseError", T.ALL_SIMPLE + T.NULL,
+           desc="raise_error (CPU path: device programs cannot throw)")
+    _rules(x, E, "Cast", T.ALL_SIMPLE,
+           desc="cast (pairs gated by Cast itself)")
+    _rules(x, DT, "Year Month DayOfMonth DayOfWeek WeekDay DayOfYear "
+           "Quarter WeekOfYear", T.DATETIME, T.INTEGRAL,
+           desc="date field extract")
+    _rules(x, STR, "Upper Lower InitCap StringTrim StringTrimLeft "
+           "StringTrimRight Substring Concat ConcatWs StringReplace Lpad "
+           "Rpad StringRepeat Reverse SplitPart",
+           T.STRING + T.INTEGRAL + T.NULL, T.STRING,
+           desc="string transform (dictionary rewrite)")
+    _rules(x, STR, "Length OctetLength BitLength StringLocate Instr Ascii",
+           T.STRING + T.INTEGRAL, T.INTEGRAL,
+           desc="string measure (device byte kernel / dict gather)")
+    _rules(x, STR, "StartsWith EndsWith Contains Like RLike", T.STRING,
+           T.BOOLEAN, desc="string predicate (device byte kernel)")
+    _rules(x, STR, "RegexpExtract RegexpReplace", T.STRING,
+           desc="regex extract/replace (dictionary transform)")
+    _rules(x, STR, "ParseUrl", T.STRING,
+           desc="parse_url (JNI ParseURI role; dictionary transform)")
+    _rules(x, STR, "Conv", T.STRING + T.INTEGRAL, T.STRING,
+           desc="base conversion (dictionary transform)")
+    _rules(x, STR, "Hex", T.STRING, T.STRING,
+           desc="hex of UTF-8 bytes (dictionary transform)")
+    _rules(x, STR, "FormatNumber", T.NUMERIC, T.STRING,
+           desc="format_number (CPU path)")
+    _rules(x, STR, "Bin", T.INTEGRAL, T.STRING, desc="bin (CPU path)")
+    _rules(x, STR, "Translate SubstringIndex Left Right Base64E UnBase64 "
+           "SoundEx", T.STRING + T.INTEGRAL + T.NULL, T.STRING,
+           desc="string transform (dictionary rewrite)")
+    _rules(x, STR, "Levenshtein FindInSet", T.STRING, T.INTEGRAL,
+           desc="string measure (dictionary int transform)")
+    _rules(AGG_RULES, A, "Count Sum Min Max Average First Last BoolAnd "
+           "BoolOr", common, desc="aggregate function")
+    _rules(AGG_RULES, A, "VariancePop VarianceSamp StddevPop StddevSamp "
+           "Corr CovarPop CovarSamp", T.NUMERIC, T.FP,
+           desc="statistical aggregate (moment sums on device)")
+    _rules(AGG_RULES, A, "CountDistinct", common, T.INTEGRAL,
+           desc="count(DISTINCT) as a sorted value-change count")
+    for cls, sig, desc in (
+            (L.LogicalScan, simple, "in-memory scan + device upload"),
+            (L.LogicalProject, common, "projection"),
+            (L.LogicalFilter, simple, "filter"),
+            (L.LogicalAggregate, common, "hash aggregate"),
+            (L.LogicalSort, T.ORDERABLE, "sort"),
+            (L.LogicalLimit, simple, "limit"),
+            (L.LogicalJoin, common, "hash join"),
+            (L.LogicalUnion, simple, "union"),
+            (L.LogicalRange, simple, "range generator"),
+            (L.LogicalExpand, common, "expand (grouping sets)"),
+            (L.LogicalSample, simple, "bernoulli sample (counter-based "
+             "hash, seed-deterministic)"),
+            (L.LogicalWindow, common, "window functions (partition-sorted "
+             "segmented scans)")):
+        EXEC_RULES[cls] = ExecRule(cls, sig, desc)
+
+
+_register_rules()
+
+
+def generate_supported_ops() -> str:
+    """The supported-ops table (the reference's `generate_supported_ops`,
+    docs/supported_ops.md) from the port's registry."""
+    lines = ["# Supported expressions and operators", "",
+             "Generated from the overrides rule registry "
+             "(plan/overrides.py).", "",
+             "## Execs", "", "| operator | supported output types |",
+             "|---|---|"]
+    for cls, rule in sorted(EXEC_RULES.items(),
+                            key=lambda kv: kv[0].__name__):
+        lines.append(f"| {cls.__name__.removeprefix('Logical')} | "
+                     f"{', '.join(sorted(rule.output_sig.tags))} |")
+    lines += ["", "## Expressions", "",
+              "| expression | input types | output types |", "|---|---|---|"]
+    for cls, rule in sorted(EXPR_RULES.items(),
+                            key=lambda kv: kv[0].__name__):
+        lines.append(f"| {cls.__name__} | "
+                     f"{', '.join(sorted(rule.input_sig.tags))} | "
+                     f"{', '.join(sorted(rule.output_sig.tags))} |")
+    lines += ["", "## Aggregate functions", "",
+              "| function | input types |", "|---|---|"]
+    for cls, rule in sorted(AGG_RULES.items(),
+                            key=lambda kv: kv[0].__name__):
+        lines.append(f"| {cls.__name__} | "
+                     f"{', '.join(sorted(rule.input_sig.tags))} |")
+    lines += ["", "## TPC-DS queries", "",
+              "The port's TPC-DS corpus (spark_rapids_tpu_torch/tpcds.py "
+              "QUERIES).", "", "| query | operator shape |", "|---|---|"]
+    from .. import tpcds
+    for name in sorted(tpcds.QUERIES, key=lambda q: int(q[1:])):
+        doc = (tpcds.QUERIES[name].__doc__ or "").strip()
+        para = " ".join(ln.strip()
+                        for ln in doc.split("\n\n")[0].splitlines())
+        lines.append(f"| {name} | {para} |")
+    lines.append("")
+    return "\n".join(lines)

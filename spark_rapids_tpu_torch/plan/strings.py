@@ -698,6 +698,8 @@ class StringPad(DictTransform):
 
     def _transform_value(self, s, args):
         length, pad = int(args[1]), args[2]
+        if length <= 0:
+            return ""                    # Spark: no slicing from the end
         if length <= len(s):
             return s[:length]
         if not pad:

@@ -359,7 +359,7 @@ class Spillable:
         self.live_nbytes = self._nbytes if live_nbytes is None \
             else live_nbytes
         # what the lanes do not hold: kept beside every tier
-        self._meta = [(c.dtype, c.dictionary, c.data.dtype)
+        self._meta = [(c.dtype, c.dictionary, c.data.dtype, c.hi is not None)
                       for c in db.columns]
         self._names = list(db.names)
         self._capacity = db.capacity
@@ -401,8 +401,10 @@ class Spillable:
 
     def _layout(self) -> List[Tuple[torch.dtype, int]]:
         out = []
-        for _dt, _d, sdt in self._meta:
+        for _dt, _d, sdt, wide in self._meta:
             out += [(sdt, self._capacity), (torch.bool, self._capacity)]
+            if wide:
+                out.append((torch.int64, self._capacity))
         return out
 
     def spill(self):
@@ -417,7 +419,9 @@ class Spillable:
             pin = db.device.type == "cuda"
             host = []
             for c in db.columns:
-                for lane in (c.data, c.validity):
+                lanes = (c.data, c.validity) if c.hi is None \
+                    else (c.data, c.validity, c.hi)
+                for lane in lanes:
                     h = torch.empty(lane.shape, dtype=lane.dtype,
                                     pin_memory=pin)
                     h.copy_(lane, non_blocking=pin)
@@ -488,8 +492,10 @@ class Spillable:
                     dev = self._device
                     up = [x.to(dev, non_blocking=x.is_pinned())
                           for x in lanes]
-                    cols = [DeviceColumn(up[2 * i], up[2 * i + 1], dt, d)
-                            for i, (dt, d, _s) in enumerate(self._meta)]
+                    it = iter(up)
+                    cols = [DeviceColumn(next(it), next(it), dt, d, None,
+                                         next(it) if wide else None)
+                            for dt, d, _s, wide in self._meta]
                     self._db = DeviceBatch(cols, self._num_rows,
                                            list(self._names))
                     if self._host is not None:

@@ -106,8 +106,7 @@ def slice_batch(db: DeviceBatch, start: int, stop: int,
     pos = torch.arange(cap, dtype=torch.int64, device=db.device)
     idx = torch.clamp(pos + start, 0, max(db.capacity - 1, 0))
     live = pos < rows
-    cols = [DeviceColumn(c.data[idx], c.validity[idx] & live, c.dtype,
-                         c.dictionary) for c in db.columns]
+    cols = [c.take(idx, live) for c in db.columns]
     return DeviceBatch(cols, rows, list(db.names))
 
 

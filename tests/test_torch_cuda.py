@@ -1295,3 +1295,68 @@ def test_device_to_host_of_a_join_equals_the_cpu_engine(cuda, how):
                                float), rtol=1e-12, equal_nan=True)
         else:
             assert got[k] == cpu[k]
+
+
+def _wide_sum_batch(n: int, seed: int):
+    """A DECIMAL(18,0) column at the int64 edges (values near +-10^18 and
+    +-2^62, nulls) and three key columns: a small-range LONG (segagg), a
+    6-entry string (dense with segagg off) and a DOUBLE (sorted)."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar.host import from_numpy
+    rng = np.random.default_rng(seed)
+    edges = np.array([10 ** 18 - 1, -(10 ** 18 - 1), 2 ** 62, -2 ** 62,
+                      1, -1, 0], np.int64)
+    d = edges[rng.integers(0, len(edges), n)]
+    valid = rng.random(n) > 0.05
+    k = rng.integers(0, 9, n)
+    words = np.array(["a", "b", "c", "d", "e", "f"])
+    schema = T.StructType([T.StructField("d", T.DecimalType(18, 0)),
+                           T.StructField("k", T.LONG),
+                           T.StructField("s", T.STRING),
+                           T.StructField("f", T.DOUBLE)])
+    return from_numpy({"d": (d, valid), "k": k,
+                       "s": words[rng.integers(0, 6, n)],
+                       "f": rng.integers(0, 7, n) + 0.25}, schema)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key,tier", [("k", "segagg"), ("s", "dense"),
+                                      ("f", "sort"), (None, None)])
+def test_wide_decimal_half_lane_sums_on_the_card(cuda, key, tier):
+    # SUM and AVG of DECIMAL(18,0) are DECIMAL(28,0) / (22,4): two int64
+    # half lanes a sum through seg_sums, the dense or the sorted tier on
+    # the card, equal to the plain path on CPU tensors and to Python ints
+    import decimal as pydec
+    from spark_rapids_tpu_torch.exec import aggregate as AG
+    from spark_rapids_tpu_torch.plan import aggregates as A
+    from spark_rapids_tpu_torch.session import TpuSession, col
+    hb = _wide_sum_batch(300_000, 11)
+    conf = {"spark.rapids.tpu.sql.batchSizeRows": "65536"}
+    if tier == "dense":
+        conf["spark.rapids.tpu.sql.kernels.pallas.segagg"] = "OFF"
+
+    def build(s):
+        df = s.from_host(hb)
+        aggs = [(A.Sum(col("d")), "sum"), (A.Average(col("d")), "avg")]
+        return df.agg(*aggs) if key is None else \
+            df.group_by(key).agg(*aggs).sort(key)
+    AG.reset_groupby_tiers()
+    PH.reset_launch_counts()
+    got = build(TpuSession(conf)).collect().to_pydict()
+    if tier == "segagg":
+        assert PH.LAUNCHES["seg_sums"] > 0
+    if tier is not None:
+        assert AG.GROUPBY_TIERS[tier] > 0
+    plain = build(TpuSession(conf, device="cpu")).collect().to_pydict()
+    assert got == plain
+    d = hb.column_by_name("d")
+    keys = [None] * hb.num_rows if key is None else \
+        hb.column_by_name(key).to_pylist()
+    sums, counts = {}, {}
+    for kk, v, ok in zip(keys, d.data.tolist(), d.valid_mask().tolist()):
+        if ok:
+            sums[kk] = sums.get(kk, 0) + v
+            counts[kk] = counts.get(kk, 0) + 1
+    order = sorted(sums, key=lambda x: (x is not None, x))
+    assert got["sum"] == [pydec.Decimal(sums[kk]) for kk in order]
+    assert any(abs(sums[kk]) >= 2 ** 63 for kk in order)

@@ -165,11 +165,20 @@ def test_count_distinct_beside_another_aggregate_falls_back():
 
 
 def test_count_distinct_refuses_a_wide_decimal():
-    # decimal(12, 2) x decimal(12, 2) is decimal(25, 4): no int64 lane
-    df = PSession(device="cpu").from_arrow(_table(5))
-    wide = PE.Multiply(pcol("m"), pcol("m"))
-    with pytest.raises(NotImplementedError, match="decimal128"):
-        df.agg((PA.CountDistinct(wide), "n")).collect()
+    # decimal(12, 2) x decimal(12, 2) is decimal(25, 4): no single device
+    # lane, so the aggregate is tagged for the CPU engine, as in the
+    # reference, which counts it exactly (its oracle's answer)
+    def build(E, A, c, df):
+        wide = E.Multiply(c("m"), c("m"))
+        return df.group_by("k").agg((A.CountDistinct(wide), "n")).sort("k")
+    got, _ref, oracle = _run(_table(300), build)
+    assert got == oracle
+    q = PSession(device="cpu").from_arrow(_table(5)).agg(
+        (PA.CountDistinct(PE.Multiply(pcol("m"), pcol("m"))), "n")) \
+        .physical()
+    assert q.kind == "host"
+    assert any("count(DISTINCT) over decimal128" in r
+               for r in q.fallback_reasons())
 
 
 def test_distinct_exec_plan_statistics():

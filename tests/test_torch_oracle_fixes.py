@@ -137,3 +137,37 @@ def test_first_last_ignore_nulls_of_a_group_null_in_a_batch(tier):
     assert want == {"k": ["a", "c", "d"], "first": [1.0, 7.0, 3.0],
                     "last": [4.0, 7.0, 5.0]}
     assert _port(build, ALL_NULL_IN_A_BATCH, conf) == want
+
+
+LONG_EDGES = pa.table({"x": pa.array(
+    [-2 ** 63, -2 ** 63 + 1, 2 ** 63 - 1, 0, -5, 123, None], pa.int64())})
+
+
+@pytest.mark.parametrize("engine", ["device", "cpu"])
+@pytest.mark.parametrize("precision,scale", [(10, 2), (18, 0), (19, 0),
+                                             (20, 0), (28, 9)])
+def test_long_min_value_cast_to_decimal_is_null_past_the_precision(
+        engine, precision, scale):
+    # ROADMAP Queue 3 item 12: the overflow checks took abs(u), which
+    # stays negative at Long.MIN_VALUE, so CAST(Long.MIN_VALUE AS
+    # DECIMAL(10,2)) gave 0.00 and AS DECIMAL(18,0) a 19-digit value;
+    # both bounds are compared now, on both engines, as the oracle does
+    from spark_rapids_tpu import types as JT
+    from spark_rapids_tpu_torch import types as PT
+
+    def build(a, e, c, s, tbl):
+        typ = (JT if e is JE else PT).DecimalType(precision, scale)
+        return s.from_arrow(tbl).select(e.Alias(e.Cast(c("x"), typ), "d"))
+    want = _oracle(build, LONG_EDGES)
+    if precision <= 18:
+        assert want["d"][0] is None
+    elif engine == "device":
+        # the device keeps one int64 lane with overflow to null (README):
+        # a value whose unscaled form leaves int64 is null there, where
+        # the CPU engine and the oracle are exact
+        want = {"d": [None if v is not None and
+                      not -2 ** 63 <= int(v.scaleb(scale)) < 2 ** 63
+                      else v for v in want["d"]]}
+    conf = {"spark.rapids.tpu.sql.enabled": "false"} \
+        if engine == "cpu" else None
+    assert _port(build, LONG_EDGES, conf) == want

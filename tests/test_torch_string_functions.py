@@ -454,3 +454,26 @@ def test_every_case_over_an_all_null_column_equals_the_oracle():
     for conf in (None, {DEVICE_MIN: "1"}):
         got = _port(table, names, conf)
         assert [n for n in names if not _same(got[n], oracle[n])] == []
+
+
+@pytest.mark.parametrize("engine", ["device", "cpu"])
+@pytest.mark.parametrize("length", ["literal", "column"])
+def test_a_pad_length_of_zero_or_less_gives_the_empty_string(engine,
+                                                             length):
+    # ROADMAP Queue 3 item 14: s[:length] sliced from the end for a
+    # negative length ('Straße' -> 'Straß'); Spark gives '' for any
+    # length <= 0, on both engines, for a literal or a column length
+    table = pa.table({"s": ["Straße", "ab", None, "xyz", "Straße"],
+                      "n": pa.array([-1, 0, 3, -7, 8], pa.int64())})
+    conf = ORACLE if engine == "cpu" else None
+    df = PSession(conf, device="cpu").from_arrow(table)
+    if length == "literal":
+        got = df.select(PE.Alias(PS.Lpad(pcol("s"), -1, "*"), "l"),
+                        PE.Alias(PS.Rpad(pcol("s"), 0, "*"), "r"))
+        want = {"l": ["", "", None, "", ""], "r": ["", "", None, "", ""]}
+    else:
+        got = df.select(PE.Alias(PS.Lpad(pcol("s"), pcol("n"), "*"), "l"),
+                        PE.Alias(PS.Rpad(pcol("s"), pcol("n"), "*"), "r"))
+        want = {"l": ["", "", None, "", "**Straße"],
+                "r": ["", "", None, "", "Straße**"]}
+    assert got.to_pydict() == want
