@@ -242,9 +242,29 @@ own failure:
                numpy, its placement held to the stated one, printing its
                cold wall, median of 3 warm walls, peak, launches, CPU
                operators' ms and transitions' bytes and ms.
+  9d. chaos — last (chip_smoke_chaos.py), at SF10 on the TPC-H columns
+               kept from the data phase: the recovery ladder.  q6 and q3
+               under each recoverable fault (execute OOM, h2d and d2h IO
+               errors, a reserve OOM) and MIN/MAX under a reserve OOM,
+               each equal to its clean run and to numpy; q1's first
+               segagg election and q3's first hash-table join election
+               shed by `kernel:oom` onto the sorted group-by and the
+               sorted join tier; q3, m2m, outer and semi with the join
+               family off, then the compact family off, each equal to
+               numpy, their warm walls beside the kernel path's; q18_300
+               under the ooc phase's budget with an `ooc` OOM (equal to
+               its clean run), a corrupt spill block (classified
+               corruption) and an injected deadline (every reservation
+               released); a real allocator OOM (the process capped
+               between q18_300's measured in-core and out-of-core peaks,
+               the budget the whole card), recovered by the query rung's
+               out-of-core replay; q1 under an injected fatal error and
+               a device-side assert in a spawned child, each leaving a
+               dump classified fatal_device; two threads sharing one
+               device permit.  Each case prints its wall and launches.
 Each phase after the data prints its seconds.
   10. result — a `kernels` JSON line (launches by query over every
-               query of phases 5, 6b, 6c, 7, 9, 9b and 9c), the whole run's
+               query of phases 5, 6b, 6c, 7, 9, 9b, 9c and 9d), the whole run's
                seconds, the nvidia-smi line, and last {"ok": true,
                "device": {...}}.
 
@@ -252,7 +272,10 @@ Flags: --scale (default 10), --seed (default 20240706), --kernels-only
 (phases 1-4 only, then the kernels line and the nvidia-smi line without
 the result line: copied to the root of another tree of the port, it
 times that tree's kernels the same way, for an A B B A comparison in
-one call).
+one call), --walls q1,q3,q6 (phases 1-3 without the numpy results, then
+each named query's cold wall and the median of 5 warm walls as a
+`{"walls": ...}` JSON line and the nvidia-smi line, without the result
+line: the same A B B A for query walls).
 """
 from __future__ import annotations
 
@@ -3046,6 +3069,24 @@ def strings_phase(dev, tables, want) -> dict:
     return launches
 
 
+def walls_phase(tables, names, scale: float) -> dict:
+    """{query: [cold ms, median of 5 warm ms]} through TpuSession()."""
+    s = _cuda_session()
+    out = {}
+    for name in names:
+        build = minmax_query if name == "minmax" else later_query(name, scale)
+        runs = []
+        for _ in range(6):
+            t0 = time.perf_counter()
+            build(s, tables).collect()
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0) * 1e3)
+        out[name] = [round(runs[0], 1), round(statistics.median(runs[1:]), 1)]
+        log(f"[walls] {name}: cold {runs[0]:.1f} ms, warm median "
+            f"{out[name][1]:.1f} ms")
+    return out
+
+
 def phase(name: str, fn, *args):
     """Run one phase and log its seconds."""
     t0 = time.perf_counter()
@@ -3102,6 +3143,12 @@ def main() -> int:
                     "tree of the port, with this script copied to its root "
                     "(the checks of this tree's launches a call are "
                     "skipped)")
+    ap.add_argument("--walls", default="",
+                    help="comma-separated queries: run the device, build "
+                    "and data phases, then print each query's cold wall "
+                    "and the median of 5 warm walls, without the result "
+                    "line (an A B B A of query walls against another tree "
+                    "of the port, with this script copied to its root)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3118,16 +3165,25 @@ def main() -> int:
     t0 = time.perf_counter()
     build_libraries()
     log(f"[build] nvcc sm_90a: {time.perf_counter() - t0:.1f} s")
-    tables, want, later = data_phase(args.scale, args.seed,
-                                     reference=not args.kernels_only)
+    tables, want, later = data_phase(
+        args.scale, args.seed,
+        reference=not (args.kernels_only or args.walls))
+    if args.walls:
+        print(json.dumps({"walls": walls_phase(
+            tables, args.walls.split(","), args.scale)}))
+        print(smi)
+        return 0
     stats, launches = card_phases(dev, tables, want, later, args)
     if not args.kernels_only:
+        import chip_smoke_chaos as CH
         import chip_smoke_decimals as DEC
         import chip_smoke_fallback as F
-        # the TPC-H tables go first, to bound host memory; the fallback
-        # and decimals phases keep the columns they read
+        # the TPC-H tables go first, to bound host memory; the fallback,
+        # decimals and chaos phases keep the columns they read
         fb_tables = F.narrow(tables)
         dec_tables = DEC.narrow(tables)
+        ch_tables = CH.narrow(tables)
+        ch_want = {k: want[k] for k in CH.WANTS}
         del tables, want, later
         gc.collect()
         torch.cuda.empty_cache()
@@ -3145,6 +3201,10 @@ def main() -> int:
         del fb_tables
         launches.update(phase("decimals", DEC.decimals_phase,
                               sys.modules[__name__], dec_tables))
+        del dec_tables
+        gc.collect()
+        launches.update(phase("chaos", CH.chaos_phase,
+                              sys.modules[__name__], ch_tables, ch_want))
     rows = []
     for name in TPU_KERNELS:
         st = stats[name]

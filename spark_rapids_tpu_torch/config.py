@@ -324,10 +324,8 @@ TEST_FAULTS = conf(
 
 
 def _check_fault_spec(v):
-    # the injector and its site grammar port with the runtime slice;
-    # until then only the empty (disabled) spec is accepted
-    return None if not str(v).strip() else \
-        "fault injection is not ported yet"
+    from .runtime.faults import check_spec
+    return check_spec(v)
 
 SHUFFLE_MODE = conf(
     "spark.rapids.tpu.shuffle.mode", "MULTITHREADED",
@@ -1206,7 +1204,12 @@ HONOURED_KEYS = frozenset(e.key for e in (
     OOC_MAX_PARTITIONS, OOC_MAX_DEPTH, OOC_SORT_WINDOW_ROWS,
     AGG_FALLBACK_PARTITIONS, RETRY_MAX_SPLITS, RETRY_MAX_ATTEMPTS,
     RETRY_IO_ATTEMPTS, RETRY_IO_BACKOFF_MS, RETRY_IO_BACKOFF_MULT,
-    RETRY_IO_JITTER))
+    RETRY_IO_JITTER,
+    # the recovery ladder: the retry switch, the injected OOM, the chaos
+    # harness and the device semaphore (runtime/faults.py, failure.py,
+    # semaphore.py; failure.py adds its own two keys)
+    RETRY_ENABLED, TEST_INJECT_RETRY_OOM, TEST_FAULTS,
+    CONCURRENT_TPU_TASKS))
 
 #: keys the port resolves to one behaviour for now -> what it does
 RESOLVED = {

@@ -21,6 +21,8 @@ Transitions:
   * DeviceToHostExec — a HostNode over a device PlanNode child (the
     GpuColumnarToRowExec role): fetches each result batch's live rows
     (`fetch_result_batch`).
+Both move their batches under `runtime/retry.retry_io` (the "h2d" and
+"d2h" chaos sites).
 
 Each node's host time, and each transition's bytes and time, accumulate
 in `ExecContext.metrics` (`host_profile`).  A failing operator raises:
@@ -40,6 +42,7 @@ from ..columnar.host import (HostBatch, HostColumn, concat_host,
 from ..ops import host as H
 from ..plan import expressions as E
 from ..plan.aggregates import AggregateFunction
+from ..runtime.retry import retry_io
 from .plan import (ExecContext, PlanNode, key_ref_names, sample_hash_u32,
                    sample_threshold)
 
@@ -224,7 +227,9 @@ class HostToDeviceExec(PlanNode):
                 sl = hb.slice(off, min(target, n - off)) if n > target \
                     else hb
                 t0 = time.perf_counter()
-                db = to_device(sl, ctx.conf, device=ctx.device)
+                db = retry_io(ctx.conf, "h2d",
+                              lambda: to_device(sl, ctx.conf,
+                                                device=ctx.device))
                 ctx.bump(H2D_NS, int((time.perf_counter() - t0) * 1e9))
                 ctx.bump(H2D_BYTES, _host_nbytes(sl))
                 ctx.bump("h2d_rows", sl.num_rows)
@@ -259,7 +264,8 @@ class DeviceToHostExec(HostNode):
             if isinstance(db.num_rows, int) and db.num_rows == 0:
                 continue
             t0 = time.perf_counter()
-            hb = fetch_result_batch(db, conf=ctx.conf)
+            hb = retry_io(ctx.conf, "d2h",
+                          lambda: fetch_result_batch(db, conf=ctx.conf))
             ctx.bump(D2H_NS, int((time.perf_counter() - t0) * 1e9))
             ctx.bump(D2H_BYTES, _host_nbytes(hb))
             ctx.bump("d2h_rows", hb.num_rows)

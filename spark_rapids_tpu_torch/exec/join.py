@@ -1,4 +1,5 @@
-"""Join exec nodes over the hash-table join kernels (ops/join.py).
+"""Join exec nodes over the hash-table join kernels and the sorted tier
+(ops/join.py).
 
 Counterpart of spark_rapids_tpu/exec/join.py (GpuShuffledHashJoinExec,
 GpuHashJoin's gather machinery).  Output schema is left columns ++ right
@@ -48,11 +49,14 @@ both sides hash-scatter into spillable buckets
 buckets and their order are the reference's) and each bucket pair joins
 through the same kernels.
 
-What stays unported raises NotImplementedError naming its slice:
-composite keys that do not pack, strings among them (the sorted tier),
-and a join with
-the kernel tier off or a build over
-`sql.kernels.pallas.join.maxBuildRows` (the dense and sorted tiers).
+With the join family off, a build over
+`sql.kernels.pallas.join.maxBuildRows`, or a shed at the `kernel` chaos
+site (ops/hopper elect_join), the same single lane runs the sorted tier
+(ops/join.py), with the same rows in the same order.
+
+What stays unported raises NotImplementedError naming its ROADMAP item:
+composite keys that do not pack into one lane, strings among them (the
+reference's multi-lane sorted tier, Queue 1 item 1(d)).
 """
 from __future__ import annotations
 
@@ -74,7 +78,9 @@ from . import ooc as O
 from .evaluator import conds_mask, evaluate_projection
 from .plan import ExecContext, PlanNode, key_ref_names, peel_filters
 
-NEXT_JOIN_SLICE = "the next join slice (ROADMAP Queue 1)"
+#: where the multi-lane sorted tier (composite keys that do not pack)
+#: ports
+NEXT_JOIN_SLICE = "ROADMAP Queue 1 item 1(d)"
 JOIN_TYPES = (J.INNER, J.LEFT_OUTER, J.RIGHT_OUTER, J.FULL_OUTER,
               J.LEFT_SEMI, J.LEFT_ANTI)
 
@@ -150,13 +156,14 @@ def unported_join_reasons(join_type: str, left_keys, right_keys,
                for e in list(left_keys) + list(right_keys)]
     if any(strings) and (len(left_keys) > 1 or not all(strings)):
         reasons.append("composite string join keys take the reference's "
-                       f"sorted tier, which ports with {NEXT_JOIN_SLICE}")
+                       f"multi-lane sorted tier, which ports with "
+                       f"{NEXT_JOIN_SLICE}")
     elif len(left_keys) > 1 and \
             range_pack_spec(left_keys, right_keys, left, right) is None:
         reasons.append("composite keys that do not pack into one lane "
                        "(plain integer columns with exact ranges) take the "
-                       f"reference's sorted tier, which ports with "
-                       f"{NEXT_JOIN_SLICE}")
+                       f"reference's multi-lane sorted tier, which ports "
+                       f"with {NEXT_JOIN_SLICE}")
     return reasons
 
 
@@ -413,13 +420,8 @@ class HashJoinExec(PlanNode):
                      ctx: ExecContext, build_conds=(), probe_conds=()
                      ) -> Iterator[DeviceBatch]:
         from ..ops.hopper import elect_join
+        # None: the sorted tier (ops/join.py) takes the join
         tier = elect_join(ctx.conf, build_batch.capacity)
-        if tier is None:
-            raise NotImplementedError(
-                "a join outside the hash-table tier (kernel tier off, or a "
-                "build over sql.kernels.pallas.join.maxBuildRows) runs the "
-                "reference's dense or sorted join tier, which ports with "
-                f"{NEXT_JOIN_SLICE}")
         jt = self.join_type
         build_keys = [ensure_unique_dict(c) for c in self._key_cols(
             build_batch, self.right_keys, ctx)]

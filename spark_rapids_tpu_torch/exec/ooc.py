@@ -18,8 +18,10 @@ exec/join.py, exec/ooc_agg.py and exec/ooc_sort.py) share:
 Operators elect the tier when measured bytes exceed the window, when
 rows exceed two target batches, or when the context forces it
 (`sql.ooc.force`, or `ctx.ooc_force`, which the query-level OOM ladder
-of plan/overrides.py sets in the reference: `escalate` and
-`elect_proactive` port with that ladder).
+of plan/overrides.py sets through `escalate`).  Each pass boundary
+(`fire`) fires the `ooc` chaos site and is a cancellation checkpoint.
+The reference's `elect_proactive` reads the measured working-set
+history of obs/estimator.py and ports with it (ROADMAP Queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ from ..config import (OOC_ENABLED, OOC_FORCE, OOC_MAX_DEPTH,
                       OOC_MAX_PARTITIONS, OOC_RESIDENT_FRACTION)
 from ..ops.batch_ops import shrink_to_rows
 from ..ops.filter import compact_batch
+from ..runtime.faults import get_injector
 from ..runtime.memory import Spillable
 
 
@@ -117,13 +120,15 @@ def scatter(db: DeviceBatch, key_cols: List[DeviceColumn],
 
 
 def fire(ctx, op: str, **state) -> None:
-    """One out-of-core pass boundary: counts the pass and records the
-    bucket state it starts in `ctx.metrics`.  The reference also emits a
-    tracer instant and fires its `ooc` chaos site here; those port with
-    the observability and fault-injection slices (ROADMAP Queue 1 items
-    3 and 10)."""
+    """One out-of-core pass boundary: counts the pass, records the bucket
+    state it starts in `ctx.metrics`, fires the `ooc` chaos site with
+    the operator and that state in the injected-fault record, and is a
+    cancellation checkpoint.  The reference's tracer instant ports with
+    the observability slice (ROADMAP Queue 1 item 10)."""
     ctx.bump(f"ooc.{op}_passes")
     ctx.metrics[f"ooc.{op}_state"] = dict(state)
+    get_injector(ctx.conf).fire("ooc", op=op, **state)
+    ctx.checkpoint(f"ooc_{op}")
 
 
 def record_election(ctx, op: str, mode: str) -> None:
@@ -138,3 +143,29 @@ def record_partitions(ctx, op: str, k: int, nbytes: int) -> None:
 
 def record_recursion(ctx, op: str) -> None:
     ctx.bump(f"ooc.{op}_recursions")
+
+
+def escalate(ctx, err: Optional[BaseException] = None) -> bool:
+    """Arm the out-of-core rung on an escaped OOM `err` (the step between
+    the operator retries and the whole-query replay): every eligible
+    operator runs out of core on the replay.  False when the tier is
+    off or already forced (the caller then falls through to the replay
+    rung).
+
+    When `err` is the CUDA caching allocator's (not the budget's), the
+    process could not hold what the budget admits (a card shared, or a
+    per-process memory fraction): the budget re-bases on what the
+    allocator had reserved when it failed (`MemoryBudget.rebase`), so
+    that the replay spills its partitions before the operators' working
+    set runs out.  The reference's budget has no such ceiling to learn
+    from."""
+    if not ctx.conf.get(OOC_ENABLED) or ctx.ooc_force:
+        return False
+    ctx.ooc_force = True
+    ctx.bump("query_ooc_escalations")
+    record_election(ctx, "query", "reactive")
+    if isinstance(err, torch.cuda.OutOfMemoryError) and \
+            ctx.device.type == "cuda":
+        ctx.budget.rebase(torch.cuda.memory_reserved(ctx.device))
+        ctx.metrics["query_budget_rebased_bytes"] = ctx.budget.limit
+    return True

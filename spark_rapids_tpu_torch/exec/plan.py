@@ -27,8 +27,11 @@ join broadcast it).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
+import threading
+import time
 from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -43,8 +46,45 @@ from ..config import DEFAULT_CONF, TpuConf
 from ..ops.batch_ops import concat_batches, shrink_to_capacity
 from ..plan import expressions as E
 from ..plan.aggregates import AggregateFunction, Min
+from ..runtime.retry import retry_io
 from .aggregate import HashAggregate
 from .evaluator import compute_predicate, evaluate_projection
+
+
+class QueryDeadlineExceeded(RuntimeError):
+    """The query ran past its deadline (`ExecContext.deadline`) and a
+    cancellation checkpoint cancelled it.  Classified 'query': every
+    reservation its budget held is released as the scopes unwind."""
+
+
+class InjectedDeadlineExceeded(QueryDeadlineExceeded):
+    """Chaos-harness form (`deadline:timeout:...`, runtime/faults.py): a
+    synthetic deadline expiry at the Nth checkpoint."""
+
+
+class QueryCancelled(QueryDeadlineExceeded):
+    """Cooperative cancellation (the `ExecContext.cancel` event set)."""
+
+
+#: the context of the query running on this thread (`query_scope`), for
+#: work that has no ExecContext in reach (the kernel elections)
+_TLS_CTX = threading.local()
+
+
+@contextlib.contextmanager
+def query_scope(ctx: "ExecContext"):
+    """Register `ctx` as this thread's running query for the scope."""
+    prev = getattr(_TLS_CTX, "ctx", None)
+    _TLS_CTX.ctx = ctx
+    try:
+        yield ctx
+    finally:
+        _TLS_CTX.ctx = prev
+
+
+def active_context() -> Optional["ExecContext"]:
+    """The ExecContext of the query running on this thread, or None."""
+    return getattr(_TLS_CTX, "ctx", None)
 
 
 @dataclasses.dataclass
@@ -53,11 +93,17 @@ class ExecContext:
     None means "cuda" and raises without a card (`resolve_device`).
 
     `metrics` holds the query's counters (`bump`): the out-of-core
-    tier's elections, partitions and passes (exec/ooc.py), and the
+    tier's elections, partitions and passes (exec/ooc.py), the
     fallbacks `join_subpartition_fallbacks` and
-    `agg_repartition_fallbacks`.  `ooc_force` stays False until the
-    query-level OOM ladder ports (it forces every eligible join and
-    aggregation out of core)."""
+    `agg_repartition_fallbacks`, the query rungs'
+    `query_ooc_escalations` and `query_oom_replays`, the kernel sheds
+    `kernel_fallback.<kernel>.oom`, `semaphore_wait_ms` and, after an
+    allocator OOM, `query_budget_rebased_bytes`.
+    `ooc_force` is set by the query-level OOM ladder
+    (plan/overrides.py, exec/ooc.escalate): every eligible join and
+    aggregation then runs out of core.  `deadline` (an absolute
+    time.monotonic(), 0 for none) and `cancel` (a threading.Event) are
+    read at each `checkpoint`."""
     conf: TpuConf = DEFAULT_CONF
     device: Optional[torch.device] = None
     metrics: dict = dataclasses.field(default_factory=dict)
@@ -66,9 +112,30 @@ class ExecContext:
     #: a shared subtree's output for its readers (`HashAggregateExec`
     #: with `shared_readers` > 1): id(node) -> [spillables, readers left]
     shared: dict = dataclasses.field(default_factory=dict)
+    deadline: float = 0.0
+    cancel: object = None
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
+
+    def checkpoint(self, bracket: str = "") -> None:
+        """Cooperative cancellation checkpoint (each result batch, each
+        out-of-core pass): fires the `deadline` chaos site, then raises
+        QueryCancelled / QueryDeadlineExceeded when the cancel event is
+        set or the deadline has passed."""
+        from ..runtime.faults import get_injector
+        inj = get_injector(self.conf)
+        if inj.enabled:
+            inj.fire("deadline", bracket=bracket or "?")
+        if self.cancel is not None and self.cancel.is_set():
+            self.bump("deadline_checkpoints_cancelled")
+            raise QueryCancelled(
+                f"query cancelled at the {bracket or '?'} checkpoint")
+        if self.deadline and time.monotonic() > self.deadline:
+            self.bump("deadline_checkpoints_cancelled")
+            raise QueryDeadlineExceeded(
+                f"query deadline exceeded at the {bracket or '?'} "
+                "checkpoint")
 
     @property
     def budget(self):
@@ -155,9 +222,11 @@ class PlanNode:
         ctx = ctx or ExecContext()
         hbs = []
         for db in self.execute(ctx):
+            ctx.checkpoint("batch")
             if isinstance(db.num_rows, int) and db.num_rows == 0:
                 continue
-            hb = fetch_result_batch(db, conf=ctx.conf)
+            hb = retry_io(ctx.conf, "d2h",
+                          lambda: fetch_result_batch(db, conf=ctx.conf))
             if hb.num_rows:
                 hbs.append(hb)
         if not hbs:
@@ -196,7 +265,9 @@ class HostScanExec(PlanNode):
         n = self.table.num_rows
         for off in range(0, max(n, 1), self.batch_rows):
             hb = self.table.slice(off, min(self.batch_rows, n - off))
-            yield to_device(hb, ctx.conf, device=ctx.device)
+            yield retry_io(ctx.conf, "h2d",
+                           lambda: to_device(hb, ctx.conf,
+                                             device=ctx.device))
 
 
 class ProjectExec(PlanNode):
@@ -433,7 +504,15 @@ class HashAggregateExec(PlanNode):
             raw = [agg.partial_fused(empty_device_batch(
                 source.output_schema, ctx.conf, ctx.device), conds,
                 raw=True)]
-        return agg.final_host(*agg.merge_raw(raw))
+        merged = agg.merge_raw(raw)
+        # the one result batch: the root's per-batch fault sites
+        # (runtime/failure.install_fault_injection), the checkpoint and
+        # the fetch's retry, as PlanNode.collect gives every other root
+        tick = getattr(self, "_fault_tick", None)
+        if tick is not None:
+            tick()
+        ctx.checkpoint("batch")
+        return retry_io(ctx.conf, "d2h", lambda: agg.final_host(*merged))
 
 
 _U32 = 0xFFFFFFFF

@@ -5,10 +5,12 @@ Counterpart of spark_rapids_tpu/ops/filter.py (GpuFilterExec's
 
   * `compact_batch` keeps the rows of a keep-mask, in order, at the same
     capacity.  The order and the kept count come from the compaction
-    kernel (ops/hopper/compact.py) at every capacity; with the kernel
-    tier off it refuses, as the port has no portable compaction tier.
-    The kept count stays a 0-d device tensor unless `sync=True`, which
-    reads it and re-buckets down;
+    kernel (ops/hopper/compact.py) where `elect_compact` elects it, and
+    otherwise (the family off, a capacity under 1024 rows, or a shed)
+    from the portable tier, `compaction_order`: one stable argsort of
+    the inverted mask, as in the reference.  The kept count stays a 0-d
+    device tensor unless `sync=True`, which reads it and re-buckets
+    down;
   * `gather_batch` takes rows at indices, with out-of-range indices
     nulled on request (cuDF's OutOfBoundsPolicy.NULLIFY, outer joins);
   * `grouped_take` / `take_keys_valid` gather many lanes at one index
@@ -28,6 +30,14 @@ import torch
 from ..columnar.device import DeviceBatch, DeviceColumn
 from ..config import DEFAULT_CONF, TpuConf
 from .kernels import live_mask
+
+
+def compaction_order(keep: torch.Tensor):
+    """The portable compaction tier: (indices that bring the kept rows to
+    the front, stably, the kept count as a 0-d tensor).  Both come from
+    PyTorch's stable sort and sum, as the reference's come from jnp."""
+    order = torch.argsort((~keep).to(torch.int8), stable=True)
+    return order, keep.sum(dtype=torch.int32)
 
 
 def grouped_take(lanes, idx: torch.Tensor) -> List[torch.Tensor]:
@@ -57,12 +67,10 @@ def compact_batch(db: DeviceBatch, keep: torch.Tensor,
     round trip; `sync=True` reads it and re-buckets down."""
     from .batch_ops import shrink_to_rows
     from .hopper import compact, elect_compact
-    if elect_compact(conf) is None:
-        raise NotImplementedError(
-            "compaction with the kernel tier or its compact family off "
-            "runs the reference's portable argsort tier, which ports with "
-            "the kernel-off tiers (ROADMAP Queue 1 item 1)")
-    order, count = compact.compaction_order(keep.contiguous())
+    if elect_compact(conf, db.capacity) is None:
+        order, count = compaction_order(keep)
+    else:
+        order, count = compact.compaction_order(keep.contiguous())
     live = live_mask(db.capacity, count, db.device)
     lanes = []
     for c in db.columns:

@@ -14,10 +14,15 @@ counterpart here.  This module holds what they share:
     (`sql.kernels.pallas.*`); the tier is on by default, segagg AUTO
     elects whenever the domain gate passes, and the join family always
     replaces the dense direct-address table (`join.denseReplace`
-    resolves to ON: the dense join tier is not ported).  Which code runs
+    resolves to ON: the dense join tier is not ported).  Each family's
+    gate ends in `elect`, which fires the `kernel` chaos site: an OOM
+    there sheds the operator onto its portable tier (the sorted
+    group-by, the sorted join, the argsort compaction).  Which code runs
     is decided by where the tensors lie, never by
     `torch.cuda.is_available()`: a CUDA tensor launches the kernel (or
     raises), a CPU tensor takes the kernel's plain PyTorch version.
+  * `CudaLaunchError` / `check_launch` — a C entry point's CUDA error,
+    with its code, which runtime/failure.classify reads.
   * `LAUNCHES` — a plain device-launch counter per kernel, raised by
     each wrapper where it launches its kernel and nowhere else, by the
     number of device launches of the kernel's own passes: every tile
@@ -34,8 +39,8 @@ counterpart here.  This module holds what they share:
     source, started together; the library name hashes the source, the
     shared csrc/*.cuh headers and the flags), then `ctypes.CDLL`.
 
-The reference's dispatch metrics and its `kernel` chaos site port with
-the observability and runtime slices.
+The reference's dispatch metrics port with the observability slice
+(ROADMAP Queue 1 item 10); a shed counts in the query's metrics.
 """
 from __future__ import annotations
 
@@ -188,6 +193,30 @@ def kernel_tier(conf: TpuConf) -> KernelTier:
     return tier
 
 
+def elect(conf: TpuConf, kernel: str) -> bool:
+    """The last step of every family's election: fires the `kernel`
+    chaos site with the kernel in the injected-fault record.  An OOM
+    there is the shed signal: the operator runs its portable tier,
+    bit-identically, and `kernel_fallback.<kernel>.oom` counts it in
+    the query's metrics; False.  Every other kind propagates to its own
+    ladder.  Only the injected signal sheds: a kernel that fails to
+    build or launch raises from its wrapper and is classified."""
+    from ...exec.plan import active_context
+    from ...runtime.faults import get_active_injector, get_injector
+    from ...runtime.memory import TpuRetryOOM
+    inj = get_injector(conf)
+    if not inj.enabled:
+        inj = get_active_injector()
+    try:
+        inj.fire("kernel", kernel=kernel)
+    except TpuRetryOOM:
+        ctx = active_context()
+        if ctx is not None:
+            ctx.bump(f"kernel_fallback.{kernel}.oom")
+        return False
+    return True
+
+
 def elect_segagg(conf: TpuConf, total_domain: int,
                  has_float_sum: bool) -> Optional[KernelTier]:
     """Segmented-aggregation election: tier on, segagg family on, the
@@ -198,28 +227,35 @@ def elect_segagg(conf: TpuConf, total_domain: int,
         return None
     if has_float_sum and not conf.get(IMPROVED_FLOAT_OPS):
         return None
-    return tier
+    return tier if elect(conf, "segagg") else None
 
 
 def elect_join(conf: TpuConf, build_capacity: int) -> Optional[KernelTier]:
     """Hash-table join election: tier on, join family on, and the build
     side small enough to table (`join.maxBuildRows`).  The reference
     also weighs a dense direct-address table here (`denseReplace`); the
-    port has no dense join tier, so the hash table always takes the
-    join."""
+    port has no dense join tier, so the hash table takes the join unless
+    the family is off, the build is too large or a shed happened: then
+    the sorted tier does (ops/join.py)."""
     tier = kernel_tier(conf)
     if not tier.join or build_capacity > tier.join_max_build:
         return None
-    return tier
+    return tier if elect(conf, "hash_probe_join") else None
 
 
-def elect_compact(conf: TpuConf) -> Optional[KernelTier]:
-    """Compaction election: tier on and compact family on, at every
-    capacity.  The reference keeps its portable argsort below 1024 rows
-    and with the family off; the port has no portable compaction tier,
-    so the caller refuses instead."""
+#: below this capacity the argsort compaction's fixed cost wins (the
+#: reference's floor)
+COMPACT_MIN_CAPACITY = 1024
+
+
+def elect_compact(conf: TpuConf, capacity: int) -> Optional[KernelTier]:
+    """Compaction election: tier on, compact family on, and a capacity of
+    at least COMPACT_MIN_CAPACITY rows; otherwise (or after a shed) the
+    argsort tier compacts (ops/filter.py)."""
     tier = kernel_tier(conf)
-    return tier if tier.compact else None
+    if not tier.compact or capacity < COMPACT_MIN_CAPACITY:
+        return None
+    return tier if elect(conf, "compact") else None
 
 
 # ---------------------------------------------------------------------------
@@ -282,10 +318,21 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
+class CudaLaunchError(RuntimeError):
+    """A C entry point's CUDA error: `cuda_code` is the cudaError_t,
+    which runtime/failure.classify reads (a sticky code is fatal, 2 is an
+    OOM)."""
+
+    def __init__(self, kernel: str, code: int):
+        super().__init__(f"{kernel}: CUDA error {code} at launch")
+        self.kernel = kernel
+        self.cuda_code = code
+
+
 def check_launch(err: int, kernel: str) -> None:
-    """Raise when a C entry point reports a CUDA error."""
+    """Raise CudaLaunchError when a C entry point reports a CUDA error."""
     if err != 0:
-        raise RuntimeError(f"{kernel}: CUDA error {err} at launch")
+        raise CudaLaunchError(kernel, err)
 
 
 def stream_ptr(device: torch.device) -> int:

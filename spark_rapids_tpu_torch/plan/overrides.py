@@ -47,6 +47,7 @@ side, as the reference does.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import logging
 from typing import List, Optional, Sequence, Tuple
 
@@ -57,6 +58,8 @@ from ..columnar.device import resolve_device
 from ..columnar.host import HostBatch
 from ..config import ADAPTIVE_ENABLED, CBO_ENABLED, DEFAULT_CONF, TpuConf
 from ..exec import host_exec as H
+# registers coredump.path and test.injectFatalError with the conf
+from ..runtime.failure import crash_capture, install_fault_injection
 from ..exec.plan import (ExecContext, ExpandExec, FilterExec,
                          HashAggregateExec, HostScanExec, LimitExec,
                          PlanNode, ProjectExec, RangeExec, SampleExec,
@@ -522,8 +525,9 @@ class JoinMeta(PlanMeta):
                    for e in self.lkeys + self.rkeys]
         if any(strings) and (len(self.lkeys) > 1 or not all(strings)):
             self.will_not_work(E.Unported(
-                "composite string join keys take the reference's sorted "
-                f"tier, which ports with {NEXT_JOIN_SLICE}"))
+                "composite string join keys take the reference's "
+                f"multi-lane sorted tier, which ports with "
+                f"{NEXT_JOIN_SLICE}"))
 
     def to_device(self):
         from ..exec.adaptive import _MIRROR, AdaptiveShuffledJoinExec
@@ -692,8 +696,63 @@ class PhysicalQuery:
         self.device = device
 
     def collect(self, ctx: Optional[ExecContext] = None) -> HostBatch:
+        """Run the query inside its recovery scope: the per-batch fault
+        sites on the root, the query's injector active, a device permit
+        (runtime/semaphore.py), the crash-capture scope
+        (runtime/failure.py) and the query-level OOM rungs.  Device- and
+        host-kind plans take the same scope."""
+        from ..exec.plan import query_scope
+        from ..runtime import faults
+        from ..runtime.semaphore import device_permit
         ctx = ctx or ExecContext(self.conf, self.device)
-        return self.root.collect(ctx)
+        install_fault_injection(self.root, self.conf)
+        prev = faults.get_active_injector()
+        faults.set_active(faults.get_injector(ctx.conf))
+        try:
+            with query_scope(ctx), device_permit(self.conf, ctx.metrics), \
+                    crash_capture(self.conf, ctx):
+                return self._collect_with_query_retry(ctx)
+        finally:
+            faults.set_active(prev)
+            if ctx._budget is not None:
+                for k, v in ctx.budget.metrics.items():
+                    ctx.metrics[f"memory.{k}"] = v
+
+    def _collect_with_query_retry(self, ctx: ExecContext) -> HostBatch:
+        """The query-level rungs of the recovery ladder (the reference's
+        task-retry role).  An OOM that escapes every operator retry (the
+        split ladder's TpuSplitAndRetryOOM included) first escalates into
+        the out-of-core rung: spill everything and replay with
+        `ctx.ooc_force`, so every eligible join and aggregation runs
+        spill-partitioned (exec/ooc.escalate).  An OOM that survives that
+        replay reaches the last rung, one whole-query replay
+        (`query_oom_replays`).  Plans replay idempotently; anything else,
+        or an OOM past the last rung, propagates for classification.  A
+        replay starts only after the failed attempt's frames, and the
+        device tensors they hold, are gone, and with no shared subtree
+        of it left (`ctx.shared`)."""
+        from ..config import RETRY_ENABLED
+        from ..exec import ooc as O
+        from ..runtime.memory import is_oom_error
+        while True:
+            try:
+                return self.root.collect(ctx)
+            except Exception as e:               # noqa: BLE001
+                if not ctx.conf.get(RETRY_ENABLED) or not is_oom_error(e) \
+                        or ctx.metrics.get("query_oom_replays"):
+                    raise
+                if not O.escalate(ctx, e):
+                    ctx.bump("query_oom_replays")
+            for held, _readers in ctx.shared.values():
+                for sp in held:
+                    sp.close()
+            ctx.shared.clear()
+            # the failed attempt's generators and frames form cycles:
+            # collect them, so that their device tensors and spillables
+            # are released before the replay allocates
+            gc.collect()
+            if ctx._budget is not None:
+                ctx.budget.spill_all()
 
     def explain(self) -> str:
         """The placement, one line a logical node, in the reference's

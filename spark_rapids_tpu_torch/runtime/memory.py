@@ -6,7 +6,10 @@ query's `MemoryBudget` as a `Spillable`; admitting a new reservation
 spills least-recently-used device batches to the host until the budget
 fits, and a host byte limit overflows the oldest host batches to disk.
 The reactive half (a `torch.cuda.OutOfMemoryError` leaking past the
-budget) is runtime/retry.py's.
+budget) is runtime/retry.py's.  Each admission fires the `reserve` chaos
+site and counts toward `sql.test.injectRetryOOM`; the disk tier's writes
+and reads fire `spill_write` and `spill_read` inside their `retry_io`
+(runtime/faults.py).
 
 The tiers differ from the reference's in their formats only:
 
@@ -42,7 +45,8 @@ import torch
 
 from ..columnar.device import DeviceBatch, DeviceColumn
 from ..config import (HBM_BUDGET_BYTES, HBM_BUDGET_FRACTION,
-                      HOST_SPILL_LIMIT_BYTES, TpuConf)
+                      HOST_SPILL_LIMIT_BYTES, OOC_RESIDENT_FRACTION,
+                      TEST_INJECT_RETRY_OOM, TpuConf)
 
 
 class TpuRetryOOM(RuntimeError):
@@ -64,8 +68,11 @@ class CorruptBlockError(RuntimeError):
 
 
 def is_oom_error(exc: BaseException) -> bool:
-    """The budget's OOM, or the CUDA caching allocator's."""
-    return isinstance(exc, (TpuRetryOOM, torch.cuda.OutOfMemoryError))
+    """The budget's OOM, the CUDA caching allocator's, or a kernel launch
+    refused with cudaErrorMemoryAllocation (ops/hopper CudaLaunchError
+    code 2)."""
+    return isinstance(exc, (TpuRetryOOM, torch.cuda.OutOfMemoryError)) \
+        or getattr(exc, "cuda_code", None) == 2
 
 
 class DeviceCensus:
@@ -133,6 +140,13 @@ class MemoryBudget:
         self._next_id = 0
         self._disk_dir: Optional[str] = None
         self._tls = threading.local()   # per-thread attempt scopes
+        # sql.test.injectRetryOOM: TpuRetryOOM once, at the Nth
+        # reservation (1-based); the chaos harness's `reserve` site fires
+        # once per admission
+        self._inject_at = conf.get(TEST_INJECT_RETRY_OOM)
+        self._reservations = 0
+        from .faults import get_injector
+        self._injector = get_injector(conf)
         self.metrics = {"spilled_batches": 0, "spilled_bytes": 0,
                         "disk_batches": 0, "disk_bytes": 0,
                         "spill_ms": 0.0, "oom_retries": 0,
@@ -140,6 +154,19 @@ class MemoryBudget:
                         "release_underflow": 0, "io_retries": 0,
                         "attempt_rollback_bytes": 0}
         self._census_cell = CENSUS.register(self)
+
+    def rebase(self, device_bytes: int) -> None:
+        """Lower the limit to `sql.ooc.residentFraction` x `device_bytes`
+        when that is under it (the out-of-core rung's answer to an
+        allocator OOM below the budget, exec/ooc.escalate): of the bytes
+        this process can really hold, that share for the batches the
+        budget admits and the rest for the operators' working set, which
+        the budget does not see (a 4M-row partial aggregation's sort, 2.3
+        GiB at TPC-H SF10)."""
+        cap = max(int(device_bytes * self.conf.get(OOC_RESIDENT_FRACTION)),
+                  1)
+        with self._lock:
+            self.limit = min(self.limit, cap) if self.limit else cap
 
     # -- registration ------------------------------------------------------
     def register(self, sp: "Spillable") -> int:
@@ -197,6 +224,12 @@ class MemoryBudget:
         """Admit `nbytes` of new device data, spilling LRU batches first;
         TpuRetryOOM when even spilling everything cannot fit them."""
         with self._lock:
+            self._reservations += 1
+            if self._inject_at and self._reservations == self._inject_at:
+                self.metrics["oom_retries"] += 1
+                raise TpuRetryOOM("injected OOM "
+                                  f"(reservation #{self._reservations})")
+            self._injector.fire("reserve")
             if self.limit:
                 while self.live + nbytes > self.limit:
                     if not self._spill_one():
@@ -475,7 +508,7 @@ class Spillable:
         t0 = time.perf_counter()
         lanes = retry_io(self._budget.conf, "spill_read",
                          lambda: read_block(path, self._layout()),
-                         budget=self._budget)
+                         budget=self._budget, info={"path": path})
         self._budget.metrics["spill_ms"] += (time.perf_counter() - t0) * 1e3
         return lanes
 

@@ -11,12 +11,16 @@ budget's `TpuRetryOOM`, or the CUDA allocator's
   3. rethrow, as `TpuSplitAndRetryOOM` once the splits are spent.
 
 Attempts must be idempotent: they are PyTorch ops over their inputs, so
-a replay is safe by construction.  `retry_io` is the bounded backoff
-ladder the disk tier's reads and writes run under.  The reference's
-chaos sites (runtime/faults.py) are not ported yet.
+a replay is safe by construction.  With `sql.retry.enabled` false both
+ladders run their attempt once and rethrow at once.  `retry_io` is the
+bounded backoff ladder the disk tier's reads and writes and the
+host<->device transfers run under; each attempt first fires its chaos
+site (runtime/faults.py), so an injected IO fault lands inside the
+retried unit.
 """
 from __future__ import annotations
 
+import gc
 import itertools
 import os
 import time
@@ -26,10 +30,11 @@ from typing import Callable, Iterator, List, Optional, TypeVar
 import torch
 
 from ..columnar.device import DeviceBatch, DeviceColumn, bucket_capacity
-from ..config import (RETRY_IO_ATTEMPTS,
+from ..config import (RETRY_ENABLED, RETRY_IO_ATTEMPTS,
                       RETRY_IO_BACKOFF_MS, RETRY_IO_BACKOFF_MULT,
                       RETRY_IO_JITTER, RETRY_MAX_ATTEMPTS,
                       RETRY_MAX_SPLITS, TpuConf)
+from .faults import _splitmix_uniform, get_injector
 from .memory import (MemoryBudget, TpuRetryOOM, TpuSplitAndRetryOOM,
                      is_oom_error)
 
@@ -38,19 +43,6 @@ T = TypeVar("T")
 #: per-process backoff draw counter: one process's jitter sequence is
 #: reproducible while processes with distinct pids desynchronize
 _JITTER_SEQ = itertools.count(1)
-
-
-def _splitmix_uniform(seed: int, counter: int) -> float:
-    """Deterministic uniform in [0, 1) per (seed, counter) (splitmix64;
-    Python's `hash` is salted per process)."""
-    x = (seed * 0x9E3779B97F4A7C15 + counter * 0xBF58476D1CE4E5B9) \
-        & 0xFFFFFFFFFFFFFFFF
-    x ^= x >> 30
-    x = (x * 0xBF58476D1CE4E5B9) & 0xFFFFFFFFFFFFFFFF
-    x ^= x >> 27
-    x = (x * 0x94D049BB133111EB) & 0xFFFFFFFFFFFFFFFF
-    x ^= x >> 31
-    return x / 2.0 ** 64
 
 
 def _jittered_backoff_s(backoff_s: float, fraction: float, seed: int,
@@ -63,17 +55,22 @@ def _jittered_backoff_s(backoff_s: float, fraction: float, seed: int,
 
 
 def retry_io(conf: TpuConf, site: str, attempt: Callable[[], T],
-             budget: Optional[MemoryBudget] = None) -> T:
+             budget: Optional[MemoryBudget] = None,
+             info: Optional[dict] = None) -> T:
     """Bounded retry with backoff for transient host IO (the
-    `spark.rapids.tpu.retry.io.*` ladder): an OSError retries up to
-    maxAttempts with exponential, jittered backoff; anything else
-    (CorruptBlockError included: a failed check is data loss, not a
-    transient fault) escapes at once."""
+    `spark.rapids.tpu.retry.io.*` ladder): each attempt fires the chaos
+    site `site` (with `info` in its record), then runs `attempt`; an
+    OSError retries up to maxAttempts with exponential, jittered
+    backoff; anything else (CorruptBlockError included: a failed check
+    is data loss, not a transient fault) escapes at once."""
+    inj = get_injector(conf)
     attempts = max(int(conf.get(RETRY_IO_ATTEMPTS)), 1)
     backoff = float(conf.get(RETRY_IO_BACKOFF_MS)) / 1000.0
     mult = float(conf.get(RETRY_IO_BACKOFF_MULT))
+    kw = info or {}
     for i in range(attempts):
         try:
+            inj.fire(site, **kw)
             return attempt()
         except OSError:
             if i + 1 >= attempts:
@@ -115,6 +112,8 @@ def with_retry(budget: MemoryBudget, conf: TpuConf,
     """Replay `attempt` after a spill of everything on an OOM, up to
     `sql.retry.maxAttempts` runs; a failed attempt's naked reservations
     are released before the replay or the rethrow."""
+    if not conf.get(RETRY_ENABLED):
+        return attempt()
     max_attempts = max(int(conf.get(RETRY_MAX_ATTEMPTS)), 1)
     for i in range(max_attempts):
         with budget.track_attempt() as scope:
@@ -125,6 +124,10 @@ def with_retry(budget: MemoryBudget, conf: TpuConf,
         budget.rollback_attempt(scope)
         if not oom or i + 1 >= max_attempts:
             raise err
+        # the failed attempt's frames (and the device tensors they hold)
+        # must not outlive it into the replay
+        err = None
+        gc.collect()
         budget.metrics["oom_retries"] += 1
         budget.spill_all()
     raise AssertionError("unreachable")
@@ -136,6 +139,9 @@ def with_split_retry(budget: MemoryBudget, conf: TpuConf,
     """Run `attempt(batch)`; on an OOM spill and replay, then halve the
     batch recursively (withSplitAndRetry).  Yields one result per final
     sub-batch, in row order."""
+    if not conf.get(RETRY_ENABLED):
+        yield attempt(batch)
+        return
     max_splits = conf.get(RETRY_MAX_SPLITS)
     max_attempts = max(int(conf.get(RETRY_MAX_ATTEMPTS)), 1)
     pending: List[tuple] = [(batch, 0)]          # (batch, splits so far)
@@ -156,7 +162,9 @@ def with_split_retry(budget: MemoryBudget, conf: TpuConf,
             budget.rollback_attempt(scope)
             if not oom:
                 raise err
-            last_oom = err
+            # keep the error for the chain, not its frames' device tensors
+            last_oom, err = err.with_traceback(None), None
+            gc.collect()
             if i + 1 < max_attempts:
                 budget.metrics["oom_retries"] += 1
                 budget.spill_all()

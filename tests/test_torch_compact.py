@@ -21,6 +21,7 @@ from spark_rapids_tpu.plan import expressions as JE
 from spark_rapids_tpu.session import DataFrame as JDF
 from spark_rapids_tpu.session import TpuSession as JSession
 from spark_rapids_tpu.session import col as jcol
+from spark_rapids_tpu_torch.columnar.device import fetch_result_batch
 from spark_rapids_tpu_torch.columnar.device import to_device as pto_device
 from spark_rapids_tpu_torch.columnar.host import from_arrow
 from spark_rapids_tpu_torch.config import TpuConf
@@ -85,7 +86,9 @@ def test_compact_batch_matches_reference(n, p):
 
 @pytest.mark.parametrize("n", [2000, 100])
 def test_compact_batch_launches_the_kernel_wrapper(monkeypatch, n):
-    # at every capacity, below the reference's 1024-row argsort cut too
+    # at a capacity of 1024 rows and more; below the reference's 1024-row
+    # cut, and with the family or the whole tier off, the argsort tier
+    # compacts the same rows
     calls = []
     real = PC.compaction_order
 
@@ -98,15 +101,16 @@ def test_compact_batch_launches_the_kernel_wrapper(monkeypatch, n):
     keep = torch.from_numpy(rng.random(pdb.capacity) < 0.5)
     keep[n:] = False
     out = PF.compact_batch(pdb, keep)
-    assert calls == [pdb.capacity]
+    launched = [pdb.capacity] if pdb.capacity >= 1024 else []
+    assert calls == launched
     assert int(out.num_rows) == int(keep.sum())
-    # the port has no portable compaction tier: with the family or the
-    # whole tier off it refuses
+    want = fetch_result_batch(out).to_pydict()
     for key, val in (("compact", "OFF"), ("enabled", "false")):
         off = TpuConf({f"spark.rapids.tpu.sql.kernels.pallas.{key}": val})
-        with pytest.raises(NotImplementedError, match="kernel-off tiers"):
-            PF.compact_batch(pdb, keep, off)
-    assert calls == [pdb.capacity]
+        got = PF.compact_batch(pdb, keep, off)
+        assert _host_rows(fetch_result_batch(got).to_pydict()) == \
+            _host_rows(want)
+    assert calls == launched
 
 
 @pytest.mark.parametrize("null_oob", [False, True])

@@ -1360,3 +1360,69 @@ def test_wide_decimal_half_lane_sums_on_the_card(cuda, key, tier):
     order = sorted(sums, key=lambda x: (x is not None, x))
     assert got["sum"] == [pydec.Decimal(sums[kk]) for kk in order]
     assert any(abs(sums[kk]) >= 2 ** 63 for kk in order)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["join", "compact"])
+@pytest.mark.parametrize("query", ["q3", "m2m", "outer", "semi"])
+def test_kernel_off_tiers_on_the_card_equal_the_kernel_path(cuda, family,
+                                                            query):
+    """The sorted join tier and the argsort compaction on the card: with
+    the family off each query equals the kernel path's result and
+    launches none of that family's kernels."""
+    from spark_rapids_tpu_torch import tpch
+    from spark_rapids_tpu_torch.session import TpuSession
+    tables = tpch.gen_tables(0.001, tables=("customer", "orders",
+                                            "lineitem", "partsupp"))
+    build = tpch.JOIN_QUERIES.get(query) or tpch.QUERIES[query]
+    want = build(TpuSession(device="cuda"), tables).to_pydict()
+    PH.reset_launch_counts()
+    off = TpuSession({f"spark.rapids.tpu.sql.kernels.pallas.{family}":
+                      "OFF"}, device="cuda")
+    got = build(off, tables).to_pydict()
+    assert got == want
+    family_kernels = {"join": ("build_table", "probe_first", "probe_counts",
+                               "expand_pairs"),
+                      "compact": ("compaction_order",)}[family]
+    for kernel in family_kernels:
+        assert PH.LAUNCHES[kernel] == 0, kernel
+
+
+@pytest.mark.cuda
+def test_sorted_tier_pairs_on_the_card_equal_the_hash_table(cuda):
+    from spark_rapids_tpu_torch.columnar.device import (DeviceBatch,
+                                                        DeviceColumn)
+    from spark_rapids_tpu_torch.config import TpuConf
+    from spark_rapids_tpu_torch.ops import join as PJ
+    rng = np.random.default_rng(12)
+    cap, pcap = 1 << 16, 1 << 18
+    bk = torch.from_numpy(rng.integers(0, 20_000, cap)).to(cuda)
+    bvalid = torch.from_numpy(rng.random(cap) < 0.9).to(cuda)
+    pk = torch.from_numpy(rng.integers(-100, 20_100, pcap)).to(cuda)
+    pvalid = torch.from_numpy(rng.random(pcap) < 0.95).to(cuda)
+    col = DeviceColumn(bk, bvalid, None, None)
+    out = []
+    for tier in (PH.kernel_tier(TpuConf()), None):
+        bt = PJ.BuildTable(DeviceBatch([col], cap, ["k"]), [col],
+                           hash_tier=tier)
+        first, counts, cum, total = PJ.probe_counts(bt, [pk], pvalid)
+        p, b, ok, pm = PJ.expand_pairs(bt, [pk], pvalid, first, counts, cum,
+                                       total + 1, total)
+        out.append((p[ok].cpu(), b[ok].cpu(), pm.cpu(),
+                    PJ.build_matched(bt, first, counts).cpu(),
+                    PJ.probe_matched_lazy(bt, [pk], pvalid).cpu()))
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_argsort_compaction_on_the_card_equals_the_kernel(cuda):
+    from spark_rapids_tpu_torch.ops import filter as PF
+    rng = np.random.default_rng(13)
+    for cap, p in ((1 << 20, 0.3), (1023, 0.5), (4096, 1.0), (5000, 0.0)):
+        keep = torch.from_numpy(rng.random(cap) < p).to(cuda)
+        order, count = PF.compaction_order(keep)
+        korder, kcount = PC.compaction_order(keep)
+        n = int(kcount)
+        assert int(count) == n
+        assert torch.equal(order[:n].to(torch.int32), korder[:n])

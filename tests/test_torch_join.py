@@ -12,7 +12,7 @@ port must equal the JAX package row for row in the engines' own order
 (results are left unsorted), and the CPU oracle row for row once both
 are sorted (its pyarrow engine orders join output otherwise).  Every
 join the port does not run raises NotImplementedError naming the slice
-that ports it.
+that ports it; with the kernel tier off the sorted tier runs the join.
 """
 import warnings
 
@@ -206,14 +206,20 @@ def test_unported_joins_and_predicates_refuse_naming_their_slice():
     for df, match in cases:
         with pytest.raises(NotImplementedError, match=match):
             df.collect()
+    # the kernel tier off, or a build over join.maxBuildRows, no longer
+    # refuses: the sorted tier takes the join, with the hash-table
+    # tier's rows in its order
+    hashed = PSession(device="cpu").from_arrow(fact).join(
+        PSession(device="cpu").from_arrow(dim), left_on=["fk"],
+        right_on=["dk"]).to_pydict()
     off = PSession({"spark.rapids.tpu.sql.kernels.pallas.enabled": "false"},
                    device="cpu")
     tiny = PSession({"spark.rapids.tpu.sql.kernels.pallas.join.maxBuildRows":
                      "16"}, device="cpu")
     for sess in (off, tiny):
-        with pytest.raises(NotImplementedError, match="hash-table tier"):
-            sess.from_arrow(fact).join(sess.from_arrow(dim), left_on=["fk"],
-                                       right_on=["dk"]).collect()
+        got = sess.from_arrow(fact).join(sess.from_arrow(dim), left_on=["fk"],
+                                         right_on=["dk"]).to_pydict()
+        assert _rows(got) == _rows(hashed) and len(got["fk"]) > 0
     # a build over 2 x sql.batchSizeRows no longer refuses: it runs the
     # sub-partition join, in the reference's bucket order
     got, want, cpu = _run(lambda e, c, s: s.from_arrow(fact).join(
