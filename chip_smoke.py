@@ -262,9 +262,22 @@ own failure:
                a device-side assert in a spawned child, each leaving a
                dump classified fatal_device; two threads sharing one
                device permit.  Each case prints its wall and launches.
+  9e. joins — after chaos (chip_smoke_joins.py), at SF10 on the TPC-H
+               columns kept from the data phase: q3, q4, q19, q22, m2m,
+               outer and semi under join.denseReplace AUTO and OFF, each
+               equal to phase 5's numpy result beside phase 5's ON walls,
+               with the tier counters (some join must run the dense tier
+               under each); q3 and bloom_sel (lineitem ⋈ one month of
+               orders) with the bloom runtime filter on and off
+               (bloom_sel must filter rows); composite keys on the
+               multi-lane sorted tier (ck_str2, ck_str_int, ck_wide, the
+               last sub-partitioned); hash() and xxhash64() over every
+               lineitem row, grouped and the first 1,000,000 fetched,
+               against a numpy murmur3 and XXH64.  Each prints its cold
+               wall, median of 3 warm walls, peak, launches and counters.
 Each phase after the data prints its seconds.
   10. result — a `kernels` JSON line (launches by query over every
-               query of phases 5, 6b, 6c, 7, 9, 9b, 9c and 9d), the whole run's
+               query of phases 5, 6b, 6c, 7, 9, 9b, 9c, 9d and 9e), the whole run's
                seconds, the nvidia-smi line, and last {"ok": true,
                "device": {...}}.
 
@@ -403,6 +416,24 @@ PATH_KERNELS.update({"fb_concat_groupby": UNIQUE_JOIN + ("seg_sums",
 PATH_KERNELS.update({"dec_q1": ("seg_sums",), "dec_wrap": ("seg_sums",),
                      "dec_rank": (), "dec_ds_window": UNIQUE_JOIN,
                      "cse_q15": UNIQUE_JOIN})
+# the joins phase: every join output compacts; the dense cases' tiers
+# vary by mode, so compaction is what each must launch; bloom_q3 runs
+# q3's path, and bloom_sel's sub-partitioned buckets table the unique
+# orders keys; ck_str2 and ck_str_int group by 15- and 49-bucket
+# domains (seg_sums) around their multi-lane joins; the hash cases
+# group by q1's 6 buckets
+PATH_KERNELS.update({
+    **{f"dense_{q}_{m}": ("compaction_order",) for q in (
+        "q3", "q4", "q19", "q22", "m2m", "outer", "semi")
+       for m in ("auto", "off")},
+    **{f"bloom_{q}_{m}": UNIQUE_JOIN for q in ("q3", "sel")
+       for m in ("on", "off")},
+    "ck_str2": ("compaction_order", "seg_sums"),
+    "ck_str_int": ("compaction_order", "seg_sums"),
+    "ck_wide": ("compaction_order",),
+    "hash_murmur3": ("seg_sums",), "hash_xxhash64": ("seg_sums",),
+    **{f"tz_{z}": () for z in ("UTC", "America/Los_Angeles",
+                               "Australia/Lord_Howe")}})
 Q3_DATE = (pydt.date(1995, 3, 15) - pydt.date(1970, 1, 1)).days
 # the device launches of one build_layout call, by kernel name: this
 # tree's two passes, and (for an A B B A against an older tree) its
@@ -2227,8 +2258,9 @@ def numpy_results(tables, scale: float) -> dict:
     read the parent's tables and return only the results."""
     global _WANT_TABLES
     t0 = time.perf_counter()
+    import chip_smoke_joins as J
     names = [Q21_DISTINCT, Q21_LATE_DISTINCT] + list(SCALAR_WANTS) + list(
-        STRING_WANTS) + [
+        J.WANTS) + list(STRING_WANTS) + [
         n for n in FIRST_PATHS + LATER_QUERIES if n != "q21"]
     workers = min(len(names), os.cpu_count() or 1)
     _WANT_TABLES = (tables, scale)
@@ -2275,6 +2307,9 @@ def _want(name: str):
     elif name in STRING_WANTS:
         import chip_smoke_strings as S
         got = S.expected(name, tables)
+    elif name.startswith(("bloom_", "ck_", "hash_", "tz_")):
+        import chip_smoke_joins as J
+        got = J.expected(name, tables)
     elif name in ("q1", "q6", "minmax"):
         got = globals()[f"expected_{name}"](tables["lineitem"])
     elif name in FIRST_PATHS:
@@ -3097,13 +3132,13 @@ def phase(name: str, fn, *args):
 
 def card_phases(dev, tables, want, later, args):
     """Every phase on the card.  -> (the kernel statistics, each path's
-    kernel launches)."""
+    kernel launches, the path phase's (cold, warm) walls)."""
     stats = phase("kernels", kernels_phase, dev, tables)
     stats.update(phase("join kernels", join_kernels_phase, dev, tables))
     stats.update(phase("counted join kernels", counted_join_kernels_phase,
                        dev, tables))
     _FLUSH.clear()                # the path's peak memory is the queries'
-    launches = {}
+    launches, cold, warm = {}, {}, {}
     if not args.kernels_only:
         # one look-back scan and one tail launch a compaction; the counted
         # probe scans its counts inside its one launch
@@ -3129,7 +3164,7 @@ def card_phases(dev, tables, want, later, args):
         phase("ooc", ooc_phase, tables, want, args.scale, cold, warm)
         launches.update(phase("scalars", scalars_phase, tables, want))
         launches.update(phase("strings", strings_phase, dev, tables, want))
-    return stats, launches
+    return stats, launches, (cold, warm)
 
 
 def main() -> int:
@@ -3173,17 +3208,21 @@ def main() -> int:
             tables, args.walls.split(","), args.scale)}))
         print(smi)
         return 0
-    stats, launches = card_phases(dev, tables, want, later, args)
+    stats, launches, path_walls = card_phases(dev, tables, want, later,
+                                              args)
     if not args.kernels_only:
         import chip_smoke_chaos as CH
         import chip_smoke_decimals as DEC
         import chip_smoke_fallback as F
+        import chip_smoke_joins as J
         # the TPC-H tables go first, to bound host memory; the fallback,
-        # decimals and chaos phases keep the columns they read
+        # decimals, chaos and joins phases keep the columns they read
         fb_tables = F.narrow(tables)
         dec_tables = DEC.narrow(tables)
         ch_tables = CH.narrow(tables)
         ch_want = {k: want[k] for k in CH.WANTS}
+        jn_tables = J.narrow(tables)
+        jn_want = {k: want[k] for k in J.PATH_WANTS + J.WANTS}
         del tables, want, later
         gc.collect()
         torch.cuda.empty_cache()
@@ -3205,6 +3244,10 @@ def main() -> int:
         gc.collect()
         launches.update(phase("chaos", CH.chaos_phase,
                               sys.modules[__name__], ch_tables, ch_want))
+        del ch_tables
+        gc.collect()
+        launches.update(phase("joins", J.joins_phase, sys.modules[__name__],
+                              jn_tables, jn_want, path_walls))
     rows = []
     for name in TPU_KERNELS:
         st = stats[name]

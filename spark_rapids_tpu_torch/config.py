@@ -5,7 +5,10 @@ one conf dict drives both packages.  `sql.kernels.pallas.enabled`
 defaults to true here (the hand-written Hopper kernel tier is on), and
 `sql.kernels.pallas.segagg` AUTO elects the segmented-aggregation
 kernels whenever the domain gate passes, on either device
-(ops/hopper/__init__.py).
+(ops/hopper/__init__.py), and `sql.kernels.pallas.join.denseReplace`
+defaults to ON (AUTO in the reference): the hash-table kernels take
+every single-lane join they can table, where AUTO would send joins over
+a small dense key domain to the direct-address tier (README "Conf").
 
 The port reads only the keys in `HONOURED_KEYS`.  Every other key stays
 registered, so a reference conf dict is accepted, but `TpuConf` warns
@@ -1049,7 +1052,7 @@ PALLAS_SEGAGG_MAX_DOMAIN = conf(
     "sort/scatter group-by paths.", checker=_positive)
 
 PALLAS_JOIN_DENSE_REPLACE = conf(
-    "spark.rapids.tpu.sql.kernels.pallas.join.denseReplace", "AUTO",
+    "spark.rapids.tpu.sql.kernels.pallas.join.denseReplace", "ON",
     "When the hash-probe kernel is elected and the join ALSO qualifies "
     "for a dense direct-address table: AUTO replaces the dense table "
     "only when the key span exceeds 4x the build capacity — the regime "
@@ -1209,13 +1212,18 @@ HONOURED_KEYS = frozenset(e.key for e in (
     # harness and the device semaphore (runtime/faults.py, failure.py,
     # semaphore.py; failure.py adds its own two keys)
     RETRY_ENABLED, TEST_INJECT_RETRY_OOM, TEST_FAULTS,
-    CONCURRENT_TPU_TASKS))
+    CONCURRENT_TPU_TASKS,
+    # the join tiers (ops/join.py, ops/hopper elect_join) and the bloom
+    # runtime filter (ops/bloom.py, exec/adaptive.py)
+    PALLAS_JOIN_DENSE_REPLACE, JOIN_DENSE_BUILD_VIA_SORT,
+    JOIN_MATCHED_VIA_PRESENCE, JOIN_MATCHED_VIA_MERGE,
+    RUNTIME_FILTER_ENABLED, RUNTIME_FILTER_RATIO, RUNTIME_FILTER_FPP,
+    # the session timezone of the datetime expressions and casts
+    # (plan/datetime.py, ops/timezone.py)
+    SESSION_TIMEZONE))
 
 #: keys the port resolves to one behaviour for now -> what it does
 RESOLVED = {
-    PALLAS_JOIN_DENSE_REPLACE.key:
-        "resolves to ON: the dense direct-address join tier is not ported, "
-        "so the hash table always takes the join",
     PALLAS_INTERPRET.key:
         "has no effect: CPU tensors run each kernel's plain PyTorch "
         "version, CUDA tensors the CUDA kernel",
@@ -1225,8 +1233,6 @@ RESOLVED = {
     JOIN_LATE_MATERIALIZATION.key:
         "resolves to off until late materialization ports (ROADMAP "
         "Queue 1 item 4)",
-    RUNTIME_FILTER_ENABLED.key:
-        "resolves to off until ops/bloom.py ports (ROADMAP Queue 1)",
     ENCODED_EXECUTION.key:
         "resolves to on for a string compared with a literal, which runs "
         "in code space (the reference's default); the rest of encoded "

@@ -19,21 +19,35 @@ and the sizes compared are pre-filter sizes; correctness never depends
 on the choice.  Each stage batch is a `Spillable` registered with the
 query's budget (runtime/memory.py), so a stage may wait on the host or
 on disk while the other side materializes; the replay takes each batch
-back with `get()` and then `close()`s it.  The bloom runtime filter
-ports with ops/bloom.py (`sql.join.runtimeFilter.enabled` resolves to
-off until then, ROADMAP Queue 1 item 1(d); the reference installs none
-on q3's joins either, whose build keys fit a dense span).
+back with `get()` and then `close()`s it.
+
+The bloom runtime filter (`sql.join.runtimeFilter.enabled`, on by
+default as in the reference; ops/bloom.py) wraps the probe side of an
+inner, right outer or left semi join, where an unmatched probe row never
+reaches the output, when the probe stage's bytes reach
+`runtimeFilter.sizeRatio` times the build's: the build stage's keys set
+the filter's bits (its fused filters mask the insertion) and each probe
+batch is compacted to the rows whose key may be in the build.  A build
+of at most two target batches whose single key's range fits a dense
+span gets none: its join probes a table whose cost the filter's
+compaction would not save (the reference's rule, whatever the tier
+`denseReplace` then elects).  Thin batches are not ported, so the stage
+always compacts; the query's metrics read `bloom_filter_slots` and
+`bloom_filtered_rows`.
 """
 from __future__ import annotations
 
 from typing import Iterator, List, Sequence
 
+import torch
+
 from .. import types as t
 from ..columnar.device import DeviceBatch
 from ..plan import expressions as E
 from ..runtime.memory import Spillable
+from .evaluator import conds_mask
 from .join import (HashJoinExec, join_column_range, join_keys_unique,
-                   side_unique)
+                   key_ref_names, side_unique, span_fits)
 from .plan import ExecContext, PlanNode, peel_filters
 
 _MIRROR = {"inner": "inner", "left_outer": "right_outer",
@@ -64,6 +78,41 @@ class _ReplayStage(PlanNode):
             db = sp.get()
             sp.close()
             yield db
+
+
+class _BloomFilterStage(PlanNode):
+    """The probe-side runtime filter: drops the rows whose join key is
+    certainly absent from the build side (ops/bloom.py).  Statistics
+    delegate to the child, whose rows it keeps a subset of."""
+
+    def __init__(self, child: PlanNode, bits, key_cols_fn, k: int):
+        super().__init__(child)
+        self.bits = bits
+        self.key_cols_fn = key_cols_fn
+        self.k = k
+
+    @property
+    def output_schema(self) -> t.StructType:
+        return self.children[0].output_schema
+
+    def keys_unique(self, names):
+        return self.children[0].keys_unique(names)
+
+    def column_range(self, name):
+        return self.children[0].column_range(name)
+
+    def execute(self, ctx: ExecContext) -> Iterator[DeviceBatch]:
+        from ..ops.bloom import bloom_might_contain
+        from ..ops.filter import compact_batch
+        for db in self.children[0].execute(ctx):
+            keep = bloom_might_contain(self.bits, self.key_cols_fn(db), db,
+                                       self.k) & db.row_mask()
+            out = compact_batch(db, keep, ctx.conf)
+            # counted on the device, read once at the query's end
+            ctx.bump("bloom_filtered_rows",
+                     torch.as_tensor(db.num_rows, device=keep.device) -
+                     out.num_rows)
+            yield out
 
 
 class AdaptiveShuffledJoinExec(PlanNode):
@@ -140,16 +189,65 @@ class AdaptiveShuffledJoinExec(PlanNode):
         left = _ReplayStage(left_stage, self.left)
         right = _ReplayStage(right_stage, self.right)
         if not swap:
-            yield from HashJoinExec(
+            join = HashJoinExec(
                 self.join_type, self.left_keys, self.right_keys, left, right,
-                probe_conds=left_conds, build_conds=right_conds).execute(ctx)
+                probe_conds=left_conds, build_conds=right_conds)
+            self._maybe_bloom(join, self.join_type, right_stage,
+                              max(lbytes, 1), rbytes, ctx)
+            yield from join.execute(ctx)
             return
-        join = HashJoinExec(_MIRROR[self.join_type], self.right_keys,
-                            self.left_keys, right, left,
+        jt = _MIRROR[self.join_type]
+        join = HashJoinExec(jt, self.right_keys, self.left_keys, right, left,
                             probe_conds=right_conds, build_conds=left_conds)
+        self._maybe_bloom(join, jt, left_stage, max(rbytes, 1), lbytes, ctx)
         # the mirrored output is right-cols ++ left-cols; restore the order
         n_r = len(self.right.output_schema.fields)
         n_l = len(self.left.output_schema.fields)
         perm = list(range(n_r, n_r + n_l)) + list(range(n_r))
         for db in join.execute(ctx):
             yield db.select(perm)
+
+    @staticmethod
+    def _maybe_bloom(join: HashJoinExec, jt: str, build_stage: List,
+                     probe_bytes: int, build_bytes: int,
+                     ctx: ExecContext) -> None:
+        """Wrap the join's probe side in a bloom runtime filter where it
+        pays and is safe: inner, right outer and left semi joins only
+        (left/full outer joins keep unmatched probe rows, anti joins
+        emit them), probe bytes at least `runtimeFilter.sizeRatio` times
+        the build's, and no single-batch build whose one key fits a
+        dense span."""
+        from ..config import (RUNTIME_FILTER_ENABLED, RUNTIME_FILTER_FPP,
+                              RUNTIME_FILTER_RATIO)
+        from ..ops.bloom import bloom_build, optimal_hashes, optimal_slots
+        conf = ctx.conf
+        if jt not in ("inner", "right_outer", "left_semi") or \
+                not conf.get(RUNTIME_FILTER_ENABLED) or \
+                probe_bytes < build_bytes * conf.get(RUNTIME_FILTER_RATIO):
+            return
+        build_rows = sum(sp.num_rows for sp in build_stage)
+        rn = key_ref_names(join.right_keys)
+        if rn is not None and len(rn) == 1 and \
+                key_ref_names(join.left_keys) is not None and \
+                build_rows <= 2 * conf.batch_size_rows:
+            rng = join.right.column_range(rn[0])
+            if rng is not None and span_fits(int(rng[1]) - int(rng[0]) + 1,
+                                             max(build_rows, 1)):
+                return
+        m = optimal_slots(build_rows, fpp=conf.get(RUNTIME_FILTER_FPP))
+        k = optimal_hashes(build_rows, m)
+        bits = None
+        for sp in build_stage:
+            bb = sp.get()
+            # the fused build filters mask the insertion, else the filter
+            # keeps the keys they remove
+            live = conds_mask(join.build_conds, bb, bb.row_mask(), conf) \
+                if join.build_conds else None
+            bits = bloom_build(join._key_cols(bb, join.right_keys, ctx), bb,
+                               m, k, bits, live=live)
+
+        def probe_keys(db):
+            return join._key_cols(db, join.left_keys, ctx)
+        join.children[0] = _BloomFilterStage(join.children[0], bits,
+                                             probe_keys, k)
+        ctx.metrics["bloom_filter_slots"] = m

@@ -1,5 +1,4 @@
-"""Join exec nodes over the hash-table join kernels and the sorted tier
-(ops/join.py).
+"""Join exec nodes over the join tiers of ops/join.py.
 
 Counterpart of spark_rapids_tpu/exec/join.py (GpuShuffledHashJoinExec,
 GpuHashJoin's gather machinery).  Output schema is left columns ++ right
@@ -7,36 +6,52 @@ columns (Spark layout; left columns only for semi and anti joins); the
 RIGHT side is the build side, fully materialized by concatenation, and
 probe batches stream through.
 
-Every equi-join type of the hash-table tier runs: inner, left/right/full
-outer, left semi and left anti, over unique or non-unique build keys, on
-one key column (a string key's probe codes remap into the build's
-dictionary, `remap_codes_into`; a string absent there matches nothing)
-or on a composite key whose exact column ranges pack it into one
-injective lane (`range_pack_spec`).  Per probe batch:
+Every equi-join type runs: inner, left/right/full outer, left semi and
+left anti, over unique or non-unique build keys, on any key columns (a
+string key's probe codes remap into the build's dictionary,
+`remap_codes_into`; a string absent there matches nothing).  The tier
+is chosen once per build side, as the reference's `_join_stream` does:
 
-  * semi/anti: the matched flag (`probe_matched_lazy`, no host sync),
-    then one compaction of the kept probe rows;
-  * a build whose plain key columns are unique: the probe-aligned path
-    (`probe_aligned`, a gather of the build columns at the found rows,
-    null where none, one compaction); right/full outer joins mark the
-    matched build rows with a scatter-max;
+  1. a composite key of plain columns whose exact ranges pack folds
+     into one injective lane (`range_pack_spec`);
+  2. a single lane over a bounded domain (the packed span, a string
+     dictionary's size or a column's exact range, `dense_domain`) can
+     take the dense direct-address tier;
+  3. the hash-table kernels are elected (ops/hopper elect_join): under
+     `denseReplace` ON, the port's default, they take every join they
+     can table; AUTO keeps a dense domain on the dense tier up to 4x the
+     build capacity, OFF always; a semi or anti join over a dense domain
+     then reads the presence bitmap (`join.matchedViaPresence`) without
+     an election;
+  4. otherwise `BuildTable` runs the sorted tier: the single lane, or
+     several lanes' composite hash with every pair verified.
+
+Per probe batch:
+
+  * semi/anti: the matched flag (`probe_matched_lazy`, no host sync;
+    several lanes count and expand their candidates and keep the
+    verified flags), then one compaction of the kept probe rows;
+  * a single-lane build whose plain key columns are unique: the
+    probe-aligned path (`probe_aligned`, a gather of the build columns
+    at the found rows, null where none, one compaction); right/full
+    outer joins mark the matched build rows;
   * any other build: `probe_counts` (one host sync for the pair total),
     `expand_pairs` into a bucket of that size, the two gathers and one
-    compaction; right/full outer joins OR in `build_matched_flags`;
+    compaction; right/full outer joins OR in `build_matched`;
   * left/full outer joins then emit the unmatched probe rows with null
     right columns, and right/full outer joins emit the unmatched build
     rows with null left columns after the last probe batch.
 
 Filters right below either input are peeled into masks (build: the
 key-valid mask; probe: the liveness), never compacted first.  An empty
-build side still gives outer and anti joins their rows.
+build side still gives outer and anti joins their rows.  The query's
+metrics count `join_pallas_hash`, `join_dense_domain` and the kernel
+fallbacks (`kernel_fallback.hash_probe_join.<reason>`).
 
 Late materialization, `join.lazySelection` and thin batches resolve off
 in the port (README "Conf"), so every join output is compacted where the
 JAX package may yield a masked or thin batch; the rows and their order
-are the same.  The reference's dense presence bitmap for semi/anti joins
-over a dense key domain is its dense tier, not ported: the hash table
-takes those joins, with the same rows.
+are the same.
 
 `CrossJoinExec` pairs every probe row with every build row: a build
 of one row by construction (a scalar subquery) is broadcast onto each
@@ -45,18 +60,9 @@ probe batch with no host sync, any other build is gathered pairwise.
 A build over twice `sql.batchSizeRows` rows, or over the out-of-core
 resident window in bytes (exec/ooc.py), runs the sub-partition join:
 both sides hash-scatter into spillable buckets
-(`exec/plan._agg_partition_ids`, bit-equal to the reference's, so the
-buckets and their order are the reference's) and each bucket pair joins
-through the same kernels.
-
-With the join family off, a build over
-`sql.kernels.pallas.join.maxBuildRows`, or a shed at the `kernel` chaos
-site (ops/hopper elect_join), the same single lane runs the sorted tier
-(ops/join.py), with the same rows in the same order.
-
-What stays unported raises NotImplementedError naming its ROADMAP item:
-composite keys that do not pack into one lane, strings among them (the
-reference's multi-lane sorted tier, Queue 1 item 1(d)).
+(`exec/plan._agg_partition_ids` over every key column, bit-equal to the
+reference's, so the buckets and their order are the reference's) and
+each bucket pair joins through the same tiers.
 """
 from __future__ import annotations
 
@@ -78,9 +84,6 @@ from . import ooc as O
 from .evaluator import conds_mask, evaluate_projection
 from .plan import ExecContext, PlanNode, key_ref_names, peel_filters
 
-#: where the multi-lane sorted tier (composite keys that do not pack)
-#: ports
-NEXT_JOIN_SLICE = "ROADMAP Queue 1 item 1(d)"
 JOIN_TYPES = (J.INNER, J.LEFT_OUTER, J.RIGHT_OUTER, J.FULL_OUTER,
               J.LEFT_SEMI, J.LEFT_ANTI)
 
@@ -145,26 +148,43 @@ def packed_lane(key_cols: Sequence[DeviceColumn], spec) -> torch.Tensor:
     return packed
 
 
-def unported_join_reasons(join_type: str, left_keys, right_keys,
-                          left: PlanNode, right: PlanNode) -> List[str]:
-    """Why the port cannot run a join (bound keys over the physical
-    inputs), [] if it can."""
-    reasons = []
+def unported_join_reasons(join_type: str) -> List[str]:
+    """Why the port cannot run a join, [] if it can: every key set runs,
+    so only the join type can refuse."""
     if join_type not in JOIN_TYPES:
-        reasons.append(f"unsupported join type {join_type}")
-    strings = [isinstance(e.dtype, t.StringType)
-               for e in list(left_keys) + list(right_keys)]
-    if any(strings) and (len(left_keys) > 1 or not all(strings)):
-        reasons.append("composite string join keys take the reference's "
-                       f"multi-lane sorted tier, which ports with "
-                       f"{NEXT_JOIN_SLICE}")
-    elif len(left_keys) > 1 and \
-            range_pack_spec(left_keys, right_keys, left, right) is None:
-        reasons.append("composite keys that do not pack into one lane "
-                       "(plain integer columns with exact ranges) take the "
-                       f"reference's multi-lane sorted tier, which ports "
-                       f"with {NEXT_JOIN_SLICE}")
-    return reasons
+        return [f"unsupported join type {join_type}"]
+    return []
+
+
+def span_fits(span: int, build_capacity: int) -> bool:
+    """The direct-address tables' sizing policy (the reference's): a
+    span of at most 16x the build capacity or 2^20 keys, and never past
+    2^26 keys (offsets of 256 MiB)."""
+    return span <= max(16 * build_capacity, 1 << 20) and span <= (1 << 26)
+
+
+def dense_domain(left_keys, right_keys, right: PlanNode,
+                 build_keys: Sequence[DeviceColumn], build_capacity: int):
+    """(lo, hi) covering every valid build key of a single-key join
+    whose span fits a direct-address table: a string key's dictionary
+    size (codes are dense), an integer key's exact range.  None
+    otherwise."""
+    if len(right_keys) != 1:
+        return None
+    c = build_keys[0]
+    if isinstance(c.dtype, t.StringType):
+        if c.dictionary is None:
+            return None
+        lo, hi = 0, max(len(c.dictionary), 1) - 1
+    else:
+        rn = key_ref_names(right_keys)
+        if rn is None or key_ref_names(left_keys) is None:
+            return None
+        rng = right.column_range(rn[0])
+        if rng is None:
+            return None
+        lo, hi = int(rng[0]), int(rng[1])
+    return (lo, hi) if span_fits(hi - lo + 1, build_capacity) else None
 
 
 def join_column_range(join_type: str, left, right, name):
@@ -204,8 +224,7 @@ class HashJoinExec(PlanNode):
         self.join_type = join_type
         self.left_keys = [e.bind(left.output_schema) for e in left_keys]
         self.right_keys = [e.bind(right.output_schema) for e in right_keys]
-        reasons = unported_join_reasons(join_type, self.left_keys,
-                                        self.right_keys, left, right)
+        reasons = unported_join_reasons(join_type)
         if reasons:
             raise NotImplementedError("; ".join(reasons))
         # pre-fused filter predicates, evaluated as masks on raw batches
@@ -419,32 +438,69 @@ class HashJoinExec(PlanNode):
     def _join_stream(self, build_batch: DeviceBatch, probe_iter,
                      ctx: ExecContext, build_conds=(), probe_conds=()
                      ) -> Iterator[DeviceBatch]:
-        from ..ops.hopper import elect_join
-        # None: the sorted tier (ops/join.py) takes the join
-        tier = elect_join(ctx.conf, build_batch.capacity)
+        from ..config import (JOIN_DENSE_BUILD_VIA_SORT,
+                              JOIN_MATCHED_VIA_MERGE,
+                              JOIN_MATCHED_VIA_PRESENCE)
+        from ..ops.hopper import count_fallback, elect_join, kernel_tier
         jt = self.join_type
+        conf = ctx.conf
         build_keys = [ensure_unique_dict(c) for c in self._key_cols(
             build_batch, self.right_keys, ctx)]
         # fused build-side filters: failing rows never match and never
         # surface as outer-unmatched
         build_pre = conds_mask(build_conds, build_batch,
-                               build_batch.row_mask(), ctx.conf)
+                               build_batch.row_mask(), conf)
+        cap = build_batch.capacity
+        # the tier, as the reference chooses it: a composite key of plain
+        # columns with exact ranges packs into one lane (its span a
+        # ready-made domain), a single key may have a dense domain, then
+        # the kernel election, then BuildTable
         pack = None
         if len(self.right_keys) > 1:
-            pack, _total = range_pack_spec(self.left_keys, self.right_keys,
-                                           self.left, self.right)
+            spec = range_pack_spec(self.left_keys, self.right_keys,
+                                   self.left, self.right)
+            if spec is not None:
+                pack, span = spec
+                domain = (0, span - 1) if span_fits(span, cap) else None
+        if pack is None:
+            domain = dense_domain(self.left_keys, self.right_keys,
+                                  self.right, build_keys, cap)
+        dense_span = None if domain is None else domain[1] - domain[0] + 1
+        via_presence = conf.get(JOIN_MATCHED_VIA_PRESENCE)
+        tier_conf = kernel_tier(conf)
+        if jt in (J.LEFT_SEMI, J.LEFT_ANTI) and domain is not None and \
+                via_presence and tier_conf.join_dense_replace != "ON":
+            # a semi or anti join over a dense domain reads the presence
+            # bitmap, which beats both tables whatever the span
+            tier = None
+            if tier_conf.join:
+                count_fallback("hash_probe_join", "dense_matched")
+        else:
+            tier = elect_join(conf, cap, dense_span=dense_span)
+        if tier is not None:
+            domain = None               # the hash table takes the join
+            ctx.bump("join_pallas_hash")
+        if domain is not None:
+            ctx.bump("join_dense_domain")
+        # uniqueness serves the single-lane paths only (a slot table, the
+        # probe-aligned output); several lanes never read it
+        build_unique = (pack is not None or len(self.right_keys) == 1) \
+            and side_unique(self.right_keys, self.right)
         build = J.BuildTable(
             build_batch, build_keys,
             lanes_override=None if pack is None
             else [packed_lane(build_keys, pack)],
-            extra_valid=build_pre if build_conds else None, hash_tier=tier)
-        # a unique build of plain key columns: every probe row matches at
-        # most once, so the output rides the probe's capacity, sync-free
-        # (semi and anti joins need only the matched flag, whatever the
-        # build)
-        aligned = jt not in (J.LEFT_SEMI, J.LEFT_ANTI) and \
-            key_ref_names(self.left_keys) is not None and \
-            side_unique(self.right_keys, self.right)
+            extra_valid=build_pre if build_conds else None, hash_tier=tier,
+            domain=domain, unique=domain is not None and build_unique,
+            dense_via_sort=conf.get(JOIN_DENSE_BUILD_VIA_SORT),
+            matched_via_merge=conf.get(JOIN_MATCHED_VIA_MERGE),
+            matched_via_presence=via_presence)
+        # a unique single-lane build of plain key columns: every probe
+        # row matches at most once, so the output rides the probe's
+        # capacity, sync-free (semi and anti joins need only the matched
+        # flag, whatever the build)
+        aligned = jt not in (J.LEFT_SEMI, J.LEFT_ANTI) and build.exact and \
+            key_ref_names(self.left_keys) is not None and build_unique
         outer_build = jt in (J.RIGHT_OUTER, J.FULL_OUTER)
         build_matched = torch.zeros(build_batch.capacity, dtype=torch.bool,
                                     device=build_batch.device) \
@@ -468,8 +524,19 @@ class HashJoinExec(PlanNode):
                 probe_valid = probe_valid & c.validity
 
             if jt in (J.LEFT_SEMI, J.LEFT_ANTI):
-                matched = J.probe_matched_lazy(build, probe_lanes,
-                                               probe_valid)
+                if build.exact:
+                    matched = J.probe_matched_lazy(build, probe_lanes,
+                                                   probe_valid)
+                else:
+                    # several lanes: count the candidates and keep the
+                    # verified flags (collisions match nothing)
+                    first, counts, cum, total = J.probe_counts(
+                        build, probe_lanes, probe_valid)
+                    matched = torch.zeros_like(probe_valid)
+                    if total > 0:
+                        matched = J.expand_pairs(
+                            build, probe_lanes, probe_valid, first, counts,
+                            cum, bucket_capacity(total, conf), total)[3]
                 # anti keeps null-key rows: they match nothing
                 keep = matched if jt == J.LEFT_SEMI else pre & ~matched
                 out = compact_batch(pb, keep, ctx.conf)
@@ -487,11 +554,9 @@ class HashJoinExec(PlanNode):
                                           pb.num_rows,
                                           null_out_of_bounds=True).columns
                 if outer_build:
-                    hit = torch.zeros(build_batch.capacity,
-                                      dtype=torch.int32, device=pb.device)
-                    hit.scatter_reduce_(0, build_idx.long(),
-                                        ok.to(torch.int32), "amax")
-                    build_matched |= hit > 0
+                    build_matched |= J.matched_flags(
+                        build_idx, ok, build_batch.capacity,
+                        build.matched_via_merge)
                 out = DeviceBatch(list(pb.columns) + right_cols,
                                   pb.num_rows, out_names)
                 if jt == J.LEFT_OUTER:
@@ -513,7 +578,8 @@ class HashJoinExec(PlanNode):
                     build, probe_lanes, probe_valid, first, counts, cum,
                     out_cap, total)
                 if outer_build:
-                    build_matched |= J.build_matched(build, first, counts)
+                    build_matched |= J.build_matched(build, first, counts,
+                                                     build_idx, ok)
                 unmatched = pre & ~probe_matched
                 lg = gather_batch(pb, probe_idx, total)
                 rg = gather_batch(build_batch, build_idx, total)

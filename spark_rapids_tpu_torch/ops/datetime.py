@@ -1,7 +1,9 @@
-"""Calendar arithmetic over DATE lanes (int32 days since 1970-01-01).
+"""Calendar arithmetic over DATE lanes (int32 days since 1970-01-01) and
+TIMESTAMP lanes (int64 microseconds since the epoch).
 
-Counterpart of spark_rapids_tpu/ops/datetime.py for what the DATE
-fields of plan/datetime.py need.  The engine keeps Spark's internal
+Counterpart of spark_rapids_tpu/ops/datetime.py: the date fields, date
+arithmetic (add_months, last_day, trunc) and the day and time of day of
+an instant, for plan/datetime.py.  The engine keeps Spark's internal
 representation, so every calendar field is integer arithmetic on the
 lane's own device: the era decomposition of the proleptic Gregorian
 calendar (400-year eras of 146,097 days), exact over the whole int32
@@ -98,3 +100,56 @@ def iso_week(days: torch.Tensor) -> torch.Tensor:
     int32 sum wraps within three days of them)."""
     thursday = days.to(torch.int64) + 3 - weekday_monday0(days)
     return ((thursday - _jan1(thursday)) // 7 + 1).to(torch.int32)
+
+
+def add_months(days: torch.Tensor, months: torch.Tensor) -> torch.Tensor:
+    """Spark add_months: the day clamped to the target month's last day
+    (int64 month arithmetic, floor division)."""
+    y, m, d = civil_from_days(days)
+    total = y.to(torch.int64) * 12 + (m.to(torch.int64) - 1) + \
+        months.to(torch.int64)
+    ny = total // 12
+    nm = total - ny * 12 + 1
+    nd = torch.minimum(d.to(torch.int64),
+                       days_in_month(ny, nm.to(torch.int32)).to(torch.int64))
+    return _days_from_civil64(ny, nm, nd).to(torch.int32)
+
+
+def last_day(days: torch.Tensor) -> torch.Tensor:
+    y, m, _ = civil_from_days(days)
+    return days_from_civil(y, m, days_in_month(y, m))
+
+
+#: trunc units: year, quarter, month and week (Monday)
+TRUNC_UNITS = {"year": "year", "yyyy": "year", "yy": "year",
+               "quarter": "quarter", "month": "month", "mon": "month",
+               "mm": "month", "week": "week"}
+
+
+def trunc_date(days: torch.Tensor, unit: str) -> torch.Tensor:
+    """trunc(date, unit): the first day of the year, quarter or month, or
+    the week's Monday."""
+    kind = TRUNC_UNITS[unit]
+    if kind == "week":
+        return (days.to(torch.int64) - weekday_monday0(days)).to(torch.int32)
+    y, m, _ = civil_from_days(days)
+    one = torch.ones_like(y)
+    if kind == "year":
+        return days_from_civil(y, one, one)
+    if kind == "quarter":
+        return days_from_civil(y, (m - 1) // 3 * 3 + 1, one)
+    return days_from_civil(y, m, one)
+
+
+US_PER_DAY = 86_400_000_000
+
+
+def ts_to_days(us: torch.Tensor) -> torch.Tensor:
+    """Microseconds since the epoch -> days since the epoch (floor: an
+    instant before 1970 belongs to the day it falls in)."""
+    return (us.to(torch.int64) // US_PER_DAY).to(torch.int32)
+
+
+def ts_time_of_day_us(us: torch.Tensor) -> torch.Tensor:
+    """Microseconds since the day's midnight, in [0, US_PER_DAY)."""
+    return us.to(torch.int64) % US_PER_DAY

@@ -12,9 +12,11 @@ counterpart here.  This module holds what they share:
   * `KernelTier` / `kernel_tier` / `elect_segagg` / `elect_join` /
     `elect_compact` — the election.  The conf keys are the reference's
     (`sql.kernels.pallas.*`); the tier is on by default, segagg AUTO
-    elects whenever the domain gate passes, and the join family always
-    replaces the dense direct-address table (`join.denseReplace`
-    resolves to ON: the dense join tier is not ported).  Each family's
+    elects whenever the domain gate passes, and the join family's
+    `join.denseReplace` defaults to ON here (AUTO in the reference):
+    the hash table takes every join it can table, dense domains
+    included, while AUTO and OFF weigh the dense direct-address tier as
+    the reference does.  Each family's
     gate ends in `elect`, which fires the `kernel` chaos site: an OOM
     there sheds the operator onto its portable tier (the sorted
     group-by, the sorted join, the argsort compaction).  Which code runs
@@ -40,7 +42,8 @@ counterpart here.  This module holds what they share:
     shared csrc/*.cuh headers and the flags), then `ctypes.CDLL`.
 
 The reference's dispatch metrics port with the observability slice
-(ROADMAP Queue 1 item 10); a shed counts in the query's metrics.
+(ROADMAP Queue 1 item 10); a shed and every other fallback reason
+(`count_fallback`) count in the query's metrics.
 """
 from __future__ import annotations
 
@@ -55,7 +58,8 @@ from typing import Dict, Optional
 import torch
 
 from ...config import (IMPROVED_FLOAT_OPS, PALLAS_COMPACT, PALLAS_ENABLED,
-                       PALLAS_JOIN, PALLAS_JOIN_MAX_BUILD, PALLAS_SEGAGG,
+                       PALLAS_JOIN, PALLAS_JOIN_DENSE_REPLACE,
+                       PALLAS_JOIN_MAX_BUILD, PALLAS_SEGAGG,
                        PALLAS_SEGAGG_MAX_DOMAIN, TpuConf)
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -166,6 +170,7 @@ class KernelTier:
     join: bool = False
     compact: bool = False
     join_max_build: int = 0
+    join_dense_replace: str = "ON"      # AUTO | ON | OFF
 
 
 NO_TIER = KernelTier(False, 0)
@@ -188,9 +193,21 @@ def kernel_tier(conf: TpuConf) -> KernelTier:
                 segagg_max_domain=int(conf.get(PALLAS_SEGAGG_MAX_DOMAIN)),
                 join=_mode(conf, PALLAS_JOIN),
                 compact=_mode(conf, PALLAS_COMPACT),
-                join_max_build=int(conf.get(PALLAS_JOIN_MAX_BUILD)))
+                join_max_build=int(conf.get(PALLAS_JOIN_MAX_BUILD)),
+                join_dense_replace=str(conf.get(PALLAS_JOIN_DENSE_REPLACE))
+                .upper())
         conf._cache["__hopper_tier"] = tier
     return tier
+
+
+def count_fallback(kernel: str, reason: str) -> None:
+    """Count one operator that did not take `kernel`, and why, as
+    `kernel_fallback.<kernel>.<reason>` in the active query's metrics
+    (the reference's KERNEL_FALLBACK counter)."""
+    from ...exec.plan import active_context
+    ctx = active_context()
+    if ctx is not None:
+        ctx.bump(f"kernel_fallback.{kernel}.{reason}")
 
 
 def elect(conf: TpuConf, kernel: str) -> bool:
@@ -201,7 +218,6 @@ def elect(conf: TpuConf, kernel: str) -> bool:
     the query's metrics; False.  Every other kind propagates to its own
     ladder.  Only the injected signal sheds: a kernel that fails to
     build or launch raises from its wrapper and is classified."""
-    from ...exec.plan import active_context
     from ...runtime.faults import get_active_injector, get_injector
     from ...runtime.memory import TpuRetryOOM
     inj = get_injector(conf)
@@ -210,9 +226,7 @@ def elect(conf: TpuConf, kernel: str) -> bool:
     try:
         inj.fire("kernel", kernel=kernel)
     except TpuRetryOOM:
-        ctx = active_context()
-        if ctx is not None:
-            ctx.bump(f"kernel_fallback.{kernel}.oom")
+        count_fallback(kernel, "oom")
         return False
     return True
 
@@ -230,16 +244,29 @@ def elect_segagg(conf: TpuConf, total_domain: int,
     return tier if elect(conf, "segagg") else None
 
 
-def elect_join(conf: TpuConf, build_capacity: int) -> Optional[KernelTier]:
-    """Hash-table join election: tier on, join family on, and the build
-    side small enough to table (`join.maxBuildRows`).  The reference
-    also weighs a dense direct-address table here (`denseReplace`); the
-    port has no dense join tier, so the hash table takes the join unless
-    the family is off, the build is too large or a shed happened: then
-    the sorted tier does (ops/join.py)."""
+def elect_join(conf: TpuConf, build_capacity: int,
+               dense_span: Optional[int] = None) -> Optional[KernelTier]:
+    """Hash-table join election: tier on, join family on, the build side
+    small enough to table (`join.maxBuildRows`, else a `build_too_large`
+    fallback), and, when the join also qualifies for a dense
+    direct-address table over `dense_span` keys, the `denseReplace`
+    policy: ON always replaces it (the port's default), AUTO only past 4x
+    the build capacity, where the dense tier's span-sized tables
+    dominate, OFF never (a `dense_domain` fallback).  Lane-count
+    legality finishes in ops/join.BuildTable.  None: the dense or the
+    sorted tier takes the join (ops/join.py)."""
     tier = kernel_tier(conf)
-    if not tier.join or build_capacity > tier.join_max_build:
+    if not tier.join:
         return None
+    if build_capacity > tier.join_max_build:
+        count_fallback("hash_probe_join", "build_too_large")
+        return None
+    if dense_span is not None:
+        mode = tier.join_dense_replace
+        if not (mode == "ON" or
+                (mode == "AUTO" and dense_span > 4 * build_capacity)):
+            count_fallback("hash_probe_join", "dense_domain")
+            return None
     return tier if elect(conf, "hash_probe_join") else None
 
 

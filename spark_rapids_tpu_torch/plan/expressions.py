@@ -1284,6 +1284,26 @@ class In(Expression):
 # Casts (numeric, boolean and decimal; from STRING by the dictionary)
 # ---------------------------------------------------------------------------
 
+def _date_timestamp_pair(src: t.DataType, dst: t.DataType) -> bool:
+    return (isinstance(src, t.DateType) and
+            isinstance(dst, t.TimestampType)) or \
+        (isinstance(src, t.TimestampType) and isinstance(dst, t.DateType))
+
+
+def _date_timestamp(x, src: t.DataType, tz: str, device):
+    """DATE -> TIMESTAMP: the local midnight's instant in `tz`; TIMESTAMP
+    -> DATE: the instant's local day (floor).  A tensor with a device,
+    numpy without."""
+    from .datetime import local_us, utc_us_of_wall
+    from ..ops.datetime import US_PER_DAY
+    wide = x.to(torch.int64) if device is not None else x.astype(np.int64)
+    if isinstance(src, t.DateType):
+        return utc_us_of_wall(wide * US_PER_DAY, tz, device)
+    days = local_us(wide, tz, device) // US_PER_DAY
+    return days.to(torch.int32) if device is not None \
+        else days.astype(np.int32)
+
+
 class Cast(Expression):
     """CAST(child AS to).  From STRING, each dictionary entry is parsed
     once on the host by `_parse_entry` (the reference's rules: trimmed
@@ -1314,10 +1334,14 @@ class Cast(Expression):
         if isinstance(src, t.StringType) and \
                 isinstance(dst, numeric + (t.DateType,)):
             return []
+        if _date_timestamp_pair(src, dst):
+            return []
         if isinstance(dst, t.StringType):
             return [f"cast {src.simple_string}->string not yet on device"]
+        # the reference's CPU oracle casts these with pyarrow; the port's
+        # CPU engine has no such cast yet, so the port refuses
         return [Unported(f"cast {src.simple_string}->{dst.simple_string} "
-                         "not ported yet (ROADMAP Queue 1 item 1(e))")]
+                         "has no form in either engine of the port")]
 
     @staticmethod
     def _parse_entry(s: Optional[str], dst: t.DataType):
@@ -1413,11 +1437,15 @@ class Cast(Expression):
             vals, ok = self.parsed_np(dict_or_empty(k.dictionary))
             codes = np.clip(x, 0, len(vals) - 1)
             return H.column(vals[codes], H.and_valid(valid, ok[codes]), dst)
+        if _date_timestamp_pair(src, dst):
+            from .datetime import session_timezone
+            return H.column(_date_timestamp(x, src, session_timezone(),
+                                            None), valid, dst)
         if not isinstance(src, (t.NumericType, t.BooleanType, t.NullType)) \
                 or not isinstance(dst, (t.NumericType, t.BooleanType)):
             raise NotImplementedError(
-                f"cast {src.simple_string}->{dst.simple_string} is not "
-                "ported yet (ROADMAP Queue 1 item 1(e))")
+                f"cast {src.simple_string}->{dst.simple_string} has no "
+                "CPU form")
         if isinstance(src, t.DecimalType) and k.hi is not None:
             return _wide_cast_cpu(k, src, dst)
         if isinstance(src, t.DecimalType):
@@ -1472,6 +1500,10 @@ class Cast(Expression):
                           kids[0].validity, dst)
         kids = [narrow_dev(kids[0], "Cast")]
         x, valid = kids[0].data, kids[0].validity
+        if _date_timestamp_pair(src, dst):
+            from .datetime import conf_timezone
+            return DevVal(_date_timestamp(x, src, conf_timezone(ctx.conf),
+                                          ctx.device), valid, dst)
         if isinstance(src, t.StringType):
             vals, ok, rng = self.parsed(dict_or_empty(kids[0].dictionary),
                                         ctx.device)
@@ -2736,3 +2768,122 @@ class RaiseError(Expression):
                 msg = "" if v0 is None else str(v0)
             raise RuntimeError(msg)
         return HostColumn(np.zeros(0, np.int32), np.zeros(0, bool), t.NULL)
+
+
+# ---------------------------------------------------------------------------
+# Spark's hash() and xxhash64() (ops/hashing.py)
+# ---------------------------------------------------------------------------
+
+def _wide_decimal_bytes(v: int) -> bytes:
+    """Java's BigInteger.toByteArray: minimal big-endian two's
+    complement (what Spark hashes for a DECIMAL wider than 18 digits)."""
+    n = (v + (v < 0)).bit_length() // 8 + 1
+    return v.to_bytes(n, "big", signed=True)
+
+
+class _SparkHash(Expression):
+    """A hash folded across its children from the seed 42, each child's
+    hash the seed of the next, nulls passing the running value through
+    (ops/hashing.py has the per-type rules).  A STRING child hashes per
+    dictionary entry on the host: as the first child every row gathers
+    its entry's hash, behind another child each row folds its entry's
+    tabled words under its own running seed."""
+
+    #: XXH64 (LONG result) rather than murmur3 (INT)
+    _xx = False
+
+    def __init__(self, *items):
+        assert items
+        self.children = tuple(items)
+
+    def _resolve(self):
+        self.dtype = t.LONG if self._xx else t.INT
+        self.nullable = False
+
+    def unsupported_reasons(self, conf):
+        from ..ops.hashing import hash_width
+        name = "xxhash64" if self._xx else "hash"
+        out = []
+        for c in self.children:
+            dt = c.dtype
+            if isinstance(dt, t.DecimalType) and dt.is_wide:
+                out.append(f"{name} over decimal(>18)")
+            elif not isinstance(dt, (t.StringType, t.NullType)) and \
+                    hash_width(dt) is None:
+                out.append(f"{name} over {dt.simple_string}")
+        return out
+
+    def _string_tables(self, d: np.ndarray, first: bool, device):
+        """The first child's per-entry hash table, or the word tables of
+        a chained one, on `device` (None: numpy), kept per dictionary."""
+        from ..ops import hashing as HS
+        key = f"_hash_{'first' if first else 'chain'}_{device}"
+
+        def make():
+            tab = HS.first_string_table(d, self._xx) if first \
+                else HS.StringTables(d)
+            if device is None:
+                return tab
+            return torch.from_numpy(tab).to(device) if first \
+                else tab.to(device)
+        return per_dictionary(self, key).get(d, make)
+
+    def _fold(self, h, data, validity, dt, dictionary, first, device):
+        from ..ops import hashing as HS
+        if isinstance(dt, t.NullType):
+            return h
+        if isinstance(dt, t.StringType):
+            d = dict_or_empty(dictionary)
+            codes = HS.clip_codes(data, len(d))
+            tabs = self._string_tables(d, first, device)
+            if first:
+                lane = tabs[codes]
+            elif self._xx:
+                lane = HS.xxhash64_strings(codes, h, tabs)
+            else:
+                lane = HS.murmur3_strings(codes, h, tabs)
+            return lane if validity is None else HS.where(validity, lane, h)
+        if self._xx:
+            return HS.xxhash64_column(data, validity, dt, h)
+        return HS.hash_column(data, validity, dt, h)
+
+    def _eval_dev(self, ctx, kids):
+        h = ctx.full(42, torch.int64)
+        for i, (k, c) in enumerate(zip(kids, self.children)):
+            h = self._fold(h, k.data, k.validity, c.dtype, k.dictionary,
+                           i == 0, ctx.device)
+        return DevVal(h if self._xx else h.to(torch.int32), None,
+                      self.dtype)
+
+    def _wide_fold(self, h: np.ndarray, k: HostColumn) -> np.ndarray:
+        from ..ops import hashing as HS
+        out = h.copy()
+        valid = k.valid_mask()
+        for i, v in enumerate(k.unscaled()):
+            if valid[i]:
+                seed = int(h[i])
+                b = _wide_decimal_bytes(int(v))
+                out[i] = HS.signed64(np.array(
+                    [HS.xxhash64_bytes_host(b, seed)], np.uint64))[0] \
+                    if self._xx else HS.murmur3_bytes(b, seed)
+        return out
+
+    def _eval_cpu(self, batch, kids):
+        h = np.full(batch.num_rows, 42, np.int64)
+        for i, (k, c) in enumerate(zip(kids, self.children)):
+            if isinstance(c.dtype, t.DecimalType) and c.dtype.is_wide:
+                h = self._wide_fold(h, k)
+                continue
+            h = self._fold(h, k.data, k.validity, c.dtype, k.dictionary,
+                           i == 0, None)
+        return H.column(h if self._xx else h.astype(np.int32), None,
+                        self.dtype)
+
+
+class Murmur3Hash(_SparkHash):
+    """hash(...): Spark's Murmur3_x86_32 with seed 42, an INT."""
+
+
+class XxHash64(_SparkHash):
+    """xxhash64(...): Spark's XXH64 with seed 42, a LONG."""
+    _xx = True

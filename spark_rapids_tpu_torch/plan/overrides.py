@@ -517,17 +517,10 @@ class JoinMeta(PlanMeta):
         self.rkeys = self._wrap_exprs(node.right_keys, node.right.schema)
 
     def tag_self(self):
-        from ..exec.join import JOIN_TYPES, NEXT_JOIN_SLICE
+        from ..exec.join import JOIN_TYPES
         if self.node.join_type not in JOIN_TYPES + ("cross",):
             self.will_not_work(
                 f"join type {self.node.join_type} not supported on TPU")
-        strings = [isinstance(e.dtype, t.StringType)
-                   for e in self.lkeys + self.rkeys]
-        if any(strings) and (len(self.lkeys) > 1 or not all(strings)):
-            self.will_not_work(E.Unported(
-                "composite string join keys take the reference's "
-                f"multi-lane sorted tier, which ports with "
-                f"{NEXT_JOIN_SLICE}"))
 
     def to_device(self):
         from ..exec.adaptive import _MIRROR, AdaptiveShuffledJoinExec
@@ -538,9 +531,7 @@ class JoinMeta(PlanMeta):
         n = self.node
         if n.join_type == "cross":
             return CrossJoinExec(left, right)
-        reasons = unported_join_reasons(
-            n.join_type, [k.bind(n.left.schema) for k in n.left_keys],
-            [k.bind(n.right.schema) for k in n.right_keys], left, right)
+        reasons = unported_join_reasons(n.join_type)
         if reasons:
             raise NotImplementedError(
                 f"Join cannot run on the device: {'; '.join(reasons)}")
@@ -704,7 +695,10 @@ class PhysicalQuery:
         from ..exec.plan import query_scope
         from ..runtime import faults
         from ..runtime.semaphore import device_permit
+        from .datetime import conf_timezone, set_session_timezone
         ctx = ctx or ExecContext(self.conf, self.device)
+        # the CPU engine's datetime expressions read the session zone
+        set_session_timezone(conf_timezone(self.conf))
         install_fault_injection(self.root, self.conf)
         prev = faults.get_active_injector()
         faults.set_active(faults.get_injector(ctx.conf))
@@ -714,6 +708,11 @@ class PhysicalQuery:
                 return self._collect_with_query_retry(ctx)
         finally:
             faults.set_active(prev)
+            for k, v in list(ctx.metrics.items()):
+                if isinstance(v, torch.Tensor):
+                    # counters kept on the device (the bloom stage's
+                    # filtered rows) sync once, here
+                    ctx.metrics[k] = int(v)
             if ctx._budget is not None:
                 for k, v in ctx.budget.metrics.items():
                     ctx.metrics[f"memory.{k}"] = v
@@ -995,6 +994,10 @@ def _register_rules() -> None:
            T.INTEGRAL + T.NULL, desc="Java shift (distance mod width)")
     _rules(x, E, "BitCount", T.INTEGRAL + T.BOOLEAN, T.INTEGRAL,
            desc="population count")
+    _rules(x, E, "Murmur3Hash", common, T.INTEGRAL,
+           desc="Spark hash() — bit-exact murmur3 device kernels")
+    _rules(x, E, "XxHash64", common, T.INTEGRAL,
+           desc="Spark xxhash64() — bit-exact XXH64 device kernels")
     _rules(x, E, "WidthBucket", T.NUMERIC, T.INTEGRAL,
            desc="ANSI histogram bucket")
     _rules(x, E, "RaiseError", T.ALL_SIMPLE + T.NULL,
@@ -1004,6 +1007,13 @@ def _register_rules() -> None:
     _rules(x, DT, "Year Month DayOfMonth DayOfWeek WeekDay DayOfYear "
            "Quarter WeekOfYear", T.DATETIME, T.INTEGRAL,
            desc="date field extract")
+    _rules(x, DT, "Hour Minute Second", T.TIMESTAMP, T.INTEGRAL,
+           desc="time field extract")
+    _rules(x, DT, "DateAdd DateSub AddMonths LastDay TruncDate",
+           T.DATE + T.INTEGRAL, T.DATE, desc="date arithmetic")
+    _rules(x, DT, "DateDiff", T.DATE, T.INTEGRAL, desc="date difference")
+    _rules(x, DT, "ToUnixTimestamp", T.DATETIME, T.INTEGRAL,
+           desc="epoch seconds")
     _rules(x, STR, "Upper Lower InitCap StringTrim StringTrimLeft "
            "StringTrimRight Substring Concat ConcatWs StringReplace Lpad "
            "Rpad StringRepeat Reverse SplitPart",

@@ -78,10 +78,16 @@ def is_oom_error(exc: BaseException) -> bool:
 class DeviceCensus:
     """Live and peak budget-admitted bytes summed over every budget of
     the process (the reference's obs/memattr.py census): a serving
-    tenant's bytes never inflate another query's per-budget peak."""
+    tenant's bytes never inflate another query's per-budget peak.
+
+    A collected budget's finalizer only queues its cell (`_retired`):
+    the garbage collector may run it on any thread at any bytecode,
+    inside `adjust` too, where taking the lock again would deadlock the
+    thread that holds it.  The holder of the lock settles the queue."""
 
     def __init__(self):
         self._lock = threading.Lock()
+        self._retired: list = []
         self.total = 0
         self.peak = 0
 
@@ -89,21 +95,26 @@ class DeviceCensus:
         """-> a cell `[live bytes]` the budget keeps current; a collected
         budget's remaining bytes retire with it."""
         cell = [0]
-        weakref.finalize(budget, self._retire, cell)
+        weakref.finalize(budget, self._retired.append, cell)
         return cell
 
-    def _retire(self, cell: list) -> None:
-        self.adjust(-cell[0])
-        cell[0] = 0
+    def _settle(self) -> None:
+        """Retire the queued cells (the lock held)."""
+        while self._retired:
+            cell = self._retired.pop()
+            self.total = max(self.total - cell[0], 0)
+            cell[0] = 0
 
     def adjust(self, delta: int) -> int:
         with self._lock:
+            self._settle()
             self.total = max(self.total + int(delta), 0)
             self.peak = max(self.peak, self.total)
             return self.total
 
     def totals(self) -> dict:
         with self._lock:
+            self._settle()
             return {"live_bytes": self.total, "peak_bytes": self.peak}
 
 

@@ -131,8 +131,10 @@ def test_conf_keys_and_defaults_match_reference():
     ref = {e.key: e.default for e in JC.all_entries()}
     assert set(ref) <= set(port) or set(port) <= set(ref)
     differ = {k for k in set(port) & set(ref) if port[k] != ref[k]}
-    # the port turns the kernel tier on by default (README)
-    assert differ == {"spark.rapids.tpu.sql.kernels.pallas.enabled"}
+    # the port turns the kernel tier on by default, and lets its hash
+    # table take every join it can table (README)
+    assert differ == {"spark.rapids.tpu.sql.kernels.pallas.enabled",
+                      "spark.rapids.tpu.sql.kernels.pallas.join.denseReplace"}
 
 
 def test_session_without_device_refuses_on_cpu_only_host():

@@ -1426,3 +1426,155 @@ def test_argsort_compaction_on_the_card_equals_the_kernel(cuda):
         n = int(kcount)
         assert int(count) == n
         assert torch.equal(order[:n].to(torch.int32), korder[:n])
+
+
+# ---------------------------------------------------------------------------
+# the join tiers, the bloom filter and the Spark hashes: CUDA tensors
+# against CPU tensors
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_hash_lanes_on_the_card_equal_the_cpu(cuda):
+    from spark_rapids_tpu_torch.ops import hashing as H
+    rng = np.random.default_rng(21)
+    n = 1 << 20
+    x = torch.from_numpy(rng.integers(-2 ** 63, 2 ** 63 - 1, n))
+    s32 = torch.from_numpy(rng.integers(0, 2 ** 32, n))
+    s64 = torch.from_numpy(rng.integers(-2 ** 63, 2 ** 63 - 1, n))
+    for fn, seed in ((H.hash_int32, s32), (H.hash_int64, s32),
+                     (H.xxhash64_int_lane, s64), (H.xxhash64_long_lane, s64)):
+        assert torch.equal(fn(x.to(cuda), seed.to(cuda)).cpu(), fn(x, seed))
+    d = np.array(["", "a", "abcd", "héllo", "x" * 33, "y" * 70], str)
+    tabs = H.StringTables(d)
+    codes = torch.from_numpy(rng.integers(0, len(d), n))
+    for fn, seed in ((H.murmur3_strings, s32), (H.xxhash64_strings, s64)):
+        assert torch.equal(
+            fn(codes.to(cuda), seed.to(cuda), tabs.to(cuda)).cpu(),
+            fn(codes, seed, tabs.to("cpu")))
+    f = torch.from_numpy(rng.standard_normal(n))
+    f[:4] = torch.tensor([float("nan"), -0.0, 0.0, float("inf")])
+    assert torch.equal(H.double_bits(f.to(cuda)).cpu(), H.double_bits(f))
+
+
+def _session_pair(cuda, conf=None):
+    from spark_rapids_tpu_torch.session import TpuSession
+    return (TpuSession(dict(conf or {}), device=cuda),
+            TpuSession(dict(conf or {}), device="cpu"))
+
+
+@pytest.mark.cuda
+def test_spark_hash_expressions_on_the_card_equal_the_cpu(cuda):
+    import pyarrow as pa
+    from spark_rapids_tpu_torch.plan import expressions as PE
+    from spark_rapids_tpu_torch.session import col
+    rng = np.random.default_rng(22)
+    n = 100_000
+    t = pa.table({
+        "i": pa.array(rng.integers(-2 ** 31, 2 ** 31, n).astype(np.int32),
+                      mask=rng.random(n) < 0.1),
+        "l": pa.array(rng.integers(-2 ** 63, 2 ** 63 - 1, n)),
+        "d": pa.array(np.where(rng.random(n) < 0.05, -0.0,
+                               rng.standard_normal(n))),
+        "s": pa.array(rng.choice(["", "AIR", "REG AIR", "x" * 40], n),
+                      mask=rng.random(n) < 0.1)})
+    exprs = [PE.Alias(PE.Murmur3Hash(col("i"), col("s"), col("d")), "m"),
+             PE.Alias(PE.XxHash64(col("s"), col("l"), col("i")), "x")]
+    card, cpu = _session_pair(cuda)
+    got = card.from_arrow(t).select(*exprs).to_pydict()
+    assert got == cpu.from_arrow(t).select(*exprs).to_pydict()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["ON", "AUTO", "OFF"])
+@pytest.mark.parametrize("how", ["inner", "right_outer", "full_outer",
+                                 "left_semi", "left_anti"])
+def test_join_tiers_on_the_card_equal_the_cpu(cuda, mode, how):
+    """Composite keys (two strings, a string and an integer) on the
+    multi-lane sorted tier and a single key on the dense or hash tier,
+    on the card against the CPU path."""
+    import pyarrow as pa
+    rng = np.random.default_rng(23)
+    n, nb = 200_000, 30_000
+    probe = pa.table({"a": pa.array(rng.choice(["p", "q", "r", "s"], n)),
+                      "b": pa.array(rng.integers(0, 9000, n),
+                                    mask=rng.random(n) < 0.05),
+                      "x": pa.array(np.arange(n))})
+    build = pa.table({"a2": pa.array(rng.choice(["p", "q", "zz"], nb)),
+                      "b2": pa.array(rng.integers(0, 8000, nb)),
+                      "y": pa.array(np.arange(nb))})
+    conf = {"spark.rapids.tpu.sql.kernels.pallas.join.denseReplace": mode}
+    card, cpu = _session_pair(cuda, conf)
+    for keys in ((["a", "b"], ["a2", "b2"]), (["b"], ["b2"])):
+        def q(s):
+            return s.from_arrow(probe).join(s.from_arrow(build), how=how,
+                                            left_on=keys[0],
+                                            right_on=keys[1]).to_pydict()
+        assert q(card) == q(cpu), keys
+
+
+@pytest.mark.cuda
+def test_dense_tables_and_bloom_on_the_card_equal_the_cpu(cuda):
+    from spark_rapids_tpu_torch.columnar.device import (DeviceBatch,
+                                                        DeviceColumn)
+    from spark_rapids_tpu_torch.ops import bloom as PB
+    from spark_rapids_tpu_torch.ops import join as PJ
+    rng = np.random.default_rng(24)
+    cap, pcap = 1 << 16, 1 << 18
+    bk = torch.from_numpy(rng.integers(0, 1 << 20, cap))
+    bvalid = torch.from_numpy(rng.random(cap) < 0.9)
+    pk = torch.from_numpy(rng.integers(-100, (1 << 20) + 100, pcap))
+    pvalid = torch.from_numpy(rng.random(pcap) < 0.95)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        col = DeviceColumn(bk.to(dev), bvalid.to(dev), None, None)
+        res = []
+        for via_sort in (True, False):
+            for via_merge in (True, False):
+                bt = PJ.BuildTable(DeviceBatch([col], cap, ["k"]), [col],
+                                   domain=(0, (1 << 20) - 1),
+                                   dense_via_sort=via_sort,
+                                   matched_via_merge=via_merge)
+                lanes, pv = [pk.to(dev)], pvalid.to(dev)
+                first, counts, cum, total = PJ.probe_counts(bt, lanes, pv)
+                p, b, ok, pm = PJ.expand_pairs(bt, lanes, pv, first, counts,
+                                               cum, total + 1, total)
+                res += [bt.offs, bt.present, p[ok], b[ok], pm,
+                        PJ.build_matched(bt, first, counts, b, ok),
+                        PJ.probe_matched_lazy(bt, lanes, pv)]
+        m = PB.optimal_slots(cap)
+        k = PB.optimal_hashes(cap, m)
+        bits = PB.bloom_build([col], DeviceBatch([col], cap, ["k"]), m, k)
+        pcol = DeviceColumn(pk.to(dev), pvalid.to(dev), None, None)
+        res += [bits, PB.bloom_might_contain(
+            bits, [pcol], DeviceBatch([pcol], pcap, ["k"]), k)]
+        out[dev.type] = [r.cpu() for r in res]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("zone", ["UTC", "America/Los_Angeles",
+                                  "Australia/Lord_Howe"])
+def test_session_timezone_fields_on_the_card_equal_the_cpu(cuda, zone):
+    import pyarrow as pa
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.plan import datetime as DT
+    from spark_rapids_tpu_torch.plan import expressions as PE
+    from spark_rapids_tpu_torch.session import col
+    rng = np.random.default_rng(25)
+    n = 1 << 18
+    days = rng.integers(7000, 11000, n)
+    us = days * 86_400_000_000 + rng.integers(0, 86_400_000_000, n)
+    t = pa.table({"ts": pa.array(us).cast(pa.timestamp("us", tz="UTC")),
+                  "d": pa.array(days.astype(np.int32)).cast(pa.date32())})
+    exprs = [PE.Alias(DT.Hour(col("ts")), "h"),
+             PE.Alias(DT.Minute(col("ts")), "mi"),
+             PE.Alias(DT.DayOfMonth(col("ts")), "dd"),
+             PE.Alias(PE.Cast(col("ts"), T.DATE), "td"),
+             PE.Alias(PE.Cast(col("d"), T.TIMESTAMP), "dt"),
+             PE.Alias(DT.ToUnixTimestamp(col("d")), "u"),
+             PE.Alias(DT.AddMonths(col("d"), 7), "am"),
+             PE.Alias(DT.TruncDate(col("d"), "quarter"), "tq")]
+    card, cpu = _session_pair(cuda, {"spark.sql.session.timeZone": zone})
+    assert card.from_arrow(t).select(*exprs).to_pydict() == \
+        cpu.from_arrow(t).select(*exprs).to_pydict()

@@ -257,12 +257,14 @@ def test_date_fields_match_reference_and_calendar(field):
 
 
 def test_timestamp_fields_refuse():
-    table = pa.table({"ts": pa.array([0, 86_400_000_000],
+    # the DATE fields of a TIMESTAMP take its local day in the session
+    # zone (tests/test_torch_timezone.py): no longer refused
+    table = pa.table({"ts": pa.array([0, 86_400_000_000, -1],
                                      pa.timestamp("us", tz="UTC"))})
-    df = PSession(device="cpu").from_arrow(table).select(
-        PE.Alias(PDT.Year(pcol("ts")), "y"))
-    with pytest.raises(NotImplementedError, match=r"Queue 1 item 1\(e\)"):
-        df.collect()
+    got, ref, oracle = _run(table, _select(
+        lambda E, c, T, DT: DT.Year(c("ts"))))
+    assert got == ref == oracle
+    assert got["r"] == [1970, 1970, 1969]
 
 
 DICTS = {"disjoint": (["a", "b", "c"], ["x", "y"]),

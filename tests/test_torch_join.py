@@ -12,7 +12,8 @@ port must equal the JAX package row for row in the engines' own order
 (results are left unsorted), and the CPU oracle row for row once both
 are sorted (its pyarrow engine orders join output otherwise).  Every
 join the port does not run raises NotImplementedError naming the slice
-that ports it; with the kernel tier off the sorted tier runs the join.
+that ports it; with the kernel tier off the sorted tier runs the join,
+and composite keys that do not pack run the multi-lane sorted tier.
 """
 import warnings
 
@@ -20,6 +21,7 @@ import numpy as np
 import pyarrow as pa
 import pytest
 
+from spark_rapids_tpu import types as JT
 from spark_rapids_tpu.plan import expressions as JE
 from spark_rapids_tpu.session import DataFrame as JDF
 from spark_rapids_tpu.session import TpuSession as JSession
@@ -188,24 +190,35 @@ def test_unported_joins_and_predicates_refuse_naming_their_slice():
     fact, dim = _fact(3000, 1), _dim()
     s = PSession(device="cpu")
     f, d = s.from_arrow(fact), s.from_arrow(dim)
-    as_double = [PE.Cast(pcol("fk"), PT.DOUBLE), pcol("x")]
+    with pytest.raises(NotImplementedError, match="unsupported join type"):
+        f.join(d, how="right_semi", left_on=["fk"],
+               right_on=["dk"]).collect()
+    # composite keys that do not pack (computed keys without an exact
+    # range, a string beside an integer, a DOUBLE) run the multi-lane
+    # sorted tier, with the reference's rows in its order
+    dim = dim.append_column("tag2", pa.array(
+        np.array(["p", "q", "r"])[np.arange(dim.num_rows) % 3]))
     cases = [
-        (f.join(d, how="right_semi", left_on=["fk"], right_on=["dk"]),
-         "unsupported join type"),
-        # keys that are not plain integer columns have no exact range
-        (f.join(d, left_on=as_double, right_on=[
-            PE.Cast(pcol("dk"), PT.DOUBLE), pcol("w")]), "do not pack"),
-        # one string key joins (tests/test_torch_union_expand.py); a
-        # composite key with a string takes the sorted tier
-        (f.join(d, left_on=["tag", "fk"], right_on=["attr", "dk"]),
-         "string join keys"),
-        (f.join(d, left_on=["fk", "f"],
-                right_on=["dk", PE.Cast(pcol("w"), PT.DOUBLE)]),
-         "composite"),
+        lambda e, c: ([e.Cast(c("fk"), PT.DOUBLE if e is PE else
+                              JT.DOUBLE), c("x")],
+                      [e.Cast(c("dk"), PT.DOUBLE if e is PE else JT.DOUBLE),
+                       c("w")]),
+        lambda e, c: (["tag", "fk"], ["tag2", "dk"]),
+        lambda e, c: (["fk", "f"],
+                      ["dk", e.Cast(c("w"), PT.DOUBLE if e is PE else
+                                    JT.DOUBLE)]),
     ]
-    for df, match in cases:
-        with pytest.raises(NotImplementedError, match=match):
-            df.collect()
+    for keys in cases:
+        def build(e, c, s, keys=keys):
+            lk, rk = keys(e, c)
+            return s.from_arrow(fact).join(s.from_arrow(dim), left_on=lk,
+                                           right_on=rk)
+        got, want, cpu = _run(build)
+        assert got == want
+        assert sorted(zip(*got.values())) == sorted(zip(*cpu.values()))
+    got, want, _cpu = _run(lambda e, c, s: s.from_arrow(fact).join(
+        s.from_arrow(dim), left_on=["tag", "fk"], right_on=["tag2", "dk"]))
+    assert got == want and len(got["fk"]) > 0
     # the kernel tier off, or a build over join.maxBuildRows, no longer
     # refuses: the sorted tier takes the join, with the hash-table
     # tier's rows in its order
@@ -337,9 +350,10 @@ def test_limit_and_top_n_match_reference(conf):
 
 
 def test_conf_warns_once_for_keys_the_port_does_not_honour():
-    key = "spark.rapids.tpu.sql.join.runtimeFilter.enabled"
+    key = "spark.rapids.tpu.sql.join.lateMaterialization.enabled"
+    assert key == PCONF.JOIN_LATE_MATERIALIZATION.key
     PCONF._WARNED.discard(key)
-    with pytest.warns(UserWarning, match="ops/bloom.py"):
+    with pytest.warns(UserWarning, match="item 4"):
         PCONF.TpuConf({key: "false"})
     with warnings.catch_warnings():
         warnings.simplefilter("error")

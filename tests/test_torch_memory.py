@@ -214,6 +214,31 @@ def test_the_census_sums_every_budget():
     assert M.CENSUS.totals()["live_bytes"] == base
 
 
+def test_a_budget_collected_under_the_census_lock_does_not_deadlock():
+    # the garbage collector may finalize a budget at any bytecode, inside
+    # DeviceCensus.adjust too (it hung a chip smoke in the path phase)
+    import threading
+    census = M.DeviceCensus()
+
+    class Budget:
+        pass
+    held = Budget()
+    cell = census.register(held)
+    cell[0] = 100
+    census.adjust(100)
+
+    def collect_inside():
+        nonlocal held
+        with census._lock:
+            held = None             # the finalizer runs here
+        census.adjust(0)
+    t = threading.Thread(target=collect_inside, daemon=True)
+    t.start()
+    t.join(timeout=10)
+    assert not t.is_alive()
+    assert census.totals() == {"live_bytes": 0, "peak_bytes": 100}
+
+
 # ---------------------------------------------------------------------------
 # the retry ladder
 # ---------------------------------------------------------------------------

@@ -472,20 +472,31 @@ def test_string_ordering_and_sql_disabled_run_the_cpu_engine(
     assert q.collect().to_pydict() == {"n": [ptables["lineitem"].num_rows]}
 
 
-def test_unported_operators_refuse_instead_of_falling_back(ptables):
+def test_unported_operators_refuse_instead_of_falling_back(ptables,
+                                                           jtables):
     s = PSession(device="cpu")
-    li = s.from_host(ptables["lineitem"])
-    # one string key joins (its probe codes remap into the build's
-    # dictionary); a composite key of strings takes the sorted tier
-    with pytest.raises(NotImplementedError, match="string join keys"):
-        li.join(s.from_host(ptables["orders"]),
-                left_on=["l_shipmode", "l_returnflag"],
-                right_on=["o_orderpriority", "o_orderstatus"]).collect()
+    # a composite key of strings runs the multi-lane sorted tier, with
+    # the reference's rows: orders against its (priority, status) counts
+    def build(s, t, port):
+        read = s.from_host if port else s.from_arrow
+        A, c = (PA, pcol) if port else (JA, jcol)
+        keys = ["o_orderpriority", "o_orderstatus"]
+        E = PE if port else JE
+        counts = read(t["orders"]).group_by(*keys).agg(
+            (A.Count(None), "cnt")).select(
+            E.Alias(c("o_orderpriority"), "p"),
+            E.Alias(c("o_orderstatus"), "st"), c("cnt"))
+        return read(t["orders"]).join(counts, left_on=keys,
+                                      right_on=["p", "st"]).agg(
+            (A.Count(None), "n"), (A.Sum(c("cnt")), "pairs"))
+    want, cpu = _reference(build(JSession(PALLAS_ON), jtables, False))
+    got = build(s, ptables, True).collect().to_pydict()
+    assert got == want == cpu and got["n"] == [ptables["orders"].num_rows]
     stamps = pa.table({"ts": pa.array([0, 86_400_000_000],
                                       pa.timestamp("us", tz="UTC"))})
-    with pytest.raises(NotImplementedError, match="TIMESTAMP"):
-        s.from_arrow(stamps).select(PE.Alias(PDT.Year(pcol("ts")),
-                                             "y")).collect()
+    # a TIMESTAMP's date fields run under the session zone (UTC here)
+    assert s.from_arrow(stamps).select(PE.Alias(PDT.Year(pcol("ts")), "y")) \
+        .to_pydict() == {"y": [1970, 1970]}
 
 
 def _q2_join(m, e, c, s, t):
