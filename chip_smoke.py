@@ -275,9 +275,22 @@ own failure:
                lineitem row, grouped and the first 1,000,000 fetched,
                against a numpy murmur3 and XXH64.  Each prints its cold
                wall, median of 3 warm walls, peak, launches and counters.
+  9f. late — after joins (chip_smoke_late.py), at SF10 on the TPC-H
+               columns kept from the data phase: q1, q6, q3, q5, q7, q9,
+               q10, q18_300, m2m, outer, semi and bloom_sel under the
+               defaults (selection vectors, thin join batches, encoded
+               execution) and with those three keys off, each equal to
+               numpy in both modes, printing its walls beside phase 5's,
+               peak, launches, the late-materialization and encoded
+               counters and its host-to-device bytes with the host
+               narrowing ms, cold and warm.  A join-chain case must
+               defer a gather, q1 must upload fewer bytes under the
+               defaults, every off case must launch what the tree before
+               these keys launched (chip_smoke_late.EXPECT_OFF), and
+               compaction_order must launch inside lanes.compact_thin.
 Each phase after the data prints its seconds.
   10. result — a `kernels` JSON line (launches by query over every
-               query of phases 5, 6b, 6c, 7, 9, 9b, 9c, 9d and 9e), the whole run's
+               query of phases 5, 6b, 6c, 7, 9, 9b, 9c, 9d, 9e and 9f), the whole run's
                seconds, the nvidia-smi line, and last {"ok": true,
                "device": {...}}.
 
@@ -344,27 +357,39 @@ SOURCES = {"seg_sums": "spark_rapids_tpu_torch/csrc/segagg.cu",
 # no row, so no table is built (the hash table is built at the first
 # probe) and only the scatter's compactions launch.  q22 groups
 # by its 25 phone prefixes (seg_sums), q21 by a 100,000-name dictionary
-# (sorted: over denseDomainMax)
+# (sorted: over denseDomainMax).
+# Under the defaults (`join.lazySelection`, `join.lateMaterialization`) a
+# join whose parent is an aggregation or another join's probe side emits
+# a selection vector instead of compacting, and a thin join's output
+# compacts only at its sink (columnar/lanes.compact_thin).  A query then
+# compacts where a join feeds another join's build side (concat), a sort,
+# a top-N or the result, where the sub-partition join scatters, and
+# where a semi or outer join's unmatched rows come out.  The entries that
+# lost compaction_order (their joins all feed aggregations or probes,
+# and at TPC-H 0.001 none sub-partitions): m2m (its expanded pairs reach
+# the aggregation as a selection), q4, q7, q9, q12 (they compact at SF10
+# only in the sub-partition scatter), q14, q17, q19 (JOIN_AGG)
 UNIQUE_JOIN = ("build_table", "probe_first", "compaction_order")
+JOIN_AGG = ("build_table", "probe_first")
 PATH_KERNELS = {"q1": ("seg_sums",), "q6": (),
                 "minmax": ("seg_sums", "seg_reduce"),
                 "q3": UNIQUE_JOIN,
                 "m2m": ("build_table", "probe_counts", "expand_pairs",
-                        "compaction_order", "seg_sums"),
+                        "seg_sums"),
                 "outer": ("build_table", "probe_counts", "expand_pairs",
                           "compaction_order"),
                 "semi": UNIQUE_JOIN,
-                "q4": UNIQUE_JOIN + ("seg_sums",),
+                "q4": JOIN_AGG + ("seg_sums",),
                 "q5": UNIQUE_JOIN + ("seg_sums",),
-                "q7": UNIQUE_JOIN, "q8": UNIQUE_JOIN, "q10": UNIQUE_JOIN,
+                "q7": JOIN_AGG, "q8": UNIQUE_JOIN, "q10": UNIQUE_JOIN,
                 "q11": UNIQUE_JOIN,
-                "q12": UNIQUE_JOIN + ("seg_sums",),
+                "q12": JOIN_AGG + ("seg_sums",),
                 "q15": UNIQUE_JOIN,
-                "q17": UNIQUE_JOIN, "q18": ("compaction_order",),
-                "q18_300": UNIQUE_JOIN, "q19": UNIQUE_JOIN,
+                "q17": JOIN_AGG, "q18": ("compaction_order",),
+                "q18_300": UNIQUE_JOIN, "q19": JOIN_AGG,
                 "q11_spec": UNIQUE_JOIN,
-                "q2": UNIQUE_JOIN, "q9": UNIQUE_JOIN, "q13": UNIQUE_JOIN,
-                "q14": UNIQUE_JOIN, "q16": UNIQUE_JOIN, "q20": UNIQUE_JOIN,
+                "q2": UNIQUE_JOIN, "q9": JOIN_AGG, "q13": UNIQUE_JOIN,
+                "q14": JOIN_AGG, "q16": UNIQUE_JOIN, "q20": UNIQUE_JOIN,
                 "q20_us": UNIQUE_JOIN,
                 "q21": UNIQUE_JOIN, "q21_vn": UNIQUE_JOIN,
                 "q22": UNIQUE_JOIN + ("seg_sums",)}
@@ -379,7 +404,12 @@ DS_SEGAGG = ("q33", "q43", "q65", "q70")
 DS_QUERIES = ("q3", "q7", "q12", "q19", "q20", "q26", "q27", "q33", "q36",
               "q42", "q43", "q52", "q55", "q56", "q60", "q65", "q70", "q73",
               "q76", "q86", "q93", "q96", "q98")
-PATH_KERNELS.update({f"ds_{q}": UNIQUE_JOIN + (
+# the star joins whose every join feeds an aggregation or another join's
+# probe side: no compaction under the defaults (TPC-DS 0.0005 and 0.01)
+DS_JOIN_AGG = ("q3", "q7", "q12", "q19", "q20", "q26", "q42", "q43", "q52",
+               "q55", "q96", "q98")
+PATH_KERNELS.update({f"ds_{q}": (JOIN_AGG if q in DS_JOIN_AGG
+                                 else UNIQUE_JOIN) + (
     ("seg_sums",) if q in DS_SEGAGG else ()) for q in DS_QUERIES})
 # the scalars phase: the statistical aggregates and the scalar families
 # group lineitem by a 12-bucket dictionary domain (segagg: seg_sums, and
@@ -391,22 +421,28 @@ DENSE_SCALE = 0.1
 PATH_KERNELS.update({"moments_q1": ("seg_sums",),
                      "scalars_q1": ("seg_sums", "seg_reduce"),
                      "range_sample": ("compaction_order",),
-                     "edge_values": (), "dense_sf10": UNIQUE_JOIN,
-                     **{f"dense_{q}": UNIQUE_JOIN for q in DENSE_QUERIES}})
+                     "edge_values": (), "dense_sf10": JOIN_AGG,
+                     # q7's and q26's joins all feed their aggregations
+                     **{f"dense_{q}": JOIN_AGG if q in ("q7", "q26")
+                        else UNIQUE_JOIN for q in DENSE_QUERIES}})
 # the strings phase: the LIKE forms run their queries' joins;
 # strings_groupby filters customer, joins it and groups by a 5 x 25
 # domain into SUM / COUNT (seg_sums) and MIN / MAX (seg_reduce); the
 # dictionary transforms and the edge projection reach no kernel
-PATH_KERNELS.update({**{f"like_{q}": UNIQUE_JOIN for q in (
+# (like_q9 and like_q14 as q9 and q14; strings_groupby's join feeds its
+# aggregation: no compaction under the defaults)
+PATH_KERNELS.update({**{f"like_{q}": JOIN_AGG if q in ("q9", "q14")
+                        else UNIQUE_JOIN for q in (
     "q2", "q9", "q13", "q14", "q16", "q20")},
-    "strings_groupby": UNIQUE_JOIN + ("seg_sums", "seg_reduce"),
+    "strings_groupby": JOIN_AGG + ("seg_sums", "seg_reduce"),
     "string_dicts": (), "string_edges": ()})
 # the fallback phase: fb_concat_groupby joins orders with the uploaded
 # customer projection (unique c_custkey) and groups by its 125-value
 # string on the card (SUM, COUNT: seg_sums; MIN, MAX: seg_reduce);
-# fb_q16_mix and fb_q3_format run q16's and q3's joins on the card
-PATH_KERNELS.update({"fb_concat_groupby": UNIQUE_JOIN + ("seg_sums",
-                                                         "seg_reduce"),
+# fb_q16_mix and fb_q3_format run q16's and q3's joins on the card (the
+# group-by's join emits a selection vector under the defaults)
+PATH_KERNELS.update({"fb_concat_groupby": JOIN_AGG + ("seg_sums",
+                                                      "seg_reduce"),
                      "fb_q16_mix": UNIQUE_JOIN, "fb_q3_format": UNIQUE_JOIN})
 # the decimals phase: dec_q1 and dec_wrap group by q1's 12-bucket
 # dictionary domain into two half lanes a DECIMAL sum (seg_sums);
@@ -416,14 +452,15 @@ PATH_KERNELS.update({"fb_concat_groupby": UNIQUE_JOIN + ("seg_sums",
 PATH_KERNELS.update({"dec_q1": ("seg_sums",), "dec_wrap": ("seg_sums",),
                      "dec_rank": (), "dec_ds_window": UNIQUE_JOIN,
                      "cse_q15": UNIQUE_JOIN})
-# the joins phase: every join output compacts; the dense cases' tiers
-# vary by mode, so compaction is what each must launch; bloom_q3 runs
-# q3's path, and bloom_sel's sub-partitioned buckets table the unique
-# orders keys; ck_str2 and ck_str_int group by 15- and 49-bucket
-# domains (seg_sums) around their multi-lane joins; the hash cases
-# group by q1's 6 buckets
+# the joins phase: the dense cases' tiers vary by mode, so compaction is
+# what each must launch, but q19's and m2m's joins feed aggregations
+# (no compaction under the defaults); bloom_q3 runs q3's path, and
+# bloom_sel's sub-partitioned buckets table the unique orders keys;
+# ck_str2 and ck_str_int group by 15- and 49-bucket domains (seg_sums)
+# around their multi-lane joins; the hash cases group by q1's 6 buckets
 PATH_KERNELS.update({
-    **{f"dense_{q}_{m}": ("compaction_order",) for q in (
+    **{f"dense_{q}_{m}": () if q in ("q19", "m2m") else (
+        "compaction_order",) for q in (
         "q3", "q4", "q19", "q22", "m2m", "outer", "semi")
        for m in ("auto", "off")},
     **{f"bloom_{q}_{m}": UNIQUE_JOIN for q in ("q3", "sel")
@@ -3215,14 +3252,18 @@ def main() -> int:
         import chip_smoke_decimals as DEC
         import chip_smoke_fallback as F
         import chip_smoke_joins as J
+        import chip_smoke_late as LT
         # the TPC-H tables go first, to bound host memory; the fallback,
-        # decimals, chaos and joins phases keep the columns they read
+        # decimals, chaos, joins and late phases keep the columns they
+        # read
         fb_tables = F.narrow(tables)
         dec_tables = DEC.narrow(tables)
         ch_tables = CH.narrow(tables)
         ch_want = {k: want[k] for k in CH.WANTS}
         jn_tables = J.narrow(tables)
         jn_want = {k: want[k] for k in J.PATH_WANTS + J.WANTS}
+        lt_tables = LT.narrow(tables)
+        lt_want = {k: want[k] for k in LT.CASES}
         del tables, want, later
         gc.collect()
         torch.cuda.empty_cache()
@@ -3248,6 +3289,10 @@ def main() -> int:
         gc.collect()
         launches.update(phase("joins", J.joins_phase, sys.modules[__name__],
                               jn_tables, jn_want, path_walls))
+        del jn_tables
+        gc.collect()
+        launches.update(phase("late", LT.late_phase, sys.modules[__name__],
+                              lt_tables, lt_want, path_walls))
     rows = []
     for name in TPU_KERNELS:
         st = stats[name]

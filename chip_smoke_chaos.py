@@ -199,18 +199,24 @@ def shed_cases(C, tables, want, launches) -> None:
          "to numpy")
     launches["chaos_q1_segagg_shed"] = ln
     # q3: the rule's nth is the first hash-table join election of a clean
-    # run (a spy on the elections gives their order)
+    # run (spies on the elections give their order; the encoded
+    # dispatches, ops/encodings.elect_encoded, fire the same site)
+    from spark_rapids_tpu_torch.ops import encodings as ENC
     order = []
-    real = H.elect
+    real, real_enc = H.elect, ENC.elect_encoded
 
     def spy(conf, kernel):
         order.append(kernel)
         return real(conf, kernel)
-    H.elect = spy
+
+    def spy_enc(conf, site):
+        order.append(f"encoded:{site}")
+        return real_enc(conf, site)
+    H.elect, ENC.elect_encoded = spy, spy_enc
     try:
         clean, _, _, _w, ln0 = _run(C, "q3", tables, NO_BACKOFF)
     finally:
-        H.elect = real
+        H.elect, ENC.elect_encoded = real, real_enc
     nth = order.index("hash_probe_join") + 1
     got, ctx, s, wall, ln = _run(C, "q3", tables, NO_BACKOFF,
                                  f"kernel:oom:nth={nth}")
@@ -222,7 +228,7 @@ def shed_cases(C, tables, want, launches) -> None:
     C.check(ln["build_table"] < ln0["build_table"], "q3's shed built as "
             "many hash tables as its clean run")
     _log(f"q3 under kernel:oom:nth={nth} (hash_probe_join shed; "
-         f"elections {order})", wall, ln,
+         f"elections before it {order[:nth - 1]})", wall, ln,
          f" against the clean run's {ln0}; equal to numpy")
     launches["chaos_q3_join_shed"] = ln
 

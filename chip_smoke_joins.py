@@ -11,8 +11,10 @@ columns.
     and again under OFF.
   * bloom_q3, bloom_sel — q3, and lineitem ⋈ the orders of March 1995
     (about 1.3 % of 15,000,000, every one of the 60,012,150 lineitem rows
-    probing), each with the runtime filter on (the default) and off;
-    equal to numpy both ways; bloom_sel must filter rows.
+    probing), each with the runtime filter on (the default) and off, and
+    full-width scan lanes (`encoded.narrow.lanes=OFF`: narrowed, the
+    stages' bytes put bloom_sel's probe under 4 x its build); equal to
+    numpy both ways; bloom_sel must filter rows.
   * ck_str2, ck_str_int, ck_wide — composite keys on the multi-lane
     sorted tier: orders ⋈ its 15-row (o_orderpriority, o_orderstatus)
     counts on both strings; lineitem ⋈ its (l_shipmode, l_tax) average
@@ -79,6 +81,7 @@ WANTS = ("bloom_sel", "ck_str2", "ck_str_int", "ck_wide", "hash_murmur3",
          "hash_xxhash64") + tuple(f"tz_{z}" for z in TZ_ZONES)
 DENSE = "spark.rapids.tpu.sql.kernels.pallas.join.denseReplace"
 RUNTIME_FILTER = "spark.rapids.tpu.sql.join.runtimeFilter.enabled"
+NARROW_LANES = "spark.rapids.tpu.sql.encoded.narrow.lanes"
 #: the rows of the fetched hash values
 HASH_ROWS = 1_000_000
 SEL_MONTH = (pydt.date(1995, 3, 1), pydt.date(1995, 4, 1))
@@ -673,7 +676,12 @@ def joins_phase(C, tables, want, path_walls) -> dict:
           f"({time.perf_counter() - t0:.1f} s)")
 
     for on in (True, False):
-        s = _session({RUNTIME_FILTER: str(on).lower()})
+        # full-width scan lanes: the adaptive join sizes its stages by
+        # their device bytes, and bloom_sel's FOR-narrowed stages
+        # (ops/encodings.py, the default) put its probe under 4 x its
+        # build, where no filter is installed (the late phase runs it
+        # narrowed)
+        s = _session({RUNTIME_FILTER: str(on).lower(), NARROW_LANES: "OFF"})
         tag = "on" if on else "off"
         _case(C, f"bloom_q3_{tag}", s, tpch.QUERIES["q3"], tables,
               lambda lanes: _equal(C, "q3")(lanes, want["q3"]), launches)

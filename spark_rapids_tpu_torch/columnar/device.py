@@ -23,6 +23,7 @@ Hopper computes IEEE doubles exactly, so the lane is the value itself.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import List, Optional
 
 import numpy as np
@@ -96,15 +97,83 @@ class DeviceColumn:
     def capacity(self) -> int:
         return self.data.shape[0]
 
+    @property
+    def stored(self) -> torch.Tensor:
+        """The data lane as the device holds it (a NarrowColumn's narrow
+        lane): what byte counts read, without widening anything."""
+        return self.data
+
+    @property
+    def data_dtype(self) -> torch.dtype:
+        """The dtype `data` has (read without widening a narrow lane)."""
+        return self.data.dtype
+
+    def rebuilt(self, stored: torch.Tensor, validity: torch.Tensor,
+                hi: Optional[torch.Tensor] = None,
+                value_range=None) -> "DeviceColumn":
+        """A column of the same kind over moved lanes (`stored` as
+        `stored` gives it): what row moves (take, compaction, a lane
+        gather, a re-bucketing) build."""
+        return DeviceColumn(stored, validity, self.dtype, self.dictionary,
+                            value_range, hi)
+
     def take(self, idx, live=None) -> "DeviceColumn":
         """The rows at `idx` (a tensor or a slice), validity ANDed with
-        `live` when given; the high word comes along."""
+        `live` when given; the high word comes along (a narrow lane
+        stays narrow)."""
         valid = self.validity[idx]
         if live is not None:
             valid = valid & live
-        return DeviceColumn(self.data[idx], valid, self.dtype,
-                            self.dictionary, None,
+        return self.rebuilt(self.stored[idx], valid,
                             None if self.hi is None else self.hi[idx])
+
+
+class NarrowColumn(DeviceColumn):
+    """A FOR-narrowed scan column (ops/encodings.py, the reference's
+    `DeviceColumn.enc`): `lane` holds the exact values in a signed dtype
+    narrower than the storage dtype of `dtype`.  `data` widens it to the
+    storage dtype on first read (and keeps the widened lane): whatever
+    reads a column's data sees its logical storage dtype, and only the
+    encoded expression sites (plan/expressions.py) read `lane`.
+    `enc` is ("for", lo, hi), the batch's live range."""
+
+    def __init__(self, lane: torch.Tensor, validity: torch.Tensor,
+                 dtype: t.DataType, dictionary=None, value_range=None,
+                 enc: Optional[tuple] = None):
+        self.lane = lane
+        self.enc = enc
+        super().__init__(None, validity, dtype, dictionary, value_range)
+
+    @property
+    def data(self) -> torch.Tensor:
+        if self._wide is None:
+            self._wide = self.lane.to(storage_dtype(self.dtype))
+        return self._wide
+
+    @data.setter
+    def data(self, value) -> None:
+        self._wide = value
+
+    @property
+    def capacity(self) -> int:
+        return self.lane.shape[0]
+
+    @property
+    def stored(self) -> torch.Tensor:
+        return self.lane
+
+    @property
+    def data_dtype(self) -> torch.dtype:
+        return storage_dtype(self.dtype)
+
+    def rebuilt(self, stored, validity, hi=None,
+                value_range=None) -> "NarrowColumn":
+        return NarrowColumn(stored, validity, self.dtype, self.dictionary,
+                            value_range, self.enc)
+
+    def __repr__(self):
+        return (f"NarrowColumn({self.dtype.simple_string} as "
+                f"{self.lane.dtype}, {self.enc})")
 
 
 @dataclasses.dataclass
@@ -113,18 +182,34 @@ class DeviceBatch:
 
     `num_rows` is a host int or a 0-d int tensor on the device: an
     operator whose output count is data-dependent may leave it there, and
-    a consumer that needs the value syncs with `int(db.num_rows)`."""
+    a consumer that needs the value syncs with `int(db.num_rows)`.
+
+    `sel` is a lazy selection vector (`sql.join.lazySelection`): when
+    set, the live rows are the rows where it is True, not a front prefix,
+    and `num_rows` counts them.  A join whose parent reads liveness as a
+    mask (an aggregation, another join's probe) emits one instead of
+    compacting its output.  `thin` is the late-materialization state
+    (columnar/lanes.ThinState, `sql.join.lateMaterialization.enabled`):
+    the columns it lists are zero-length placeholders whose rows live in
+    a source batch behind an int32 row-id lane.  Whatever slices or
+    concatenates rows resolves both first (ops/batch_ops.ensure_prefix)
+    and asserts that they are gone (`assert_prefix`): a zero-length
+    placeholder sliced in PyTorch is silently empty, not a shape error."""
     columns: List[DeviceColumn]
     num_rows: object
     names: List[str]
+    sel: Optional[torch.Tensor] = None
+    thin: object = None
 
     @property
     def capacity(self) -> int:
+        if self.thin is not None:
+            return self.thin.capacity
         return self.columns[0].capacity if self.columns else 0
 
     @property
     def device(self) -> torch.device:
-        return self.columns[0].data.device
+        return self.columns[0].validity.device
 
     @property
     def num_columns(self) -> int:
@@ -142,21 +227,41 @@ class DeviceBatch:
         return self.columns[self.names.index(name)]
 
     def select(self, indices) -> "DeviceBatch":
-        """The batch with its columns reordered/subset by position."""
+        """The batch with its columns reordered/subset by position (the
+        selection vector and the deferred columns come along)."""
         return DeviceBatch([self.columns[i] for i in indices], self.num_rows,
-                           [self.names[i] for i in indices])
+                           [self.names[i] for i in indices], self.sel,
+                           None if self.thin is None
+                           else self.thin.select(indices))
 
     def nbytes(self) -> int:
-        """Device bytes of the padded lanes (capacity-based: no sync)."""
-        return sum(c.data.numel() * c.data.element_size() +
-                   c.validity.numel() +
-                   (0 if c.hi is None else c.hi.numel() * 8)
-                   for c in self.columns)
+        """Device bytes of the padded lanes (capacity-based: no sync),
+        the row-id lanes of a thin batch included."""
+        n = sum(c.stored.numel() * c.stored.element_size() +
+                c.validity.numel() +
+                (0 if c.hi is None else c.hi.numel() * 8)
+                for c in self.columns)
+        if self.sel is not None:
+            n += self.sel.numel()
+        if self.thin is not None:
+            n += self.thin.nbytes()
+        return n
 
     def row_mask(self) -> torch.Tensor:
-        """Bool mask of the live prefix (row < num_rows)."""
+        """Bool mask of the live rows: the selection vector when there is
+        one, else the live prefix (row < num_rows)."""
+        if self.sel is not None:
+            return self.sel
         from ..ops.kernels import live_mask
         return live_mask(self.capacity, self.num_rows, self.device)
+
+    def assert_prefix(self) -> None:
+        """Raise AssertionError unless the live rows are a front prefix
+        and every column holds its rows: what slicing a row prefix
+        needs."""
+        assert self.sel is None and self.thin is None, \
+            "a prefix consumer was handed a batch with a selection " \
+            "vector or deferred columns (call ops.batch_ops.ensure_prefix)"
 
     def __repr__(self):
         return (f"DeviceBatch(rows={self.num_rows}/cap={self.capacity}, "
@@ -178,6 +283,17 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
+#: host-to-device bytes `to_device` copied in this process, its batches,
+#: and the host nanoseconds spent narrowing lanes (`narrowed_lane`;
+#: `reset_upload_counts` zeroes them before a measured run)
+UPLOADS = {"bytes": 0, "batches": 0, "narrow_ns": 0}
+
+
+def reset_upload_counts() -> None:
+    for k in UPLOADS:
+        UPLOADS[k] = 0
+
+
 def _upload(arr: np.ndarray, capacity: int, dtype: torch.dtype,
             device: torch.device) -> torch.Tensor:
     """Zero-padded device copy of a host lane (one host->device copy of
@@ -188,31 +304,84 @@ def _upload(arr: np.ndarray, capacity: int, dtype: torch.dtype,
         if not arr.flags.writeable:        # e.g. a view of an Arrow buffer
             arr = arr.copy()
         out[:len(arr)].copy_(torch.from_numpy(arr))
+        UPLOADS["bytes"] += arr.nbytes
     return out
 
 
-def column_to_device(col: HostColumn, capacity: int,
-                     device: torch.device) -> DeviceColumn:
+def narrowable(col: HostColumn) -> bool:
+    """An integer-family, DATE, TIMESTAMP or one-lane DECIMAL column
+    (not a string's codes, a DOUBLE or a boolean), which a scan may
+    upload FOR-narrowed."""
+    return col.hi is None and col.data.dtype.kind == "i" and \
+        not isinstance(col.dtype, (t.StringType, t.NullType)) and \
+        col.data.dtype == np.dtype(t.physical_np_dtype(col.dtype))
+
+
+def narrowed_lane(table: HostBatch, name: str, offset: int, length: int):
+    """(the narrowed host lane, lo, hi) of rows offset..offset+length of
+    a column, or None where it does not narrow: the smallest signed
+    dtype holding [min(lo, 0), max(hi, 0)] of the slice's live values
+    (ops/encodings.narrow_np_dtype, the reference's per-batch choice).
+    Cached beside the table's statistics, keyed by (column, slice), so a
+    warm query pays only the copy; the cache holds at most the narrowed
+    columns' rows at their narrow width."""
+    key = ("narrowed", name, offset, length)
+    hit = table._stats.get(key, key)
+    if hit is not key:
+        return hit
+    from ..ops.encodings import narrow_np_dtype
+    t0 = time.perf_counter_ns()
+    col = table.column_by_name(name)
+    out = None
+    if narrowable(col) and length:
+        data = col.data[offset:offset + length]
+        live = data if col.validity is None \
+            else data[col.validity[offset:offset + length]]
+        if live.size:
+            lo, hi = int(live.min()), int(live.max())
+            ndt = narrow_np_dtype(min(lo, 0), max(hi, 0), data.dtype)
+            if ndt is not None:
+                out = (data.astype(ndt), lo, hi)
+    table._stats[key] = out
+    UPLOADS["narrow_ns"] += time.perf_counter_ns() - t0
+    return out
+
+
+def column_to_device(col: HostColumn, capacity: int, device: torch.device,
+                     narrowed=None) -> DeviceColumn:
+    """One host column on the device; `narrowed` ((lane, lo, hi) from
+    `narrowed_lane`) uploads the narrow lane as a NarrowColumn."""
     n = len(col)
-    sdt = storage_dtype(col.dtype)
-    data = _upload(col.data, capacity, sdt, device)
     if col.validity is None:
         validity = torch.arange(capacity, device=device) < n
     else:
         validity = _upload(col.validity, capacity, torch.bool, device)
+    if narrowed is not None:
+        lane, lo, hi = narrowed
+        from ..ops.encodings import count_dispatch
+        count_dispatch("narrow_upload")
+        return NarrowColumn(
+            _upload(lane, capacity, torch_dtype(lane.dtype), device),
+            validity, col.dtype, col.dictionary, None, ("for", lo, hi))
+    sdt = storage_dtype(col.dtype)
+    data = _upload(col.data, capacity, sdt, device)
     hi = None if col.hi is None else \
         _upload(col.hi, capacity, torch.int64, device)
     return DeviceColumn(data, validity, col.dtype, col.dictionary, None, hi)
 
 
 def to_device(hb: HostBatch, conf: TpuConf = DEFAULT_CONF,
-              capacity: Optional[int] = None,
-              device=None) -> DeviceBatch:
+              capacity: Optional[int] = None, device=None,
+              narrowed: Optional[dict] = None) -> DeviceBatch:
     """Upload a host batch into a bucket-capacity device batch
-    (`device` as in `resolve_device`)."""
+    (`device` as in `resolve_device`); `narrowed` maps a column index to
+    its narrowed lane (`narrowed_lane`, a scan's encoded columns)."""
     device = resolve_device(device)
     cap = capacity or bucket_capacity(max(hb.num_rows, 1), conf)
-    cols = [column_to_device(c, cap, device) for c in hb.columns]
+    narrowed = narrowed or {}
+    cols = [column_to_device(c, cap, device, narrowed.get(i))
+            for i, c in enumerate(hb.columns)]
+    UPLOADS["batches"] += 1
     return DeviceBatch(cols, hb.num_rows, list(hb.names))
 
 
@@ -232,7 +401,11 @@ def empty_device_batch(schema: t.StructType, conf: TpuConf = DEFAULT_CONF,
 # ---------------------------------------------------------------------------
 
 def to_host(db: DeviceBatch, rows: int) -> HostBatch:
-    """The first `rows` rows of every column, brought to the host."""
+    """The first `rows` rows of every column, brought to the host (a
+    selection vector or deferred columns resolve first)."""
+    from ..ops.batch_ops import ensure_prefix
+    db = ensure_prefix(db)
+    db.assert_prefix()
     cols = []
     for c in db.columns:
         data = c.data[:rows].cpu().numpy()
@@ -248,7 +421,11 @@ def fetch_result_batch(db: DeviceBatch, bound: Optional[int] = None,
     """Bring a RESULT batch to the host: only its live prefix (operator
     outputs keep live rows at the front — aggregates emit groups first,
     sorts order padding last), never the padded capacity.  A lazy count
-    costs one scalar sync; a static `bound` caps the rows fetched."""
+    costs one scalar sync; a static `bound` caps the rows fetched.  A
+    selection vector or deferred columns resolve first."""
+    from ..ops.batch_ops import ensure_prefix
+    db = ensure_prefix(db, conf or DEFAULT_CONF)
+    db.assert_prefix()
     n = int(db.num_rows)
     if bound is not None:
         n = min(n, bound)

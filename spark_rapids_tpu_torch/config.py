@@ -1218,6 +1218,13 @@ HONOURED_KEYS = frozenset(e.key for e in (
     PALLAS_JOIN_DENSE_REPLACE, JOIN_DENSE_BUILD_VIA_SORT,
     JOIN_MATCHED_VIA_PRESENCE, JOIN_MATCHED_VIA_MERGE,
     RUNTIME_FILTER_ENABLED, RUNTIME_FILTER_RATIO, RUNTIME_FILTER_FPP,
+    # selection vectors and late materialization (plan/overrides
+    # negotiate_lazy_sel / negotiate_thin, exec/join.py, columnar/lanes.py)
+    JOIN_LAZY_SELECTION, JOIN_LATE_MATERIALIZATION,
+    # encoded execution (ops/encodings.py, plan/overrides
+    # negotiate_encoded, the scan's FOR-narrowed uploads)
+    ENCODED_EXECUTION, ENCODED_DICT_PREDICATES, ENCODED_DICT_SORT_SCAN,
+    ENCODED_NARROW_LANES, ENCODED_IN_MAX_CODES,
     # the session timezone of the datetime expressions and casts
     # (plan/datetime.py, ops/timezone.py)
     SESSION_TIMEZONE))
@@ -1227,19 +1234,6 @@ RESOLVED = {
     PALLAS_INTERPRET.key:
         "has no effect: CPU tensors run each kernel's plain PyTorch "
         "version, CUDA tensors the CUDA kernel",
-    JOIN_LAZY_SELECTION.key:
-        "resolves to off until late materialization ports (ROADMAP "
-        "Queue 1 item 4): joins always compact their output",
-    JOIN_LATE_MATERIALIZATION.key:
-        "resolves to off until late materialization ports (ROADMAP "
-        "Queue 1 item 4)",
-    ENCODED_EXECUTION.key:
-        "resolves to on for a string compared with a literal, which runs "
-        "in code space (the reference's default); the rest of encoded "
-        "execution ports with ROADMAP Queue 1 item 4",
-    ENCODED_DICT_PREDICATES.key:
-        "resolves to on: a string compared with a literal runs in code "
-        "space (the reference's AUTO)",
 }
 
 _WARNED: set = set()

@@ -31,9 +31,16 @@ batch is compacted to the rows whose key may be in the build.  A build
 of at most two target batches whose single key's range fits a dense
 span gets none: its join probes a table whose cost the filter's
 compaction would not save (the reference's rule, whatever the tier
-`denseReplace` then elects).  Thin batches are not ported, so the stage
-always compacts; the query's metrics read `bloom_filter_slots` and
-`bloom_filtered_rows`.
+`denseReplace` then elects).  A thin probe batch (columnar/lanes.py)
+keeps its lanes: the stage materializes the key columns only and
+composes its verdict into the selection vector instead of compacting.
+The query's metrics read `bloom_filter_slots` and `bloom_filtered_rows`.
+
+The re-planned join takes the node's `lazy_sel` and `thin_payload`
+(plan/overrides negotiate_lazy_sel, negotiate_thin); a swap's column
+permutation carries the selection vector and the deferred columns
+(`DeviceBatch.select`).  A stage may hold a masked or thin batch: a
+spill resolves it to a row prefix (runtime/memory Spillable.spill).
 """
 from __future__ import annotations
 
@@ -85,11 +92,13 @@ class _BloomFilterStage(PlanNode):
     certainly absent from the build side (ops/bloom.py).  Statistics
     delegate to the child, whose rows it keeps a subset of."""
 
-    def __init__(self, child: PlanNode, bits, key_cols_fn, k: int):
+    def __init__(self, child: PlanNode, bits, key_cols_fn, k: int,
+                 key_exprs=()):
         super().__init__(child)
         self.bits = bits
         self.key_cols_fn = key_cols_fn
         self.k = k
+        self.key_exprs = list(key_exprs)
 
     @property
     def output_schema(self) -> t.StructType:
@@ -105,8 +114,21 @@ class _BloomFilterStage(PlanNode):
         from ..ops.bloom import bloom_might_contain
         from ..ops.filter import compact_batch
         for db in self.children[0].execute(ctx):
+            if db.thin is not None:
+                from ..columnar.lanes import materialize_refs
+                db = materialize_refs(db, self.key_exprs, ctx.conf)
             keep = bloom_might_contain(self.bits, self.key_cols_fn(db), db,
                                        self.k) & db.row_mask()
+            if db.thin is not None:
+                # a compaction is the row gather late materialization
+                # skips: the verdict becomes the selection vector
+                kept = keep.sum(dtype=torch.int32)
+                ctx.bump("bloom_filtered_rows",
+                         torch.as_tensor(db.num_rows, device=keep.device) -
+                         kept)
+                yield DeviceBatch(list(db.columns), kept, list(db.names),
+                                  keep, db.thin)
+                continue
             out = compact_batch(db, keep, ctx.conf)
             # counted on the device, read once at the query's end
             ctx.bump("bloom_filtered_rows",
@@ -126,6 +148,9 @@ class AdaptiveShuffledJoinExec(PlanNode):
         self.join_type = join_type
         self.left_keys = list(left_keys)
         self.right_keys = list(right_keys)
+        # forwarded to the re-planned HashJoinExec (plan/overrides)
+        self.lazy_sel = False
+        self.thin_payload = None
 
     @property
     def left(self) -> PlanNode:
@@ -192,6 +217,8 @@ class AdaptiveShuffledJoinExec(PlanNode):
             join = HashJoinExec(
                 self.join_type, self.left_keys, self.right_keys, left, right,
                 probe_conds=left_conds, build_conds=right_conds)
+            join.lazy_sel, join.thin_payload = \
+                self.lazy_sel, self.thin_payload
             self._maybe_bloom(join, self.join_type, right_stage,
                               max(lbytes, 1), rbytes, ctx)
             yield from join.execute(ctx)
@@ -199,6 +226,7 @@ class AdaptiveShuffledJoinExec(PlanNode):
         jt = _MIRROR[self.join_type]
         join = HashJoinExec(jt, self.right_keys, self.left_keys, right, left,
                             probe_conds=right_conds, build_conds=left_conds)
+        join.lazy_sel, join.thin_payload = self.lazy_sel, self.thin_payload
         self._maybe_bloom(join, jt, left_stage, max(rbytes, 1), lbytes, ctx)
         # the mirrored output is right-cols ++ left-cols; restore the order
         n_r = len(self.right.output_schema.fields)
@@ -239,6 +267,10 @@ class AdaptiveShuffledJoinExec(PlanNode):
         bits = None
         for sp in build_stage:
             bb = sp.get()
+            if bb.thin is not None:
+                from ..columnar.lanes import materialize_refs
+                bb = materialize_refs(bb, list(join.right_keys) +
+                                      list(join.build_conds), conf)
             # the fused build filters mask the insertion, else the filter
             # keeps the keys they remove
             live = conds_mask(join.build_conds, bb, bb.row_mask(), conf) \
@@ -249,5 +281,5 @@ class AdaptiveShuffledJoinExec(PlanNode):
         def probe_keys(db):
             return join._key_cols(db, join.left_keys, ctx)
         join.children[0] = _BloomFilterStage(join.children[0], bits,
-                                             probe_keys, k)
+                                             probe_keys, k, join.left_keys)
         ctx.metrics["bloom_filter_slots"] = m

@@ -226,6 +226,17 @@ class HashAggregate:
                 self.merge_specs.append(
                     G.AggSpec(mkind, len(self.merge_specs), mdt))
 
+    def materialize_inputs(self, db: DeviceBatch,
+                           conds: Sequence[E.Expression]) -> DeviceBatch:
+        """An aggregation is a sink of thin join output: the deferred
+        columns its keys, inputs and fused filters read materialize here,
+        one gather a lane source; the rest are never gathered."""
+        if db.thin is None:
+            return db
+        from ..columnar.lanes import materialize_refs
+        return materialize_refs(db, list(conds) + self.key_exprs +
+                                self.input_exprs, self.conf)
+
     # ---- phases ----
 
     def partial(self, db: DeviceBatch, live=None) -> DeviceBatch:

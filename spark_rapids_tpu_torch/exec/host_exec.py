@@ -264,6 +264,8 @@ class DeviceToHostExec(HostNode):
             if isinstance(db.num_rows, int) and db.num_rows == 0:
                 continue
             t0 = time.perf_counter()
+            # the fetch reads a row prefix (fetch_result_batch resolves a
+            # selection vector or deferred columns, and asserts it)
             hb = retry_io(ctx.conf, "d2h",
                           lambda: fetch_result_batch(db, conf=ctx.conf))
             ctx.bump(D2H_NS, int((time.perf_counter() - t0) * 1e9))

@@ -48,10 +48,17 @@ build side still gives outer and anti joins their rows.  The query's
 metrics count `join_pallas_hash`, `join_dense_domain` and the kernel
 fallbacks (`kernel_fallback.hash_probe_join.<reason>`).
 
-Late materialization, `join.lazySelection` and thin batches resolve off
-in the port (README "Conf"), so every join output is compacted where the
-JAX package may yield a masked or thin batch; the rows and their order
-are the same.
+Under `sql.join.lazySelection` (plan/overrides `negotiate_lazy_sel`) a
+join whose parent reads liveness as a mask (an aggregation, another
+join's probe side) emits its kept rows as a selection vector
+(`DeviceBatch.sel`) instead of compacting them.  Under
+`sql.join.lateMaterialization.enabled` (`negotiate_thin`) a join whose
+consumers up to a pipeline sink all take thin batches emits its right
+columns as a build row-id lane (columnar/lanes.py) and passes a thin
+probe's lanes through, composed through the pair expansion; a masked
+probe gathers at its full capacity.  The sub-partition join's bucket
+build batches that thin output points into stay reserved in the query's
+budget until the sink drops them (`MemoryBudget.hold`).
 
 `CrossJoinExec` pairs every probe row with every build row: a build
 of one row by construction (a scalar subquery) is broadcast onto each
@@ -76,8 +83,9 @@ from ..columnar.device import (DeviceBatch, DeviceColumn, bucket_capacity,
                                storage_dtype)
 from ..config import HASH_SUBPARTITION_FALLBACK
 from ..ops import join as J
-from ..ops.batch_ops import (concat_batches, ensure_unique_dict,
-                             remap_codes_into, shrink_to_rows)
+from ..ops.batch_ops import (concat_batches, ensure_prefix,
+                             ensure_unique_dict, remap_codes_into,
+                             shrink_to_rows)
 from ..ops.filter import compact_batch, gather_batch
 from ..plan import expressions as E
 from . import ooc as O
@@ -230,6 +238,12 @@ class HashJoinExec(PlanNode):
         # pre-fused filter predicates, evaluated as masks on raw batches
         self.probe_conds = list(probe_conds or [])
         self.build_conds = list(build_conds or [])
+        # a mask-aware parent (plan/overrides negotiate_lazy_sel): emit a
+        # selection vector instead of compacting the output
+        self.lazy_sel = False
+        # the output names that may ride as row-id lanes to the pipeline
+        # sink (plan/overrides negotiate_thin); None = dense output
+        self.thin_payload = None
 
     @property
     def left(self) -> PlanNode:
@@ -313,7 +327,13 @@ class HashJoinExec(PlanNode):
     def _scatter(self, db: DeviceBatch, exprs, conds, buckets,
                  salt: int, ctx: ExecContext) -> int:
         """Scatter one batch by its join keys (exec/ooc.scatter); the
-        fused filters apply here, so the bucket joins run with none."""
+        fused filters apply here, so the bucket joins run with none.  A
+        thin batch materializes its key and condition columns first; the
+        other deferred columns resolve inside the bucket compactions
+        (lanes.compact_thin, one composed gather)."""
+        if db.thin is not None:
+            from ..columnar.lanes import materialize_refs
+            db = materialize_refs(db, list(exprs) + list(conds), ctx.conf)
         return O.scatter(db, self._key_cols(db, exprs, ctx),
                          conds_mask(conds, db, db.row_mask(), ctx.conf),
                          buckets, salt, ctx)
@@ -395,6 +415,12 @@ class HashJoinExec(PlanNode):
             build_batch = concat_batches(bbs, conf)
             for sp in bl:
                 sp.close()
+            if self._defer_right():
+                # thin output points into the bucket's build batch past
+                # its spillables' release: the budget keeps its bytes
+                # until the sink drops the last lane
+                ctx.budget.hold(build_batch)
+            del bbs
             yield from self._join_stream(build_batch, probes(), ctx)
 
         build_parts = [[] for _ in range(k)]
@@ -424,6 +450,65 @@ class HashJoinExec(PlanNode):
             for part in build_parts + probe_parts:
                 for sp in part:
                     sp.close()
+
+    # -- late materialization --------------------------------------------
+
+    def _thin_transparent(self) -> bool:
+        """Whether this join carries a thin probe stream through (passes
+        its lanes along or composes them) instead of materializing it."""
+        return self.thin_payload is not None and self.join_type in (
+            J.INNER, J.LEFT_OUTER, J.LEFT_SEMI, J.LEFT_ANTI)
+
+    def _defer_right(self) -> List[int]:
+        """Right column indices deferred behind a build row-id lane:
+        inner and left outer joins only (their null extension is the -1
+        lane; right and full outer joins emit a dense build tail)."""
+        if self.thin_payload is None or \
+                self.join_type not in (J.INNER, J.LEFT_OUTER):
+            return []
+        return [j for j, f in enumerate(self.right.output_schema.fields)
+                if f.name in self.thin_payload]
+
+    def _prep_probe(self, pb: DeviceBatch, probe_conds,
+                    ctx: ExecContext) -> DeviceBatch:
+        """A thin probe batch materializes whole unless this join is
+        thin-transparent; a transparent join still materializes the
+        deferred columns its keys and conditions read, and any pending
+        column the parent pipeline did not allow."""
+        if pb.thin is None:
+            return pb
+        from ..columnar.lanes import materialize_batch, materialize_refs
+        if not self._thin_transparent():
+            return materialize_batch(pb, ctx.conf)
+        pb = materialize_refs(pb, list(self.left_keys) + list(probe_conds),
+                              ctx.conf)
+        if pb.thin is not None:
+            bad = [p for p in pb.thin.pending
+                   if pb.names[p] not in self.thin_payload]
+            if bad:
+                ctx.bump("join_thin_early_materialized", len(bad))
+                pb = materialize_batch(pb, ctx.conf, bad)
+        return pb
+
+    @staticmethod
+    def _make_thin(out_capacity: int, probe_thin, build_batch, build_lane,
+                   defer_right, nleft: int, probe_sources=None):
+        """The ThinState of a join output: the probe side's lane sources
+        ride through (as they are, or composed through the pair
+        expansion), the build side adds one source addressed by
+        `build_lane`.  None when nothing is pending."""
+        from ..columnar.lanes import LaneSource, ThinState
+        sources = list(probe_sources if probe_sources is not None
+                       else (probe_thin.sources if probe_thin else []))
+        pending = dict(probe_thin.pending) if probe_thin else {}
+        if defer_right:
+            ord_b = len(sources)
+            sources.append(LaneSource(build_batch, build_lane))
+            for j in defer_right:
+                pending[nleft + j] = (ord_b, j)
+        if not pending:
+            return None
+        return ThinState(out_capacity, sources, pending)
 
     def _with_null_right(self, pb: DeviceBatch, keep: torch.Tensor,
                          ctx: ExecContext) -> DeviceBatch:
@@ -506,9 +591,37 @@ class HashJoinExec(PlanNode):
                                     device=build_batch.device) \
             if outer_build else None
         out_names = list(self.output_schema.names)
+        # late materialization: the deferred right columns ride a build
+        # row-id lane, gathered once at the sink; a thin probe stream
+        # passes its lanes through
+        transparent = self._thin_transparent()
+        defer_right = self._defer_right()
+        defer_set = frozenset(defer_right)
+        nleft = len(self.left.output_schema.fields)
+        nright = len(self.right.output_schema.fields)
+        mat_right = [j for j in range(nright) if j not in defer_set]
+        if defer_right:
+            from ..columnar.lanes import deferred_column
+            placeholders = {j: deferred_column(build_batch.columns[j])
+                            for j in defer_right}
+
+        def right_cols(lane, rows) -> List[DeviceColumn]:
+            """The right columns at `lane` (-1: null): the materialized
+            ones gathered, the deferred ones as placeholders."""
+            if not defer_right:
+                return gather_batch(build_batch, lane, rows,
+                                    null_out_of_bounds=True).columns
+            ctx.bump("join_deferred_gathers", len(defer_right))
+            got = iter(gather_batch(build_batch.select(mat_right), lane,
+                                    rows, null_out_of_bounds=True).columns
+                       if mat_right else [])
+            return [placeholders[j] if j in defer_set else next(got)
+                    for j in range(nright)]
+
         for pb in probe_iter:
             if isinstance(pb.num_rows, int) and pb.num_rows == 0:
                 continue
+            pb = self._prep_probe(pb, probe_conds, ctx)
             # a string key's codes move into the build's dictionary
             probe_keys = [remap_codes_into(c, b.dictionary)
                           if b.dictionary is not None else c
@@ -539,6 +652,13 @@ class HashJoinExec(PlanNode):
                             cum, bucket_capacity(total, conf), total)[3]
                 # anti keeps null-key rows: they match nothing
                 keep = matched if jt == J.LEFT_SEMI else pre & ~matched
+                if self.lazy_sel or (transparent and pb.thin is not None):
+                    # a mask-aware parent, or a thin stream whose lanes
+                    # must stay aligned with its rows: no compaction
+                    yield DeviceBatch(list(pb.columns),
+                                      keep.sum(dtype=torch.int32),
+                                      out_names, keep, pb.thin)
+                    continue
                 out = compact_batch(pb, keep, ctx.conf)
                 yield DeviceBatch(out.columns, out.num_rows, out_names)
                 continue
@@ -547,30 +667,50 @@ class HashJoinExec(PlanNode):
                 build_idx, ok = J.probe_aligned(build, probe_lanes,
                                                 probe_valid)
                 # unmatched rows gather -1: their right columns come out
-                # null
+                # null.  A masked probe's live rows are no prefix, so it
+                # gathers at its whole capacity
                 build_lane = torch.where(ok, build_idx,
                                          torch.full_like(build_idx, -1))
-                right_cols = gather_batch(build_batch, build_lane,
-                                          pb.num_rows,
-                                          null_out_of_bounds=True).columns
+                out_rows = pb.capacity if pb.sel is not None \
+                    else pb.num_rows
+                rcols = right_cols(build_lane, out_rows)
+                thin = self._make_thin(
+                    pb.capacity, pb.thin, build_batch,
+                    build_lane.to(torch.int32), defer_right, nleft) \
+                    if (defer_right or pb.thin is not None) else None
                 if outer_build:
                     build_matched |= J.matched_flags(
                         build_idx, ok, build_batch.capacity,
                         build.matched_via_merge)
-                out = DeviceBatch(list(pb.columns) + right_cols,
-                                  pb.num_rows, out_names)
+                out = DeviceBatch(list(pb.columns) + rcols, pb.num_rows,
+                                  out_names, None, thin)
                 if jt == J.LEFT_OUTER:
                     # every filter-surviving probe row survives
-                    yield compact_batch(out, pre, ctx.conf) \
-                        if probe_conds else out
+                    if not probe_conds and pb.sel is None:
+                        yield out
+                    elif self.lazy_sel or thin is not None:
+                        # a masked probe's liveness passes through
+                        yield DeviceBatch(out.columns,
+                                          pre.sum(dtype=torch.int32),
+                                          out_names, pre, thin)
+                    else:
+                        yield compact_batch(out, pre, ctx.conf)
                     continue
-                yield compact_batch(out, ok & pre, ctx.conf)
+                keep = ok & pre
+                if jt == J.INNER and (self.lazy_sel or thin is not None):
+                    yield DeviceBatch(out.columns,
+                                      keep.sum(dtype=torch.int32),
+                                      out_names, keep, thin)
+                else:
+                    yield compact_batch(out, keep, ctx.conf)
                 if jt == J.FULL_OUTER:
                     yield self._with_null_right(pb, pre & ~ok, ctx)
                 continue
 
             first, counts, cum, total = J.probe_counts(build, probe_lanes,
                                                        probe_valid)
+            go_thin = bool(defer_right) or (transparent and
+                                            pb.thin is not None)
             unmatched = pre
             if total > 0:
                 out_cap = bucket_capacity(total, ctx.conf)
@@ -581,13 +721,36 @@ class HashJoinExec(PlanNode):
                     build_matched |= J.build_matched(build, first, counts,
                                                      build_idx, ok)
                 unmatched = pre & ~probe_matched
-                lg = gather_batch(pb, probe_idx, total)
-                rg = gather_batch(build_batch, build_idx, total)
-                pairs = DeviceBatch(lg.columns + rg.columns, total,
-                                    out_names)
-                yield compact_batch(pairs, ok, ctx.conf)
+                if go_thin:
+                    yield self._thin_pairs(pb, build_batch, probe_idx,
+                                           build_idx, ok, total, out_cap,
+                                           right_cols, defer_right, nleft)
+                else:
+                    lg = gather_batch(pb, probe_idx, total)
+                    rg = gather_batch(build_batch, build_idx, total)
+                    pairs = DeviceBatch(lg.columns + rg.columns, total,
+                                        out_names)
+                    yield compact_batch(pairs, ok, ctx.conf)
             if jt in (J.LEFT_OUTER, J.FULL_OUTER):
-                yield self._with_null_right(pb, unmatched, ctx)
+                if go_thin and jt == J.LEFT_OUTER:
+                    # unmatched probe rows: the deferred right columns
+                    # keep a -1 (null) lane, the probe's lanes pass
+                    # through
+                    null_lane = torch.full((pb.capacity,), -1,
+                                           dtype=torch.int32,
+                                           device=pb.device)
+                    rcols = _null_columns(self.right.output_schema,
+                                          pb.capacity, pb.device)
+                    for j in defer_right:
+                        rcols[j] = placeholders[j]
+                    yield DeviceBatch(
+                        list(pb.columns) + rcols,
+                        unmatched.sum(dtype=torch.int32), out_names,
+                        unmatched,
+                        self._make_thin(pb.capacity, pb.thin, build_batch,
+                                        null_lane, defer_right, nleft))
+                else:
+                    yield self._with_null_right(pb, unmatched, ctx)
 
         if outer_build:
             padded = DeviceBatch(
@@ -596,6 +759,36 @@ class HashJoinExec(PlanNode):
                 list(build_batch.columns), build_batch.num_rows, out_names)
             yield compact_batch(padded, build_pre & ~build_matched,
                                 ctx.conf)
+
+    def _thin_pairs(self, pb: DeviceBatch, build_batch: DeviceBatch,
+                    probe_idx, build_idx, ok, total: int, out_cap: int,
+                    right_cols, defer_right, nleft: int) -> DeviceBatch:
+        """The expanded pairs as a thin batch: only the materialized
+        columns are gathered; the probe's lanes compose through
+        `probe_idx` (one int32 take a source) and the deferred right
+        columns ride the new build lane.  `ok` is its selection."""
+        from ..columnar.lanes import LaneSource
+        pend = pb.thin.pending if pb.thin is not None else {}
+        mat_l = [i for i in range(nleft) if i not in pend]
+        lg = iter(gather_batch(pb.select(mat_l), probe_idx, total).columns
+                  if mat_l else [])
+        minus_one = torch.full((), -1, dtype=torch.int32,
+                               device=probe_idx.device)
+        probe_sources = []
+        if pb.thin is not None:
+            safe = torch.clamp(probe_idx, 0, max(pb.capacity - 1, 0)).long()
+            for s in pb.thin.sources:
+                probe_sources.append(LaneSource(
+                    s.batch, torch.where(ok, s.lane[safe], minus_one)))
+        build_lane = torch.where(ok, build_idx.to(torch.int32), minus_one)
+        rcols = right_cols(build_lane, total)
+        left_cols = [pb.columns[i] if i in pend else next(lg)
+                     for i in range(nleft)]
+        thin = self._make_thin(out_cap, pb.thin, build_batch, build_lane,
+                               defer_right, nleft,
+                               probe_sources=probe_sources)
+        return DeviceBatch(left_cols + rcols, ok.sum(dtype=torch.int32),
+                           list(self.output_schema.names), ok, thin)
 
     def _empty_build_output(self, left_src, probe_conds,
                             ctx: ExecContext) -> Iterator[DeviceBatch]:
@@ -616,6 +809,9 @@ class HashJoinExec(PlanNode):
         for pb in probe_iter:
             if int(pb.num_rows) == 0:
                 continue
+            if pb.thin is not None and not self._thin_transparent():
+                from ..columnar.lanes import materialize_batch
+                pb = materialize_batch(pb, ctx.conf)
             if probe_conds:
                 pb = compact_batch(pb, conds_mask(
                     probe_conds, pb, pb.row_mask(), ctx.conf), ctx.conf)
@@ -623,7 +819,11 @@ class HashJoinExec(PlanNode):
             if self.join_type != J.LEFT_ANTI:
                 cols += _null_columns(self.right.output_schema, pb.capacity,
                                       pb.device)
-            yield DeviceBatch(cols, pb.num_rows, out_names)
+            out = DeviceBatch(cols, pb.num_rows, out_names, pb.sel, pb.thin)
+            # a selection vector and the probe's lanes pass through to a
+            # parent that takes them
+            yield out if self.lazy_sel or self._thin_transparent() \
+                else ensure_prefix(out, ctx.conf)
 
 
 class CrossJoinExec(PlanNode):

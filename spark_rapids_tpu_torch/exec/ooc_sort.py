@@ -67,6 +67,10 @@ class OutOfCoreSorter:
         return self._window_rows
 
     def add(self, db: DeviceBatch):
+        from ..ops.batch_ops import ensure_prefix
+        # runs slice and spill the lanes: a row prefix first
+        db = ensure_prefix(db, self.conf)
+        db.assert_prefix()
         n = int(db.num_rows)
         if n == 0:
             return

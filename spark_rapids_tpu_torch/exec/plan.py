@@ -48,7 +48,7 @@ from ..plan import expressions as E
 from ..plan.aggregates import AggregateFunction, Min
 from ..runtime.retry import retry_io
 from .aggregate import HashAggregate
-from .evaluator import compute_predicate, evaluate_projection
+from .evaluator import compute_predicate, evaluate_projection, project_batch
 
 
 class QueryDeadlineExceeded(RuntimeError):
@@ -241,12 +241,16 @@ class PlanNode:
 
 class HostScanExec(PlanNode):
     """Leaf: uploads host batches of at most `batch_rows` rows to the
-    device (HostColumnarToGpu role)."""
+    device (HostColumnarToGpu role).  The columns named in
+    `encoded_cols` (plan/overrides negotiate_encoded, under
+    `sql.encoded.narrow.lanes`) upload FOR-narrowed where a batch's live
+    values fit a narrower signed dtype (columnar/device.narrowed_lane)."""
 
     def __init__(self, table: HostBatch, batch_rows: int):
         super().__init__()
         self.table = table
         self.batch_rows = batch_rows
+        self.encoded_cols = None
 
     @property
     def output_schema(self) -> t.StructType:
@@ -262,12 +266,20 @@ class HostScanExec(PlanNode):
         return self.table.keys_unique(names)
 
     def execute(self, ctx: ExecContext) -> Iterator[DeviceBatch]:
+        from ..columnar.device import narrowed_lane
         n = self.table.num_rows
+        enc = [(i, name) for i, name in enumerate(self.table.names)
+               if self.encoded_cols is not None and
+               name in self.encoded_cols]
         for off in range(0, max(n, 1), self.batch_rows):
-            hb = self.table.slice(off, min(self.batch_rows, n - off))
+            rows = min(self.batch_rows, n - off)
+            hb = self.table.slice(off, rows)
+            narrowed = {i: lane for i, lane in (
+                (i, narrowed_lane(self.table, name, off, rows))
+                for i, name in enc) if lane is not None}
             yield retry_io(ctx.conf, "h2d",
-                           lambda: to_device(hb, ctx.conf,
-                                             device=ctx.device))
+                           lambda: to_device(hb, ctx.conf, device=ctx.device,
+                                             narrowed=narrowed))
 
 
 class ProjectExec(PlanNode):
@@ -301,13 +313,16 @@ class ProjectExec(PlanNode):
 
     def execute(self, ctx: ExecContext) -> Iterator[DeviceBatch]:
         for db in self.child.execute(ctx):
-            yield evaluate_projection(self.exprs, self.names, db, ctx.conf)
+            yield project_batch(self.exprs, self.names, db, ctx.conf)
 
 
 class FilterExec(PlanNode):
     """GpuFilterExec: the predicate as a keep mask, then a stable mask
     compaction (ops/filter.compact_batch).  An aggregate or a join right
-    above peels it into its own masks instead, and nothing compacts."""
+    above peels it into its own masks instead, and nothing compacts.  A
+    thin input (columnar/lanes.py) materializes the deferred columns the
+    predicate reads, and the mask becomes its selection vector: the
+    lanes stay live to the pipeline's sink."""
 
     def __init__(self, condition: E.Expression, child: PlanNode):
         super().__init__(child)
@@ -326,7 +341,15 @@ class FilterExec(PlanNode):
     def execute(self, ctx: ExecContext) -> Iterator[DeviceBatch]:
         from ..ops.filter import compact_batch
         for db in self.child.execute(ctx):
+            if db.thin is not None:
+                from ..columnar.lanes import materialize_refs
+                db = materialize_refs(db, [self.condition], ctx.conf)
             keep = compute_predicate(self.condition, db, ctx.conf)
+            if db.thin is not None:
+                yield DeviceBatch(list(db.columns),
+                                  keep.sum(dtype=torch.int32),
+                                  list(db.names), keep, db.thin)
+                continue
             # lazy row count: downstream device ops run sync-free
             yield compact_batch(db, keep, ctx.conf)
 
@@ -441,6 +464,10 @@ class HashAggregateExec(PlanNode):
         for db in source.execute(ctx):
             if isinstance(db.num_rows, int) and db.num_rows == 0:
                 continue
+            # a sink of thin join output: the deferred columns the keys,
+            # inputs and fused filters read materialize here; a selection
+            # vector is the group-by's live mask (`row_mask`)
+            db = agg.materialize_inputs(db, conds)
             p = agg.partial_fused(db, conds)
             if oocagg is not None:
                 oocagg.add(p)
@@ -497,7 +524,8 @@ class HashAggregateExec(PlanNode):
         ctx = ctx or ExecContext()
         agg = self._aggregate(ctx)
         source, conds = peel_filters(self.child)
-        raw = [agg.partial_fused(db, conds, raw=True)
+        raw = [agg.partial_fused(agg.materialize_inputs(db, conds), conds,
+                                 raw=True)
                for db in source.execute(ctx)
                if not (isinstance(db.num_rows, int) and db.num_rows == 0)]
         if not raw:
@@ -665,10 +693,13 @@ class LimitExec(PlanNode):
         return self.child.keys_unique(names)   # prefix of rows
 
     def execute(self, ctx: ExecContext) -> Iterator[DeviceBatch]:
+        from ..ops.batch_ops import ensure_prefix
         remaining = self.limit
         for db in self.child.execute(ctx):
             if remaining <= 0:
                 return
+            db = ensure_prefix(db, ctx.conf)     # a limit cuts a prefix
+            db.assert_prefix()
             n = int(db.num_rows)
             if n == 0:
                 continue
@@ -748,9 +779,11 @@ class UnionExec(PlanNode):
         return (min(r[0] for r in rngs), max(r[1] for r in rngs))
 
     def execute(self, ctx: ExecContext) -> Iterator[DeviceBatch]:
+        from ..ops.batch_ops import ensure_prefix
         names = list(self.output_schema.names)
         for c in self.children:
             for db in c.execute(ctx):
+                db = ensure_prefix(db, ctx.conf)
                 yield DeviceBatch(db.columns, db.num_rows, names)
 
 
@@ -771,7 +804,10 @@ class ExpandExec(PlanNode):
                              zip(self.names, self.projections[0])])
 
     def execute(self, ctx: ExecContext) -> Iterator[DeviceBatch]:
+        from ..ops.batch_ops import ensure_prefix
         for db in self.child.execute(ctx):
+            # a sink of thin join output: one resolve for every projection
+            db = ensure_prefix(db, ctx.conf)
             for proj in self.projections:
                 yield evaluate_projection(proj, self.names, db, ctx.conf)
 

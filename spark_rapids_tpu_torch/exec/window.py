@@ -73,8 +73,7 @@ class WindowExec(PlanNode):
                    if int(db.num_rows) > 0]
         if not batches:
             return
-        db = batches[0] if len(batches) == 1 \
-            else concat_batches(batches, ctx.conf)
+        db = concat_batches(batches, ctx.conf)
         del batches
         child_names = list(db.names)
         n_child = len(child_names)

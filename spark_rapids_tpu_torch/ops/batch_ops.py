@@ -7,6 +7,10 @@ them on the host (numpy) and remaps the codes on the device with one
 gather per column, unless every batch carries the same sorted
 dictionary (the batches of one scan), whose codes already agree.
 
+A batch with a selection vector or deferred columns (DeviceBatch `sel`,
+`thin`) becomes a row prefix in `ensure_prefix`, which concat and the
+shrinks call on entry and then assert (`DeviceBatch.assert_prefix`).
+
 `concat_batches` reads every row count that is still a device scalar
 (one sync each) and concatenates the live prefixes tightly, where the
 reference's lazy concat keeps whole capacities: a join's build side is
@@ -20,7 +24,8 @@ import numpy as np
 import torch
 
 from .. import types as t
-from ..columnar.device import DeviceBatch, DeviceColumn, bucket_capacity
+from ..columnar.device import (DeviceBatch, DeviceColumn, NarrowColumn,
+                               bucket_capacity)
 from ..config import DEFAULT_CONF, TpuConf
 
 
@@ -101,11 +106,30 @@ def _shared_dictionary(cols: Sequence[DeviceColumn]
     return d if len(d) <= 1 or bool(np.all(d[:-1] < d[1:])) else None
 
 
+def ensure_prefix(db: DeviceBatch, conf: TpuConf = DEFAULT_CONF
+                  ) -> DeviceBatch:
+    """The batch in the dense front-prefix form every slicing, concat
+    and fetch path assumes: a lazy selection vector compacts
+    (`compact_batch`, which resolves deferred columns in the same pass,
+    columnar/lanes.compact_thin) and deferred columns alone materialize
+    (`lanes.materialize_batch`)."""
+    if db.sel is None:
+        if db.thin is None:
+            return db
+        from ..columnar.lanes import materialize_batch
+        return materialize_batch(db, conf)
+    from .filter import compact_batch
+    return compact_batch(db, db.sel, conf)
+
+
 def concat_batches(batches: List[DeviceBatch],
                    conf: TpuConf = DEFAULT_CONF) -> DeviceBatch:
     """Concatenate same-schema device batches into one bucketed batch
     (live prefixes back to back, padding after)."""
     assert batches, "concat of zero batches"
+    batches = [ensure_prefix(b, conf) for b in batches]
+    for b in batches:
+        b.assert_prefix()
     if len(batches) == 1:
         return batches[0]
     counts = [int(b.num_rows) for b in batches]
@@ -125,7 +149,15 @@ def concat_batches(batches: List[DeviceBatch],
                     [c.dictionary for c in cols])
                 cols = [remap_string_column(c, r, unified)
                         for c, r in zip(cols, remaps)]
-        data = [c.data[:n] for c, n in zip(cols, counts)]
+        # FOR-narrowed parts stay narrow, at the widest of their lanes
+        narrow = all(isinstance(c, NarrowColumn) for c in cols)
+        if narrow:
+            lane_dt = cols[0].lane.dtype
+            for c in cols[1:]:
+                lane_dt = torch.promote_types(lane_dt, c.lane.dtype)
+            data = [c.lane[:n].to(lane_dt) for c, n in zip(cols, counts)]
+        else:
+            data = [c.data[:n] for c, n in zip(cols, counts)]
         valid = [c.validity[:n] for c, n in zip(cols, counts)]
         hi = None
         if any(c.hi is not None for c in cols):
@@ -139,6 +171,10 @@ def concat_batches(batches: List[DeviceBatch],
         ranges = [c.value_range for c in cols]
         rng = None if any(r is None for r in ranges) else (
             min(r[0] for r in ranges), max(r[1] for r in ranges))
+        if narrow:
+            out_cols.append(NarrowColumn(torch.cat(data), torch.cat(valid),
+                                         dt, unified, rng))
+            continue
         out_cols.append(DeviceColumn(torch.cat(data), torch.cat(valid), dt,
                                      unified, rng,
                                      None if hi is None else torch.cat(hi)))
@@ -150,12 +186,13 @@ def shrink_to_capacity(db: DeviceBatch, row_bound: int,
     """Slice the lanes down to the bucket fitting `row_bound` WITHOUT
     reading a lazy `num_rows`: sound when the caller bounds the live
     rows statically (LIMIT n), since live rows are a prefix."""
+    db = ensure_prefix(db, conf)
+    db.assert_prefix()
     cap = bucket_capacity(max(row_bound, 1), conf)
     if cap >= db.capacity:
         return db
-    cols = [DeviceColumn(c.data[:cap], c.validity[:cap], c.dtype,
-                         c.dictionary, c.value_range,
-                         None if c.hi is None else c.hi[:cap])
+    cols = [c.rebuilt(c.stored[:cap], c.validity[:cap],
+                      None if c.hi is None else c.hi[:cap], c.value_range)
             for c in db.columns]
     return DeviceBatch(cols, db.num_rows, db.names)
 
@@ -167,11 +204,13 @@ def shrink_to_rows(db: DeviceBatch, num_rows: int,
     kept rows are copied, so the full-capacity lanes they came from are
     freed: a group-by's partial of a few groups must not hold its
     capacity-sized outputs alive until the merge."""
+    db = ensure_prefix(db, conf)
+    db.assert_prefix()
     cap = bucket_capacity(max(num_rows, 1), conf)
     if cap >= db.capacity:
         return DeviceBatch(db.columns, num_rows, db.names)
-    cols = [DeviceColumn(c.data[:cap].clone(), c.validity[:cap].clone(),
-                         c.dtype, c.dictionary, c.value_range,
-                         None if c.hi is None else c.hi[:cap].clone())
+    cols = [c.rebuilt(c.stored[:cap].clone(), c.validity[:cap].clone(),
+                      None if c.hi is None else c.hi[:cap].clone(),
+                      c.value_range)
             for c in db.columns]
     return DeviceBatch(cols, num_rows, db.names)

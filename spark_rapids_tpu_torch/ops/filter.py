@@ -18,8 +18,11 @@ Counterpart of spark_rapids_tpu/ops/filter.py (GpuFilterExec's
     a TPU gather pays per row; a CUDA gather pays per byte, so here each
     lane is gathered on its own.
 
-The reference's thin (late-materialized) batches port with Queue 1
-item 4.
+A thin batch (columnar/lanes.py, `sql.join.lateMaterialization.enabled`)
+compacts through `lanes.compact_thin`: its deferred columns are gathered
+once, from their sources straight into compacted position.  A batch with
+a selection vector compacts like any other: its keep-mask must lie
+inside the selection (`DeviceBatch.row_mask`).
 """
 from __future__ import annotations
 
@@ -27,7 +30,7 @@ from typing import List, Optional
 
 import torch
 
-from ..columnar.device import DeviceBatch, DeviceColumn
+from ..columnar.device import DeviceBatch
 from ..config import DEFAULT_CONF, TpuConf
 from .kernels import live_mask
 
@@ -58,29 +61,42 @@ def take_keys_valid(keys, keys_valid, extra, idx):
     return moved[:nk], out_kv, moved[nk + len(kv):]
 
 
+def keep_order(keep: torch.Tensor, conf: TpuConf = DEFAULT_CONF):
+    """(the stable order that brings the kept rows to the front, the kept
+    count as a 0-d tensor): the compaction kernel where ops/hopper
+    elects it for this capacity, else the portable tier."""
+    from .hopper import compact, elect_compact
+    if elect_compact(conf, keep.shape[0]) is None:
+        return compaction_order(keep)
+    return compact.compaction_order(keep.contiguous())
+
+
 def compact_batch(db: DeviceBatch, keep: torch.Tensor,
                   conf: TpuConf = DEFAULT_CONF,
                   sync: bool = False) -> DeviceBatch:
-    """Keep the rows where `keep` is True (padding rows must already be
-    False).  The surviving count stays on the device (`num_rows` a 0-d
-    tensor) so a filter feeding another device operator costs no host
-    round trip; `sync=True` reads it and re-buckets down."""
+    """Keep the rows where `keep` is True (padding rows, and rows outside
+    a selection vector, must already be False).  The surviving count
+    stays on the device (`num_rows` a 0-d tensor) so a filter feeding
+    another device operator costs no host round trip; `sync=True` reads
+    it and re-buckets down."""
     from .batch_ops import shrink_to_rows
-    from .hopper import compact, elect_compact
-    if elect_compact(conf, db.capacity) is None:
-        order, count = compaction_order(keep)
-    else:
-        order, count = compact.compaction_order(keep.contiguous())
+    if db.thin is not None:
+        from ..columnar.lanes import compact_thin
+        out = compact_thin(db, keep, conf)
+        if not sync:
+            return out
+        return shrink_to_rows(out, int(out.num_rows), conf)
+    order, count = keep_order(keep, conf)
     live = live_mask(db.capacity, count, db.device)
     lanes = []
     for c in db.columns:
-        lanes += [c.data, c.validity] + ([] if c.hi is None else [c.hi])
+        lanes += [c.stored, c.validity] + ([] if c.hi is None else [c.hi])
     moved = iter(grouped_take(lanes, order))
     cols = []
     for c in db.columns:
         data, valid = next(moved), next(moved)
-        cols.append(DeviceColumn(data, valid & live, c.dtype, c.dictionary,
-                                 None, None if c.hi is None else next(moved)))
+        cols.append(c.rebuilt(data, valid & live,
+                              None if c.hi is None else next(moved)))
     out = DeviceBatch(cols, count, list(db.names))
     if not sync:
         return out

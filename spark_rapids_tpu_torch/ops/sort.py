@@ -46,11 +46,18 @@ def dictionary_ranks(dictionary: Optional[np.ndarray]) -> np.ndarray:
     return ranks
 
 
-def order_lanes(col: DeviceColumn, asc: bool, nulls_first: bool
-                ) -> List[Tuple[torch.Tensor, bool]]:
+def order_lanes(col: DeviceColumn, asc: bool, nulls_first: bool,
+                policy=None) -> List[Tuple[torch.Tensor, bool]]:
     """(lane, descending) pairs, most significant first, for one key.
     Every value lane is zero under the null lane, so null rows tie on
-    this key whatever their storage holds (Spark: nulls are equal)."""
+    this key whatever their storage holds (Spark: nulls are equal).  A
+    string orders by its codes where they are ranks (an ordered
+    dictionary) and the encoded policy (ops/encodings.EncodingPolicy)
+    has `dict.sortOnScan`: the `sort_codes` dispatch; else by a rank
+    table gathered by code (a decode)."""
+    from .encodings import count_decode, count_dispatch, is_ordered_dict
+    enabled = policy is not None and policy.enabled
+    codes_ok = enabled and policy.dict_sort_scan
     data = col.data
     valid = col.validity
     null = torch.where(valid, torch.ones_like(valid, dtype=torch.int8),
@@ -58,9 +65,13 @@ def order_lanes(col: DeviceColumn, asc: bool, nulls_first: bool
     null_lane = (null if nulls_first else 1 - null, False)
     if isinstance(col.dtype, t.StringType):
         d = col.dictionary
-        if d is not None and len(d) > 1 and not bool(np.all(d[:-1] < d[1:])):
+        if codes_ok and is_ordered_dict(d):
+            count_dispatch("sort_codes")
+        elif d is not None and len(d) > 1:
             ranks = torch.from_numpy(dictionary_ranks(d)).to(data.device)
             data = ranks[torch.clamp(data, 0, len(d) - 1).to(torch.int64)]
+            if enabled:
+                count_decode("sort", data.numel() * 4)
         return [null_lane, (torch.where(valid, data, torch.zeros_like(data)),
                             not asc)]
     if data.dtype.is_floating_point:
@@ -88,11 +99,13 @@ def sort_permutation(db: DeviceBatch, keys: Sequence[SortKey],
                      conf: TpuConf = DEFAULT_CONF) -> torch.Tensor:
     """int64 permutation putting live rows in key order, padding last."""
     # most significant first: liveness, then each key's lanes
+    from .encodings import encoding_policy
+    pol = encoding_policy(conf)
     lanes: List[Tuple[torch.Tensor, bool]] = [
         ((~db.row_mask()).to(torch.int8), False)]
     for k in keys:
         lanes.extend(order_lanes(db.columns[k.col_index], k.ascending,
-                                 k.nulls_first))
+                                 k.nulls_first, pol))
     perm = torch.arange(db.capacity, device=db.device)
     for lane, desc in reversed(lanes):
         step = torch.sort(lane[perm], stable=True, descending=desc).indices
@@ -108,5 +121,9 @@ def permute_batch(db: DeviceBatch, perm: torch.Tensor) -> DeviceBatch:
 
 def sort_batch(db: DeviceBatch, keys: Sequence[SortKey],
                conf: TpuConf = DEFAULT_CONF) -> DeviceBatch:
-    """Fully sort one device batch by the given keys."""
+    """Fully sort one device batch by the given keys (a sink of a thin or
+    masked join output: it resolves to a row prefix first)."""
+    from .batch_ops import ensure_prefix
+    db = ensure_prefix(db, conf)
+    db.assert_prefix()
     return permute_batch(db, sort_permutation(db, keys, conf))

@@ -159,18 +159,38 @@ class DevVal:
     (lo, hi) bound of its valid integer values where the expression knows
     one: a cast of a string parses a whole dictionary, so the group-by
     can pack such a key as it packs a scanned column) (+ the high word
-    of a DECIMAL wider than 18 digits, `hi`: see `narrow_dev`)."""
+    of a DECIMAL wider than 18 digits, `hi`: see `narrow_dev`).
+
+    `narrow` is a FOR-narrowed lane of the same values in a narrower
+    signed dtype (ops/encodings.py): a scan column's (NarrowColumn) or a
+    narrow sum, difference or product's.  The rule every expression
+    obeys: `data` is the lane widened to the compute dtype, made when it
+    is first read (`widen`, else a plain cast), so no expression sees a
+    narrow dtype unless it asks for `narrow`.  Only the guarded sites
+    read `narrow`: comparisons (`encodings.narrow_compare`), IN, and
+    arithmetic between two narrow lanes at its exact width.  PyTorch
+    needs the rule: a Python scalar or a 0-d tensor never promotes a
+    narrow lane, and an out-of-range value wraps silently."""
 
     def __init__(self, data, validity, dtype: t.DataType,
                  dictionary: Optional[np.ndarray] = None,
                  value_range: Optional[Tuple[int, int]] = None,
-                 hi=None):
-        self.data = data
+                 hi=None, narrow=None, widen=None):
+        self._data = data
         self.validity = validity
         self.dtype = dtype
         self.dictionary = dictionary
         self.value_range = value_range
         self.hi = hi
+        self.narrow = narrow
+        self._widen = widen
+
+    @property
+    def data(self) -> torch.Tensor:
+        if self._data is None and self.narrow is not None:
+            self._data = self._widen() if self._widen is not None \
+                else self.narrow.to(compute_dtype(self.dtype))
+        return self._data
 
 
 def narrow_dev(v: DevVal, consumer: str) -> DevVal:
@@ -464,6 +484,11 @@ def consumes_wide_host(e: Expression) -> bool:
         isinstance(inner.dtype, t.DecimalType) and inner.dtype.is_wide
 
 
+def _integral(dt: t.DataType) -> bool:
+    return isinstance(dt, (t.ByteType, t.ShortType, t.IntegerType,
+                           t.LongType))
+
+
 def _is_decimal_op(da: t.DataType, db: t.DataType) -> bool:
     return isinstance(da, t.DecimalType) or isinstance(db, t.DecimalType)
 
@@ -590,6 +615,21 @@ class BinaryArithmetic(Expression):
                                            self.dtype)
             return DevVal(data, merge_validity(l.validity, r.validity, ok),
                           self.dtype)
+        op = {"+": "add", "-": "add", "*": "mul"}.get(self.symbol)
+        if l.narrow is not None and r.narrow is not None and \
+                op is not None and _integral(l.dtype) and \
+                _integral(r.dtype) and _integral(self.dtype):
+            # two FOR-narrowed operands: compute at the exact width of the
+            # result (ops/encodings.exact_arith_dtype), which cannot wrap;
+            # the logical dtype only where that width needs it
+            from ..ops.encodings import count_dispatch, exact_arith_dtype
+            adt = exact_arith_dtype(l.narrow.dtype, r.narrow.dtype, op,
+                                    compute_dtype(self.dtype))
+            if adt is not None:
+                data, _ = self._op_dev(l.narrow.to(adt), r.narrow.to(adt))
+                count_dispatch("arith_narrow")
+                return DevVal(None, merge_validity(l.validity, r.validity),
+                              self.dtype, narrow=data)
         ld = _cast_dev(l.data, l.dtype, self.dtype)
         rd = _cast_dev(r.data, r.dtype, self.dtype)
         data, extra_valid = self._op_dev(ld, rd)
@@ -756,13 +796,15 @@ class BinaryComparison(Expression):
         return []
 
     def _string_op_dev(self, ctx, kids) -> DevVal:
-        """String comparisons in code space.  = / != against a literal:
-        the literal's code in the column's dictionary (a literal the
-        dictionary lacks matches no row); < <= > >= against a literal:
-        `_string_order_dev`.  = / != between two string values: both
-        sides' codes remapped into one unified dictionary, as the
-        reference's `_prepare_string` does.  Nulls on either side give
-        null."""
+        """String comparisons against a literal (ops/encodings.py).
+        = / !=: the literal's code in the column's duplicate-free
+        dictionary (`literal_code`; one the dictionary lacks matches no
+        row), else the decode rung, a per-entry match table gathered by
+        code.  < <= > >=: `_string_order_dev`.  = / != between two
+        string values: both sides' codes remapped into one unified
+        dictionary, as the reference's `_prepare_string` does.  Nulls on
+        either side give null."""
+        from ..ops import encodings as ENC
         lit_i = self._string_literal_side()
         if lit_i is None:
             return self._string_pair_dev(ctx, kids)
@@ -774,38 +816,44 @@ class BinaryComparison(Expression):
         d = dict_or_empty(col.dictionary)
         if isinstance(self, (LessThan, LessThanOrEqual, GreaterThan,
                              GreaterThanOrEqual)):
-            return self._string_order_dev(col, d, value, lit_i)
-        if len(d) > 1 and not bool(np.all(d[:-1] < d[1:])):
-            # a dictionary with repeats: value equality per code
-            hit = torch.from_numpy(d == value).to(col.data.device)
-            eq = hit[torch.clamp(col.data, 0, len(d) - 1).long()]
+            return self._string_order_dev(ctx, col, d, value, lit_i)
+        pol = ENC.encoding_policy(ctx.conf)
+        if pol.enabled and pol.dict_predicates and \
+                ENC.is_unique_dict(d) and \
+                ENC.elect_encoded(ctx.conf, "predicate_code"):
+            eq = col.data == ENC.literal_code(d, value)
         else:
-            pos = int(np.searchsorted(d, value))
-            code = pos if pos < len(d) and d[pos] == value else -1
-            eq = col.data == code
+            if pol.enabled:
+                ENC.count_decode("predicate_code", ctx.capacity)
+            eq = _remap_codes(col.data, d == value if len(d)
+                              else np.zeros(1, bool))
         return DevVal(~eq if isinstance(self, NotEqual) else eq,
                       col.validity, t.BOOLEAN)
 
-    def _string_order_dev(self, col: DevVal, d: np.ndarray, value: str,
+    def _string_order_dev(self, ctx, col: DevVal, d: np.ndarray, value: str,
                           lit_i: int) -> DevVal:
         """col OP literal, ordered as Spark orders strings (by UTF-8
-        bytes, which is code-point order, numpy's).  Over a sorted
-        duplicate-free dictionary the literal's insertion points bound
-        the codes: col < v iff code < #(entries < v), col <= v iff code <
-        #(entries <= v).  Over any other dictionary a per-entry mask is
-        gathered by code."""
+        bytes, which is code-point order, numpy's).  The literal's
+        counts bound the ranks: col < v iff rank < #(entries < v), col <=
+        v iff rank < #(entries <= v) (`encodings.rank_bounds`).  Over an
+        ordered dictionary the codes are the ranks; over any other, or
+        with `dict.predicates=OFF`, the decode rung gathers a rank table
+        by code."""
+        from ..ops import encodings as ENC
         sym = self.symbol if lit_i == 1 else \
             {"<": ">", "<=": ">=", ">": "<", ">=": "<="}[self.symbol]
-        if len(d) <= 1 or bool(np.all(d[:-1] < d[1:])):
-            less = int(np.searchsorted(d, value, side="left"))
-            leq = int(np.searchsorted(d, value, side="right"))
-            code = col.data
-            out = {"<": code < less, "<=": code < leq, ">": code >= leq,
-                   ">=": code >= less}[sym]
+        less, leq = ENC.rank_bounds(d, value)
+        pol = ENC.encoding_policy(ctx.conf)
+        if pol.enabled and pol.dict_predicates and \
+                ENC.is_ordered_dict(d) and \
+                ENC.elect_encoded(ctx.conf, "predicate_range"):
+            rank = col.data
         else:
-            mask = {"<": d < value, "<=": d <= value, ">": d > value,
-                    ">=": d >= value}[sym]
-            out = _remap_codes(col.data, mask)
+            if pol.enabled:
+                ENC.count_decode("predicate_range", ctx.capacity * 4)
+            rank = _remap_codes(col.data, ENC.rank_table(d))
+        out = {"<": rank < less, "<=": rank < leq, ">": rank >= leq,
+               ">=": rank >= less}[sym]
         return DevVal(out, col.validity, t.BOOLEAN)
 
     def _string_pair_dev(self, ctx, kids) -> DevVal:
@@ -841,11 +889,53 @@ class BinaryComparison(Expression):
             rd, ok_b = D.rescale(r.data.to(torch.int64), sb, common.scale)
             extra = ok_a & ok_b
         else:
+            narrow = self._narrow_op_dev(kids, common)
+            if narrow is not None:
+                return DevVal(narrow, merge_validity(l.validity,
+                                                     r.validity), t.BOOLEAN)
             ld = _cast_dev(l.data, l.dtype, common)
             rd = _cast_dev(r.data, r.dtype, common)
         return DevVal(self._op_dev(ld, rd),
                       merge_validity(l.validity, r.validity, extra),
                       t.BOOLEAN)
+
+    def _narrow_op_dev(self, kids, common) -> Optional[torch.Tensor]:
+        """A comparison on FOR-narrowed lanes (ops/encodings.py): two
+        narrow lanes compare in their common narrow dtype; a narrow lane
+        against a full-width integer lane (a literal's) by
+        `narrow_compare`, whose range guards answer where the wide value
+        lies outside the narrow dtype.  None: the full-width path."""
+        l, r = kids
+        if l.narrow is None and r.narrow is None:
+            return None
+        # the narrow lanes hold their own type's values: an integral type
+        # widens to `common` unchanged, a DATE or TIMESTAMP only to itself
+        for k in (l, r):
+            if k.narrow is not None and not (
+                    _integral(k.dtype) and _integral(common) or
+                    k.dtype == common and isinstance(
+                        common, (t.DateType, t.TimestampType))):
+                return None
+        from ..ops.encodings import (common_narrow_dtype, count_dispatch,
+                                     narrow_compare)
+        if l.narrow is not None and r.narrow is not None:
+            cdt = common_narrow_dtype(l.narrow.dtype, r.narrow.dtype)
+            if cdt is None:
+                return None
+            count_dispatch("predicate_narrow")
+            return self._op_dev(l.narrow.to(cdt), r.narrow.to(cdt))
+        nar, wide = (l, r) if l.narrow is not None else (r, l)
+        sym = self.symbol
+        if nar is r:
+            sym = {"=": "=", "!=": "!=", "<": ">", "<=": ">=",
+                   ">": "<", ">=": "<="}.get(sym)
+        if sym not in ("=", "!=", "<", "<=", ">", ">="):
+            return None
+        wd = _cast_dev(wide.data, wide.dtype, common)
+        if wd.dtype.is_floating_point or wd.dtype == torch.bool:
+            return None
+        count_dispatch("predicate_narrow")
+        return narrow_compare(sym, nar.narrow, wd)
 
     def _eval_cpu(self, batch, kids):
         l, r = kids
@@ -1229,8 +1319,13 @@ class CaseWhen(Expression):
 class In(Expression):
     """value IN (literals...), with Spark's null semantics: a null value
     gives null, and so does no match when the list holds a null.  A
-    string value tests its code against a membership mask over its
-    dictionary."""
+    string value over a duplicate-free dictionary compares its code with
+    each item's (`encodings.literal_code`) when the list has at most
+    `encoded.dict.inMaxCodes` items, else it gathers a membership mask
+    over its dictionary by code.  A FOR-narrowed integer value compares
+    its narrow lane with each item through `encodings.narrow_compare`;
+    any other compares its lane with each item as a tensor of the lane's
+    dtype."""
 
     def __init__(self, value: Expression, items):
         self.items = tuple(items)
@@ -1244,16 +1339,39 @@ class In(Expression):
         non_null = [x for x in self.items if x is not None]
         has_null_item = len(non_null) < len(self.items)
         if isinstance(self.children[0].dtype, t.StringType):
+            from ..ops import encodings as ENC
             d = v.dictionary if v.dictionary is not None \
                 else np.array([], str)
-            mask = np.isin(d, np.array(non_null, str)) if len(d) \
-                else np.zeros(1, bool)
-            data = _remap_codes(v.data, mask)
+            pol = ENC.encoding_policy(ctx.conf)
+            if pol.enabled and pol.dict_predicates and \
+                    len(non_null) <= pol.in_max_codes and \
+                    ENC.is_unique_dict(d) and \
+                    ENC.elect_encoded(ctx.conf, "in_codes"):
+                data = ctx.full(False, torch.bool)
+                for code in sorted({ENC.literal_code(d, x)
+                                    for x in non_null}):
+                    data = data | (v.data == code)
+            else:
+                mask = np.isin(d, np.array(non_null, str)) if len(d) \
+                    else np.zeros(1, bool)
+                if pol.enabled:
+                    ENC.count_decode("in_codes", ctx.capacity)
+                data = _remap_codes(v.data, mask)
         else:
             data = ctx.full(False, torch.bool)
+            # each item a tensor of the (widened) lane's dtype, never a
+            # Python scalar against a narrow lane, which would not promote
+            wide = compute_dtype(self.children[0].dtype) \
+                if v.narrow is not None else v.data.dtype
             for x in non_null:
-                data = data | (v.data == torch.tensor(
-                    x, dtype=v.data.dtype, device=ctx.device))
+                item = torch.tensor(x, dtype=wide, device=ctx.device)
+                if v.narrow is not None:
+                    from ..ops.encodings import (count_dispatch,
+                                                 narrow_compare)
+                    count_dispatch("in_narrow")
+                    data = data | narrow_compare("=", v.narrow, item)
+                else:
+                    data = data | (v.data == item)
         vv = valid_or_true(v.validity, ctx.capacity, ctx.device)
         valid = vv & data if has_null_item else vv
         return DevVal(data & vv, valid, t.BOOLEAN)

@@ -37,12 +37,16 @@ reference.  A union's children keep their whole outputs (they align by
 position); an expand keeps the output positions its parent reads, and a
 window the columns its parent, its keys and its inputs read.  The
 reference sends left semi joins through the adaptive join for its
-bloom-filter stage; the port keeps that plan shape, but with
-`runtimeFilter` resolved off (ops/bloom.py ports later) the route only
-materializes the probe side before the same HashJoinExec, at a higher
-peak memory.  Column pruning rewrites an inner join whose one side gives
-no output column and has unique keys into a left semi join of the other
-side, as the reference does.
+bloom-filter stage, and so does the port (exec/adaptive.py).  Column
+pruning rewrites an inner join whose one side gives no output column and
+has unique keys into a left semi join of the other side, as the
+reference does.
+
+A device plan then takes the reference's post-passes: the aggregate-twin
+CSE (`dedupe_agg_twins`), and under their keys `negotiate_lazy_sel`
+(joins whose parent reads a selection vector), `negotiate_thin` (joins
+whose consumers up to a sink take thin batches) and `negotiate_encoded`
+(scans whose consumers take FOR-narrowed lanes).
 """
 from __future__ import annotations
 
@@ -793,8 +797,135 @@ def apply_overrides(plan: L.LogicalPlan, conf: TpuConf = DEFAULT_CONF,
                 log.info(line)
     kind, root = meta.convert()
     if kind == "device":
+        from ..config import JOIN_LATE_MATERIALIZATION, JOIN_LAZY_SELECTION
         dedupe_agg_twins(root)
+        if conf.get(JOIN_LAZY_SELECTION):
+            negotiate_lazy_sel(root)
+        if conf.get(JOIN_LATE_MATERIALIZATION):
+            negotiate_thin(root)
+        from ..ops.encodings import encoding_policy
+        if encoding_policy(conf).narrow_lanes:
+            negotiate_encoded(root)
     return PhysicalQuery(meta, kind, root, conf, device)
+
+
+# ---------------------------------------------------------------------------
+# Selection vectors and thin batches (exec/join.py, columnar/lanes.py)
+# ---------------------------------------------------------------------------
+
+def negotiate_lazy_sel(root: PlanNode) -> None:
+    """Mark the joins whose parent reads liveness as a mask (the
+    reference's `_negotiate_lazy_sel`, `sql.join.lazySelection`): an
+    aggregation folds a selection vector into its live lane, a parent
+    join into its probe liveness, and filters and projections in between
+    pass it on.  A marked join emits `DeviceBatch.sel` instead of
+    compacting its output."""
+    from ..exec.adaptive import AdaptiveShuffledJoinExec
+    from ..exec.join import HashJoinExec
+    joins = (HashJoinExec, AdaptiveShuffledJoinExec)
+
+    def producer(node):
+        while isinstance(node, (FilterExec, ProjectExec)):
+            node = node.child
+        return node if isinstance(node, joins) else None
+
+    seen = set()
+
+    def walk(node):
+        if id(node) in seen:
+            return
+        seen.add(id(node))
+        if isinstance(node, HashAggregateExec):
+            p = producer(node.child)
+        elif isinstance(node, joins):
+            p = producer(node.left)             # the probe side only
+        else:
+            p = None
+        if p is not None:
+            p.lazy_sel = True
+        for c in node.children:
+            walk(c)
+
+    walk(root)
+
+
+def negotiate_thin(root: PlanNode) -> None:
+    """The legality pass of late materialization (the reference's
+    `_negotiate_thin`, `sql.join.lateMaterialization.enabled`): mark
+    every equi-join whose consumers, through the thin-transparent
+    operators (a projection passes deferred references through, a filter
+    composes its mask into the selection vector), end in a sink that
+    resolves deferred columns with composed gathers: an aggregation, a
+    sort, top-N, a limit, a coalesce, COUNT(DISTINCT), an expand, or
+    another join (both of whose sides take thin input).  A marked join
+    emits thin batches.  The reference's exchange and collect sinks are
+    not in the port yet (ROADMAP Queue 1 items 7 and 9).  A join under
+    any other node stays dense: windows, unions, samples, the CPU
+    transitions, and the root, whose result fetch the caller may take
+    batch by batch."""
+    from ..exec.adaptive import AdaptiveShuffledJoinExec
+    from ..exec.distinct import DistinctAggregateExec
+    from ..exec.join import HashJoinExec
+    from ..exec.plan import CoalesceBatchesExec
+    joins = (HashJoinExec, AdaptiveShuffledJoinExec)
+    transparent = (ProjectExec, FilterExec)
+    sinks = (HashAggregateExec, SortExec, TopNExec, CoalesceBatchesExec,
+             LimitExec, DistinctAggregateExec, ExpandExec)
+    allowed: dict = {}            # id(join) -> AND over its consumers
+    found: dict = {}
+
+    def walk(node, thin_ok: bool):
+        if isinstance(node, joins):
+            allowed[id(node)] = allowed.get(id(node), True) and thin_ok
+            found[id(node)] = node
+            for c in node.children:
+                walk(c, True)
+        elif isinstance(node, transparent):
+            walk(node.child, thin_ok)
+        else:
+            for c in node.children:
+                walk(c, isinstance(node, sinks))
+
+    walk(root, False)
+    for nid, node in found.items():
+        if allowed[nid]:
+            node.thin_payload = frozenset(node.output_schema.names)
+
+
+def negotiate_encoded(root: PlanNode) -> None:
+    """The legality pass of FOR-narrowed scan uploads (the reference's
+    `_negotiate_encoded`, `sql.encoded.narrow.lanes`): a scan's columns
+    upload narrowed while every consumer up the chain is one of the
+    operators below, which either compute on narrow lanes (comparisons
+    and arithmetic, plan/expressions.py) or read them widened
+    (`NarrowColumn.data`).  A scan under any other node (a window, the
+    CPU transitions) keeps full-width lanes.  The verdict is per scan;
+    the reference's exchange and collect nodes are not in the port yet
+    (ROADMAP Queue 1 items 7 and 9)."""
+    from ..exec.adaptive import AdaptiveShuffledJoinExec
+    from ..exec.distinct import DistinctAggregateExec
+    from ..exec.join import CrossJoinExec, HashJoinExec
+    from ..exec.plan import CoalesceBatchesExec
+    safe = (ProjectExec, FilterExec, HashJoinExec, AdaptiveShuffledJoinExec,
+            CrossJoinExec, HashAggregateExec, DistinctAggregateExec,
+            SortExec, TopNExec, CoalesceBatchesExec, LimitExec, UnionExec,
+            ExpandExec, SampleExec)
+    allowed: dict = {}
+    scans: dict = {}
+
+    def walk(node, enc_ok: bool):
+        if isinstance(node, HostScanExec):
+            allowed[id(node)] = allowed.get(id(node), True) and enc_ok
+            scans[id(node)] = node
+            return
+        ok = enc_ok and isinstance(node, safe)
+        for c in node.children:
+            walk(c, ok)
+
+    walk(root, True)          # the result fetch reads widened lanes
+    for nid, node in scans.items():
+        node.encoded_cols = frozenset(node.output_schema.names) \
+            if allowed[nid] else None
 
 
 # ---------------------------------------------------------------------------

@@ -43,7 +43,7 @@ from typing import List, Optional, Tuple
 
 import torch
 
-from ..columnar.device import DeviceBatch, DeviceColumn
+from ..columnar.device import DeviceBatch, DeviceColumn, NarrowColumn
 from ..config import (HBM_BUDGET_BYTES, HBM_BUDGET_FRACTION,
                       HOST_SPILL_LIMIT_BYTES, OOC_RESIDENT_FRACTION,
                       TEST_INJECT_RETRY_OOM, TpuConf)
@@ -163,7 +163,12 @@ class MemoryBudget:
                         "spill_ms": 0.0, "oom_retries": 0,
                         "batch_splits": 0, "peak_bytes": 0,
                         "release_underflow": 0, "io_retries": 0,
-                        "attempt_rollback_bytes": 0}
+                        "attempt_rollback_bytes": 0, "held_batches": 0,
+                        "held_bytes": 0}
+        # bytes of held batches the garbage collector has dropped
+        # (`hold`): their finalizers only queue, the lock's holder
+        # releases them
+        self._dropped: list = []
         self._census_cell = CENSUS.register(self)
 
     def rebase(self, device_bytes: int) -> None:
@@ -231,10 +236,45 @@ class MemoryBudget:
         scope.naked = 0
 
     # -- accounting --------------------------------------------------------
+    def hold(self, db: DeviceBatch) -> None:
+        """Account a batch that outlives the spillables it came from
+        until the garbage collector drops it: a sub-partition join's
+        bucket build batch, which thin join output points into
+        (columnar/lanes.LaneSource) until the pipeline's sink.  Its
+        bytes count as live, spilling LRU batches to make room; this
+        accounts memory already allocated, so it never refuses."""
+        nbytes = db.nbytes()
+        with self._lock:
+            self._settle_dropped()
+            while self.limit and self.live + nbytes > self.limit and \
+                    self._spill_one():
+                pass
+            self.live += nbytes
+            self.metrics["held_batches"] += 1
+            self.metrics["held_bytes"] += nbytes
+            self.metrics["peak_bytes"] = max(self.metrics["peak_bytes"],
+                                             self.live)
+            self._census_cell[0] = self.live
+            CENSUS.adjust(nbytes)
+        weakref.finalize(db, self._dropped.append, nbytes)
+
+    def _settle_dropped(self) -> None:
+        """Release the held batches the collector has dropped (the lock
+        held)."""
+        while self._dropped:
+            self.release(self._dropped.pop(), _tracked=False)
+
+    def settle(self) -> int:
+        """Release what dropped held batches kept; -> the live bytes."""
+        with self._lock:
+            self._settle_dropped()
+            return self.live
+
     def reserve(self, nbytes: int, _tracked: bool = True):
         """Admit `nbytes` of new device data, spilling LRU batches first;
         TpuRetryOOM when even spilling everything cannot fit them."""
         with self._lock:
+            self._settle_dropped()
             self._reservations += 1
             if self._inject_at and self._reservations == self._inject_at:
                 self.metrics["oom_retries"] += 1
@@ -385,6 +425,17 @@ def read_block(path: str, layout: List[Tuple[torch.dtype, int]]
     return lanes
 
 
+def _column_meta(db: DeviceBatch) -> list:
+    """What a spilled batch's lanes do not hold, a column each: the
+    logical type, the dictionary, the stored lane's dtype (a
+    NarrowColumn's narrow one), whether a high word follows, whether the
+    column is narrow, and its `enc`."""
+    return [(c.dtype, c.dictionary, c.stored.dtype if isinstance(
+        c, NarrowColumn) else c.data_dtype, c.hi is not None,
+        isinstance(c, NarrowColumn), getattr(c, "enc", None))
+        for c in db.columns]
+
+
 class Spillable:
     """A batch an operator holds across blocking points, owned by the
     budget: device <-> pinned host lanes <-> disk block
@@ -403,8 +454,7 @@ class Spillable:
         self.live_nbytes = self._nbytes if live_nbytes is None \
             else live_nbytes
         # what the lanes do not hold: kept beside every tier
-        self._meta = [(c.dtype, c.dictionary, c.data.dtype, c.hi is not None)
-                      for c in db.columns]
+        self._meta = _column_meta(db)
         self._names = list(db.names)
         self._capacity = db.capacity
         self._device = db.device
@@ -445,7 +495,7 @@ class Spillable:
 
     def _layout(self) -> List[Tuple[torch.dtype, int]]:
         out = []
-        for _dt, _d, sdt, wide in self._meta:
+        for _dt, _d, sdt, wide, _n, _e in self._meta:
             out += [(sdt, self._capacity), (torch.bool, self._capacity)]
             if wide:
                 out.append((torch.int64, self._capacity))
@@ -458,13 +508,21 @@ class Spillable:
             if self._db is None:
                 return
             t0 = time.perf_counter()
-            db = self._db
+            # the tiers hold dense lanes: a selection vector or deferred
+            # columns resolve first, into the same capacity and layout
+            from ..ops.batch_ops import ensure_prefix
+            db = ensure_prefix(self._db, self._budget.conf)
+            db.assert_prefix()
+            # the tiers keep each lane as the device held it (a narrow
+            # lane narrow), so a re-upload brings back what was reserved
+            self._meta = _column_meta(db)
+            self._num_rows = db.num_rows
             self._num_rows = self.num_rows
             pin = db.device.type == "cuda"
             host = []
             for c in db.columns:
-                lanes = (c.data, c.validity) if c.hi is None \
-                    else (c.data, c.validity, c.hi)
+                lanes = (c.stored, c.validity) if c.hi is None \
+                    else (c.stored, c.validity, c.hi)
                 for lane in lanes:
                     h = torch.empty(lane.shape, dtype=lane.dtype,
                                     pin_memory=pin)
@@ -537,9 +595,11 @@ class Spillable:
                     up = [x.to(dev, non_blocking=x.is_pinned())
                           for x in lanes]
                     it = iter(up)
-                    cols = [DeviceColumn(next(it), next(it), dt, d, None,
+                    cols = [NarrowColumn(next(it), next(it), dt, d, None,
+                                         enc) if narrow else
+                            DeviceColumn(next(it), next(it), dt, d, None,
                                          next(it) if wide else None)
-                            for dt, d, _s, wide in self._meta]
+                            for dt, d, _s, wide, narrow, enc in self._meta]
                     self._db = DeviceBatch(cols, self._num_rows,
                                            list(self._names))
                     if self._host is not None:

@@ -633,8 +633,10 @@ def test_join_queries_on_the_card_equal_cpu_and_launch_kernels(cuda, query):
     PH.reset_launch_counts()
     cpu, gpu = _cpu_and_cuda(lambda s: tpch.JOIN_QUERIES[query](s, tables))
     assert gpu == cpu
+    # m2m's expanded pairs reach its aggregation as a selection vector
+    # (sql.join.lazySelection): no compaction
     want = {"m2m": ("build_table", "probe_counts", "expand_pairs",
-                    "compaction_order", "seg_sums"),
+                    "seg_sums"),
             "outer": ("build_table", "probe_counts", "expand_pairs",
                       "compaction_order"),
             "semi": ("build_table", "probe_first", "compaction_order")}
@@ -1578,3 +1580,135 @@ def test_session_timezone_fields_on_the_card_equal_the_cpu(cuda, zone):
     card, cpu = _session_pair(cuda, {"spark.sql.session.timeZone": zone})
     assert card.from_arrow(t).select(*exprs).to_pydict() == \
         cpu.from_arrow(t).select(*exprs).to_pydict()
+
+
+def _thin_batch(dev, rng, cap=1 << 16, src_cap=1 << 14):
+    """A thin batch on `dev`: one materialized column and three deferred
+    ones (int64, a string's codes, a two-lane decimal) behind an int32
+    row-id lane with -1 (null-extended) rows, and a selection vector."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar import lanes as L
+    from spark_rapids_tpu_torch.columnar.device import (DeviceBatch,
+                                                        DeviceColumn)
+    src_rows = src_cap - 77
+    srcv = torch.from_numpy(rng.random(src_cap) < 0.9)
+    src = DeviceBatch([
+        DeviceColumn(torch.from_numpy(rng.integers(-2 ** 62, 2 ** 62,
+                                                   src_cap)).to(dev),
+                     srcv.to(dev), T.LONG),
+        DeviceColumn(torch.from_numpy(rng.integers(0, 5, src_cap)
+                                      .astype(np.int32)).to(dev),
+                     srcv.to(dev), T.STRING,
+                     np.array(["a", "b", "c", "d", "e"], str)),
+        DeviceColumn(torch.from_numpy(rng.integers(-9, 9, src_cap)).to(dev),
+                     srcv.to(dev), T.DecimalType(38, 2), None, None,
+                     torch.from_numpy(rng.integers(-3, 3, src_cap)).to(dev))],
+        src_rows, ["v", "s", "w"])
+    lane = rng.integers(-1, src_cap + 10, cap).astype(np.int32)
+    mat = DeviceColumn(torch.from_numpy(np.arange(cap)).to(dev),
+                       torch.ones(cap, dtype=torch.bool, device=dev),
+                       T.LONG)
+    sel = torch.from_numpy(rng.random(cap) < 0.6).to(dev)
+    thin = L.ThinState(cap, [L.LaneSource(src, torch.from_numpy(lane)
+                                          .to(dev))],
+                       {1: (0, 0), 2: (0, 1), 3: (0, 2)})
+    cols = [mat] + [L.deferred_column(c) for c in src.columns]
+    return DeviceBatch(cols, sel.sum(dtype=torch.int32), ["m", "v", "s", "w"],
+                       sel, thin), src
+
+
+def _columns_cpu(db):
+    return [(c.data.cpu(), c.validity.cpu(),
+             None if c.hi is None else c.hi.cpu()) for c in db.columns]
+
+
+@pytest.mark.cuda
+def test_compact_thin_and_gather_deferred_on_the_card_equal_the_cpu(cuda):
+    """columnar/lanes.compact_thin (its order from the compaction kernel
+    on the card) and gather_deferred on CUDA tensors against CPU
+    tensors."""
+    from spark_rapids_tpu_torch.columnar import lanes as L
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        db, _src = _thin_batch(dev, np.random.default_rng(41))
+        compacted = L.compact_thin(db, db.sel)
+        gathered = L.gather_deferred(db.thin.sources[0], [0, 1, 2],
+                                     db.sel)
+        out.append((int(compacted.num_rows), _columns_cpu(compacted),
+                    [(c.data.cpu(), c.validity.cpu(),
+                      None if c.hi is None else c.hi.cpu())
+                     for c in gathered]))
+    assert out[0][0] == out[1][0] > 0
+    for part in (1, 2):
+        for a, b in zip(out[0][part], out[1][part]):
+            valid = b[1]
+            assert torch.equal(a[1], valid)
+            assert torch.equal(a[0][valid], b[0][valid])
+            if b[2] is not None:
+                assert torch.equal(a[2][valid], b[2][valid])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("narrow", ["int8", "int16", "int32"])
+def test_narrow_compare_on_the_card_equals_the_cpu(cuda, narrow):
+    from spark_rapids_tpu_torch.ops.encodings import narrow_compare
+    rng = np.random.default_rng(42)
+    info = np.iinfo(narrow)
+    n = 1 << 18
+    lane = rng.integers(info.min, info.max, n, dtype=narrow, endpoint=True)
+    lane[:4] = [info.min, info.max, 0, -1]
+    wide = rng.integers(-2 ** 40, 2 ** 40, n)
+    wide[::3] = lane[::3]
+    wide[1::7] = info.max + 1
+    wide[2::7] = info.min - 1
+    for sym in ("=", "!=", "<", "<=", ">", ">="):
+        got = narrow_compare(sym, torch.from_numpy(lane).to(cuda),
+                             torch.from_numpy(wide).to(cuda)).cpu()
+        want = narrow_compare(sym, torch.from_numpy(lane),
+                              torch.from_numpy(wide))
+        exact = {"=": np.equal, "!=": np.not_equal, "<": np.less,
+                 "<=": np.less_equal, ">": np.greater,
+                 ">=": np.greater_equal}[sym](lane.astype(np.int64), wide)
+        assert torch.equal(got, want) and np.array_equal(want.numpy(),
+                                                         exact), sym
+
+
+@pytest.mark.cuda
+def test_narrow_upload_on_the_card_equals_the_cpu(cuda):
+    """A FOR-narrowed scan lane uploads at its narrow dtype on the card,
+    widens exactly, and a query over narrowed lanes equals the CPU's."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar import device as D
+    from spark_rapids_tpu_torch.columnar.host import HostBatch, HostColumn
+    from spark_rapids_tpu_torch.plan import expressions as PE
+    from spark_rapids_tpu_torch.plan.aggregates import Count, Sum
+    from spark_rapids_tpu_torch.session import col
+    rng = np.random.default_rng(43)
+    n = 300_000
+    x = rng.integers(-128, 128, n)
+    y = rng.integers(-40_000, 40_000, n)
+    d = rng.integers(8000, 11000, n).astype(np.int32)
+    hb = HostBatch([HostColumn(x, None, T.LONG), HostColumn(y, None, T.LONG),
+                    HostColumn(d, None, T.DATE)], ["x", "y", "d"])
+    lanes = {i: D.narrowed_lane(hb, name, 0, n)
+             for i, name in enumerate(hb.names)}
+    assert [lanes[i][0].dtype for i in range(3)] == \
+        [np.int8, np.int32, np.int16]
+    card = D.to_device(hb, device=cuda, narrowed=lanes)
+    cpu = D.to_device(hb, device="cpu", narrowed=lanes)
+    for a, b in zip(card.columns, cpu.columns):
+        assert a.lane.dtype == b.lane.dtype
+        assert torch.equal(a.lane.cpu(), b.lane) and \
+            torch.equal(a.data.cpu(), b.data)
+    card_s, cpu_s = _session_pair(cuda)
+
+    def q(s):
+        return (s.from_host(hb)
+                .filter(PE.And(PE.LessThan(col("x"), PE.Literal(300)),
+                               PE.GreaterThan(col("y"), PE.Literal(-1000))))
+                .select(col("d"), PE.Alias(PE.Multiply(col("x"), col("x")),
+                                           "xx"), names=["d", "xx"])
+                .group_by("d").agg((Sum(col("xx")), "s"),
+                                   (Count(None), "n"))
+                .sort("d").to_pydict())
+    assert q(card_s) == q(cpu_s)

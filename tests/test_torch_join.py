@@ -350,14 +350,15 @@ def test_limit_and_top_n_match_reference(conf):
 
 
 def test_conf_warns_once_for_keys_the_port_does_not_honour():
-    key = "spark.rapids.tpu.sql.join.lateMaterialization.enabled"
-    assert key == PCONF.JOIN_LATE_MATERIALIZATION.key
+    # whole-plan compilation (ROADMAP Queue 1 item 5) is not ported
+    key = "spark.rapids.tpu.sql.compile.wholePlan"
+    assert key not in PCONF.HONOURED_KEYS
     PCONF._WARNED.discard(key)
-    with pytest.warns(UserWarning, match="item 4"):
-        PCONF.TpuConf({key: "false"})
+    with pytest.warns(UserWarning, match="not honoured"):
+        PCONF.TpuConf({key: "OFF"})
     with warnings.catch_warnings():
         warnings.simplefilter("error")
-        PCONF.TpuConf({key: "false"})                 # once per key
+        PCONF.TpuConf({key: "OFF"})                   # once per key
         PCONF.TpuConf({"spark.rapids.tpu.sql.batchSizeRows": "1024",
                        "spark.rapids.tpu.sql.adaptive.enabled": "false"})
     assert PCONF.RESOLVED.keys() <= PCONF._REGISTRY.keys()

@@ -353,7 +353,9 @@ def test_adaptive_stages_spill_to_host_and_disk_and_replay():
             "k": pa.array(rng.permutation(1000), pa.int64()),
             "w": pa.array(rng.integers(0, 99, 1000), pa.int64())}))
         return fact.join(dim, left_on=["fk"], right_on=["k"])
-    conf = {**SMALL, "spark.rapids.tpu.memory.tpu.budgetBytes": 1 << 15,
+    # (the budget fits under the stages' FOR-narrowed device bytes, the
+    # scans' default upload: ops/encodings.py)
+    conf = {**SMALL, "spark.rapids.tpu.memory.tpu.budgetBytes": 1 << 13,
             "spark.rapids.tpu.memory.host.spillStorageSize": 1 << 14,
             "spark.rapids.tpu.retry.io.backoffMs": 0}
     want = query(JA, JE, jcol, JSession({**HASH_TIER, **conf})) \

@@ -213,6 +213,25 @@ def test_string_and_distinct_query_equals_reference_and_cpu_oracle(
     assert rows == 0 if query == "q21" else rows > 0
 
 
+#: selection vectors, late materialization and encoded execution off
+KEYS_OFF = {"spark.rapids.tpu.sql.join.lazySelection": "false",
+            "spark.rapids.tpu.sql.join.lateMaterialization.enabled": "false",
+            "spark.rapids.tpu.sql.encoded.execution.enabled": "false"}
+
+
+@pytest.mark.parametrize("query", sorted(PTPCH.QUERIES))
+def test_query_with_the_three_keys_off_equals_the_defaults(request, query):
+    """The port alone, under its defaults and with the three keys off:
+    the same rows in the same order, query by query (the parity tests
+    above hold the defaults to the reference)."""
+    suffix = "_01" if query in AT_0_01 else ""
+    pt = request.getfixturevalue("ptables" + suffix)
+    pquery = PTPCH.QUERIES[query]
+    got = pquery(PSession(KEYS_OFF, device="cpu"), pt).to_pydict()
+    want = pquery(PSession(device="cpu"), pt).to_pydict()
+    _assert_same(got, want, DOUBLES.get(query, ()))
+
+
 def test_q18_at_300_carries_rows_and_7200_none(ptables):
     # the reference's bound keeps no order at any scale of the generator
     s = PSession(device="cpu")
@@ -282,13 +301,24 @@ def test_q3_runs_the_join_kernels_and_the_sorted_group_by(ptables,
     spy(PC, "compaction_order")
     spy(PG, "groupby_trace")
     small = {"spark.rapids.tpu.sql.batchSizeRows": "1024"}
-    PTPCH.q3(PSession(small, device="cpu"), ptables).collect()
-    # one table per join; one probe and one compaction per probe batch
-    # (2 orders batches, 6 lineitem batches of 1024 rows)
-    assert calls == {"build_table": 2, "probe_first": 8,
-                     "compaction_order": 8, "groupby_trace": calls[
-                         "groupby_trace"]}
-    assert calls["groupby_trace"] > 0
+    off = {"spark.rapids.tpu.sql.join.lazySelection": "false",
+           "spark.rapids.tpu.sql.join.lateMaterialization.enabled": "false",
+           "spark.rapids.tpu.sql.encoded.execution.enabled": "false"}
+    # one table per join and one probe per probe batch (2 orders
+    # batches, 6 lineitem batches of 1024 rows).  With selection vectors
+    # and thin batches off, one compaction per probe batch; under the
+    # defaults the lineitem join's six outputs reach the aggregation as
+    # selection vectors, and only the orders join's two outputs compact,
+    # into the lineitem join's build
+    for conf, compactions in ((off, 8), ({}, 2)):
+        for k in calls:
+            calls[k] = 0
+        PTPCH.q3(PSession({**small, **conf}, device="cpu"),
+                 ptables).collect()
+        assert calls == {"build_table": 2, "probe_first": 8,
+                         "compaction_order": compactions,
+                         "groupby_trace": calls["groupby_trace"]}
+        assert calls["groupby_trace"] > 0
 
 
 def _join_query(name, m, e, t, c, s, tables):
