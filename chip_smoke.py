@@ -288,9 +288,30 @@ own failure:
                defaults, every off case must launch what the tree before
                these keys launched (chip_smoke_late.EXPECT_OFF), and
                compaction_order must launch inside lanes.compact_thin.
+  9g. capture — after late (chip_smoke_capture.py), at SF10 on the same
+               TPC-H columns; its TPC-DS part (ds_q3) right after the
+               decimals' TPC-DS part: q1, q6, q3, m2m, q5, q18_300 and
+               ds_q3 with `sql.compile.wholePlan` ON (whole-plan capture
+               as CUDA graphs, exec/compiled.py) and OFF, each equal to
+               numpy in both modes, printing the decision (whole, split
+               and its segments, or the fallback and its error), the
+               cold wall and the median of 3 warm walls (replays), peak,
+               the graphs' capture ms and pool bytes, and the launches
+               of a warm run counted from torch.profiler's kernel events
+               (OFF's must equal its wrappers' counts; ON's, what the
+               replays launched, must equal OFF's and hold PATH_KERNELS
+               where OFF sub-partitioned no join); q1, q6,
+               q3 and ds_q3 must capture.  Then the dispatch floor, q6
+               with two literal sets sharing one graph, the device-busy
+               share of q1 and q3 ON and OFF (torch.profiler), and
+               compaction_order, build_table and probe_counts captured
+               at the kernel phase's shapes and replayed 3 times with
+               new inputs, each equal to its plain version.  The TPC-H
+               part must finish within 150 s.
 Each phase after the data prints its seconds.
   10. result — a `kernels` JSON line (launches by query over every
-               query of phases 5, 6b, 6c, 7, 9, 9b, 9c, 9d, 9e and 9f), the whole run's
+               query of phases 5, 6b, 6c, 7, 9, 9b, 9c, 9d, 9e, 9f and
+               9g), the whole run's
                seconds, the nvidia-smi line, and last {"ok": true,
                "device": {...}}.
 
@@ -3248,6 +3269,7 @@ def main() -> int:
     stats, launches, path_walls = card_phases(dev, tables, want, later,
                                               args)
     if not args.kernels_only:
+        import chip_smoke_capture as CAP
         import chip_smoke_chaos as CH
         import chip_smoke_decimals as DEC
         import chip_smoke_fallback as F
@@ -3264,6 +3286,7 @@ def main() -> int:
         jn_want = {k: want[k] for k in J.PATH_WANTS + J.WANTS}
         lt_tables = LT.narrow(tables)
         lt_want = {k: want[k] for k in LT.CASES}
+        cap_want = {k: want[k] for k in CAP.CASES}
         del tables, want, later
         gc.collect()
         torch.cuda.empty_cache()
@@ -3274,6 +3297,9 @@ def main() -> int:
                               ds_want))
         launches.update(phase("decimals (TPC-DS part)", DEC.ds_window_phase,
                               sys.modules[__name__], ds_tables, ds_want))
+        launches.update(phase("capture (TPC-DS part)",
+                              CAP.ds_capture_phase, sys.modules[__name__],
+                              ds_tables, ds_want))
         del ds_tables, ds_want
         gc.collect()
         launches.update(phase("fallback", F.fallback_phase,
@@ -3293,6 +3319,8 @@ def main() -> int:
         gc.collect()
         launches.update(phase("late", LT.late_phase, sys.modules[__name__],
                               lt_tables, lt_want, path_walls))
+        launches.update(phase("capture", CAP.capture_phase,
+                              sys.modules[__name__], lt_tables, cap_want))
     rows = []
     for name in TPU_KERNELS:
         st = stats[name]

@@ -211,6 +211,8 @@ class HostBatch:
         # plan statistics, keyed by column name(s); `select` shares them,
         # since a selected column is the same column
         self._stats: Dict[object, object] = {}
+        # the batch a `select` was taken from (None: this one)
+        self._root: Optional["HostBatch"] = None
 
     @property
     def num_rows(self) -> int:
@@ -227,7 +229,15 @@ class HostBatch:
     def select(self, names: Sequence[str]) -> "HostBatch":
         out = HostBatch([self.column_by_name(n) for n in names], names)
         out._stats = self._stats
+        out._root = self.source
         return out
+
+    @property
+    def source(self) -> "HostBatch":
+        """The batch this one was selected from (itself if none): the
+        source table's identity, which the scan-upload cache and the
+        whole-plan cache key on (exec/compiled.py)."""
+        return self._root if self._root is not None else self
 
     def slice(self, offset: int, length: int) -> "HostBatch":
         return HostBatch([c.slice(offset, length) for c in self.columns],

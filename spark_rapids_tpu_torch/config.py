@@ -1227,13 +1227,23 @@ HONOURED_KEYS = frozenset(e.key for e in (
     ENCODED_NARROW_LANES, ENCODED_IN_MAX_CODES,
     # the session timezone of the datetime expressions and casts
     # (plan/datetime.py, ops/timezone.py)
-    SESSION_TIMEZONE))
+    SESSION_TIMEZONE,
+    # whole-plan capture as CUDA graphs (exec/compiled.py; AUTO stays
+    # eager on the port), the constant-lifted plan cache, the split
+    # seams, the background compile service and the shared scan upload
+    WHOLE_PLAN_COMPILE, SEAM_SPLIT_MIN_ROWS, COMPILE_CONST_LIFT,
+    COMPILE_BG_ENABLED, COMPILE_BG_THREADS, COMPILE_BG_SPECULATE,
+    PLAN_CACHE_ENTRIES, SCAN_UPLOAD_CACHE_BYTES))
 
 #: keys the port resolves to one behaviour for now -> what it does
 RESOLVED = {
     PALLAS_INTERPRET.key:
         "has no effect: CPU tensors run each kernel's plain PyTorch "
         "version, CUDA tensors the CUDA kernel",
+    COMPILE_CACHE_DIR.key:
+        "has no effect: a CUDA graph cannot be serialized across "
+        "processes; what persists is the kernels' nvcc build in "
+        "spark_rapids_tpu_torch/_build/",
 }
 
 _WARNED: set = set()

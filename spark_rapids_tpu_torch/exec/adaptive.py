@@ -50,6 +50,7 @@ import torch
 
 from .. import types as t
 from ..columnar.device import DeviceBatch
+from ..ops.batch_ops import device_rows
 from ..plan import expressions as E
 from ..runtime.memory import Spillable
 from .evaluator import conds_mask
@@ -124,7 +125,7 @@ class _BloomFilterStage(PlanNode):
                 # skips: the verdict becomes the selection vector
                 kept = keep.sum(dtype=torch.int32)
                 ctx.bump("bloom_filtered_rows",
-                         torch.as_tensor(db.num_rows, device=keep.device) -
+                         device_rows(db) -
                          kept)
                 yield DeviceBatch(list(db.columns), kept, list(db.names),
                                   keep, db.thin)
@@ -132,7 +133,7 @@ class _BloomFilterStage(PlanNode):
             out = compact_batch(db, keep, ctx.conf)
             # counted on the device, read once at the query's end
             ctx.bump("bloom_filtered_rows",
-                     torch.as_tensor(db.num_rows, device=keep.device) -
+                     device_rows(db) -
                      out.num_rows)
             yield out
 

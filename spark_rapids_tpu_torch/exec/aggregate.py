@@ -35,8 +35,10 @@ from ..columnar.host import HostBatch
 from ..config import DENSE_AGG_DOMAIN_MAX, DENSE_AGG_VIA_SORT, TpuConf
 from ..ops import groupby as G
 from ..ops.batch_ops import (concat_batches, ensure_unique_dict,
-                             shrink_to_rows, unify_dictionaries)
+                             shrink_to_capacity, shrink_to_rows,
+                             unify_dictionaries)
 from ..plan import expressions as E
+from ..runtime.capture import capturing, host_constant
 from ..plan.aggregates import (ROWS_EXACT, AggregateFunction,
                                _deep_resolved, past_rows_error,
                                uses_half_lanes)
@@ -126,6 +128,10 @@ def _run_groupby(key_cols: List[DeviceColumn], agg_cols: List[DeviceColumn],
     pack = _domains_as_pack(domains) if domains is not None \
         else _key_pack_spec(key_cols, key_ranges)
     tier = None
+    # the most groups there can be: the packed domain where a tier knows
+    # it, else the capacity (a capture keeps this static bound, not the
+    # count)
+    bound = capacity
     if pack is not None and all(s is not None for s in pack):
         total = 1
         for _lo, span in pack:
@@ -133,6 +139,8 @@ def _run_groupby(key_cols: List[DeviceColumn], agg_cols: List[DeviceColumn],
         has_float_sum = any(s.kind == G.SUM and t.is_floating(s.dtype)
                             for s in specs)
         tier = elect_segagg(conf, total, has_float_sum)
+        if tier is not None:
+            bound = min(capacity, total)
     info = [(c.dtype, True, c.data.dtype) for c in key_cols]
     if tier is not None:
         GROUPBY_TIERS["segagg"] += 1
@@ -140,6 +148,10 @@ def _run_groupby(key_cols: List[DeviceColumn], agg_cols: List[DeviceColumn],
                                   capacity)
     elif domains is not None and not conf.get(DENSE_AGG_VIA_SORT):
         GROUPBY_TIERS["dense"] += 1
+        dom = 1
+        for d in domains:
+            dom *= int(d)
+        bound = min(capacity, dom)
         fn = G.dense_groupby_trace(list(domains), list(specs), capacity)
     else:
         GROUPBY_TIERS["sort"] += 1
@@ -149,8 +161,11 @@ def _run_groupby(key_cols: List[DeviceColumn], agg_cols: List[DeviceColumn],
         [c.data for c in key_cols], [c.validity for c in key_cols],
         [c.data for c in agg_cols], [c.validity for c in agg_cols], live)
     # the group count comes to the host, as in the reference's eager
-    # path: shrinking to the real bucket keeps the merge and sort small
-    return key_cols, out_keys, outs, int(num_groups)
+    # path: shrinking to the real bucket keeps the merge and sort small.
+    # Under capture it stays a device count over the static capacity.
+    if not capturing():
+        num_groups = int(num_groups)
+    return key_cols, out_keys, outs, num_groups, bound
 
 
 def _buffer_dicts(specs: Sequence[G.AggSpec],
@@ -256,12 +271,12 @@ class HashAggregate:
                 outs, _buffer_dicts(self.update_specs, agg_cols))
         key_batch = evaluate_projection(self.key_exprs, self.key_names, db,
                                         self.conf, narrow="HashAggregateExec")
-        key_cols, out_keys, outs, n_groups = _run_groupby(
+        key_cols, out_keys, outs, n_groups, bound = _run_groupby(
             key_batch.columns, agg_cols, self.update_specs, live,
             db.capacity, key_ranges=self.key_ranges, conf=self.conf)
         return self._groupby_outs_to_batch(
             key_cols, out_keys, outs, n_groups,
-            _buffer_dicts(self.update_specs, agg_cols))
+            _buffer_dicts(self.update_specs, agg_cols), bound)
 
     def partial_fused(self, db: DeviceBatch, conds: Sequence[E.Expression],
                       raw: bool = False):
@@ -300,7 +315,7 @@ class HashAggregate:
             if ds[0] is not None and any(d is not ds[0] for d in ds):
                 unified, remaps = unify_dictionaries(ds)
                 for o, r in zip(outs, remaps):
-                    table = torch.from_numpy(r).to(o[i][0].device)
+                    table = host_constant(r, o[i][0].device)
                     o[i] = (table[torch.clamp(o[i][0], 0, len(r) - 1)
                                   .long()], o[i][1])
                 ds = [unified]
@@ -323,11 +338,11 @@ class HashAggregate:
             outs = _run_reduce(buf_cols, self.merge_specs, merged.row_mask(),
                                merged.capacity)
             return self._reduce_outs_to_batch(outs, dicts)
-        key_cols, out_keys, outs, n_groups = _run_groupby(
+        key_cols, out_keys, outs, n_groups, bound = _run_groupby(
             key_cols, buf_cols, self.merge_specs, merged.row_mask(),
             merged.capacity, key_ranges=self.key_ranges, conf=self.conf)
         return self._groupby_outs_to_batch(key_cols, out_keys, outs, n_groups,
-                                           dicts)
+                                           dicts, bound)
 
     def final(self, merged: DeviceBatch) -> DeviceBatch:
         """Evaluate result expressions over (keys + buffers)."""
@@ -347,7 +362,7 @@ class HashAggregate:
         return [f"_buf{i}" for i in range(len(self.update_specs))]
 
     def _groupby_outs_to_batch(self, key_cols, out_keys, outs, n_groups,
-                               dicts):
+                               dicts, bound: int):
         cols = [DeviceColumn(kd, kv, kc.dtype, kc.dictionary, kc.value_range)
                 for (kd, kv), kc in zip(out_keys, key_cols)]
         # update and merge specs share buffer dtypes positionally
@@ -356,6 +371,9 @@ class HashAggregate:
                                      valid, spec.dtype, d))
         db = DeviceBatch(cols, n_groups,
                          self.key_names + self._buffer_names())
+        if isinstance(n_groups, torch.Tensor):
+            # a device count (under capture): the static bound cuts
+            return shrink_to_capacity(db, bound, self.conf)
         return shrink_to_rows(db, n_groups, self.conf)
 
     def _reduce_outs_to_batch(self, outs, dicts) -> DeviceBatch:

@@ -19,6 +19,7 @@ from ..ops.batch_ops import concat_batches, ensure_unique_dict, shrink_to_rows
 from ..ops.distinct import distinct_count_trace, exact_value_range
 from ..plan import expressions as E
 from ..plan.aggregates import CountDistinct
+from ..runtime.capture import capturing
 from .aggregate import _key_pack_spec
 from .evaluator import evaluate_projection
 from .plan import ExecContext, PlanNode, _key_ref_name
@@ -102,7 +103,7 @@ class DistinctAggregateExec(PlanNode):
             ok, cnt, ng = fn([c.data for c in key_cols],
                              [c.validity for c in key_cols], vcol, live)
             if out_keys is None:
-                out_keys, n_groups = ok, int(ng)
+                out_keys, n_groups = ok, ng if capturing() else int(ng)
             counts.append(cnt)
         cols = [DeviceColumn(kd, kv, kc.dtype, kc.dictionary)
                 for (kd, kv), kc in zip(out_keys, key_cols)]

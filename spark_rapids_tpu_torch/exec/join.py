@@ -88,6 +88,7 @@ from ..ops.batch_ops import (concat_batches, ensure_prefix,
                              shrink_to_rows)
 from ..ops.filter import compact_batch, gather_batch
 from ..plan import expressions as E
+from ..runtime.capture import capturing
 from . import ooc as O
 from .evaluator import conds_mask, evaluate_projection
 from .plan import ExecContext, PlanNode, key_ref_names, peel_filters
@@ -289,7 +290,11 @@ class HashJoinExec(PlanNode):
             yield from self._empty_build_output(left_src, probe_conds, ctx)
             return
         gate = 2 * ctx.conf.batch_size_rows
-        if ctx.conf.get(HASH_SUBPARTITION_FALLBACK):
+        # a capture builds one table over the whole build side: the
+        # sub-partition tier sizes itself by host row counts, and a
+        # graph's memory is its own (a capture that runs out of memory
+        # runs eager, where this tier is)
+        if ctx.conf.get(HASH_SUBPARTITION_FALLBACK) and not capturing():
             # an oversized build re-hash-partitions BOTH sides into
             # independent sub-joins (GpuSubPartitionHashJoin): equal keys
             # land in the same bucket on both sides.  The gate sizes by
@@ -315,7 +320,7 @@ class HashJoinExec(PlanNode):
                         left_src, probe_conds, ctx)
                     return
         build_batch = concat_batches(right_batches, ctx.conf)
-        if build_batch.capacity > gate:
+        if build_batch.capacity > gate and not capturing():
             # one compacted batch keeps its input's capacity (q18's
             # 15,000,000 order groups under its HAVING at SF10): re-bucket
             # it to its rows, as concat_batches packs several

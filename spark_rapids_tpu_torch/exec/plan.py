@@ -47,6 +47,7 @@ from ..ops.batch_ops import concat_batches, shrink_to_capacity
 from ..plan import expressions as E
 from ..plan.aggregates import AggregateFunction, Min
 from ..runtime.retry import retry_io
+from ..runtime.capture import capturing, host_constant, recording
 from .aggregate import HashAggregate
 from .evaluator import compute_predicate, evaluate_projection, project_batch
 
@@ -85,6 +86,23 @@ def query_scope(ctx: "ExecContext"):
 def active_context() -> Optional["ExecContext"]:
     """The ExecContext of the query running on this thread, or None."""
     return getattr(_TLS_CTX, "ctx", None)
+
+
+#: id(leaf) -> the batches a whole-plan capture runs the leaf over, on
+#: this thread (exec/compiled.py; a background capture of another
+#: segment runs the same tree on another thread)
+_TLS_TRACE = threading.local()
+
+
+def set_trace_batches(batches: Optional[dict]) -> None:
+    """Install (or clear, with None) this thread's leaf batches."""
+    _TLS_TRACE.batches = batches
+
+
+def trace_batches(node: "PlanNode"):
+    """The batches a capture on this thread runs `node` over, or None."""
+    m = getattr(_TLS_TRACE, "batches", None)
+    return None if m is None else m.get(id(node))
 
 
 @dataclasses.dataclass
@@ -230,13 +248,16 @@ class PlanNode:
             if hb.num_rows:
                 hbs.append(hb)
         if not hbs:
-            schema = self.output_schema
-            return HostBatch([HostColumn(
-                np.zeros(0, t.physical_np_dtype(f.data_type)), None,
-                f.data_type, np.array([], str)
-                if isinstance(f.data_type, t.StringType) else None)
-                for f in schema.fields], schema.names)
+            return empty_host_batch(self.output_schema)
         return concat_host(hbs)
+
+
+def empty_host_batch(schema: t.StructType) -> HostBatch:
+    """A zero-row result of `schema`."""
+    return HostBatch([HostColumn(
+        np.zeros(0, t.physical_np_dtype(f.data_type)), None, f.data_type,
+        np.array([], str) if isinstance(f.data_type, t.StringType)
+        else None) for f in schema.fields], schema.names)
 
 
 class HostScanExec(PlanNode):
@@ -251,6 +272,21 @@ class HostScanExec(PlanNode):
         self.table = table
         self.batch_rows = batch_rows
         self.encoded_cols = None
+        #: the shared scan upload a compiled plan read (exec/compiled.py)
+        self._device_cache = None
+
+    @property
+    def _source_table(self) -> HostBatch:
+        """The source table's identity (a pruned scan's `table` is a
+        select of it)."""
+        return self.table.source
+
+    def host_batches(self):
+        """(offset, rows, host batch) of each batch the scan uploads."""
+        n = self.table.num_rows
+        for off in range(0, max(n, 1), self.batch_rows):
+            rows = min(self.batch_rows, n - off)
+            yield off, rows, self.table.slice(off, rows)
 
     @property
     def output_schema(self) -> t.StructType:
@@ -267,13 +303,14 @@ class HostScanExec(PlanNode):
 
     def execute(self, ctx: ExecContext) -> Iterator[DeviceBatch]:
         from ..columnar.device import narrowed_lane
-        n = self.table.num_rows
+        traced = trace_batches(self)
+        if traced is not None:
+            yield from traced
+            return
         enc = [(i, name) for i, name in enumerate(self.table.names)
                if self.encoded_cols is not None and
                name in self.encoded_cols]
-        for off in range(0, max(n, 1), self.batch_rows):
-            rows = min(self.batch_rows, n - off)
-            hb = self.table.slice(off, rows)
+        for off, rows, hb in self.host_batches():
             narrowed = {i: lane for i, lane in (
                 (i, narrowed_lane(self.table, name, off, rows))
                 for i, name in enc) if lane is not None}
@@ -485,11 +522,19 @@ class HashAggregateExec(PlanNode):
                 partials = []
                 continue
             # bound the pending set: merge when the partials would
-            # overflow one target batch (tryMergeAggregatedBatches)
-            if len(partials) > 1 and sum(p.capacity for p in partials) > \
-                    ctx.conf.batch_size_rows:
+            # overflow one target batch (tryMergeAggregatedBatches).  A
+            # capture merges only partials that a static bound (the key
+            # domain) keeps below one target batch, as the eager shrink
+            # does; others merge once at the end, since a merged partial
+            # keeps its static capacity and re-merging would double it
+            target = ctx.conf.batch_size_rows
+            if len(partials) > 1 and \
+                    sum(p.capacity for p in partials) > target and \
+                    (not capturing() or
+                     all(p.capacity < target for p in partials)):
                 merged = agg.merge(partials)
                 if self.key_exprs and \
+                        isinstance(merged.num_rows, int) and \
                         merged.num_rows > ctx.conf.batch_size_rows:
                     # the high-cardinality fallback: merging no longer
                     # reduces below one target batch, so hash-split the
@@ -614,7 +659,9 @@ def _dict_crc_table(dictionary: np.ndarray, device: torch.device
         return hit[1]
     ent = [zlib.crc32(str(v).encode("utf-8")) for v in dictionary] or [0]
     ent += [0] * ((1 << (len(ent) - 1).bit_length()) - len(ent))
-    tab = torch.tensor(ent, dtype=torch.int64, device=device)
+    tab = host_constant(np.asarray(ent, np.int64), device)
+    if recording():
+        return tab                # filled only by the graph's replays
     if len(_CRC_TABLE_CACHE) > 512:
         _CRC_TABLE_CACHE.clear()
     # pin the dictionary so its id stays valid while cached

@@ -27,6 +27,7 @@ from .. import types as t
 from ..columnar.device import (DeviceBatch, DeviceColumn, NarrowColumn,
                                bucket_capacity)
 from ..config import DEFAULT_CONF, TpuConf
+from ..runtime.capture import capturing, host_constant, recording
 
 
 def unify_dictionaries(dicts: Sequence[Optional[np.ndarray]]):
@@ -41,7 +42,7 @@ def unify_dictionaries(dicts: Sequence[Optional[np.ndarray]]):
 
 def remap_string_column(col: DeviceColumn, remap: np.ndarray,
                         unified: np.ndarray) -> DeviceColumn:
-    table = torch.from_numpy(remap).to(col.data.device)
+    table = host_constant(remap, col.data.device)
     data = table[torch.clamp(col.data, 0, table.shape[0] - 1).to(torch.int64)]
     return DeviceColumn(data, col.validity, col.dtype, unified)
 
@@ -71,8 +72,9 @@ def remap_codes_into(col: DeviceColumn, target: np.ndarray) -> DeviceColumn:
         if len(_REMAP_CACHE) > 512:
             _REMAP_CACHE.clear()
         # pin both dictionaries so their ids stay valid while cached
-        hit = (src, target, torch.from_numpy(table).to(col.data.device))
-        _REMAP_CACHE[key] = hit
+        hit = (src, target, host_constant(table, col.data.device))
+        if not recording():       # a recorded tensor fills at replay only
+            _REMAP_CACHE[key] = hit
     table = hit[2]
     data = table[torch.clamp(col.data, 0, table.shape[0] - 1).to(
         torch.int64)]
@@ -132,11 +134,17 @@ def concat_batches(batches: List[DeviceBatch],
         b.assert_prefix()
     if len(batches) == 1:
         return batches[0]
-    counts = [int(b.num_rows) for b in batches]
+    # under capture no count comes to the host: whole capacities stack,
+    # and each batch's live prefix moves behind the ones before it by the
+    # device counts (`_lazy_place`), the reference's lazy concat without
+    # its compaction
+    lazy = capturing()
+    counts = [b.capacity if lazy else int(b.num_rows) for b in batches]
     total = sum(counts)
     cap = bucket_capacity(max(total, 1), conf)
     pad = cap - total
     dev = batches[0].device
+    place = _lazy_place(batches, cap) if lazy else None
     out_cols = []
     for ci in range(batches[0].num_columns):
         cols = [b.column(ci) for b in batches]
@@ -163,7 +171,10 @@ def concat_batches(batches: List[DeviceBatch],
         if any(c.hi is not None for c in cols):
             hi = [(c.data[:n] >> 63) if c.hi is None else c.hi[:n]
                   for c, n in zip(cols, counts)]
-        if pad:
+        if place is not None:
+            data, valid = [place(data)], [place(valid)]
+            hi = None if hi is None else [place(hi)]
+        elif pad:
             data.append(torch.zeros(pad, dtype=data[0].dtype, device=dev))
             valid.append(torch.zeros(pad, dtype=torch.bool, device=dev))
             if hi is not None:
@@ -178,7 +189,39 @@ def concat_batches(batches: List[DeviceBatch],
         out_cols.append(DeviceColumn(torch.cat(data), torch.cat(valid), dt,
                                      unified, rng,
                                      None if hi is None else torch.cat(hi)))
-    return DeviceBatch(out_cols, total, list(batches[0].names))
+    return DeviceBatch(out_cols, place.rows if lazy else total,
+                       list(batches[0].names))
+
+
+def device_rows(db: DeviceBatch) -> torch.Tensor:
+    """A batch's row count as a 0-d int64 tensor (no upload)."""
+    if isinstance(db.num_rows, torch.Tensor):
+        return db.num_rows.to(torch.int64)
+    return torch.full((), db.num_rows, dtype=torch.int64, device=db.device)
+
+
+def _lazy_place(batches: List[DeviceBatch], cap: int):
+    """The placement of a sync-free concat of live-prefix batches into
+    `cap` rows: row j of batch i goes to (rows of batches before i) + j
+    when j < its count, else to one spare row past `cap`, dropped.
+    -> a function from the batches' whole-capacity lanes (concatenated in
+    batch order) to the output lane, with `.rows` the total count."""
+    dev = batches[0].device
+    dest, before = [], torch.zeros((), dtype=torch.int64, device=dev)
+    for b in batches:
+        n = device_rows(b)
+        j = torch.arange(b.capacity, dtype=torch.int64, device=dev)
+        dest.append(torch.where(j < n, before + j, torch.full_like(j, cap)))
+        before = before + n
+    dest = torch.cat(dest)
+
+    def place(parts: List[torch.Tensor]) -> torch.Tensor:
+        lane = torch.cat(parts)
+        out = torch.zeros(cap + 1, dtype=lane.dtype, device=dev)
+        out.index_copy_(0, dest, lane)
+        return out[:cap]
+    place.rows = before.to(torch.int32)
+    return place
 
 
 def shrink_to_capacity(db: DeviceBatch, row_bound: int,
@@ -206,6 +249,9 @@ def shrink_to_rows(db: DeviceBatch, num_rows: int,
     capacity-sized outputs alive until the merge."""
     db = ensure_prefix(db, conf)
     db.assert_prefix()
+    if isinstance(num_rows, torch.Tensor):
+        # a device count (under capture): the static capacity stays
+        return DeviceBatch(db.columns, num_rows, db.names)
     cap = bucket_capacity(max(num_rows, 1), conf)
     if cap >= db.capacity:
         return DeviceBatch(db.columns, num_rows, db.names)

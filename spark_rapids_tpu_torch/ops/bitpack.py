@@ -25,6 +25,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..runtime.capture import host_constant
+
 _UNSIGNED_WIDTHS = ((np.uint8, 1), (np.uint16, 2), (np.uint32, 4))
 #: the torch dtype holding an unsigned word's bits
 _WORD_DTYPE = {1: torch.uint8, 2: torch.int16, 4: torch.int32}
@@ -36,8 +38,8 @@ def pack_bits(x: torch.Tensor) -> torch.Tensor:
     n = x.shape[-1]
     assert n % 8 == 0, f"pack_bits needs a multiple of 8 rows, got {n}"
     g = x.reshape(x.shape[:-1] + (n // 8, 8)).to(torch.uint8)
-    weights = torch.tensor([1 << b for b in range(8)], dtype=torch.uint8,
-                           device=x.device)
+    weights = host_constant(np.array([1 << b for b in range(8)], np.uint8),
+                            x.device)
     return (g * weights).sum(-1, dtype=torch.int32).to(torch.uint8)
 
 

@@ -23,6 +23,8 @@ from __future__ import annotations
 
 import torch
 
+from ..runtime.capture import host_constant
+
 #: days from 0000-03-01 (the era origin) to 1970-01-01
 EPOCH_SHIFT = 719468
 
@@ -65,8 +67,8 @@ def is_leap(y: torch.Tensor) -> torch.Tensor:
 
 
 def days_in_month(y: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
-    base = torch.tensor([0, 31, 28, 31, 30, 31, 30, 31, 31, 30, 31, 30, 31],
-                        dtype=torch.int32, device=m.device)
+    base = host_constant([0, 31, 28, 31, 30, 31, 30, 31, 31, 30, 31, 30, 31],
+                         m.device, torch.int32)
     d = base[torch.clamp(m, 0, 12).long()]
     return torch.where((m == 2) & is_leap(y), 29, d).to(torch.int32)
 

@@ -16,9 +16,11 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from .. import types as t
+from ..runtime.capture import host_constant
 
 MAX_PRECISION = 38
 MIN_ADJUSTED_SCALE = 6
@@ -148,8 +150,8 @@ def to_double(u: torch.Tensor, scale: int) -> torch.Tensor:
     true division by a Python scalar multiplies by the scalar's
     reciprocal, which lands 1 ulp off for some values (the reference's
     XLA rewrite does the same, ROADMAP Queue 3 item 1)."""
-    return u.to(torch.float64) / torch.tensor(
-        float(10 ** scale), dtype=torch.float64, device=u.device)
+    return u.to(torch.float64) / host_constant(
+        np.float64(10 ** scale), u.device)
 
 
 def wide_to_double(lo: torch.Tensor, hi: torch.Tensor,
@@ -162,8 +164,7 @@ def wide_to_double(lo: torch.Tensor, hi: torch.Tensor,
     f = (hi.to(torch.float64) * 2.0 ** 64
          + ((lo >> 32) & mask).to(torch.float64) * 2.0 ** 32
          + (lo & mask).to(torch.float64))
-    return f / torch.tensor(float(10 ** scale), dtype=torch.float64,
-                            device=lo.device)
+    return f / host_constant(np.float64(10 ** scale), lo.device)
 
 
 def from_double(x: torch.Tensor, out: t.DecimalType):

@@ -32,6 +32,7 @@ import torch
 
 from ..columnar.device import DeviceBatch
 from ..config import DEFAULT_CONF, TpuConf
+from ..runtime.capture import capturing
 from .kernels import live_mask
 
 
@@ -83,7 +84,7 @@ def compact_batch(db: DeviceBatch, keep: torch.Tensor,
     if db.thin is not None:
         from ..columnar.lanes import compact_thin
         out = compact_thin(db, keep, conf)
-        if not sync:
+        if not sync or capturing():
             return out
         return shrink_to_rows(out, int(out.num_rows), conf)
     order, count = keep_order(keep, conf)
@@ -98,7 +99,7 @@ def compact_batch(db: DeviceBatch, keep: torch.Tensor,
         cols.append(c.rebuilt(data, valid & live,
                               None if c.hi is None else next(moved)))
     out = DeviceBatch(cols, count, list(db.names))
-    if not sync:
+    if not sync or capturing():
         return out
     n = int(count)
     return shrink_to_rows(DeviceBatch(cols, n, list(db.names)), n, conf)

@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from .. import types as t
+from ..runtime.capture import host_constant
 
 _C1 = 0xCC9E2D51
 _C2 = 0x1B873593
@@ -279,8 +280,7 @@ class StringTables:
     def to(self, device) -> "StringTables":
         out = object.__new__(StringTables)
         for name in ("nbytes", "murmur_units", "murmur_k1", "xx_words"):
-            setattr(out, name, torch.from_numpy(getattr(self, name)).to(
-                device))
+            setattr(out, name, host_constant(getattr(self, name), device))
         return out
 
 

@@ -47,12 +47,14 @@ The reference's dispatch metrics port with the observability slice
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from typing import Dict, Optional
 
 import torch
@@ -136,15 +138,43 @@ class StreamScratch:
 
 
 _SCRATCH: Dict[tuple, StreamScratch] = {}
+#: the scratch of the CUDA graph this thread captures (capture_scratch)
+_TLS_CAPTURE = threading.local()
 
 
 def stream_scratch(device: torch.device, stream: int) -> StreamScratch:
-    """The one StreamScratch of (device, raw stream)."""
+    """The one StreamScratch of (device, raw stream); while this thread
+    captures a graph on `stream`, that graph's own (`capture_scratch`)."""
+    cap = getattr(_TLS_CAPTURE, "scratch", None)
+    if cap is not None and torch.cuda.is_current_stream_capturing():
+        if cap[0] is None:
+            cap[0] = StreamScratch(device)
+        return cap[0]
     key = (device.type, device.index, stream)
     scratch = _SCRATCH.get(key)
     if scratch is None:
         scratch = _SCRATCH[key] = StreamScratch(device)
     return scratch
+
+
+@contextlib.contextmanager
+def capture_scratch(device: torch.device):
+    """Give the graph captured on this thread its own StreamScratch, made
+    inside the capture at its first look-back launch: the zero fills of
+    its tickets and status words are then captured nodes that each
+    replay repeats before the launches that read them, and the epochs
+    count from 1 within the graph.  A replay therefore never reads the
+    status words of the replay before it as "ready", which the eager
+    scheme (a new epoch each launch, baked into the launch's arguments)
+    would.  Yields a one-element list holding the scratch (None if the
+    graph launched no look-back kernel); keep it as long as the graph."""
+    prev = getattr(_TLS_CAPTURE, "scratch", None)
+    holder = [None]
+    _TLS_CAPTURE.scratch = holder
+    try:
+        yield holder
+    finally:
+        _TLS_CAPTURE.scratch = prev
 
 
 def mask_tiles(ptr: int, cap: int, tile_rows: int):

@@ -198,11 +198,14 @@ def build_layout_plain(ideal, lane_s, rid, span: int):
     final = torch.clamp(i + prefix, 0, span - 1)
     last = torch.ones_like(final, dtype=torch.bool)
     last[:-1] = final[1:] != final[:-1]
-    slots = empty_slots(span, ideal.device)
+    # the rows a later row displaces land on one spare slot past the end,
+    # so the scatter's shape does not depend on the data
+    slots = empty_slots(span + 1, ideal.device)
     keys, rows = slot_views(slots)
-    keys[final[last]] = lane_s[last]
-    rows[final[last]] = rid[last]
-    return slots
+    dest = torch.where(last, final, torch.full_like(final, span))
+    keys[dest] = lane_s
+    rows[dest] = rid.to(rows.dtype)
+    return slots[:span]
 
 
 def build_layout(ideal, lane_s, rid, span: int):
@@ -252,25 +255,64 @@ def build_table(lane: torch.Tensor, valid: torch.Tensor) -> HashTable:
                               span)
 
 
+def _runs_sorted(table: HashTable, lane: torch.Tensor,
+                 valid: torch.Tensor):
+    """(first slot int64, count int64) of each probe row as the kernels'
+    walk finds them (csrc/hashjoin.cu `count_run`), by sort and search:
+    from the key's home slot, the first slot holding the key before an
+    empty slot, then the consecutive slots that hold it; a run that
+    reaches the last slot counts `home` more, the reference's re-reads
+    of its clamped walk there (the layout never stores a live row in
+    that slot).  No step count depends on the data, which a captured
+    graph could not hold (runtime/capture.py).  (0, 0) without a
+    match."""
+    lane = lane.to(torch.int64)
+    dev, span = lane.device, table.span
+    keys, occ = table.keys, table.rows >= 0
+    top = torch.iinfo(torch.int64).max
+    # the occupied slots in (key, slot) order, then the empty ones
+    by_key = torch.sort(keys, stable=True).indices
+    order = by_key[torch.sort((~occ[by_key]).to(torch.int8),
+                              stable=True).indices]
+    live = occ[order]
+    skeys = torch.where(live, keys[order], torch.full_like(keys, top))
+    # position key: the key's dense rank, then its slot (empties last)
+    rank = torch.cumsum(torch.cat([torch.zeros(1, dtype=torch.int64,
+                                               device=dev),
+                                   (skeys[1:] != skeys[:-1]).long()]), 0)
+    pos = torch.where(live, rank * (span + 1) + order,
+                      torch.full_like(rank, top))
+    # runs of consecutive slots of one key, numbered in position order
+    start = torch.ones(span, dtype=torch.bool, device=dev)
+    start[1:] = pos[1:] != pos[:-1] + 1
+    run = torch.cumsum(start.to(torch.int64), 0)
+    # empty slots before each slot
+    empties = torch.zeros(span + 1, dtype=torch.int64, device=dev)
+    empties[1:] = torch.cumsum((~occ).to(torch.int64), 0)
+    home = _shr(mix64(lane), 64 - table.nbits)
+    lo = torch.clamp(torch.searchsorted(skeys, lane), max=span - 1)
+    has = valid & (skeys[lo] == lane) & live[lo]
+    p = torch.clamp(torch.searchsorted(pos, rank[lo] * (span + 1) + home),
+                    max=span - 1)
+    f = order[p]
+    found = has & live[p] & (rank[p] == rank[lo]) & \
+        (empties[f] == empties[home])
+    # the run holding p ends where the next one starts
+    n = torch.searchsorted(run, run[p] + 1) - p
+    n = n + torch.where(order[p + n - 1] == span - 1, home,
+                        torch.zeros_like(home))
+    zero = torch.zeros_like(lo)
+    return torch.where(found, f, zero), torch.where(found, n, zero)
+
+
 def probe_first_plain(table: HashTable, lane: torch.Tensor,
                       valid: torch.Tensor):
-    """Plain version of probe_first: every pending row advances one slot
-    per step until it hits its key or an empty slot."""
-    lane = lane.to(torch.int64)
-    slot = _shr(mix64(lane), 64 - table.nbits)
-    out = torch.full(lane.shape, -1, dtype=torch.int32, device=lane.device)
-    pending = valid.clone()
-    steps = 0
-    while steps < table.span and bool(pending.any()):
-        r = table.rows[slot]
-        occupied = r >= 0
-        hit = pending & occupied & (table.keys[slot] == lane)
-        out = torch.where(hit, r, out)
-        pending = pending & occupied & ~hit
-        slot = torch.where(pending, torch.clamp(slot + 1, max=table.span - 1),
-                           slot)
-        steps += 1
-    return out, out >= 0
+    """Plain version of probe_first: each row's run by `_runs_sorted`,
+    its first slot's build row (-1 without one)."""
+    first, n = _runs_sorted(table, lane, valid)
+    row = table.rows[first]
+    row = torch.where(n > 0, row, torch.full_like(row, -1))
+    return row, row >= 0
 
 
 def _check_table(kernel: str, table: HashTable, device) -> None:
@@ -328,25 +370,11 @@ def probe_matched(table: HashTable, lane: torch.Tensor,
 
 def probe_counts_plain(table: HashTable, lane: torch.Tensor,
                        valid: torch.Tensor):
-    """Plain version of the probe_counts kernel, (first, counts): every
-    pending row advances one slot per step, counting its key's run, until
-    an empty slot or the run's end (the reference's vectorized walk)."""
-    lane = lane.to(torch.int64)
-    slot = _shr(mix64(lane), 64 - table.nbits)
-    first = torch.zeros(lane.shape, dtype=torch.int64, device=lane.device)
-    cnt = torch.zeros(lane.shape, dtype=torch.int32, device=lane.device)
-    pending = valid.clone()
-    steps = 0
-    while steps < table.span and bool(pending.any()):
-        occupied = table.rows[slot] >= 0
-        hit = pending & occupied & (table.keys[slot] == lane)
-        first = torch.where(hit & (cnt == 0), slot, first)
-        cnt = cnt + hit.to(torch.int32)
-        pending = pending & occupied & (hit | (cnt == 0))
-        slot = torch.where(pending, torch.clamp(slot + 1, max=table.span - 1),
-                           slot)
-        steps += 1
-    return first.to(torch.int32), cnt
+    """Plain version of the probe_counts kernel, (first, counts): the
+    slot where each row's run starts (0 without one) and its count, by
+    `_runs_sorted`."""
+    first, n = _runs_sorted(table, lane, valid)
+    return first.to(torch.int32), n.to(torch.int32)
 
 
 def inclusive_cumsum(counts: torch.Tensor) -> torch.Tensor:

@@ -35,6 +35,7 @@ import torch
 from ... import types as t
 from .. import groupby as G
 from ..kernels import compute_view
+from ...runtime.capture import host_reads_ok
 from . import (LAUNCHES, TICKETS, check_launch, library, stream_ptr,
                stream_scratch)
 
@@ -170,8 +171,10 @@ def seg_sums(seg, int_lanes, f64_lanes, domain: int):
 # ---------------------------------------------------------------------------
 
 def _float_ident_order(ident: float) -> int:
-    return int(G.float_order(torch.tensor([float(ident)],
-                                          dtype=torch.float64))[0])
+    # a host constant (a CPU tensor on either device)
+    with host_reads_ok():
+        return int(G.float_order(torch.tensor([float(ident)],
+                                              dtype=torch.float64))[0])
 
 
 def seg_reduce_plain(seg, lane, domain: int, is_min: bool, ident):

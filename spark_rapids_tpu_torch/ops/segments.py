@@ -253,7 +253,8 @@ def sorted_segments(key_lanes_info, keys, keys_valid, live, capacity: int,
     seg_ids = torch.cumsum(boundary.to(torch.int32), 0,
                            dtype=torch.int32) - 1
     count = live.sum(dtype=torch.int32)
-    last = seg_ids[torch.clamp(count - 1, min=0).long()] + 1
+    last = seg_ids.index_select(
+        0, torch.clamp(count - 1, min=0).long().view(1))[0] + 1
     num_groups = torch.where(count > 0, last, torch.zeros_like(last))
     # seg ids rise with position, so the g-th boundary IS segment g's
     # start: a single-lane sort compacts the boundary positions

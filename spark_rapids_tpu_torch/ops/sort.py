@@ -26,6 +26,7 @@ import torch
 from .. import types as t
 from ..columnar.device import DeviceBatch, DeviceColumn
 from ..config import DEFAULT_CONF, TpuConf
+from ..runtime.capture import host_constant
 
 
 class SortKey(NamedTuple):
@@ -68,7 +69,7 @@ def order_lanes(col: DeviceColumn, asc: bool, nulls_first: bool,
         if codes_ok and is_ordered_dict(d):
             count_dispatch("sort_codes")
         elif d is not None and len(d) > 1:
-            ranks = torch.from_numpy(dictionary_ranks(d)).to(data.device)
+            ranks = host_constant(dictionary_ranks(d), data.device)
             data = ranks[torch.clamp(data, 0, len(d) - 1).to(torch.int64)]
             if enabled:
                 count_decode("sort", data.numel() * 4)

@@ -38,6 +38,8 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..runtime.capture import capturing, host_constant
+
 # leading-byte marks of a 1-, 2-, 3- and 4-byte UTF-8 sequence
 _UTF8_LEAD = (0x00, 0xC0, 0xE0, 0xF0)
 # payload bits a leading byte keeps, by sequence length
@@ -52,7 +54,7 @@ def code_points(dictionary: np.ndarray, device) -> torch.Tensor:
         d = d.astype("<U1")
     width = d.dtype.itemsize // 4
     cps = d.view(np.int32).reshape(len(d), width)
-    return torch.from_numpy(cps).to(device)
+    return host_constant(cps, torch.device(device))
 
 
 def _char_counts(cps: torch.Tensor) -> torch.Tensor:
@@ -63,6 +65,18 @@ def _char_counts(cps: torch.Tensor) -> torch.Tensor:
     return torch.where(cps != 0, pos, torch.zeros_like(pos)).amax(dim=1)
 
 
+def _dict_bytes_host(dictionary: np.ndarray, device: torch.device
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """dict_byte_tensors encoded on the host: the same offsets and bytes
+    (a lone surrogate as its 3-byte form, as the device encodes it)."""
+    enc = [str(s).encode("utf-8", "surrogatepass")
+           for s in np.asarray(dictionary, str)]
+    offsets = np.zeros(len(enc) + 1, np.int32)
+    offsets[1:] = np.cumsum([len(b) for b in enc])
+    data = np.frombuffer(b"".join(enc) or b"\0", np.uint8)
+    return host_constant(offsets, device), host_constant(data, device)
+
+
 def dict_byte_tensors(dictionary: Optional[np.ndarray], device
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(offsets int32[n + 1], bytes uint8[max(total, 1)]) of a string
@@ -71,6 +85,10 @@ def dict_byte_tensors(dictionary: Optional[np.ndarray], device
     if dictionary is None or len(dictionary) == 0:
         return (torch.zeros(1, dtype=torch.int32, device=device),
                 torch.zeros(1, dtype=torch.uint8, device=device))
+    if capturing():
+        # the encoded length is a host decision: a graph takes the bytes
+        # as a constant, encoded here on the host
+        return _dict_bytes_host(dictionary, torch.device(device))
     cps = code_points(dictionary, device)
     n, width = cps.shape
     nchars = _char_counts(cps)
@@ -91,8 +109,8 @@ def dict_byte_tensors(dictionary: Optional[np.ndarray], device
         L = nbytes[..., None]
         shift = torch.clamp(6 * (L - 1 - j), min=0)
         bits = torch.bitwise_right_shift(cps[..., None], shift)
-        lead = torch.tensor(_UTF8_LEAD, dtype=torch.int32,
-                            device=device)[torch.clamp(L - 1, min=0)]
+        lead = host_constant(_UTF8_LEAD, torch.device(device),
+                             torch.int32)[torch.clamp(L - 1, min=0)]
         byte = torch.where(j == 0, lead | bits, 0x80 | (bits & 0x3F))
         data = byte[j < L].to(torch.uint8)
     if data.numel() == 0:
@@ -347,7 +365,7 @@ def decode_code_points(offsets: torch.Tensor, bytes_: torch.Tensor
     b = bytes_[:total].to(torch.int32)
     nb = torch.where(b < 0x80, 1, torch.where(
         b < 0xE0, 2, torch.where(b < 0xF0, 3, 4)))
-    payload = torch.tensor(_UTF8_LEAD_BITS, dtype=torch.int32, device=dev)
+    payload = host_constant(_UTF8_LEAD_BITS, dev, torch.int32)
     cp = b & payload[nb - 1]
     at = torch.arange(total, device=dev)
     for j in range(1, 4):
@@ -397,8 +415,8 @@ def _trim_cps(cps: torch.Tensor, left: bool, right: bool) -> torch.Tensor:
     n, width = cps.shape
     pos = torch.arange(width, device=cps.device)
     nchars = _char_counts(cps).long()
-    space = torch.isin(cps, torch.tensor(_ASCII_SPACE, dtype=cps.dtype,
-                                         device=cps.device))
+    space = torch.isin(cps, host_constant(_ASCII_SPACE, cps.device,
+                                          cps.dtype))
     keep = (pos[None, :] < nchars[:, None]) & ~space
     start = torch.minimum(torch.where(keep, pos, width).amin(dim=1), nchars) \
         if left else torch.zeros_like(nchars)

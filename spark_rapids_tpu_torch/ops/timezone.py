@@ -24,6 +24,8 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from ..runtime.capture import host_constant, recording
+
 _US = 1_000_000
 
 
@@ -101,9 +103,9 @@ def device_table(tz_name: str, device, wall: bool = False):
     hit = _DEVICE_TABLES.get(key)
     if hit is None:
         pts, offs = (wall_table if wall else transition_table)(tz_name)
-        hit = (torch.from_numpy(pts).to(device),
-               torch.from_numpy(offs).to(device))
-        _DEVICE_TABLES[key] = hit
+        hit = (host_constant(pts, device), host_constant(offs, device))
+        if not recording():       # a recorded tensor fills at replay only
+            _DEVICE_TABLES[key] = hit
     return hit
 
 

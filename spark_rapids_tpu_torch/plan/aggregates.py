@@ -581,6 +581,71 @@ def _half_up_quotient(us, counts):
     return mag - 2 * mag * (us < 0)
 
 
+_M16 = 0xFFFF
+#: a count below this divides exactly in 16-bit limbs (no int64 step
+#: overflows): 2^47 rows, far past what one query can aggregate
+_COUNT_LIMBS16 = 1 << 47
+
+
+def _exact_average_dev(h: torch.Tensor, a_lo: torch.Tensor,
+                       counts: torch.Tensor, shift: int, p: int):
+    """(lo int64, hi int64, fits bool): (h * 2^32 + a_lo) * 10^shift /
+    counts, HALF_UP, as the 128-bit two's complement words lo + hi *
+    2^64, and whether it has at most `p` digits; on the device with no
+    host read, in eight 16-bit limbs of the magnitude (schoolbook
+    multiply and long division).  Every group computes it and the fast
+    quotient keeps the groups within int64: a graph cannot bring the
+    rare rest to the host, and the eager path then needs no sync."""
+    neg = h < 0
+    carry = neg & (a_lo > 0)
+    hh = torch.where(neg, torch.where(carry, -h - 1, -h), h)
+    ll = torch.where(carry, (1 << 32) - a_lo, a_lo)
+    limbs = [ll & _M16, ll >> 16, hh & _M16, (hh >> 16) & _M16,
+             (hh >> 32) & _M16, (hh >> 48) & _M16,
+             torch.zeros_like(h), torch.zeros_like(h)]
+    over = torch.zeros_like(neg)
+    left = shift
+    while left > 0:
+        step = min(left, 4)
+        left -= step
+        g = 10 ** step
+        c = torch.zeros_like(h)
+        for i in range(8):
+            v = limbs[i] * g + c
+            limbs[i] = v & _M16
+            c = v >> 16
+        over = over | (c != 0)
+    den = torch.clamp(counts, min=1)
+    rem = torch.zeros_like(h)
+    q = [None] * 8
+    for i in range(7, -1, -1):
+        v = (rem << 16) | limbs[i]
+        q[i] = v // den
+        rem = v - q[i] * den
+    # HALF_UP: add one when the remainder is at least half the count
+    c = (2 * rem >= den).to(torch.int64)
+    for i in range(8):
+        v = q[i] + c
+        q[i] = v & _M16
+        c = v >> 16
+    over = over | (c != 0) | (counts >= _COUNT_LIMBS16)
+    gt = torch.zeros_like(neg)
+    eq = torch.ones_like(neg)
+    b = 10 ** p - 1
+    for i in range(7, -1, -1):
+        bi = (b >> (16 * i)) & _M16
+        gt = gt | (eq & (q[i] > bi))
+        eq = eq & (q[i] == bi)
+    lo = q[0] | (q[1] << 16) | (q[2] << 32) | (q[3] << 48)
+    hi = q[4] | (q[5] << 16) | (q[6] << 32) | (q[7] << 48)
+    nlo = -lo
+    nhi = ~hi + (lo == 0).to(torch.int64)
+    fits = ~gt & ~over
+    zero = torch.zeros_like(lo)
+    return (torch.where(fits, torch.where(neg, nlo, lo), zero),
+            torch.where(fits, torch.where(neg, nhi, hi), zero), fits)
+
+
 def _exact_average(sums: np.ndarray, counts: np.ndarray,
                    out_t: t.DecimalType, shift: int) -> HostColumn:
     """Per-group sum / count at `shift` more digits of scale, HALF_UP,
@@ -615,8 +680,8 @@ class _DecimalAvgEvaluate(E.Expression):
     result scale (s + 4), HALF_UP, exact.  The sum is one int64 lane, or
     the two half lanes of a sum type past 18 digits (`Sum`).  Every group
     whose upscaled sum stays within int64 divides in one vectorised step
-    on the device; only the groups that leave it come to the host and
-    divide in Python ints (one host sync says whether any do)."""
+    on the device; the groups that leave it divide exactly on the device
+    too (`_exact_average_dev`), so the finish never syncs."""
 
     def __init__(self, sums: List[E.Expression], count_e: E.Expression,
                  out_t: t.DecimalType, shift: int):
@@ -648,17 +713,12 @@ class _DecimalAvgEvaluate(E.Expression):
         valid = live & fast & D.fits_precision(q, self.out_t.precision)
         slow = live & ~fast
         hi = q >> 63 if self.out_t.is_wide else None
-        if bool(slow.any()):
-            idx = torch.nonzero(slow).flatten()
-
-            def host(x):
-                return x[idx].cpu().numpy()
-            part = _exact_average(H.words_ints(host(h), host(a_lo)), host(c),
-                                  self.out_t, self.shift)
-            q[idx] = torch.from_numpy(part.data).to(q.device)
-            valid[idx] = torch.from_numpy(part.valid_mask()).to(q.device)
-            if hi is not None:
-                hi[idx] = torch.from_numpy(part.hi_lane()).to(q.device)
+        elo, ehi, efits = _exact_average_dev(h, a_lo, c, self.shift,
+                                             self.out_t.precision)
+        q = torch.where(slow, elo, q)
+        valid = torch.where(slow, live & efits, valid)
+        if hi is not None:
+            hi = torch.where(slow, ehi, hi)
         return E.DevVal(q, valid, self.out_t, hi=hi)
 
     def _eval_cpu(self, batch, kids):

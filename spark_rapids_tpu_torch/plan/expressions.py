@@ -48,6 +48,7 @@ out when either side is null.
 from __future__ import annotations
 
 import copy
+import threading
 import datetime as pydt
 import decimal as pydec
 from typing import Dict, List, Optional, Tuple
@@ -60,6 +61,7 @@ from ..columnar.host import EXACT, HostBatch, HostColumn, decimal_value
 from ..config import TpuConf
 from ..ops import host as H
 from ..ops.kernels import compute_dtype, merge_validity, valid_or_true
+from ..runtime.capture import host_constant, host_reads_ok, recording
 
 
 #: where RLIKE and the regexp functions port
@@ -68,6 +70,29 @@ REGEX_SLICE = "ops/regex.py (ROADMAP Queue 1 item 7)"
 #: (arithmetic, comparisons, MIN/MAX over a value past int64) port
 WIDE_DECIMAL_SLICE = ("the two-lane device decimal forms (ROADMAP Queue 1 "
                       "item 2)")
+
+
+# -- whole-plan literal bindings --------------------------------------------
+# While exec/compiled.py captures a whole plan, each lifted literal reads
+# its value from a 0-d device tensor (a slot), so that the captured graph
+# reads it from a fixed address and a literal variant of the plan replays
+# the same graph with other values in the slots.  The binding maps each
+# Literal (by identity) to its slot; thread-local, since a background
+# capture runs on another thread.
+
+_LIFT_BINDINGS = threading.local()
+
+
+def set_literal_bindings(bindings: Optional[Dict[int, torch.Tensor]]
+                         ) -> None:
+    """Install (or clear, with None) the id(Literal) -> 0-d tensor map
+    of the capture or replay running on THIS thread."""
+    _LIFT_BINDINGS.map = bindings
+
+
+def get_literal_binding(lit: "Expression") -> Optional[torch.Tensor]:
+    m = getattr(_LIFT_BINDINGS, "map", None)
+    return None if m is None else m.get(id(lit))
 
 
 class Unported(str):
@@ -101,6 +126,8 @@ class PerDictionary:
         if hit is not None and hit[0] is d:
             return hit[1]
         value = make()
+        if recording():
+            return value          # filled only by the graph's replays
         if len(self.entries) >= _CACHE_ENTRIES:
             self.entries.pop(next(iter(self.entries)))
         self.entries[id(d)] = (d, value)
@@ -217,6 +244,11 @@ class Expression:
     children: Tuple["Expression", ...] = ()
     dtype: t.DataType = None
     nullable: bool = True
+    #: True when this node reads its literal children only through their
+    #: device values (never their `.value` on the host): the gate for
+    #: constant lifting.  An unmarked parent keeps its literal children
+    #: baked into the graph and keyed by value.
+    lifts_literal_children = False
 
     # ---- resolution ----
     def bind(self, schema: t.StructType) -> "Expression":
@@ -289,6 +321,19 @@ class Expression:
 
     def _fp_extra(self) -> str:
         return ""
+
+    def canonical_fingerprint(self, lift_ok: bool = True) -> str:
+        """The fingerprint with each LIFTED literal's value erased to a
+        dtype-only slot marker: the whole-plan cache key under constant
+        lifting (the reference's).  `lift_ok` carries the parent's
+        `lifts_literal_children` down the tree (the top-level call is a
+        root position, liftable) and mirrors exec/compiled's
+        collect_plan_literals, so a value this fingerprint hides is a
+        value the graph reads from its slot."""
+        kids = ",".join(
+            c.canonical_fingerprint(self.lifts_literal_children)
+            for c in self.children)
+        return f"{type(self).__name__}({self._fp_extra()};{kids})"
 
     def __repr__(self):
         return self.fingerprint()
@@ -383,6 +428,25 @@ class Literal(Expression):
     def _resolve(self):
         pass
 
+    def lift_type_ok(self) -> bool:
+        """The value half of lift eligibility (the reference's): a
+        non-null literal of one flat numeric lane.  Strings carry
+        dictionaries, wide decimals a second lane and nulls an all-false
+        validity, so they stay baked."""
+        if self.value is None:
+            return False
+        dt = self.dtype
+        if isinstance(dt, t.DecimalType):
+            return not dt.is_wide
+        return isinstance(dt, (t.ByteType, t.ShortType, t.IntegerType,
+                               t.LongType, t.FloatType, t.DoubleType,
+                               t.BooleanType, t.DateType, t.TimestampType))
+
+    def canonical_fingerprint(self, lift_ok: bool = True) -> str:
+        if lift_ok and self.lift_type_ok():
+            return f"Literal(?:{self.dtype.simple_string};)"
+        return self.fingerprint()
+
     def _dictionary(self) -> Optional[np.ndarray]:
         """A string literal's one-entry dictionary; a null one's is empty
         (every row null), so a projected null STRING column carries one."""
@@ -394,6 +458,12 @@ class Literal(Expression):
         return HostVal(self._dictionary())
 
     def _eval_dev(self, ctx, kids):
+        slot = get_literal_binding(self)
+        if slot is not None:
+            # lifted: every row reads the slot, which a replay rewrites
+            return DevVal(slot.to(compute_dtype(self.dtype))
+                          .expand(ctx.capacity).contiguous(), None,
+                          self.dtype)
         if self.value is None:
             dt = self.dtype if not isinstance(self.dtype, t.NullType) \
                 else t.INT
@@ -432,6 +502,7 @@ class Literal(Expression):
 
 
 class Alias(Expression):
+    lifts_literal_children = True
     def __init__(self, child: Expression, name: str):
         self.children = (child,)
         self.name = name
@@ -509,7 +580,7 @@ def _cast_dev(v: torch.Tensor, src: t.DataType, dst: t.DataType):
 def _remap_codes(codes: torch.Tensor, remap: np.ndarray) -> torch.Tensor:
     """Dictionary codes translated through a host remap table (codes of
     null rows may be anything: they are clamped into the table)."""
-    table = torch.from_numpy(remap).to(codes.device)
+    table = host_constant(remap, codes.device)
     return table[torch.clamp(codes, 0, table.shape[0] - 1).long()]
 
 
@@ -539,6 +610,7 @@ def _f64_np(col: HostColumn) -> np.ndarray:
 
 
 class BinaryArithmetic(Expression):
+    lifts_literal_children = True
     symbol = "?"
     #: ops/decimal.py result-type rule / kernel; None -> not for decimals
     decimal_rule = None
@@ -762,6 +834,7 @@ class Divide(BinaryArithmetic):
 # ---------------------------------------------------------------------------
 
 class BinaryComparison(Expression):
+    lifts_literal_children = True
     symbol = "?"
 
     def __init__(self, left, right):
@@ -1016,6 +1089,7 @@ class GreaterThanOrEqual(BinaryComparison):
 # ---------------------------------------------------------------------------
 
 class And(Expression):
+    lifts_literal_children = True
     def __init__(self, l, r):
         self.children = (l, r)
 
@@ -1041,6 +1115,7 @@ class And(Expression):
 
 
 class Or(Expression):
+    lifts_literal_children = True
     def __init__(self, l, r):
         self.children = (l, r)
 
@@ -1067,6 +1142,7 @@ class Or(Expression):
 
 
 class Not(Expression):
+    lifts_literal_children = True
     def __init__(self, child):
         self.children = (child,)
 
@@ -1083,6 +1159,7 @@ class Not(Expression):
 
 
 class IsNull(Expression):
+    lifts_literal_children = True
     nullable = False
 
     def __init__(self, child):
@@ -1102,6 +1179,7 @@ class IsNull(Expression):
 
 
 class IsNotNull(Expression):
+    lifts_literal_children = True
     nullable = False
 
     def __init__(self, child):
@@ -1121,6 +1199,7 @@ class IsNotNull(Expression):
 
 
 class Coalesce(Expression):
+    lifts_literal_children = True
     def __init__(self, *children):
         self.children = tuple(children)
 
@@ -1166,6 +1245,7 @@ class Coalesce(Expression):
 
 class If(Expression):
     """IF(pred, then, else): a null predicate takes the else branch."""
+    lifts_literal_children = True
 
     def __init__(self, pred, then, other):
         self.children = (pred, then, other)
@@ -1211,6 +1291,7 @@ class CaseWhen(Expression):
     value's (the reference's rule, not Spark's coercion).  A null
     predicate falls through; with no else, no hit gives null.  String
     values are remapped into one unified dictionary."""
+    lifts_literal_children = True
 
     def __init__(self, branches, otherwise: Optional[Expression] = None):
         flat = []
@@ -1364,7 +1445,7 @@ class In(Expression):
             wide = compute_dtype(self.children[0].dtype) \
                 if v.narrow is not None else v.data.dtype
             for x in non_null:
-                item = torch.tensor(x, dtype=wide, device=ctx.device)
+                item = host_constant(np.asarray(x), ctx.device, wide)
                 if v.narrow is not None:
                     from ..ops.encodings import (count_dispatch,
                                                  narrow_compare)
@@ -1427,6 +1508,7 @@ class Cast(Expression):
     once on the host by `_parse_entry` (the reference's rules: trimmed
     input, non-ANSI, null for anything invalid) into a value lane and an
     ok lane, which the rows gather by code."""
+    lifts_literal_children = True
 
     reads_hi = True
 
@@ -1524,8 +1606,8 @@ class Cast(Expression):
                 vals = vals.astype(t.physical_np_dtype(dst))
             rng = (int(vals[ok].min()), int(vals[ok].max())) \
                 if t.is_integral(dst) and ok.any() else None
-            return (torch.from_numpy(vals).to(device),
-                    torch.from_numpy(ok).to(device), rng)
+            return (host_constant(vals, device), host_constant(ok, device),
+                    rng)
         return per_dictionary(self, "_parsed").get(d, make)
 
     def parsed_np(self, d: np.ndarray):
@@ -2047,7 +2129,9 @@ def _numpy_on_cpu(torch_fn, numpy_fn):
     library and the card's do not."""
     def fn(*lanes: torch.Tensor) -> torch.Tensor:
         if lanes[0].device.type == "cpu":
-            with np.errstate(all="ignore"):
+            # the plain version's own host math, not a host decision:
+            # the card runs torch_fn on the device
+            with np.errstate(all="ignore"), host_reads_ok():
                 return torch.from_numpy(numpy_fn(*(x.numpy()
                                                    for x in lanes)))
         return torch_fn(*lanes)
@@ -2119,6 +2203,7 @@ def _numeric_reasons(children) -> List[str]:
 class UnaryMinus(Expression):
     """-x: integral lanes wrap (-Long.MIN_VALUE is Long.MIN_VALUE), a
     decimal negates its unscaled lane."""
+    lifts_literal_children = True
 
     def __init__(self, child):
         self.children = (child,)
@@ -2143,6 +2228,7 @@ class Abs(Expression):
     """abs(x): integral lanes wrap (abs(Long.MIN_VALUE) is
     Long.MIN_VALUE, Java's Math.abs), floats clear the sign bit (-0.0 ->
     0.0, NaN stays NaN)."""
+    lifts_literal_children = True
 
     def __init__(self, child):
         self.children = (child,)
@@ -2562,6 +2648,7 @@ class Greatest(Expression):
     type is the first non-NULL child's; operands of another type are
     refused (cast them first).  STRING operands run on the CPU engine,
     as in the reference, ordered by value."""
+    lifts_literal_children = True
     _is_greatest = True
 
     def __init__(self, *items):
@@ -2750,7 +2837,7 @@ class Round(Expression):
             y = torch.trunc(y + torch.where(f >= 0, 0.5, -0.5))
         # a 0-d tensor divisor: PyTorch's CUDA division by a Python
         # scalar multiplies by its reciprocal (ROADMAP Queue 3 item 1)
-        p = torch.tensor(p, dtype=torch.float64, device=y.device)
+        p = host_constant(np.float64(p), y.device)
         return DevVal(y / p, kids[0].validity, t.DOUBLE)
 
     def _eval_cpu(self, batch, kids):
@@ -2942,7 +3029,7 @@ class _SparkHash(Expression):
                 else HS.StringTables(d)
             if device is None:
                 return tab
-            return torch.from_numpy(tab).to(device) if first \
+            return host_constant(tab, device) if first \
                 else tab.to(device)
         return per_dictionary(self, key).get(d, make)
 

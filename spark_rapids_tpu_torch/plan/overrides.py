@@ -739,7 +739,7 @@ class PhysicalQuery:
         from ..runtime.memory import is_oom_error
         while True:
             try:
-                return self.root.collect(ctx)
+                return self._collect_once(ctx)
             except Exception as e:               # noqa: BLE001
                 if not ctx.conf.get(RETRY_ENABLED) or not is_oom_error(e) \
                         or ctx.metrics.get("query_oom_replays"):
@@ -756,6 +756,61 @@ class PhysicalQuery:
             gc.collect()
             if ctx._budget is not None:
                 ctx.budget.spill_all()
+
+    def _whole_plan_enabled(self) -> bool:
+        """`sql.compile.wholePlan`: ON captures on either device, OFF
+        never.  AUTO stays eager on the port (the reference's AUTO means
+        "on the accelerator"): the port's benchmark is to settle it
+        (README "Whole-plan capture")."""
+        from ..config import WHOLE_PLAN_COMPILE
+        return str(self.conf.get(WHOLE_PLAN_COMPILE)).upper() == "ON"
+
+    def _collect_once(self, ctx: ExecContext) -> HostBatch:
+        if self.kind == "device" and self._whole_plan_enabled() and \
+                not ctx.ooc_force:
+            # an escalated context runs the eager engine: the out-of-core
+            # tier lives there, while a graph holds its intermediates
+            # outside the budget's reach
+            from ..exec.compiled import collect_with_fallback
+            out = collect_with_fallback(self.root, ctx, cache_on=self)
+            if out is not None:
+                return out
+        return self.root.collect(ctx)
+
+    def prewarm(self, ctx: Optional[ExecContext] = None) -> bool:
+        """Capture this query's whole plan WITHOUT running it (the
+        ahead-of-traffic warm-up).  A split plan captures its first
+        segment, the only one whose input is known; the later ones
+        capture at run time.  True when a graph is ready; False for a
+        host-kind plan, whole-plan capture off, or a plan that needs a
+        host decision."""
+        from ..exec.compiled import (CompiledPlan, SplitCompiledPlan,
+                                     build_plan)
+        from ..runtime.capture import HostDecision
+        if self.kind != "device" or not self._whole_plan_enabled():
+            return False
+        ctx = ctx or ExecContext(self.conf, self.device)
+        plan = getattr(self, "_compiled_plan", None)
+        if plan is False:
+            return False
+        try:
+            if plan is None:
+                plan = build_plan(self.root, ctx)
+            if isinstance(plan, SplitCompiledPlan):
+                plan._install_leaves()
+                try:
+                    plan._segment(0, (), ctx).ensure_compiled(ctx)
+                finally:
+                    plan._restore_leaves()
+            else:
+                assert isinstance(plan, CompiledPlan)
+                plan.ensure_compiled(ctx)
+        except HostDecision as e:
+            self._compiled_plan = False
+            self._compiled_reason = f"{type(e).__name__}: {e}"
+            return False
+        self._compiled_plan = plan
+        return True
 
     def explain(self) -> str:
         """The placement, one line a logical node, in the reference's
@@ -932,71 +987,14 @@ def negotiate_encoded(root: PlanNode) -> None:
 # Plan-level CSE of aggregate subtrees
 # ---------------------------------------------------------------------------
 
-def _node_exprs(node) -> Optional[list]:
-    """The bound expression trees a physical node evaluates, in a fixed
-    order (the reference's `exec/compiled._node_exprs`, kept here: the
-    port has no compiled plans yet); None for a node class this walk
-    does not cover, whose subtree then never deduplicates."""
-    from ..exec.adaptive import AdaptiveShuffledJoinExec
-    from ..exec.distinct import DistinctAggregateExec
-    from ..exec.join import CrossJoinExec, HashJoinExec
-    if isinstance(node, ProjectExec):
-        return list(node.exprs)
-    if isinstance(node, FilterExec):
-        return [node.condition]
-    if isinstance(node, (HashAggregateExec, DistinctAggregateExec)):
-        return list(node.key_exprs)
-    if isinstance(node, (HashJoinExec, AdaptiveShuffledJoinExec)):
-        return list(node.left_keys) + list(node.right_keys)
-    if isinstance(node, ExpandExec):
-        return [e for p in node.projections for e in p]
-    if isinstance(node, (HostScanExec, SortExec, TopNExec, LimitExec,
-                         UnionExec, RangeExec, SampleExec, CrossJoinExec)):
-        return []
-    return None
-
-
-def _node_extras(node) -> tuple:
-    """Non-expression structure of a node (the reference's
-    `exec/compiled._node_extras`): sort keys, limits, range and sample
-    parameters, the join type, output names, and each aggregate's class,
-    name, parameters and full input fingerprints."""
-    extras: list = []
-    if isinstance(node, (SortExec, TopNExec)):
-        extras.append(tuple(node.keys))
-    if isinstance(node, (LimitExec, TopNExec)):
-        extras.append(node.limit)
-    if isinstance(node, RangeExec):
-        extras.append((node.start, node.end, node.step, node.col_name))
-    if isinstance(node, SampleExec):
-        extras.append((node.fraction, node.seed))
-    jt = getattr(node, "join_type", None)
-    if jt is not None:
-        extras.append(("join", jt))
-    names = getattr(node, "names", None) or getattr(node, "key_names", None)
-    if names is not None:
-        extras.append(tuple(names))
-    agg_sig = []
-    for fn, name in getattr(node, "aggs", ()) or ():
-        params = tuple(sorted(
-            (k, repr(v)) for k, v in fn.__dict__.items()
-            if k != "_shims" and not isinstance(v, E.Expression)))
-        kids = tuple(c.fingerprint()
-                     for c in (getattr(fn, "child", None),
-                               getattr(fn, "child2", None))
-                     if c is not None)
-        agg_sig.append((type(fn).__name__, name, params, kids))
-    if agg_sig:
-        extras.append(tuple(agg_sig))
-    return tuple(extras)
-
-
 def _subtree_fp(node) -> Optional[str]:
     """A physical subtree's identity: full expression fingerprints
     (literal values kept), node extras and, per scan, the source table
     (a scan pruned to other columns of the same table is another
     HostBatch sharing the table's statistics) with its columns and batch
-    size; None where the walk does not cover a node."""
+    size; None where the walk does not cover a node.  The node walk is
+    the capture key's (exec/compiled.py)."""
+    from ..exec.compiled import _node_exprs, _node_extras
     exprs = _node_exprs(node)
     if exprs is None:
         return None

@@ -65,6 +65,7 @@ from ..config import STRING_TRANSFORM_DEVICE_MIN
 from ..ops import host as H
 from ..ops import strings as S
 from ..ops.kernels import merge_validity
+from ..runtime.capture import host_constant
 from .expressions import (REGEX_SLICE, DevVal, Expression, HostVal, Literal,
                           Unported, dict_or_empty, per_dictionary)
 
@@ -240,7 +241,7 @@ class Like(Expression):
                             re.DOTALL)
             mask = np.array([rx.fullmatch(v) is not None for v in d.tolist()],
                             bool)
-            return torch.from_numpy(mask).to(device)
+            return host_constant(mask, device)
         return per_dictionary(self, "_masks").get(d, make)
 
     def _eval_dev(self, ctx, kids):
@@ -350,8 +351,8 @@ def _rewrite_on_host(values: List[Optional[str]], device) -> Rewritten:
     uniq, inverse = np.unique(out[ok], return_inverse=True)
     codes = np.zeros(len(values), np.int32)
     codes[ok] = inverse.reshape(-1)
-    return Rewritten(uniq.astype(str), torch.from_numpy(codes).to(device),
-                     None if ok.all() else torch.from_numpy(ok).to(device))
+    return Rewritten(uniq.astype(str), host_constant(codes, device),
+                     None if ok.all() else host_constant(ok, device))
 
 
 class DictTransform(Expression):
@@ -1031,8 +1032,8 @@ class DictIntTransform(Expression):
             vals = [self._per_entry(v, args) for v in d.tolist()]
             ok = np.array([v is not None for v in vals], bool)
             lane = np.array([0 if v is None else v for v in vals], np.int32)
-            return (torch.from_numpy(lane).to(device),
-                    None if ok.all() else torch.from_numpy(ok).to(device))
+            return (host_constant(lane, device),
+                    None if ok.all() else host_constant(ok, device))
         return per_dictionary(self, "_lanes").get(d, make)
 
     def _eval_dev(self, ctx, kids):

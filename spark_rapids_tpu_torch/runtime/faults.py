@@ -171,12 +171,16 @@ PORTED_SITES: Dict[str, str] = {
     "kernel": "ops/hopper/__init__.py elect, once per kernel election "
               "(segagg, hash_probe_join, compact)",
     "deadline": "exec/plan.py ExecContext.checkpoint",
+    "compile": "exec/compiled.py CompiledPlan.capture, once per whole-plan "
+               "or segment capture, on the capturing thread (a "
+               "background capture's fault re-raises on the query "
+               "thread, runtime/compile_service.py)",
 }
 
 #: the reference's sites the port does not fire yet -> the ROADMAP
 #: Queue 1 item that ports them
 UNFIRED_SITES: Dict[str, str] = {
-    "compile": "item 5", "shuffle_write": "item 9",
+    "shuffle_write": "item 9",
     "shuffle_fetch": "item 9", "exchange": "item 9", "serving": "item 10",
     "result_cache": "item 10", "history": "item 10", "memattr": "item 10",
     "worker": "item 10", "fleet": "item 10",

@@ -219,6 +219,76 @@ def test_execute_fatal_crash_dump_has_fault_record(tmp_path):
     assert rec and rec[0]["site"] == "execute" and rec[0]["kind"] == "fatal"
 
 
+WHOLE_PLAN = {"spark.rapids.tpu.sql.compile.wholePlan": "ON"}
+
+
+@pytest.fixture
+def fresh_graphs():
+    """No cached capture: the `compile` site fires on the first collect."""
+    from spark_rapids_tpu_torch.exec import compiled as PC
+    PC.clear_caches()
+    yield
+    PC.clear_caches()
+
+
+def test_compile_oom_falls_back_to_eager(fresh_graphs):
+    tbl = sort_tbl(2_000, seed=13)
+    clean, _, _ = run(positive(tbl))
+    chaos, ctx, s = run(positive(tbl), WHOLE_PLAN,
+                        faults="compile:oom:nth=1")
+    same(chaos, clean)
+    assert "compile" in fired_sites(s)
+    assert ctx.metrics.get("whole_plan_fallbacks", 0) >= 1
+    assert "whole_plan_compiled_queries" not in ctx.metrics
+
+
+#: a split plan whose ONE speculative candidate is the bucket the seam
+#: consumes: hit 1 is segment 0's inline capture, hit 2 the background
+#: capture of segment 1
+SPLIT_BG = {**WHOLE_PLAN,
+            "spark.rapids.tpu.sql.compile.seamSplitMinRows": "1024",
+            "spark.rapids.tpu.compile.background.speculateBuckets": "1"}
+
+
+def _split_build(s):
+    n = 1000
+    t1 = pa.table({"k": (np.arange(n) % 20).astype(np.int64),
+                   "v": np.arange(n, dtype=np.float64)})
+    t2 = pa.table({"k": np.arange(20, dtype=np.int64),
+                   "w": np.arange(20, dtype=np.float64)})
+    from spark_rapids_tpu_torch.plan.aggregates import Sum
+    return (s.from_arrow(t1).join(s.from_arrow(t2), on="k")
+            .filter(PE.GreaterThan(pcol("v"), PE.Literal(100.0)))
+            .group_by("k").agg((Sum(pcol("w")), "sw"))
+            .sort(("k", True, True)))
+
+
+def test_background_compile_oom_falls_back_bit_identical(fresh_graphs):
+    """An OOM injected into a BACKGROUND segment capture re-raises on the
+    query thread at the seam and rides the ladder: the eager engine,
+    bit-identical."""
+    clean, _, _ = run(_split_build)
+    chaos, ctx, s = run(_split_build, SPLIT_BG, faults="compile:oom:nth=2")
+    same(chaos, clean)
+    log = get_injector(s.conf).log
+    assert [r["site"] for r in log] == ["compile"]
+    assert log[0]["hit"] == 2
+    assert ctx.metrics.get("whole_plan_fallbacks", 0) >= 1
+
+
+def test_background_compile_fatal_crash_dump(tmp_path, fresh_graphs):
+    """A fatal fault in the background capture surfaces as a classified
+    FatalDeviceError on the query thread, its record in the crash dump."""
+    with pytest.raises(FatalDeviceError) as ei:
+        run(_split_build, {**SPLIT_BG,
+                           "spark.rapids.tpu.coredump.path": str(tmp_path)},
+            faults="compile:fatal:nth=2")
+    assert classify(ei.value) == FATAL_DEVICE
+    dump = json.load(open(ei.value.dump_path))
+    rec = dump["injected_faults"]
+    assert rec and rec[0]["site"] == "compile" and rec[0]["hit"] == 2
+
+
 def test_spill_read_corrupt_fails_cleanly():
     # a corrupted spill block surfaces as a classified CorruptBlockError
     # through the block's own crc32 check, never an endless IO retry,

@@ -1712,3 +1712,149 @@ def test_narrow_upload_on_the_card_equals_the_cpu(cuda):
                                    (Count(None), "n"))
                 .sort("d").to_pydict())
     assert q(card_s) == q(cpu_s)
+
+
+def _graph_replays(cuda, fn, plain, variants):
+    """Capture fn over static copies of variants[0], then replay it with
+    each variant copied into the static buffers: every replay equals
+    plain(*variant)."""
+    static = [x.clone() for x in variants[0]]
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        fn(*static)
+    torch.cuda.current_stream(cuda).wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with PH.capture_scratch(cuda) as scratch:
+        with torch.cuda.graph(g, stream=side):
+            out = fn(*static)
+    assert scratch[0] is not None          # the graph's own scratch
+    for v in variants:
+        for s, x in zip(static, v):
+            s.copy_(x)
+        g.replay()
+        for a, b in zip(out, plain(*v)):
+            assert torch.equal(a, b)
+    g.reset()
+
+
+@pytest.mark.cuda
+def test_lookback_kernels_replayed_from_a_graph_equal_plain(cuda):
+    """The three look-back kernels (compaction_order, build_table's
+    layout, probe_counts) replayed 3 times from one graph with new
+    inputs: the graph's scratch is zeroed by its own captured fills, so
+    no replay reads the previous one's status words as ready."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    n = 3_000_017
+    keeps = [torch.rand(n, generator=g, device=cuda) < p
+             for p in (0.5, 0.01, 0.99)]
+    _graph_replays(cuda, lambda k: PC.compaction_order(k),
+                   lambda k: PC.compaction_order_plain(k),
+                   [[k] for k in keeps])
+    cap = 1 << 20
+    nbits, span = PHJ.table_geometry(cap)
+    builds = []
+    for hi in (1 << 40, 1000, 1 << 20):
+        lane = torch.randint(0, hi, (cap,), generator=g, device=cuda)
+        builds.append([lane, torch.rand(cap, generator=g, device=cuda) < .9])
+    _graph_replays(
+        cuda, lambda ln, vl: [PHJ.build_table(ln, vl).slots],
+        lambda ln, vl: [PHJ.build_layout_plain(*PHJ.hash_order(ln, vl, nbits),
+                                               span)], builds)
+    table = PHJ.build_table(builds[1][0], builds[1][1])
+    probes = [[torch.randint(0, 1200, (cap,), generator=g, device=cuda),
+               torch.rand(cap, generator=g, device=cuda) < p]
+              for p in (0.5, 0.1, 1.0)]
+
+    def counts_plain(p, v):
+        first, counts = PHJ.probe_counts_plain(table, p, v)
+        return [first, counts, PHJ.inclusive_cumsum(counts)]
+    _graph_replays(cuda, lambda p, v: list(PHJ.probe_counts(table, p, v)),
+                   counts_plain, probes)
+
+
+@pytest.mark.cuda
+def test_q6_captured_and_replayed_with_two_literal_sets(cuda):
+    """q6 and a literal variant share one captured graph; each replay
+    equals the eager engine."""
+    import datetime as pydt
+    import chip_smoke_capture as CAP
+    from spark_rapids_tpu_torch import tpch
+    from spark_rapids_tpu_torch.exec import compiled as CC
+    from spark_rapids_tpu_torch.session import TpuSession
+    tables = tpch.gen_tables(0.01)
+    on = TpuSession({"spark.rapids.tpu.sql.compile.wholePlan": "ON"})
+    off = TpuSession({"spark.rapids.tpu.sql.compile.wholePlan": "OFF"})
+    CC.clear_caches()
+    progs = []
+    try:
+        for lits in ((pydt.date(1994, 1, 1), pydt.date(1995, 1, 1), "0.05",
+                      "0.07", "24"), CAP.Q6_VARIANT):
+            build = CAP.q6_with(*lits)
+            q = build(on, tables).physical()
+            got = q.collect().to_pydict()
+            assert CC.decision(q) == "whole"
+            progs += CC.plan_programs(q)
+            assert got == build(off, tables).to_pydict()
+            assert q.collect().to_pydict() == got          # a replay
+        assert progs[0] is progs[1] and progs[0].graph is not None
+    finally:
+        CC.clear_caches()
+
+
+@pytest.mark.cuda
+def test_captured_and_eager_queries_run_on_two_threads_at_once(cuda):
+    """A capture changes no setting of the process: while one thread
+    warms up and captures q1, q6 and q3 (each collect after a cleared
+    cache), another runs them eager, reading row counts on the host.
+    Neither fails or falls back, and each answers as the eager engine
+    does alone."""
+    import threading
+    from spark_rapids_tpu_torch import tpch
+    from spark_rapids_tpu_torch.exec import compiled as CC
+    from spark_rapids_tpu_torch.exec.plan import ExecContext
+    from spark_rapids_tpu_torch.session import TpuSession
+    tables = tpch.gen_tables(0.01)
+    on = TpuSession({"spark.rapids.tpu.sql.compile.wholePlan": "ON"})
+    off = TpuSession({"spark.rapids.tpu.sql.compile.wholePlan": "OFF"})
+    names = ("q1", "q6", "q3")
+    want = {n: getattr(tpch, n)(off, tables).to_pydict() for n in names}
+    errors, results = [], []
+    start = threading.Barrier(2)
+
+    def worker(mode, session, order):
+        try:
+            start.wait()
+            for _ in range(3):
+                for n in order:
+                    if mode == "on":
+                        CC.clear_caches()        # each collect captures
+                    q = getattr(tpch, n)(session, tables).physical()
+                    ctx = ExecContext(q.conf, q.device)
+                    results.append((mode, n, q.collect(ctx).to_pydict(),
+                                    ctx))
+        except BaseException as e:          # noqa: BLE001 - re-raised below
+            errors.append(e)
+    threads = [threading.Thread(target=worker, args=a) for a in (
+        ("on", on, names), ("off", off, names[::-1]))]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+    finally:
+        CC.clear_caches()
+    assert not errors, errors
+    assert len(results) == 18
+    for mode, n, got, ctx in results:
+        assert got.keys() == want[n].keys(), n
+        for k in got:
+            if got[k] and isinstance(got[k][0], float):
+                np.testing.assert_allclose(got[k], want[n][k], rtol=1e-9,
+                                           err_msg=f"{mode} {n} {k}")
+            else:
+                assert got[k] == want[n][k], (mode, n, k)
+        if mode == "on":
+            assert ctx.metrics.get("whole_plan_compiled_queries") == 1, n
+        else:
+            assert not ctx.metrics.get("whole_plan_fallbacks"), n

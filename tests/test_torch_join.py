@@ -350,8 +350,8 @@ def test_limit_and_top_n_match_reference(conf):
 
 
 def test_conf_warns_once_for_keys_the_port_does_not_honour():
-    # whole-plan compilation (ROADMAP Queue 1 item 5) is not ported
-    key = "spark.rapids.tpu.sql.compile.wholePlan"
+    # the mesh SPMD path (ROADMAP Queue 1 item 9) is not ported
+    key = "spark.rapids.tpu.sql.mesh.enabled"
     assert key not in PCONF.HONOURED_KEYS
     PCONF._WARNED.discard(key)
     with pytest.warns(UserWarning, match="not honoured"):
