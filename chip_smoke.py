@@ -308,10 +308,26 @@ own failure:
                at the kernel phase's shapes and replayed 3 times with
                new inputs, each equal to its plain version.  The TPC-H
                part must finish within 150 s.
+  9h. nested — after capture (chip_smoke_nested.py), at SF10 on the
+               TPC-H columns it keeps from the data phase: ARRAY columns
+               and the holistic aggregates.  pct_q1 (percentile and
+               median over q1's groups, within 4 ulps of numpy's exact
+               lerp), approx_q1 and approx_global (approx_percentile
+               over every lineitem batch, the sketched path, each rank
+               within two merge levels' error), collect_q3 (q3's join
+               into collect_list / collect_set, then size, sort_array,
+               element_at, array_max and array_contains), explode_q3 and
+               posexplode_q3 (the sets exploded by GenerateExec and
+               counted; explode_q3 again under wholePlan=ON, its
+               decision printed, equal to eager) and collect_sf10
+               (collect_list of l_partkey by l_suppkey over every
+               lineitem row), each equal to numpy computed in the data
+               phase's pool, printing its walls, peak, exec names,
+               launches and ragged value-lane sizes.
 Each phase after the data prints its seconds.
   10. result — a `kernels` JSON line (launches by query over every
-               query of phases 5, 6b, 6c, 7, 9, 9b, 9c, 9d, 9e, 9f and
-               9g), the whole run's
+               query of phases 5, 6b, 6c, 7, 9, 9b, 9c, 9d, 9e, 9f, 9g
+               and 9h), the whole run's
                seconds, the nvidia-smi line, and last {"ok": true,
                "device": {...}}.
 
@@ -327,6 +343,7 @@ line: the same A B B A for query walls).
 from __future__ import annotations
 
 import argparse
+import collections
 import concurrent.futures
 import datetime as pydt
 import gc
@@ -492,6 +509,17 @@ PATH_KERNELS.update({
     "hash_murmur3": ("seg_sums",), "hash_xxhash64": ("seg_sums",),
     **{f"tz_{z}": () for z in ("UTC", "America/Los_Angeles",
                                "Australia/Lord_Howe")}})
+# the nested phase (chip_smoke_nested.py): pct_q1's filter compacts
+# before its sort-segment percentiles; the approx cases and collect_sf10
+# scan straight into their sorted aggregations (no kernel); collect_q3
+# and the explodes run q3's joins (their output concatenates into the
+# collect, which compacts it), and explode_q3 then counts by the 7 ship
+# modes, a dictionary domain (seg_sums); posexplode_q3's pos has no
+# bounded range (the sorted group-by)
+PATH_KERNELS.update({"pct_q1": ("compaction_order",), "approx_q1": (),
+                     "approx_global": (), "collect_q3": UNIQUE_JOIN,
+                     "explode_q3": UNIQUE_JOIN + ("seg_sums",),
+                     "posexplode_q3": UNIQUE_JOIN, "collect_sf10": ()})
 Q3_DATE = (pydt.date(1995, 3, 15) - pydt.date(1970, 1, 1)).days
 # the device launches of one build_layout call, by kernel name: this
 # tree's two passes, and (for an A B B A against an older tree) its
@@ -548,6 +576,16 @@ def _on_device(e) -> bool:
     return e.device_type == DeviceType.CUDA
 
 
+def _whole(records, calls: int) -> bool:
+    """Every kernel's count of device records is a positive multiple of
+    the calls: no record of the trace was lost (each call launches each
+    of its kernels a whole number of times; a trace that lost half of
+    every call's records can still hold a multiple of the calls in all:
+    10 of build_table's 20 records once read as 1 launch a call)."""
+    per = collections.Counter(e.name for e in records)
+    return bool(per) and all(v % calls == 0 for v in per.values())
+
+
 def profiled_ms(fn, fragment=None, reps: int = 10, by_name=None,
                 cold: bool = False):
     """(device ms a call of the kernels whose names hold `fragment` (a
@@ -564,8 +602,9 @@ def profiled_ms(fn, fragment=None, reps: int = 10, by_name=None,
     and after, each side set apart by a synchronize and a pause, and
     only the device records that start inside the window count.  Where
     the window's count of launches is not a positive multiple of the
-    calls (a record lost inside it), the trace is counted over all its
-    calls if that count is whole, else taken again, up to five traces;
+    calls for some kernel (a record lost inside it: `_whole`), the trace
+    is counted over all its calls if that count is whole, else taken
+    again, up to five traces;
     fails the run if the profiler saw no launch of such a kernel."""
     from torch.profiler import ProfilerActivity, profile, record_function
     frags = (fragment,) if isinstance(fragment, str) else fragment
@@ -597,9 +636,9 @@ def profiled_ms(fn, fragment=None, reps: int = 10, by_name=None,
                    and window[0].start <= e.time_range.start
                    <= window[0].end]
         n = reps
-        if not (counted and len(counted) % reps == 0):
+        if not _whole(counted, reps):
             counted, n = device, reps + 2 * _PAD
-        if (counted and len(counted) % n == 0) or attempt == 5:
+        if _whole(counted, n) or attempt == 5:
             break
         # every call makes a whole number of launches, so a count that
         # is not a multiple of the calls lost records
@@ -2317,8 +2356,9 @@ def numpy_results(tables, scale: float) -> dict:
     global _WANT_TABLES
     t0 = time.perf_counter()
     import chip_smoke_joins as J
-    names = [Q21_DISTINCT, Q21_LATE_DISTINCT] + list(SCALAR_WANTS) + list(
-        J.WANTS) + list(STRING_WANTS) + [
+    import chip_smoke_nested as N
+    names = [Q21_DISTINCT, Q21_LATE_DISTINCT] + list(N.WANTS) + list(
+        SCALAR_WANTS) + list(J.WANTS) + list(STRING_WANTS) + [
         n for n in FIRST_PATHS + LATER_QUERIES if n != "q21"]
     workers = min(len(names), os.cpu_count() or 1)
     _WANT_TABLES = (tables, scale)
@@ -2368,6 +2408,9 @@ def _want(name: str):
     elif name.startswith(("bloom_", "ck_", "hash_", "tz_")):
         import chip_smoke_joins as J
         got = J.expected(name, tables)
+    elif name.startswith("nested "):
+        import chip_smoke_nested as N
+        got = N.expected(name, tables)
     elif name in ("q1", "q6", "minmax"):
         got = globals()[f"expected_{name}"](tables["lineitem"])
     elif name in FIRST_PATHS:
@@ -3275,9 +3318,10 @@ def main() -> int:
         import chip_smoke_fallback as F
         import chip_smoke_joins as J
         import chip_smoke_late as LT
+        import chip_smoke_nested as N
         # the TPC-H tables go first, to bound host memory; the fallback,
-        # decimals, chaos, joins and late phases keep the columns they
-        # read
+        # decimals, chaos, joins, late and nested phases keep the columns
+        # they read
         fb_tables = F.narrow(tables)
         dec_tables = DEC.narrow(tables)
         ch_tables = CH.narrow(tables)
@@ -3287,6 +3331,8 @@ def main() -> int:
         lt_tables = LT.narrow(tables)
         lt_want = {k: want[k] for k in LT.CASES}
         cap_want = {k: want[k] for k in CAP.CASES}
+        nt_tables = N.narrow(tables)
+        nt_want = {k: want[k] for k in N.WANTS}
         del tables, want, later
         gc.collect()
         torch.cuda.empty_cache()
@@ -3321,6 +3367,10 @@ def main() -> int:
                               lt_tables, lt_want, path_walls))
         launches.update(phase("capture", CAP.capture_phase,
                               sys.modules[__name__], lt_tables, cap_want))
+        del lt_tables
+        gc.collect()
+        launches.update(phase("nested", N.nested_phase,
+                              sys.modules[__name__], nt_tables, nt_want))
     rows = []
     for name in TPU_KERNELS:
         st = stats[name]

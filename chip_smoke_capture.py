@@ -181,6 +181,13 @@ def profiled_launches(build, s, tables) -> dict:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         build(s, tables).collect()
         _sync(s.device)
+        # padding launches after a pause: a record the profiler drops at
+        # the trace's end is one of theirs (they match no kernel name)
+        time.sleep(0.002)
+        pad = torch.zeros(1, device=s.device)
+        for _ in range(4):
+            pad.add_(1)
+        _sync(s.device)
     out = dict.fromkeys(KERNEL_FUNCTIONS, 0)
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
@@ -233,6 +240,20 @@ def case(C, name, tables, want, sessions, check_launches=True) -> dict:
                   f"{off_prof} (OFF sub-partitioned {sub} join(s); the "
                   "capture builds one table)")
         else:
+            # the profiler can lose kernel records of a trace (late in the
+            # smoke's process q5's trace has lost one, and three, of its
+            # launches), never invent one, and a replay launches the same
+            # kernels each time: trace the warm ON run again, at most four
+            # more times, keeping each kernel's largest count, before the
+            # counts are held to OFF's
+            traces = 1
+            while on_prof != off_prof and traces < 5:
+                again = profiled_launches(build, sessions["on"], tables)
+                on_prof = {k: max(v, again[k]) for k, v in on_prof.items()}
+                traces += 1
+            if traces > 1:
+                C.log(f"[capture] {name}: {traces} traces of a warm ON run, "
+                      f"each kernel's largest count: {on_prof}")
             C.check(on_prof == off_prof, f"{name}: a warm ON run launched "
                     f"{on_prof}, not OFF's {off_prof}")
             key = name if name in C.PATH_KERNELS else None

@@ -31,7 +31,7 @@ import torch
 
 from .. import types as t
 from ..config import DEFAULT_CONF, TpuConf
-from .host import HostBatch, HostColumn
+from .host import HostBatch, HostColumn, list_column
 
 
 def bucket_capacity(n: int, conf: TpuConf = DEFAULT_CONF) -> int:
@@ -85,6 +85,14 @@ class DeviceColumn:
     hi        : the high word of a DECIMAL wider than 18 digits (int64,
                 capacity), or None: the value is `data` itself.  Every
                 operator that moves rows moves it (`take`).
+
+    A ragged ARRAY column (the reference's values+offsets layout):
+    offsets   : int32 (row capacity + 1,); row i's elements are
+                data[offsets[i]:offsets[i + 1]], a null or padding row an
+                empty span.  `data` is then the flat values lane in its
+                own bucket (`value_capacity`), with the element's
+                dictionary, and `validity` stays per row.
+    elem_valid: bool per value (null elements), the shape of `data`.
     """
     data: torch.Tensor
     validity: torch.Tensor
@@ -92,10 +100,29 @@ class DeviceColumn:
     dictionary: Optional[np.ndarray] = None
     value_range: Optional[tuple] = None
     hi: Optional[torch.Tensor] = None
+    offsets: Optional[torch.Tensor] = None
+    elem_valid: Optional[torch.Tensor] = None
 
     @property
     def capacity(self) -> int:
+        if self.offsets is not None:
+            return self.offsets.shape[0] - 1
         return self.data.shape[0]
+
+    @property
+    def value_capacity(self) -> int:
+        """The values lane's capacity of a ragged column."""
+        return self.data.shape[0]
+
+    def nbytes(self) -> int:
+        """Device bytes of the padded lanes."""
+        n = self.stored.numel() * self.stored.element_size() + \
+            self.validity.numel()
+        if self.hi is not None:
+            n += self.hi.numel() * 8
+        if self.offsets is not None:
+            n += self.offsets.numel() * 4 + self.elem_valid.numel()
+        return n
 
     @property
     def stored(self) -> torch.Tensor:
@@ -120,12 +147,53 @@ class DeviceColumn:
     def take(self, idx, live=None) -> "DeviceColumn":
         """The rows at `idx` (a tensor or a slice), validity ANDed with
         `live` when given; the high word comes along (a narrow lane
-        stays narrow)."""
+        stays narrow), and a ragged column's values with their rows."""
         valid = self.validity[idx]
         if live is not None:
             valid = valid & live
+        if self.offsets is not None:
+            return self._take_ragged(idx, valid)
         return self.rebuilt(self.stored[idx], valid,
                             None if self.hi is None else self.hi[idx])
+
+    def _take_ragged(self, idx, valid) -> "DeviceColumn":
+        """A ragged column's rows at `idx`: new offsets from the kept rows'
+        lengths and one gather of the values lane through the value ->
+        row map.  The output values bucket needs the value total on the
+        host (one sync; a host decision under capture)."""
+        off = self.offsets.to(torch.int64)
+        starts = off[:-1][idx]
+        lens = torch.where(valid, (off[1:] - off[:-1])[idx],
+                           torch.zeros_like(starts))
+        new_off = torch.zeros(lens.shape[0] + 1, dtype=torch.int64,
+                              device=off.device)
+        new_off[1:] = torch.cumsum(lens, 0)
+        total = int(new_off[-1])
+        vcap = bucket_capacity(max(total, 1))
+        j = torch.arange(vcap, dtype=torch.int64, device=off.device)
+        row = torch.clamp(torch.searchsorted(new_off[1:], j, right=True),
+                          max=max(lens.shape[0] - 1, 0))
+        src = torch.clamp(starts[row] + j - new_off[row], 0,
+                          max(self.value_capacity - 1, 0))
+        ev = self.elem_valid[src] & (j < total)
+        return dataclasses.replace(
+            self, data=self.data[src], validity=valid,
+            offsets=new_off.to(torch.int32), elem_valid=ev)
+
+    def prefix(self, cap: int, copy: bool = False) -> "DeviceColumn":
+        """The first `cap` rows (a shrink to a smaller bucket; `copy`
+        releases the larger lanes).  A ragged column keeps its values
+        lane whole behind the offsets' prefix (the reference's)."""
+        if self.offsets is not None:
+            off = self.offsets[:cap + 1]
+            return dataclasses.replace(
+                self, validity=self.validity[:cap].clone() if copy
+                else self.validity[:cap],
+                offsets=off.clone() if copy else off)
+        cut = (lambda x: x[:cap].clone()) if copy else (lambda x: x[:cap])
+        return self.rebuilt(cut(self.stored), cut(self.validity),
+                            None if self.hi is None else cut(self.hi),
+                            self.value_range)
 
 
 class NarrowColumn(DeviceColumn):
@@ -237,10 +305,7 @@ class DeviceBatch:
     def nbytes(self) -> int:
         """Device bytes of the padded lanes (capacity-based: no sync),
         the row-id lanes of a thin batch included."""
-        n = sum(c.stored.numel() * c.stored.element_size() +
-                c.validity.numel() +
-                (0 if c.hi is None else c.hi.numel() * 8)
-                for c in self.columns)
+        n = sum(c.nbytes() for c in self.columns)
         if self.sel is not None:
             n += self.sel.numel()
         if self.thin is not None:
@@ -312,7 +377,8 @@ def narrowable(col: HostColumn) -> bool:
     """An integer-family, DATE, TIMESTAMP or one-lane DECIMAL column
     (not a string's codes, a DOUBLE or a boolean), which a scan may
     upload FOR-narrowed."""
-    return col.hi is None and col.data.dtype.kind == "i" and \
+    return col.hi is None and col.offsets is None and \
+        col.data.dtype.kind == "i" and \
         not isinstance(col.dtype, (t.StringType, t.NullType)) and \
         col.data.dtype == np.dtype(t.physical_np_dtype(col.dtype))
 
@@ -356,6 +422,20 @@ def column_to_device(col: HostColumn, capacity: int, device: torch.device,
         validity = torch.arange(capacity, device=device) < n
     else:
         validity = _upload(col.validity, capacity, torch.bool, device)
+    if col.offsets is not None:
+        # a ragged column: the values lane in its own bucket (never
+        # narrowed), the offsets held at the last value past the rows
+        nv = len(col.data)
+        vcap = bucket_capacity(max(nv, 1))
+        off = np.full(capacity + 1, int(col.offsets[-1]), np.int32)
+        off[:n + 1] = col.offsets
+        ev = torch.arange(vcap, device=device) < nv \
+            if col.elem_valid is None else \
+            _upload(col.elem_valid, vcap, torch.bool, device)
+        return DeviceColumn(
+            _upload(col.data, vcap, storage_dtype(col.dtype), device),
+            validity, col.dtype, col.dictionary, None, None,
+            _upload(off, capacity + 1, torch.int32, device), ev)
     if narrowed is not None:
         lane, lo, hi = narrowed
         from ..ops.encodings import count_dispatch
@@ -389,10 +469,15 @@ def empty_device_batch(schema: t.StructType, conf: TpuConf = DEFAULT_CONF,
                        device=None) -> DeviceBatch:
     cols = []
     for f in schema.fields:
+        dt = f.data_type
+        elem = dt.element_type if isinstance(dt, t.ArrayType) else dt
         dictionary = np.array([], str) \
-            if isinstance(f.data_type, t.StringType) else None
-        cols.append(HostColumn(np.zeros(0, t.physical_np_dtype(f.data_type)),
-                               None, f.data_type, dictionary))
+            if isinstance(elem, t.StringType) else None
+        col = HostColumn(np.zeros(0, t.physical_np_dtype(elem)), None,
+                         elem, dictionary)
+        if isinstance(dt, t.ArrayType):
+            col = list_column(col, np.zeros(1, np.int64))
+        cols.append(col)
     return to_device(HostBatch(cols, schema.names), conf, device=device)
 
 
@@ -408,8 +493,17 @@ def to_host(db: DeviceBatch, rows: int) -> HostBatch:
     db.assert_prefix()
     cols = []
     for c in db.columns:
-        data = c.data[:rows].cpu().numpy()
         valid = c.validity[:rows].cpu().numpy()
+        if c.offsets is not None:
+            off = c.offsets[:rows + 1].cpu().numpy()
+            nv = int(off[-1]) if len(off) else 0
+            ev = c.elem_valid[:nv].cpu().numpy()
+            cols.append(HostColumn(
+                c.data[:nv].cpu().numpy(), None if valid.all() else valid,
+                c.dtype, c.dictionary, None, off.astype(np.int32),
+                None if ev.all() else ev))
+            continue
+        data = c.data[:rows].cpu().numpy()
         hi = None if c.hi is None else c.hi[:rows].cpu().numpy()
         cols.append(HostColumn(data, None if valid.all() else valid,
                                c.dtype, c.dictionary, hi))

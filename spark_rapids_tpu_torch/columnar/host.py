@@ -13,7 +13,15 @@ with the card needs no pyarrow:
     may carry a second int64 lane `hi`, the value being
     hi * 2^64 + (data as unsigned) (the reference's decimal128 word
     order); without `hi` the value is `data` itself;
-  * DATE is int32 days since the epoch, TIMESTAMP int64 microseconds.
+  * DATE is int32 days since the epoch, TIMESTAMP int64 microseconds;
+  * an ARRAY column is ragged (the reference's values+offsets layout):
+    `data` is the flat values lane in the element's storage form (with
+    the element's dictionary), `elem_valid` a bool per value (None = all
+    valid), `offsets` int32 of rows + 1, row i's elements
+    data[offsets[i]:offsets[i + 1]], and `validity` per row; a null row
+    is an empty span (`list_column` builds one).  An ARRAY of ARRAYs
+    (the CPU engine's only: Flatten's input) holds its elements as a
+    ragged HostColumn in `data`, whose validity is the elements'.
 
 `from_numpy` builds a batch from plain arrays; `from_arrow`/`to_arrow`
 interchange with pyarrow, which they import inside the function, so
@@ -45,19 +53,41 @@ def decimal_value(unscaled: int, scale: int) -> pydec.Decimal:
 class HostColumn:
     """One host column: data lane, validity (None = all valid), logical
     type, for strings the sorted duplicate-free dictionary, and for a
-    DECIMAL wider than 18 digits an optional high word `hi`."""
+    DECIMAL wider than 18 digits an optional high word `hi`.  A ragged
+    ARRAY column also carries `offsets` and `elem_valid` (module
+    docstring)."""
     data: np.ndarray
     validity: Optional[np.ndarray]
     dtype: t.DataType
     dictionary: Optional[np.ndarray] = None
     hi: Optional[np.ndarray] = None
+    offsets: Optional[np.ndarray] = None
+    elem_valid: Optional[np.ndarray] = None
 
     def __len__(self) -> int:
+        if self.offsets is not None:
+            return len(self.offsets) - 1
         return len(self.data)
+
+    def elements(self) -> "HostColumn":
+        """A ragged column's values as a column of the element type."""
+        if isinstance(self.data, HostColumn):
+            return self.data
+        return HostColumn(self.data, self.elem_valid,
+                          self.dtype.element_type, self.dictionary)
 
     def slice(self, offset: int, length: int) -> "HostColumn":
         v = None if self.validity is None \
             else self.validity[offset:offset + length]
+        if self.offsets is not None:
+            off = self.offsets[offset:offset + length + 1]
+            lo, hi = int(off[0]), int(off[-1])
+            ev = None if self.elem_valid is None else self.elem_valid[lo:hi]
+            data = self.data.slice(lo, hi - lo) \
+                if isinstance(self.data, HostColumn) else self.data[lo:hi]
+            return HostColumn(data, v, self.dtype,
+                              self.dictionary, None,
+                              (off - lo).astype(np.int32), ev)
         hi = None if self.hi is None else self.hi[offset:offset + length]
         return HostColumn(self.data[offset:offset + length], v, self.dtype,
                           self.dictionary, hi)
@@ -77,14 +107,18 @@ class HostColumn:
             .astype(object)
 
     def valid_mask(self) -> np.ndarray:
-        return np.ones(len(self.data), bool) if self.validity is None \
+        return np.ones(len(self), bool) if self.validity is None \
             else self.validity
 
     def to_pylist(self) -> list:
         """Python values with the types pyarrow's to_pylist gives."""
         dt = self.dtype
         data = self.data
-        if isinstance(dt, t.StringType):
+        if self.offsets is not None:
+            flat = self.elements().to_pylist()
+            off = self.offsets.tolist()
+            vals = [flat[a:b] for a, b in zip(off[:-1], off[1:])]
+        elif isinstance(dt, t.StringType):
             # an empty dictionary means every row is null
             vals = self.dictionary[data].tolist() if len(self.dictionary) \
                 else [None] * len(data)
@@ -274,6 +308,17 @@ def concat_columns(parts: Sequence[HostColumn]) -> HostColumn:
     valid = None
     if any(p.validity is not None for p in parts):
         valid = np.concatenate([p.valid_mask() for p in parts])
+    if isinstance(dt, t.ArrayType):
+        values = concat_columns([p.elements() for p in parts])
+        base = np.cumsum([0] + [int(p.offsets[-1]) for p in parts[:-1]])
+        offsets = np.concatenate(
+            [p.offsets[:-1] + b for p, b in zip(parts, base)] +
+            [np.array([int(base[-1]) + int(parts[-1].offsets[-1])])])
+        if values.offsets is not None:       # an ARRAY of ARRAYs
+            return HostColumn(values, valid, dt, None, None,
+                              offsets.astype(np.int32))
+        return HostColumn(values.data, valid, dt, values.dictionary, None,
+                          offsets.astype(np.int32), values.validity)
     if not isinstance(dt, t.StringType):
         lane = t.physical_np_dtype(dt)
         hi = None
@@ -356,6 +401,60 @@ def string_column(values, validity: Optional[np.ndarray] = None
     return HostColumn(data, validity, t.STRING, dictionary.astype(str))
 
 
+def list_column(elements: HostColumn, offsets,
+                validity: Optional[np.ndarray] = None) -> HostColumn:
+    """An ARRAY column from its elements (a column of the element type)
+    and int offsets of rows + 1 (row i's elements are
+    elements[offsets[i]:offsets[i + 1]]): the offsets rebase to 0 and a
+    null row's span is emptied, so a null row holds no value, the
+    layout every ARRAY column keeps (with numpy alone: the card's machine
+    has no pyarrow)."""
+    off = np.asarray(offsets, np.int64)
+    if off[0]:
+        elements = elements.slice(int(off[0]), int(off[-1] - off[0]))
+        off = off - off[0]
+    n = len(off) - 1
+    lens = np.diff(off)
+    if validity is not None:
+        validity = np.asarray(validity, bool)
+        if validity.all():
+            validity = None
+    if validity is not None and lens[~validity].any():
+        from ..ops.host import take
+        keep = np.repeat(validity, lens)
+        lens = np.where(validity, lens, 0)
+        elements = take(elements.slice(0, len(keep)), np.flatnonzero(keep))
+    total = int(lens.sum())
+    if elements.offsets is not None:         # an ARRAY of ARRAYs
+        new_off = np.zeros(n + 1, np.int32)
+        new_off[1:] = np.cumsum(lens)
+        return HostColumn(elements.slice(0, total), validity,
+                          t.ArrayType(elements.dtype), None, None, new_off)
+    data = elements.data[:total]
+    ev = None if elements.validity is None else elements.validity[:total]
+    if ev is not None and ev.all():
+        ev = None
+    new_off = np.zeros(n + 1, np.int32)
+    new_off[1:] = np.cumsum(lens)
+    return HostColumn(np.ascontiguousarray(data), validity,
+                      t.ArrayType(elements.dtype), elements.dictionary,
+                      None, new_off, ev)
+
+
+def list_from_pylists(values, element_type: t.DataType) -> HostColumn:
+    """An ARRAY column from per-row Python lists (None = a null row, an
+    element None = a null element)."""
+    values = list(values)
+    validity = np.array([v is not None for v in values], bool)
+    lens = [0 if v is None else len(v) for v in values]
+    flat = [x for v in values if v is not None for x in v]
+    elems = from_pydict({"e": flat}, t.StructType(
+        [t.StructField("e", element_type)])).columns[0]
+    off = np.zeros(len(values) + 1, np.int64)
+    off[1:] = np.cumsum(lens)
+    return list_column(elems, off, None if validity.all() else validity)
+
+
 def _as_lane(values, dt: t.DataType) -> np.ndarray:
     if isinstance(dt, t.NullType):
         return np.zeros(len(values), np.int32)
@@ -403,6 +502,12 @@ def from_numpy(columns: Mapping[str, object], schema: t.StructType
     cols = []
     for f in schema.fields:
         v = columns[f.name]
+        if isinstance(v, HostColumn):
+            cols.append(v)
+            continue
+        if isinstance(f.data_type, t.ArrayType):
+            cols.append(list_from_pylists(v, f.data_type.element_type))
+            continue
         data, validity = v if isinstance(v, tuple) else (v, None)
         if validity is not None:
             validity = np.asarray(validity, bool)
@@ -436,6 +541,9 @@ def _infer_type(values) -> t.DataType:
     kinds = {type(v) for v in values if v is not None}
     if not kinds:
         return t.NULL
+    if kinds == {list}:
+        return t.ArrayType(_infer_type(
+            [x for v in values if v is not None for x in v]))
     if kinds == {bool}:
         return t.BOOLEAN
     if kinds <= {int, float}:
@@ -462,6 +570,8 @@ def _host_lane(values, dt: t.DataType):
     the host storage form of `dt`."""
     if isinstance(values, np.ndarray) and values.dtype.kind != "O":
         return values, None
+    if isinstance(dt, t.ArrayType):
+        return list_from_pylists(values, dt.element_type)
     values = list(values)
     validity = np.array([v is not None for v in values], bool)
     zero = {t.DateType: pydt.date(1970, 1, 1),
@@ -528,6 +638,12 @@ def arrow_to_dtype(at) -> t.DataType:
         return t.DecimalType(at.precision, at.scale)
     if pa.types.is_dictionary(at):
         return arrow_to_dtype(at.value_type)
+    if pa.types.is_list(at) or pa.types.is_large_list(at):
+        return t.ArrayType(arrow_to_dtype(at.value_type))
+    if pa.types.is_struct(at) or pa.types.is_map(at):
+        from ..plan.expressions import NESTED_SLICE
+        raise NotImplementedError(
+            f"{at} columns port with {NESTED_SLICE}")
     raise TypeError(f"unsupported arrow type {at} in the port")
 
 
@@ -544,6 +660,8 @@ def dtype_to_arrow(dt: t.DataType):
         return simple[type(dt)]
     if isinstance(dt, t.DecimalType):
         return pa.decimal128(dt.precision, dt.scale)
+    if isinstance(dt, t.ArrayType):
+        return pa.list_(dtype_to_arrow(dt.element_type))
     raise TypeError(f"unsupported logical type {dt} in the port")
 
 
@@ -554,6 +672,14 @@ def _arrow_column(arr, dt: t.DataType) -> HostColumn:
     validity = None
     if arr.null_count:
         validity = pc.is_valid(arr).to_numpy(zero_copy_only=False)
+    if isinstance(dt, t.ArrayType):
+        # a null row's span is emptied (list_column), as the reference's
+        # _arrow_list_to_device rebuilds it
+        arr = arr.cast(pa.list_(arr.type.value_type))
+        off = arr.offsets.to_numpy(zero_copy_only=False).astype(np.int64)
+        values = arr.values.slice(int(off[0]), int(off[-1] - off[0]))
+        return list_column(_arrow_column(values, dt.element_type), off,
+                           validity)
     if isinstance(dt, t.StringType):
         if pa.types.is_dictionary(arr.type):
             arr = arr.cast(pa.string())
@@ -601,28 +727,33 @@ def from_arrow(table) -> HostBatch:
     return HostBatch(cols, table.schema.names)
 
 
+def _to_arrow_array(c: HostColumn):
+    import pyarrow as pa
+    mask = None if c.validity is None else ~c.validity
+    dt = c.dtype
+    if isinstance(dt, t.ArrayType):
+        return pa.ListArray.from_arrays(
+            pa.array(c.offsets, pa.int32()), _to_arrow_array(c.elements()),
+            mask=None if mask is None else pa.array(mask))
+    if isinstance(dt, t.StringType):
+        return pa.DictionaryArray.from_arrays(
+            pa.array(c.data, pa.int32(), mask=mask),
+            pa.array(c.dictionary.tolist(), pa.string())).cast(pa.string())
+    if isinstance(dt, t.DecimalType):
+        return pa.array(c.to_pylist(), dtype_to_arrow(dt))
+    if isinstance(dt, t.DateType):
+        return pa.array(c.data.astype(np.int32), pa.int32(),
+                        mask=mask).cast(pa.date32())
+    if isinstance(dt, t.TimestampType):
+        return pa.array(c.data.astype(np.int64), pa.int64(),
+                        mask=mask).cast(dtype_to_arrow(dt))
+    if isinstance(dt, t.NullType):
+        return pa.nulls(len(c.data))
+    return pa.array(c.data, dtype_to_arrow(dt), mask=mask)
+
+
 def to_arrow(hb: HostBatch):
     """pyarrow Table from a HostBatch."""
     import pyarrow as pa
-    arrays = []
-    for c in hb.columns:
-        mask = None if c.validity is None else ~c.validity
-        dt = c.dtype
-        if isinstance(dt, t.StringType):
-            arrays.append(pa.DictionaryArray.from_arrays(
-                pa.array(c.data, pa.int32(), mask=mask),
-                pa.array(c.dictionary.tolist(), pa.string()))
-                .cast(pa.string()))
-        elif isinstance(dt, t.DecimalType):
-            arrays.append(pa.array(c.to_pylist(), dtype_to_arrow(dt)))
-        elif isinstance(dt, t.DateType):
-            arrays.append(pa.array(c.data.astype(np.int32), pa.int32(),
-                                   mask=mask).cast(pa.date32()))
-        elif isinstance(dt, t.TimestampType):
-            arrays.append(pa.array(c.data.astype(np.int64), pa.int64(),
-                                   mask=mask).cast(dtype_to_arrow(dt)))
-        elif isinstance(dt, t.NullType):
-            arrays.append(pa.nulls(len(c.data)))
-        else:
-            arrays.append(pa.array(c.data, dtype_to_arrow(dt), mask=mask))
-    return pa.Table.from_arrays(arrays, names=list(hb.names))
+    return pa.Table.from_arrays([_to_arrow_array(c) for c in hb.columns],
+                                names=list(hb.names))

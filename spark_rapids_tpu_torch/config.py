@@ -1233,7 +1233,9 @@ HONOURED_KEYS = frozenset(e.key for e in (
     # seams, the background compile service and the shared scan upload
     WHOLE_PLAN_COMPILE, SEAM_SPLIT_MIN_ROWS, COMPILE_CONST_LIFT,
     COMPILE_BG_ENABLED, COMPILE_BG_THREADS, COMPILE_BG_SPECULATE,
-    PLAN_CACHE_ENTRIES, SCAN_UPLOAD_CACHE_BYTES))
+    PLAN_CACHE_ENTRIES, SCAN_UPLOAD_CACHE_BYTES,
+    # the holistic aggregates (exec/collect.py, exec/percentile.py)
+    COLLECT_DEVICE_ENABLED, APPROX_PERCENTILE_SKETCH_K))
 
 #: keys the port resolves to one behaviour for now -> what it does
 RESOLVED = {

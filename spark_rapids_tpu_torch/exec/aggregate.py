@@ -109,6 +109,19 @@ def _key_pack_spec(key_cols, key_ranges) -> "Optional[tuple]":
     return None
 
 
+def holistic_pack_spec(key_cols, key_exprs, child):
+    """The pack spec of the holistic (sorted_segments) aggregation execs
+    (exec/percentile.py, exec/collect.py): the child's range of each
+    plainly referenced key and the dictionary and boolean domains, so
+    every key folds into one sort lane when all are bounded."""
+    from .plan import _key_ref_name
+    ranges = []
+    for e in key_exprs:
+        ref = _key_ref_name(e)
+        ranges.append(None if ref is None else child.column_range(ref))
+    return _key_pack_spec(key_cols, ranges)
+
+
 def _domains_as_pack(domains):
     """Dense key domains (codes in [0, size)) as a packed-lane spec:
     slot 0 stays the null slot, codes shift up by one."""

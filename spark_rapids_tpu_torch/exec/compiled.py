@@ -146,9 +146,11 @@ def _flatten_batch(db: DeviceBatch):
         tensors += [c.stored, c.validity]
         if c.hi is not None:
             tensors.append(c.hi)
+        if c.offsets is not None:          # a ragged column's lanes
+            tensors += [c.offsets, c.elem_valid]
         cols.append((isinstance(c, NarrowColumn), c.dtype, c.dictionary,
                      c.value_range, c.hi is not None,
-                     getattr(c, "enc", None)))
+                     getattr(c, "enc", None), c.offsets is not None))
     static_rows = db.num_rows if isinstance(db.num_rows, int) else None
     if static_rows is None:
         tensors.append(db.num_rows)
@@ -164,16 +166,20 @@ def _rebuild_batch(tensors, spec, i: int) -> Tuple[DeviceBatch, int]:
     lane's widened copy) survives into the next run."""
     cols_spec, names, static_rows, has_sel = spec
     cols = []
-    for narrow, dtype, dictionary, rng, has_hi, enc in cols_spec:
+    for narrow, dtype, dictionary, rng, has_hi, enc, ragged in cols_spec:
         stored, valid = tensors[i], tensors[i + 1]
         i += 2
-        hi = None
+        hi = offsets = elem_valid = None
         if has_hi:
             hi = tensors[i]
             i += 1
+        if ragged:
+            offsets, elem_valid = tensors[i], tensors[i + 1]
+            i += 2
         cols.append(NarrowColumn(stored, valid, dtype, dictionary, rng, enc)
                     if narrow else
-                    DeviceColumn(stored, valid, dtype, dictionary, rng, hi))
+                    DeviceColumn(stored, valid, dtype, dictionary, rng, hi,
+                                 offsets, elem_valid))
     num_rows = static_rows
     if static_rows is None:
         num_rows = tensors[i]
@@ -196,11 +202,6 @@ _SCAN_UPLOAD_LOCK = threading.Lock()
 #: table entries the byte cap evicted (the reference's
 #: tpu_scan_upload_evictions_total)
 SCAN_UPLOAD_EVICTIONS = {"count": 0}
-
-
-def _column_bytes(c: DeviceColumn) -> int:
-    return (c.stored.numel() * c.stored.element_size() + c.validity.numel()
-            + (0 if c.hi is None else c.hi.numel() * 8))
 
 
 def _shared_scan_upload(node: HostScanExec, conf: TpuConf,
@@ -244,7 +245,7 @@ def _shared_scan_upload(node: HostScanExec, conf: TpuConf,
                     if narrow else None
                 c = cols[ck] = column_to_device(hb.columns[i], cap, device,
                                                 lane)
-                added += _column_bytes(c)
+                added += c.nbytes()
             batch_cols.append(c)
         out.append(DeviceBatch(batch_cols, hb.num_rows, list(hb.names)))
     if not cap_bytes:
@@ -675,8 +676,9 @@ class CompiledPlan:
         if skey is None:
             return None
         spec_sig = tuple((type(n).__name__, tuple(
-            (tuple((nw, dt.simple_string, d is not None, rng, hi, enc)
-                   for nw, dt, d, rng, hi, enc in cols), names, rows, sel)
+            (tuple((nw, dt.simple_string, d is not None, rng, hi, enc, rg)
+                   for nw, dt, d, rng, hi, enc, rg in cols), names, rows,
+             sel)
             for cols, names, rows, sel in specs)) for n, specs in in_specs)
         input_sig = tuple((tuple(a.shape), str(a.dtype), str(a.device))
                           for a in flat_in)
@@ -1091,9 +1093,7 @@ def _build_input(node: PlanNode) -> Optional[PlanNode]:
 def _slice_batch(db: DeviceBatch, cap: int, n) -> DeviceBatch:
     """A live-prefix batch narrowed to a smaller bucket, copied: the seam
     releases the segment's graph, whose next replay overwrites it."""
-    cols = [c.rebuilt(c.stored[:cap].clone(), c.validity[:cap].clone(),
-                      None if c.hi is None else c.hi[:cap].clone(),
-                      c.value_range) for c in db.columns]
+    cols = [c.prefix(cap, copy=True) for c in db.columns]
     return DeviceBatch(cols, n, list(db.names))
 
 
@@ -1207,8 +1207,8 @@ class SplitCompiledPlan:
         output's dtypes and dictionaries, no live row."""
         cols_spec, names, _rows, _sel = spec
         cols = []
-        for (narrow, dt, d, rng, has_hi, enc), (lane_dt, valid_dt) in zip(
-                cols_spec, layout):
+        for (narrow, dt, d, rng, has_hi, enc, _r), (lane_dt, valid_dt) \
+                in zip(cols_spec, layout):
             stored = torch.zeros(cap, dtype=lane_dt, device=device)
             valid = torch.zeros(cap, dtype=torch.bool, device=device)
             hi = torch.zeros(cap, dtype=torch.int64, device=device) \
@@ -1229,7 +1229,8 @@ class SplitCompiledPlan:
                 len(outs) != 1:
             return                       # multi-batch seams: no prediction
         db = outs[0]
-        if db.sel is not None or db.thin is not None:
+        if db.sel is not None or db.thin is not None or \
+                any(c.offsets is not None for c in db.columns):
             return
         _t, spec = _flatten_batch(db)
         layout = [(c.stored.dtype, c.validity.dtype) for c in db.columns]
@@ -1274,6 +1275,8 @@ class SplitCompiledPlan:
         from ..ops.batch_ops import ensure_prefix
         sliced = []
         for db in outs:
+            if any(c.offsets is not None for c in db.columns):
+                raise _SplitUnsupported()         # a ragged seam output
             db = ensure_prefix(db, ctx.conf)      # the seam re-buckets
             n = db.num_rows if isinstance(db.num_rows, int) \
                 else int(db.num_rows)             # ONE host read a batch

@@ -20,7 +20,7 @@ from ..ops.distinct import distinct_count_trace, exact_value_range
 from ..plan import expressions as E
 from ..plan.aggregates import CountDistinct
 from ..runtime.capture import capturing
-from .aggregate import _key_pack_spec
+from .aggregate import holistic_pack_spec
 from .evaluator import evaluate_projection
 from .plan import ExecContext, PlanNode, _key_ref_name
 
@@ -92,8 +92,7 @@ class DistinctAggregateExec(PlanNode):
         live = merged.row_mask()
         cap = merged.capacity
         info = [(c.dtype, True, c.data.dtype) for c in key_cols]
-        pack = _key_pack_spec(key_cols, [self._range_of(e)
-                                         for e in self.key_exprs])
+        pack = holistic_pack_spec(key_cols, self.key_exprs, self.child)
         counts = []
         out_keys = n_groups = None
         for vcol, e in zip(val_cols, val_exprs):

@@ -35,6 +35,9 @@ def _input(c: DeviceColumn) -> DevVal:
         return DevVal(None, c.validity, c.dtype, c.dictionary, c.value_range,
                       narrow=c.lane,
                       widen=lambda: compute_view(c.data, c.dtype))
+    if c.offsets is not None:
+        return DevVal(c.data, c.validity, c.dtype, c.dictionary,
+                      offsets=c.offsets, elem_valid=c.elem_valid)
     return DevVal(compute_view(c.data, c.dtype), c.validity, c.dtype,
                   c.dictionary, c.value_range, c.hi)
 
@@ -61,6 +64,12 @@ def evaluate_projection(exprs: Sequence[Expression], names: Sequence[str],
     if db.thin is not None:
         from ..columnar.lanes import materialize_refs
         db = materialize_refs(db, exprs, conf)
+    if db.sel is not None and any(c.offsets is not None
+                                  for c in db.columns):
+        # the ragged kernels bound the live values by offsets[num_rows]:
+        # a prefix batch first (the reference's)
+        from ..ops.batch_ops import ensure_prefix
+        db = ensure_prefix(db, conf)
     pctx, hostvals = _prepare(exprs, db, conf)
     ctx = eval_ctx(db, pctx, conf)
     live = db.row_mask()
@@ -70,6 +79,12 @@ def evaluate_projection(exprs: Sequence[Expression], names: Sequence[str],
         if narrow is not None:
             dv = narrow_dev(dv, narrow)
         valid = live if dv.validity is None else dv.validity & live
+        if dv.offsets is not None:
+            # a ragged result keeps its offsets and element validity
+            cols.append(DeviceColumn(dv.data, valid, e.dtype,
+                                     hv.dictionary, None, None, dv.offsets,
+                                     dv.elem_valid))
+            continue
         if dv.narrow is not None and dv.hi is None:
             # a FOR-narrowed value rides through the projection narrow, as
             # the reference's does (its readers widen it when they read);

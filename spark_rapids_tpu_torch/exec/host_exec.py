@@ -1036,3 +1036,48 @@ class _Frames:
         return H.column(np.where(ok, red, 0), ok, dt, src.dictionary)
 
 
+
+
+class CpuGenerateExec(HostNode):
+    """explode / posexplode (+ outer) on the CPU engine: each row repeated
+    an element, the [pos,] col columns appended (the reference's
+    CpuGenerateExec: a non-outer explode drops a row whose array is null
+    or empty, an outer one keeps it once with null generated columns).
+    The array column stays in the output."""
+
+    def __init__(self, generator, output_names, child: HostNode):
+        super().__init__(child)
+        self.generator = generator.bind(child.output_schema)
+        self._gen_fields = self.generator.output_fields()
+        self.output_names = list(output_names) or \
+            [f.name for f in self._gen_fields]
+
+    @property
+    def output_schema(self) -> t.StructType:
+        fields = list(self.child.output_schema.fields)
+        for f, n in zip(self._gen_fields, self.output_names):
+            fields.append(t.StructField(n, f.data_type, f.nullable))
+        return t.StructType(fields)
+
+    def _execute(self, ctx):
+        gen = self.generator
+        for hb in self.child.execute(ctx):
+            arr = gen.child.eval_cpu(hb)
+            n = len(arr)
+            lens = np.diff(arr.offsets).astype(np.int64)
+            lens = np.where(H.valid_of(arr.validity, n), lens, 0)
+            reps = np.where(lens > 0, lens, 1 if gen.outer else 0)
+            rows = np.repeat(np.arange(n, dtype=np.int64), reps)
+            starts = np.cumsum(reps) - reps
+            pos = np.arange(len(rows), dtype=np.int64) - starts[rows]
+            has = lens[rows] > 0                # an element, not an outer row
+            elem = np.where(has, arr.offsets[:-1][rows] + pos, -1)
+            cols = list(take_rows(hb, rows).columns)
+            if gen.pos:
+                cols.append(H.column(pos.astype(np.int32),
+                                     None if has.all() else has, t.INT))
+            cols.append(H.take(arr.elements(), elem))
+            yield HostBatch(cols, self.output_schema.names)
+
+    def describe(self):
+        return f"CpuGenerateExec[{self.generator!r}]"

@@ -714,7 +714,8 @@ def _truncate(db: DeviceBatch, rows) -> DeviceBatch:
     from ..ops.kernels import live_mask
     live = live_mask(db.capacity, rows, db.device)
     cols = [DeviceColumn(c.data, c.validity & live, c.dtype, c.dictionary,
-                         None, c.hi) for c in db.columns]
+                         None, c.hi, c.offsets, c.elem_valid)
+            for c in db.columns]
     return DeviceBatch(cols, rows, list(db.names))
 
 

@@ -44,7 +44,9 @@ def remap_string_column(col: DeviceColumn, remap: np.ndarray,
                         unified: np.ndarray) -> DeviceColumn:
     table = host_constant(remap, col.data.device)
     data = table[torch.clamp(col.data, 0, table.shape[0] - 1).to(torch.int64)]
-    return DeviceColumn(data, col.validity, col.dtype, unified)
+    # an ARRAY<STRING> column remaps its values lane
+    return DeviceColumn(data, col.validity, col.dtype, unified, None, None,
+                        col.offsets, col.elem_valid)
 
 
 _REMAP_CACHE: dict = {}
@@ -150,13 +152,17 @@ def concat_batches(batches: List[DeviceBatch],
         cols = [b.column(ci) for b in batches]
         dt = cols[0].dtype
         unified = None
-        if isinstance(dt, t.StringType):
+        if isinstance(dt.element_type if isinstance(dt, t.ArrayType)
+                      else dt, t.StringType):
             unified = _shared_dictionary(cols)
             if unified is None:
                 unified, remaps = unify_dictionaries(
                     [c.dictionary for c in cols])
                 cols = [remap_string_column(c, r, unified)
                         for c, r in zip(cols, remaps)]
+        if cols[0].offsets is not None:
+            out_cols.append(_concat_ragged(cols, counts, cap, unified))
+            continue
         # FOR-narrowed parts stay narrow, at the widest of their lanes
         narrow = all(isinstance(c, NarrowColumn) for c in cols)
         if narrow:
@@ -191,6 +197,35 @@ def concat_batches(batches: List[DeviceBatch],
                                      None if hi is None else torch.cat(hi)))
     return DeviceBatch(out_cols, place.rows if lazy else total,
                        list(batches[0].names))
+
+
+def _concat_ragged(cols: List[DeviceColumn], counts: List[int], cap: int,
+                   unified) -> DeviceColumn:
+    """Ragged parts back to back: each part's live values and its
+    offsets moved past the values before it.  The value counts come to
+    the host (a host decision under capture)."""
+    dev = cols[0].validity.device
+    nvals = [int(c.offsets[n]) for c, n in zip(cols, counts)]
+    total = sum(nvals)
+    vcap = bucket_capacity(max(total, 1))
+    offs, base = [], 0
+    for c, n, nv in zip(cols, counts, nvals):
+        offs.append(c.offsets[:n] + base)
+        base += nv
+    rows = sum(counts)
+    offs.append(torch.full((cap + 1 - rows,), total, dtype=torch.int32,
+                           device=dev))
+    pad = vcap - total
+    data = [c.data[:nv] for c, nv in zip(cols, nvals)] + \
+        [torch.zeros(pad, dtype=cols[0].data.dtype, device=dev)]
+    ev = [c.elem_valid[:nv] for c, nv in zip(cols, nvals)] + \
+        [torch.zeros(pad, dtype=torch.bool, device=dev)]
+    valid = [c.validity[:n] for c, n in zip(cols, counts)] + \
+        [torch.zeros(cap - rows, dtype=torch.bool, device=dev)]
+    dictionary = unified if unified is not None else cols[0].dictionary
+    return DeviceColumn(torch.cat(data), torch.cat(valid), cols[0].dtype,
+                        dictionary, None, None,
+                        torch.cat(offs).to(torch.int32), torch.cat(ev))
 
 
 def device_rows(db: DeviceBatch) -> torch.Tensor:
@@ -234,9 +269,7 @@ def shrink_to_capacity(db: DeviceBatch, row_bound: int,
     cap = bucket_capacity(max(row_bound, 1), conf)
     if cap >= db.capacity:
         return db
-    cols = [c.rebuilt(c.stored[:cap], c.validity[:cap],
-                      None if c.hi is None else c.hi[:cap], c.value_range)
-            for c in db.columns]
+    cols = [c.prefix(cap) for c in db.columns]
     return DeviceBatch(cols, db.num_rows, db.names)
 
 
@@ -255,8 +288,5 @@ def shrink_to_rows(db: DeviceBatch, num_rows: int,
     cap = bucket_capacity(max(num_rows, 1), conf)
     if cap >= db.capacity:
         return DeviceBatch(db.columns, num_rows, db.names)
-    cols = [c.rebuilt(c.stored[:cap].clone(), c.validity[:cap].clone(),
-                      None if c.hi is None else c.hi[:cap].clone(),
-                      c.value_range)
-            for c in db.columns]
+    cols = [c.prefix(cap, copy=True) for c in db.columns]
     return DeviceBatch(cols, num_rows, db.names)

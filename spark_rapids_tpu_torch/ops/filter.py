@@ -91,10 +91,15 @@ def compact_batch(db: DeviceBatch, keep: torch.Tensor,
     live = live_mask(db.capacity, count, db.device)
     lanes = []
     for c in db.columns:
-        lanes += [c.stored, c.validity] + ([] if c.hi is None else [c.hi])
+        if c.offsets is None:
+            lanes += [c.stored, c.validity] + ([] if c.hi is None
+                                               else [c.hi])
     moved = iter(grouped_take(lanes, order))
     cols = []
     for c in db.columns:
+        if c.offsets is not None:      # a ragged column moves its values
+            cols.append(c.take(order.long(), live))
+            continue
         data, valid = next(moved), next(moved)
         cols.append(c.rebuilt(data, valid & live,
                               None if c.hi is None else next(moved)))

@@ -138,7 +138,7 @@ class HashTable:
 
     `HashTable(keys, rows, nbits, span)` interleaves two arrays into a
     new buffer; `HashTable.of_slots` takes a buffer as it is."""
-    __slots__ = ("slots", "nbits", "span")
+    __slots__ = ("slots", "nbits", "span", "_runs")
 
     def __init__(self, keys: torch.Tensor, rows: torch.Tensor, nbits: int,
                  span: int):
@@ -148,12 +148,14 @@ class HashTable:
         k.copy_(keys)
         r.copy_(rows)
         self.slots, self.nbits, self.span = slots, nbits, span
+        self._runs = None
 
     @classmethod
     def of_slots(cls, slots: torch.Tensor, nbits: int,
                  span: int) -> "HashTable":
         table = cls.__new__(cls)
         table.slots, table.nbits, table.span = slots, nbits, span
+        table._runs = None
         return table
 
     @property
@@ -255,19 +257,17 @@ def build_table(lane: torch.Tensor, valid: torch.Tensor) -> HashTable:
                               span)
 
 
-def _runs_sorted(table: HashTable, lane: torch.Tensor,
-                 valid: torch.Tensor):
-    """(first slot int64, count int64) of each probe row as the kernels'
-    walk finds them (csrc/hashjoin.cu `count_run`), by sort and search:
-    from the key's home slot, the first slot holding the key before an
-    empty slot, then the consecutive slots that hold it; a run that
-    reaches the last slot counts `home` more, the reference's re-reads
-    of its clamped walk there (the layout never stores a live row in
-    that slot).  No step count depends on the data, which a captured
-    graph could not hold (runtime/capture.py).  (0, 0) without a
-    match."""
-    lane = lane.to(torch.int64)
-    dev, span = lane.device, table.span
+def _table_runs(table: HashTable):
+    """What `_runs_sorted` reads of the table alone: (slot order, its
+    occupancy, the sorted keys, each key's dense rank, the position key,
+    the run numbers, the empty slots before each slot).  Kept on the
+    table, keyed by its buffer and the buffer's version, so the probe
+    batches of one build sort the table once."""
+    slots = table.slots
+    key = (slots.data_ptr(), slots._version)
+    if table._runs is not None and table._runs[0] == key:
+        return table._runs[1]
+    dev, span = slots.device, table.span
     keys, occ = table.keys, table.rows >= 0
     top = torch.iinfo(torch.int64).max
     # the occupied slots in (key, slot) order, then the empty ones
@@ -289,6 +289,25 @@ def _runs_sorted(table: HashTable, lane: torch.Tensor,
     # empty slots before each slot
     empties = torch.zeros(span + 1, dtype=torch.int64, device=dev)
     empties[1:] = torch.cumsum((~occ).to(torch.int64), 0)
+    out = (order, live, skeys, rank, pos, run, empties)
+    table._runs = (key, out)
+    return out
+
+
+def _runs_sorted(table: HashTable, lane: torch.Tensor,
+                 valid: torch.Tensor):
+    """(first slot int64, count int64) of each probe row as the kernels'
+    walk finds them (csrc/hashjoin.cu `count_run`), by sort and search:
+    from the key's home slot, the first slot holding the key before an
+    empty slot, then the consecutive slots that hold it; a run that
+    reaches the last slot counts `home` more, the reference's re-reads
+    of its clamped walk there (the layout never stores a live row in
+    that slot).  No step count depends on the data, which a captured
+    graph could not hold (runtime/capture.py).  (0, 0) without a
+    match."""
+    lane = lane.to(torch.int64)
+    span = table.span
+    order, live, skeys, rank, pos, run, empties = _table_runs(table)
     home = _shr(mix64(lane), 64 - table.nbits)
     lo = torch.clamp(torch.searchsorted(skeys, lane), max=span - 1)
     has = valid & (skeys[lo] == lane) & live[lo]

@@ -225,9 +225,50 @@ def group_ids(keys: Sequence[HostColumn], n: int
 # gathers
 # ---------------------------------------------------------------------------
 
+def ragged_value_index(offsets: np.ndarray, rows: np.ndarray):
+    """(the values lane positions of rows `rows` of a ragged column, in
+    row order, and the new offsets over them)."""
+    starts = offsets[:-1][rows].astype(np.int64)
+    lens = (offsets[1:][rows] - offsets[:-1][rows]).astype(np.int64)
+    new_off = np.zeros(len(rows) + 1, np.int64)
+    new_off[1:] = np.cumsum(lens)
+    pos = np.arange(int(new_off[-1]), dtype=np.int64) - \
+        np.repeat(new_off[:-1], lens) + np.repeat(starts, lens)
+    return pos, new_off
+
+
+def _take_ragged(col: HostColumn, idx: np.ndarray) -> HostColumn:
+    miss = idx < 0
+    valid = valid_of(col.validity, len(col))[np.where(miss, 0, idx)] & ~miss \
+        if len(col) else np.zeros(len(idx), bool)
+    rows = np.where(valid, idx, 0) if len(col) else np.zeros(0, np.int64)
+    if not len(col):
+        off = np.zeros(len(idx) + 1, np.int64)
+        return HostColumn(col.data.slice(0, 0) if isinstance(
+            col.data, HostColumn) else col.data[:0],
+            valid if len(idx) else None,
+                          col.dtype, col.dictionary, None,
+                          off.astype(np.int32), None)
+    pos, off = ragged_value_index(col.offsets, rows)
+    lens = np.diff(off)
+    if (~valid).any():       # a null row (or a miss) holds no value
+        keep = np.repeat(valid, lens)
+        pos = pos[keep]
+        off = np.zeros(len(idx) + 1, np.int64)
+        off[1:] = np.cumsum(np.where(valid, lens, 0))
+    ev = None if col.elem_valid is None else col.elem_valid[pos]
+    data = take(col.data, pos) if isinstance(col.data, HostColumn) \
+        else col.data[pos]
+    return HostColumn(data, None if valid.all() else valid,
+                      col.dtype, col.dictionary, None, off.astype(np.int32),
+                      ev)
+
+
 def take(col: HostColumn, idx: np.ndarray) -> HostColumn:
     """Rows `idx` of `col`; an index of -1 gives a null row."""
     idx = np.asarray(idx, np.int64)
+    if col.offsets is not None:
+        return _take_ragged(col, idx)
     miss = idx < 0
     safe = np.where(miss, 0, idx) if miss.any() else idx
     if len(col) == 0:

@@ -972,3 +972,156 @@ class Corr(_BinaryStatAgg):
             d = np.sqrt(sxx * syy)
             out = np.where(d != 0, sxy / np.where(d != 0, d, 1.0), np.nan)
         return H.column(out, n > 0, t.DOUBLE)
+
+
+# ---------------------------------------------------------------------------
+# The holistic aggregates: collect_list / collect_set (exec/collect.py)
+# and the percentile family (exec/percentile.py) on the device; `cpu_agg`
+# on the CPU engine
+# ---------------------------------------------------------------------------
+
+class CollectList(AggregateFunction):
+    """collect_list as a device group-by emitting a ragged column
+    (exec/collect.py CollectAggregateExec over ops/percentile.py
+    `collect_trace`): a group's non-null values in input order.  Flat
+    element types only."""
+    name = "collect_list"
+
+    def _resolve(self):
+        self.dtype = t.ArrayType(self.child.dtype)
+        self.nullable = False
+
+    def inputs(self):
+        return [self.child]
+
+    def unsupported_reasons(self, conf):
+        out = [] if conf is None or \
+            conf.is_op_enabled("expression", type(self).__name__) \
+            else [f"{type(self).__name__} disabled by conf"]
+        if self.child is not None and conf is not None:
+            out += self.child.tree_unsupported(conf)
+        if self.child is not None and E.consumes_wide_host(self.child):
+            out.append(E.WIDE_HOST_REASON)
+        dt = None if self.child is None else self.child.dtype
+        if isinstance(dt, (t.ArrayType, t.MapType, t.StructType,
+                           t.BinaryType)):
+            out.append(f"collect over {dt.simple_string} "
+                       "(nested elements have no flat values lane)")
+        if isinstance(dt, t.DecimalType) and dt.is_wide:
+            out.append("collect over decimal(>18)")
+        return out
+
+    def _kept(self, col: HostColumn, order: np.ndarray,
+              gid: np.ndarray) -> np.ndarray:
+        """The rows (in group order) that enter each group's list."""
+        return order
+
+    def cpu_agg(self, batch, groups):
+        from ..columnar.host import list_column
+        col = self.child.eval_cpu(batch)
+        order, _starts, _counts = groups.bounds()
+        order = order[H.valid_of(col.validity, len(col))[order]]
+        order = self._kept(col, order, groups.gid[order])
+        counts = np.bincount(groups.gid[order], minlength=groups.count)
+        off = np.zeros(groups.count + 1, np.int64)
+        off[1:] = np.cumsum(counts)
+        values = H.take(col, order)
+        values.validity = None
+        return list_column(values, off)
+
+
+class CollectSet(CollectList):
+    """collect_set: a group's distinct non-null values (Spark's set
+    equality: every NaN one value, -0.0 equal to 0.0, which comes out
+    as 0.0), the first occurrence of each in input order."""
+    name = "collect_set"
+
+    def _kept(self, col, order, gid):
+        if not len(order):
+            return order
+        ids, n = H.factorize([gid, H.order_lane(H.take(col, order))])
+        first = H.first_of_ids(ids, n)
+        return order[np.sort(first)]
+
+    def cpu_agg(self, batch, groups):
+        out = CollectList.cpu_agg(self, batch, groups)
+        if out.data.dtype.kind == "f":
+            out.data = out.data + out.data.dtype.type(0.0)
+        return out
+
+
+def _percentile_values(col: HostColumn):
+    """(the values as float64, Spark-ordered within each run by the
+    caller) of a numeric column."""
+    if isinstance(col.dtype, t.DecimalType):
+        return H.decimal_to_double(col.data, col.dtype.scale)
+    return col.data.astype(np.float64)
+
+
+class Percentile(AggregateFunction):
+    """percentile(col, p), exact.  plan/overrides.py routes an
+    aggregation of only percentile functions to the device sort-segment
+    path (exec/percentile.py PercentileAggregateExec over
+    ops/percentile.py); `cpu_agg` is the CPU engine's: linear
+    interpolation at (n - 1) * p over the group's non-null values with
+    NaN the greatest (the reference's `_percentile_exact`)."""
+    name = "percentile"
+
+    def __init__(self, child: E.Expression, percentage: float):
+        super().__init__(child)
+        assert 0.0 <= percentage <= 1.0
+        self.percentage = percentage
+
+    def _resolve(self):
+        self.dtype = t.DOUBLE
+        self.nullable = True
+
+    def inputs(self):
+        return [self.child]
+
+    def unsupported_reasons(self, conf):
+        out = AggregateFunction.unsupported_reasons(self, conf)
+        if self.child is not None and self.child.dtype is not None and \
+                not t.is_numeric(self.child.dtype):
+            out.append(f"percentile over "
+                       f"{self.child.dtype.simple_string} (numeric only)")
+        return out
+
+    def cpu_agg(self, batch, groups):
+        _c, v, g = self._valid_input(batch, groups)
+        vals = _percentile_values(v)
+        order = np.lexsort((H.float_order(vals), g.gid))
+        counts = np.bincount(g.gid, minlength=g.count).astype(np.int64)
+        starts = np.cumsum(counts) - counts
+        s = vals[order]
+        pos = (np.maximum(counts, 1) - 1).astype(np.float64) * \
+            self.percentage
+        lo = np.floor(pos).astype(np.int64)
+        frac = pos - lo
+        hi = np.minimum(lo + 1, np.maximum(counts - 1, 0))
+        have = counts > 0
+        v_lo = np.where(have, s[np.minimum(starts + lo, len(s) - 1)]
+                        if len(s) else 0.0, 0.0)
+        v_hi = np.where(have, s[np.minimum(starts + hi, len(s) - 1)]
+                        if len(s) else 0.0, 0.0)
+        with np.errstate(invalid="ignore"):
+            out = np.where(frac == 0.0, v_lo,
+                           v_lo * (1 - frac) + v_hi * frac)
+        return H.column(out, have, t.DOUBLE)
+
+    def __repr__(self):
+        return f"percentile({self.child!r}, {self.percentage})"
+
+
+class ApproximatePercentile(Percentile):
+    """approx_percentile: exact on a single batch (zero rank error); over
+    several batches the device path merges per-batch equi-rank sketches
+    (ops/quantile_sketch.py).  The CPU engine's is exact."""
+    name = "approx_percentile"
+
+
+class Median(Percentile):
+    name = "median"
+
+    def __init__(self, child: E.Expression):
+        super().__init__(child, 0.5)

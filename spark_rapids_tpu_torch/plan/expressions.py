@@ -66,6 +66,9 @@ from ..runtime.capture import host_constant, host_reads_ok, recording
 
 #: where RLIKE and the regexp functions port
 REGEX_SLICE = "ops/regex.py (ROADMAP Queue 1 item 7)"
+#: where STRUCT and MAP columns port (the nested-type shatter and the
+#: map and struct classes)
+NESTED_SLICE = "plan/structs.py (ROADMAP Queue 1 item 7)"
 #: where the two-lane device forms of a DECIMAL wider than 18 digits
 #: (arithmetic, comparisons, MIN/MAX over a value past int64) port
 WIDE_DECIMAL_SLICE = ("the two-lane device decimal forms (ROADMAP Queue 1 "
@@ -107,8 +110,10 @@ class Unported(str):
 def has_device_rule(e: "Expression") -> bool:
     """The port's own expression classes have a device rule (the
     reference's `_EXPR_RULES` registry); any other class (a test's, a
-    user's) runs on the CPU engine only."""
-    return type(e).__module__.startswith(__name__.rsplit(".", 2)[0] + ".")
+    user's) runs on the CPU engine only, and so does a port class the
+    reference registers no rule for (`has_rule = False`)."""
+    return type(e).__module__.startswith(__name__.rsplit(".", 2)[0] + ".") \
+        and getattr(type(e), "has_rule", True)
 #: dictionaries an expression keeps derived tensors for at once
 _CACHE_ENTRIES = 4
 
@@ -197,12 +202,19 @@ class DevVal:
     read `narrow`: comparisons (`encodings.narrow_compare`), IN, and
     arithmetic between two narrow lanes at its exact width.  PyTorch
     needs the rule: a Python scalar or a 0-d tensor never promotes a
-    narrow lane, and an out-of-range value wraps silently."""
+    narrow lane, and an out-of-range value wraps silently.
+
+    A ragged ARRAY value (plan/collections.py) carries `offsets` (int32,
+    rows + 1) and `elem_valid` (per value): `data` is then its flat
+    values lane and `validity` per row (columnar/device.DeviceColumn)."""
 
     def __init__(self, data, validity, dtype: t.DataType,
                  dictionary: Optional[np.ndarray] = None,
                  value_range: Optional[Tuple[int, int]] = None,
-                 hi=None, narrow=None, widen=None):
+                 hi=None, narrow=None, widen=None, offsets=None,
+                 elem_valid=None):
+        self.offsets = offsets
+        self.elem_valid = elem_valid
         self._data = data
         self.validity = validity
         self.dtype = dtype

@@ -4,7 +4,7 @@ converts.
 Counterpart of spark_rapids_tpu/plan/logical.py for the nodes the ported
 slices run: scan (over a host batch instead of an Arrow table), range, project,
 filter, aggregate, sort, limit, sample, join, union, expand (the
-grouping-sets lowering) and window.  Each node declares its schema and nothing
+grouping-sets lowering), window and generate (explode / posexplode).  Each node declares its schema and nothing
 else; placement and operator choice belong to plan/overrides.py.
 """
 from __future__ import annotations
@@ -259,3 +259,27 @@ class LogicalWindow(LogicalPlan):
             bound = spec.bind(self.child.schema)
             fields.append(t.StructField(name, bound.dtype))
         return t.StructType(fields)
+
+
+class LogicalGenerate(LogicalPlan):
+    """A generator (explode / posexplode, plan/collections.ExplodeGen)
+    appending its columns to the child's rows: the reference's
+    GpuGenerateExec role.  plan/overrides.GenerateMeta places it."""
+
+    def __init__(self, generator, child: LogicalPlan,
+                 output_names: Sequence[str] = ()):
+        super().__init__(child)
+        self.generator = generator
+        self.output_names = list(output_names)
+
+    def _resolve_schema(self):
+        bound = self.generator.bind(self.child.schema)
+        fields = list(self.child.schema.fields)
+        gen_fields = bound.output_fields()
+        names = self.output_names or [f.name for f in gen_fields]
+        for f, n in zip(gen_fields, names):
+            fields.append(t.StructField(n, f.data_type, f.nullable))
+        return t.StructType(fields)
+
+    def describe(self):
+        return f"Generate[{self.generator!r}]"

@@ -70,7 +70,8 @@ from ..exec.plan import (ExecContext, ExpandExec, FilterExec,
                          SortExec, TopNExec, UnionExec, key_ref_names)
 from . import expressions as E
 from . import logical as L
-from .aggregates import AggregateFunction, CountDistinct
+from .aggregates import (AggregateFunction, CollectList, CountDistinct,
+                         Percentile)
 
 log = logging.getLogger(__name__)
 
@@ -183,6 +184,13 @@ def prune_columns(plan: L.LogicalPlan, required=None) -> L.LogicalPlan:
         return L.LogicalWindow(plan.window_exprs, plan.partition_keys,
                                plan.order_keys,
                                prune_columns(plan.child, req))
+    if type(plan) is L.LogicalGenerate:
+        # a generator keeps its whole input (the reference's); pruning
+        # goes on below it
+        return L.LogicalGenerate(
+            plan.generator,
+            prune_columns(plan.child, set(plan.child.schema.names)),
+            plan.output_names)
     raise NotImplementedError(
         f"{plan.name()} is not ported to the device yet")
 
@@ -287,8 +295,33 @@ class ExprMeta(BaseMeta):
         if not E.has_device_rule(self.expr):
             self.will_not_work(f"expression {name} has no TPU rule")
             return
+        rule = EXPR_RULES.get(type(self.expr))
+        if rule is not None:
+            # the reference's signature checks, for the nested types
+            # (the flat ones each class's own checks cover)
+            for c in self.expr.children:
+                if _nested(c.dtype) and not rule.input_sig.supports(c.dtype):
+                    self.will_not_work(
+                        f"expression {name}: input type "
+                        f"{c.dtype.simple_string} not supported")
+            if _nested(self.expr.dtype) and \
+                    not rule.output_sig.supports(self.expr.dtype):
+                self.will_not_work(
+                    f"expression {name}: output type "
+                    f"{self.expr.dtype.simple_string} not supported")
         for r in self.expr.unsupported_reasons(self.conf):
             self.will_not_work(_prefixed(f"expression {name}: ", r))
+
+
+def _nested(dt) -> bool:
+    return isinstance(dt, (t.ArrayType, t.MapType, t.StructType))
+
+
+def _has_struct_or_map(dt) -> bool:
+    if isinstance(dt, (t.MapType, t.StructType)):
+        return True
+    return isinstance(dt, t.ArrayType) and \
+        _has_struct_or_map(dt.element_type)
 
 
 class AggMeta(BaseMeta):
@@ -341,6 +374,20 @@ class PlanMeta(BaseMeta):
             self.will_not_work(
                 f"exec {key_name} disabled by "
                 f"spark.rapids.tpu.sql.exec.{key_name}")
+        rule = EXEC_RULES.get(type(self.node))
+        for f in self.node.schema.fields:
+            if _has_struct_or_map(f.data_type):
+                # the reference shatters these into flat and ragged
+                # lanes before placement (plan/structs.py)
+                self.will_not_work(E.Unported(
+                    f"output column {f.name}: "
+                    f"{f.data_type.simple_string} is shattered by "
+                    f"{E.NESTED_SLICE}"))
+            elif _nested(f.data_type) and rule is not None and \
+                    not rule.output_sig.supports(f.data_type):
+                self.will_not_work(
+                    f"output column {f.name}: type "
+                    f"{f.data_type.simple_string} not supported")
         for m in self.expr_metas + self.agg_metas:
             m.tag()
             self._roll_up(m)
@@ -455,19 +502,55 @@ class AggregateMeta(PlanMeta):
     def tag_self(self):
         for k, kn in zip(self.node.keys, self.node.key_names):
             kdt = k.bind(self.node.child.schema).dtype
+            if isinstance(kdt, (t.ArrayType, t.MapType, t.StructType,
+                                t.BinaryType)):
+                self.will_not_work(
+                    f"group key {kn}: {kdt.simple_string} keys have "
+                    "no flat device lane")
             if isinstance(kdt, t.DecimalType) and kdt.is_wide:
                 self.will_not_work(
                     f"group key {kn}: decimal({kdt.precision}) keys "
                     "carry a second lane the group-by cannot compare")
         # holistic aggregates (sort-based device execs) cannot mix with
         # streaming ones in one device aggregation
-        distinct = [isinstance(fn, CountDistinct) for fn, _n in self.node.aggs]
-        if any(distinct) and not all(distinct):
+        for family, label in self._holistic_split():
+            if any(family) and not all(family):
+                self.will_not_work(
+                    f"{label} mixed with other aggregates (device path "
+                    f"requires a uniform aggregation)")
+        from ..config import COLLECT_DEVICE_ENABLED
+        if any(isinstance(fn, CollectList) for fn, _n in self.node.aggs) \
+                and not self.conf.get(COLLECT_DEVICE_ENABLED):
+            # the reference hands such an aggregation to its hash
+            # aggregate, which has no collect buffers and raises; the
+            # port runs it on the CPU engine (README)
             self.will_not_work(
-                "count(DISTINCT) mixed with other aggregates (device path "
-                "requires a uniform aggregation)")
+                "collect_list/collect_set with the device collect "
+                f"disabled by {COLLECT_DEVICE_ENABLED.key}")
+
+    def _holistic_split(self):
+        aggs = self.node.aggs
+        return (([isinstance(fn, Percentile) for fn, _n in aggs],
+                 "percentile"),
+                ([isinstance(fn, CountDistinct) for fn, _n in aggs],
+                 "count(DISTINCT)"),
+                ([isinstance(fn, CollectList) for fn, _n in aggs],
+                 "collect_list/collect_set"))
 
     def to_device(self):
+        from ..config import COLLECT_DEVICE_ENABLED
+        if self.node.aggs and all(isinstance(fn, CollectList)
+                                  for fn, _n in self.node.aggs) and \
+                self.conf.get(COLLECT_DEVICE_ENABLED):
+            from ..exec.collect import CollectAggregateExec
+            return CollectAggregateExec(self.node.keys, self.node.key_names,
+                                        self.node.aggs, self._device_child())
+        if self.node.aggs and all(isinstance(fn, Percentile)
+                                  for fn, _n in self.node.aggs):
+            from ..exec.percentile import PercentileAggregateExec
+            return PercentileAggregateExec(
+                self.node.keys, self.node.key_names, self.node.aggs,
+                self._device_child())
         if self.node.aggs and all(isinstance(fn, CountDistinct)
                                   for fn, _n in self.node.aggs):
             from ..exec.distinct import DistinctAggregateExec
@@ -658,6 +741,74 @@ class WindowMeta(PlanMeta):
                                n.order_keys, self._host_child())
 
 
+class GenerateMeta(PlanMeta):
+    """LogicalGenerate: explode / posexplode runs on the device over the
+    ragged lanes (exec/generate.py) when
+
+      * the generator's input is a plain column reference whose element
+        type has a ragged device lane,
+      * no OTHER nested column rides along, and
+      * the parent provably never reads the exploded column (Spark's
+        GenerateExec.requiredChildOutput pruning);
+
+    anything else runs CpuGenerateExec (the reference's GenerateMeta)."""
+
+    def tag_self(self):
+        from .collections import _device_elem_ok
+        gen = self.node.generator
+        child_schema = self.node.child.schema
+        arr = getattr(gen, "child", None)
+        if not isinstance(arr, E.ColumnRef):
+            self.will_not_work("generator input is not a column reference")
+            return
+        adt = child_schema[arr.name].data_type
+        if not isinstance(adt, t.ArrayType) or not (
+                _device_elem_ok(adt.element_type)
+                or isinstance(adt.element_type, t.StringType)):
+            shown = adt.element_type.simple_string \
+                if isinstance(adt, t.ArrayType) else adt.simple_string
+            self.will_not_work(f"array element type {shown} has no ragged "
+                               "device lane")
+            return
+        for f in child_schema.fields:
+            if f.name != arr.name and _nested(f.data_type):
+                self.will_not_work(
+                    f"second nested column {f.name} alongside the "
+                    "exploded input (row gathers are flat)")
+                return
+        if not self._parent_prunes_input(arr.name):
+            self.will_not_work(
+                f"parent operator may read the exploded array column "
+                f"{arr.name} (requiredChildOutput pruning not provable)")
+
+    def _parent_prunes_input(self, arr_name: str) -> bool:
+        p = self.parent
+        if not isinstance(p, ProjectMeta):
+            return False
+        refs: set = set()
+
+        def walk(e):
+            if isinstance(e, E.ColumnRef):
+                refs.add(e.name)
+            for c in e.children:
+                walk(c)
+            body = getattr(e, "body", None)
+            if body is not None:
+                walk(body)
+        for e in p.node.exprs:
+            walk(e)
+        return arr_name not in refs
+
+    def to_device(self):
+        from ..exec.generate import GenerateExec
+        return GenerateExec(self.node.generator, self.node.output_names,
+                            self._device_child())
+
+    def to_host(self):
+        return H.CpuGenerateExec(self.node.generator, self.node.output_names,
+                                 self._host_child())
+
+
 _META_FOR = {
     L.LogicalScan: ScanMeta, L.LogicalProject: ProjectMeta,
     L.LogicalFilter: FilterMeta, L.LogicalAggregate: AggregateMeta,
@@ -665,6 +816,7 @@ _META_FOR = {
     L.LogicalJoin: JoinMeta, L.LogicalUnion: UnionMeta,
     L.LogicalRange: RangeMeta, L.LogicalExpand: ExpandMeta,
     L.LogicalSample: SampleMeta, L.LogicalWindow: WindowMeta,
+    L.LogicalGenerate: GenerateMeta,
 }
 
 
@@ -1089,9 +1241,35 @@ def _register_rules() -> None:
     common = T.DEVICE_COMMON
     simple = T.NUMERIC + T.STRING + T.BOOLEAN + T.DATETIME + T.NULL
     x = EXPR_RULES
-    # no ARRAY lanes yet (ROADMAP Queue 1 item 7), where the reference's
-    # ColumnRef, Scan, Project and Aggregate list ARRAY
-    _rules(x, E, "ColumnRef", common, desc="column reference")
+    from . import collections as C
+    _rules(x, E, "ColumnRef", common + T.ARRAY, desc="column reference")
+    arr = common + T.ARRAY
+    for names, desc in (
+            ("Size", "size(array) from the offsets lane"),
+            ("GetArrayItem", "array[i] gather"),
+            ("ArrayContains", "segment any-equal"),
+            ("ArrayMin", "segment min"), ("ArrayMax", "segment max"),
+            ("SortArray", "segment-local lexsort"),
+            ("ArrayTransform", "lambda over the flat values lane"),
+            ("ArrayFilter", "values-lane compaction"),
+            ("ArrayExists", "segment three-valued any"),
+            ("ArrayForAll", "segment three-valued all"),
+            ("LambdaVar", "lambda-bound element variable"),
+            ("ElementAt", "1-based element gather (negative from end)"),
+            ("ArrayPosition", "segment first-match position"),
+            ("Slice", "values-lane range compaction"),
+            ("ReverseArray", "per-row reversal gather"),
+            ("ArrayRepeat", "array_repeat (CPU)"),
+            ("Flatten", "flatten array<array> (CPU)"),
+            ("ArrayDistinct", "first-occurrence dedupe (CPU)"),
+            ("ArraysOverlap", "3-valued set overlap (CPU)"),
+            ("ArrayUnion", "set union (CPU)"),
+            ("ArrayIntersect", "set intersect (CPU)"),
+            ("ArrayExcept", "set except (CPU)"),
+            ("ArrayRemove", "drop equal elements (CPU)"),
+            ("ArrayJoin", "string join (CPU)"),
+            ("Sequence", "integral range generation (CPU)")):
+        _rules(x, C, names, arr, desc=desc)
     _rules(x, E, "Literal", common + T.NULL, desc="literal value")
     _rules(x, E, "Alias", common, desc="named expression")
     _rules(x, E, "Add Subtract Multiply Divide IntegralDivide Remainder "
@@ -1176,11 +1354,27 @@ def _register_rules() -> None:
            desc="statistical aggregate (moment sums on device)")
     _rules(AGG_RULES, A, "CountDistinct", common, T.INTEGRAL,
            desc="count(DISTINCT) as a sorted value-change count")
+    _rules(AGG_RULES, A, "Percentile ApproximatePercentile Median",
+           T.NUMERIC, T.FP,
+           desc="sort-based device percentile (exact; satisfies the "
+                "approx rank-error contract trivially)")
+    _rules(AGG_RULES, A, "CollectList CollectSet", common, common + T.ARRAY,
+           desc="collect as a sorted group-by emitting ragged lanes")
+    # ragged ARRAY<primitive|string> lanes: scans upload them, projections
+    # carry and compute over them, Generate explodes them; the row
+    # reordering operators keep the CPU path (the reference's)
+    ragged_elem = (T.INTEGRAL + (T.FP - t.TypeSig(frozenset({"DOUBLE"})))
+                   + T.BOOLEAN + T.DATE + T.STRING)
+    device_ragged = (simple + T.ARRAY).with_nested(ragged_elem)
     for cls, sig, desc in (
-            (L.LogicalScan, simple, "in-memory scan + device upload"),
-            (L.LogicalProject, common, "projection"),
+            (L.LogicalScan, device_ragged,
+             "in-memory scan + device upload"),
+            (L.LogicalProject, (common + T.ARRAY).with_nested(ragged_elem),
+             "projection"),
+            (L.LogicalGenerate, device_ragged,
+             "explode/posexplode over ragged values+offsets lanes"),
             (L.LogicalFilter, simple, "filter"),
-            (L.LogicalAggregate, common, "hash aggregate"),
+            (L.LogicalAggregate, common + T.ARRAY, "hash aggregate"),
             (L.LogicalSort, T.ORDERABLE, "sort"),
             (L.LogicalLimit, simple, "limit"),
             (L.LogicalJoin, common, "hash join"),

@@ -432,7 +432,8 @@ def _column_meta(db: DeviceBatch) -> list:
     column is narrow, and its `enc`."""
     return [(c.dtype, c.dictionary, c.stored.dtype if isinstance(
         c, NarrowColumn) else c.data_dtype, c.hi is not None,
-        isinstance(c, NarrowColumn), getattr(c, "enc", None))
+        isinstance(c, NarrowColumn), getattr(c, "enc", None),
+        None if c.offsets is None else c.value_capacity)
         for c in db.columns]
 
 
@@ -495,7 +496,12 @@ class Spillable:
 
     def _layout(self) -> List[Tuple[torch.dtype, int]]:
         out = []
-        for _dt, _d, sdt, wide, _n, _e in self._meta:
+        for _dt, _d, sdt, wide, _n, _e, vcap in self._meta:
+            if vcap is not None:     # a ragged column's four lanes
+                out += [(sdt, vcap), (torch.bool, self._capacity),
+                        (torch.int32, self._capacity + 1),
+                        (torch.bool, vcap)]
+                continue
             out += [(sdt, self._capacity), (torch.bool, self._capacity)]
             if wide:
                 out.append((torch.int64, self._capacity))
@@ -523,6 +529,8 @@ class Spillable:
             for c in db.columns:
                 lanes = (c.stored, c.validity) if c.hi is None \
                     else (c.stored, c.validity, c.hi)
+                if c.offsets is not None:
+                    lanes += (c.offsets, c.elem_valid)
                 for lane in lanes:
                     h = torch.empty(lane.shape, dtype=lane.dtype,
                                     pin_memory=pin)
@@ -598,8 +606,11 @@ class Spillable:
                     cols = [NarrowColumn(next(it), next(it), dt, d, None,
                                          enc) if narrow else
                             DeviceColumn(next(it), next(it), dt, d, None,
-                                         next(it) if wide else None)
-                            for dt, d, _s, wide, narrow, enc in self._meta]
+                                         next(it) if wide else None,
+                                         *((next(it), next(it))
+                                           if vcap is not None else ()))
+                            for dt, d, _s, wide, narrow, enc, vcap
+                            in self._meta]
                     self._db = DeviceBatch(cols, self._num_rows,
                                            list(self._names))
                     if self._host is not None:

@@ -233,6 +233,9 @@ def physical_np_dtype(dt: DataType):
         # device-computed wide results are single-lane int64 with
         # overflow-to-null (ops/decimal.py module docs)
         return np.int64
+    if isinstance(dt, ArrayType):
+        # a ragged ARRAY column's data lane is its flat values lane
+        return physical_np_dtype(dt.element_type)
     try:
         return _NP_DTYPES[type(dt)]
     except KeyError:

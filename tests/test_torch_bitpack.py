@@ -19,6 +19,11 @@ from spark_rapids_tpu.ops import encodings as JENC
 from spark_rapids_tpu_torch.ops import bitpack as PB
 from spark_rapids_tpu_torch.ops import encodings as PENC
 
+# one intra-op thread a process: the suite runs several pytest
+# workers on the host's cores, and small ops over-subscribed
+# across every worker's pool run tens of times slower
+torch.set_num_threads(1)
+
 
 @pytest.mark.parametrize("shape", [(4, 128), (1, 8), (3, 64)])
 def test_pack_bits_roundtrip_and_width(shape):

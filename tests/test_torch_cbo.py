@@ -17,6 +17,12 @@ from spark_rapids_tpu_torch.plan import expressions as E
 from spark_rapids_tpu_torch.plan import logical as L
 from spark_rapids_tpu_torch.plan.aggregates import Sum
 from spark_rapids_tpu_torch.plan.overrides import apply_overrides
+import torch
+
+# one intra-op thread a process: the suite runs several pytest
+# workers on the host's cores, and small ops over-subscribed
+# across every worker's pool run tens of times slower
+torch.set_num_threads(1)
 
 CBO = {"spark.rapids.tpu.sql.optimizer.enabled": True}
 

@@ -48,6 +48,12 @@ from spark_rapids_tpu_torch.session import TpuSession as PSession
 from spark_rapids_tpu_torch.session import col as pcol
 
 from torch_tpcds_parity import _unscaled
+import torch
+
+# one intra-op thread a process: the suite runs several pytest
+# workers on the host's cores, and small ops over-subscribed
+# across every worker's pool run tens of times slower
+torch.set_num_threads(1)
 
 #: knobs that force the spill and retry machinery through small inputs
 TINY_MEMORY = {

@@ -27,6 +27,11 @@ from spark_rapids_tpu_torch.columnar import device as PD
 from spark_rapids_tpu_torch.columnar import host as PHOST
 from spark_rapids_tpu_torch.session import TpuSession
 
+# one intra-op thread a process: the suite runs several pytest
+# workers on the host's cores, and small ops over-subscribed
+# across every worker's pool run tens of times slower
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

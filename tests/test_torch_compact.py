@@ -31,6 +31,11 @@ from spark_rapids_tpu_torch.plan import expressions as PE
 from spark_rapids_tpu_torch.session import TpuSession as PSession
 from spark_rapids_tpu_torch.session import col as pcol
 
+# one intra-op thread a process: the suite runs several pytest
+# workers on the host's cores, and small ops over-subscribed
+# across every worker's pool run tens of times slower
+torch.set_num_threads(1)
+
 
 @pytest.mark.parametrize("cap,p", [(1024, 0.5), (4096, 0.02), (1024, 0.0),
                                    (2048, 1.0), (3000, 0.7), (1, 1.0)])

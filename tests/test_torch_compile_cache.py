@@ -32,6 +32,12 @@ from spark_rapids_tpu_torch.plan.aggregates import Sum
 from spark_rapids_tpu_torch.session import DataFrame as PDF
 from spark_rapids_tpu_torch.session import TpuSession as PSession
 from spark_rapids_tpu_torch.session import col, lit
+import torch
+
+# one intra-op thread a process: the suite runs several pytest
+# workers on the host's cores, and small ops over-subscribed
+# across every worker's pool run tens of times slower
+torch.set_num_threads(1)
 
 ON = {"spark.rapids.tpu.sql.compile.wholePlan": "ON"}
 CPU = {"spark.rapids.tpu.sql.enabled": "false"}

@@ -39,6 +39,12 @@ from spark_rapids_tpu_torch.exec.plan import ExecContext as PCtx
 from spark_rapids_tpu_torch.plan import expressions as PE
 from spark_rapids_tpu_torch.plan import window as PW
 from spark_rapids_tpu_torch.session import TpuSession as PSession
+import torch
+
+# one intra-op thread a process: the suite runs several pytest
+# workers on the host's cores, and small ops over-subscribed
+# across every worker's pool run tens of times slower
+torch.set_num_threads(1)
 
 #: columns held to Spark's answer (`_spark_frame_values`), not to the
 #: reference's CpuWindowExec

@@ -1858,3 +1858,130 @@ def test_captured_and_eager_queries_run_on_two_threads_at_once(cuda):
             assert ctx.metrics.get("whole_plan_compiled_queries") == 1, n
         else:
             assert not ctx.metrics.get("whole_plan_fallbacks"), n
+
+
+def _ragged_table(rng, n: int = 6000):
+    """Per-row integer lists with null rows and null elements, a string
+    column and group keys (numpy, no pyarrow)."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar import host as H
+    lists = []
+    for _ in range(n):
+        if rng.random() < 0.05:
+            lists.append(None)
+        else:
+            lists.append([None if rng.random() < 0.1 else
+                          int(rng.integers(-100, 100))
+                          for _ in range(rng.integers(0, 9))])
+    x = rng.standard_normal(n)
+    x[rng.random(n) < 0.05] = np.nan
+    schema = T.StructType([T.StructField("id", T.LONG),
+                           T.StructField("a", T.ArrayType(T.LONG)),
+                           T.StructField("k", T.LONG),
+                           T.StructField("s", T.STRING),
+                           T.StructField("x", T.DOUBLE)])
+    return H.from_numpy({
+        "id": np.arange(n), "a": lists, "k": rng.integers(0, 37, n),
+        "s": np.array(["AIR", "MAIL", "SHIP", "RAIL"])[
+            rng.integers(0, 4, n)],
+        "x": (x, rng.random(n) > 0.03)}, schema)
+
+
+def _both(cuda, build, table, conf=None):
+    """(card, CPU) results of one DataFrame function."""
+    from spark_rapids_tpu_torch.session import TpuSession
+    got = build(TpuSession(conf, device=cuda), table).to_pydict()
+    want = build(TpuSession(conf, device="cpu"), table).to_pydict()
+    return got, want
+
+
+def _nan_eq(a, b) -> bool:
+    def canon(v):
+        if isinstance(v, float) and v != v:
+            return "nan"
+        if isinstance(v, list):
+            return [canon(x) for x in v]
+        return v
+    return {k: [canon(v) for v in vs] for k, vs in a.items()} == \
+        {k: [canon(v) for v in vs] for k, vs in b.items()}
+
+
+@pytest.mark.cuda
+def test_ragged_upload_fetch_and_expressions_on_the_card_equal_the_cpu(
+        cuda):
+    from spark_rapids_tpu_torch.columnar import device as D
+    from spark_rapids_tpu_torch.plan import collections as C
+    from spark_rapids_tpu_torch.plan import expressions as E
+    from spark_rapids_tpu_torch.session import col
+    hb = _ragged_table(np.random.default_rng(31))
+    db = D.to_device(hb.select(["id", "a"]), device=cuda)
+    assert db.column_by_name("a").offsets.device.type == cuda.type
+    assert D.fetch_result_batch(db).to_pydict() == \
+        hb.select(["id", "a"]).to_pydict()
+    x = C.LambdaVar("x")
+
+    def build(s, t):
+        a = col("a")
+        return s.from_host(t).select(
+            col("id"), C.Size(a), C.GetArrayItem(a, 2),
+            C.ArrayContains(a, 7), C.ArrayMin(a), C.ArrayMax(a),
+            C.SortArray(a), C.SortArray(a, False), C.ElementAt(a, -1),
+            C.ArrayPosition(a, 5), C.Slice(a, 2, 3), C.ReverseArray(a),
+            C.ArrayTransform(a, E.Multiply(x, E.Literal(3)), "x"),
+            C.ArrayFilter(a, E.GreaterThan(x, E.Literal(0)), "x"),
+            C.ArrayExists(a, E.GreaterThan(x, E.Literal(90)), "x"),
+            C.ArrayForAll(a, E.GreaterThan(x, E.Literal(-90)), "x"),
+            names=["id", "n", "i2", "c7", "mn", "mx", "sa", "sd", "last",
+                   "p5", "sl", "rev", "t", "f", "e", "fa"])
+    got, want = _both(cuda, build, hb.select(["id", "a"]))
+    assert got == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pos,outer", [(False, False), (True, True)])
+def test_explode_on_the_card_equals_the_cpu(cuda, pos, outer):
+    from spark_rapids_tpu_torch.plan import collections as C
+    from spark_rapids_tpu_torch.plan import expressions as E
+    from spark_rapids_tpu_torch.plan import logical as L
+    from spark_rapids_tpu_torch.session import DataFrame
+    hb = _ragged_table(np.random.default_rng(32)).select(["id", "a"])
+
+    def build(s, t):
+        names = ["pos", "v"] if pos else ["v"]
+        gen = L.LogicalGenerate(C.ExplodeGen(E.ColumnRef("a"), pos=pos,
+                                             outer=outer),
+                                L.LogicalScan(t), names)
+        proj = L.LogicalProject([E.ColumnRef(n) for n in ["id"] + names],
+                                gen, ["id"] + names)
+        return DataFrame(proj, s)
+    got, want = _both(cuda, build, hb)
+    key = lambda r: repr(r)                       # noqa: E731
+    assert sorted(zip(*got.values()), key=key) == \
+        sorted(zip(*want.values()), key=key)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", ["4194304", "1024"])
+def test_collect_and_percentile_on_the_card_equal_the_cpu(cuda, batch):
+    from spark_rapids_tpu_torch.plan import aggregates as A
+    from spark_rapids_tpu_torch.session import col
+    hb = _ragged_table(np.random.default_rng(33))
+    conf = {"spark.rapids.tpu.sql.batchSizeRows": batch}
+
+    def collect(s, t):
+        return s.from_host(t).group_by("k").agg(
+            (A.CollectList(col("id")), "l"), (A.CollectSet(col("s")), "st"),
+            (A.CollectSet(col("x")), "sx")).sort("k")
+
+    def pct(s, t):
+        return s.from_host(t).group_by("s").agg(
+            (A.Percentile(col("x"), 0.3), "p"), (A.Median(col("k")), "m"),
+            (A.Percentile(col("x"), 1.0), "mx")).sort("s")
+
+    def approx(s, t):
+        return s.from_host(t).group_by("s").agg(
+            (A.ApproximatePercentile(col("x"), 0.5), "a"),
+            (A.ApproximatePercentile(col("k"), 0.9), "b")).sort("s")
+    for build in (collect, pct, approx):
+        got, want = _both(cuda, build, hb, conf)
+        assert _nan_eq(got, want), build.__name__

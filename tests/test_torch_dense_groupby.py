@@ -33,6 +33,12 @@ from spark_rapids_tpu_torch.exec import aggregate as PAGG
 from spark_rapids_tpu_torch.plan import aggregates as PA
 from spark_rapids_tpu_torch.session import TpuSession as PSession
 from spark_rapids_tpu_torch.session import col as pcol
+import torch
+
+# one intra-op thread a process: the suite runs several pytest
+# workers on the host's cores, and small ops over-subscribed
+# across every worker's pool run tens of times slower
+torch.set_num_threads(1)
 
 ROWS = 20_000
 NAMES = 1_800

@@ -30,6 +30,11 @@ from spark_rapids_tpu_torch.plan import expressions as PE
 from spark_rapids_tpu_torch.session import TpuSession as PSession
 from spark_rapids_tpu_torch.session import col as pcol
 
+# one intra-op thread a process: the suite runs several pytest
+# workers on the host's cores, and small ops over-subscribed
+# across every worker's pool run tens of times slower
+torch.set_num_threads(1)
+
 ORACLE = {"spark.rapids.tpu.sql.enabled": "false"}
 SMALL = {"spark.rapids.tpu.sql.batchSizeRows": "64"}
 

@@ -55,6 +55,11 @@ from spark_rapids_tpu_torch.plan import expressions as PE
 from spark_rapids_tpu_torch.plan.strings import Substring as PSubstring
 from spark_rapids_tpu_torch.session import TpuSession as PSession
 
+# one intra-op thread a process: the suite runs several pytest
+# workers on the host's cores, and small ops over-subscribed
+# across every worker's pool run tens of times slower
+torch.set_num_threads(1)
+
 OFF = {"spark.rapids.tpu.sql.encoded.execution.enabled": "false"}
 NARROW_OFF = {"spark.rapids.tpu.sql.encoded.narrow.lanes": "OFF"}
 CPU = {"spark.rapids.tpu.sql.enabled": "false"}

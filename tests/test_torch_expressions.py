@@ -34,6 +34,11 @@ from spark_rapids_tpu_torch.plan import expressions as PE
 from spark_rapids_tpu_torch.session import TpuSession as PSession
 from spark_rapids_tpu_torch.session import col as pcol
 
+# one intra-op thread a process: the suite runs several pytest
+# workers on the host's cores, and small ops over-subscribed
+# across every worker's pool run tens of times slower
+torch.set_num_threads(1)
+
 J = (JE, jcol, JT, JDT, JA)
 P = (PE, pcol, PT, PDT, PA)
 ORACLE = {"spark.rapids.tpu.sql.enabled": "false"}

@@ -28,6 +28,11 @@ from spark_rapids_tpu_torch.runtime.memory import (CorruptBlockError,
 from spark_rapids_tpu_torch.runtime.semaphore import device_permit
 from spark_rapids_tpu_torch.session import TpuSession as PSession
 
+# one intra-op thread a process: the suite runs several pytest
+# workers on the host's cores, and small ops over-subscribed
+# across every worker's pool run tens of times slower
+torch.set_num_threads(1)
+
 
 def _oom():
     return torch.cuda.OutOfMemoryError("CUDA out of memory. Tried to "

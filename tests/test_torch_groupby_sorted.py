@@ -31,6 +31,11 @@ from spark_rapids_tpu_torch.plan import aggregates as PA
 from spark_rapids_tpu_torch.session import TpuSession as PSession
 from spark_rapids_tpu_torch.session import col as pcol
 
+# one intra-op thread a process: the suite runs several pytest
+# workers on the host's cores, and small ops over-subscribed
+# across every worker's pool run tens of times slower
+torch.set_num_threads(1)
+
 KINDS = [("sum", 0, "LONG"), ("sum", 1, "DOUBLE"), ("count", 0, "LONG"),
          ("count_all", -1, "LONG"), ("min", 0, "LONG"), ("max", 1, "DOUBLE"),
          ("min", 1, "DOUBLE"), ("min", 2, "BOOLEAN"), ("max", 2, "BOOLEAN"),

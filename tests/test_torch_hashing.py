@@ -33,6 +33,11 @@ from spark_rapids_tpu_torch.plan import expressions as PE
 from spark_rapids_tpu_torch.session import TpuSession as PSession
 from spark_rapids_tpu_torch.session import col as pcol
 
+# one intra-op thread a process: the suite runs several pytest
+# workers on the host's cores, and small ops over-subscribed
+# across every worker's pool run tens of times slower
+torch.set_num_threads(1)
+
 M64 = (1 << 64) - 1
 STRINGS = ["", "a", "ab", "abc", "abcd", "héllo wörld", "x" * 31, "y" * 32,
            "z" * 33, "q" * 70, "日本語テキスト" * 5, "\x00\x7f\x80"]

@@ -22,6 +22,11 @@ import torch
 from spark_rapids_tpu.ops.pallas import hashjoin as HK
 from spark_rapids_tpu_torch.ops.hopper import hashjoin as PH
 
+# one intra-op thread a process: the suite runs several pytest
+# workers on the host's cores, and small ops over-subscribed
+# across every worker's pool run tens of times slower
+torch.set_num_threads(1)
+
 INT64_EDGES = [2 ** 63 - 1, -2 ** 63, -2 ** 63 + 1, 2 ** 63 - 2, -1, 0, 1]
 
 

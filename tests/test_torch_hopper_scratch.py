@@ -12,6 +12,11 @@ from spark_rapids_tpu_torch.ops.hopper import compact as PC
 from spark_rapids_tpu_torch.ops.hopper import hashjoin as PHJ
 from spark_rapids_tpu_torch.ops.hopper import segagg as PS
 
+# one intra-op thread a process: the suite runs several pytest
+# workers on the host's cores, and small ops over-subscribed
+# across every worker's pool run tens of times slower
+torch.set_num_threads(1)
+
 _CHUNK = 16                                   # rows a thread, one uint4
 
 

@@ -34,6 +34,11 @@ from spark_rapids_tpu_torch.session import TpuSession as PSession
 
 from test_torch_tpch import _join_query, _unscaled
 
+# one intra-op thread a process: the suite runs several pytest
+# workers on the host's cores, and small ops over-subscribed
+# across every worker's pool run tens of times slower
+torch.set_num_threads(1)
+
 PALLAS = "spark.rapids.tpu.sql.kernels.pallas"
 #: the reference with its kernel tier on (interpret mode on the CPU) and
 #: one family off; the port with the same family off

@@ -45,6 +45,11 @@ from spark_rapids_tpu_torch.session import TpuSession as PSession
 from spark_rapids_tpu_torch.session import col as pcol
 from spark_rapids_tpu_torch import types as PT
 
+# one intra-op thread a process: the suite runs several pytest
+# workers on the host's cores, and small ops over-subscribed
+# across every worker's pool run tens of times slower
+torch.set_num_threads(1)
+
 LATE = "spark.rapids.tpu.sql.join.lateMaterialization.enabled"
 LAZY = "spark.rapids.tpu.sql.join.lazySelection"
 #: the port's modes: the defaults, each key off, both off

@@ -42,6 +42,11 @@ from spark_rapids_tpu_torch.plan import expressions as PE
 from spark_rapids_tpu_torch.runtime import memory as M
 from spark_rapids_tpu_torch.runtime import retry as R
 
+# one intra-op thread a process: the suite runs several pytest
+# workers on the host's cores, and small ops over-subscribed
+# across every worker's pool run tens of times slower
+torch.set_num_threads(1)
+
 CPU = torch.device("cpu")
 
 

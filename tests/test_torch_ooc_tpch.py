@@ -21,6 +21,12 @@ from spark_rapids_tpu.session import TpuSession as JSession
 from spark_rapids_tpu_torch import tpch as PTPCH
 from spark_rapids_tpu_torch.exec.plan import ExecContext as PCtx
 from spark_rapids_tpu_torch.session import TpuSession as PSession
+import torch
+
+# one intra-op thread a process: the suite runs several pytest
+# workers on the host's cores, and small ops over-subscribed
+# across every worker's pool run tens of times slower
+torch.set_num_threads(1)
 
 
 @pytest.fixture(scope="module")

@@ -34,6 +34,12 @@ from spark_rapids_tpu_torch.plan import logical as L
 from spark_rapids_tpu_torch.plan.aggregates import (Average, Count, Max, Min,
                                                     Sum)
 from spark_rapids_tpu_torch.session import DataFrame, TpuSession, col, lit
+import torch
+
+# one intra-op thread a process: the suite runs several pytest
+# workers on the host's cores, and small ops over-subscribed
+# across every worker's pool run tens of times slower
+torch.set_num_threads(1)
 
 ORACLE = {"spark.rapids.tpu.sql.enabled": "false"}
 PLANS = os.path.join(os.path.dirname(__file__), "torch_device_plans.json")

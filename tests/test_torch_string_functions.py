@@ -40,6 +40,11 @@ from spark_rapids_tpu_torch.plan import strings as PS
 from spark_rapids_tpu_torch.session import TpuSession as PSession
 from spark_rapids_tpu_torch.session import col as pcol
 
+# one intra-op thread a process: the suite runs several pytest
+# workers on the host's cores, and small ops over-subscribed
+# across every worker's pool run tens of times slower
+torch.set_num_threads(1)
+
 ORACLE = {"spark.rapids.tpu.sql.enabled": "false"}
 DEVICE_MIN = "spark.rapids.tpu.sql.string.transformDeviceMinUnique"
 ROWS = VALUES + [None] + CS.EDGE_TEXTS

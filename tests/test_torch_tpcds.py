@@ -21,6 +21,12 @@ from spark_rapids_tpu_torch.exec.plan import ExpandExec
 from spark_rapids_tpu_torch.plan.aggregates import Count, Sum
 from spark_rapids_tpu_torch.session import (GROUPING_ID_COLUMN,
                                             TpuSession as PSession, col)
+import torch
+
+# one intra-op thread a process: the suite runs several pytest
+# workers on the host's cores, and small ops over-subscribed
+# across every worker's pool run tens of times slower
+torch.set_num_threads(1)
 
 QUERIES = ("q3", "q7", "q12", "q19", "q20", "q26", "q27", "q33", "q36",
            "q42", "q43")

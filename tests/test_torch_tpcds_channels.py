@@ -13,6 +13,12 @@ from spark_rapids_tpu_torch import tpcds as PDS
 from spark_rapids_tpu_torch.exec.plan import UnionExec
 from spark_rapids_tpu_torch.exec.window import WindowExec
 from spark_rapids_tpu_torch.session import TpuSession as PSession
+import torch
+
+# one intra-op thread a process: the suite runs several pytest
+# workers on the host's cores, and small ops over-subscribed
+# across every worker's pool run tens of times slower
+torch.set_num_threads(1)
 
 QUERIES = ("q52", "q55", "q56", "q60", "q65", "q70", "q73", "q76", "q86",
            "q93", "q96", "q98")

@@ -40,6 +40,12 @@ from spark_rapids_tpu_torch.plan import datetime as PDT
 from spark_rapids_tpu_torch.plan import expressions as PE
 from spark_rapids_tpu_torch.session import TpuSession as PSession
 from spark_rapids_tpu_torch.session import col as pcol
+import torch
+
+# one intra-op thread a process: the suite runs several pytest
+# workers on the host's cores, and small ops over-subscribed
+# across every worker's pool run tens of times slower
+torch.set_num_threads(1)
 
 PALLAS_ON = {"spark.rapids.tpu.sql.kernels.pallas.enabled": "true",
              "spark.rapids.tpu.sql.kernels.pallas.segagg": "ON"}

@@ -43,6 +43,11 @@ from spark_rapids_tpu_torch.plan import expressions as PE
 from spark_rapids_tpu_torch.session import TpuSession as PSession
 from spark_rapids_tpu_torch.session import col as pcol
 
+# one intra-op thread a process: the suite runs several pytest
+# workers on the host's cores, and small ops over-subscribed
+# across every worker's pool run tens of times slower
+torch.set_num_threads(1)
+
 ORACLE = {"spark.rapids.tpu.sql.enabled": "false"}
 BIG = 999999999999999999                     # 18 nines: DECIMAL(18,0)
 EXACT = pydec.Context(prec=100)

@@ -36,6 +36,12 @@ from spark_rapids_tpu_torch.exec.plan import UnionExec as PUnion
 from spark_rapids_tpu_torch.exec.window import WindowExec as PWindow
 from spark_rapids_tpu_torch.plan import expressions as PE
 from spark_rapids_tpu_torch.plan import window as PW
+import torch
+
+# one intra-op thread a process: the suite runs several pytest
+# workers on the host's cores, and small ops over-subscribed
+# across every worker's pool run tens of times slower
+torch.set_num_threads(1)
 
 
 def _dec(cents, mask=None):

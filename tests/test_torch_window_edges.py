@@ -17,6 +17,12 @@ from spark_rapids_tpu_torch.plan import window as PW
 from spark_rapids_tpu_torch.plan.window import WindowAnalysisError
 from test_torch_window import (FRAMED, ORDERS, RANKING, _dec, _run,
                                assert_window_equal, make_table)
+import torch
+
+# one intra-op thread a process: the suite runs several pytest
+# workers on the host's cores, and small ops over-subscribed
+# across every worker's pool run tens of times slower
+torch.set_num_threads(1)
 
 
 @pytest.mark.parametrize("frame", [None, ("rows", -2, 2),
