@@ -324,10 +324,24 @@ own failure:
                lineitem row), each equal to numpy computed in the data
                phase's pool, printing its walls, peak, exec names,
                launches and ragged value-lane sizes.
+  9i. structs — after nested (chip_smoke_structs.py), at SF10 on the
+               TPC-H columns it keeps: STRUCT and MAP columns built with
+               the numpy constructors and shattered into lanes, the
+               regex automaton, the JSON and misc functions.  struct_q1
+               (q1 over a STRUCT with null rows), struct_q3 (q3 joining
+               on a struct field), struct_group (group-by and sort on a
+               whole struct, over every lineitem row), map_sf10 (a MAP a
+               order: element_at, size, map_keys on the device) and
+               map_passthrough (1,000 maps re-nested), rlike_q9 and
+               rlike_q13 (the DFA over p_name's and o_comment's
+               dictionaries, the runner timed by CUDA events), json_supp
+               and mono_id, each equal to numpy (or Python's json);
+               struct_q1 and both map cases again under wholePlan=ON,
+               each decision printed, equal to eager.
 Each phase after the data prints its seconds.
   10. result — a `kernels` JSON line (launches by query over every
-               query of phases 5, 6b, 6c, 7, 9, 9b, 9c, 9d, 9e, 9f, 9g
-               and 9h), the whole run's
+               query of phases 5, 6b, 6c, 7, 9, 9b, 9c, 9d, 9e, 9f, 9g,
+               9h and 9i), the whole run's
                seconds, the nvidia-smi line, and last {"ok": true,
                "device": {...}}.
 
@@ -520,6 +534,16 @@ PATH_KERNELS.update({"pct_q1": ("compaction_order",), "approx_q1": (),
                      "approx_global": (), "collect_q3": UNIQUE_JOIN,
                      "explode_q3": UNIQUE_JOIN + ("seg_sums",),
                      "posexplode_q3": UNIQUE_JOIN, "collect_sf10": ()})
+# the structs phase (chip_smoke_structs.py): struct_q1 and struct_group
+# aggregate over dictionary domains (seg_sums), struct_q3 is q3 over the
+# shattered orders and rlike_q9 / rlike_q13 are q9 / q13 (their LIKE
+# forms' kernels); map_sf10's filter feeds a global aggregation (a mask,
+# no compaction), the passthrough, json_supp and mono_id only project
+PATH_KERNELS.update({"struct_q1": ("seg_sums",), "struct_q3": UNIQUE_JOIN,
+                     "struct_group": ("seg_sums",), "map_sf10": (),
+                     "map_passthrough": (), "rlike_q9": JOIN_AGG,
+                     "rlike_q13": UNIQUE_JOIN, "json_supp": (),
+                     "mono_id": ()})
 Q3_DATE = (pydt.date(1995, 3, 15) - pydt.date(1970, 1, 1)).days
 # the device launches of one build_layout call, by kernel name: this
 # tree's two passes, and (for an A B B A against an older tree) its
@@ -2357,7 +2381,9 @@ def numpy_results(tables, scale: float) -> dict:
     t0 = time.perf_counter()
     import chip_smoke_joins as J
     import chip_smoke_nested as N
-    names = [Q21_DISTINCT, Q21_LATE_DISTINCT] + list(N.WANTS) + list(
+    import chip_smoke_structs as ST
+    names = [Q21_DISTINCT, Q21_LATE_DISTINCT] + list(ST.WANTS) + list(
+        N.WANTS) + list(
         SCALAR_WANTS) + list(J.WANTS) + list(STRING_WANTS) + [
         n for n in FIRST_PATHS + LATER_QUERIES if n != "q21"]
     workers = min(len(names), os.cpu_count() or 1)
@@ -2411,6 +2437,9 @@ def _want(name: str):
     elif name.startswith("nested "):
         import chip_smoke_nested as N
         got = N.expected(name, tables)
+    elif name.startswith("structs "):
+        import chip_smoke_structs as ST
+        got = ST.expected(name, tables)
     elif name in ("q1", "q6", "minmax"):
         got = globals()[f"expected_{name}"](tables["lineitem"])
     elif name in FIRST_PATHS:
@@ -3319,9 +3348,10 @@ def main() -> int:
         import chip_smoke_joins as J
         import chip_smoke_late as LT
         import chip_smoke_nested as N
+        import chip_smoke_structs as ST
         # the TPC-H tables go first, to bound host memory; the fallback,
-        # decimals, chaos, joins, late and nested phases keep the columns
-        # they read
+        # decimals, chaos, joins, late, nested and structs phases keep the
+        # columns they read
         fb_tables = F.narrow(tables)
         dec_tables = DEC.narrow(tables)
         ch_tables = CH.narrow(tables)
@@ -3333,6 +3363,8 @@ def main() -> int:
         cap_want = {k: want[k] for k in CAP.CASES}
         nt_tables = N.narrow(tables)
         nt_want = {k: want[k] for k in N.WANTS}
+        st_tables = ST.narrow(tables)
+        st_want = {k: want[k] for k in ST.WANTS + ST.LATER_WANTS}
         del tables, want, later
         gc.collect()
         torch.cuda.empty_cache()
@@ -3371,6 +3403,10 @@ def main() -> int:
         gc.collect()
         launches.update(phase("nested", N.nested_phase,
                               sys.modules[__name__], nt_tables, nt_want))
+        del nt_tables
+        gc.collect()
+        launches.update(phase("structs", ST.structs_phase,
+                              sys.modules[__name__], st_tables, st_want))
     rows = []
     for name in TPU_KERNELS:
         st = stats[name]

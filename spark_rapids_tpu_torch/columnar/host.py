@@ -19,9 +19,18 @@ with the card needs no pyarrow:
     the element's dictionary), `elem_valid` a bool per value (None = all
     valid), `offsets` int32 of rows + 1, row i's elements
     data[offsets[i]:offsets[i + 1]], and `validity` per row; a null row
-    is an empty span (`list_column` builds one).  An ARRAY of ARRAYs
-    (the CPU engine's only: Flatten's input) holds its elements as a
-    ragged HostColumn in `data`, whose validity is the elements'.
+    is an empty span (`list_column` builds one).  An ARRAY of a nested
+    type (an ARRAY of ARRAYs, Flatten's input, or of STRUCTs) holds its
+    elements as a HostColumn in `data`, whose validity is the elements';
+  * a STRUCT column's `data` is a tuple of child HostColumns, one per
+    field, all of the struct's length, beside the struct's own
+    `validity` (`struct_column`).  As in Arrow, a child keeps its own
+    validity: a null struct may sit over a valid child value, so a
+    field's value is null where the child's or the struct's validity is
+    false (`struct_field`);
+  * a MAP column is ragged, as an ARRAY is, over a two-field STRUCT
+    column of `key` and `value` (Arrow's own layout, `map_column`); a
+    null map is an empty span.
 
 `from_numpy` builds a batch from plain arrays; `from_arrow`/`to_arrow`
 interchange with pyarrow, which they import inside the function, so
@@ -67,7 +76,18 @@ class HostColumn:
     def __len__(self) -> int:
         if self.offsets is not None:
             return len(self.offsets) - 1
+        if isinstance(self.data, tuple):             # a STRUCT
+            return len(self.data[0]) if self.data else len(self.validity)
         return len(self.data)
+
+    @property
+    def is_struct(self) -> bool:
+        return isinstance(self.data, tuple)
+
+    def field(self, name: str) -> "HostColumn":
+        """A STRUCT column's child of field `name`, as stored (its own
+        validity; `struct_field` merges the struct's)."""
+        return self.data[self.dtype.field_index(name)]
 
     def elements(self) -> "HostColumn":
         """A ragged column's values as a column of the element type."""
@@ -79,6 +99,9 @@ class HostColumn:
     def slice(self, offset: int, length: int) -> "HostColumn":
         v = None if self.validity is None \
             else self.validity[offset:offset + length]
+        if self.is_struct:
+            return HostColumn(tuple(c.slice(offset, length)
+                                    for c in self.data), v, self.dtype)
         if self.offsets is not None:
             off = self.offsets[offset:offset + length + 1]
             lo, hi = int(off[0]), int(off[-1])
@@ -114,8 +137,16 @@ class HostColumn:
         """Python values with the types pyarrow's to_pylist gives."""
         dt = self.dtype
         data = self.data
-        if self.offsets is not None:
+        if self.is_struct:
+            names = dt.names
+            kids = [c.to_pylist() for c in data]
+            vals = [dict(zip(names, row)) for row in zip(*kids)] \
+                if kids else [{} for _ in range(len(self))]
+        elif self.offsets is not None:
             flat = self.elements().to_pylist()
+            if isinstance(dt, t.MapType):      # pyarrow's (key, value) pairs
+                flat = [None if e is None else (e["key"], e["value"])
+                        for e in flat]
             off = self.offsets.tolist()
             vals = [flat[a:b] for a, b in zip(off[:-1], off[1:])]
         elif isinstance(dt, t.StringType):
@@ -142,6 +173,22 @@ class HostColumn:
         return vals
 
 
+def host_nbytes(col: HostColumn) -> int:
+    """The bytes of a column's data and validity lanes, a nested column's
+    children included (the transitions' byte counters)."""
+    n = 0 if col.validity is None else col.validity.nbytes
+    if col.is_struct:
+        return n + sum(host_nbytes(c) for c in col.data)
+    return n + (host_nbytes(col.data) if isinstance(col.data, HostColumn)
+                else col.data.nbytes)
+
+
+def _holds_elements(col: HostColumn) -> bool:
+    """`col`, as the elements of an ARRAY or a MAP, is kept whole in the
+    ragged column's `data` (a nested element type)."""
+    return col.offsets is not None or col.is_struct
+
+
 def _min_max(col: HostColumn):
     """Exact (min, max) of the column's integer lane over valid rows, or
     None (plan statistics: HostScanExec.column_range)."""
@@ -149,7 +196,7 @@ def _min_max(col: HostColumn):
     if not isinstance(dt, (t.IntegralType, t.DateType, t.TimestampType,
                            t.BooleanType, t.DecimalType)):
         return None
-    if col.hi is not None:
+    if col.hi is not None or col.offsets is not None:
         return None
     data = col.data if col.validity is None else col.data[col.validity]
     if not len(data):
@@ -308,13 +355,17 @@ def concat_columns(parts: Sequence[HostColumn]) -> HostColumn:
     valid = None
     if any(p.validity is not None for p in parts):
         valid = np.concatenate([p.valid_mask() for p in parts])
-    if isinstance(dt, t.ArrayType):
+    if isinstance(dt, t.StructType):
+        return HostColumn(tuple(concat_columns([p.data[i] for p in parts])
+                                for i in range(len(dt.fields))),
+                          valid, dt)
+    if isinstance(dt, (t.ArrayType, t.MapType)):
         values = concat_columns([p.elements() for p in parts])
         base = np.cumsum([0] + [int(p.offsets[-1]) for p in parts[:-1]])
         offsets = np.concatenate(
             [p.offsets[:-1] + b for p, b in zip(parts, base)] +
             [np.array([int(base[-1]) + int(parts[-1].offsets[-1])])])
-        if values.offsets is not None:       # an ARRAY of ARRAYs
+        if _holds_elements(values):          # nested elements
             return HostColumn(values, valid, dt, None, None,
                               offsets.astype(np.int32))
         return HostColumn(values.data, valid, dt, values.dictionary, None,
@@ -425,7 +476,7 @@ def list_column(elements: HostColumn, offsets,
         lens = np.where(validity, lens, 0)
         elements = take(elements.slice(0, len(keep)), np.flatnonzero(keep))
     total = int(lens.sum())
-    if elements.offsets is not None:         # an ARRAY of ARRAYs
+    if _holds_elements(elements):            # nested elements
         new_off = np.zeros(n + 1, np.int32)
         new_off[1:] = np.cumsum(lens)
         return HostColumn(elements.slice(0, total), validity,
@@ -441,6 +492,46 @@ def list_column(elements: HostColumn, offsets,
                       None, new_off, ev)
 
 
+def struct_column(fields: Sequence[HostColumn], names: Sequence[str],
+                  validity: Optional[np.ndarray] = None,
+                  num_rows: Optional[int] = None) -> HostColumn:
+    """A STRUCT column from its field columns (all of one length) and the
+    struct's own validity (None = no null struct; a struct of no field
+    needs `num_rows`)."""
+    fields = tuple(fields)
+    if validity is not None:
+        validity = np.asarray(validity, bool)
+        if validity.all():
+            validity = None
+    if not fields and validity is None:
+        validity = np.ones(num_rows or 0, bool)
+    dtype = t.StructType([t.StructField(n, c.dtype)
+                          for n, c in zip(names, fields)])
+    return HostColumn(fields, validity, dtype)
+
+
+def struct_field(col: HostColumn, name: str) -> HostColumn:
+    """Field `name` of a STRUCT column with the struct's nulls merged
+    into it (a null struct's field is null, as `pc.struct_field` gives
+    and Spark's GetStructField reads)."""
+    c = col.field(name)
+    if col.validity is None:
+        return c
+    from ..ops.host import with_validity
+    return with_validity(c, col.validity)
+
+
+def map_column(keys: HostColumn, values: HostColumn, offsets,
+               validity: Optional[np.ndarray] = None) -> HostColumn:
+    """A MAP column from its flat keys and values and int offsets of rows
+    + 1 (`list_column`'s layout over a `key`/`value` STRUCT; a null
+    map's span is emptied)."""
+    entries = struct_column([keys, values], ["key", "value"])
+    col = list_column(entries, offsets, validity)
+    col.dtype = t.MapType(keys.dtype, values.dtype)
+    return col
+
+
 def list_from_pylists(values, element_type: t.DataType) -> HostColumn:
     """An ARRAY column from per-row Python lists (None = a null row, an
     element None = a null element)."""
@@ -453,6 +544,39 @@ def list_from_pylists(values, element_type: t.DataType) -> HostColumn:
     off = np.zeros(len(values) + 1, np.int64)
     off[1:] = np.cumsum(lens)
     return list_column(elems, off, None if validity.all() else validity)
+
+
+def struct_from_pyvalues(values, dt: t.StructType) -> HostColumn:
+    """A STRUCT column from per-row dicts (None = a null struct; a
+    missing key or None = a null field)."""
+    values = list(values)
+    validity = np.array([v is not None for v in values], bool)
+    rows = [v or {} for v in values]
+    kids = from_pydict({f.name: [r.get(f.name) for r in rows]
+                        for f in dt.fields}, dt).columns \
+        if dt.fields else []
+    col = struct_column(kids, dt.names, validity, len(values))
+    col.dtype = dt
+    return col
+
+
+def map_from_pyvalues(values, dt: t.MapType) -> HostColumn:
+    """A MAP column from per-row lists of (key, value) pairs or dicts
+    (None = a null map)."""
+    values = [None if v is None else
+              list(v.items()) if isinstance(v, dict) else list(v)
+              for v in values]
+    validity = np.array([v is not None for v in values], bool)
+    lens = [0 if v is None else len(v) for v in values]
+    flat = [kv for v in values if v is not None for kv in v]
+    kv = from_pydict({"key": [k for k, _ in flat],
+                      "value": [x for _, x in flat]},
+                     t.StructType([t.StructField("key", dt.key_type),
+                                   t.StructField("value", dt.value_type)]))
+    off = np.zeros(len(values) + 1, np.int64)
+    off[1:] = np.cumsum(lens)
+    return map_column(kv.columns[0], kv.columns[1], off,
+                      None if validity.all() else validity)
 
 
 def _as_lane(values, dt: t.DataType) -> np.ndarray:
@@ -508,6 +632,12 @@ def from_numpy(columns: Mapping[str, object], schema: t.StructType
         if isinstance(f.data_type, t.ArrayType):
             cols.append(list_from_pylists(v, f.data_type.element_type))
             continue
+        if isinstance(f.data_type, t.StructType):
+            cols.append(struct_from_pyvalues(v, f.data_type))
+            continue
+        if isinstance(f.data_type, t.MapType):
+            cols.append(map_from_pyvalues(v, f.data_type))
+            continue
         data, validity = v if isinstance(v, tuple) else (v, None)
         if validity is not None:
             validity = np.asarray(validity, bool)
@@ -541,6 +671,22 @@ def _infer_type(values) -> t.DataType:
     kinds = {type(v) for v in values if v is not None}
     if not kinds:
         return t.NULL
+    if kinds == {dict}:
+        # pyarrow's struct: the fields in order of first appearance
+        names: Dict[str, None] = {}
+        for v in values:
+            for k in v or {}:
+                names.setdefault(k, None)
+        return t.StructType([t.StructField(n, _infer_type(
+            [v.get(n) if v is not None else None for v in values]))
+            for n in names])
+    if kinds == {list} and any(v for v in values) and all(
+            isinstance(x, tuple) and len(x) == 2
+            for v in values if v is not None for x in v):
+        # lists of (key, value) pairs: a MAP
+        flat = [x for v in values if v is not None for x in v]
+        return t.MapType(_infer_type([k for k, _ in flat]),
+                         _infer_type([x for _, x in flat]))
     if kinds == {list}:
         return t.ArrayType(_infer_type(
             [x for v in values if v is not None for x in v]))
@@ -572,6 +718,10 @@ def _host_lane(values, dt: t.DataType):
         return values, None
     if isinstance(dt, t.ArrayType):
         return list_from_pylists(values, dt.element_type)
+    if isinstance(dt, t.StructType):
+        return struct_from_pyvalues(values, dt)
+    if isinstance(dt, t.MapType):
+        return map_from_pyvalues(values, dt)
     values = list(values)
     validity = np.array([v is not None for v in values], bool)
     zero = {t.DateType: pydt.date(1970, 1, 1),
@@ -638,12 +788,14 @@ def arrow_to_dtype(at) -> t.DataType:
         return t.DecimalType(at.precision, at.scale)
     if pa.types.is_dictionary(at):
         return arrow_to_dtype(at.value_type)
+    if pa.types.is_map(at):
+        return t.MapType(arrow_to_dtype(at.key_type),
+                         arrow_to_dtype(at.item_type))
     if pa.types.is_list(at) or pa.types.is_large_list(at):
         return t.ArrayType(arrow_to_dtype(at.value_type))
-    if pa.types.is_struct(at) or pa.types.is_map(at):
-        from ..plan.expressions import NESTED_SLICE
-        raise NotImplementedError(
-            f"{at} columns port with {NESTED_SLICE}")
+    if pa.types.is_struct(at):
+        return t.StructType([t.StructField(f.name, arrow_to_dtype(f.type),
+                                           f.nullable) for f in at])
     raise TypeError(f"unsupported arrow type {at} in the port")
 
 
@@ -662,6 +814,12 @@ def dtype_to_arrow(dt: t.DataType):
         return pa.decimal128(dt.precision, dt.scale)
     if isinstance(dt, t.ArrayType):
         return pa.list_(dtype_to_arrow(dt.element_type))
+    if isinstance(dt, t.StructType):
+        return pa.struct([pa.field(f.name, dtype_to_arrow(f.data_type))
+                          for f in dt.fields])
+    if isinstance(dt, t.MapType):
+        return pa.map_(dtype_to_arrow(dt.key_type),
+                       dtype_to_arrow(dt.value_type))
     raise TypeError(f"unsupported logical type {dt} in the port")
 
 
@@ -672,6 +830,23 @@ def _arrow_column(arr, dt: t.DataType) -> HostColumn:
     validity = None
     if arr.null_count:
         validity = pc.is_valid(arr).to_numpy(zero_copy_only=False)
+    if isinstance(dt, t.StructType):
+        # children as Arrow stores them (`field` keeps a child's own
+        # validity; the struct's nulls merge where a field is read)
+        col = struct_column([_arrow_column(arr.field(i), f.data_type)
+                             for i, f in enumerate(dt.fields)],
+                            dt.names, validity, n)
+        col.dtype = dt
+        return col
+    if isinstance(dt, t.MapType):
+        # a null map may hold a span: map_column empties it, so no
+        # phantom entry leaks into the keys or the values
+        off = arr.offsets.to_numpy(zero_copy_only=False).astype(np.int64)
+        lo, hi = int(off[0]), int(off[-1])
+        return map_column(_arrow_column(arr.keys.slice(lo, hi - lo),
+                                        dt.key_type),
+                          _arrow_column(arr.items.slice(lo, hi - lo),
+                                        dt.value_type), off - lo, validity)
     if isinstance(dt, t.ArrayType):
         # a null row's span is emptied (list_column), as the reference's
         # _arrow_list_to_device rebuilds it
@@ -731,6 +906,18 @@ def _to_arrow_array(c: HostColumn):
     import pyarrow as pa
     mask = None if c.validity is None else ~c.validity
     dt = c.dtype
+    if isinstance(dt, t.StructType):
+        return pa.StructArray.from_arrays(
+            [_to_arrow_array(k) for k in c.data], fields=[
+                pa.field(f.name, dtype_to_arrow(f.data_type))
+                for f in dt.fields],
+            mask=None if mask is None else pa.array(mask))
+    if isinstance(dt, t.MapType):
+        kv = c.elements()
+        return pa.MapArray.from_arrays(
+            pa.array(c.offsets, pa.int32()), _to_arrow_array(kv.data[0]),
+            _to_arrow_array(kv.data[1]), type=dtype_to_arrow(dt),
+            mask=None if mask is None else pa.array(mask))
     if isinstance(dt, t.ArrayType):
         return pa.ListArray.from_arrays(
             pa.array(c.offsets, pa.int32()), _to_arrow_array(c.elements()),

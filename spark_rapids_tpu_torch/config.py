@@ -1235,7 +1235,9 @@ HONOURED_KEYS = frozenset(e.key for e in (
     COMPILE_BG_ENABLED, COMPILE_BG_THREADS, COMPILE_BG_SPECULATE,
     PLAN_CACHE_ENTRIES, SCAN_UPLOAD_CACHE_BYTES,
     # the holistic aggregates (exec/collect.py, exec/percentile.py)
-    COLLECT_DEVICE_ENABLED, APPROX_PERCENTILE_SKETCH_K))
+    COLLECT_DEVICE_ENABLED, APPROX_PERCENTILE_SKETCH_K,
+    # the regex transpiler's DFA state budget (ops/regex.py, RLike)
+    REGEX_MAX_DFA_STATES))
 
 #: keys the port resolves to one behaviour for now -> what it does
 RESOLVED = {

@@ -38,10 +38,11 @@ import numpy as np
 from .. import types as t
 from ..columnar.device import DeviceBatch, fetch_result_batch, to_device
 from ..columnar.host import (HostBatch, HostColumn, concat_host,
-                             decimal_value)
+                             decimal_value, host_nbytes)
 from ..ops import host as H
 from ..plan import expressions as E
 from ..plan.aggregates import AggregateFunction
+from ..plan.misc import reset_ordinals
 from ..runtime.retry import retry_io
 from .plan import (ExecContext, PlanNode, key_ref_names, sample_hash_u32,
                    sample_threshold)
@@ -197,8 +198,7 @@ class HostNode:
 # ---------------------------------------------------------------------------
 
 def _host_nbytes(hb: HostBatch) -> int:
-    return sum(c.data.nbytes + (0 if c.validity is None
-                                else c.validity.nbytes) for c in hb.columns)
+    return sum(host_nbytes(c) for c in hb.columns)
 
 
 class HostToDeviceExec(PlanNode):
@@ -349,8 +349,14 @@ class CpuProjectExec(HostNode):
         return refs is not None and self.child.keys_unique(refs)
 
     def _execute(self, ctx):
+        reset_ordinals(self.exprs)
         for hb in self.child.execute(ctx):
             yield _eval_named(self.exprs, self.names, hb)
+
+    def project(self, hb: HostBatch) -> HostBatch:
+        """The projection over one batch of the child's output."""
+        reset_ordinals(self.exprs)
+        return _eval_named(self.exprs, self.names, hb)
 
     def describe(self):
         return f"CpuProjectExec[{', '.join(self.names)}]"
@@ -1060,7 +1066,11 @@ class CpuGenerateExec(HostNode):
         return t.StructType(fields)
 
     def _execute(self, ctx):
+        from ..plan.json_fns import JsonTupleGen
         gen = self.generator
+        if isinstance(gen, JsonTupleGen):
+            yield from self._json_tuple(ctx)
+            return
         for hb in self.child.execute(ctx):
             arr = gen.child.eval_cpu(hb)
             n = len(arr)
@@ -1077,6 +1087,19 @@ class CpuGenerateExec(HostNode):
                 cols.append(H.column(pos.astype(np.int32),
                                      None if has.all() else has, t.INT))
             cols.append(H.take(arr.elements(), elem))
+            yield HostBatch(cols, self.output_schema.names)
+
+    def _json_tuple(self, ctx):
+        """json_tuple as a generator: one output row an input row, the k
+        fields appended as STRING columns (the reference's GpuJsonTuple
+        role)."""
+        gen = self.generator
+        for hb in self.child.execute(ctx):
+            vals = gen.child.eval_cpu(hb).to_pylist()
+            cols = list(hb.columns)
+            for out in gen.rows(vals):
+                cols.append(H.strings_from_entries(
+                    np.arange(len(out)), out, None))
             yield HostBatch(cols, self.output_schema.names)
 
     def describe(self):

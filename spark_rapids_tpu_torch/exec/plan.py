@@ -46,6 +46,7 @@ from ..config import DEFAULT_CONF, TpuConf
 from ..ops.batch_ops import concat_batches, shrink_to_capacity
 from ..plan import expressions as E
 from ..plan.aggregates import AggregateFunction, Min
+from ..plan.misc import reset_ordinals
 from ..runtime.retry import retry_io
 from ..runtime.capture import capturing, host_constant, recording
 from .aggregate import HashAggregate
@@ -349,6 +350,7 @@ class ProjectExec(PlanNode):
         return self.child.static_row_count()   # projection keeps rows
 
     def execute(self, ctx: ExecContext) -> Iterator[DeviceBatch]:
+        reset_ordinals(self.exprs)
         for db in self.child.execute(ctx):
             yield project_batch(self.exprs, self.names, db, ctx.conf)
 

@@ -148,7 +148,18 @@ def order_lane(col: HostColumn) -> np.ndarray:
 
 def order_lanes(col: HostColumn) -> List[np.ndarray]:
     """`order_lane` as a list of lanes, most significant first: a DECIMAL
-    with a high word orders by it, then by its low word unsigned."""
+    with a high word orders by it, then by its low word unsigned; a
+    STRUCT by each field in turn, a null field first (Spark's
+    interpreted struct ordering), with a null struct's fields all null
+    (its own null lane is the caller's, as any key's)."""
+    if col.is_struct:
+        from ..columnar.host import struct_field
+        lanes = []
+        for f in col.dtype.fields:
+            sub = struct_field(col, f.name)
+            lanes.append(valid_of(sub.validity, len(sub)).astype(np.int64))
+            lanes += order_lanes(sub)
+        return lanes or [np.zeros(len(col), np.int64)]
     if col.hi is None:
         return [order_lane(col)]
     hi, lo = col.hi, col.data.astype(np.int64) ^ np.int64(-2 ** 63)
@@ -264,9 +275,45 @@ def _take_ragged(col: HostColumn, idx: np.ndarray) -> HostColumn:
                       ev)
 
 
+def _take_struct(col: HostColumn, idx: np.ndarray) -> HostColumn:
+    miss = idx < 0
+    if len(col):
+        valid = valid_of(col.validity, len(col))[np.where(miss, 0, idx)] \
+            & ~miss
+    else:
+        valid = np.zeros(len(idx), bool)
+    return HostColumn(tuple(take(c, idx) for c in col.data),
+                      None if valid.all() and len(col.data) else valid,
+                      col.dtype)
+
+
+def with_validity(col: HostColumn, valid: Optional[np.ndarray]
+                  ) -> HostColumn:
+    """`col` with `valid` ANDed into its validity, of any type: a STRUCT
+    keeps its children, a ragged row made null loses its span, a flat
+    null row is zeroed (`column`)."""
+    v = and_valid(col.validity, valid)
+    if v is None or v is col.validity:
+        return col
+    if col.is_struct:
+        return HostColumn(col.data, v, col.dtype)
+    if col.offsets is not None:
+        from ..columnar.host import list_column
+        out = list_column(col.elements(), col.offsets, v)
+        out.dtype = col.dtype
+        return out
+    out = column(col.data, v, col.dtype, col.dictionary)
+    if col.hi is not None:
+        out.hi = col.hi if out.validity is None else \
+            np.where(out.validity, col.hi, 0)
+    return out
+
+
 def take(col: HostColumn, idx: np.ndarray) -> HostColumn:
     """Rows `idx` of `col`; an index of -1 gives a null row."""
     idx = np.asarray(idx, np.int64)
+    if col.is_struct:
+        return _take_struct(col, idx)
     if col.offsets is not None:
         return _take_ragged(col, idx)
     miss = idx < 0

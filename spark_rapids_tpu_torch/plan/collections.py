@@ -14,8 +14,10 @@ over the same layout: the reference's are pyarrow, so they are
 rewritten, not copied; the classes the reference runs only on its CPU
 engine (`_CpuArrayExpression`) take Python lists a row, as its own do.
 
-STRUCT and MAP columns (plan/structs.py, the map and struct classes)
-port with `expressions.NESTED_SLICE`.
+The STRUCT and MAP classes close the module: the field and map
+accesses that plan/structs.py rewrites into lanes, the re-nesting
+expressions, and the CPU engine's map functions, on numpy over
+columnar/host.py's nested layout.
 """
 from __future__ import annotations
 
@@ -27,7 +29,8 @@ import torch
 
 from .. import types as t
 from ..columnar.host import (HostBatch, HostColumn, list_column,
-                             list_from_pylists)
+                             list_from_pylists, map_column,
+                             map_from_pyvalues, struct_column, struct_field)
 from ..ops import host as H
 from .expressions import DevVal, EvalCtx, Expression, HostVal, PrepCtx
 
@@ -967,3 +970,394 @@ class Sequence(_CpuArrayExpression):
         if st == 0:
             return None
         return list(range(int(a), int(b) + (1 if st > 0 else -1), int(st)))
+
+
+# ---------------------------------------------------------------------------
+# STRUCT and MAP expressions (complexTypeExtractors.scala,
+# complexTypeCreator.scala, the map family of collectionOperations.scala)
+#
+# A STRUCT or MAP value has no device lane: plan/structs.py shatters an
+# eligible scan column into flat lanes (a struct) or two ragged lanes
+# over shared offsets (a map) and rewrites these expressions into lane
+# references, `Size` of the keys lane and `ShatteredMapElementAt`, so the
+# device sees only flat and ragged columns.  What survives the shatter
+# (an unshatterable input, a computed struct) runs on the CPU engine over
+# the host layout of columnar/host.py: the reference registers no device
+# rule for these classes (`has_rule = False`).
+# ---------------------------------------------------------------------------
+
+def _map_part(col: HostColumn, i: int) -> HostColumn:
+    """A MAP column's keys (i = 0) or values (i = 1) as an ARRAY column
+    over the map's offsets (a null map is a null array)."""
+    part = col.elements().data[i]
+    return list_column(part, col.offsets, col.validity)
+
+
+def _last_hits(keys: HostColumn, key) -> np.ndarray:
+    """Per row of a keys ARRAY column: the values-lane position of the
+    LAST key equal to `key` (Spark keeps the last of duplicate keys, as
+    ops/ragged.map_element_at does), -1 where none is."""
+    hit = _equals_value(keys, key) & _elem_valid(keys)
+    best = np.full(len(keys), -1, np.int64)
+    pos = np.flatnonzero(hit)
+    np.maximum.at(best, _row_ids(keys)[pos], pos)
+    return best
+
+
+class GetStructField(ArrayExpression):
+    """s.field — Spark GetStructField: a null struct gives a null field."""
+    has_rule = False
+
+    def __init__(self, child: Expression, field: str):
+        self.children = (child,)
+        self.field = field
+
+    def _resolve(self):
+        st = self.children[0].dtype
+        if not isinstance(st, t.StructType):
+            raise TypeError(f"getField over {st.simple_string}")
+        self.dtype = st.fields[st.field_index(self.field)].data_type
+        self.nullable = True
+
+    def _fp_extra(self):
+        return self.field
+
+    def _eval_cpu(self, batch, kids):
+        return struct_field(kids[0], self.field)
+
+
+class CreateNamedStruct(ArrayExpression):
+    """named_struct(...) / struct(...), also the re-nesting expression of
+    plan/structs.py: `valid` (when given) is a BOOLEAN expression giving
+    the struct's own validity (null or false: a null struct)."""
+    has_rule = False
+
+    def __init__(self, names, exprs, valid: Optional[Expression] = None):
+        self.names = list(names)
+        self.children = tuple(exprs) + ((valid,) if valid is not None
+                                        else ())
+        self.has_valid = valid is not None
+
+    def _resolve(self):
+        n = len(self.names)
+        self.dtype = t.StructType([t.StructField(nm, e.dtype, True)
+                                   for nm, e in zip(self.names,
+                                                    self.children[:n])])
+        self.nullable = self.has_valid
+
+    def _fp_extra(self):
+        return ",".join(self.names) + f"|{self.has_valid}"
+
+    def _eval_cpu(self, batch, kids):
+        n = len(self.names)
+        valid = None
+        if self.has_valid:
+            v = kids[n]
+            valid = v.data.astype(bool) & H.valid_of(v.validity, len(v))
+        return struct_column(kids[:n], self.names, valid, batch.num_rows)
+
+
+class MapKeys(ArrayExpression):
+    """map_keys(m): ARRAY<K> in entry order."""
+    has_rule = False
+
+    def __init__(self, child: Expression):
+        self.children = (child,)
+
+    def _resolve(self):
+        self.dtype = t.ArrayType(self.children[0].dtype.key_type)
+        self.nullable = True
+
+    def _eval_cpu(self, batch, kids):
+        return _map_part(kids[0], 0)
+
+
+class MapValues(ArrayExpression):
+    """map_values(m): ARRAY<V> in entry order."""
+    has_rule = False
+
+    def __init__(self, child: Expression):
+        self.children = (child,)
+
+    def _resolve(self):
+        self.dtype = t.ArrayType(self.children[0].dtype.value_type)
+        self.nullable = True
+
+    def _eval_cpu(self, batch, kids):
+        return _map_part(kids[0], 1)
+
+
+class MapElementAt(ArrayExpression):
+    """element_at(map, key): a missing key gives null (non-ANSI Spark)."""
+    has_rule = False
+
+    def __init__(self, child: Expression, key):
+        self.children = (child,)
+        self.key = key
+
+    def _resolve(self):
+        self.dtype = self.children[0].dtype.value_type
+        self.nullable = True
+
+    def _fp_extra(self):
+        return repr(self.key)
+
+    def _eval_cpu(self, batch, kids):
+        m = kids[0]
+        best = _last_hits(_map_part(m, 0), self.key)
+        return H.take(m.elements().data[1], best)
+
+
+class ShatteredMapElementAt(Expression):
+    """element_at over a shattered map: the children are its two ragged
+    lanes (keys and values, one offsets) that plan/structs.py keeps.  On
+    the device: ops/ragged.map_element_at.  (The reference registers no
+    rule for it and runs its projection on its CPU engine; the port
+    places it on the device, where its ragged kernel is.)"""
+
+    def __init__(self, keys_col: Expression, vals_col: Expression, key,
+                 value_type: t.DataType):
+        self.children = (keys_col, vals_col)
+        self.key = key
+        self.value_type = value_type
+
+    def _resolve(self):
+        self.dtype = self.value_type
+        self.nullable = True
+
+    def _fp_extra(self):
+        return repr(self.key)
+
+    def unsupported_reasons(self, conf):
+        if _ragged_child_ok(self.children[0]) and \
+                _ragged_child_ok(self.children[1]) and \
+                isinstance(self.key, (int, bool)):
+            return []
+        return [_OFF_DEVICE]
+
+    def _eval_dev(self, ctx, kids):
+        from ..ops import ragged as R
+        kc = _as_ragged_col(kids[0])
+        vc = _as_ragged_col(kids[1])
+        data, valid = R.map_element_at(kc, vc, _dev_needle(kc, self.key),
+                                       ctx.num_rows)
+        return DevVal(data, valid, self.dtype, kids[1].dictionary)
+
+    def _eval_cpu(self, batch, kids):
+        keys, vals = kids
+        best = _last_hits(keys, self.key)
+        best = np.where(H.valid_of(vals.validity, len(vals)), best, -1)
+        return H.take(vals.elements(), best)
+
+
+class RenestMap(ArrayExpression):
+    """A MAP column again from its two shattered lanes and its validity
+    lane (the inverse of the shatter, at the plan's top)."""
+    has_rule = False
+
+    def __init__(self, keys_col: Expression, vals_col: Expression,
+                 valid: Expression, map_type: t.MapType):
+        self.children = (keys_col, vals_col, valid)
+        self.map_type = map_type
+
+    def _resolve(self):
+        self.dtype = self.map_type
+        self.nullable = True
+
+    def _fp_extra(self):
+        return self.map_type.simple_string
+
+    def _eval_cpu(self, batch, kids):
+        keys, vals, v = kids
+        ok = v.data.astype(bool) & H.valid_of(v.validity, len(v)) & \
+            _valid_rows(keys)
+        col = map_column(keys.elements(), vals.elements(), keys.offsets, ok)
+        col.dtype = self.map_type
+        return col
+
+
+class RenestArrayStruct(Expression):
+    """An ARRAY<STRUCT> column again from its shattered lanes: the
+    array's validity, the element structs' validity (a ragged BOOLEAN
+    lane) and one ragged lane a field, all over one offsets."""
+    has_rule = False
+
+    def __init__(self, valid: Expression, elem_valid: Expression,
+                 field_lanes: List[Expression], array_type: t.ArrayType):
+        self.children = tuple([valid, elem_valid] + list(field_lanes))
+        self.array_type = array_type
+
+    def _resolve(self):
+        self.dtype = self.array_type
+        self.nullable = True
+
+    def _fp_extra(self):
+        return self.array_type.simple_string
+
+    def unsupported_reasons(self, conf):
+        return ["re-nesting array<struct> (host boundary projection)"]
+
+    def _eval_cpu(self, batch, kids):
+        v, ev = kids[0], kids[1]
+        ok = v.data.astype(bool) & H.valid_of(v.validity, len(v))
+        evs = ev.elements()
+        e_ok = evs.data.astype(bool) & H.valid_of(evs.validity, len(evs))
+        st = self.array_type.element_type
+        elems = struct_column([k.elements() for k in kids[2:]],
+                              st.names, e_ok, len(evs))
+        elems.dtype = st
+        col = list_column(elems, ev.offsets, ok)
+        col.dtype = self.array_type
+        return col
+
+
+# ---- the CPU engine's map functions (the reference's _CpuMapExpression
+# family: maps have no device lane beyond the shattered forms) ----
+
+def _dedup_policy_error(k, where: str) -> ValueError:
+    return ValueError(f"duplicate map key {k!r} in {where} "
+                      "(spark.sql.mapKeyDedupPolicy=EXCEPTION)")
+
+
+class _CpuMapExpression(Expression):
+    """Base: the CPU engine only, with the reference's reason;
+    subclasses give `_row` (Python values of a row in, a list of
+    (key, value) pairs or None out)."""
+
+    def unsupported_reasons(self, conf):
+        return ["MAP values live on the CPU path"]
+
+    def _eval_cpu(self, batch, kids):
+        cols = [k.to_pylist() for k in kids]
+        out = [self._row(*vals) for vals in zip(*cols)]
+        return map_from_pyvalues(out, self.dtype)
+
+
+class StrToMap(_CpuMapExpression):
+    """str_to_map(text, pairDelim, keyValueDelim) (Spark StringToMap):
+    a pair without the key-value delimiter has a null value; a duplicate
+    key raises."""
+
+    def __init__(self, child: Expression, pair_delim: str = ",",
+                 kv_delim: str = ":"):
+        self.children = (child,)
+        self.pair_delim = pair_delim
+        self.kv_delim = kv_delim
+
+    def _resolve(self):
+        self.dtype = t.MapType(t.STRING, t.STRING)
+        self.nullable = self.children[0].nullable
+
+    def _fp_extra(self):
+        return f"{self.pair_delim};{self.kv_delim}"
+
+    def _row(self, s):
+        if s is None:
+            return None
+        out, seen = [], set()
+        for pair in s.split(self.pair_delim):
+            k, found, v = pair.partition(self.kv_delim)
+            if k in seen:
+                raise _dedup_policy_error(k, "str_to_map")
+            seen.add(k)
+            out.append((k, v if found else None))
+        return out
+
+
+class MapFromArrays(_CpuMapExpression):
+    """map_from_arrays(keys, values)."""
+
+    def __init__(self, keys: Expression, values: Expression):
+        self.children = (keys, values)
+
+    def _resolve(self):
+        self.dtype = t.MapType(self.children[0].dtype.element_type,
+                               self.children[1].dtype.element_type)
+        self.nullable = True
+
+    def _row(self, ks, vs):
+        return None if ks is None or vs is None else list(zip(ks, vs))
+
+
+class MapConcat(_CpuMapExpression):
+    """map_concat(m1, m2, ...): a null map gives null; a key in two maps
+    raises (Spark's default spark.sql.mapKeyDedupPolicy=EXCEPTION)."""
+
+    def __init__(self, *maps: Expression):
+        assert maps
+        self.children = tuple(maps)
+
+    def _resolve(self):
+        self.dtype = self.children[0].dtype
+        self.nullable = any(c.nullable for c in self.children)
+
+    def _row(self, *maps):
+        if any(m is None for m in maps):
+            return None
+        merged = {}
+        for m in maps:
+            for k, v in m:
+                if k in merged:
+                    raise _dedup_policy_error(k, "map_concat")
+                merged[k] = v
+        return list(merged.items())
+
+
+class MapEntries(_CpuMapExpression):
+    """map_entries(m): ARRAY<STRUCT<key, value>>, which is the map's own
+    layout read as an array."""
+
+    def __init__(self, child: Expression):
+        self.children = (child,)
+
+    def _resolve(self):
+        mt = self.children[0].dtype
+        self.dtype = t.ArrayType(t.StructType([
+            t.StructField("key", mt.key_type),
+            t.StructField("value", mt.value_type)]))
+        self.nullable = self.children[0].nullable
+
+    def _eval_cpu(self, batch, kids):
+        m = kids[0]
+        entries = HostColumn(m.elements().data, None,
+                             self.dtype.element_type)
+        return HostColumn(entries, m.validity, self.dtype, None, None,
+                          m.offsets)
+
+
+class _MapLambda(_CpuMapExpression):
+    """Base of the map higher-order functions, whose body is a Python
+    (key, value) function run a map entry at a time."""
+
+    def __init__(self, child: Expression, fn):
+        self.children = (child,)
+        self.fn = fn
+
+    def _resolve(self):
+        self.dtype = self.children[0].dtype
+        self.nullable = self.children[0].nullable
+
+    def _fp_extra(self):
+        return repr(self.fn)
+
+
+class TransformValues(_MapLambda):
+    """transform_values(m, (k, v) -> body)."""
+
+    def _row(self, m):
+        return None if m is None else [(k, self.fn(k, v)) for k, v in m]
+
+
+class TransformKeys(_MapLambda):
+    """transform_keys(m, (k, v) -> body)."""
+
+    def _row(self, m):
+        return None if m is None else [(self.fn(k, v), v) for k, v in m]
+
+
+class MapFilter(_MapLambda):
+    """map_filter(m, (k, v) -> predicate)."""
+
+    def _row(self, m):
+        return None if m is None else [(k, v) for k, v in m
+                                       if self.fn(k, v)]

@@ -64,11 +64,6 @@ from ..ops.kernels import compute_dtype, merge_validity, valid_or_true
 from ..runtime.capture import host_constant, host_reads_ok, recording
 
 
-#: where RLIKE and the regexp functions port
-REGEX_SLICE = "ops/regex.py (ROADMAP Queue 1 item 7)"
-#: where STRUCT and MAP columns port (the nested-type shatter and the
-#: map and struct classes)
-NESTED_SLICE = "plan/structs.py (ROADMAP Queue 1 item 7)"
 #: where the two-lane device forms of a DECIMAL wider than 18 digits
 #: (arithmetic, comparisons, MIN/MAX over a value past int64) port
 WIDE_DECIMAL_SLICE = ("the two-lane device decimal forms (ROADMAP Queue 1 "

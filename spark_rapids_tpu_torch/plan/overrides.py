@@ -19,8 +19,8 @@ read as the reference's: `*Exec <Filter> will run on TPU` and `!Exec
 <Project> cannot run on TPU because ...`.
 
 Where the reference runs something on its device and the port has not
-ported that device form (an `expressions.Unported` reason: composite
-string join keys, TIMESTAMP fields, the regexp family, ...), the node
+ported that device form (an `expressions.Unported` reason: a cast or
+a wide decimal form of a later item, ...), the node
 is not sent to the CPU engine: `apply_overrides` raises
 NotImplementedError naming the slice, unless another reason already
 puts the node on the CPU (or `sql.enabled` is false).  Nothing reroutes
@@ -232,8 +232,11 @@ def _sort_keys(node: "L.LogicalSort"):
 
 
 def _host_to_device(node: "H.HostNode") -> PlanNode:
-    """A CPU node under a device parent: every type of the port's host
-    columns has a device lane, so the upload takes the whole output."""
+    """A CPU node under a device parent: the upload takes the whole
+    output.  Every type but STRUCT and MAP has a device lane, and no
+    STRUCT or MAP column reaches a device parent: no device operator
+    outputs one, and column pruning drops what its expressions do not
+    read."""
     return H.HostToDeviceExec(node)
 
 
@@ -281,6 +284,12 @@ class ExprMeta(BaseMeta):
         for c in self.children:
             c.tag()
             self._roll_up(c)
+        from .misc import InputFileName
+        if any(isinstance(c, InputFileName) for c in self.expr.children):
+            # as the reference: the device form is a top-level output only
+            self.will_not_work(
+                "input_file_name nested inside another expression "
+                "(device path supports it as a top-level output only)")
         name = type(self.expr).__name__
         if name in self.conf.shims.unavailable_expressions:
             self.will_not_work(
@@ -315,13 +324,6 @@ class ExprMeta(BaseMeta):
 
 def _nested(dt) -> bool:
     return isinstance(dt, (t.ArrayType, t.MapType, t.StructType))
-
-
-def _has_struct_or_map(dt) -> bool:
-    if isinstance(dt, (t.MapType, t.StructType)):
-        return True
-    return isinstance(dt, t.ArrayType) and \
-        _has_struct_or_map(dt.element_type)
 
 
 class AggMeta(BaseMeta):
@@ -376,14 +378,9 @@ class PlanMeta(BaseMeta):
                 f"spark.rapids.tpu.sql.exec.{key_name}")
         rule = EXEC_RULES.get(type(self.node))
         for f in self.node.schema.fields:
-            if _has_struct_or_map(f.data_type):
-                # the reference shatters these into flat and ragged
-                # lanes before placement (plan/structs.py)
-                self.will_not_work(E.Unported(
-                    f"output column {f.name}: "
-                    f"{f.data_type.simple_string} is shattered by "
-                    f"{E.NESTED_SLICE}"))
-            elif _nested(f.data_type) and rule is not None and \
+            # a STRUCT or MAP output no exec rule takes: what the shatter
+            # (plan/structs.py) left nested runs on the CPU engine
+            if _nested(f.data_type) and rule is not None and \
                     not rule.output_sig.supports(f.data_type):
                 self.will_not_work(
                     f"output column {f.name}: type "
@@ -918,16 +915,39 @@ class PhysicalQuery:
         return str(self.conf.get(WHOLE_PLAN_COMPILE)).upper() == "ON"
 
     def _collect_once(self, ctx: ExecContext) -> HostBatch:
-        if self.kind == "device" and self._whole_plan_enabled() and \
-                not ctx.ooc_force:
+        if self._whole_plan_enabled() and not ctx.ooc_force:
             # an escalated context runs the eager engine: the out-of-core
             # tier lives there, while a graph holds its intermediates
             # outside the budget's reach
             from ..exec.compiled import collect_with_fallback
-            out = collect_with_fallback(self.root, ctx, cache_on=self)
-            if out is not None:
-                return out
+            top = self._renest_top()
+            if self.kind == "device":
+                out = collect_with_fallback(self.root, ctx, cache_on=self)
+                if out is not None:
+                    return out
+            elif top is not None:
+                # the shatter's re-nesting projection (plan/structs.py) is
+                # a CPU operator over a device plan: the device part
+                # captures, the projection runs on the host over its
+                # result
+                out = collect_with_fallback(top.child.device_child, ctx,
+                                            cache_on=self)
+                if out is not None:
+                    return top.project(out)
         return self.root.collect(ctx)
+
+    def _renest_top(self):
+        """The root CpuProjectExec straight over a device plan, when the
+        projection is the shatter's re-nest (else None)."""
+        from .collections import (CreateNamedStruct, RenestArrayStruct,
+                                  RenestMap)
+        root = self.root
+        if isinstance(root, H.CpuProjectExec) and \
+                isinstance(root.child, H.DeviceToHostExec) and \
+                any(isinstance(e, (CreateNamedStruct, RenestMap,
+                                   RenestArrayStruct)) for e in root.exprs):
+            return root
+        return None
 
     def prewarm(self, ctx: Optional[ExecContext] = None) -> bool:
         """Capture this query's whole plan WITHOUT running it (the
@@ -990,6 +1010,11 @@ def apply_overrides(plan: L.LogicalPlan, conf: TpuConf = DEFAULT_CONF,
     """Prune, wrap, tag and convert a logical plan (`device` None means
     "cuda" and raises without a card: `resolve_device`)."""
     device = resolve_device(device)
+    if conf.sql_enabled:
+        # the nested-type shatter matters only for the device's
+        # placement: the CPU engine (the oracle) keeps the nested plan
+        from .structs import shatter_nested
+        plan = shatter_nested(plan)
     meta = wrap_plan(prune_columns(plan), conf)
     meta.tag()
     if conf.get(CBO_ENABLED):
@@ -1270,6 +1295,30 @@ def _register_rules() -> None:
             ("ArrayJoin", "string join (CPU)"),
             ("Sequence", "integral range generation (CPU)")):
         _rules(x, C, names, arr, desc=desc)
+    for names, desc in (
+            ("StrToMap", "str_to_map (CPU)"),
+            ("MapFromArrays", "map_from_arrays (CPU)"),
+            ("MapConcat", "map_concat LAST_WIN (CPU)"),
+            ("MapEntries", "map_entries (CPU)"),
+            ("TransformValues", "map value lambda (CPU)"),
+            ("TransformKeys", "map key lambda (CPU)"),
+            ("MapFilter", "map entry filter (CPU)")):
+        _rules(x, C, names, common + T.MAP + T.ARRAY + T.STRUCT, desc=desc)
+    from . import json_fns as JSON
+    from . import misc as MISC
+    _rules(x, JSON, "FromJson", T.ALL,
+           desc="from_json (STRUCT result: CPU path, per-expression "
+                "tagging — GpuJsonToStructs role)")
+    _rules(x, JSON, "ToJson", T.ALL,
+           desc="to_json (STRUCT input: CPU path — GpuStructsToJson role)")
+    _rules(x, JSON, "GetJsonObject", T.STRING,
+           desc="get_json_object (dictionary transform)")
+    _rules(x, MISC, "MonotonicallyIncreasingID", common,
+           desc="nondeterministic unique int64 per row (batch-indexed)")
+    _rules(x, MISC, "SparkPartitionID", common,
+           desc="batch ordinal (the engine's partition analogue)")
+    _rules(x, MISC, "InputFileName", common,
+           desc="scan provenance of the current batch; '' when unknown")
     _rules(x, E, "Literal", common + T.NULL, desc="literal value")
     _rules(x, E, "Alias", common, desc="named expression")
     _rules(x, E, "Add Subtract Multiply Divide IntegralDivide Remainder "

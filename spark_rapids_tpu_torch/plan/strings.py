@@ -35,8 +35,12 @@ entry, and a row's result is a gather by its code:
 Arguments other than the one string operand must be literals on the
 device, as in the reference.  Two non-literal operands (concat of two
 columns), format_number and bin run on the CPU engine, as in the
-reference; RLIKE and the regexp functions refuse on the device until the
-regex transpiler ports.
+reference.  RLIKE runs the regex transpiler's byte DFA over the
+dictionary's byte tensors on the device (ops/regex.py), or a host mask
+in the Python re dialect where the transpiler rejects the pattern;
+regexp_extract and regexp_replace are dictionary transforms in the
+Python re dialect behind the transpiler's subset check, as in the
+reference.
 
 Every class also has `_eval_cpu`, the CPU engine's evaluation
 (exec/host_exec.py): the same per-entry Python functions over the
@@ -61,13 +65,15 @@ import torch
 
 from .. import types as t
 from ..columnar.host import HostColumn
-from ..config import STRING_TRANSFORM_DEVICE_MIN
+from ..config import REGEX_MAX_DFA_STATES, STRING_TRANSFORM_DEVICE_MIN
 from ..ops import host as H
 from ..ops import strings as S
 from ..ops.kernels import merge_validity
+from ..ops.regex import (MAX_DFA_STATES, RegexUnsupported, compile_dfa,
+                         dfa_matches_lanes, entry_order, utf8_lengths)
 from ..runtime.capture import host_constant
-from .expressions import (REGEX_SLICE, DevVal, Expression, HostVal, Literal,
-                          Unported, dict_or_empty, per_dictionary)
+from .expressions import (DevVal, Expression, HostVal, Literal,
+                          dict_or_empty, per_dictionary)
 
 
 def _lift(x) -> Expression:
@@ -1226,73 +1232,163 @@ def _java_replacement_to_python(rep: str) -> str:
     return "".join(out)
 
 
-class _Regex(Expression):
-    """A regexp function: the reference runs it on its device through the
-    regex transpiler, which ports with ROADMAP Queue 1 item 7, so the
-    device path refuses it naming that slice.  The CPU engine (with
-    sql.enabled=false, or where another reason already sends the
-    operator there) evaluates each dictionary entry with Python `re`."""
-    result_type = t.STRING
-    what = ""
-
-    def _resolve(self):
-        self.dtype = self.result_type
-        self.nullable = True
-
-    def unsupported_reasons(self, conf):
-        return [Unported(f"{self.what} runs on the regex transpiler, "
-                         f"{REGEX_SLICE}")]
-
-    def _entry(self, rx, v):
-        raise NotImplementedError
-
-    def _eval_cpu(self, batch, kids):
-        rx = re.compile(self.pattern)
-        k = kids[0]
-        d = dict_or_empty(k.dictionary)
-        if self.result_type == t.BOOLEAN:
-            lane, ok = _entry_lane(self, "_cpu_lanes", d,
-                                   lambda v: self._entry(rx, v), bool)
-            return _gather_np(k, lane, ok, t.BOOLEAN)
-        values = per_dictionary(self, "_cpu_entries").get(
-            d, lambda: [self._entry(rx, v) for v in d.tolist()])
-        return H.strings_from_entries(np.clip(k.data, 0, max(len(d) - 1, 0)),
-                                      values, k.validity)
+def _automaton(e, conf):
+    """The DFA of `e.pattern` under the session's state budget
+    (`sql.regexp.maxStates`): the default budget's automaton is built
+    once at construction; a pattern it rejected for its state count is
+    tried again under a raised budget, as the reference retries at tag
+    time.  None when the transpiler rejects the pattern."""
+    if e._dfa is None and conf is not None and \
+            "state blowup" in (e._reject or ""):
+        budget = conf.get(REGEX_MAX_DFA_STATES)
+        if budget != MAX_DFA_STATES:
+            try:
+                e._dfa = compile_dfa(e.pattern, max_states=budget)
+                e._reject = None
+            except RegexUnsupported as err:
+                e._reject = str(err)
+    return e._dfa
 
 
-class RLike(_Regex):
-    result_type = t.BOOLEAN
-    what = "rlike"
+class RLike(Expression):
+    """str RLIKE regex (an unanchored find).
+
+    A pattern inside the transpiler's Java-regex subset (ops/regex.py,
+    the reference's CudfRegexTranspiler role) runs on the device as a
+    byte DFA over the dictionary's byte tensors (`dfa_matches_lanes`),
+    once per dictionary; a rejected pattern masks the dictionary on the
+    host with Python `re` (the reference's documented dialect
+    deviation).  Either way the rows gather the mask by code."""
 
     def __init__(self, left, pattern: str):
         self.children = (left,)
         self.pattern = pattern
+        try:
+            self._dfa = compile_dfa(pattern)
+            self._reject = None
+        except RegexUnsupported as err:
+            self._dfa = None
+            self._reject = str(err)
 
-    def _entry(self, rx, v):
-        return rx.search(v) is not None
+    def _resolve(self):
+        self.dtype = t.BOOLEAN
+        self.nullable = self.children[0].nullable
+
+    def unsupported_reasons(self, conf):
+        _automaton(self, conf)
+        return _string_operand_reasons(self)
+
+    def entry_mask(self, d: np.ndarray, conf, device) -> torch.Tensor:
+        """bool per dictionary entry (one False entry for an empty
+        dictionary)."""
+        def make():
+            if len(d) == 0:
+                return torch.zeros(1, dtype=torch.bool, device=device)
+            dfa = _automaton(self, conf)
+            if dfa is None:
+                rx = re.compile(self.pattern)
+                return host_constant(np.array(
+                    [rx.search(v) is not None for v in d.tolist()], bool),
+                    device)
+            offsets, bytes_ = _byte_tensors(self, d, device)
+            order = entry_order(utf8_lengths(d), device)
+            return dfa_matches_lanes(
+                host_constant(dfa.table.T.astype(np.int16), device),
+                host_constant(dfa.accepting, device), offsets, bytes_,
+                order)
+        return per_dictionary(self, "_masks").get(d, make)
+
+    def _eval_dev(self, ctx, kids):
+        s = kids[0]
+        mask = self.entry_mask(dict_or_empty(s.dictionary), ctx.conf,
+                               ctx.device)
+        return DevVal(_gather(mask, s.data), s.validity, t.BOOLEAN)
+
+    def _eval_cpu(self, batch, kids):
+        rx = re.compile(self.pattern)
+        lane, ok = _entry_lane(self, "_cpu_masks", dict_or_empty(
+            kids[0].dictionary), lambda v: rx.search(v) is not None, bool)
+        return _gather_np(kids[0], lane, ok, t.BOOLEAN)
+
+    def _fp_extra(self):
+        return f"{self.pattern!r}"
 
 
-class RegexpExtract(_Regex):
-    what = "regexp_extract"
+def _validated_regex(pattern: str):
+    """(the compiled Python re, the transpiler's reject reason or None).
+    The subset check decides whether Java's and Python's semantics agree
+    well enough for the pattern to place on the device path; a rejected
+    pattern is tagged, so its operator falls back visibly (the transform
+    runs on the host either way).  A pattern Python cannot compile is an
+    analysis error, as in Spark."""
+    try:
+        rx = re.compile(pattern)
+    except re.error as err:
+        raise ValueError(f"invalid regexp pattern {pattern!r}: {err}") \
+            from err
+    try:
+        compile_dfa(pattern)
+        return rx, None
+    except RegexUnsupported as err:
+        return rx, str(err)
+
+
+class RegexpExtract(DictTransform):
+    """regexp_extract(str, pattern, idx): group `idx` of the first match,
+    "" without one (Spark's semantics), a dictionary transform in the
+    Python re dialect behind the transpiler's subset check (the
+    reference's documented deviation)."""
 
     def __init__(self, subject, pattern: str, idx: int = 1):
         self.children = (subject,)
         self.pattern = pattern
         self.idx = idx
+        self._rx, self._subset_reject = _validated_regex(pattern)
 
-    def _entry(self, rx, v):
-        m = rx.search(v)
-        g = None if m is None else m.group(self.idx)
+    def unsupported_reasons(self, conf):
+        out = super().unsupported_reasons(conf)
+        if self._subset_reject is not None:
+            out.append(f"pattern outside the Java-regex subset "
+                       f"({self._subset_reject}); CPU fallback evaluates "
+                       "in the Python re dialect")
+        if self.idx < 0 or self.idx > self._rx.groups:
+            out.append(f"group index {self.idx} out of range "
+                       f"(pattern has {self._rx.groups})")
+        return out
+
+    def _transform_value(self, s, args):
+        m = self._rx.search(s)
+        if m is None:
+            return ""
+        g = m.group(self.idx)
         return "" if g is None else g
 
+    def _fp_extra(self):
+        return f"{self.pattern!r};{self.idx}"
 
-class RegexpReplace(_Regex):
-    what = "regexp_replace"
+
+class RegexpReplace(DictTransform):
+    """regexp_replace(str, pattern, replacement): every match replaced
+    (Spark's semantics), Java's $N group references in the replacement;
+    a dictionary transform behind the subset check, as RegexpExtract."""
 
     def __init__(self, subject, pattern: str, replacement: str):
         self.children = (subject,)
         self.pattern = pattern
         self.replacement = replacement
+        self._rx, self._subset_reject = _validated_regex(pattern)
+        self._py_rep = _java_replacement_to_python(replacement)
 
-    def _entry(self, rx, v):
-        return rx.sub(_java_replacement_to_python(self.replacement), v)
+    def unsupported_reasons(self, conf):
+        out = super().unsupported_reasons(conf)
+        if self._subset_reject is not None:
+            out.append(f"pattern outside the Java-regex subset "
+                       f"({self._subset_reject}); CPU fallback evaluates "
+                       "in the Python re dialect")
+        return out
+
+    def _transform_value(self, s, args):
+        return self._rx.sub(self._py_rep, s)
+
+    def _fp_extra(self):
+        return f"{self.pattern!r};{self.replacement!r}"

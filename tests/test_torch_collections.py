@@ -7,8 +7,9 @@ on the device (GenerateExec), the Generate placement rule, and every
 ARRAY class of module 4 (the ragged device ones, CreateArray, and the
 CPU-only set and list functions) on both engines of the port, each equal
 to the reference's device path and to its CPU oracle, with the
-reference's placement lines.  STRUCT and MAP columns refuse, naming
-`expressions.NESTED_SLICE`; the device explode captures whole under
+reference's placement lines.  STRUCT and MAP columns enter and run
+(their own file is tests/test_torch_structs.py); the device explode
+captures whole under
 `sql.compile.wholePlan=ON` and equals the eager run.
 """
 import numpy as np
@@ -241,19 +242,24 @@ def test_every_array_class_equals_the_reference_on_both_engines():
 
 
 def test_struct_and_map_columns_refuse_naming_their_slice():
+    # their slice (plan/structs.py) has ported: STRUCT and MAP columns
+    # enter the port and run (tests/test_torch_structs.py holds them to
+    # the reference); an ARRAY<STRUCT> of a flat struct shatters too
     st = PT.StructType([PT.StructField("f", PT.LONG)])
-    for dt in (st, PT.MapType(PT.STRING, PT.LONG), PT.ArrayType(st)):
-        hb = PH.HostBatch([PH.HostColumn(np.zeros(2, np.int64), None, dt),
-                           PH.HostColumn(np.arange(2), None, PT.LONG)],
-                          ["n", "k"])
-        df = PSession(device="cpu").from_host(hb)
-        with pytest.raises(NotImplementedError,
-                           match="plan/structs.py .ROADMAP Queue 1 item 7"):
-            df.physical()
-    assert PE.NESTED_SLICE == "plan/structs.py (ROADMAP Queue 1 item 7)"
-    with pytest.raises(NotImplementedError, match="plan/structs.py"):
-        PH.from_arrow(pa.table({"m": pa.array(
-            [{"f": 1}], pa.struct([("f", pa.int64())]))}))
+    f = PH.HostColumn(np.array([3, 4], np.int64), None, PT.LONG)
+    cols = {"struct": PH.struct_column([f], ["f"]),
+            "map": PH.map_column(f, f, [0, 1, 2]),
+            "array": PH.list_column(PH.struct_column([f], ["f"]), [0, 2, 2])}
+    for dt, col in cols.items():
+        hb = PH.HostBatch([col, PH.HostColumn(np.arange(2), None,
+                                              PT.LONG)], ["n", "k"])
+        out = PSession(device="cpu").from_host(hb).collect()
+        assert out.to_pydict() == hb.to_pydict(), dt
+    assert cols["array"].dtype == PT.ArrayType(st)
+    assert not hasattr(PE, "NESTED_SLICE")
+    hb = PH.from_arrow(pa.table({"m": pa.array(
+        [{"f": 1}], pa.struct([("f", pa.int64())]))}))
+    assert hb.to_pydict() == {"m": [{"f": 1}]}
 
 
 def test_the_device_explode_captures_whole_and_equals_eager():

@@ -1985,3 +1985,90 @@ def test_collect_and_percentile_on_the_card_equal_the_cpu(cuda, batch):
     for build in (collect, pct, approx):
         got, want = _both(cuda, build, hb, conf)
         assert _nan_eq(got, want), build.__name__
+
+
+def _p_name_like(rng, n):
+    """A sorted, duplicate-free dictionary of TPC-H p_name-like entries
+    (five colour words), with a few non-ASCII and empty entries."""
+    words = ["almond", "antique", "green", "forest", "navy", "smoke",
+             "spring", "thistle", "lace", "ghost", "frosted", "日本"]
+    vals = [" ".join(rng.choice(words, 5)) for _ in range(n)] + ["", "x"]
+    return np.unique(np.array(vals, str))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pattern", [r"green", r"special.*requests",
+                                     r"^forest", r"(lace|ghost)$", r"日本"])
+def test_the_dfa_runner_on_the_card_equals_the_cpu(cuda, pattern):
+    from spark_rapids_tpu_torch.ops import regex as R
+    from spark_rapids_tpu_torch.ops import strings as S
+    d = _p_name_like(np.random.default_rng(41), 50_000)
+    dfa = R.compile_dfa(pattern)
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        offsets, bytes_ = S.dict_byte_tensors(d, dev)
+        order = R.entry_order(R.utf8_lengths(d), dev)
+        outs.append(R.dfa_matches_lanes(
+            torch.from_numpy(dfa.table.T.astype(np.int16).copy()).to(dev),
+            torch.from_numpy(dfa.accepting.copy()).to(dev), offsets,
+            bytes_, order).cpu().numpy())
+    np.testing.assert_array_equal(outs[0], outs[1])
+    import re
+    want = np.array([re.search(pattern, v) is not None for v in d.tolist()])
+    np.testing.assert_array_equal(outs[0], want)
+
+
+def _nested_table(rng, n=20_000):
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar import host as H
+    k = H.HostColumn(np.arange(n, dtype=np.int64), None, T.LONG)
+    a = H.HostColumn(rng.integers(0, 9, n).astype(np.int32),
+                     rng.random(n) > 0.1, T.INT)
+    st = H.struct_column([a, H.string_column(rng.choice(["p", "q", "r"],
+                                                        n))],
+                         ["a", "c"], rng.random(n) > 0.09)
+    lens = rng.integers(0, 5, n)
+    off = np.zeros(n + 1, np.int64)
+    off[1:] = np.cumsum(lens)
+    keys = H.HostColumn((np.arange(off[-1]) - np.repeat(off[:-1], lens))
+                        .astype(np.int32), None, T.INT)
+    vals = H.HostColumn(rng.integers(0, 1000, int(off[-1])), None, T.LONG)
+    mp = H.map_column(keys, vals, off, rng.random(n) > 0.07)
+    return H.HostBatch([k, st, mp], ["id", "s", "m"])
+
+
+@pytest.mark.cuda
+def test_shattered_map_element_at_on_the_card_equals_the_cpu(cuda):
+    from spark_rapids_tpu_torch.plan import collections as C
+    from spark_rapids_tpu_torch.plan import expressions as E
+    from spark_rapids_tpu_torch.session import col
+    hb = _nested_table(np.random.default_rng(42))
+
+    def build(s, t):
+        return s.from_host(t).select(
+            col("id"), C.MapElementAt(col("m"), 1), C.Size(col("m")),
+            C.MapKeys(col("m")), C.MapElementAt(col("m"), 2),
+            names=["id", "v", "n", "ks", "v2"])
+    from spark_rapids_tpu_torch.session import TpuSession
+    q = build(TpuSession(device=cuda), hb).physical()
+    assert q.kind == "device" and "cannot" not in q.explain()
+    got, want = _both(cuda, build, hb)
+    assert got == want
+
+
+@pytest.mark.cuda
+def test_a_struct_round_trips_through_upload_and_renest_on_the_card(cuda):
+    from spark_rapids_tpu_torch.plan import collections as C
+    from spark_rapids_tpu_torch.plan import expressions as E
+    from spark_rapids_tpu_torch.session import col
+    hb = _nested_table(np.random.default_rng(43))
+
+    def build(s, t):
+        return s.from_host(t).filter(E.LessThan(
+            C.GetStructField(col("s"), "a"), E.Literal(5))).sort("id")
+    got, want = _both(cuda, build, hb)
+    assert got == want
+    assert got["s"] == [v for v, a in zip(hb.to_pydict()["s"],
+                                          hb.to_pydict()["s"])
+                        if v is not None and v["a"] is not None and
+                        v["a"] < 5]

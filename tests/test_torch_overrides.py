@@ -255,17 +255,21 @@ def test_unported_device_forms_raise_instead_of_falling_back(table):
     # device under the session zone)
     assert s.from_arrow(stamps).select(
         E.Alias(DT.Year(col("ts")), "y")).physical().kind == "device"
-    with pytest.raises(NotImplementedError, match="ops/regex.py"):
-        s.from_arrow(table).select(E.Alias(S.RLike(col("s"), "x+"), "r")) \
-            .physical()
+    # (RLIKE no longer refuses: the regex transpiler's automaton runs on
+    # the device)
+    assert s.from_arrow(table).select(E.Alias(S.RLike(col("s"), "x+"),
+                                              "r")).physical().kind == "device"
+    with pytest.raises(NotImplementedError, match="cast them to one"):
+        s.from_arrow(table).select(E.Alias(E.Greatest(col("b"), col("a")),
+                                           "g")).physical()
     # ...unless another reason already puts the operator on the CPU
     off = TpuSession({"spark.rapids.tpu.sql.exec.ProjectExec": "false"},
                      device="cpu")
-    q = off.from_arrow(table).select(E.Alias(S.RLike(col("s"), "x+"),
-                                             "r")).physical()
+    q = off.from_arrow(table).select(E.Alias(E.Greatest(col("b"), col("a")),
+                                             "g")).physical()
     assert q.kind == "host"
-    assert q.collect().to_pydict()["r"] == [True, False, True, False, False,
-                                             True]
+    assert q.collect().to_pydict()["g"] == [10.0, 20.0, 30.0, 40.0, 50.0,
+                                             60.0]
 
 
 # ---------------------------------------------------------------------------

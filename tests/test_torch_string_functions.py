@@ -402,11 +402,16 @@ def test_the_cpu_engine_families_fall_back_with_the_reference_reason(
 
 @pytest.mark.parametrize("family", list(REFUSED))
 def test_the_families_of_other_slices_refuse_naming_them(family):
+    # their slice (ops/regex.py) has ported: each now places on the
+    # device, as the reference does, and equals the CPU engine
     build, where = REFUSED[family]
-    df = PSession(device="cpu").from_arrow(pa.table(
-        {"s": ["a", None], "t": ["b", "c"], "i": [1, 2]}))
-    with pytest.raises(NotImplementedError, match=where):
-        df.select(PE.Alias(build(pcol), "r")).collect()
+    table = pa.table({"s": ["a", None], "t": ["b", "c"], "i": [1, 2]})
+    q = PSession(device="cpu").from_arrow(table).select(
+        PE.Alias(build(pcol), "r")).physical()
+    assert q.kind == "device" and where == "ops/regex.py"
+    assert q.collect().to_pydict() == PSession(
+        ORACLE, device="cpu").from_arrow(table).select(
+        PE.Alias(build(pcol), "r")).to_pydict()
 
 
 @pytest.mark.parametrize("family", list(REFUSED))

@@ -72,6 +72,36 @@ for name in sorted(tpch.QUERIES):
     q = tpch.QUERIES[name](s, tables).physical()
     assert q.kind == "host", name
     q.collect()
+# a shattered STRUCT query, a MAP query and an RLIKE query, built with
+# the numpy constructors, on the device path (CPU tensors)
+import numpy as np
+from spark_rapids_tpu_torch import types as T
+from spark_rapids_tpu_torch.columnar import host as H
+from spark_rapids_tpu_torch.plan import collections as C
+from spark_rapids_tpu_torch.plan import expressions as E
+from spark_rapids_tpu_torch.plan import strings as S
+from spark_rapids_tpu_torch.plan.aggregates import Sum
+d = TpuSession(device="cpu")
+k = H.HostColumn(np.arange(6, dtype=np.int64), None, T.LONG)
+st = H.struct_column([k, H.string_column(["a", "b", "c", "a", "b", "c"])],
+                     ["x", "y"], np.array([1, 1, 0, 1, 1, 1], bool))
+mp = H.map_column(k, H.HostColumn(np.arange(6, dtype=np.int64) * 10, None,
+                                  T.LONG), [0, 2, 2, 3, 6, 6, 6])
+hb = H.HostBatch([st, mp, k], ["s", "m", "k"])
+got = d.from_host(hb).filter(E.IsNotNull(E.ColumnRef("s"))).group_by(
+    C.GetStructField(E.ColumnRef("s"), "y")).agg(
+    (Sum(C.GetStructField(E.ColumnRef("s"), "x")), "t")).sort("col0") \
+    .to_pydict()
+assert got == {"col0": ["a", "b", "c"], "t": [3, 5, 5]}, got
+got = d.from_host(hb).select(C.MapElementAt(E.ColumnRef("m"), 4),
+                             E.ColumnRef("m"), names=["v", "m"]).to_pydict()
+assert got["v"] == [None, None, None, 40, None, None], got
+assert got["m"][0] == [(0, 0), (1, 10)] and got["m"][3] == [(3, 30), (4, 40),
+                                                            (5, 50)]
+got = d.from_host(tables["part"]).filter(S.RLike(E.ColumnRef("p_name"),
+                                                 "green")).count()
+assert got == sum("green" in v for v in tables["part"].column_by_name(
+    "p_name").to_pylist()), got
 assert "pyarrow" not in {m.split(".")[0] for m, v in sys.modules.items()
                          if v is not None}
 print("ran", len(tpch.QUERIES))
