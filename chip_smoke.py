@@ -102,8 +102,8 @@ own failure:
                argsort and np.add.reduceat, HALF_UP averages in Python
                ints; string predicates by np.char over the
                dictionaries, q22's prefixes by a '<U2' cast, distinct
-               counts by np.unique over the packed (order, supplier) or
-               (group, supplier) lane; DOUBLE columns within rtol 1e-12,
+               counts as the distinct values of the packed (order,
+               supplier) or (group, supplier) lane; DOUBLE columns within rtol 1e-12,
                the README's f64 tolerance; q3's top 10 and q18's top 100
                compare the tied set on a tie at their last row; the
                join-path queries expand their pairs with argsort,
@@ -338,10 +338,29 @@ own failure:
                and mono_id, each equal to numpy (or Python's json);
                struct_q1 and both map cases again under wholePlan=ON,
                each decision printed, equal to eager.
+  9j. udf — after structs (chip_smoke_udf.py), at SF10 on the TPC-H
+               columns it keeps: udf_q1 (q1's disc_price and charge
+               compiled from Python lambdas: q1's trees, q1's answer and
+               the launches of q1 in phase 5, q1's wholePlan=ON
+               decision), tpuudf_q3 and hive_q3 (q3's filters and DOUBLE
+               revenue as TpuUDFs over torch tensors, the revenue as a
+               TpuHiveUDF: the launches of q3 in phase 5, within 1e-12 of
+               the exact revenue, captured under ON), hive_supp (a
+               row-based hive UDF over
+               s_name as a CPU island feeding a device join into
+               lineitem's aggregation, its host ms and transition
+               bytes), pyudf_part (udf() falling back to PythonUDF over
+               p_name, then a device SUM / MAX group-by), worker_wire
+               (orders' four lanes through a forked worker over the
+               numpy wire and back unchanged, after the card's work,
+               no launch), and, where pandas imports, the six pandas
+               execs each followed by a device group-by, the orders
+               cases over a quarter of orders ("pandas: absent"
+               otherwise), each equal to numpy or plain Python.
 Each phase after the data prints its seconds.
   10. result — a `kernels` JSON line (launches by query over every
                query of phases 5, 6b, 6c, 7, 9, 9b, 9c, 9d, 9e, 9f, 9g,
-               9h and 9i), the whole run's
+               9h, 9i and 9j), the whole run's
                seconds, the nvidia-smi line, and last {"ok": true,
                "device": {...}}.
 
@@ -544,6 +563,21 @@ PATH_KERNELS.update({"struct_q1": ("seg_sums",), "struct_q3": UNIQUE_JOIN,
                      "map_passthrough": (), "rlike_q9": JOIN_AGG,
                      "rlike_q13": UNIQUE_JOIN, "json_supp": (),
                      "mono_id": ()})
+# the udf phase (chip_smoke_udf.py): udf_q1 is q1 (seg_sums), tpuudf_q3
+# and hive_q3 run q3's joins; hive_supp's build side comes from a CPU
+# island, whose keys no statistic proves unique (the counted probe and
+# the pair expansion); pyudf_part's key comes from a CPU island too (no
+# scan range: the sorted group-by); the wire and the pandas execs reach
+# no kernel of their own
+PATH_KERNELS.update({"udf_q1": ("seg_sums",), "tpuudf_q3": UNIQUE_JOIN,
+                     "hive_q3": UNIQUE_JOIN,
+                     "hive_supp": ("build_table", "probe_counts",
+                                   "expand_pairs"),
+                     "pyudf_part": (), "worker_wire": (),
+                     **{n: () for n in (
+                         "map_pd_orders", "scalar_pd_orders",
+                         "apply_pd_priority", "agg_pd_nation",
+                         "window_pd_supp", "cogroup_pd_nation")}})
 Q3_DATE = (pydt.date(1995, 3, 15) - pydt.date(1970, 1, 1)).days
 # the device launches of one build_layout call, by kernel name: this
 # tree's two passes, and (for an A B B A against an older tree) its
@@ -2239,13 +2273,20 @@ def expected_q20(t, nation: str = "CANADA"):
             "s_address": _strs(_col(supp, "s_address"), chosen)}
 
 
+def sorted_distinct(values: np.ndarray) -> np.ndarray:
+    """np.unique(values) by a sort: numpy 2.3's np.unique hashes integer
+    lanes, which takes minutes over every lineitem row."""
+    v = np.sort(values)
+    return v[np.r_[True, v[1:] != v[:-1]]] if len(v) else v
+
+
 def distinct_suppliers(li, n_orders: int, n_supp: int, mask=None):
-    """Per order, its distinct suppliers: np.unique over the packed
-    (order, supplier) lane of the rows in `mask`."""
+    """Per order, its distinct suppliers: the distinct values of the
+    packed (order, supplier) lane of the rows in `mask`."""
     o, s_ = _col(li, "l_orderkey").data, _col(li, "l_suppkey").data
     if mask is not None:
         o, s_ = o[mask], s_[mask]
-    pairs = np.unique(o * n_supp + s_)
+    pairs = sorted_distinct(o * n_supp + s_)
     return np.bincount(pairs // n_supp, minlength=n_orders)
 
 
@@ -2371,7 +2412,7 @@ def data_phase(scale: float, seed: int, reference: bool = True):
 
 def numpy_results(tables, scale: float) -> dict:
     """The numpy result of every query, one forked process a query, the
-    slowest first: q21's two np.unique calls over lineitem, each in a
+    slowest first: q21's two distinct counts over lineitem, each in a
     process of its own (the one over every row also serves the strings
     phase), whose counts q21's result then takes here.  They finish
     before the card is used: run beside the kernel phases, they cost the
@@ -3349,9 +3390,10 @@ def main() -> int:
         import chip_smoke_late as LT
         import chip_smoke_nested as N
         import chip_smoke_structs as ST
+        import chip_smoke_udf as U
         # the TPC-H tables go first, to bound host memory; the fallback,
-        # decimals, chaos, joins, late, nested and structs phases keep the
-        # columns they read
+        # decimals, chaos, joins, late, nested, structs and udf phases
+        # keep the columns they read
         fb_tables = F.narrow(tables)
         dec_tables = DEC.narrow(tables)
         ch_tables = CH.narrow(tables)
@@ -3365,6 +3407,9 @@ def main() -> int:
         nt_want = {k: want[k] for k in N.WANTS}
         st_tables = ST.narrow(tables)
         st_want = {k: want[k] for k in ST.WANTS + ST.LATER_WANTS}
+        udf_tables = U.narrow(tables)
+        udf_want = {k: want[k] for k in U.WANTS}
+        udf_path_launches = {k: dict(launches[k]) for k in U.WANTS}
         del tables, want, later
         gc.collect()
         torch.cuda.empty_cache()
@@ -3407,6 +3452,10 @@ def main() -> int:
         gc.collect()
         launches.update(phase("structs", ST.structs_phase,
                               sys.modules[__name__], st_tables, st_want))
+        del st_tables
+        gc.collect()
+        launches.update(phase("udf", U.udf_phase, sys.modules[__name__],
+                              udf_tables, udf_want, udf_path_launches))
     rows = []
     for name in TPU_KERNELS:
         st = stats[name]

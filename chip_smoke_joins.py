@@ -277,7 +277,18 @@ def _quarter_hours(zone: str):
     return base + np.arange(n, dtype=np.int64) * 900_000_000, offs
 
 
-def _civil(days):
+def _over_range(values, fn):
+    """fn's lanes over `values`, computed once for each integer of their
+    range and gathered: numpy's datetime64 casts cost far more a row than
+    a gather, and a lane of every lineitem spans a few thousand days."""
+    lo = int(values.min())
+    lanes = fn(np.arange(lo, int(values.max()) + 1, dtype=np.int64))
+    idx = values - lo
+    return tuple(lane[idx] for lane in lanes) if isinstance(
+        lanes, tuple) else lanes[idx]
+
+
+def _civil_range(days):
     d = days.astype("datetime64[D]")
     m = d.astype("datetime64[M]")
     y = d.astype("datetime64[Y]")
@@ -286,9 +297,16 @@ def _civil(days):
             y.astype(np.int64))
 
 
+def _civil(days):
+    """(year, month, day, months since 1970, years since 1970) of each
+    day since 1970."""
+    return _over_range(days, _civil_range)
+
+
 def _month_day(months):
-    return months.astype("datetime64[M]").astype("datetime64[D]").astype(
-        np.int64)
+    """The day since 1970 of the first day of each month since 1970."""
+    return _over_range(months, lambda v: v.astype("datetime64[M]").astype(
+        "datetime64[D]").astype(np.int64))
 
 
 def expected_tz(li, zone: str) -> dict:
@@ -298,19 +316,19 @@ def expected_tz(li, zone: str) -> dict:
     us = tt.columns[0].data
     ship = tt.columns[1].data.astype(np.int64)
     pts, offs = _quarter_hours(zone)
-    local = us + offs[np.searchsorted(pts, us, "right") - 1]
+    # searchsorted(pts, us, "right") - 1 over the evenly spaced points
+    local = us + offs[np.clip((us - pts[0]) // 900_000_000, -1,
+                              len(pts) - 1)]
     days = local // US_DAY
     tod = local % US_DAY
     y, m, d, months, years = _civil(days)
     doy = days - _month_day(years * 12) + 1
     thursday = days + 3 - (days + 3) % 7
-    woy = (thursday - _month_day((thursday.astype("datetime64[D]").astype(
-        "datetime64[Y]").astype(np.int64)) * 12)) // 7 + 1
+    woy = (thursday - _month_day(_civil(thursday)[4] * 12)) // 7 + 1
     z = ZoneInfo(zone)
-    uniq, inv = np.unique(ship, return_inverse=True)
-    midnight = np.array([int(pydt.datetime(
-        *(pydt.date(1970, 1, 1) + pydt.timedelta(days=int(v))).timetuple()[
-            :3], tzinfo=z).timestamp()) for v in uniq], np.int64)[inv]
+    midnight = _over_range(ship, lambda v: np.array([int(pydt.datetime(
+        *(pydt.date(1970, 1, 1) + pydt.timedelta(days=int(x))).timetuple()[
+            :3], tzinfo=z).timestamp()) for x in v], np.int64))
     sy, sm, sd, smonths, syears = _civil(ship)
     total = smonths + 5
     add_m = _month_day(total) + np.minimum(

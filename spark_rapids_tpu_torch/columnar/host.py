@@ -766,6 +766,148 @@ def from_pydict(data: Mapping[str, object],
                                            for n, dt in zip(names, types)]))
 
 
+#: the width of each integral type
+INT_BITS = {t.ByteType: 8, t.ShortType: 16, t.IntegerType: 32,
+             t.LongType: 64}
+
+
+def _strict_value(v, dt: t.DataType):
+    """One non-null Python value as `dt`'s lane value, by the rules of
+    pyarrow's `pa.array(values, type)`: a bool is no integer, a float
+    truncates to an integral type, a Decimal must keep its digits, an
+    integer must fit; anything else raises."""
+    if isinstance(dt, t.BooleanType):
+        if isinstance(v, (bool, np.bool_)):
+            return bool(v)
+        raise ValueError(f"Could not convert {v!r} with type "
+                         f"{type(v).__name__}: tried to convert to boolean")
+    if isinstance(dt, t.IntegralType):
+        if isinstance(v, (bool, np.bool_)):
+            raise TypeError("Expected integer, got bool")
+        if isinstance(v, (int, np.integer, float, np.floating, pydec.Decimal)):
+            i = int(v)
+        else:
+            raise ValueError(f"Could not convert {v!r} with type "
+                             f"{type(v).__name__}: tried to convert to "
+                             f"{dt.simple_string}")
+        bits = INT_BITS[type(dt)]
+        if not -(1 << (bits - 1)) <= i < 1 << (bits - 1):
+            raise OverflowError(f"Value {i} too large to fit in "
+                                f"{dt.simple_string}")
+        return i
+    if isinstance(dt, (t.FloatType, t.DoubleType)):
+        if isinstance(v, (bool, int, float, np.bool_, np.integer,
+                          np.floating)):
+            return float(v)
+        raise ValueError(f"Could not convert {v!r} with type "
+                         f"{type(v).__name__}: tried to convert to "
+                         f"{dt.simple_string}")
+    if isinstance(dt, t.StringType):
+        if isinstance(v, bytes):
+            return v.decode()
+        if isinstance(v, str):
+            return str(v)
+        raise TypeError(f"Expected bytes, got a '{type(v).__name__}' object")
+    if isinstance(dt, t.DecimalType):
+        if isinstance(v, (bool, np.bool_)) or not isinstance(
+                v, (int, np.integer, pydec.Decimal)):
+            raise TypeError("int or Decimal object expected, got "
+                            f"{type(v).__name__}")
+        d = pydec.Decimal(int(v)) if not isinstance(v, pydec.Decimal) else v
+        if not d.is_finite():
+            raise ValueError(f"{d} is not a valid decimal")
+        u = d.scaleb(dt.scale, EXACT)
+        if u != u.to_integral_value():
+            raise ValueError("Rescaling Decimal value would cause data loss")
+        u = int(u)
+        if abs(u) >= 10 ** dt.precision:
+            raise ValueError(f"{d} does not fit into DECIMAL"
+                             f"({dt.precision},{dt.scale})")
+        return u
+    if isinstance(dt, t.DateType):
+        if isinstance(v, pydt.datetime):
+            v = v.date()
+        if isinstance(v, pydt.date):
+            return (v - pydt.date(1970, 1, 1)).days
+        if isinstance(v, (int, np.integer)) and not isinstance(v, bool):
+            return int(v)
+        raise TypeError(f"object of type {type(v).__name__} cannot be "
+                        "converted to a date")
+    if isinstance(dt, t.TimestampType):
+        if isinstance(v, pydt.datetime):
+            if v.tzinfo is None:
+                v = v.replace(tzinfo=pydt.timezone.utc)
+            x = v - pydt.datetime(1970, 1, 1, tzinfo=pydt.timezone.utc)
+            return (x.days * 86400 + x.seconds) * 10 ** 6 + x.microseconds
+        if isinstance(v, (int, np.integer)) and not isinstance(v, bool):
+            return int(v)
+        raise TypeError(f"object of type {type(v).__name__} cannot be "
+                        "converted to a timestamp")
+    raise TypeError(f"{v!r} cannot be a value of {dt.simple_string}")
+
+
+#: the Python types whose values `_fast_lane` takes as they are
+_FAST_KINDS = ((t.BooleanType, {bool}), (t.IntegralType, {int}),
+               (t.FloatType, {int, float}), (t.DoubleType, {int, float}))
+
+
+def _fast_lane(values: list, dt: t.DataType) -> Optional[np.ndarray]:
+    """The lane of `values` in one numpy pass where every non-null value
+    is a plain bool, int or float that `dt` takes as it is (the common
+    result of a row UDF); None where `_strict_value` must look at each."""
+    kinds = set(map(type, values)) - {type(None)}
+    ok = next((k for c, k in _FAST_KINDS if isinstance(dt, c)), None)
+    if ok is None or not kinds <= ok:
+        return None
+    zero = False if isinstance(dt, t.BooleanType) else 0
+    work = np.float64 if isinstance(dt, (t.FloatType, t.DoubleType)) \
+        else np.bool_ if isinstance(dt, t.BooleanType) else np.int64
+    lane = np.fromiter((zero if v is None else v for v in values), work,
+                       len(values))            # an int past int64 raises
+    if isinstance(dt, t.IntegralType) and len(lane):
+        bits = INT_BITS[type(dt)]
+        lo, hi = int(lane.min()), int(lane.max())
+        if lo < -(1 << (bits - 1)) or hi >= 1 << (bits - 1):
+            raise OverflowError(f"Value {hi if hi >= 1 << (bits - 1) else lo}"
+                                f" too large to fit in {dt.simple_string}")
+    with np.errstate(over="ignore"):
+        return lane.astype(t.physical_np_dtype(dt), copy=False)
+
+
+def column_from_values(values, dt: t.DataType) -> HostColumn:
+    """A column of `dt` from Python values (None = null), raising where
+    pyarrow's `pa.array(values, type)` raises (`_strict_value`): the
+    results of row-at-a-time UDFs.  Nested types take the lenient
+    builders (`list_from_pylists`, ...)."""
+    values = list(values)
+    if isinstance(dt, (t.ArrayType, t.StructType, t.MapType)):
+        return from_pydict({"v": values}, t.StructType(
+            [t.StructField("v", dt)])).columns[0]
+    valid = np.array([v is not None for v in values], bool)
+    validity = None if valid.all() else valid
+    if isinstance(dt, t.NullType):
+        if validity is None and values:
+            raise TypeError("a NULL column holds only None")
+        return HostColumn(np.zeros(len(values), np.int32),
+                          np.zeros(len(values), bool), dt)
+    fast = _fast_lane(values, dt)
+    if fast is not None:
+        return HostColumn(fast, validity, dt)
+    lane = [None if v is None else _strict_value(v, dt) for v in values]
+    if isinstance(dt, t.StringType):
+        return string_column(np.array(lane + [None], dtype=object)[:-1])
+    if isinstance(dt, t.DecimalType) and dt.is_wide:
+        return wide_decimal_column(
+            np.array([0 if u is None else u for u in lane] + [0],
+                     dtype=object)[:-1], validity, dt)
+    zero = False if isinstance(dt, t.BooleanType) else 0
+    np_dt = t.physical_np_dtype(dt)
+    with np.errstate(over="ignore"):
+        data = np.array([zero if u is None else u for u in lane],
+                        dtype=np.float64 if np_dt == np.float32 else np_dt)
+    return HostColumn(data.astype(np_dt, copy=False), validity, dt)
+
+
 # ---------------------------------------------------------------------------
 # Arrow interchange (pyarrow imported lazily: the card's machine has none)
 # ---------------------------------------------------------------------------
@@ -797,6 +939,18 @@ def arrow_to_dtype(at) -> t.DataType:
         return t.StructType([t.StructField(f.name, arrow_to_dtype(f.type),
                                            f.nullable) for f in at])
     raise TypeError(f"unsupported arrow type {at} in the port")
+
+
+def result_struct(schema) -> t.StructType:
+    """A result schema as a StructType: a StructType as it is, a pyarrow
+    Schema converted (pyarrow imported only for one)."""
+    if isinstance(schema, t.StructType):
+        return schema
+    if type(schema).__module__.startswith("pyarrow"):
+        return t.StructType([t.StructField(f.name, arrow_to_dtype(f.type),
+                                           f.nullable) for f in schema])
+    raise TypeError(f"a result schema is a StructType or a pyarrow "
+                    f"Schema, not {type(schema).__name__}")
 
 
 def dtype_to_arrow(dt: t.DataType):

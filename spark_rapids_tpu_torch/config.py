@@ -1237,7 +1237,9 @@ HONOURED_KEYS = frozenset(e.key for e in (
     # the holistic aggregates (exec/collect.py, exec/percentile.py)
     COLLECT_DEVICE_ENABLED, APPROX_PERCENTILE_SKETCH_K,
     # the regex transpiler's DFA state budget (ops/regex.py, RLike)
-    REGEX_MAX_DFA_STATES))
+    REGEX_MAX_DFA_STATES,
+    # the pandas execs' worker semaphore (exec/python_exec.py)
+    PYTHON_WORKER_CONCURRENCY))
 
 #: keys the port resolves to one behaviour for now -> what it does
 RESOLVED = {

@@ -697,6 +697,9 @@ class CompiledPlan:
         ctx.bump("compile_cache_hits")
         ctx.bump("whole_plan_structure_hits")
         self._fresh = True
+        # as after a capture: a background capture's placeholder leaves
+        # served the key only, and a replay binds the real leaves
+        self._leaf_overrides = {}
         return True
 
     # -- capture -------------------------------------------------------------

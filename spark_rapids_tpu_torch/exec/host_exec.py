@@ -30,6 +30,7 @@ nothing here reroutes work between the engines at run time.
 """
 from __future__ import annotations
 
+import threading
 import time
 from typing import Iterator, List, Optional, Sequence, Tuple
 
@@ -150,7 +151,10 @@ class HostNode:
         it = self._execute(ctx)
         ops = ctx.metrics.setdefault("host_ops", {})
         key = f"{self.describe()}#{id(self)}"
-        stack = ctx.metrics.setdefault("host_stack", [])
+        # one stack a thread: a pandas exec's feeder thread runs its
+        # child while the exec itself waits on its worker
+        stack = ctx.metrics.setdefault("host_stack", {}).setdefault(
+            threading.get_ident(), [])
         while True:
             stack.append(0.0)
             t0 = time.perf_counter()

@@ -133,6 +133,9 @@ class ExecContext:
     shared: dict = dataclasses.field(default_factory=dict)
     deadline: float = 0.0
     cancel: object = None
+    #: the query's pandas execs with a worker alive, which share one
+    #: python-worker permit (exec/python_exec._query_permit)
+    python_permit_depth: int = 0
 
     def __post_init__(self):
         self.device = resolve_device(self.device)

@@ -4,8 +4,12 @@ converts.
 Counterpart of spark_rapids_tpu/plan/logical.py for the nodes the ported
 slices run: scan (over a host batch instead of an Arrow table), range, project,
 filter, aggregate, sort, limit, sample, join, union, expand (the
-grouping-sets lowering), window and generate (explode / posexplode).  Each node declares its schema and nothing
-else; placement and operator choice belong to plan/overrides.py.
+grouping-sets lowering), window, generate (explode / posexplode) and
+the six pandas nodes (mapInPandas, the scalar pandas UDF, applyInPandas,
+the grouped pandas UDAF, the pandas window UDF and the cogrouped
+applyInPandas): all 20 of the reference's classes.  Each node declares
+its schema and nothing else; placement and operator choice belong to
+plan/overrides.py.
 """
 from __future__ import annotations
 
@@ -283,3 +287,131 @@ class LogicalGenerate(LogicalPlan):
 
     def describe(self):
         return f"Generate[{self.generator!r}]"
+
+
+# ---------------------------------------------------------------------------
+# The pandas nodes: host operators by placement (exec/python_exec.py runs
+# each through a forked worker over a numpy wire)
+# ---------------------------------------------------------------------------
+
+class LogicalMapInPandas(LogicalPlan):
+    """mapInPandas: iterator-of-pandas-DataFrames transform in a forked
+    python worker (reference GpuMapInPandasExec)."""
+
+    def __init__(self, fn, schema, child: LogicalPlan):
+        super().__init__(child)
+        self.fn = fn
+        self.result_schema = schema
+
+    def _resolve_schema(self):
+        return self.result_schema
+
+    def describe(self):
+        return f"MapInPandas[{getattr(self.fn, '__name__', 'fn')}]"
+
+
+class LogicalArrowEvalPython(LogicalPlan):
+    """Scalar pandas-UDF projection outputs appended to the child
+    (reference GpuArrowEvalPythonExec)."""
+
+    def __init__(self, udfs, child: LogicalPlan):
+        super().__init__(child)
+        self.udfs = list(udfs)     # (fn, in_cols, name, dtype)
+
+    def _resolve_schema(self):
+        fields = list(self.child.schema.fields)
+        for _fn, _cols, name, dt in self.udfs:
+            fields.append(t.StructField(name, dt, True))
+        return t.StructType(fields)
+
+    def describe(self):
+        return f"ArrowEvalPython[{[n for _f, _c, n, _t in self.udfs]}]"
+
+
+class LogicalFlatMapGroupsInPandas(LogicalPlan):
+    """groupBy(keys).applyInPandas(fn, schema) — reference
+    GpuFlatMapGroupsInPandasExec."""
+
+    def __init__(self, key_names, fn, schema, child: LogicalPlan):
+        super().__init__(child)
+        self.key_names = list(key_names)
+        self.fn = fn
+        self.result_schema = schema
+
+    def _resolve_schema(self):
+        return self.result_schema
+
+    def describe(self):
+        return (f"FlatMapGroupsInPandas[{self.key_names}, "
+                f"{getattr(self.fn, '__name__', 'fn')}]")
+
+
+class LogicalAggregateInPandas(LogicalPlan):
+    """groupBy(keys).agg(pandas UDAFs) — reference
+    GpuAggregateInPandasExec.  aggs: (fn, in_cols, name, dtype)."""
+
+    def __init__(self, key_names, aggs, child: LogicalPlan):
+        super().__init__(child)
+        self.key_names = list(key_names)
+        self.aggs = list(aggs)
+
+    def _resolve_schema(self):
+        schema = self.child.schema
+        fields = [schema.fields[schema.field_index(n)]
+                  for n in self.key_names]
+        for _fn, _cols, name, dt in self.aggs:
+            fields.append(t.StructField(name, dt, True))
+        return t.StructType(fields)
+
+    def describe(self):
+        return f"AggregateInPandas[{[n for _f, _c, n, _t in self.aggs]}]"
+
+
+class LogicalWindowInPandas(LogicalPlan):
+    """Pandas window UDFs over unbounded partition frames — reference
+    GpuWindowInPandasExec.  windows: (fn, in_cols, name, dtype)."""
+
+    def __init__(self, partition_names, order_names, windows,
+                 child: LogicalPlan):
+        super().__init__(child)
+        self.partition_names = list(partition_names)
+        self.order_names = list(order_names)
+        self.windows = list(windows)
+
+    def _resolve_schema(self):
+        fields = list(self.child.schema.fields)
+        for _fn, _cols, name, dt in self.windows:
+            fields.append(t.StructField(name, dt, True))
+        return t.StructType(fields)
+
+    def describe(self):
+        return f"WindowInPandas[{[n for _f, _c, n, _t in self.windows]}]"
+
+
+class LogicalFlatMapCoGroupsInPandas(LogicalPlan):
+    """cogroup(l.groupBy(keys), r.groupBy(keys)).applyInPandas(fn, schema)
+    — fn maps each key's (left DataFrame, right DataFrame) pair to a
+    result DataFrame (reference GpuFlatMapCoGroupsInPandasExec)."""
+
+    def __init__(self, left_keys, right_keys, fn, schema,
+                 left: LogicalPlan, right: LogicalPlan):
+        super().__init__(left, right)
+        self.left_keys = list(left_keys)
+        self.right_keys = list(right_keys)
+        self.fn = fn
+        self.result_schema = schema
+
+    @property
+    def left(self):
+        return self.children[0]
+
+    @property
+    def right(self):
+        return self.children[1]
+
+    def _resolve_schema(self):
+        return self.result_schema
+
+    def describe(self):
+        return (f"FlatMapCoGroupsInPandas[{self.left_keys}, "
+                f"{getattr(self.fn, '__name__', 'fn')}]")

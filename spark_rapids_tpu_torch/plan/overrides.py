@@ -50,6 +50,7 @@ whose consumers up to a sink take thin batches) and `negotiate_encoded`
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import gc
 import logging
@@ -191,6 +192,14 @@ def prune_columns(plan: L.LogicalPlan, required=None) -> L.LogicalPlan:
             plan.generator,
             prune_columns(plan.child, set(plan.child.schema.names)),
             plan.output_names)
+    if type(plan) in _PANDAS_NODES:
+        # a pandas exec's function may read any column of its input (the
+        # reference's): each child keeps its whole output, pruning goes
+        # on below it
+        out = copy.copy(plan)
+        out.children = [prune_columns(c, set(c.schema.names))
+                        for c in plan.children]
+        return out
     raise NotImplementedError(
         f"{plan.name()} is not ported to the device yet")
 
@@ -806,7 +815,87 @@ class GenerateMeta(PlanMeta):
                                  self._host_child())
 
 
+class _PandasMeta(PlanMeta):
+    """Pandas execs run on the host side of the plan by placement (the
+    worker boundary is the host, as in the reference's GPU->JVM->python
+    hops); transitions bridge device children and parents
+    (exec/python_exec.py)."""
+    exec_name = ""
+
+    def tag_self(self):
+        self.will_not_work(
+            "pandas UDFs execute in a python worker process "
+            f"(host Arrow boundary; Gpu{self.exec_name} role)")
+
+
+class MapInPandasMeta(_PandasMeta):
+    exec_name = "MapInPandasExec"
+
+    def to_host(self):
+        from ..exec.python_exec import MapInPandasExec
+        return MapInPandasExec(self.node.fn, self.node.result_schema,
+                               self._host_child())
+
+
+class ArrowEvalPythonMeta(_PandasMeta):
+    exec_name = "ArrowEvalPythonExec"
+
+    def to_host(self):
+        from ..exec.python_exec import ArrowEvalPythonExec
+        return ArrowEvalPythonExec(self.node.udfs, self._host_child())
+
+
+class FlatMapGroupsInPandasMeta(_PandasMeta):
+    exec_name = "FlatMapGroupsInPandasExec"
+
+    def to_host(self):
+        from ..exec.python_exec import FlatMapGroupsInPandasExec
+        return FlatMapGroupsInPandasExec(
+            self.node.key_names, self.node.fn, self.node.result_schema,
+            self._host_child())
+
+
+class FlatMapCoGroupsInPandasMeta(_PandasMeta):
+    exec_name = "FlatMapCoGroupsInPandasExec"
+
+    def to_host(self):
+        from ..exec.python_exec import FlatMapCoGroupsInPandasExec
+        return FlatMapCoGroupsInPandasExec(
+            self.node.left_keys, self.node.right_keys, self.node.fn,
+            self.node.result_schema, self._host_child(0),
+            self._host_child(1))
+
+
+class AggregateInPandasMeta(_PandasMeta):
+    exec_name = "AggregateInPandasExec"
+
+    def to_host(self):
+        from ..exec.python_exec import AggregateInPandasExec
+        return AggregateInPandasExec(self.node.key_names, self.node.aggs,
+                                     self._host_child())
+
+
+class WindowInPandasMeta(_PandasMeta):
+    exec_name = "WindowInPandasExec"
+
+    def to_host(self):
+        from ..exec.python_exec import WindowInPandasExec
+        return WindowInPandasExec(self.node.partition_names,
+                                  self.node.order_names,
+                                  self.node.windows, self._host_child())
+
+
+_PANDAS_METAS = {
+    L.LogicalMapInPandas: MapInPandasMeta,
+    L.LogicalArrowEvalPython: ArrowEvalPythonMeta,
+    L.LogicalFlatMapGroupsInPandas: FlatMapGroupsInPandasMeta,
+    L.LogicalFlatMapCoGroupsInPandas: FlatMapCoGroupsInPandasMeta,
+    L.LogicalAggregateInPandas: AggregateInPandasMeta,
+    L.LogicalWindowInPandas: WindowInPandasMeta}
+_PANDAS_NODES = tuple(_PANDAS_METAS)
+
 _META_FOR = {
+    **_PANDAS_METAS,
     L.LogicalScan: ScanMeta, L.LogicalProject: ProjectMeta,
     L.LogicalFilter: FilterMeta, L.LogicalAggregate: AggregateMeta,
     L.LogicalSort: SortMeta, L.LogicalLimit: LimitMeta,
@@ -1319,6 +1408,16 @@ def _register_rules() -> None:
            desc="batch ordinal (the engine's partition analogue)")
     _rules(x, MISC, "InputFileName", common,
            desc="scan provenance of the current batch; '' when unknown")
+    from . import hive_udf as HIVE
+    from . import udf as UDF
+    _rules(x, HIVE, "HiveSimpleUDF HiveGenericUDF", T.ALL_SIMPLE + T.NULL,
+           desc="hive UDF: device when TpuHiveUDF (RapidsUDF role), "
+                "row-based host otherwise (rowBasedHiveUDFs role)")
+    _rules(x, UDF, "TpuUDF", T.NUMERIC + T.BOOLEAN + T.DATETIME,
+           desc="columnar UDF over torch tensors (runs on the operator's "
+                "device lanes)")
+    _rules(x, UDF, "PythonUDF", T.ALL_SIMPLE,
+           desc="row-at-a-time python UDF (always CPU path)")
     _rules(x, E, "Literal", common + T.NULL, desc="literal value")
     _rules(x, E, "Alias", common, desc="named expression")
     _rules(x, E, "Add Subtract Multiply Divide IntegralDivide Remainder "
@@ -1433,7 +1532,19 @@ def _register_rules() -> None:
             (L.LogicalSample, simple, "bernoulli sample (counter-based "
              "hash, seed-deterministic)"),
             (L.LogicalWindow, common, "window functions (partition-sorted "
-             "segmented scans)")):
+             "segmented scans)"),
+            (L.LogicalMapInPandas, T.ALL,
+             "mapInPandas via forked python workers (numpy wire)"),
+            (L.LogicalArrowEvalPython, T.ALL,
+             "scalar pandas UDFs via forked python workers (numpy wire)"),
+            (L.LogicalFlatMapGroupsInPandas, T.ALL,
+             "applyInPandas via group-segmented python workers"),
+            (L.LogicalFlatMapCoGroupsInPandas, T.ALL,
+             "cogrouped applyInPandas via paired python-worker frames"),
+            (L.LogicalAggregateInPandas, T.ALL,
+             "grouped pandas UDAFs via group-segmented python workers"),
+            (L.LogicalWindowInPandas, T.ALL,
+             "pandas window UDFs via partition-segmented python workers")):
         EXEC_RULES[cls] = ExecRule(cls, sig, desc)
 
 

@@ -4,7 +4,10 @@ Counterpart of spark_rapids_tpu/session.py for what the ported TPC-H
 and TPC-DS queries use (`how="cross"` joins, `with_column`, `union`,
 `window`, and `rollup` / `cube` / `grouping_sets` through the
 `GroupingSets` builder with `grouping()` and `grouping_id()`), and
-`from_pydict`, `range`, `sample`, `count` and `explain`:
+`from_pydict`, `range`, `sample`, `count` and `explain`, and the pandas
+operations (`map_in_pandas`, `with_pandas_udf`,
+`with_window_pandas_udf`; on a group-by `apply_in_pandas`,
+`agg_in_pandas` and `cogroup(...).apply_in_pandas`, exec/python_exec.py):
 
     s = TpuSession()                     # device "cuda"
     df = s.from_host(batch).filter(E.GreaterThan(col("x"), lit(1))) \\
@@ -28,7 +31,7 @@ import torch
 
 from . import types as t
 from .columnar.device import resolve_device
-from .columnar.host import HostBatch, from_arrow, from_pydict
+from .columnar.host import HostBatch, from_arrow, from_pydict, result_struct
 from .config import TpuConf
 from .exec.plan import ExecContext
 from .plan import expressions as E
@@ -74,6 +77,65 @@ class GroupedData:
         return DataFrame(
             L.LogicalAggregate(self._keys, list(aggs), self._df._plan),
             self._df._session)
+
+    def _key_names(self) -> list:
+        names = []
+        for k in self._keys:
+            if isinstance(k, str):
+                names.append(k)
+            elif isinstance(k, E.ColumnRef):
+                names.append(k.name)
+            else:
+                raise TypeError(
+                    "pandas group operations need plain column keys")
+        schema_names = set(self._df.schema.names)
+        for n in names:
+            # fail at plan build, not inside the worker feeder thread
+            if n not in schema_names:
+                raise KeyError(f"group key {n!r} not in "
+                               f"{sorted(schema_names)}")
+        return names
+
+    def apply_in_pandas(self, fn, schema) -> "DataFrame":
+        """groupBy(keys).applyInPandas(fn, schema): fn maps each group's
+        pandas.DataFrame to a result DataFrame (reference
+        GpuFlatMapGroupsInPandasExec).  `schema` is the result
+        StructType (or a pyarrow Schema, where pyarrow imports)."""
+        return DataFrame(
+            L.LogicalFlatMapGroupsInPandas(self._key_names(), fn,
+                                           result_struct(schema),
+                                           self._df._plan),
+            self._df._session)
+
+    def cogroup(self, other: "GroupedData") -> "CoGroupedData":
+        """cogroup(l.group_by(k), r.group_by(k)) -> .apply_in_pandas(fn,
+        schema) with fn(left_df, right_df) (reference
+        GpuFlatMapCoGroupsInPandasExec)."""
+        return CoGroupedData(self, other)
+
+    def agg_in_pandas(self, *aggs) -> "DataFrame":
+        """Grouped pandas UDAFs: aggs = (fn, input column names, output
+        name, output type); each fn maps the group's Series to one
+        scalar (reference GpuAggregateInPandasExec)."""
+        norm = [(fn, list(cols), name, dt) for fn, cols, name, dt in aggs]
+        return DataFrame(
+            L.LogicalAggregateInPandas(self._key_names(), norm,
+                                       self._df._plan),
+            self._df._session)
+
+
+class CoGroupedData:
+    def __init__(self, left: GroupedData, right: GroupedData):
+        self._left = left
+        self._right = right
+
+    def apply_in_pandas(self, fn, schema) -> "DataFrame":
+        return DataFrame(
+            L.LogicalFlatMapCoGroupsInPandas(
+                self._left._key_names(), self._right._key_names(), fn,
+                result_struct(schema), self._left._df._plan,
+                self._right._df._plan),
+            self._left._df._session)
 
 
 GROUPING_ID_COLUMN = "spark_grouping_id"
@@ -238,6 +300,32 @@ class DataFrame:
         return self._wrap(L.LogicalWindow(list(window_exprs),
                                           list(partition_by),
                                           list(order_by), self._plan))
+
+    def map_in_pandas(self, fn, schema) -> "DataFrame":
+        """mapInPandas: fn(iterator of pandas.DataFrame) -> iterator of
+        pandas.DataFrame, run in a forked python worker (reference
+        GpuMapInPandasExec).  `schema` is the result StructType (or a
+        pyarrow Schema, where pyarrow imports)."""
+        return self._wrap(L.LogicalMapInPandas(fn, result_struct(schema),
+                                               self._plan))
+
+    def with_pandas_udf(self, name: str, fn, input_cols, return_type
+                        ) -> "DataFrame":
+        """Append a scalar pandas UDF column: fn(pandas.Series...) ->
+        pandas.Series (reference GpuArrowEvalPythonExec)."""
+        return self._wrap(L.LogicalArrowEvalPython(
+            [(fn, list(input_cols), name, return_type)], self._plan))
+
+    def with_window_pandas_udf(self, name: str, fn, input_cols,
+                               return_type, partition_by=(),
+                               order_by=()) -> "DataFrame":
+        """Append a pandas window-UDF column over unbounded partition
+        frames: fn(partition Series...) -> Series of the partition's
+        length, or one scalar to broadcast (reference
+        GpuWindowInPandasExec)."""
+        return self._wrap(L.LogicalWindowInPandas(
+            list(partition_by), list(order_by),
+            [(fn, list(input_cols), name, return_type)], self._plan))
 
     def agg(self, *aggs: Tuple[AggregateFunction, str]) -> "DataFrame":
         return GroupedData(self, ()).agg(*aggs)

@@ -1,8 +1,9 @@
 """The port's cost-based optimizer (plan/cbo.py, off by default): port
-copies of tests/test_cbo.py.  The reference's island comes from a Python
-UDF, which the port has no class for; a projection that the port's
-tagging sends to the CPU engine (a cast to STRING and back) makes the
-same shape, and the reference's same plan is tagged alike."""
+copies of tests/test_cbo.py, whose island comes from row-based Python
+UDFs (plan/udf.PythonUDF), each plan's explain equal to the
+reference's; and the same three cases with a projection that the port's
+tagging sends to the CPU engine (a cast to STRING and back), which
+makes the same shape and is tagged alike."""
 import pyarrow as pa
 
 from spark_rapids_tpu import types as JT
@@ -10,6 +11,7 @@ from spark_rapids_tpu.config import TpuConf as JConf
 from spark_rapids_tpu.plan import expressions as JE
 from spark_rapids_tpu.plan import logical as JL
 from spark_rapids_tpu.plan.overrides import apply_overrides as japply
+from spark_rapids_tpu.plan.udf import PythonUDF as JPythonUDF
 from spark_rapids_tpu_torch import types as t
 from spark_rapids_tpu_torch.columnar.host import from_arrow
 from spark_rapids_tpu_torch.config import TpuConf
@@ -17,6 +19,7 @@ from spark_rapids_tpu_torch.plan import expressions as E
 from spark_rapids_tpu_torch.plan import logical as L
 from spark_rapids_tpu_torch.plan.aggregates import Sum
 from spark_rapids_tpu_torch.plan.overrides import apply_overrides
+from spark_rapids_tpu_torch.plan.udf import PythonUDF
 import torch
 
 # one intra-op thread a process: the suite runs several pytest
@@ -85,4 +88,70 @@ def test_cbo_keeps_expensive_island():
     outer = L.LogicalProject([_host_long(E, t, "s")], agg, names=["o"])
     q = apply_overrides(outer, TpuConf(CBO), device="cpu")
     assert "HashAggregateExec" in q.root.tree_string()   # stays on device
+    assert sorted(q.collect().to_pydict()["o"]) == [3, 3]
+
+
+# ---------------------------------------------------------------------------
+# The reference's own island: row-based Python UDFs
+# ---------------------------------------------------------------------------
+
+def _udf_island(E, T, Lg, UDF, scan):
+    """CPU(project pyudf) -> device-capable Filter -> CPU(project pyudf):
+    the middle Filter is a device island costing two transitions."""
+    inner = Lg.LogicalProject(
+        [UDF(lambda x: int(x) + 1, T.LONG, E.ColumnRef("x")),
+         E.ColumnRef("x")], scan, names=["y", "x"])
+    filt = Lg.LogicalFilter(E.GreaterThan(E.ColumnRef("y"), E.Literal(5)),
+                            inner)
+    return Lg.LogicalProject(
+        [UDF(lambda y: int(y) * 2, T.LONG, E.ColumnRef("y"))],
+        filt, names=["z"])
+
+
+def test_cbo_off_by_default_keeps_the_udf_island():
+    q = apply_overrides(_udf_island(E, t, L, PythonUDF, L.LogicalScan(
+        from_arrow(_table()))), device="cpu")
+    tree = q.root.tree_string()
+    assert "FilterExec" in tree and "CpuFilterExec" not in tree
+    assert "HostToDeviceExec" in tree
+    jq = japply(_udf_island(JE, JT, JL, JPythonUDF, JL.LogicalScan(_table())))
+    assert q.explain() == jq.explain()
+    exp = [(x + 1) * 2 for x in range(20) if x + 1 > 5]
+    assert sorted(q.collect().to_pydict()["z"]) == sorted(exp)
+
+
+def test_cbo_untags_the_cheap_udf_island():
+    q = apply_overrides(_udf_island(E, t, L, PythonUDF, L.LogicalScan(
+        from_arrow(_table()))), TpuConf(CBO), device="cpu")
+    tree = q.root.tree_string()
+    assert "CpuFilterExec" in tree          # island pushed to the CPU
+    assert "HostToDeviceExec" not in tree
+    exp = [(x + 1) * 2 for x in range(20) if x + 1 > 5]
+    assert sorted(q.collect().to_pydict()["z"]) == sorted(exp)
+    assert "cost-based" in q.explain()
+    jq = japply(_udf_island(JE, JT, JL, JPythonUDF, JL.LogicalScan(_table())),
+                JConf(CBO))
+    assert q.explain() == jq.explain()
+    assert sorted(jq.collect().column("z").to_pylist()) == sorted(exp)
+
+
+def test_cbo_keeps_the_expensive_udf_island():
+    def plan(E, T, Lg, UDF, S, scan):
+        inner = Lg.LogicalProject(
+            [UDF(lambda x: int(x), T.LONG, E.ColumnRef("x")),
+             E.ColumnRef("k")], scan, names=["v", "k"])
+        agg = Lg.LogicalAggregate(["k"], [(S(E.ColumnRef("v")), "s")], inner)
+        return Lg.LogicalProject(
+            [UDF(lambda s: int(s), T.LONG, E.ColumnRef("s"))],
+            agg, names=["o"])
+    tbl = pa.table({"k": pa.array([1, 1, 2], pa.int64()),
+                    "x": pa.array([1, 2, 3], pa.int64())})
+    from spark_rapids_tpu.plan.aggregates import Sum as JSum
+    q = apply_overrides(plan(E, t, L, PythonUDF, Sum,
+                             L.LogicalScan(from_arrow(tbl))),
+                        TpuConf(CBO), device="cpu")
+    assert "HashAggregateExec" in q.root.tree_string()   # stays on device
+    jq = japply(plan(JE, JT, JL, JPythonUDF, JSum, JL.LogicalScan(tbl)),
+                JConf(CBO))
+    assert q.explain() == jq.explain()
     assert sorted(q.collect().to_pydict()["o"]) == [3, 3]

@@ -372,6 +372,37 @@ def test_background_segment_captures_are_adopted_and_correct():
     np.testing.assert_allclose(got["sw"], o["sw"], rtol=1e-9)
 
 
+def test_a_split_plan_built_anew_adopts_its_segments_and_is_correct():
+    """The same query planned twice: the second plan's background
+    capture of its later segment finds the first plan's graph in the
+    plan cache (a structure hit), and the replay binds the real seam
+    output, not the placeholder the background capture keyed on."""
+    from spark_rapids_tpu_torch.columnar.host import from_arrow
+    n = 5000
+    t1 = from_arrow(pa.table({"k": (np.arange(n) % 50).astype(np.int64),
+                              "v": np.random.default_rng(0).random(n)}))
+    t2 = from_arrow(pa.table({"k": np.arange(50, dtype=np.int64),
+                              "w": np.arange(50, dtype=np.float64)}))
+
+    def query(s):
+        # the same host tables each time: plans share graphs over them
+        return (s.from_host(t1).join(s.from_host(t2), on="k")
+                .filter(_gt("v", 0.5))
+                .group_by("k").agg((Sum(col("w")), "sw"))
+                .sort(("sw", False, False)).limit(10))
+    s = _split_session()
+    first = query(s).collect().to_pydict()
+    df = query(s)
+    q = df.physical()
+    ctx = ExecContext(q.conf, q.device)
+    got = q.collect(ctx).to_pydict()
+    assert ctx.metrics.get("whole_plan_split_queries") == 1
+    assert ctx.metrics.get("whole_plan_structure_hits", 0) >= 1
+    o = _oracle(df).to_pydict()
+    assert got["k"] == o["k"] == first["k"]
+    np.testing.assert_allclose(got["sw"], o["sw"], rtol=1e-9)
+
+
 def test_no_background_capture_outlives_its_collect(monkeypatch):
     """A split plan's collect waits for the speculative captures it did
     not use: none runs on after it (CUDA refuses a device-wide

@@ -2072,3 +2072,157 @@ def test_a_struct_round_trips_through_upload_and_renest_on_the_card(cuda):
                                           hb.to_pydict()["s"])
                         if v is not None and v["a"] is not None and
                         v["a"] < 5]
+
+
+def _udf_table(rng, n=100_003):
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar import host as H
+    valid = rng.random(n) > 0.05
+    return H.HostBatch([
+        H.HostColumn(rng.integers(-1000, 1000, n), valid, T.LONG),
+        H.HostColumn(rng.standard_normal(n) * 100, None, T.DOUBLE),
+        H.HostColumn(rng.integers(1, 50_000, n).astype(np.int64), None,
+                     T.DecimalType(12, 2))], ["a", "b", "p"])
+
+
+class _Cube:
+    """A hive UDF with a columnar form (TpuHiveUDF) and its row form."""
+
+    def evaluate(self, x):
+        return None if x is None else x * x * x
+
+    def evaluate_columnar(self, x):
+        return x * x * x
+
+
+@pytest.mark.cuda
+def test_udfs_on_the_card_equal_the_cpu_engine(cuda):
+    """A compiled UDF, a TpuUDF and a TpuHiveUDF on CUDA tensors, each
+    equal to the CPU engine's answer (`sql.enabled=false`: the compiled
+    tree's numpy form, the TpuUDF over CPU tensors, the hive UDF's row
+    form)."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.plan.hive_udf import (HiveSimpleUDF,
+                                                      TpuHiveUDF)
+    from spark_rapids_tpu_torch.plan.udf import TpuUDF
+    from spark_rapids_tpu_torch.plan.udf_compiler import compile_udf
+    from spark_rapids_tpu_torch.session import TpuSession, col
+
+    class Cube(_Cube, TpuHiveUDF):
+        pass
+    hb = _udf_table(np.random.default_rng(7))
+
+    def build(s, t):
+        df = s.from_host(t)
+        return df.select(
+            compile_udf(lambda a, b: a * (1 - b) if b > 0.0 else -b,
+                        [col("a"), col("b")], df.schema),
+            compile_udf(lambda p: p * (1 - p), [col("p")], df.schema),
+            TpuUDF(lambda a, b: a * 2 + b, T.DOUBLE, col("a"), col("b")),
+            HiveSimpleUDF(Cube(), T.LONG, col("a")),
+            names=["c", "cp", "t", "h"])
+    q = build(TpuSession(device=cuda), hb).physical()
+    assert q.kind == "device" and "cannot" not in q.explain()
+    got = build(TpuSession(device=cuda), hb).to_pydict()
+    want = build(TpuSession({"spark.rapids.tpu.sql.enabled": "false"},
+                            device="cpu"), hb).to_pydict()
+    assert got == want
+
+
+@pytest.mark.cuda
+def test_a_tpu_udf_captured_into_a_graph_replays_new_inputs(cuda):
+    """The TpuUDF's ops recorded into one CUDA graph over static input
+    lanes, replayed 3 times with new data copied in, each equal to the
+    function run eagerly; and a TpuUDF query under wholePlan=ON
+    captures whole and equals the eager answer."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.exec import compiled as CC
+    from spark_rapids_tpu_torch.plan import expressions as E
+    from spark_rapids_tpu_torch.plan.aggregates import Count, Sum
+    from spark_rapids_tpu_torch.plan.udf import TpuUDF
+    from spark_rapids_tpu_torch.session import TpuSession, col
+    fn = lambda a, b: torch.where(a > 0, a * 3 + b, b / 2)  # noqa: E731
+    n = 1 << 20
+    g = torch.Generator(device=cuda).manual_seed(3)
+    a = torch.randint(-100, 100, (n,), generator=g, device=cuda)
+    b = torch.randn(n, generator=g, device=cuda, dtype=torch.float64)
+    va = torch.rand(n, generator=g, device=cuda) < 0.9
+    udf = TpuUDF(fn, T.DOUBLE, col("a"), col("b")).bind(T.StructType(
+        [T.StructField("a", T.LONG), T.StructField("b", T.DOUBLE)]))
+    ctx = E.EvalCtx(n, n, {"a": E.DevVal(a, va, T.LONG),
+                           "b": E.DevVal(b, None, T.DOUBLE)}, None, cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        udf.eval_dev(ctx)                         # warm-up
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = udf.eval_dev(ctx)
+    for seed in (4, 5, 6):
+        g.manual_seed(seed)
+        a.copy_(torch.randint(-100, 100, (n,), generator=g, device=cuda))
+        b.copy_(torch.randn(n, generator=g, device=cuda,
+                            dtype=torch.float64))
+        va.copy_(torch.rand(n, generator=g, device=cuda) < 0.5)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out.data, fn(a, b).double())
+        assert torch.equal(out.validity, va)
+    hb = _udf_table(np.random.default_rng(9))
+
+    def query(s, t):
+        return s.from_host(t).select(
+            TpuUDF(fn, T.DOUBLE, col("a"), col("b")), names=["r"]) \
+            .agg((Sum(col("r")), "s"), (Count(col("r")), "n"))
+    CC.clear_caches()
+    try:
+        on = TpuSession({"spark.rapids.tpu.sql.compile.wholePlan": "ON"},
+                        device=cuda)
+        q = query(on, hb).physical()
+        got = q.collect().to_pydict()
+        assert CC.decision(q) == "whole"
+        assert q.collect().to_pydict() == got          # a replay
+        eager = query(TpuSession(device=cuda), hb).to_pydict()
+        assert got["n"] == eager["n"]
+        assert abs(got["s"][0] - eager["s"][0]) <= 1e-9 * abs(eager["s"][0])
+    finally:
+        CC.clear_caches()
+
+
+@pytest.mark.cuda
+def test_the_numpy_wire_through_a_forked_worker_after_cuda(cuda):
+    """With a CUDA context in the process, a forked worker receives a
+    batch of numpy lanes (one dictionary-coded, one with nulls) and sends
+    it back unchanged; the worker's own error comes back as
+    PythonWorkerError."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar import host as H
+    from spark_rapids_tpu_torch.exec import python_exec as PE
+    from spark_rapids_tpu_torch.exec.plan import ExecContext
+    torch.ones(1, device=cuda).sum().item()            # CUDA is live
+    rng = np.random.default_rng(2)
+    n = 1_000_003
+    hb = H.HostBatch([
+        H.HostColumn(np.arange(n, dtype=np.int64), None, T.LONG),
+        H.HostColumn(rng.standard_normal(n), rng.random(n) > 0.1,
+                     T.DOUBLE),
+        H.dictionary_column(rng.integers(0, 5, n), ["1-URGENT", "2-HIGH",
+                                                   "3-MEDIUM", "4-NOT",
+                                                   "5-LOW"]),
+        H.HostColumn(rng.integers(0, 9000, n).astype(np.int32), None,
+                     T.DATE)], ["k", "x", "s", "d"])
+    ctx = ExecContext(device=cuda)
+    parts = [hb.slice(i, min(1 << 18, n - i)) for i in range(0, n, 1 << 18)]
+    back = list(PE.worker_stream(ctx, (((p,), None) for p in parts),
+                                 lambda frames: (b[0] for b, _x in frames)))
+    got = H.concat_host(back)
+    assert got.to_pydict() == hb.to_pydict()
+    assert ctx.metrics["python_workers_started"] == 1
+
+    def boom(frames):
+        for _f in frames:
+            raise ValueError("wire boom")
+        yield from ()
+    with pytest.raises(PE.PythonWorkerError, match="wire boom"):
+        list(PE.worker_stream(ctx, (((p,), None) for p in parts), boom))

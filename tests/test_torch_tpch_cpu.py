@@ -2,8 +2,9 @@
 (`spark.rapids.tpu.sql.enabled=false`) against the JAX package's CPU
 engine at scale 0.001: integers, strings and decimals exactly, DOUBLE
 columns within a relative 1e-12 (sums in another order); and the CPU
-engine in a process where pyarrow cannot be imported, as on the card's
-machine."""
+engine in a process where neither pyarrow nor pandas can be imported,
+as on the card's machine (with a compiled UDF, a TpuUDF and a row-based
+PythonUDF query too)."""
 import math
 import os
 import subprocess
@@ -64,6 +65,7 @@ def test_query_on_the_cpu_engine_equals_the_reference_cpu_engine(
 NO_PYARROW = r"""
 import sys
 sys.modules["pyarrow"] = None             # import pyarrow now raises
+sys.modules["pandas"] = None              # and so does import pandas
 from spark_rapids_tpu_torch import tpch
 from spark_rapids_tpu_torch.session import TpuSession
 tables = tpch.gen_tables(0.001)
@@ -102,8 +104,32 @@ got = d.from_host(tables["part"]).filter(S.RLike(E.ColumnRef("p_name"),
                                                  "green")).count()
 assert got == sum("green" in v for v in tables["part"].column_by_name(
     "p_name").to_pylist()), got
-assert "pyarrow" not in {m.split(".")[0] for m, v in sys.modules.items()
-                         if v is not None}
+# a compiled UDF, a TpuUDF and a row-based PythonUDF on the CPU engine
+from spark_rapids_tpu_torch.plan.udf import PythonUDF, TpuUDF
+from spark_rapids_tpu_torch.plan.udf_compiler import udf
+li = s.from_host(tables["lineitem"])
+ref = li.agg((Sum(E.Multiply(E.ColumnRef("l_extendedprice"), E.Subtract(
+    E.Literal(1), E.ColumnRef("l_discount")))), "r")).to_pydict()
+comp = udf(lambda p, d: p * (1 - d), T.DOUBLE,
+           E.ColumnRef("l_extendedprice"), E.ColumnRef("l_discount"))
+assert not isinstance(comp, PythonUDF)
+assert li.agg((Sum(comp), "r")).to_pydict() == ref
+tq = TpuUDF(lambda q: q * 2, T.LONG, E.ColumnRef("l_orderkey"))
+got = li.agg((Sum(tq), "t")).to_pydict()["t"][0]
+assert got == 2 * int(tables["lineitem"].column_by_name("l_orderkey")
+                      .data.sum()), got
+def looped(n):
+    acc = 0
+    for ch in n:
+        acc += ord(ch) % 3
+    return acc
+py = udf(looped, T.LONG, E.ColumnRef("p_name"))
+assert isinstance(py, PythonUDF)
+got = s.from_host(tables["part"]).agg((Sum(py), "t")).to_pydict()["t"][0]
+assert got == sum(looped(v) for v in tables["part"].column_by_name(
+    "p_name").to_pylist()), got
+loaded = {m.split(".")[0] for m, v in sys.modules.items() if v is not None}
+assert "pyarrow" not in loaded and "pandas" not in loaded
 print("ran", len(tpch.QUERIES))
 """
 
