@@ -135,9 +135,9 @@ own failure:
                query's spill batches, bytes and ms beside its cold wall
                and its unbudgeted cold and warm walls from phase 5.
   7. tpcds   — the TPC-H tables are dropped first (host memory), then
-               TPC-DS at SF10 from the port's tpcds.gen_tables (the
-               reference generator's values: store_sales 28,804,040
-               rows) and the independent numpy results of its 23
+               TPC-DS at DS_SCALE (SF5) from the port's
+               tpcds.gen_tables (the reference generator's values) and
+               the independent numpy results of its 23
                queries and of phase 8, in forked processes, before this
                phase uses the card (chip_smoke_tpcds.py: dimension rows
                by surrogate key, lexsort groups, exact int64 decimal
@@ -162,7 +162,8 @@ own failure:
                sparse table).  Held against numpy (a lexsort, then
                per-segment arithmetic; the RANGE bounds by searchsorted
                on the packed (item, date) key) and, over the first
-               1,000,000 rows, against the port's own CPU path.  Prints
+               WINDOW_CPU_ROWS rows (250,000), against the port's own
+               CPU path.  Prints
                the collect's cold wall, the operator's warm wall and the
                peak device memory.
   6b. scalars — after ooc, over the TPC-H tables (chip_smoke_scalars.py):
@@ -170,7 +171,8 @@ own failure:
                (l_returnflag, l_linestatus) (`moments_q1`: seg_sums), one
                projection of every new scalar family grouped into SUM,
                MIN and MAX (`scalars_q1`: seg_sums, seg_reduce),
-               range(0, 100,000,000).sample(0.01, seed=7) grouped by
+               range(0, RANGE_ROWS = 25,000,000).sample(0.01, seed=7)
+               grouped by
                id % 1000 and its count() (`range_sample`:
                compaction_order) and every new expression over NaN, ±inf,
                -0.0, nulls and Long.MIN_VALUE, fetched and compared
@@ -196,7 +198,8 @@ own failure:
                entries on the card, each equal to np.char's and timed
                with CUDA events, and lpad's host loop on the host clock;
                `string_edges`: every new string class and cast over
-               4,194,304 rows of 65,536 edge entries, fetched and equal to
+               EDGE_ROWS (1,048,576) rows of 65,536 edge entries,
+               fetched and equal to
                the port's own CPU path value for value (column digests;
                the CPU path runs in a spawned process from the phase's
                start, beside the card's queries).  Each prints its
@@ -206,7 +209,8 @@ own failure:
                seconds.
   9. scalars dense — last: TPC-DS q7, q26, q56 and q60 at scale 0.1
                (i_item_id's 1,800 values) and store_sales ⋈ item grouped
-               by (i_category, i_class, i_color) at SF10 (1,683 buckets),
+               by (i_category, i_class, i_color) at DS_SCALE (the case
+               keeps its name, dense_sf10, from when it ran at SF10),
                each equal to numpy and each running the dense group-by
                tier (exec/aggregate.GROUPBY_TIERS); its SF10 numpy result
                from the tpcds pool.  Both scalars phases print each
@@ -357,10 +361,24 @@ own failure:
                execs each followed by a device group-by, the orders
                cases over a quarter of orders ("pandas: absent"
                otherwise), each equal to numpy or plain Python.
+  9k. io — after udf (chip_smoke_io.py), at SF10 on the TPC-H columns it
+               keeps, the port's own file formats: q1's, q3's and q6's
+               columns written with write_parquet in ZSTD and lineitem's
+               in SNAPPY (seconds, bytes, MB/s, each codec's ratio);
+               pq_q1, pq_q3 and pq_q6 over read_parquet of them (q6
+               under each reader strategy), each equal to phase 5's
+               numpy result with phase 5's launches, printing the walls,
+               the host decode ms, the host-to-device bytes and the row
+               groups pruning kept; pq_roundtrip (partition_by,
+               bucket_by), cache_q3, csv_supp, json_supp_io,
+               hive_supp_io, avro_orders, iceberg_cust (positional and
+               equality deletes) and ifn_q6 (input_file_name over
+               several files), each equal to numpy.  Its limit is
+               150 s.
 Each phase after the data prints its seconds.
   10. result — a `kernels` JSON line (launches by query over every
                query of phases 5, 6b, 6c, 7, 9, 9b, 9c, 9d, 9e, 9f, 9g,
-               9h, 9i and 9j), the whole run's
+               9h, 9i, 9j and 9k), the whole run's
                seconds, the nvidia-smi line, and last {"ok": true,
                "device": {...}}.
 
@@ -464,7 +482,8 @@ PATH_KERNELS = {"q1": ("seg_sums",), "q6": (),
                 "q20_us": UNIQUE_JOIN,
                 "q21": UNIQUE_JOIN, "q21_vn": UNIQUE_JOIN,
                 "q22": UNIQUE_JOIN + ("seg_sums",)}
-# TPC-DS (tpcds.QUERIES at SF10): every query joins unique dimension
+# TPC-DS (tpcds.QUERIES at DS_SCALE; the same kernels from TPC-DS 0.0005
+# to SF10, the tests' spies and the card): every query joins unique dimension
 # builds; q33 (i_manufact_id, 1,000 values), q43 (store name x id,
 # 847 slots), q65 (its per-store average, 120 stores) and q70 (its
 # per-state sums, 8 states) group by domains the segmented-aggregation
@@ -578,6 +597,21 @@ PATH_KERNELS.update({"udf_q1": ("seg_sums",), "tpuudf_q3": UNIQUE_JOIN,
                          "map_pd_orders", "scalar_pd_orders",
                          "apply_pd_priority", "agg_pd_nation",
                          "window_pd_supp", "cogroup_pd_nation")}})
+# the io phase (chip_smoke_io.py): pq_q1, pq_q3 and pq_q6 are q1, q3 and
+# q6 over the port's own Parquet files (the scan's exact statistics keep
+# q3's semi join and unique builds); pq_roundtrip reruns q3 for its
+# writes; the cached q3's orders side comes out of the cache (no scan
+# statistic: the counted probe); the text, Avro and Iceberg reads feed a
+# filter only, ifn_q6 groups by the file (a one-entry dictionary a batch)
+PATH_KERNELS.update({"pq_q1": ("seg_sums",), "pq_q3": UNIQUE_JOIN,
+                     "pq_q6": (), "pq_roundtrip": ("build_table",
+                                                   "probe_first"),
+                     "cache_q3": ("build_table",),
+                     **{n: () for n in (
+                         "pq_q6_perfile", "pq_q6_multithreaded",
+                         "pq_q6_coalescing", "csv_supp", "json_supp_io",
+                         "hive_supp_io", "avro_orders", "iceberg_cust",
+                         "ifn_q6")}})
 Q3_DATE = (pydt.date(1995, 3, 15) - pydt.date(1970, 1, 1)).days
 # the device launches of one build_layout call, by kernel name: this
 # tree's two passes, and (for an A B B A against an older tree) its
@@ -2617,7 +2651,8 @@ def ooc_phase(tables, want, scale: float, cold, warm) -> None:
             f"{warm[name]:.1f} ms); "
             f"{bm['spilled_batches']} batches ({bm['spilled_bytes']} bytes) "
             f"spilled to the host, {bm['disk_batches']} "
-            f"({bm['disk_bytes']} bytes) on to disk, spill and disk "
+            f"({bm['disk_bytes']} bytes) on to disk as native blocks "
+            f"(native/spillio.cpp, xxhash64-checked), spill and disk "
             f"{bm['spill_ms']:.1f} ms; budget peak {bm['peak_bytes']} "
             f"bytes, device peak "
             f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
@@ -2770,10 +2805,10 @@ def profile_phase(tables, scale: float):
 DS_OPERATORS = {"ExpandExec": ("q27", "q36", "q70", "q86"),
                 "UnionExec": ("q33", "q56", "q60", "q76"),
                 "WindowExec": ("q12", "q20", "q36", "q70", "q86", "q98")}
-DS_SCALE = 10.0
+DS_SCALE = 5.0
 DS_SEED = 20250804
 #: the window phase's CPU comparison runs over this many rows
-WINDOW_CPU_ROWS = 1_000_000
+WINDOW_CPU_ROWS = 250_000
 #: the window phase's numpy result is computed in this many pieces (item
 #: key ranges), one forked process each
 WINDOW_PARTS = 4
@@ -2797,7 +2832,7 @@ def _ds_want(name: str):
 
 
 def tpcds_data():
-    """TPC-DS at SF10 from the port's gen_tables, and the numpy result of
+    """TPC-DS at DS_SCALE from the port's gen_tables, and the numpy result of
     every query and of the window phase, one forked process each, the
     slowest first; they finish before this phase's card work starts."""
     global _DS_TABLES
@@ -2843,7 +2878,7 @@ def _operators(root) -> dict:
 
 
 def tpcds_phase(tables, want):
-    """The 23 TPC-DS queries at SF10 through TpuSession() on cuda: each
+    """The 23 TPC-DS queries at DS_SCALE through TpuSession() on cuda: each
     equal to its numpy result, launching the kernels of its path
     (PATH_KERNELS ds_*), the rollup / channel / window queries running
     Expand / Union / Window; cold and warm walls and the peak device
@@ -3386,6 +3421,7 @@ def main() -> int:
         import chip_smoke_chaos as CH
         import chip_smoke_decimals as DEC
         import chip_smoke_fallback as F
+        import chip_smoke_io as IO
         import chip_smoke_joins as J
         import chip_smoke_late as LT
         import chip_smoke_nested as N
@@ -3410,6 +3446,9 @@ def main() -> int:
         udf_tables = U.narrow(tables)
         udf_want = {k: want[k] for k in U.WANTS}
         udf_path_launches = {k: dict(launches[k]) for k in U.WANTS}
+        io_tables = IO.narrow(tables)
+        io_want = {k: want[k] for k in IO.WANTS}
+        io_path_launches = {k: dict(launches[k]) for k in IO.WANTS}
         del tables, want, later
         gc.collect()
         torch.cuda.empty_cache()
@@ -3456,6 +3495,10 @@ def main() -> int:
         gc.collect()
         launches.update(phase("udf", U.udf_phase, sys.modules[__name__],
                               udf_tables, udf_want, udf_path_launches))
+        del udf_tables
+        gc.collect()
+        launches.update(phase("io", IO.io_phase, sys.modules[__name__],
+                              io_tables, io_want, io_path_launches))
     rows = []
     for name in TPU_KERNELS:
         st = stats[name]

@@ -29,7 +29,8 @@ columns.
     l_extendedprice, l_shipdate) and xxhash64 of the same over every
     lineitem row: SUM(CAST(h AS BIGINT)) and COUNT grouped by
     (l_returnflag, l_linestatus), and the first 1,000,000 values fetched.
-  * tz_<zone> — a TIMESTAMP lane over every lineitem row, built on the
+  * tz_<zone> — a TIMESTAMP lane over lineitem's first TZ_ROWS rows
+    (15,000,000), built on the
     host as l_shipdate's day plus (l_orderkey x 7919 mod 86,400) seconds
     and uploaded, under the session zones UTC, America/Los_Angeles and
     Australia/Lord_Howe (a 30-minute DST): its Hour, Minute, Second, the
@@ -84,6 +85,8 @@ RUNTIME_FILTER = "spark.rapids.tpu.sql.join.runtimeFilter.enabled"
 NARROW_LANES = "spark.rapids.tpu.sql.encoded.narrow.lanes"
 #: the rows of the fetched hash values
 HASH_ROWS = 1_000_000
+#: the tz cases' rows: lineitem's first TZ_ROWS
+TZ_ROWS = 15_000_000
 SEL_MONTH = (pydt.date(1995, 3, 1), pydt.date(1995, 4, 1))
 
 
@@ -214,9 +217,12 @@ US_DAY = 86_400_000_000
 
 
 def ts_table(li):
-    """The tz cases' host batch: ts (TIMESTAMP), l_shipdate."""
+    """The tz cases' host batch over lineitem's first TZ_ROWS rows: ts
+    (TIMESTAMP), l_shipdate."""
     from spark_rapids_tpu_torch import types as T
     from spark_rapids_tpu_torch.columnar.host import HostBatch, HostColumn
+    if li.num_rows > TZ_ROWS:
+        li = li.slice(0, TZ_ROWS)
     ship = _col(li, "l_shipdate")
     okey = _col(li, "l_orderkey").data.astype(np.int64)
     us = (ship.data.astype(np.int64) * 86_400 + okey * 7919 % 86_400) * \

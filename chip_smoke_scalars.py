@@ -15,11 +15,11 @@ results, and the comparisons that hold the port's results to them.
                    l_linestatus) into SUM, MIN and MAX of each (numpy:
                    the same functions over the rows sorted by group,
                    exact int64 sums of the integer and DECIMAL lanes);
-  * range_sample — range(0, 100,000,000).sample(0.01, seed=7) grouped by
+  * range_sample — range(0, RANGE_ROWS).sample(0.01, seed=7) grouped by
                    id % 1000 into COUNT and SUM(id), and its count()
                    (numpy: the reference's uint32 murmur3 finalizer over
                    the ids);
-  * edge_values  — range(-5,000,000, 5,000,000) cast to DOUBLE and divided
+  * edge_values  — range(EDGE_LO, EDGE_HI) cast to DOUBLE and divided
                    so that NaN, ±inf, -0.0 and nulls appear, every new
                    expression fetched and compared elementwise;
   * dense_sf10   — TPC-DS store_sales ⋈ item grouped by (i_category,
@@ -46,10 +46,10 @@ import numpy as np
 ULPS = 4
 RTOL = 1e-9
 U32 = 0xFFFFFFFF
-RANGE_ROWS = 100_000_000
+RANGE_ROWS = 25_000_000
 SAMPLE_FRACTION = 0.01
 SAMPLE_SEED = 7
-EDGE_LO, EDGE_HI = -5_000_000, 5_000_000
+EDGE_LO, EDGE_HI = -2_500_000, 2_500_000
 LONG_MIN = -2 ** 63
 
 

@@ -37,7 +37,7 @@ import numpy as np
 
 LIKE_OF = {"like_q2": "q2", "like_q9": "q9", "like_q13": "q13",
            "like_q14": "q14", "like_q16": "q16", "like_q20": "q20_us"}
-EDGE_ROWS = 1 << 22
+EDGE_ROWS = 1 << 20
 EDGE_ENTRIES = 65_536
 EDGE_SEED = 14
 DICT_TRANSFORMS = ("upper", "lower", "trim", "ltrim", "rtrim")

@@ -72,8 +72,8 @@ Q3_DATE = (pydt.date(1995, 3, 15) - pydt.date(1970, 1, 1)).days
 #: hive_supp keeps the suppliers whose name's number is a multiple
 SUPP_EVERY = 10
 WIRE_ROWS = 1 << 22
-#: the rows of orders the pandas cases read (a quarter at SF10)
-PANDAS_ORDERS = 3_750_000
+#: the rows of orders the pandas cases read (an eighth at SF10)
+PANDAS_ORDERS = 1_875_000
 
 
 def narrow(tables) -> dict:

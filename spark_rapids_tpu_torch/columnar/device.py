@@ -268,6 +268,9 @@ class DeviceBatch:
     names: List[str]
     sel: Optional[torch.Tensor] = None
     thin: object = None
+    #: scan provenance for input_file_name: "" = unknown, not a file,
+    #: or several files
+    origin_file: str = ""
 
     @property
     def capacity(self) -> int:
@@ -300,7 +303,7 @@ class DeviceBatch:
         return DeviceBatch([self.columns[i] for i in indices], self.num_rows,
                            [self.names[i] for i in indices], self.sel,
                            None if self.thin is None
-                           else self.thin.select(indices))
+                           else self.thin.select(indices), self.origin_file)
 
     def nbytes(self) -> int:
         """Device bytes of the padded lanes (capacity-based: no sync),
@@ -336,6 +339,13 @@ class DeviceBatch:
 # ---------------------------------------------------------------------------
 # Host -> device
 # ---------------------------------------------------------------------------
+
+def merge_origin(origins) -> str:
+    """Provenance of data merged from several batches or files: the one
+    shared file, or "" for mixed or unknown (input_file_name's rule)."""
+    s = {o or "" for o in origins}
+    return s.pop() if len(s) == 1 else ""
+
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: None means "cuda".  Raises when

@@ -1239,7 +1239,11 @@ HONOURED_KEYS = frozenset(e.key for e in (
     # the regex transpiler's DFA state budget (ops/regex.py, RLike)
     REGEX_MAX_DFA_STATES,
     # the pandas execs' worker semaphore (exec/python_exec.py)
-    PYTHON_WORKER_CONCURRENCY))
+    PYTHON_WORKER_CONCURRENCY,
+    # the file scans (io/): the parquet reader strategy and its pool, the
+    # per-format enables (ORC is not ported: ROADMAP Queue 1 item 8c)
+    PARQUET_READER_TYPE, PARQUET_MT_THREADS,
+    *(ENABLED_FORMATS[f] for f in ENABLED_FORMATS if f != "orc")))
 
 #: keys the port resolves to one behaviour for now -> what it does
 RESOLVED = {

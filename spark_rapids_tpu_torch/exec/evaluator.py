@@ -23,6 +23,7 @@ def _prepare(exprs: Sequence[Expression], db: DeviceBatch, conf: TpuConf):
     """Host phase: -> (PrepCtx, per-expression HostVal)."""
     dicts = {n: c.dictionary for n, c in zip(db.names, db.columns)}
     pctx = PrepCtx(conf, dicts, db.device)
+    pctx.batch = db              # its provenance (plan/misc.InputFileName)
     return pctx, [e.prepare(pctx) for e in exprs]
 
 
@@ -97,7 +98,8 @@ def evaluate_projection(exprs: Sequence[Expression], names: Sequence[str],
         cols.append(DeviceColumn(storage_view(dv.data, e.dtype), valid,
                                  e.dtype, hv.dictionary, dv.value_range,
                                  dv.hi))
-    return DeviceBatch(cols, db.num_rows, list(names), db.sel)
+    return DeviceBatch(cols, db.num_rows, list(names), db.sel,
+                       origin_file=db.origin_file)
 
 
 def project_batch(exprs: Sequence[Expression], names: Sequence[str],
@@ -138,7 +140,8 @@ def project_batch(exprs: Sequence[Expression], names: Sequence[str],
         cols[oi] = db.columns[p]          # the zero-length placeholder
         new_pending[oi] = (src_map[s], c)
     return DeviceBatch(cols, db.num_rows, list(names), db.sel,
-                       ThinState(ts.capacity, used, new_pending))
+                       ThinState(ts.capacity, used, new_pending),
+                       db.origin_file)
 
 
 def compute_predicate(cond: Expression, db: DeviceBatch,

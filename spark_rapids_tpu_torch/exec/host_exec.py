@@ -192,9 +192,15 @@ class HostNode:
         return concat_batches(list(self.execute(ctx)), self.output_schema)
 
     def _table(self, ctx: ExecContext, i: int = 0) -> HostBatch:
-        """Child `i`'s whole output as one batch."""
+        """Child `i`'s whole output as one batch.  The operator
+        materializes its input, so the scan provenance no longer matches
+        its rows: input_file_name above it is "" (the reference's
+        `_clear_scan_provenance`)."""
+        from ..plan.misc import set_current_input_file
         c = self.children[i]
-        return concat_batches(list(c.execute(ctx)), c.output_schema)
+        out = concat_batches(list(c.execute(ctx)), c.output_schema)
+        set_current_input_file("")
+        return out
 
 
 # ---------------------------------------------------------------------------
@@ -308,6 +314,8 @@ class HostSourceExec(HostNode):
             and self.table.keys_unique(names)
 
     def _execute(self, ctx):
+        from ..plan.misc import set_current_input_file
+        set_current_input_file("")          # an in-memory source: no file
         n = self.table.num_rows
         step = self.batch_rows or max(n, 1)
         if n <= step:

@@ -136,6 +136,10 @@ class ExecContext:
     #: the query's pandas execs with a worker alive, which share one
     #: python-worker permit (exec/python_exec._query_permit)
     python_permit_depth: int = 0
+    #: the queries run on this context that hold its device permit: a
+    #: query nested in another (a cache's first materialization) shares
+    #: the permit of the one it runs in (runtime/semaphore.query_permit)
+    device_permit_depth: int = 0
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -390,7 +394,8 @@ class FilterExec(PlanNode):
             if db.thin is not None:
                 yield DeviceBatch(list(db.columns),
                                   keep.sum(dtype=torch.int32),
-                                  list(db.names), keep, db.thin)
+                                  list(db.names), keep, db.thin,
+                                  db.origin_file)
                 continue
             # lazy row count: downstream device ops run sync-free
             yield compact_batch(db, keep, ctx.conf)

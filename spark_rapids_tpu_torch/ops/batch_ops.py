@@ -25,6 +25,7 @@ import torch
 
 from .. import types as t
 from ..columnar.device import (DeviceBatch, DeviceColumn, NarrowColumn,
+                               merge_origin,
                                bucket_capacity)
 from ..config import DEFAULT_CONF, TpuConf
 from ..runtime.capture import capturing, host_constant, recording
@@ -196,7 +197,8 @@ def concat_batches(batches: List[DeviceBatch],
                                      unified, rng,
                                      None if hi is None else torch.cat(hi)))
     return DeviceBatch(out_cols, place.rows if lazy else total,
-                       list(batches[0].names))
+                       list(batches[0].names), origin_file=merge_origin(
+                           b.origin_file for b in batches))
 
 
 def _concat_ragged(cols: List[DeviceColumn], counts: List[int], cap: int,
@@ -270,7 +272,8 @@ def shrink_to_capacity(db: DeviceBatch, row_bound: int,
     if cap >= db.capacity:
         return db
     cols = [c.prefix(cap) for c in db.columns]
-    return DeviceBatch(cols, db.num_rows, db.names)
+    return DeviceBatch(cols, db.num_rows, db.names,
+                       origin_file=db.origin_file)
 
 
 def shrink_to_rows(db: DeviceBatch, num_rows: int,
@@ -284,9 +287,11 @@ def shrink_to_rows(db: DeviceBatch, num_rows: int,
     db.assert_prefix()
     if isinstance(num_rows, torch.Tensor):
         # a device count (under capture): the static capacity stays
-        return DeviceBatch(db.columns, num_rows, db.names)
+        return DeviceBatch(db.columns, num_rows, db.names,
+                           origin_file=db.origin_file)
     cap = bucket_capacity(max(num_rows, 1), conf)
     if cap >= db.capacity:
-        return DeviceBatch(db.columns, num_rows, db.names)
+        return DeviceBatch(db.columns, num_rows, db.names,
+                           origin_file=db.origin_file)
     cols = [c.prefix(cap, copy=True) for c in db.columns]
-    return DeviceBatch(cols, num_rows, db.names)
+    return DeviceBatch(cols, num_rows, db.names, origin_file=db.origin_file)

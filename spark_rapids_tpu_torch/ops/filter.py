@@ -103,11 +103,13 @@ def compact_batch(db: DeviceBatch, keep: torch.Tensor,
         data, valid = next(moved), next(moved)
         cols.append(c.rebuilt(data, valid & live,
                               None if c.hi is None else next(moved)))
-    out = DeviceBatch(cols, count, list(db.names))
+    out = DeviceBatch(cols, count, list(db.names),
+                      origin_file=db.origin_file)
     if not sync or capturing():
         return out
     n = int(count)
-    return shrink_to_rows(DeviceBatch(cols, n, list(db.names)), n, conf)
+    return shrink_to_rows(DeviceBatch(cols, n, list(db.names),
+                                      origin_file=db.origin_file), n, conf)
 
 
 def gather_batch(db: DeviceBatch, indices: torch.Tensor, out_rows,

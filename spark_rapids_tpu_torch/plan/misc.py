@@ -12,13 +12,16 @@ device through `runtime/capture.host_constant`, so a captured graph
 copies it from its staged host buffer on every replay and is never
 built around a baked argument.
 
-input_file_name reads a batch's file provenance in the reference; every
-source the port has is in memory, so it gives "" (Spark's answer for a
-source without files).  Its parquet provenance and the per-file reader
-it forces wait for the port's file scans (ROADMAP Queue 1 item 8).
+input_file_name reads the batch's scan provenance: a device batch's
+`origin_file`, which the file scans set (io/parquet.py, io/text.py) and
+projections, filters and concatenations carry; on the CPU engine the
+file the scan last set (`set_current_input_file`), which the
+materializing CPU operators clear.  A source without files gives ""
+(Spark's answer), and so does a batch stitched from several files.
 """
 from __future__ import annotations
 
+import threading
 from typing import Sequence
 
 import numpy as np
@@ -28,6 +31,20 @@ from .. import types as t
 from ..columnar.host import HostColumn
 from ..runtime.capture import host_constant
 from .expressions import DevVal, Expression, HostVal
+
+
+# CPU-engine provenance: the scan execs record the current file here;
+# within a query the host operators are sequential generators, so the
+# file set before a batch is yielded is the batch's
+_TL = threading.local()
+
+
+def set_current_input_file(path: str) -> None:
+    _TL.current = path or ""
+
+
+def current_input_file() -> str:
+    return getattr(_TL, "current", "")
 
 
 class _BatchOrdinal(Expression):
@@ -106,8 +123,9 @@ class SparkPartitionID(_BatchOrdinal):
 
 
 class InputFileName(Expression):
-    """The batch's source file: "" for every source of the port (all in
-    memory), as a one-entry dictionary."""
+    """Scan provenance of the current batch; "" when unknown.  The file
+    is the output's one-entry dictionary (the codes are all 0), so the
+    device work holds nothing file-specific."""
 
     def __init__(self):
         self.children = ()
@@ -117,7 +135,9 @@ class InputFileName(Expression):
         self.nullable = False
 
     def _prepare(self, pctx, kids):
-        return HostVal(np.array([""], str))
+        batch = getattr(pctx, "batch", None)
+        return HostVal(np.array([str(getattr(batch, "origin_file", "")
+                                     or "")], str))
 
     def _eval_dev(self, ctx, kids):
         codes = torch.zeros(ctx.capacity, dtype=torch.int32,
@@ -126,7 +146,7 @@ class InputFileName(Expression):
 
     def _eval_cpu(self, batch, kids):
         return HostColumn(np.zeros(batch.num_rows, np.int32), None,
-                          t.STRING, np.array([""], str))
+                          t.STRING, np.array([current_input_file()], str))
 
     def _fp_extra(self):
         return "ifn"

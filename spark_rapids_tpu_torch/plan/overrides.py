@@ -61,7 +61,8 @@ import torch
 from .. import types as t
 from ..columnar.device import resolve_device
 from ..columnar.host import HostBatch
-from ..config import ADAPTIVE_ENABLED, CBO_ENABLED, DEFAULT_CONF, TpuConf
+from ..config import (ADAPTIVE_ENABLED, CBO_ENABLED, DEFAULT_CONF,
+                      ENABLED_FORMATS, TpuConf)
 from ..exec import host_exec as H
 # registers coredump.path and test.injectFatalError with the conf
 from ..runtime.failure import crash_capture, install_fault_injection
@@ -69,6 +70,13 @@ from ..exec.plan import (ExecContext, ExpandExec, FilterExec,
                          HashAggregateExec, HostScanExec, LimitExec,
                          PlanNode, ProjectExec, RangeExec, SampleExec,
                          SortExec, TopNExec, UnionExec, key_ref_names)
+from ..exec.cache import CachedHostScan, LogicalCache
+from ..io.avro import LogicalAvroScan
+from ..io.iceberg import LogicalIcebergScan
+from ..io.parquet import (CpuParquetScanExec, LogicalParquetScan,
+                          ParquetScanExec)
+from ..io.text import (CpuTextScanExec, LogicalCsvScan, LogicalHiveTextScan,
+                       LogicalJsonScan, TextScanExec)
 from . import expressions as E
 from . import logical as L
 from .aggregates import (AggregateFunction, CollectList, CountDistinct,
@@ -200,6 +208,18 @@ def prune_columns(plan: L.LogicalPlan, required=None) -> L.LogicalPlan:
         out.children = [prune_columns(c, set(c.schema.names))
                         for c in plan.children]
         return out
+    if type(plan) is LogicalParquetScan:
+        # the port reads only the columns the query needs (the reference
+        # decodes every column of the file)
+        names = [n for n in plan.schema.names if n in required] or \
+            plan.schema.names[:1]
+        if len(names) == len(plan.schema.names):
+            return plan
+        return LogicalParquetScan(plan.paths, names)
+    if type(plan) in _FILE_SCANS:
+        # the text, Avro and Iceberg readers decode whole rows; the cache
+        # keeps its child's whole result (its buffer is pinned on the node)
+        return plan
     raise NotImplementedError(
         f"{plan.name()} is not ported to the device yet")
 
@@ -213,6 +233,10 @@ def _logical_keys_unique(plan: L.LogicalPlan, names) -> bool:
     if type(plan) is L.LogicalScan:
         return all(n in plan.table.names for n in names) and \
             plan.table.keys_unique(names)
+    if type(plan) is LogicalParquetScan:
+        from ..io.parquet import scan_keys_unique
+        return all(n in plan.schema.names for n in names) and \
+            scan_keys_unique(plan.paths, names)
     if type(plan) in (L.LogicalFilter, L.LogicalLimit, L.LogicalSort,
                       L.LogicalSample):
         return _logical_keys_unique(plan.child, names)
@@ -690,6 +714,54 @@ class SampleMeta(PlanMeta):
                                self._host_child())
 
 
+class ParquetScanMeta(PlanMeta):
+    def tag_self(self):
+        if not self.conf.get(ENABLED_FORMATS["parquet"]):
+            self.will_not_work(
+                "parquet scan disabled by "
+                "spark.rapids.tpu.sql.format.parquet.enabled")
+
+    def to_device(self):
+        n = self.node
+        return ParquetScanExec(n.paths, n.columns, n.schema, n.pushed_filter)
+
+    def to_host(self):
+        n = self.node
+        return CpuParquetScanExec(n.paths, n.columns, n.schema,
+                                  n.pushed_filter)
+
+
+class TextScanMeta(PlanMeta):
+    """The CSV, JSON, Hive text, Avro and Iceberg scans (the reference
+    runs the last two over its text-scan execs too)."""
+
+    def tag_self(self):
+        fmt = type(self.node).fmt
+        if not self.conf.get(ENABLED_FORMATS[fmt]):
+            self.will_not_work(
+                f"{fmt} scan disabled by "
+                f"spark.rapids.tpu.sql.format.{fmt}.enabled")
+
+    def to_device(self):
+        return TextScanExec(self.node, self.node.schema)
+
+    def to_host(self):
+        return CpuTextScanExec(self.node, self.node.schema)
+
+
+class CacheMeta(PlanMeta):
+    """LogicalCache -> cached scan (ParquetCachedBatchSerializer role).
+    Materialization happens lazily at EXECUTE time (CachedHostScan), so
+    plan conversion / explain never runs the child, and batches stream
+    from the compressed buffer rather than decoding wholesale."""
+
+    def to_device(self):
+        return H.HostToDeviceExec(CachedHostScan(self.node, self.conf))
+
+    def to_host(self):
+        return CachedHostScan(self.node, self.conf)
+
+
 class WindowMeta(PlanMeta):
     """LogicalWindow -> WindowExec.  The reference's WindowMeta checks:
     each spec's own, the keys', and one integer/date/timestamp order key
@@ -894,8 +966,15 @@ _PANDAS_METAS = {
     L.LogicalWindowInPandas: WindowInPandasMeta}
 _PANDAS_NODES = tuple(_PANDAS_METAS)
 
+_FILE_SCANS = (LogicalCsvScan, LogicalJsonScan, LogicalHiveTextScan,
+               LogicalAvroScan, LogicalIcebergScan, LogicalCache)
+
 _META_FOR = {
     **_PANDAS_METAS,
+    LogicalCache: CacheMeta, LogicalParquetScan: ParquetScanMeta,
+    LogicalCsvScan: TextScanMeta, LogicalJsonScan: TextScanMeta,
+    LogicalAvroScan: TextScanMeta, LogicalIcebergScan: TextScanMeta,
+    LogicalHiveTextScan: TextScanMeta,
     L.LogicalScan: ScanMeta, L.LogicalProject: ProjectMeta,
     L.LogicalFilter: FilterMeta, L.LogicalAggregate: AggregateMeta,
     L.LogicalSort: SortMeta, L.LogicalLimit: LimitMeta,
@@ -936,16 +1015,19 @@ class PhysicalQuery:
         host-kind plans take the same scope."""
         from ..exec.plan import query_scope
         from ..runtime import faults
-        from ..runtime.semaphore import device_permit
+        from ..runtime.semaphore import query_permit
         from .datetime import conf_timezone, set_session_timezone
+        from .misc import set_current_input_file
         ctx = ctx or ExecContext(self.conf, self.device)
-        # the CPU engine's datetime expressions read the session zone
+        # the CPU engine's datetime expressions read the session zone;
+        # no scan has set a file yet
         set_session_timezone(conf_timezone(self.conf))
+        set_current_input_file("")
         install_fault_injection(self.root, self.conf)
         prev = faults.get_active_injector()
         faults.set_active(faults.get_injector(ctx.conf))
         try:
-            with query_scope(ctx), device_permit(self.conf, ctx.metrics), \
+            with query_scope(ctx), query_permit(ctx), \
                     crash_capture(self.conf, ctx):
                 return self._collect_with_query_retry(ctx)
         finally:
@@ -958,6 +1040,30 @@ class PhysicalQuery:
             if ctx._budget is not None:
                 for k, v in ctx.budget.metrics.items():
                     ctx.metrics[f"memory.{k}"] = v
+
+    def execute_host_batches(self, ctx: Optional[ExecContext] = None):
+        """Stream the result as HostBatches (the writers' input), inside
+        the scope `collect` takes, without the query-level replay: a
+        stream already handed out cannot be taken back."""
+        from ..exec.plan import query_scope
+        from ..runtime import faults
+        from ..runtime.semaphore import query_permit
+        from .datetime import conf_timezone, set_session_timezone
+        from .misc import set_current_input_file
+        ctx = ctx or ExecContext(self.conf, self.device)
+        set_session_timezone(conf_timezone(self.conf))
+        set_current_input_file("")
+        install_fault_injection(self.root, self.conf)
+        node = H.DeviceToHostExec(self.root) if self.kind == "device" \
+            else self.root
+        prev = faults.get_active_injector()
+        faults.set_active(faults.get_injector(ctx.conf))
+        try:
+            with query_scope(ctx), query_permit(ctx), \
+                    crash_capture(self.conf, ctx):
+                yield from node.execute(ctx)
+        finally:
+            faults.set_active(prev)
 
     def _collect_with_query_retry(self, ctx: ExecContext) -> HostBatch:
         """The query-level rungs of the recovery ladder (the reference's
@@ -1104,7 +1210,15 @@ def apply_overrides(plan: L.LogicalPlan, conf: TpuConf = DEFAULT_CONF,
         # placement: the CPU engine (the oracle) keeps the nested plan
         from .structs import shatter_nested
         plan = shatter_nested(plan)
-    meta = wrap_plan(prune_columns(plan), conf)
+    plan = prune_columns(plan)
+    plan = _push_down_filters(plan)
+    if _plan_uses_input_file_name(plan):
+        # the InputFileBlockRule role: COALESCING stitches row groups of
+        # many files into one batch (mixed provenance -> ""), so
+        # input_file_name forces the per-file reader
+        from ..config import PARQUET_READER_TYPE
+        conf = TpuConf({**conf._raw, PARQUET_READER_TYPE.key: "PERFILE"})
+    meta = wrap_plan(plan, conf)
     meta.tag()
     if conf.get(CBO_ENABLED):
         from .cbo import apply_cbo
@@ -1128,6 +1242,75 @@ def apply_overrides(plan: L.LogicalPlan, conf: TpuConf = DEFAULT_CONF,
         if encoding_policy(conf).narrow_lanes:
             negotiate_encoded(root)
     return PhysicalQuery(meta, kind, root, conf, device)
+
+
+def _push_down_filters(plan: L.LogicalPlan) -> L.LogicalPlan:
+    """Scan pushdown pre-pass: a Filter directly above a parquet scan hands
+    its condition to the scan for row-group stat pruning (the filter itself
+    stays — pruning is a bandwidth optimization, not an evaluation).
+    Reference: GpuParquetFileFilterHandler row-group filtering.
+
+    The scan that takes the condition is a copy, and so is each node
+    above it: a node a DataFrame holds is never changed, so a filter
+    cannot follow its scan into a later query over the same DataFrame
+    (the reference sets it on the DataFrame's own scan: ROADMAP Queue 3
+    item 21).  A cache's child is planned on its own when it
+    materializes."""
+    if isinstance(plan, LogicalCache):
+        return plan
+    kids = [_push_down_filters(c) for c in plan.children]
+    if isinstance(plan, L.LogicalFilter) and \
+            isinstance(kids[0], LogicalParquetScan):
+        kids[0] = copy.copy(kids[0])
+        kids[0].pushed_filter = plan.condition
+    if all(a is b for a, b in zip(kids, plan.children)):
+        return plan
+    out = copy.copy(plan)
+    out.children = kids
+    return out
+
+
+def _plan_uses_input_file_name(plan: L.LogicalPlan) -> bool:
+    from .misc import InputFileName
+
+    def expr_has(e) -> bool:
+        return isinstance(e, InputFileName) or \
+            any(expr_has(c) for c in getattr(e, "children", ()))
+
+    def any_expr(items) -> bool:
+        for item in items:
+            if isinstance(item, E.Expression):
+                if expr_has(item):
+                    return True
+            elif isinstance(item, (tuple, list)) and item:
+                # (expr, asc, nf) orders, (fn, name) aggs,
+                # (spec, name) window exprs, Expand projection rows
+                head = item[0]
+                if isinstance(head, E.Expression) and expr_has(head):
+                    return True
+                child = getattr(head, "child", None)
+                if isinstance(child, E.Expression) and expr_has(child):
+                    return True
+                if isinstance(head, (tuple, list)) and any_expr(item):
+                    return True
+        return False
+
+    for node in _walk(plan):
+        for attr in ("exprs", "keys", "left_keys", "right_keys",
+                     "partition_keys", "aggs", "orders", "order_keys",
+                     "window_exprs", "projections"):
+            if any_expr(getattr(node, attr, ())):
+                return True
+        cond = getattr(node, "condition", None)
+        if cond is not None and expr_has(cond):
+            return True
+    return False
+
+
+def _walk(plan: L.LogicalPlan):
+    yield plan
+    for c in plan.children:
+        yield from _walk(c)
 
 
 # ---------------------------------------------------------------------------
@@ -1544,7 +1727,15 @@ def _register_rules() -> None:
             (L.LogicalAggregateInPandas, T.ALL,
              "grouped pandas UDAFs via group-segmented python workers"),
             (L.LogicalWindowInPandas, T.ALL,
-             "pandas window UDFs via partition-segmented python workers")):
+             "pandas window UDFs via partition-segmented python workers"),
+            (LogicalCache, simple, "cached scan (zstd parquet bytes, "
+             "ParquetCachedBatchSerializer role)"),
+            (LogicalParquetScan, simple, "parquet scan"),
+            (LogicalCsvScan, simple, "csv scan"),
+            (LogicalJsonScan, simple, "json scan"),
+            (LogicalAvroScan, simple, "avro scan"),
+            (LogicalIcebergScan, simple, "iceberg scan"),
+            (LogicalHiveTextScan, simple, "hive text scan")):
         EXEC_RULES[cls] = ExecRule(cls, sig, desc)
 
 

@@ -17,8 +17,8 @@ Kinds:
   ioerror -> InjectedIOError   (OSError: runtime/retry.py retry_io owns
                                 recovery)
   corrupt -> flips a payload byte in the on-disk block, so that the
-             block's own crc32 check (runtime/memory.read_block) detects
-             it (spill_read only)
+             block's own xxhash64 check (runtime/memory.read_block, the
+             native framing) detects it (spill_read only)
   fatal   -> InjectedFatalError (classified FATAL_DEVICE: crash dump and
                                  FatalDeviceError, runtime/failure.py)
   error   -> InjectedQueryError (a plain query error, class QUERY)
@@ -412,7 +412,7 @@ class FaultInjector:
 
 def _corrupt_block(path: str) -> None:
     """Flip one payload byte past the block header (runtime/memory.py
-    `_HEADER`), so that the block's crc32 check detects the damage: the
+    `_HEADER`), so that the block's xxhash64 check detects the damage: the
     chaos suite exercises detection, not a simulation of it."""
     from .memory import _HEADER
     size = os.path.getsize(path)

@@ -18,9 +18,11 @@ The tiers differ from the reference's in their formats only:
     waited for before the lanes are read.  The tier keeps the
     dictionaries, logical types, names and row count beside them.  (The
     reference keeps an Arrow batch; the card's machine has no pyarrow.)
-  * **disk** — one block file per batch: a header (magic, version, lane
-    count, payload length, `zlib.crc32` of the payload) then the raw lane
-    bytes.  A block that fails its check raises `CorruptBlockError`.
+  * **disk** — one block file per batch, framed by the native library
+    (native/spillio.cpp, the reference's framing: magic, payload length
+    and the payload's xxhash64, then the raw lane bytes, written and
+    verified in C++ with the GIL released).  A block that fails its
+    check raises `CorruptBlockError`.
 
 The budget's limit is `memory.tpu.budgetBytes` when set, else
 `memory.tpu.allocFraction` x the card's total memory
@@ -36,7 +38,6 @@ import tempfile
 import threading
 import time
 import weakref
-import zlib
 from collections import OrderedDict
 from contextlib import contextmanager
 from typing import List, Optional, Tuple
@@ -368,9 +369,8 @@ class _AttemptScope:
         self.naked = 0
 
 
-_MAGIC = b"SRTSPILL"
-_VERSION = 1
-_HEADER = struct.Struct("<8sIIQI")   # magic, version, lanes, bytes, crc32
+#: the native block header: magic, payload length, xxhash64 (spillio.cpp)
+_HEADER = struct.Struct("<QQQ")
 
 
 def _lane_bytes(lanes: List[torch.Tensor]) -> int:
@@ -383,43 +383,40 @@ def _byte_view(x: torch.Tensor) -> memoryview:
 
 
 def write_block(path: str, lanes: List[torch.Tensor]) -> int:
-    """Write CPU lanes as one checksummed block file; -> payload bytes."""
-    views = [_byte_view(x) for x in lanes]
-    crc = 0
-    for v in views:
-        crc = zlib.crc32(v, crc)
-    payload = sum(v.nbytes for v in views)
-    with open(path, "wb") as f:
-        f.write(_HEADER.pack(_MAGIC, _VERSION, len(views), payload, crc))
-        for v in views:
-            f.write(v)
-    return payload
+    """Write CPU lanes as one checksummed native block; -> payload
+    bytes."""
+    import numpy as np
+    from .. import native
+    views = [np.frombuffer(_byte_view(x), np.uint8) for x in lanes]
+    payload = np.concatenate(views) if len(views) != 1 else views[0]
+    native.spill_write(path, payload)
+    return int(payload.nbytes)
 
 
 def read_block(path: str, layout: List[Tuple[torch.dtype, int]]
                ) -> List[torch.Tensor]:
     """Read and verify a block written by `write_block`; `layout` is each
-    lane's (dtype, length).  CorruptBlockError when the magic, the lane
-    count, the length or the checksum disagree."""
-    with open(path, "rb") as f:
-        head = f.read(_HEADER.size)
-        buf = bytearray(f.read())
-    if len(head) != _HEADER.size:
-        raise CorruptBlockError(f"spill block {path} has no header", path)
-    magic, version, nlanes, payload, crc = _HEADER.unpack(head)
+    lane's (dtype, length).  CorruptBlockError when the checksum, the
+    magic or the length disagree."""
+    from .. import native
+    try:
+        buf = native.spill_read_array(path)
+    except IOError as e:
+        why = "failed its checksum" if "checksum" in str(e) \
+            else "is malformed"
+        raise CorruptBlockError(f"spill block {path} {why} ({e})",
+                                path) from e
     want = sum(torch.empty(0, dtype=dt).element_size() * n
                for dt, n in layout)
-    if magic != _MAGIC or version != _VERSION or nlanes != len(layout) \
-            or payload != len(buf) or payload != want:
-        raise CorruptBlockError(f"spill block {path} is malformed", path)
-    if zlib.crc32(buf) != crc:
-        raise CorruptBlockError(
-            f"spill block {path} failed its checksum", path)
+    if len(buf) != want:
+        raise CorruptBlockError(f"spill block {path} is malformed "
+                                f"({len(buf)} bytes, {want} expected)",
+                                path)
     lanes, off = [], 0
+    data = torch.from_numpy(buf) if len(buf) else None
     for dt, n in layout:
         size = torch.empty(0, dtype=dt).element_size() * n
-        lanes.append(torch.frombuffer(buf, dtype=torch.uint8, count=size,
-                                      offset=off).view(dt) if size
+        lanes.append(data[off:off + size].view(dt) if size
                      else torch.empty(0, dtype=dt))
         off += size
     return lanes

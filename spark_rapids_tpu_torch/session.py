@@ -7,7 +7,11 @@ and TPC-DS queries use (`how="cross"` joins, `with_column`, `union`,
 `from_pydict`, `range`, `sample`, `count` and `explain`, and the pandas
 operations (`map_in_pandas`, `with_pandas_udf`,
 `with_window_pandas_udf`; on a group-by `apply_in_pandas`,
-`agg_in_pandas` and `cogroup(...).apply_in_pandas`, exec/python_exec.py):
+`agg_in_pandas` and `cogroup(...).apply_in_pandas`, exec/python_exec.py),
+and the file sources and sinks, decoded and encoded by the port itself
+(io/): `read_parquet`, `read_csv`, `read_json`, `read_avro`,
+`read_hive_text`, `read_iceberg`, `DataFrame.write_parquet` and
+`DataFrame.cache` (`read_orc` raises: ROADMAP Queue 1 item 8c):
 
     s = TpuSession()                     # device "cuda"
     df = s.from_host(batch).filter(E.GreaterThan(col("x"), lit(1))) \\
@@ -66,6 +70,41 @@ class TpuSession:
         if end is None:
             start, end = 0, start
         return DataFrame(L.LogicalRange(start, end, step, name), self)
+
+    def read_parquet(self, *paths: str, columns=None) -> "DataFrame":
+        from .io.parquet import LogicalParquetScan
+        return DataFrame(LogicalParquetScan(list(paths), columns), self)
+
+    def read_csv(self, *paths: str, schema=None, **opts) -> "DataFrame":
+        """`schema` a StructType (or a pyarrow Schema where pyarrow
+        imports); opts `sep`, `header`, `column_names` (io/text.py)."""
+        from .io.text import LogicalCsvScan
+        return DataFrame(LogicalCsvScan(list(paths), schema, opts), self)
+
+    def read_json(self, *paths: str, schema=None, **opts) -> "DataFrame":
+        from .io.text import LogicalJsonScan
+        return DataFrame(LogicalJsonScan(list(paths), schema, opts), self)
+
+    def read_orc(self, *paths: str, schema=None, **opts) -> "DataFrame":
+        raise NotImplementedError(
+            "ORC scans are not ported to the PyTorch/CUDA port yet: ROADMAP "
+            "Queue 1 item 8c (an ORC decoder of the port's own)")
+
+    def read_avro(self, *paths: str, schema=None, **opts) -> "DataFrame":
+        from .io.avro import LogicalAvroScan
+        return DataFrame(LogicalAvroScan(list(paths), schema, opts), self)
+
+    def read_hive_text(self, *paths: str, schema=None, **opts
+                       ) -> "DataFrame":
+        from .io.text import LogicalHiveTextScan
+        return DataFrame(LogicalHiveTextScan(list(paths), schema, opts),
+                         self)
+
+    def read_iceberg(self, table_path: str, snapshot_id=None,
+                     schema=None) -> "DataFrame":
+        from .io.iceberg import LogicalIcebergScan
+        return DataFrame(LogicalIcebergScan(
+            [table_path], schema, {"snapshot_id": snapshot_id}), self)
 
 
 class GroupedData:
@@ -379,6 +418,20 @@ class DataFrame:
         reference's names its JAX execs instead)."""
         q = self.physical()
         return q.explain() + "\n\nPhysical plan:\n" + q.physical_tree()
+
+    def cache(self) -> "DataFrame":
+        """Materialize once as compressed parquet bytes; downstream plans
+        re-decode from the cache (ParquetCachedBatchSerializer role)."""
+        from .exec.cache import LogicalCache
+        if isinstance(self._plan, LogicalCache):
+            return self
+        return self._wrap(LogicalCache(self._plan))
+
+    def write_parquet(self, path: str, **opts) -> None:
+        """opts: partition_by, compression ("zstd", "snappy", "gzip",
+        "uncompressed"), row_group_rows, bucket_by=(columns, n)."""
+        from .io.parquet import write_parquet
+        write_parquet(self, path, **opts)
 
     def _wrap(self, plan: L.LogicalPlan) -> "DataFrame":
         return DataFrame(plan, self._session)

@@ -2226,3 +2226,57 @@ def test_the_numpy_wire_through_a_forked_worker_after_cuda(cuda):
         yield from ()
     with pytest.raises(PE.PythonWorkerError, match="wire boom"):
         list(PE.worker_stream(ctx, (((p,), None) for p in parts), boom))
+
+
+@pytest.mark.cuda
+def test_a_parquet_scan_feeds_the_device_plan_on_the_card(cuda, tmp_path):
+    # TPC-H q3 and q1 over the port's own Parquet files (ZSTD, several
+    # row groups), on the card, equal to the same queries over the
+    # in-memory tables on the CPU
+    from spark_rapids_tpu_torch import tpch
+    from spark_rapids_tpu_torch.io.parquet import write_table
+    from spark_rapids_tpu_torch.session import TpuSession
+    tables = tpch.gen_tables(0.01)
+    files = {}
+    for name in ("lineitem", "orders", "customer"):
+        files[name] = str(tmp_path / f"{name}.parquet")
+        write_table(tables[name], files[name], row_group_rows=20_000)
+    by = {id(tables[k]): v for k, v in files.items()}
+
+    class FileSession:
+        def __init__(self, real):
+            self.real = real
+
+        def from_host(self, table):
+            return self.real.read_parquet(by[id(table)])
+
+        def __getattr__(self, name):
+            return getattr(self.real, name)
+
+    card = TpuSession(device=cuda)
+    cpu = TpuSession(device="cpu")
+    for q in (tpch.q1, tpch.q3, tpch.q6):
+        got = q(FileSession(card), tables).collect().to_pydict()
+        assert got == q(cpu, tables).collect().to_pydict(), q.__name__
+
+
+@pytest.mark.cuda
+def test_a_cached_plan_replays_on_the_card(cuda):
+    from spark_rapids_tpu_torch import tpch
+    from spark_rapids_tpu_torch.plan import expressions as E
+    from spark_rapids_tpu_torch.plan.aggregates import Sum
+    from spark_rapids_tpu_torch.session import TpuSession, col
+    tables = tpch.gen_tables(0.01)
+    for dev in (cuda, torch.device("cpu")):
+        s = TpuSession(device=dev)
+        base = s.from_host(tables["lineitem"]).filter(E.LessThan(
+            col("l_quantity"), E.Literal(20))).cache()
+        agg = base.group_by("l_returnflag").agg(
+            (Sum(col("l_extendedprice")), "s")).sort("l_returnflag")
+        first = agg.collect().to_pydict()
+        size = base._plan.cached_bytes()
+        assert size > 0 and agg.collect().to_pydict() == first
+        assert base._plan.cached_bytes() == size
+        if dev == cuda:
+            on_card = first
+    assert on_card == first

@@ -128,6 +128,70 @@ assert isinstance(py, PythonUDF)
 got = s.from_host(tables["part"]).agg((Sum(py), "t")).to_pydict()["t"][0]
 assert got == sum(looped(v) for v in tables["part"].column_by_name(
     "p_name").to_pylist()), got
+# every file format of the port's I/O, written and read back, and q1,
+# q3 and q6 from the port's own Parquet files
+import os, tempfile
+from spark_rapids_tpu_torch.io import avro as AV, iceberg as IC
+from spark_rapids_tpu_torch.io import parquet as PQ, text as TX
+tmp = tempfile.mkdtemp()
+orders = tables["orders"]
+for codec in ("zstd", "snappy", "gzip", "uncompressed"):
+    f = os.path.join(tmp, f"o_{codec}.parquet")
+    PQ.write_table(orders, f, codec, row_group_rows=5000)
+    assert d.read_parquet(f).collect().to_pydict() == orders.to_pydict()
+supp = tables["supplier"].select(["s_suppkey", "s_name", "s_acctbal"])
+TX.write_csv(supp, os.path.join(tmp, "s.csv"))
+assert d.read_csv(os.path.join(tmp, "s.csv")).collect().to_pydict() == \
+    s.from_host(supp).select(E.ColumnRef("s_suppkey"), E.ColumnRef(
+        "s_name"), E.Cast(E.ColumnRef("s_acctbal"), T.DOUBLE),
+        names=supp.names).collect().to_pydict()
+TX.write_json(supp, os.path.join(tmp, "s.jsonl"))
+assert d.read_json(os.path.join(tmp, "s.jsonl")).count() == supp.num_rows
+TX.write_hive_text(supp, os.path.join(tmp, "s.hive"))
+got = d.read_hive_text(os.path.join(tmp, "s.hive"), schema=supp.schema)
+assert got.collect().to_pydict() == supp.to_pydict()
+AV.write_avro(supp, os.path.join(tmp, "s.avro"))
+assert d.read_avro(os.path.join(tmp, "s.avro")).collect().to_pydict() \
+    == supp.to_pydict()
+data = os.path.join(tmp, "ice", "data", "d.parquet")
+meta = os.path.join(tmp, "ice", "metadata")
+os.makedirs(os.path.dirname(data))
+os.makedirs(meta)
+PQ.write_table(supp, data)
+df_schema = {"type": "record", "name": "r2", "fields": [
+    {"name": "content", "type": "int"},
+    {"name": "file_path", "type": "string"}]}
+AV.write_avro_records({"type": "record", "name": "e", "fields": [
+    {"name": "status", "type": "int"},
+    {"name": "data_file", "type": df_schema}]},
+    [{"status": 1, "data_file": {"content": 0, "file_path": data}}],
+    os.path.join(meta, "m.avro"))
+AV.write_avro_records({"type": "record", "name": "l", "fields": [
+    {"name": "manifest_path", "type": "string"}]},
+    [{"manifest_path": os.path.join(meta, "m.avro")}],
+    os.path.join(meta, "snap.avro"))
+import json
+with open(os.path.join(meta, "v1.metadata.json"), "w") as fh:
+    json.dump({"format-version": 2, "current-snapshot-id": 1,
+               "snapshots": [{"snapshot-id": 1, "manifest-list":
+                              os.path.join(meta, "snap.avro")}]}, fh)
+assert d.read_iceberg(os.path.join(tmp, "ice")).collect().to_pydict() == \
+    supp.to_pydict()
+files = {}
+for name in ("lineitem", "orders", "customer"):
+    files[name] = os.path.join(tmp, f"{name}.parquet")
+    PQ.write_table(tables[name], files[name], row_group_rows=2000)
+class FileSession:
+    def __init__(self, real):
+        self.real = real
+        self.by = {id(tables[k]): v for k, v in files.items()}
+    def from_host(self, table):
+        return self.real.read_parquet(self.by[id(table)])
+    def __getattr__(self, name):
+        return getattr(self.real, name)
+for name in ("q1", "q3", "q6"):
+    want = getattr(tpch, name)(d, tables).to_pydict()
+    assert getattr(tpch, name)(FileSession(d), tables).to_pydict() == want
 loaded = {m.split(".")[0] for m, v in sys.modules.items() if v is not None}
 assert "pyarrow" not in loaded and "pandas" not in loaded
 print("ran", len(tpch.QUERIES))
